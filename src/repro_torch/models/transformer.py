@@ -1,0 +1,119 @@
+"""Decoder-only LM assembly for the dense family at tp=1.
+
+Parameters keep the reference's layout: decoder layers stacked on a
+leading super-block axis (``params["blocks"]["l0"]``), which the
+reference scans and this port loops over.  Decode updates the KV cache
+in place layer by layer (the reference threads it through the scan
+carry and scatters the new rows in ``_scatter_cache_updates``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.device import dtype_of
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import apply_norm
+
+Params = Dict[str, Any]
+
+
+def super_block_size(cfg) -> int:
+    if cfg.family != "dense" or cfg.moe is not None:
+        raise NotImplementedError(
+            f"family {cfg.family!r} arrives with its own slice of the port")
+    return 1
+
+
+def n_super_blocks(cfg) -> int:
+    return cfg.n_layers // super_block_size(cfg)
+
+
+def layer_params(params: Params, i: int) -> Params:
+    """Super-block ``i`` of the stacked decoder parameters (views)."""
+    def take(t):
+        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[i]
+    return take(params["blocks"])
+
+
+def embed_tokens(p: Params, tokens: torch.Tensor, cfg, plan) -> torch.Tensor:
+    """tokens (B,S) -> (B,S,D)."""
+    w = p["embed_in"] if "embed_in" in p else p["embed"]
+    return w[tokens.long()]
+
+
+def lm_logits(p: Params, x: torch.Tensor, cfg, plan) -> torch.Tensor:
+    """-> (B,S,V_pad) logits, padded vocab columns masked to
+    finfo(f32).min / 2."""
+    w = p["head"] if "head" in p else p["embed"].t()
+    y = x @ w
+    v_ids = torch.arange(y.shape[-1], device=y.device)
+    return torch.where(v_ids < cfg.vocab_size, y,
+                       torch.finfo(torch.float32).min / 2)
+
+
+def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
+                positions: torch.Tensor, mode: str,
+                cache: Optional[Params] = None,
+                block_tables: Optional[torch.Tensor] = None,
+                paged_kernel: str = "stream", block_s: int = 0
+                ) -> torch.Tensor:
+    """Attention + MLP of one decoder layer (pre-norm, residual)."""
+    h_in = apply_norm(p["ln1"], x, cfg.norm)
+    if mode == "decode":
+        h = attn_mod.decode_attention(
+            p["attn"], h_in, cfg=cfg, plan=plan, cache=cache,
+            positions=positions, block_table=block_tables,
+            paged_kernel=paged_kernel, block_s=block_s)
+    elif mode == "prefill":
+        h = attn_mod.prefill_attention(p["attn"], h_in, cfg=cfg, plan=plan,
+                                       positions=positions, cache=cache)
+    elif mode == "train":
+        h = attn_mod.self_attention(p["attn"], h_in, cfg=cfg, plan=plan,
+                                    positions=positions)
+    else:
+        raise NotImplementedError(
+            f"mode={mode!r} (chunked prefill / verify) arrives with a "
+            "later slice of the port")
+    x = x + h
+    h_in = apply_norm(p["ln2"], x, cfg.norm)
+    return x + mlp_mod.mlp_fwd(p["mlp"], h_in, cfg=cfg, plan=plan)
+
+
+def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
+            mode: str = "train",
+            positions: Optional[torch.Tensor] = None,
+            cache: Optional[Params] = None,
+            block_tables: Optional[torch.Tensor] = None,
+            paged_kernel: str = "stream",
+            block_s: int = 0) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Shared forward in the train/prefill/decode modes.
+
+    ``cache`` ({"l0": {"k","v": (n_sb, ...)}}) is updated in place:
+    prefill fills a batch cache covering exactly the S positions; decode
+    reads each layer's cache before scattering that layer's new row.
+    ``positions``: (B,S) for train/prefill (default arange), (B,) for
+    decode.  ``paged_kernel`` is the resolved paged dataflow, ``"stream"``
+    or ``"gather"`` (resolve ``"auto"`` with ``resolve_paged_kernel``
+    once, as the engine does).  Returns (logits (B,S,V_pad), cache)."""
+    if paged_kernel not in ("stream", "gather"):
+        raise ValueError(f"paged_kernel={paged_kernel!r}: pass the resolved "
+                         "dataflow, 'stream' or 'gather'")
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = embed_tokens(params, tokens, cfg, plan).to(
+        dtype_of(plan.compute_dtype))
+    for i in range(n_super_blocks(cfg)):
+        layer_cache = None
+        if cache is not None:
+            layer_cache = {k: v[i] for k, v in cache["l0"].items()}
+        x = apply_layer(layer_params(params, i)["l0"], x, cfg=cfg, plan=plan,
+                        positions=positions, mode=mode, cache=layer_cache,
+                        block_tables=block_tables,
+                        paged_kernel=paged_kernel, block_s=block_s)
+    x = apply_norm(params["ln_f"], x, cfg.norm)
+    return lm_logits(params, x, cfg, plan), cache

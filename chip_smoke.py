@@ -10,18 +10,32 @@ result line when any phase fails or when no CUDA device is present):
 2. build  — compile every hand-written kernel from ``src/repro_torch``
    (one nvcc per source, started together) and print the build time;
 3. kernel — hold each kernel against its plain PyTorch version on the
-   card at the main path's shapes, then time kernel, plain version and
+   card at the main paths' shapes, then time kernel, plain version and
    a PyTorch library call of the same function, beside the bound the
-   card's data sheet gives for the same work;
+   card's data sheet gives for the same work: the paged decode attention
+   (f32/bf16/f16 pools, and int8/fp8 pools with their scales), the dense
+   decode attention, and the decode GEMV at the four shapes of one
+   full-width layer (f32, bf16 and int8 weights; B = 4 bit-identical to
+   four B = 1 calls);
 4. engine — serve full-width smollm-135m (random weights from seed 0)
    through ``LPUEngine``: the streamed paged kernel, the gather oracle,
    and a run that preempts with 4-step windows; the greedy streams must
    agree and the kernel must have launched once per layer per decode
-   step.
+   step;
+5. chain — the C1 streamlined chain (``core/streamline.py``) at full
+   width: 4 prompts prefilled by the model, then 32 teacher-forced decode
+   steps of ``decode_layer`` stacked over the 30 layers, in six variants
+   (paged stream, paged gather, dense, int8 pool, fp8 pool, int8
+   weights), each with kernels and with the plain versions; logits are
+   held against each other and (fp variants) against the model's own
+   decode, launches per step must be exact; plus one full-width
+   ``chunk_prefill_layer`` (C = 64) against 64 sequential decode steps and
+   a torch.profiler pass of the stream variant.
 
 The last lines are a ``{"kernels": [...]}`` line, an ``{"engine": ...}``
-line, the nvidia-smi line and ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX: the port stands alone.
+line, a ``{"chain": ...}`` line, the nvidia-smi line and
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX: the port
+stands alone.
 """
 from __future__ import annotations
 
@@ -89,12 +103,13 @@ def kernel_inputs(torch, dev, q_dtype, kv_dtype, seed=0, fill=None):
 
 def check_paged_kernel(torch, dev):
     """Kernel vs plain version on the card: f32/bf16/f16 pools, with and
-    without the fold; block 0 scribbled must change nothing.  Returns
-    the largest error per dtype pair."""
+    without the fold; the length-0 row without the fold is the mean of
+    its table's V rows; block 0 scribbled must change no row that
+    attends something.  Returns the largest error per dtype pair."""
     from repro_torch.kernels.decode_attention.ops import \
         paged_decode_attention
-    from repro_torch.kernels.decode_attention.ref import \
-        paged_decode_attention_ref
+    from repro_torch.kernels.decode_attention.ref import (
+        gather_kv_pages, paged_decode_attention_ref)
     errs = {}
     cases = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
              (torch.float16, torch.float16), (torch.float32, torch.bfloat16))
@@ -128,13 +143,24 @@ def check_paged_kernel(torch, dev):
                             f"{key} fold={fold}: kernel vs plain beyond "
                             f"rtol=atol={tol} (max abs error {err})")
                     errs[key] = max(errs[key], err)
-                    if not fold and got[0].abs().max().item() != 0.0:
-                        raise AssertionError("length-0 row without a fold "
-                                             "must be zeros")
-                elif not torch.equal(got, base):
-                    raise AssertionError(
-                        f"{key} fold={fold}: null block filled with {fill} "
-                        "changed the output")
+                    if not fold:
+                        # length-0 row: the mean of the V rows of its
+                        # whole table (all on the null block here)
+                        mean = gather_kv_pages(vp, tb)[0].float().mean(0)
+                        got0 = got[0].float().reshape(G, H // G, DH)
+                        if not torch.allclose(got0, mean[:, None].expand(
+                                -1, H // G, -1), rtol=tol, atol=tol):
+                            raise AssertionError(
+                                f"{key}: length-0 row without a fold is "
+                                "not the mean of its table's V rows")
+                else:
+                    # the null block is inert for rows that attend
+                    # something (length > 0, or the fold)
+                    keep = (ln > 0) | fold
+                    if not torch.equal(got[keep], base[keep]):
+                        raise AssertionError(
+                            f"{key} fold={fold}: null block filled with "
+                            f"{fill} changed the output")
     return errs
 
 
@@ -146,7 +172,10 @@ def time_ms(torch, fn, n_sets, iters=200, warmup=20):
     dispatch included).  Device ms comes from CUDA events around the
     same calls queued behind a device-side sleep that outlasts their
     launching, so they run back to back on the card and the host's
-    dispatch cost is hidden."""
+    dispatch cost is hidden.  That holds while the queued launches fit
+    the driver's queue: for a function of many small launches (a plain
+    version) the device ms may be paced by the host, and is then an
+    upper bound."""
     for i in range(warmup):
         fn(i % n_sets)
     torch.cuda.synchronize()
@@ -177,7 +206,7 @@ def time_paged_kernel(torch, dev, card_name):
     q, kp, vp, tb, ln, kn, vn = kernel_inputs(torch, dev, torch.float32,
                                               torch.float32)
     pool_bytes = 2 * kp.numel() * kp.element_size()
-    n_sets = max(1, math.ceil(2 * 50e6 / pool_bytes))   # > 2x the 50 MB L2
+    n_sets = sets_for(pool_bytes)
     pools = [(kp.clone(), vp.clone()) for _ in range(n_sets)]
 
     def kernel(i):
@@ -201,11 +230,8 @@ def time_paged_kernel(torch, dev, card_name):
         F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
                                        enable_gqa=True)
 
-    times = {}
-    for key, fn in (("ms", kernel), ("plain_ms", plain),
-                    ("library_ms", library)):
-        times[key], times[key.replace("ms", "host_ms")] = \
-            time_ms(torch, fn, n_sets)
+    times = timed(torch, {"ms": kernel, "plain_ms": plain,
+                          "library_ms": library}, n_sets)
     # least work: q, the valid K/V rows, the new token, tables, lengths
     # read once and the output written once; 4*dh flops per q head per
     # attended position (score dot + P.V)
@@ -213,12 +239,224 @@ def time_paged_kernel(torch, dev, card_name):
     rows = sum(LENGTHS)
     nbytes = item * (B * H * DH + 2 * rows * G * DH + 2 * B * G * DH
                      + B * H * DH) + 4 * (B * T + B)
-    ops = 4 * DH * H * (rows + B)
-    t_bytes = nbytes / bandwidth_for(card_name) * 1e3
-    t_ops = ops / PEAK_OPS["float32"] * 1e3
-    times["bound_ms"] = max(t_bytes, t_ops)
-    times["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    times["bound_ms"], times["bound_by"] = bound_for(
+        nbytes, 4 * DH * H * (rows + B), "float32", card_name)
     return times
+
+
+def bound_for(nbytes, ops, op_dtype, card_name):
+    """(bound ms, what bounds it): the larger of the bytes over the
+    data-sheet bandwidth and the operations over the data-sheet peak."""
+    t_bytes = nbytes / bandwidth_for(card_name) * 1e3
+    t_ops = ops / PEAK_OPS[op_dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def timed(torch, fns, n_sets):
+    """{"ms", "host_ms", ...} for each named function, as time_ms gives
+    them."""
+    out = {}
+    for key, fn in fns.items():
+        out[key], out[key.replace("ms", "host_ms")] = time_ms(torch, fn,
+                                                              n_sets)
+    return out
+
+
+def sets_for(nbytes):
+    """Input sets to cycle so the working set exceeds twice the L2."""
+    return max(1, math.ceil(2 * 50e6 / nbytes))
+
+
+def check_time_quantized_pool(torch, dev, card_name):
+    """Kernel 1 with int8 and fp8 pools (f16 scales per row and kv head)
+    against its plain version at the main path's shapes, with and without
+    the fold; timed without the fold, as the chain calls it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        gather_kv_pages, paged_decode_attention_ref)
+    from repro_torch.serving.kv_cache import quantize_kv_rows
+    out = {}
+    for name, qdt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        q, kp, vp, tb, ln, kn, vn = kernel_inputs(torch, dev, torch.float32,
+                                                  torch.float32, seed=3)
+        kq, ks = quantize_kv_rows(kp, qdt, torch.float16)
+        vq, vs = quantize_kv_rows(vp, qdt, torch.float16)
+        err = 0.0
+        for fold in (False, True):
+            extra = dict(k_new=kn, v_new=vn) if fold else {}
+            got = paged_decode_attention(q, kq, vq, tb, ln, k_scale=ks,
+                                         v_scale=vs, **extra)
+            want = paged_decode_attention_ref(q, kq, vq, tb, ln, k_scale=ks,
+                                              v_scale=vs, **extra)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            if not torch.isfinite(got).all() or not torch.allclose(
+                    got, want, rtol=TOL["float32"], atol=TOL["float32"]):
+                raise AssertionError(f"{name} pool fold={fold}: kernel vs "
+                                     f"plain beyond 1e-4 (max abs {e})")
+            err = max(err, e)
+        n_sets = sets_for(2 * (kq.numel() + 2 * ks.numel()))
+        pools = [(kq.clone(), vq.clone(), ks.clone(), vs.clone())
+                 for _ in range(n_sets)]
+        S = T * BS
+        mask = (torch.arange(S, device=dev)[None, :] <
+                ln[:, None])[:, None, None, :]
+
+        def kernel(i, pools=pools, q=q, tb=tb, ln=ln):
+            k, v, a, b = pools[i]
+            paged_decode_attention(q, k, v, tb, ln, k_scale=a, v_scale=b)
+
+        def plain(i, pools=pools, q=q, tb=tb, ln=ln):
+            k, v, a, b = pools[i]
+            paged_decode_attention_ref(q, k, v, tb, ln, k_scale=a,
+                                       v_scale=b)
+
+        def library(i, pools=pools, q=q, tb=tb, mask=mask):
+            k, v, a, b = pools[i]
+            kf = gather_kv_pages(k, tb).float() * gather_kv_pages(
+                a, tb).float()[..., None]
+            vf = gather_kv_pages(v, tb).float() * gather_kv_pages(
+                b, tb).float()[..., None]
+            F.scaled_dot_product_attention(
+                q[:, :, None], kf.transpose(1, 2), vf.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+
+        t = timed(torch, {"ms": kernel, "plain_ms": plain,
+                          "library_ms": library}, n_sets)
+        rows = sum(LENGTHS)
+        nbytes = (4 * 2 * B * H * DH + 2 * rows * G * (DH + 2)
+                  + 4 * (B * T + B))
+        t["bound_ms"], t["bound_by"] = bound_for(
+            nbytes, 4 * DH * H * rows, "float32", card_name)
+        t["max_abs_err"] = err
+        out[name] = t
+    return out
+
+
+# dense decode attention (kernel 2) at the chain's dense shapes
+DENSE_S = 512
+DENSE_LENGTHS = (0, 78, 301, 512)
+
+
+def check_time_dense(torch, dev, card_name):
+    """Kernel 2 against its plain version on the card, f32/bf16/f16,
+    lengths with an empty row (the mean of its S V rows); timed in f32
+    beside gather-free SDPA on the same cache."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    g = torch.Generator(device=dev).manual_seed(1)
+    ln = torch.tensor(DENSE_LENGTHS, dtype=torch.int32, device=dev)
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        name = str(dt).split(".")[-1]
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+                   for shape in ((B, H, DH), (B, DENSE_S, G, DH),
+                                 (B, DENSE_S, G, DH)))
+        got = decode_attention(q, k, v, ln)
+        want = decode_attention_ref(q, k, v, ln)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = TOL[name]
+        if not torch.isfinite(got).all() or not torch.allclose(
+                got.float(), want.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"dense {name}: kernel vs plain beyond "
+                                 f"rtol=atol={tol} (max abs {err})")
+        mean = v[0].float().mean(0)                        # (G, DH)
+        if not torch.allclose(got[0].float().reshape(G, H // G, DH),
+                              mean[:, None].expand(-1, H // G, -1),
+                              rtol=tol, atol=tol):
+            raise AssertionError(f"dense {name}: length-0 row is not the "
+                                 "mean of its V rows")
+        errs[name] = err
+    q = torch.randn((B, H, DH), generator=g, device=dev)
+    k = torch.randn((B, DENSE_S, G, DH), generator=g, device=dev)
+    n_sets = sets_for(2 * k.numel() * 4)
+    caches = [(k.clone(), k.clone() * 0.5) for _ in range(n_sets)]
+    mask = (torch.arange(DENSE_S, device=dev)[None, :] <
+            ln[:, None])[:, None, None, :]
+    t = timed(torch, {
+        "ms": lambda i: decode_attention(q, *caches[i], ln),
+        "plain_ms": lambda i: decode_attention_ref(q, *caches[i], ln),
+        "library_ms": lambda i: F.scaled_dot_product_attention(
+            q[:, :, None], caches[i][0].transpose(1, 2),
+            caches[i][1].transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)}, n_sets)
+    # least work: q, the valid K rows, the valid V rows (all S for an
+    # empty row, which averages them), the output, lengths
+    k_rows = sum(DENSE_LENGTHS)
+    v_rows = k_rows + DENSE_S * sum(n == 0 for n in DENSE_LENGTHS)
+    nbytes = 4 * (2 * B * H * DH + (k_rows + v_rows) * G * DH + B)
+    ops = 4 * DH * H * k_rows + v_rows * G * DH
+    t["bound_ms"], t["bound_by"] = bound_for(nbytes, ops, "float32",
+                                             card_name)
+    return errs, t
+
+
+# the four gemvs of one full-width smollm-135m layer at B = 4 decode rows
+GEMV_SHAPES = (("qkv", 576, 960), ("o", 576, 576), ("gate_up", 576, 3072),
+               ("down", 1536, 576))
+
+
+def check_time_gemv(torch, dev, card_name):
+    """Kernel 3 against its plain version at the chain's four shapes, f32,
+    bf16 and int8 weights, with and without bias; the B = 4 result must
+    equal four B = 1 calls bit for bit.  Timed without bias, beside
+    torch.matmul on the fp weight."""
+    from repro_torch.kernels.gemv.ops import gemv, quantize_weight
+    from repro_torch.kernels.gemv.ref import gemv_ref
+    g = torch.Generator(device=dev).manual_seed(2)
+    errs, per_call = {}, []
+    for shape_name, K, N in GEMV_SHAPES:
+        for wname in ("float32", "bfloat16", "int8"):
+            xdt = torch.bfloat16 if wname == "bfloat16" else torch.float32
+            x = torch.randn((B, K), generator=g, device=dev).to(xdt)
+            wf = torch.randn((K, N), generator=g, device=dev) / math.sqrt(K)
+            if wname == "int8":
+                w, sc = quantize_weight(wf)
+                wlib = wf
+            else:
+                w, sc = wf.to(xdt), None
+                wlib = w
+            tol = TOL["float32"] if wname == "float32" else 3e-2
+            for bias in (False, True):
+                b = torch.randn((N,), generator=g, device=dev).to(xdt) \
+                    if bias else None
+                got = gemv(x, w, b, w_scale=sc)
+                want = gemv_ref(x, w, b, w_scale=sc)
+                rows = torch.cat([gemv(x[i:i + 1], w, b, w_scale=sc)
+                                  for i in range(B)])
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                key = f"{shape_name},{wname},bias={bias}"
+                if not torch.isfinite(got).all() or not torch.allclose(
+                        got.float(), want.float(), rtol=tol, atol=tol):
+                    raise AssertionError(f"gemv {key}: kernel vs plain "
+                                         f"beyond {tol} (max abs {err})")
+                if not torch.equal(rows, got):
+                    raise AssertionError(f"gemv {key}: B=4 differs from "
+                                         "four B=1 calls")
+                errs[key] = err
+            n_sets = sets_for(w.numel() * w.element_size())
+            ws = [w.clone() for _ in range(n_sets)]
+            wls = [wlib.clone() for _ in range(n_sets)] \
+                if wname == "int8" else ws
+            t = timed(torch, {
+                "ms": lambda i: gemv(x, ws[i], w_scale=sc),
+                "plain_ms": lambda i: gemv_ref(x, ws[i], w_scale=sc),
+                "library_ms": lambda i: torch.matmul(x.to(wls[i].dtype),
+                                                     wls[i])}, n_sets)
+            nbytes = (B * K * x.element_size() + K * N * w.element_size()
+                      + B * N * x.element_size() + (4 * N if sc is not None
+                                                    else 0))
+            t["bound_ms"], t["bound_by"] = bound_for(
+                nbytes, 2 * B * K * N, str(xdt).split(".")[-1], card_name)
+            t.update(shape=shape_name, K=K, N=N, B=B, w_dtype=wname)
+            per_call.append(t)
+            del ws, wls
+    return errs, per_call
 
 
 def serve(torch, dev, model, params, prompts, **kw):
@@ -325,6 +563,331 @@ def run_engine(torch, dev):
             "profile": profile}
 
 
+# the C1 chain: 32 teacher-forced decode steps in six variants, named
+# (cache, paged dataflow, w_dtype)
+CHAIN_STEPS = 32
+CHAIN_VARIANTS = (("stream", "pool", "stream", "auto"),
+                  ("gather", "pool", "gather", "auto"),
+                  ("dense", "dense", "auto", "auto"),
+                  ("int8_pool", "int8", "stream", "auto"),
+                  ("fp8_pool", "fp8", "stream", "auto"),
+                  ("int8_weights", "pool", "stream", "int8"))
+# largest |logit| difference allowed, kernels vs plain and (fp variants)
+# chain vs the model's decode: f32 end to end, only the order of sums
+# differs.  Quantized pools: kernels and plain quantize new rows from K/V
+# that differ in the last bits, so a row may round one step apart.
+CHAIN_TOL = 1e-4
+CHAIN_TOL_QUANT = 1e-2
+CHUNK_C = 64
+
+
+def _counts():
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, paged_decode_attention)
+    from repro_torch.kernels.gemv.ops import gemv
+    return gemv, paged_decode_attention, decode_attention
+
+
+def _reset_counts():
+    for fn in _counts():
+        fn.launches = 0
+
+
+def _read_counts():
+    gemv, paged, dense = _counts()
+    return {"gemv": gemv.launches, "paged_decode_attention": paged.launches,
+            "decode_attention": dense.launches}
+
+
+def run_chain(torch, ctx, cache0, tables, use_kernels, paged_kernel,
+              w_dtype):
+    """32 teacher-forced steps of decode_layer stacked over the layers,
+    from a copy of ``cache0``; -> (logits (steps, B, V_pad), wall s)."""
+    from repro_torch.core import streamline as sl
+    from repro_torch.models.common import apply_norm
+    from repro_torch.models.transformer import lm_logits
+    cfg, plan, params = ctx["cfg"], ctx["plan"], ctx["params"]
+    cache = {k: v.clone() for k, v in cache0.items()}
+    layers = [{k: v[i] for k, v in cache.items()}
+              for i in range(cfg.n_layers)]
+    pos = ctx["lens"].clone()
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(CHAIN_STEPS):
+        x = params["embed"][ctx["tokens"][step]]
+        for i, lp in enumerate(ctx["layers"]):
+            x, _ = sl.decode_layer(lp, x, layers[i], pos, cfg=cfg, plan=plan,
+                                   use_kernels=use_kernels,
+                                   block_table=tables,
+                                   paged_kernel=paged_kernel,
+                                   w_dtype=w_dtype)
+        out.append(lm_logits(params, apply_norm(params["ln_f"], x,
+                                                cfg.norm), cfg, plan))
+        pos = pos + 1
+    torch.cuda.synchronize()
+    return torch.stack(out), time.perf_counter() - t0
+
+
+def chain_context(torch, dev):
+    """Full-width smollm-135m (f32, random weights from seed 0), the
+    engine phase's first 4 prompts prefilled by the model into a paged
+    pool (block 128, max_seq 512) and a dense cache, and the model's own
+    greedy decode: its tokens drive every variant (teacher forcing), its
+    logits are the reference."""
+    import numpy as np
+    from repro_torch.compiler.mapper import plan_model
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import init_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.serving.kv_cache import (scatter_prefill_dense,
+                                              scatter_prefill_pages)
+    cfg = get_config("smollm-135m")
+    plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
+                      remat="none", compute_dtype="float32",
+                      param_dtype="float32")
+    model = build_model(cfg, plan, dev)
+    params = init_params(cfg, plan, seed=0, device=dev)
+    rng = np.random.RandomState(0)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size,
+                                            size=rng.randint(2, 65))]
+               for _ in range(8)][:4]
+    max_seq, bs = 512, 128
+    T = max_seq // bs
+    nb = 1 + len(prompts) * T
+    tables = (1 + torch.arange(len(prompts) * T, dtype=torch.int32,
+                               device=dev)).reshape(len(prompts), T)
+    pool = model.init_cache(len(prompts), max_seq, paged=True,
+                            num_blocks=nb, block_size=bs)
+    dense = model.init_cache(len(prompts), max_seq)
+    first = []
+    for b, pr in enumerate(prompts):
+        buf = torch.zeros((1, bs), dtype=torch.long, device=dev)
+        buf[0, :len(pr)] = torch.tensor(pr, device=dev)
+        logits, pc = model.forward(params, buf, mode="prefill",
+                                   cache=model.init_cache(1, bs),
+                                   positions=torch.arange(bs,
+                                                          device=dev)[None])
+        first.append(int(logits[0, len(pr) - 1].argmax()))
+        scatter_prefill_pages(pool, pc, tables[b, :1])
+        scatter_prefill_dense(dense, pc, b)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    caches = {"pool": {k: v.clone() for k, v in pool["l0"].items()},
+              "dense": {k: v.clone() for k, v in dense["l0"].items()}}
+    # the model's own greedy decode (paged, streamed through kernel 1)
+    tok = torch.tensor(first, device=dev)
+    tokens, ref = [], []
+    pos = lens.clone()
+    for _ in range(CHAIN_STEPS):
+        tokens.append(tok)
+        logits, _ = model.forward(params, tok[:, None], mode="decode",
+                                  positions=pos, cache=pool,
+                                  block_tables=tables,
+                                  paged_kernel="stream")
+        ref.append(logits[:, -1])
+        tok = logits[:, -1].argmax(-1)
+        pos = pos + 1
+    return {"cfg": cfg, "plan": plan, "params": params, "tables": tables,
+            "lens": lens, "tokens": tokens, "ref": torch.stack(ref),
+            "caches": caches, "prompt_lens": [len(p) for p in prompts],
+            "layers": [layer_params(params, i)["l0"]
+                       for i in range(cfg.n_layers)]}
+
+
+def quantized_cache(torch, cache, qdt):
+    from repro_torch.serving.kv_cache import quantize_kv_rows
+    out = {}
+    for key in ("k", "v"):
+        out[key], out[key + "_scale"] = quantize_kv_rows(cache[key], qdt,
+                                                         torch.float16)
+    return out
+
+
+def top2_gap(logits):
+    top = logits.topk(2, -1).values
+    return top[..., 0] - top[..., 1]
+
+
+def run_chain_phase(torch, dev):
+    """The six variants, kernels and plain; launch counts, tolerances and
+    argmax checks; times per step.  Returns the ``chain`` record."""
+    ctx = chain_context(torch, dev)
+    n_steps, L = CHAIN_STEPS, ctx["cfg"].n_layers
+    B_ = len(ctx["prompt_lens"])
+    caches = dict(ctx["caches"])
+    caches["int8"] = quantized_cache(torch, caches["pool"], torch.int8)
+    caches["fp8"] = quantized_cache(torch, caches["pool"],
+                                    torch.float8_e4m3fn)
+    ref, ref_gap = ctx["ref"], top2_gap(ctx["ref"])
+    ref_arg = ref.argmax(-1)
+    variants, logits_of, walls = {}, {}, {}
+    total = {"gemv": 0, "paged_decode_attention": 0, "decode_attention": 0}
+    for name, kind, mode, w_dtype in CHAIN_VARIANTS:
+        tables = None if kind == "dense" else ctx["tables"]
+        cache0 = caches[kind]
+        _reset_counts()
+        got, _ = run_chain(torch, ctx, cache0, tables, True, mode, w_dtype)
+        counts = _read_counts()
+        for k in total:
+            total[k] += counts[k]
+        attn = "decode_attention" if kind == "dense" or mode == "gather" \
+            else "paged_decode_attention"
+        want_counts = {"gemv": 4 * L * n_steps,
+                       "paged_decode_attention": 0, "decode_attention": 0}
+        want_counts[attn] = L * n_steps
+        if counts != want_counts:
+            raise AssertionError(f"chain {name}: launches {counts}, "
+                                 f"expected {want_counts}")
+        _, wall = run_chain(torch, ctx, cache0, tables, True, mode, w_dtype)
+        plain, plain_wall = run_chain(torch, ctx, cache0, tables, False,
+                                      mode, w_dtype)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"chain {name}: non-finite logits")
+        quant = kind in ("int8", "fp8")
+        tol = CHAIN_TOL_QUANT if quant else CHAIN_TOL
+        err = (got - plain).abs().max().item()
+        if err > tol:
+            raise AssertionError(f"chain {name}: kernels vs plain max abs "
+                                 f"{err} > {tol}")
+        rec = {"ms_per_step": wall / n_steps * 1e3,
+               "tokens_per_s": B_ * n_steps / wall,
+               "plain_ms_per_step": plain_wall / n_steps * 1e3,
+               "max_abs_err_vs_plain": err, "tol_vs_plain": tol,
+               "launches_per_step": {k: v / n_steps
+                                     for k, v in counts.items()}}
+        arg = got.argmax(-1)
+        if not quant and w_dtype == "auto":
+            err_m = (got - ref).abs().max().item()
+            if err_m > CHAIN_TOL:
+                raise AssertionError(f"chain {name}: vs model decode max "
+                                     f"abs {err_m} > {CHAIN_TOL}")
+            decided = ref_gap > CHAIN_TOL
+            if not torch.equal(arg[decided], ref_arg[decided]):
+                raise AssertionError(f"chain {name}: greedy argmax differs "
+                                     "from the model's where its top-2 "
+                                     f"gap exceeds {CHAIN_TOL}")
+            rec.update(max_abs_err_vs_model=err_m, tol_vs_model=CHAIN_TOL,
+                       argmax_checked=int(decided.sum()),
+                       argmax_total=int(decided.numel()))
+        else:
+            rec["argmax_agree_with_fp_stream"] = float(
+                (arg == logits_of["stream"].argmax(-1)).float().mean())
+            rec["max_abs_diff_vs_model"] = (got - ref).abs().max().item()
+        variants[name] = rec
+        logits_of[name] = got
+        walls[name] = wall
+    return ctx, {"arch": ctx["cfg"].name, "n_layers": L,
+                 "d_model": ctx["cfg"].d_model, "dtype": "float32",
+                 "batch": B_, "prompt_lens": ctx["prompt_lens"],
+                 "steps": n_steps, "block_size": 128, "max_seq": 512,
+                 "ref_logit_std": ref.std().item(),
+                 "ref_top2_gap_min": ref_gap.min().item(),
+                 "variants": variants}, total, walls["stream"]
+
+
+def chunk_vs_sequential(torch, dev, ctx):
+    """chunk_prefill_layer on one full-width layer (C = 64 rows) against
+    64 sequential decode_layer calls on a fresh pool."""
+    from repro_torch.core import streamline as sl
+    cfg, plan = ctx["cfg"], ctx["plan"]
+    a = plan.attn
+    p = ctx["layers"][0]
+    g = torch.Generator(device=dev).manual_seed(5)
+    xs = torch.randn((CHUNK_C, cfg.d_model), generator=g, device=dev)
+    table = torch.arange(1, 5, dtype=torch.int32, device=dev)
+
+    def fresh():
+        return {k: torch.zeros((5, 128, a.gp, a.d_head), device=dev)
+                for k in "kv"}
+    y_c, pool_c = sl.chunk_prefill_layer(p, xs, fresh(), table, 0, CHUNK_C,
+                                         cfg=cfg, plan=plan,
+                                         paged_kernel="stream")
+    pool_s, ys = fresh(), []
+    for i in range(CHUNK_C):
+        y, _ = sl.decode_layer(p, xs[i:i + 1], pool_s,
+                               torch.tensor([i], dtype=torch.int32,
+                                            device=dev),
+                               cfg=cfg, plan=plan, block_table=table[None],
+                               paged_kernel="stream")
+        ys.append(y)
+    y_s = torch.cat(ys)
+    torch.cuda.synchronize()
+    if not torch.isfinite(y_c).all():
+        raise AssertionError("chunk_prefill_layer: non-finite output")
+    err_y = (y_c - y_s).abs().max().item()
+    err_kv = max((pool_c[k] - pool_s[k]).abs().max().item() for k in "kv")
+    if err_y > CHAIN_TOL or err_kv > CHAIN_TOL:
+        raise AssertionError(f"chunk vs sequential: {err_y}, {err_kv} > "
+                             f"{CHAIN_TOL}")
+    return {"C": CHUNK_C, "max_abs_diff_y": err_y,
+            "max_abs_diff_pool": err_kv, "tol": CHAIN_TOL,
+            "exact": bool(torch.equal(y_c, y_s) and all(
+                torch.equal(pool_c[k], pool_s[k]) for k in "kv"))}
+
+
+def chain_costs(torch, ctx, wall_stream):
+    """torch.profiler over the stream variant (device busy share, device
+    ms by kernel, the concatenations' device ms per step), and the wall
+    time of one decode step's per-call weight work run on its own: the
+    wq|wk|wv and wg|wu concatenations, and the int8 quantization of every
+    weight (w_dtype="int8")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.gemv.ops import quantize_weight
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_chain(torch, ctx, ctx["caches"]["pool"], ctx["tables"], True,
+                  "stream", "auto")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    cat_us = sum(e.self_device_time_total for e in kernels
+                 if "CatArray" in e.key or "cat" in e.key.lower())
+    D = ctx["cfg"].d_model
+    a = ctx["plan"].attn
+
+    def concat(_):
+        for lp in ctx["layers"]:
+            torch.cat([lp["attn"]["wq"].reshape(D, -1),
+                       lp["attn"]["wk"].reshape(D, -1),
+                       lp["attn"]["wv"].reshape(D, -1)], -1)
+            torch.cat([lp["mlp"]["wg"], lp["mlp"]["wu"]], -1)
+
+    def quantize(_):
+        for lp in ctx["layers"]:
+            quantize_weight(torch.cat([lp["attn"]["wq"].reshape(D, -1),
+                                       lp["attn"]["wk"].reshape(D, -1),
+                                       lp["attn"]["wv"].reshape(D, -1)], -1))
+            quantize_weight(lp["attn"]["wo"].reshape(a.hp * a.d_head, D))
+            quantize_weight(torch.cat([lp["mlp"]["wg"], lp["mlp"]["wu"]],
+                                      -1))
+            quantize_weight(lp["mlp"]["wd"])
+    def wall_ms(fn, n=10):
+        fn(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    prof_rec = None
+    if busy_us:
+        prof_rec = {"device_busy_ms": busy_us / 1e3,
+                    "unprofiled_wall_ms": wall_stream * 1e3,
+                    "device_busy_share": busy_us / 1e6 / wall_stream,
+                    "cat_device_ms_per_step": cat_us / 1e3 / CHAIN_STEPS,
+                    "top_kernels": [{"name": e.key[:80], "count": e.count,
+                                     "ms": e.self_device_time_total / 1e3}
+                                    for e in top]}
+    return {"profile_stream": prof_rec,
+            "per_step_weight_concat_wall_ms": wall_ms(concat),
+            "per_step_weight_quantize_wall_ms": wall_ms(quantize)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -348,10 +911,24 @@ def main() -> int:
                            .splitlines() if "registers" in ln or
                            "spill" in ln)[:600])
 
+    # f32 matmuls in full f32 (the chain's plain version and the model)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     errs = check_paged_kernel(torch, dev)
     print(f"[kernel] paged_decode_attention vs plain: {errs}")
     times = time_paged_kernel(torch, dev, smi)
     print(f"[kernel] paged_decode_attention timing: {times}")
+    quant = check_time_quantized_pool(torch, dev, smi)
+    print(f"[kernel] paged_decode_attention int8/fp8 pools: {quant}")
+    dense_errs, dense_t = check_time_dense(torch, dev, smi)
+    print(f"[kernel] decode_attention vs plain: {dense_errs}; timing: "
+          f"{dense_t}")
+    gemv_errs, gemv_calls = check_time_gemv(torch, dev, smi)
+    print(f"[kernel] gemv vs plain: max abs "
+          f"{max(gemv_errs.values())}; B=4 equals 4 x B=1 at every shape")
+    for c in gemv_calls:
+        print(f"[kernel] gemv {c}")
 
     engine = run_engine(torch, dev)
     print(f"[engine] {engine['tokens']} tokens, "
@@ -360,13 +937,29 @@ def main() -> int:
           f"{engine['preempt_run']['preemptions']} preemptions in the "
           "small-pool run")
 
+    ctx, chain, chain_launches, wall_stream = run_chain_phase(torch, dev)
+    chain["chunk_prefill"] = chunk_vs_sequential(torch, dev, ctx)
+    chain.update(chain_costs(torch, ctx, wall_stream))
+    for name, rec in chain["variants"].items():
+        print(f"[chain] {name}: {rec['ms_per_step']:.2f} ms/step, "
+              f"{rec['tokens_per_s']:.1f} tok/s, kernels vs plain "
+              f"{rec['max_abs_err_vs_plain']:.3g}")
+
+    def src(name):
+        return os.path.relpath(build.source_path(name), HERE)
+
+    f32_calls = [c for c in gemv_calls if c["w_dtype"] == "float32"]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
-        "source": os.path.relpath(
-            build.source_path("paged_decode_attention"), HERE),
+        "source": src("paged_decode_attention"),
         "replaces": "src/repro/kernels/decode_attention/"
                     "decode_attention.py:142",
-        "ok": True, "launches": engine["kernel_launches"],
+        "ok": True,
+        "launches": engine["kernel_launches"]
+        + chain_launches["paged_decode_attention"],
+        "launches_by_path": {
+            "engine_stream": engine["kernel_launches"],
+            "chain_kernel_runs": chain_launches["paged_decode_attention"]},
         "max_abs_err": errs["q=float32,pool=float32"],
         "max_abs_err_by_dtype": errs,
         "ms": times["ms"], "plain_ms": times["plain_ms"],
@@ -377,9 +970,46 @@ def main() -> int:
         "shapes": {"B": B, "H": H, "G": G, "dh": DH, "bs": BS, "T": T,
                    "N": N, "lengths": list(LENGTHS), "dtype": "float32",
                    "fold": True},
+        "quantized_pools": quant,
+    }, {
+        "name": "decode_attention", "route": "cuda",
+        "source": src("decode_attention"),
+        "replaces": "src/repro/kernels/decode_attention/"
+                    "decode_attention.py:218",
+        "ok": True, "launches": chain_launches["decode_attention"],
+        "launches_by_path": {
+            "chain_kernel_runs": chain_launches["decode_attention"]},
+        "max_abs_err": dense_errs["float32"],
+        "max_abs_err_by_dtype": dense_errs,
+        "ms": dense_t["ms"], "plain_ms": dense_t["plain_ms"],
+        "bound_ms": dense_t["bound_ms"], "bound_by": dense_t["bound_by"],
+        "library_ms": dense_t["library_ms"],
+        "host_ms": dense_t["host_ms"],
+        "plain_host_ms": dense_t["plain_host_ms"],
+        "library_host_ms": dense_t["library_host_ms"],
+        "shapes": {"B": B, "H": H, "G": G, "dh": DH, "S": DENSE_S,
+                   "lengths": list(DENSE_LENGTHS), "dtype": "float32"},
+    }, {
+        "name": "gemv", "route": "cuda", "source": src("gemv"),
+        "replaces": "src/repro/kernels/gemv/gemv.py:55",
+        "ok": True, "launches": chain_launches["gemv"],
+        "launches_by_path": {"chain_kernel_runs": chain_launches["gemv"]},
+        "max_abs_err": max(v for k, v in gemv_errs.items()
+                           if ",float32," in k),
+        "max_abs_err_by_case": gemv_errs,
+        # the four gemvs of one decoder layer (f32, B = 4), summed
+        "ms": sum(c["ms"] for c in f32_calls),
+        "plain_ms": sum(c["plain_ms"] for c in f32_calls),
+        "bound_ms": sum(c["bound_ms"] for c in f32_calls),
+        "bound_by": "bytes" if all(c["bound_by"] == "bytes"
+                                   for c in f32_calls) else "operations",
+        "library_ms": sum(c["library_ms"] for c in f32_calls),
+        "unit": "sum of the 4 gemvs of one layer, float32, B=4",
+        "per_call": gemv_calls,
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"engine": engine}))
+    print(json.dumps({"chain": chain}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

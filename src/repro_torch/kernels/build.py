@@ -4,9 +4,9 @@ Each kernel is one ``.cu`` source with a plain C interface, compiled by
 ``nvcc`` into a shared library and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  Libraries are built at first use
 into ``build/repro_torch_kernels/`` at the root of the checkout, named
-by a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one is reused.  :func:`build` starts one ``nvcc`` per
-missing source, all at once, and waits for them together.
+by a hash of the source, its headers and the flags, so an edited source
+rebuilds and an unchanged one is reused.  :func:`build` starts one
+``nvcc`` per missing source, all at once, and waits for them together.
 
 Nothing here runs at import: the CPU tests import every module, and
 this machine may have no ``nvcc``.
@@ -29,6 +29,8 @@ BUILD_DIR = KERNEL_DIR.parents[2] / "build" / "repro_torch_kernels"
 SOURCES: Dict[str, str] = {
     "paged_decode_attention":
         "decode_attention/csrc/paged_decode_attention.cu",
+    "decode_attention": "decode_attention/csrc/decode_attention.cu",
+    "gemv": "gemv/csrc/gemv.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -53,7 +55,12 @@ def source_path(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(source_path(name).read_bytes())
+    """The library's path, named by a hash of the source, the headers
+    beside it (``*.cuh``) and the flags."""
+    src = source_path(name)
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

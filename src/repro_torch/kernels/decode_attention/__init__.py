@@ -1,9 +1,12 @@
-from repro_torch.kernels.decode_attention.ops import (paged_decode_attention,
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      paged_decode_attention,
                                                       paged_stream_supported,
                                                       resolve_paged_kernel)
-from repro_torch.kernels.decode_attention.ref import (gather_kv_pages,
+from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
+                                                      gather_kv_pages,
                                                       paged_decode_attention_ref)
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_ref",
+__all__ = ["decode_attention", "decode_attention_ref",
+           "paged_decode_attention", "paged_decode_attention_ref",
            "gather_kv_pages", "paged_stream_supported",
            "resolve_paged_kernel"]

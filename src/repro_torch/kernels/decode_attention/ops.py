@@ -1,11 +1,14 @@
-"""Dispatch for paged decode attention: the Hopper kernel or its plain
-version, and the eligibility rule every caller resolves through.
+"""Dispatch for decode attention: the Hopper kernels or their plain
+versions, and the paged eligibility rule every caller resolves through.
 
-:func:`paged_decode_attention` launches the CUDA kernel
-(``csrc/paged_decode_attention.cu``) for tensors on the card and takes
-the plain PyTorch version (:mod:`.ref`) only for tensors on the CPU.  On
-the card it launches or raises: there is no fallback.  Each launch adds
-one to ``paged_decode_attention.launches``.
+:func:`paged_decode_attention` (``csrc/paged_decode_attention.cu``) and
+:func:`decode_attention` (the dense cache, ``csrc/decode_attention.cu``)
+launch their CUDA kernel for tensors on the card and take the plain
+PyTorch version (:mod:`.ref`) only for tensors on the CPU.  On the card
+they launch or raise: there is no fallback, and none of the reference's
+TPU rules (S, block size and d_head multiples of 128, ``plan_block_s``'
+VMEM budget) applies.  Each launch adds one to the wrapper's
+``launches``.
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, paged_decode_attention_ref)
 
 # the kernel's own limits (csrc/paged_decode_attention.cu)
 MAX_GROUP = 8          # query heads per kv head
@@ -23,6 +27,9 @@ MAX_D_HEAD = 256
 MAX_BLOCK_SIZE = 256   # pool rows per tile (scores live in shared memory)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# a pool may also be int8 / fp8, with f16 scales per (row, kv head)
+_POOL_CODE = {**_DTYPE_CODE, torch.int8: 3, torch.float8_e4m3fn: 4}
+SCALE_DTYPE = torch.float16
 
 
 def kernel_supports(gs: int, d_head: int, block_size: int) -> bool:
@@ -66,22 +73,39 @@ def resolve_paged_kernel(plan, block_size: int, requested: str) -> str:
     return requested
 
 
-def _bind(lib: ctypes.CDLL):
+def _bind_paged(lib: ctypes.CDLL):
     fn = lib.paged_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bind_dense(lib: ctypes.CDLL):
+    fn = lib.decode_attention
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 _fn = None
+_dense_fn = None
 
 
 def _launch_fn():
     global _fn
     if _fn is None:
-        _fn = _bind(build.load("paged_decode_attention"))
+        _fn = _bind_paged(build.load("paged_decode_attention"))
     return _fn
+
+
+def _dense_launch_fn():
+    global _dense_fn
+    if _dense_fn is None:
+        _dense_fn = _bind_dense(build.load("decode_attention"))
+    return _dense_fn
 
 
 def _check(name, t, dtype=None, shape=None, device=None):
@@ -124,10 +148,6 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
             v_new=v_new, k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
-    if k_scale is not None:
-        raise NotImplementedError(
-            "the int8/fp8 pool (k_scale/v_scale) is not in the CUDA kernel "
-            "yet; it arrives with the quantized-KV slice")
     B, H, dh = q.shape
     N, bs, G, _ = k_pages.shape
     T = block_tables.shape[1]
@@ -137,9 +157,14 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(
             f"kernel limits: H/G={H // G} (<= {MAX_GROUP}), dh={dh} "
             f"(<= {MAX_D_HEAD}), block_size={bs} (<= {MAX_BLOCK_SIZE})")
-    if q.dtype not in _DTYPE_CODE or k_pages.dtype not in _DTYPE_CODE:
-        raise TypeError(f"kernel takes float32/bfloat16/float16, got q "
+    if q.dtype not in _DTYPE_CODE or k_pages.dtype not in _POOL_CODE:
+        raise TypeError(f"kernel takes q in float32/bfloat16/float16 and a "
+                        f"pool in those or int8/float8_e4m3fn, got q "
                         f"{q.dtype}, pool {k_pages.dtype}")
+    quantized = k_pages.dtype not in _DTYPE_CODE
+    if quantized != (k_scale is not None):
+        raise ValueError("an int8/fp8 pool needs k_scale/v_scale, and only "
+                         "such a pool takes them")
     dev = q.device
     _check("q", q)
     _check("k_pages", k_pages, shape=(N, bs, G, dh), device=dev)
@@ -151,17 +176,23 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if k_new is not None:
         _check("k_new", k_new, dtype=q.dtype, shape=(B, G, dh), device=dev)
         _check("v_new", v_new, dtype=q.dtype, shape=(B, G, dh), device=dev)
+    if quantized:
+        _check("k_scale", k_scale, dtype=SCALE_DTYPE, shape=(N, bs, G),
+               device=dev)
+        _check("v_scale", v_scale, dtype=SCALE_DTYPE, shape=(N, bs, G),
+               device=dev)
     out = torch.empty_like(q)
     if B == 0:
         return out
     err = _launch_fn()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
         block_tables.data_ptr(), lengths.data_ptr(),
         k_new.data_ptr() if k_new is not None else None,
         v_new.data_ptr() if v_new is not None else None,
-        out.data_ptr(), B, H, G, dh, bs, T,
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), B, H, G, dh, bs, T, _DTYPE_CODE[q.dtype],
+        _POOL_CODE[k_pages.dtype], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"cudaError {err}")
@@ -170,3 +201,56 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """Decode attention over a dense cache.
+
+    q: (B,H,dh); k, v: (B,S,G,dh) with H = G*gs (q head ``h`` reads kv
+    head ``h // gs``), each row contiguous; the batch stride may be 0 (a
+    cache broadcast over the batch, read in place); lengths: (B,) int32
+    valid cache length.  A row with length 0 returns the mean of its S
+    V rows, as the reference does.  -> (B,H,dh) in q's dtype."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for {q.device}")
+    B, H, dh = q.shape
+    _, S, G, _ = k.shape
+    if H % G:
+        raise ValueError(f"H={H} is not a multiple of G={G}")
+    if not (1 <= H // G <= MAX_GROUP and 1 <= dh <= MAX_D_HEAD and S >= 1):
+        raise ValueError(f"kernel limits: H/G={H // G} (<= {MAX_GROUP}), "
+                         f"dh={dh} (<= {MAX_D_HEAD}), S={S} (>= 1)")
+    if q.dtype not in _DTYPE_CODE or k.dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernel takes float32/bfloat16/float16, got q "
+                        f"{q.dtype}, cache {k.dtype}")
+    dev = q.device
+    _check("q", q)
+    _check("lengths", lengths, dtype=torch.int32, shape=(B,), device=dev)
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != k.dtype or tuple(t.shape) != (B, S, G, dh) or \
+                t.device != dev:
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}, expected {k.dtype} "
+                             f"{(B, S, G, dh)} on {dev}")
+        if t.stride()[1:] != (G * dh, dh, 1):
+            raise ValueError(f"{name}: rows must be contiguous (strides "
+                             f"{t.stride()})")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    err = _dense_launch_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), B, H, G, dh, S, k.stride(0), v.stride(0),
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: "
+                           f"cudaError {err}")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -6,7 +6,9 @@ refcounting :class:`BlockPool`, without the prefix-cache index and its
 LRU of parked blocks, which come back with the prefix-cache slice.
 Device side: the port's in-place copies of a prefilled
 batch-1 cache into the pool (:func:`scatter_prefill_pages`) or a dense
-slot (:func:`scatter_prefill_dense`).
+slot (:func:`scatter_prefill_dense`), the positionwise scatter of a
+prefill chunk (:func:`scatter_chunk_rows`), and the absmax quantization
+of an int8/fp8 pool's rows (:func:`quantize_kv_rows`).
 
 Block id 0 is reserved as the **null block**: table entries past a
 request's used length point at it, padded prefill tokens are written to
@@ -161,3 +163,63 @@ def scatter_prefill_dense(cache: Params, prefill_cache: Params,
         for key, tgt in c.items():
             dn = prefill_cache[lj][key]
             tgt[:, slot, :dn.shape[2]] = dn[:, 0].to(tgt.dtype)
+
+
+def scatter_chunk_rows(pages: torch.Tensor, rows: torch.Tensor,
+                       block_table: torch.Tensor, positions: torch.Tensor,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """Positionwise scatter of ONE prefill chunk into the block pool, in
+    place; returns ``pages``.
+
+    pages:       (N, bs, ...) one layer of the shared pool (values, or a
+                 quantized pool's (N, bs, G) scales)
+    rows:        (C, ...) the chunk's K (or V, or scale) rows
+    block_table: (T,) the request's physical block ids
+    positions:   (C,) absolute token positions of the chunk rows
+    valid:       (C,) bool; padded rows go to the null block 0."""
+    bs = pages.shape[1]
+    T = block_table.shape[0]
+    pos = positions.long()
+    idx = torch.clamp(pos // bs, 0, T - 1)
+    blk = torch.where(valid, block_table.long()[idx],
+                      torch.zeros((), dtype=torch.long, device=pages.device))
+    pages[blk, pos % bs] = rows.to(pages.dtype)
+    return pages
+
+
+# ---------------------------------------------------------------------------
+# quantized storage: absmax row quantization + the pool's scale side-arrays
+# ---------------------------------------------------------------------------
+
+def qmax_for_dtype(dtype: torch.dtype) -> float:
+    """Symmetric clip bound of a quantized pool leaf dtype."""
+    if dtype == torch.int8:
+        return 127.0
+    if dtype == torch.float8_e4m3fn:
+        return 448.0
+    raise ValueError(f"not a quantized KV storage dtype: {dtype}")
+
+
+def quantize_kv_rows(rows: torch.Tensor, store_dtype: torch.dtype,
+                     scale_dtype: torch.dtype):
+    """Symmetric absmax quantization of KV rows along the head dim.
+
+    rows: (..., dh) float K (or V) rows.  Returns ``(q, scales)``: ``q``
+    shaped like ``rows`` in ``store_dtype`` (int8 or float8_e4m3fn) and
+    ``scales`` shaped ``rows.shape[:-1]`` in ``scale_dtype`` (the plan's
+    ``resolve_kv_precision`` gives float16) — one scale per stored token
+    row per kv head.  All-zero rows get scale 0 (they dequantize to exact
+    zeros, the null block's contract) and never NaN."""
+    qmax = qmax_for_dtype(store_dtype)
+    x = rows.float()
+    scale = x.abs().amax(-1) / qmax
+    y = x / torch.where(scale > 0, scale, torch.ones_like(scale))[..., None]
+    y = torch.clamp(y, -qmax, qmax)
+    if store_dtype == torch.int8:
+        y = torch.round(y)
+    return y.to(store_dtype), scale.to(scale_dtype)
+
+
+def dequantize_kv(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv_rows` (f32 out)."""
+    return q.float() * scales.float()[..., None]

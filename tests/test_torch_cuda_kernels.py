@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions on the card.
+"""The port's CUDA kernels against their plain versions on the card:
+paged decode attention (fp, int8 and fp8 pools), dense decode attention,
+the decode GEMV, and one streamlined decode layer with kernels vs plain.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test, never at import).  On a machine with a card:
@@ -8,7 +10,11 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention import ops
-from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
+                                                      paged_decode_attention_ref)
+from repro_torch.kernels.gemv import ops as gemv_ops
+from repro_torch.kernels.gemv.ref import gemv_ref
+from repro_torch.serving.kv_cache import quantize_kv_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -58,11 +64,117 @@ def test_paged_kernel_matches_plain(dev, shape, dtype, fold):
 def test_paged_kernel_refuses_what_it_cannot_run(dev):
     q, kp, vp, tb, ln, kn, vn = _inputs(dev, 2, 4, 2, 32, 8, 3,
                                         torch.float32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):       # scales only with an int8/fp8 pool
         ops.paged_decode_attention(q, kp, vp, tb, ln,
                                    k_scale=kp[..., 0], v_scale=vp[..., 0])
+    with pytest.raises(ValueError):       # an int8 pool needs its scales
+        ops.paged_decode_attention(q, kp.to(torch.int8), vp.to(torch.int8),
+                                   tb, ln)
     with pytest.raises(TypeError):
         ops.paged_decode_attention(q, kp, vp, tb.long(), ln)
     with pytest.raises(ValueError):
         ops.paged_decode_attention(q, kp.transpose(1, 2).contiguous()
                                    .transpose(1, 2), vp, tb, ln)
+
+
+@pytest.mark.parametrize("qdt", [torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("shape", [(4, 9, 3, 64, 128, 4), (3, 4, 2, 32, 8, 5)])
+@pytest.mark.parametrize("fold", [False, True])
+def test_quantized_pool_matches_plain(dev, qdt, shape, fold):
+    q, kp, vp, tb, ln, kn, vn = _inputs(dev, *shape, torch.float32)
+    kq, ks = quantize_kv_rows(kp, qdt, torch.float16)
+    vq, vs = quantize_kv_rows(vp, qdt, torch.float16)
+    extra = dict(k_new=kn, v_new=vn) if fold else {}
+    before = ops.paged_decode_attention.launches
+    got = ops.paged_decode_attention(q, kq, vq, tb, ln, k_scale=ks,
+                                     v_scale=vs, **extra)
+    torch.cuda.synchronize()
+    assert ops.paged_decode_attention.launches == before + 1
+    want = paged_decode_attention_ref(q, kq, vq, tb, ln, k_scale=ks,
+                                      v_scale=vs, **extra)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(4, 9, 3, 64, 512), (3, 4, 2, 32, 100),
+                                   (2, 16, 2, 128, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_dense_kernel_matches_plain(dev, shape, dtype):
+    B, H, G, dh, S = shape
+    g = torch.Generator(device=dev).manual_seed(1)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa
+    q, k, v = r(B, H, dh), r(B, S, G, dh), r(B, S, G, dh)
+    ln = torch.randint(1, S + 1, (B,), generator=g, device=dev)
+    ln[0] = 0
+    ln = ln.to(torch.int32)
+    before = ops.decode_attention.launches
+    got = ops.decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    want = decode_attention_ref(q, k, v, ln)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    # a cache broadcast over the batch is read in place
+    kb, vb = k[:1].expand(B, -1, -1, -1), v[:1].expand(B, -1, -1, -1)
+    torch.testing.assert_close(
+        ops.decode_attention(q, kb, vb, ln).float(),
+        decode_attention_ref(q, kb, vb, ln).float(), rtol=TOL[dtype],
+        atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("KN", [(576, 960), (576, 576), (576, 3072),
+                                (1536, 576), (100, 37)])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("bias", [False, True])
+def test_gemv_kernel_matches_plain(dev, KN, wdt, bias):
+    K, N = KN
+    g = torch.Generator(device=dev).manual_seed(2)
+    xdt = torch.float32 if wdt == torch.int8 else wdt
+    x = torch.randn((64, K), generator=g, device=dev).to(xdt)
+    w = torch.randn((K, N), generator=g, device=dev)
+    b = torch.randn((N,), generator=g, device=dev).to(xdt) if bias else None
+    scale = None
+    if wdt == torch.int8:
+        w, scale = gemv_ops.quantize_weight(w)
+    else:
+        w = w.to(wdt)
+    before = gemv_ops.gemv.launches
+    got = gemv_ops.gemv(x[:4], w, b, w_scale=scale)
+    torch.cuda.synchronize()
+    assert gemv_ops.gemv.launches == before + 1
+    tol = 1e-4 if xdt == torch.float32 else 3e-2
+    want = gemv_ref(x[:4], w, b, w_scale=scale)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # row b does not depend on the call's row count: bit for bit
+    for i in range(4):
+        assert torch.equal(gemv_ops.gemv(x[i:i + 1], w, b, w_scale=scale)[0],
+                           got[i])
+    assert torch.equal(gemv_ops.gemv(x, w, b, w_scale=scale)[:4], got)
+    assert torch.equal(gemv_ops.gemv(x[:4], w, b, w_scale=scale), got)
+
+
+def test_decode_layer_kernels_match_plain(dev):
+    from repro_torch.compiler.mapper import plan_model
+    from repro_torch.configs import get_config
+    from repro_torch.core import streamline as sl
+    from repro_torch.models.common import init_params
+    from repro_torch.models.transformer import layer_params
+    cfg = get_config("smollm-135m")
+    plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
+                      remat="none", compute_dtype="float32",
+                      param_dtype="float32")
+    p = layer_params(init_params(cfg, plan, seed=0, device=dev), 0)["l0"]
+    a = plan.attn
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((4, cfg.d_model), generator=g, device=dev)
+    pool = torch.randn((17, 128, a.gp, a.d_head), generator=g, device=dev)
+    tables = torch.arange(1, 17, dtype=torch.int32, device=dev).reshape(4, 4)
+    pos = torch.tensor([0, 77, 300, 510], dtype=torch.int32, device=dev)
+    outs = {}
+    for use in (True, False):
+        cache = {"k": pool.clone(), "v": pool.clone() * 0.5}
+        outs[use], _ = sl.decode_layer(p, x, cache, pos, cfg=cfg, plan=plan,
+                                       use_kernels=use, block_table=tables,
+                                       paged_kernel="stream")
+    torch.testing.assert_close(outs[True], outs[False], rtol=1e-4,
+                               atol=1e-4)

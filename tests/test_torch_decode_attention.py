@@ -1,21 +1,27 @@
-"""The port's paged decode attention (plain version, as its wrapper runs
-it on CPU tensors) against the JAX reference's kernel 1 in interpret
-mode and its oracle, plus the null-block property on the port itself."""
+"""The port's decode attention (plain versions, as the wrappers run them
+on CPU tensors) against the JAX reference's kernels in interpret mode and
+its oracles: the paged kernel 1 with fp, int8 and fp8 pools, and the
+dense kernel 2; plus the null-block property on the port itself."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.decode_attention.decode_attention import \
-    paged_decode_attention_pallas
+from repro.kernels.decode_attention.decode_attention import (
+    decode_attention_pallas, paged_decode_attention_pallas)
 from repro.kernels.decode_attention.ops import \
     paged_decode_attention as jax_paged_decode_attention
 from repro.kernels.decode_attention.ref import \
+    decode_attention_ref as jax_decode_ref
+from repro.kernels.decode_attention.ref import \
     paged_decode_attention_ref as jax_paged_ref
+from repro.serving import kv_cache as jax_kv
 from repro_torch.compiler.plan import plan_attention
 from repro_torch.kernels.decode_attention import ops
-from repro_torch.kernels.decode_attention.ref import (gather_kv_pages,
+from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
+                                                      gather_kv_pages,
                                                       paged_decode_attention_ref)
+from repro_torch.serving import kv_cache
 
 # (B, H, G, dh, bs, T, N): reduced test shapes and smollm's head geometry
 SHAPES = [(3, 4, 2, 32, 8, 4, 13), (3, 6, 2, 32, 16, 3, 10),
@@ -79,15 +85,9 @@ def test_matches_reference_kernel_and_oracle(shape, fold, dtype, oracle):
     mine = _port(a, tables, lengths, fold, getattr(torch, dtype))
     ref = _jax(a, tables, lengths, fold, getattr(jnp, dtype), oracle)
     tol = TOL[dtype]
-    rows = np.ones(len(lengths), bool)
-    if not fold:
-        # a row with nothing to attend: the port returns zeros, the
-        # reference the mean of every gathered V row (logged as a
-        # disagreement in ROADMAP.md queue 3)
-        empty = lengths == 0
-        assert (mine[empty] == 0).all()
-        rows = ~empty
-    np.testing.assert_allclose(mine[rows], ref[rows], rtol=tol, atol=tol)
+    # row 0 has length 0: without the fold both return the mean of every
+    # V row of its table, with the fold the folded token
+    np.testing.assert_allclose(mine, ref, rtol=tol, atol=tol)
 
 
 def test_plain_version_is_softmax_over_valid_rows():
@@ -109,12 +109,18 @@ def test_plain_version_is_softmax_over_valid_rows():
 
 
 def test_empty_row_returns_fold_or_zeros():
+    """A length-0 row returns the folded token, or without the fold the
+    mean of the V rows of its whole table (all T tiles, null block
+    included), as the reference does."""
     a, tables, lengths = _inputs(3, 4, 2, 32, 8, 4, 13)
     with_fold = _port(a, tables, lengths, True, torch.float32)
     np.testing.assert_allclose(with_fold[0].reshape(2, 2, 32),
                                np.repeat(a["vn"][0][:, None], 2, 1),
                                rtol=1e-6)
-    assert (_port(a, tables, lengths, False, torch.float32)[0] == 0).all()
+    mean = a["vp"][tables[0]].reshape(-1, 2, 32).mean(0)     # (G, dh)
+    np.testing.assert_allclose(
+        _port(a, tables, lengths, False, torch.float32)[0].reshape(2, 2, 32),
+        np.repeat(mean[:, None], 2, 1), rtol=1e-5, atol=1e-6)
 
 
 def _check_null_block_inert(fill, len0, len1, fold):
@@ -129,8 +135,11 @@ def _check_null_block_inert(fill, len0, len1, fold):
     a["kp"][0] = fill
     a["vp"][0] = fill
     scribbled = _port(a, tables, lengths, fold, torch.float32)
-    assert np.isfinite(scribbled).all()
-    np.testing.assert_array_equal(base, scribbled)
+    # the property holds for rows that attend something: a length-0 row
+    # without the fold averages its whole table, null block included
+    rows = (lengths > 0) | fold
+    assert np.isfinite(scribbled[rows]).all()
+    np.testing.assert_array_equal(base[rows], scribbled[rows])
 
 
 # 1e30 itself is not an f32: hypothesis refuses it as a width-32 bound
@@ -181,6 +190,153 @@ def test_scales_dequantize_in_the_plain_version():
     want = ops.paged_decode_attention(t["q"], t["kp"] * ks[..., None],
                                       t["vp"] * vs[..., None], tb, ln)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# int8 / fp8 pools (kernel 1's quantized path)
+# ---------------------------------------------------------------------------
+
+QDTYPES = {"int8": (torch.int8, jnp.int8),
+           "fp8": (torch.float8_e4m3fn, jnp.float8_e4m3fn)}
+
+
+def _quantized_pools(a, qname):
+    """Both packages quantize the same f32 pools with f16 scales; their
+    stored bytes must agree (any disagreement would be logged in
+    ROADMAP.md queue 3)."""
+    t_dt, j_dt = QDTYPES[qname]
+    port, ref = {}, {}
+    for key in ("kp", "vp"):
+        q, sc = kv_cache.quantize_kv_rows(torch.from_numpy(a[key]), t_dt,
+                                          torch.float16)
+        jq, jsc = jax_kv.quantize_kv_rows(jnp.asarray(a[key]), j_dt,
+                                          jnp.float16)
+        np.testing.assert_array_equal(
+            q.view(torch.uint8).numpy(),
+            np.asarray(jq).view(np.uint8))
+        np.testing.assert_array_equal(sc.numpy(), np.asarray(jsc))
+        port[key], ref[key] = (q, sc), (jq, jsc)
+    return port, ref
+
+
+@pytest.mark.parametrize("shape", SHAPES[:2])
+@pytest.mark.parametrize("qname", ["int8", "fp8"])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("oracle", [False, True], ids=["pallas", "ref"])
+def test_quantized_pool_matches_reference(shape, qname, fold, oracle):
+    a, tables, lengths = _inputs(*shape, seed=7)
+    port, ref = _quantized_pools(a, qname)
+    t = {k: torch.from_numpy(a[k]) for k in ("q", "kn", "vn")}
+    extra = dict(k_new=t["kn"], v_new=t["vn"]) if fold else {}
+    mine = ops.paged_decode_attention(
+        t["q"], port["kp"][0], port["vp"][0], torch.from_numpy(tables),
+        torch.from_numpy(lengths), k_scale=port["kp"][1],
+        v_scale=port["vp"][1], **extra).numpy()
+    jextra = dict(k_new=jnp.asarray(a["kn"]),
+                  v_new=jnp.asarray(a["vn"])) if fold else {}
+    args = (jnp.asarray(a["q"]), ref["kp"][0], ref["vp"][0],
+            jnp.asarray(tables), jnp.asarray(lengths))
+    scales = dict(k_scale=ref["kp"][1], v_scale=ref["vp"][1])
+    if oracle:
+        want = jax_paged_decode_attention(*args, use_pallas=False,
+                                          **scales, **jextra)
+    else:
+        want = paged_decode_attention_pallas(*args, interpret=True,
+                                             **scales, **jextra)
+    np.testing.assert_allclose(mine, np.asarray(want), **TOL_F32)
+
+
+def test_quantize_kv_rows_zero_rows_and_roundtrip():
+    rows = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (5, 3, 16)).astype(np.float32))
+    rows[2, 1] = 0.0
+    for t_dt in (torch.int8, torch.float8_e4m3fn):
+        q, sc = kv_cache.quantize_kv_rows(rows, t_dt, torch.float16)
+        assert q.dtype == t_dt and sc.shape == (5, 3)
+        assert sc[2, 1] == 0 and (kv_cache.dequantize_kv(q, sc)[2, 1] == 0
+                                  ).all()
+        err = (kv_cache.dequantize_kv(q, sc) - rows).abs().max().item()
+        assert err < 0.1
+    assert kv_cache.qmax_for_dtype(torch.int8) == 127.0
+    assert kv_cache.qmax_for_dtype(torch.float8_e4m3fn) == 448.0
+    with pytest.raises(ValueError):
+        kv_cache.qmax_for_dtype(torch.float16)
+
+
+# ---------------------------------------------------------------------------
+# dense decode attention (kernel 2)
+# ---------------------------------------------------------------------------
+
+TOL_F32 = dict(rtol=1e-4, atol=1e-4)
+# (B, H, G, dh, S, block_s of the reference kernel)
+DENSE_SHAPES = [(3, 4, 2, 32, 32, 8), (4, 9, 3, 64, 48, 16)]
+
+
+def _dense_inputs(B, H, G, dh, S, seed=0):
+    r = np.random.default_rng(seed)
+    lengths = np.array([0, S] + list(r.integers(1, S, size=B - 2)),
+                       np.int32)
+    arrays = dict(q=r.standard_normal((B, H, dh)),
+                  k=r.standard_normal((B, S, G, dh)),
+                  v=r.standard_normal((B, S, G, dh)))
+    return {k: v.astype(np.float32) for k, v in arrays.items()}, lengths
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("oracle", [False, True], ids=["pallas", "ref"])
+def test_dense_matches_reference_kernel_and_oracle(shape, dtype, oracle):
+    B, H, G, dh, S, block_s = shape
+    a, lengths = _dense_inputs(B, H, G, dh, S)
+    t = {k: torch.from_numpy(v).to(getattr(torch, dtype))
+         for k, v in a.items()}
+    mine = ops.decode_attention(t["q"], t["k"], t["v"],
+                                torch.from_numpy(lengths)).float().numpy()
+    j = {k: jnp.asarray(v).astype(getattr(jnp, dtype)) for k, v in a.items()}
+    if oracle:
+        gs = H // G
+        want = jax_decode_ref(j["q"], jnp.repeat(j["k"], gs, axis=2),
+                              jnp.repeat(j["v"], gs, axis=2),
+                              jnp.asarray(lengths))
+    else:
+        want = decode_attention_pallas(j["q"], j["k"], j["v"],
+                                       jnp.asarray(lengths), block_s=block_s,
+                                       interpret=True)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(mine, np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+    # row 0 (length 0) is the mean of all S V rows
+    mean = a["v"][0].mean(0)                                 # (G, dh)
+    np.testing.assert_allclose(
+        mine[0].reshape(G, H // G, dh),
+        np.repeat(mean[:, None], H // G, 1), rtol=tol, atol=tol)
+
+
+def test_dense_equals_paged_on_the_same_rows():
+    """The dense plain version over a gathered view equals the paged one
+    over the pool: the table only redirects where rows live."""
+    a, tables, lengths = _inputs(*SHAPES[2])
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    tb, ln = torch.from_numpy(tables), torch.from_numpy(lengths)
+    paged = ops.paged_decode_attention(t["q"], t["kp"], t["vp"], tb, ln)
+    dense = ops.decode_attention(t["q"], gather_kv_pages(t["kp"], tb),
+                                 gather_kv_pages(t["vp"], tb), ln)
+    torch.testing.assert_close(paged, dense, rtol=0, atol=0)
+
+
+def test_dense_broadcast_cache_and_launch_count():
+    """A cache broadcast over the batch (stride 0) is read as is, and the
+    CPU wrapper counts no launch."""
+    a, lengths = _dense_inputs(3, 4, 2, 32, 32)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    k1 = t["k"][:1].expand(3, -1, -1, -1)
+    v1 = t["v"][:1].expand(3, -1, -1, -1)
+    ops.decode_attention.launches = 0
+    got = ops.decode_attention(t["q"], k1, v1, torch.from_numpy(lengths))
+    want = decode_attention_ref(t["q"], k1.contiguous(), v1.contiguous(),
+                                torch.from_numpy(lengths))
+    assert torch.equal(got, want)
+    assert ops.decode_attention.launches == 0
 
 
 class _Plan:

@@ -67,7 +67,13 @@ def test_kernel_build_is_lazy():
     """Importing the kernel modules builds nothing and needs no nvcc."""
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.gemv import ops as gemv_ops
     assert ops._fn is None or torch.cuda.is_available()
-    assert build.source_path("paged_decode_attention").exists()
-    assert build.library_path("paged_decode_attention").parent == \
-        ROOT / "build" / "repro_torch_kernels"
+    assert ops._dense_fn is None or torch.cuda.is_available()
+    assert gemv_ops._fn is None or torch.cuda.is_available()
+    assert set(build.SOURCES) == {"paged_decode_attention",
+                                  "decode_attention", "gemv"}
+    for name in build.SOURCES:
+        assert build.source_path(name).exists()
+        assert build.library_path(name).parent == \
+            ROOT / "build" / "repro_torch_kernels"

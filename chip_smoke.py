@@ -30,10 +30,21 @@ result line when any phase fails or when no CUDA device is present):
    held against each other and (fp variants) against the model's own
    decode, launches per step must be exact; plus one full-width
    ``chunk_prefill_layer`` (C = 64) against 64 sequential decode steps and
-   a torch.profiler pass of the stream variant.
+   a torch.profiler pass of the stream variant;
+6. rwkv — kernel 4 (the WKV recurrence) against its plain version at the
+   reference test's shapes, the decode shape (4, 1, 64, 64) and a prefill
+   length (1, 512, 64, 64), timed at the last two (at the prefill length
+   beside the port's chunked form too); then full-width rwkv6-7b (32
+   layers, f32, random weights from seed 0, ~30 GB) served through
+   ``LPUEngine``: 8 prompts x 32 new tokens on 4 slots, exactly 32 kernel
+   launches per device decode step and none in prefill, a torch.profiler
+   pass, and a teacher-forced replay of the streams with the kernel and
+   with its plain version (logits within 1e-4, greedy tokens equal to the
+   plain oracle's argmax wherever its top-2 gap exceeds 1e-4).
 
 The last lines are a ``{"kernels": [...]}`` line, an ``{"engine": ...}``
-line, a ``{"chain": ...}`` line, the nvidia-smi line and
+line, a ``{"chain": ...}`` line, an ``{"rwkv": ...}`` line, the
+nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX: the port
 stands alone.
 """
@@ -252,13 +263,14 @@ def bound_for(nbytes, ops, op_dtype, card_name):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def timed(torch, fns, n_sets):
+def timed(torch, fns, n_sets, iters=None):
     """{"ms", "host_ms", ...} for each named function, as time_ms gives
-    them."""
+    them; ``iters`` ({name: (iters, warmup)}) shortens the slow ones."""
     out = {}
     for key, fn in fns.items():
-        out[key], out[key.replace("ms", "host_ms")] = time_ms(torch, fn,
-                                                              n_sets)
+        it, warm = (iters or {}).get(key, (200, 20))
+        out[key], out[key.replace("ms", "host_ms")] = time_ms(
+            torch, fn, n_sets, iters=it, warmup=warm)
     return out
 
 
@@ -585,7 +597,8 @@ def _counts():
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, paged_decode_attention)
     from repro_torch.kernels.gemv.ops import gemv
-    return gemv, paged_decode_attention, decode_attention
+    from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
+    return gemv, paged_decode_attention, decode_attention, rwkv_scan
 
 
 def _reset_counts():
@@ -594,9 +607,7 @@ def _reset_counts():
 
 
 def _read_counts():
-    gemv, paged, dense = _counts()
-    return {"gemv": gemv.launches, "paged_decode_attention": paged.launches,
-            "decode_attention": dense.launches}
+    return {fn.__name__: fn.launches for fn in _counts()}
 
 
 def run_chain(torch, ctx, cache0, tables, use_kernels, paged_kernel,
@@ -723,7 +734,7 @@ def run_chain_phase(torch, dev):
     ref, ref_gap = ctx["ref"], top2_gap(ctx["ref"])
     ref_arg = ref.argmax(-1)
     variants, logits_of, walls = {}, {}, {}
-    total = {"gemv": 0, "paged_decode_attention": 0, "decode_attention": 0}
+    total = dict.fromkeys(_read_counts(), 0)
     for name, kind, mode, w_dtype in CHAIN_VARIANTS:
         tables = None if kind == "dense" else ctx["tables"]
         cache0 = caches[kind]
@@ -734,8 +745,8 @@ def run_chain_phase(torch, dev):
             total[k] += counts[k]
         attn = "decode_attention" if kind == "dense" or mode == "gather" \
             else "paged_decode_attention"
-        want_counts = {"gemv": 4 * L * n_steps,
-                       "paged_decode_attention": 0, "decode_attention": 0}
+        want_counts = dict.fromkeys(counts, 0)
+        want_counts["gemv"] = 4 * L * n_steps
         want_counts[attn] = L * n_steps
         if counts != want_counts:
             raise AssertionError(f"chain {name}: launches {counts}, "
@@ -888,6 +899,300 @@ def chain_costs(torch, ctx, wall_stream):
             "per_step_weight_quantize_wall_ms": wall_ms(quantize)}
 
 
+# ---------------------------------------------------------------------------
+# rwkv6-7b at full width on kernel 4 (the WKV recurrence)
+# ---------------------------------------------------------------------------
+
+# kernel 4 against its plain version: the shapes of tests/test_kernels.py
+# (:71-72), the engine's decode shape (4 slots, 64 heads x 64) and a
+# prefill length
+RWKV_DECODE = (4, 1, 64, 64)
+RWKV_PREFILL = (1, 512, 64, 64)
+RWKV_CHECK_SHAPES = ((1, 16, 1, 8), (2, 64, 2, 16), (2, 32, 4, 32),
+                     RWKV_DECODE, RWKV_PREFILL)
+# f32 throughout; only the order of the sums differs from the plain version
+RWKV_TOL = 1e-4
+RWKV_SLOTS, RWKV_REQUESTS, RWKV_NEW = 4, 8, 32
+
+
+def rwkv_inputs(torch, dev, shape, seed):
+    """r, k, v, w, u, s0 with the distributions of the reference's kernel
+    test, and a nonzero s0."""
+    B, S, H, dh = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*sh):
+        return torch.randn(sh, generator=g, device=dev)
+    w = 0.8 + 0.199 * torch.rand((B, S, H, dh), generator=g, device=dev)
+    return (rnd(B, S, H, dh), 0.3 * rnd(B, S, H, dh), rnd(B, S, H, dh), w,
+            0.2 * rnd(H, dh), 0.1 * rnd(B, H, dh, dh))
+
+
+def rwkv_bound(shape, card_name):
+    """Least work of one call: r, k, v, w, u and s0 read once, y and the
+    final state written once; 7 f32 operations per state element per
+    step (the k.v outer product 1, the output 4, the update 2)."""
+    B, S, H, dh = shape
+    nbytes = 4 * (5 * B * S * H * dh + H * dh + 2 * B * H * dh * dh)
+    return bound_for(nbytes, 7 * B * S * H * dh * dh, "float32", card_name)
+
+
+def check_time_rwkv_scan(torch, dev, card_name):
+    """Kernel 4 against its plain version at every listed shape, then
+    timed at the decode and the prefill shape beside the plain version;
+    at the prefill shape also beside the port's chunked form
+    (``wkv_chunked``, the prefill path of ``time_mix_fwd``): no single
+    PyTorch call computes the recurrence, so that is the comparator."""
+    from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
+    from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_ref
+    from repro_torch.models.rwkv import wkv_chunked
+    errs, exact = {}, {}
+    for i, shape in enumerate(RWKV_CHECK_SHAPES):
+        args = rwkv_inputs(torch, dev, shape, seed=10 + i)
+        y, s = rwkv_scan(*args)
+        yr, sr = rwkv_scan_ref(*args)
+        torch.cuda.synchronize()
+        err = max((y - yr).abs().max().item(), (s - sr).abs().max().item())
+        ok = all(torch.isfinite(t).all() for t in (y, s)) and \
+            torch.allclose(y, yr, rtol=RWKV_TOL, atol=RWKV_TOL) and \
+            torch.allclose(s, sr, rtol=RWKV_TOL, atol=RWKV_TOL)
+        if not ok:
+            raise AssertionError(f"rwkv_scan {shape}: kernel vs plain beyond "
+                                 f"{RWKV_TOL} (max abs {err})")
+        key = "x".join(map(str, shape))
+        errs[key] = err
+        # the plain version repeats the kernel's order of rounding
+        exact[key] = bool(torch.equal(y, yr) and torch.equal(s, sr))
+    times = {}
+    for name, shape in (("decode", RWKV_DECODE), ("prefill", RWKV_PREFILL)):
+        args = rwkv_inputs(torch, dev, shape, seed=20)
+        per_set = 4 * sum(a.numel() for a in args)
+        sets = [tuple(a.clone() for a in args)
+                for _ in range(sets_for(per_set))]
+        fns = {"ms": lambda i: rwkv_scan(*sets[i]),
+               "plain_ms": lambda i: rwkv_scan_ref(*sets[i])}
+        slow = None
+        if name == "prefill":
+            fns["chunked_ms"] = lambda i: wkv_chunked(*sets[i])
+            slow = {"plain_ms": (3, 1), "chunked_ms": (50, 5)}
+        t = timed(torch, fns, len(sets), iters=slow)
+        t["bound_ms"], t["bound_by"] = rwkv_bound(shape, card_name)
+        t["shape"] = list(shape)
+        times[name] = t
+        del sets
+    return errs, exact, times
+
+
+def rwkv_model(torch, dev):
+    from repro_torch.compiler.mapper import plan_model
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.weights import _expected_shapes
+    cfg = get_config("rwkv6-7b")
+    plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
+                      remat="none", compute_dtype="float32",
+                      param_dtype="float32")
+    nbytes = 4 * sum(math.prod(s) for s in _expected_shapes(cfg, plan)
+                     .values())
+    print(f"[rwkv] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads x {cfg.rwkv.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}: f32 weights {nbytes / 1e9:.2f} GB",
+          flush=True)
+    model = build_model(cfg, plan, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    got = sum(t.numel() * t.element_size() for t in _leaves(params))
+    if got != nbytes:
+        raise AssertionError(f"weights hold {got} bytes, reckoned {nbytes}")
+    return cfg, model, params, nbytes, time.perf_counter() - t0
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def rwkv_serve(torch, dev, model, params, prompts, max_new):
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine
+    eng = LPUEngine(model, params, EngineConfig(slots=RWKV_SLOTS,
+                                                max_seq=512), device=dev)
+    outs = eng.generate(prompts, max_new_tokens=max_new)
+    torch.cuda.synchronize()
+    return outs, eng
+
+
+def rwkv_replay(torch, dev, model, params, prompts, outs, use_kernels):
+    """Teacher-forced replay of the engine's streams, all rows in one
+    batch (an rwkv state has no positions): each prompt prefilled at its
+    exact length into its row, then the stream's tokens fed one decode
+    step at a time.  -> (logits (new, rows, V_pad), prefill launches,
+    decode launches, decode ms per step)."""
+    from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
+    from repro_torch.serving.kv_cache import scatter_prefill_dense
+    n = len(prompts)
+    cache = model.init_cache(n, 1)
+    rows = []
+    rwkv_scan.launches = 0
+    for b, p in enumerate(prompts):
+        logits, pc = model.forward(
+            params, torch.tensor([p], device=dev), mode="prefill",
+            cache=model.init_cache(1, len(p)))
+        rows.append(logits[0, -1])
+        scatter_prefill_dense(cache, pc, b)
+    first = [torch.stack(rows)]
+    prefill_launches = rwkv_scan.launches
+    toks = torch.tensor(outs, device=dev).t()            # (new, rows)
+    pos = torch.zeros((n,), dtype=torch.int32, device=dev)
+    rwkv_scan.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(toks.shape[0] - 1):
+        logits, _ = model.forward(params, toks[t][:, None], mode="decode",
+                                  positions=pos, cache=cache,
+                                  use_kernels=use_kernels)
+        first.append(logits[:, -1])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (toks.shape[0] - 1) * 1e3
+    return torch.stack(first), prefill_launches, rwkv_scan.launches, ms
+
+
+def profile_rwkv(torch, dev, model, params, prompts, wall_s):
+    """Device time by kernel over the same engine run under
+    torch.profiler; busy share against the unprofiled run's wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rwkv_serve(torch, dev, model, params, prompts, RWKV_NEW)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not busy_us:
+        return None
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    wkv_us = sum(e.self_device_time_total for e in kernels
+                 if "wkv_kernel" in e.key)
+    return {"device_busy_ms": busy_us / 1e3,
+            "unprofiled_wall_ms": wall_s * 1e3,
+            "device_busy_share": busy_us / 1e6 / wall_s,
+            "wkv_kernel_ms": wkv_us / 1e3,
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def run_rwkv(torch, dev):
+    """Full-width rwkv6-7b (f32, random weights from seed 0) served by
+    ``LPUEngine``: 8 prompts of 2-64 tokens x 32 new tokens, 4 slots,
+    greedy.  Kernel 4 must launch exactly once per layer per device
+    decode step and never in prefill; the streams are replayed
+    teacher-forced with the kernel and with its plain version (the
+    oracle): logits within RWKV_TOL, and the engine's tokens equal the
+    oracle's argmax wherever its top-2 gap exceeds RWKV_TOL."""
+    import numpy as np
+    cfg, model, params, nbytes, init_s = rwkv_model(torch, dev)
+    rng = np.random.RandomState(0)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size,
+                                            size=rng.randint(2, 65))]
+               for _ in range(RWKV_REQUESTS)]
+    rwkv_serve(torch, dev, model, params, prompts[:2], 4)     # warm-up
+    _reset_counts()
+    outs, eng = rwkv_serve(torch, dev, model, params, prompts, RWKV_NEW)
+    counts = _read_counts()
+    st = eng.stats
+    want = {name: 0 for name in counts}
+    want["rwkv_scan"] = cfg.n_layers * st.device_decode_steps
+    if st.device_decode_steps == 0 or counts != want:
+        raise AssertionError(f"rwkv engine launches {counts}, expected "
+                             f"{want} ({cfg.n_layers} per device decode "
+                             "step, none in prefill)")
+    for o in outs:
+        if len(o) != RWKV_NEW or not all(0 <= t < cfg.vocab_size for t in o):
+            raise AssertionError(f"bad rwkv stream {o}")
+    profile = profile_rwkv(torch, dev, model, params, prompts, st.wall)
+
+    got, pre_k, dec_k, ms_k = rwkv_replay(torch, dev, model, params, prompts,
+                                          outs, True)
+    ref, pre_p, dec_p, ms_p = rwkv_replay(torch, dev, model, params, prompts,
+                                          outs, False)
+    steps = RWKV_NEW - 1
+    if pre_k or pre_p or dec_p or dec_k != cfg.n_layers * steps:
+        raise AssertionError(f"replay launches: prefill {pre_k}/{pre_p}, "
+                             f"decode {dec_k} (want {cfg.n_layers * steps})"
+                             f"/{dec_p} (want 0)")
+    if not torch.isfinite(got).all() or not torch.isfinite(ref).all():
+        raise AssertionError("rwkv replay: non-finite logits")
+    err = (got - ref).abs().max().item()
+    if err > RWKV_TOL:
+        raise AssertionError(f"rwkv replay: kernel vs plain max abs {err} "
+                             f"> {RWKV_TOL}")
+    # the model's own f32 noise floor at full depth, for the record: the
+    # same plain replay in two batches of 4 rows, where cuBLAS picks other
+    # f32 product kernels; the kernel and its plain version round alike
+    # (bit for bit), so the replay check above holds below this floor
+    halves = torch.cat([rwkv_replay(torch, dev, model, params, prompts[:4],
+                                    outs[:4], False)[0],
+                        rwkv_replay(torch, dev, model, params, prompts[4:],
+                                    outs[4:], False)[0]], 1)
+    floor_by_step = (halves - ref).abs().amax(dim=(1, 2)).tolist()
+    gap = top2_gap(ref)
+    decided = gap > RWKV_TOL
+    toks = torch.tensor(outs, device=dev).t()
+    ref_arg = ref.argmax(-1)
+    if not torch.equal(toks[decided], ref_arg[decided]) or \
+            not torch.equal(got.argmax(-1)[decided], ref_arg[decided]):
+        raise AssertionError("rwkv: greedy tokens differ from the plain "
+                             "oracle's argmax where its top-2 gap exceeds "
+                             f"{RWKV_TOL}")
+
+    # the model's decode step at the engine's batch, on its own
+    cache = model.init_cache(RWKV_SLOTS, 1)
+    tok = torch.ones((RWKV_SLOTS, 1), dtype=torch.long, device=dev)
+    pos = torch.zeros((RWKV_SLOTS,), dtype=torch.int32, device=dev)
+    model.forward(params, tok, mode="decode", positions=pos, cache=cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        model.forward(params, tok, mode="decode", positions=pos, cache=cache)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 16 * 1e3
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "heads": cfg.n_heads,
+            "head_dim": cfg.rwkv.head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "dtype": "float32",
+            "weight_bytes": nbytes, "init_s": init_s,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "slots": RWKV_SLOTS, "requests": len(prompts),
+            "prompt_lens": [len(p) for p in prompts], "max_new": RWKV_NEW,
+            "tokens": st.tokens, "tokens_per_s": st.tokens_per_s,
+            "wall_s": st.wall, "decode_steps": st.steps,
+            "device_decode_steps": st.device_decode_steps,
+            "prefills": st.prefills, "state_bytes": eng.kv_cache_bytes(),
+            "launches": counts,
+            "launches_per_device_decode_step":
+                counts["rwkv_scan"] / st.device_decode_steps,
+            "decode_step_ms_b4": step_ms,
+            "replay": {"rows": len(prompts), "steps": steps,
+                       "kernel_ms_per_step": ms_k,
+                       "plain_ms_per_step": ms_p,
+                       "decode_launches_kernel": dec_k,
+                       "max_abs_err_vs_plain": err, "tol": RWKV_TOL,
+                       "bit_equal": bool(torch.equal(got, ref)),
+                       "plain_b8_vs_2xb4_max_abs": max(floor_by_step),
+                       "plain_b8_vs_2xb4_by_step": floor_by_step,
+                       "argmax_checked": int(decided.sum()),
+                       "argmax_total": int(decided.numel()),
+                       "ref_logit_std": ref.std().item(),
+                       "ref_top2_gap_min": gap.min().item()},
+            "profile": profile}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -944,6 +1249,23 @@ def main() -> int:
         print(f"[chain] {name}: {rec['ms_per_step']:.2f} ms/step, "
               f"{rec['tokens_per_s']:.1f} tok/s, kernels vs plain "
               f"{rec['max_abs_err_vs_plain']:.3g}")
+
+    # the rwkv phase needs ~31 GB: free what the earlier phases hold
+    del ctx
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rwkv_errs, rwkv_exact, rwkv_t = check_time_rwkv_scan(torch, dev, smi)
+    print(f"[kernel] rwkv_scan vs plain: {rwkv_errs}; bit-equal: "
+          f"{rwkv_exact}")
+    for name, t in rwkv_t.items():
+        print(f"[kernel] rwkv_scan {name} timing: {t}")
+    rwkv = run_rwkv(torch, dev)
+    print(f"[rwkv] {rwkv['tokens']} tokens, {rwkv['tokens_per_s']:.1f} "
+          f"tok/s, {rwkv['device_decode_steps']} device decode steps, "
+          f"{rwkv['launches_per_device_decode_step']:.0f} rwkv_scan launches "
+          f"per step, decode step {rwkv['decode_step_ms_b4']:.2f} ms at "
+          f"{RWKV_SLOTS} rows, replay kernel vs plain max abs "
+          f"{rwkv['replay']['max_abs_err_vs_plain']:.3g}")
 
     def src(name):
         return os.path.relpath(build.source_path(name), HERE)
@@ -1006,10 +1328,35 @@ def main() -> int:
         "library_ms": sum(c["library_ms"] for c in f32_calls),
         "unit": "sum of the 4 gemvs of one layer, float32, B=4",
         "per_call": gemv_calls,
+    }, {
+        "name": "rwkv_scan", "route": "cuda", "source": src("rwkv_scan"),
+        "replaces": "src/repro/kernels/rwkv_scan/rwkv_scan.py:50",
+        "ok": True, "launches": rwkv["launches"]["rwkv_scan"],
+        "launches_by_path": {"rwkv_engine": rwkv["launches"]["rwkv_scan"],
+                             "rwkv_replay_kernel":
+                                 rwkv["replay"]["decode_launches_kernel"]},
+        "max_abs_err": max(rwkv_errs.values()),
+        "max_abs_err_by_shape": rwkv_errs,
+        "bit_equal_by_shape": rwkv_exact,
+        # at the engine's decode shape; no PyTorch call computes the
+        # recurrence, so library_ms is null
+        "ms": rwkv_t["decode"]["ms"], "plain_ms": rwkv_t["decode"]["plain_ms"],
+        "bound_ms": rwkv_t["decode"]["bound_ms"],
+        "bound_by": rwkv_t["decode"]["bound_by"], "library_ms": None,
+        "host_ms": rwkv_t["decode"]["host_ms"],
+        "plain_host_ms": rwkv_t["decode"]["plain_host_ms"],
+        "shapes": {"B": RWKV_DECODE[0], "S": RWKV_DECODE[1],
+                   "H": RWKV_DECODE[2], "dh": RWKV_DECODE[3],
+                   "dtype": "float32"},
+        "prefill": dict(rwkv_t["prefill"],
+                        comparator="chunked_ms: the port's wkv_chunked "
+                                   "(plain PyTorch), time_mix_fwd's "
+                                   "prefill path"),
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"engine": engine}))
     print(json.dumps({"chain": chain}))
+    print(json.dumps({"rwkv": rwkv}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -34,14 +34,18 @@ def plan_model(cfg: ArchConfig,
         raise NotImplementedError(
             "plan_model: tensor parallelism (mesh_axes) arrives with the "
             "port's tp slice; only mesh_axes=None (tp=1) is supported")
-    if cfg.moe is not None or cfg.family not in ("dense",):
+    if cfg.moe is not None or cfg.family not in ("dense", "rwkv"):
         raise NotImplementedError(
             f"plan_model: family {cfg.family!r} arrives with its own "
-            "slice of the port; only dense decoders are planned here")
+            "slice of the port; dense decoders and rwkv are planned here")
     if param_dtype is None:
         param_dtype = "float32" if mode == "train" else "bfloat16"
     tp = 1
-    attn = plan_attention(cfg.n_heads, cfg.n_kv_heads, cfg.d_head, tp)
+    if cfg.family == "rwkv":
+        # attention-free, but time-mix is head-structured: plan its heads
+        attn = plan_attention(cfg.n_heads, cfg.n_heads, cfg.rwkv.head_dim, tp)
+    else:
+        attn = plan_attention(cfg.n_heads, cfg.n_kv_heads, cfg.d_head, tp)
     d_ff_padded = _ceil_to(cfg.d_ff, max(tp * 8, LANE))
     vocab_padded = _ceil_to(cfg.vocab_size, max(tp * LANE, LANE))
     return PhysicalPlan(

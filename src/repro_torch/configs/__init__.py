@@ -7,12 +7,13 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import smollm_135m
+from repro_torch.configs import rwkv6_7b, smollm_135m
 from repro_torch.configs.base import ArchConfig
 
-REGISTRY: Dict[str, ArchConfig] = {c.name: c for c in [smollm_135m.CONFIG]}
+REGISTRY: Dict[str, ArchConfig] = {
+    c.name: c for c in [smollm_135m.CONFIG, rwkv6_7b.CONFIG]}
 
-ALIASES = {"smollm": "smollm-135m"}
+ALIASES = {"smollm": "smollm-135m", "rwkv6": "rwkv6-7b"}
 
 
 def get_config(name: str) -> ArchConfig:

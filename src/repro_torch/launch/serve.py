@@ -4,9 +4,14 @@ and run the engine on a batch of random prompts.
     python -m repro_torch.launch.serve                      # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+        --reduced --device cpu
+
 Runs on the CUDA device unless ``--device cpu`` is given (and fails when
 there is none).  Prints the reference driver's stats lines plus the
-paged kernel's launch count.
+launch count of the family's decode kernel: the paged decode attention
+(dense decoders) or the WKV recurrence (rwkv), 0 on the CPU, where the
+plain versions run.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from repro_torch.compiler.mapper import plan_model
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
 from repro_torch.models.registry import build_model
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.engine import LPUEngine
@@ -93,7 +99,8 @@ def main(argv=None):
                                 size=rng.randint(2, 10)))
                for _ in range(args.requests)]
     sp = SamplingParams(args.temperature, args.top_k, args.top_p)
-    paged_decode_attention.launches = 0
+    kernel = rwkv_scan if cfg.family == "rwkv" else paged_decode_attention
+    kernel.launches = 0
     outs = engine.generate(prompts, max_new_tokens=args.max_new, params=sp)
     mode = f"paged/{engine.paged_kernel}" if engine.paged else "dense"
     st = engine.stats
@@ -114,8 +121,7 @@ def main(argv=None):
           f"{st.bytes_to_host_per_token:.1f} B->host/token, "
           f"overrun={st.overrun_tokens}, "
           f"block_s={engine.decode_block_s()}")
-    print(f"[serve] paged_decode_attention kernel launches="
-          f"{paged_decode_attention.launches} "
+    print(f"[serve] {kernel.__name__} kernel launches={kernel.launches} "
           f"(device decode steps {st.device_decode_steps} x "
           f"{cfg.n_layers} layers)")
     for i, o in enumerate(outs[:4]):

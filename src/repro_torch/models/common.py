@@ -101,8 +101,17 @@ class _Init:
         return self.normal(shape, scale / math.sqrt(max(fan_in, 1))
                            ).to(self.dtype)
 
+    def uniform(self, shape, scale: float) -> torch.Tensor:
+        """InitCtx.param(init="uniform"): U(-scale, scale)."""
+        u = torch.rand(shape, generator=self.gen, device=self.device,
+                       dtype=torch.float32)
+        return ((2 * u - 1) * scale).to(self.dtype)
+
     def ones(self, shape) -> torch.Tensor:
         return torch.ones(shape, device=self.device, dtype=self.dtype)
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(shape, device=self.device, dtype=self.dtype)
 
     def heads(self, shape, std: float, orig, axis: int) -> torch.Tensor:
         """A stored-head weight: logical heads drawn, then placed along
@@ -137,20 +146,62 @@ def _init_mlp(ini: _Init, cfg, plan) -> Params:
             "wd": ini.param((ff, D))}
 
 
-def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
-    """Random weights for a dense decoder, drawn from a ``torch.Generator``
-    seeded with ``seed`` on ``device`` (``cuda`` unless the caller asks
-    for the CPU, as every entry point of the port).
+def _init_norm(ini: _Init, D: int, kind: str) -> Params:
+    p = {"scale": ini.ones((D,))}
+    if kind == "layernorm":
+        p["bias"] = ini.zeros((D,))
+    return p
 
-    Shapes, stored layouts and standard deviations follow the
-    reference's ``InitCtx.param``/``param_from`` (tied embedding
+
+def _init_time_mix(ini: _Init, cfg, plan) -> Params:
+    """The reference's ``rwkv.init_time_mix`` (tp=1: the padded head width
+    is the model's)."""
+    r, D = cfg.rwkv, cfg.d_model
+    dproj = plan.attn.hp * r.head_dim
+    p: Params = {"mu_x": ini.uniform((D,), 0.5)}
+    for nm in ("r", "k", "v", "g", "w"):
+        p[f"mu_{nm}"] = ini.uniform((D,), 0.5)
+    p["mix_w1"] = ini.param((D, 5 * r.mix_lora))
+    p["mix_w2"] = ini.param((5, r.mix_lora, D), scale=0.1)
+    for nm in ("r", "k", "v", "g"):
+        p[f"w_{nm}"] = ini.param((D, dproj))
+    p["w_o"] = ini.param((dproj, D))
+    p["decay_w0"] = ini.uniform((dproj,), 1.0)
+    p["decay_w1"] = ini.param((D, r.decay_lora))
+    p["decay_w2"] = ini.param((r.decay_lora, dproj), scale=0.1)
+    p["bonus_u"] = ini.uniform((dproj,), 0.5)
+    p["ln_x"] = ini.ones((dproj,))
+    return p
+
+
+def _init_channel_mix(ini: _Init, cfg, plan) -> Params:
+    """The reference's ``rwkv.init_channel_mix``."""
+    D, ff = cfg.d_model, plan.d_ff_padded
+    return {"mu_k": ini.uniform((D,), 0.5), "mu_r": ini.uniform((D,), 0.5),
+            "w_k": ini.param((D, ff)), "w_v": ini.param((ff, D)),
+            "w_r": ini.param((D, D))}
+
+
+def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
+    """Random weights for a dense decoder or an rwkv stack, drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (``cuda``
+    unless the caller asks for the CPU, as every entry point of the
+    port).
+
+    Shapes, stored layouts and init laws follow the reference's
+    ``InitCtx.param``/``param_from`` (dense: tied embedding
     (vocab_padded, D), wq (D, hp, dh), wk/wv (D, gp, dh), wo (hp, dh, D),
-    norm scales of one), with decoder layers stacked on a leading
-    super-block axis; the numbers differ from the reference's."""
-    if cfg.family != "dense" or cfg.moe is not None:
+    norm scales of one; rwkv: untied ``embed_in`` (vocab, D) and ``head``
+    (D, vocab_padded), layernorm scale and bias, ``tmix``/``cmix`` with
+    uniform ``mu_*``, ``decay_w0`` and ``bonus_u``), with decoder layers
+    stacked on a leading super-block axis; the numbers differ from the
+    reference's.  Layers are drawn one by one into the stacked tensors,
+    so the peak is the model plus one layer."""
+    if cfg.family not in ("dense", "rwkv") or cfg.moe is not None:
         raise NotImplementedError(
             f"init_params: family {cfg.family!r} arrives with its own slice")
-    if cfg.qkv_bias or cfg.norm != "rmsnorm" or not cfg.mlp_gated:
+    if cfg.family == "dense" and (cfg.qkv_bias or cfg.norm != "rmsnorm"
+                                  or not cfg.mlp_gated):
         raise NotImplementedError(
             "init_params covers the llama-style decoder (no qkv bias, "
             "rmsnorm, gated MLP) of this slice")
@@ -162,18 +213,45 @@ def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
     else:
         params["embed_in"] = ini.param((cfg.vocab_size, D))
         params["head"] = ini.param((D, plan.vocab_padded))
-    layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({"ln1": {"scale": ini.ones((D,))},
-                       "attn": _init_attention(ini, cfg, plan),
-                       "ln2": {"scale": ini.ones((D,))},
-                       "mlp": _init_mlp(ini, cfg, plan)})
-    params["blocks"] = {"l0": _stack(layers)}
-    params["ln_f"] = {"scale": ini.ones((D,))}
+
+    if cfg.family == "rwkv":
+        def layer():
+            return {"ln1": _init_norm(ini, D, cfg.norm),
+                    "tmix": _init_time_mix(ini, cfg, plan),
+                    "ln2": _init_norm(ini, D, cfg.norm),
+                    "cmix": _init_channel_mix(ini, cfg, plan)}
+    else:
+        def layer():
+            return {"ln1": {"scale": ini.ones((D,))},
+                    "attn": _init_attention(ini, cfg, plan),
+                    "ln2": {"scale": ini.ones((D,))},
+                    "mlp": _init_mlp(ini, cfg, plan)}
+    params["blocks"] = {"l0": _stacked(cfg.n_layers, layer)}
+    params["ln_f"] = _init_norm(ini, D, cfg.norm)
     return params
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees, 0)
+def _stacked(n: int, make) -> Params:
+    """``n`` trees from ``make()``, stacked leaf by leaf on a new leading
+    axis; each tree is written into the stack as soon as it is drawn."""
+    first = make()
+
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                           device=t.device)
+
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        else:
+            dst[i] = src
+
+    out = alloc(first)
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, make(), i)
+    return out

@@ -1,10 +1,12 @@
-"""Decoder-only LM assembly for the dense family at tp=1.
+"""Decoder-only LM assembly for the dense and rwkv families at tp=1.
 
 Parameters keep the reference's layout: decoder layers stacked on a
 leading super-block axis (``params["blocks"]["l0"]``), which the
 reference scans and this port loops over.  Decode updates the KV cache
 in place layer by layer (the reference threads it through the scan
-carry and scatters the new rows in ``_scatter_cache_updates``).
+carry and scatters the new rows in ``_scatter_cache_updates``); an rwkv
+layer overwrites its recurrent state (shifts and WKV matrix) in place,
+every row of the batch, as the reference's whole-slice update does.
 """
 from __future__ import annotations
 
@@ -15,13 +17,14 @@ import torch
 from repro_torch.device import dtype_of
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import apply_norm
 
 Params = Dict[str, Any]
 
 
 def super_block_size(cfg) -> int:
-    if cfg.family != "dense" or cfg.moe is not None:
+    if cfg.family not in ("dense", "rwkv") or cfg.moe is not None:
         raise NotImplementedError(
             f"family {cfg.family!r} arrives with its own slice of the port")
     return 1
@@ -59,9 +62,13 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
                 positions: torch.Tensor, mode: str,
                 cache: Optional[Params] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                paged_kernel: str = "stream", block_s: int = 0
-                ) -> torch.Tensor:
-    """Attention + MLP of one decoder layer (pre-norm, residual)."""
+                paged_kernel: str = "stream", block_s: int = 0,
+                use_kernels: bool = True) -> torch.Tensor:
+    """Attention + MLP of one decoder layer (pre-norm, residual), or time
+    mix + channel mix of one rwkv layer."""
+    if cfg.family == "rwkv":
+        return _apply_rwkv_layer(p, x, cfg=cfg, plan=plan, mode=mode,
+                                 cache=cache, use_kernels=use_kernels)
     h_in = apply_norm(p["ln1"], x, cfg.norm)
     if mode == "decode":
         h = attn_mod.decode_attention(
@@ -83,13 +90,43 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
     return x + mlp_mod.mlp_fwd(p["mlp"], h_in, cfg=cfg, plan=plan)
 
 
+def _apply_rwkv_layer(p: Params, x: torch.Tensor, *, cfg, plan, mode: str,
+                      cache: Optional[Params], use_kernels: bool
+                      ) -> torch.Tensor:
+    """One rwkv layer; with a cache (prefill, decode) its state leaves
+    ``shift_t``, ``shift_c`` and ``wkv`` are overwritten in place."""
+    if mode not in ("train", "prefill", "decode"):
+        raise NotImplementedError(
+            f"mode={mode!r}: an rwkv stack has no paged pool (chunked "
+            "prefill and verify run against one)")
+    st = None
+    if cache is not None:
+        st = {"shift": cache["shift_t"], "wkv": cache["wkv"]}
+    h, st2 = rwkv_mod.time_mix_fwd(p["tmix"], apply_norm(p["ln1"], x,
+                                                         cfg.norm),
+                                   cfg=cfg, plan=plan, state=st,
+                                   use_kernels=use_kernels)
+    x = x + h
+    st_c = cache["shift_c"] if cache is not None else None
+    h, st_c2 = rwkv_mod.channel_mix_fwd(p["cmix"], apply_norm(p["ln2"], x,
+                                                             cfg.norm),
+                                        cfg=cfg, plan=plan, state=st_c)
+    if cache is not None:
+        cache["shift_t"].copy_(st2["shift"])
+        cache["wkv"].copy_(st2["wkv"])
+        cache["shift_c"].copy_(st_c2)
+    return x + h
+
+
 def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
             mode: str = "train",
             positions: Optional[torch.Tensor] = None,
             cache: Optional[Params] = None,
             block_tables: Optional[torch.Tensor] = None,
             paged_kernel: str = "stream",
-            block_s: int = 0) -> Tuple[torch.Tensor, Optional[Params]]:
+            block_s: int = 0,
+            use_kernels: bool = True) -> Tuple[torch.Tensor,
+                                               Optional[Params]]:
     """Shared forward in the train/prefill/decode modes.
 
     ``cache`` ({"l0": {"k","v": (n_sb, ...)}}) is updated in place:
@@ -98,10 +135,19 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
     ``positions``: (B,S) for train/prefill (default arange), (B,) for
     decode.  ``paged_kernel`` is the resolved paged dataflow, ``"stream"``
     or ``"gather"`` (resolve ``"auto"`` with ``resolve_paged_kernel``
-    once, as the engine does).  Returns (logits (B,S,V_pad), cache)."""
+    once, as the engine does).  An rwkv stack's cache is {"l0":
+    {"shift_t","shift_c","wkv"}}, overwritten in place; its positions are
+    unused, and ``use_kernels=False`` runs its decode recurrence on the
+    plain version of the WKV kernel (the oracle; attention layers pick
+    their kernel with ``paged_kernel``).  Returns (logits (B,S,V_pad),
+    cache)."""
     if paged_kernel not in ("stream", "gather"):
         raise ValueError(f"paged_kernel={paged_kernel!r}: pass the resolved "
                          "dataflow, 'stream' or 'gather'")
+    if not use_kernels and cfg.family != "rwkv":
+        raise ValueError("use_kernels=False switches the rwkv recurrence; "
+                         "attention layers take their plain path with "
+                         "paged_kernel='gather'")
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
@@ -114,6 +160,7 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
         x = apply_layer(layer_params(params, i)["l0"], x, cfg=cfg, plan=plan,
                         positions=positions, mode=mode, cache=layer_cache,
                         block_tables=block_tables,
-                        paged_kernel=paged_kernel, block_s=block_s)
+                        paged_kernel=paged_kernel, block_s=block_s,
+                        use_kernels=use_kernels)
     x = apply_norm(params["ln_f"], x, cfg.norm)
     return lm_logits(params, x, cfg, plan), cache

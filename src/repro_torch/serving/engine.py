@@ -6,6 +6,10 @@ reference's ``serving/engine.py`` ``LPUEngine``).
 * **Scheduler** — a fixed decode batch of ``slots``; queued requests are
   admitted at step boundaries (:class:`repro_torch.serving.scheduler.
   Scheduler`), finished sequences release their slot and blocks.
+* **Families** — the dense decoder (paged or dense KV) and the
+  attention-free rwkv stack, whose per-slot recurrent state lives in the
+  dense cache (``supports_paged_kv`` is False) and is replaced wholesale
+  when a slot is admitted; its decode recurrence runs on the WKV kernel.
 * **KV cache** — paged by default: a shared pool of fixed-size blocks
   with per-request block tables.  Decode **streams** KV tiles straight
   from the pool through the hand-written paged decode-attention kernel
@@ -14,8 +18,10 @@ reference's ``serving/engine.py`` ``LPUEngine``).
   Unlike the reference's functional cache, the pool is updated **in
   place**: each layer's kernel reads the pool, folds in the new token,
   and only then is the new row scattered.
-* **Prefill** — per request at batch 1, padded to power-of-two buckets;
-  the resulting KV is copied into the pool (or the slot's dense region).
+* **Prefill** — per request at batch 1, padded to power-of-two buckets
+  (a recurrent family prefills at the exact prompt length: padded tokens
+  would fold into its state); the resulting cache is copied into the pool
+  (or the slot's dense region).
 * **Preemption** — when the pool is exhausted the newest sequence is
   evicted and re-prefilled later (recompute).
 * **Fused sampling** — by default the sampler runs on the device after
@@ -661,7 +667,11 @@ class LPUEngine:
     def kv_bytes_moved_per_step(self) -> int:
         """Analytic KV bytes moved per decode step: the resident span V
         for the dense and streamed paths, 3V for the gather oracle (read
-        the pool, write the view, read the view back)."""
+        the pool, write the view, read the view back).  A recurrent
+        family's state is read whole and written whole every step: twice
+        its bytes."""
+        if self.cfg.family == "rwkv":
+            return 2 * self.kv_cache_bytes()
         a = self.plan.attn
         row = self.kv_prec.bytes_per_row_head(a.d_head)
         v = 2 * self.cfg.n_layers * self.slots * self.table_len \

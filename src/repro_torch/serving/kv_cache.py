@@ -130,7 +130,8 @@ def assert_pool_balanced(pool: BlockPool) -> None:
 # ---------------------------------------------------------------------------
 
 def cache_bytes(cache: Params) -> int:
-    """Total bytes of a KV cache tree (dense slot cache or block pool)."""
+    """Total bytes of a cache tree (dense slot cache, block pool, or an
+    rwkv stack's recurrent state)."""
     if isinstance(cache, dict):
         return sum(cache_bytes(v) for v in cache.values())
     return cache.numel() * cache.element_size()
@@ -157,12 +158,17 @@ def scatter_prefill_pages(cache: Params, prefill_cache: Params,
 
 def scatter_prefill_dense(cache: Params, prefill_cache: Params,
                           slot: int) -> None:
-    """Copy a batch=1 prefill cache into one slot of the dense cache
-    (sequence prefix of the slot), in place."""
+    """Copy a batch=1 prefill cache into one slot of the dense cache, in
+    place.  KV leaves ("k"/"v") fill the sequence prefix of the slot;
+    recurrent-state leaves (rwkv shift/wkv) replace the slot's state
+    wholesale."""
     for lj, c in cache.items():
         for key, tgt in c.items():
             dn = prefill_cache[lj][key]
-            tgt[:, slot, :dn.shape[2]] = dn[:, 0].to(tgt.dtype)
+            if key in ("k", "v"):
+                tgt[:, slot, :dn.shape[2]] = dn[:, 0].to(tgt.dtype)
+            else:
+                tgt[:, slot] = dn[:, 0].to(tgt.dtype)
 
 
 def scatter_chunk_rows(pages: torch.Tensor, rows: torch.Tensor,

@@ -5,7 +5,9 @@ stored-layout parameter tree — converted to numpy by the caller, so this
 module imports no JAX — into the port's tensors, leaf for leaf.  The
 layouts are the same in both packages: decoder layers stacked on a
 leading super-block axis under ``blocks``; wq (D, hp, dh), wk/wv
-(D, gp, dh), wo (hp, dh, D); the tied ``embed`` (vocab_padded, D).
+(D, gp, dh), wo (hp, dh, D); the tied ``embed`` (vocab_padded, D); for
+rwkv the untied ``embed_in`` (vocab, D) and ``head`` (D, vocab_padded)
+and the ``tmix``/``cmix`` leaves of ``models/rwkv.py`` there.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ Params = Dict[str, Any]
 def _expected_shapes(cfg, plan) -> Dict[str, tuple]:
     a, D, L = plan.attn, cfg.d_model, n_super_blocks(cfg)
     ff = plan.d_ff_shard * plan.tp
+    if cfg.family == "rwkv":
+        return _rwkv_shapes(cfg, plan)
     return {
         "embed": (plan.vocab_padded, D),
         "blocks/l0/attn/wq": (L, D, a.hp, a.d_head),
@@ -35,6 +39,32 @@ def _expected_shapes(cfg, plan) -> Dict[str, tuple]:
         "blocks/l0/ln2/scale": (L, D),
         "ln_f/scale": (D,),
     }
+
+
+def _rwkv_shapes(cfg, plan) -> Dict[str, tuple]:
+    r, D, L = cfg.rwkv, cfg.d_model, n_super_blocks(cfg)
+    dproj, ff = plan.attn.hp * r.head_dim, plan.d_ff_padded
+    tm, cm = "blocks/l0/tmix/", "blocks/l0/cmix/"
+    want = {"embed_in": (cfg.vocab_size, D), "head": (D, plan.vocab_padded),
+            "ln_f/scale": (D,), "ln_f/bias": (D,),
+            tm + "mix_w1": (L, D, 5 * r.mix_lora),
+            tm + "mix_w2": (L, 5, r.mix_lora, D),
+            tm + "w_o": (L, dproj, D),
+            tm + "decay_w1": (L, D, r.decay_lora),
+            tm + "decay_w2": (L, r.decay_lora, dproj),
+            cm + "w_k": (L, D, ff), cm + "w_v": (L, ff, D),
+            cm + "w_r": (L, D, D)}
+    for ln in ("ln1", "ln2"):
+        want[f"blocks/l0/{ln}/scale"] = want[f"blocks/l0/{ln}/bias"] = (L, D)
+    for nm in ("x", "r", "k", "v", "g", "w"):
+        want[tm + f"mu_{nm}"] = (L, D)
+    for nm in ("r", "k", "v", "g"):
+        want[tm + f"w_{nm}"] = (L, D, dproj)
+    for nm in ("decay_w0", "bonus_u", "ln_x"):
+        want[tm + nm] = (L, dproj)
+    for nm in ("mu_k", "mu_r"):
+        want[cm + nm] = (L, D)
+    return want
 
 
 def params_from_jax(tree: Params, cfg, plan, device) -> Params:

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card:
 paged decode attention (fp, int8 and fp8 pools), dense decode attention,
-the decode GEMV, and one streamlined decode layer with kernels vs plain.
+the decode GEMV, one streamlined decode layer with kernels vs plain, and
+the WKV recurrence.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test, never at import).  On a machine with a card:
@@ -14,6 +15,8 @@ from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
                                                       paged_decode_attention_ref)
 from repro_torch.kernels.gemv import ops as gemv_ops
 from repro_torch.kernels.gemv.ref import gemv_ref
+from repro_torch.kernels.rwkv_scan import ops as rwkv_ops
+from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_ref
 from repro_torch.serving.kv_cache import quantize_kv_rows
 
 pytestmark = pytest.mark.cuda
@@ -178,3 +181,46 @@ def test_decode_layer_kernels_match_plain(dev):
                                        paged_kernel="stream")
     torch.testing.assert_close(outs[True], outs[False], rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 1, 8), (2, 64, 2, 16),
+                                   (2, 32, 4, 32), (4, 1, 64, 64),
+                                   (1, 37, 3, 64), (2, 5, 2, 100),
+                                   (1, 3, 2, 128)])
+def test_rwkv_scan_kernel_matches_plain(dev, shape):
+    """Kernel 4 against its plain version: the reference test's shapes,
+    the decode shape, an odd S, and dh off the template widths."""
+    B, S, H, dh = shape
+    g = torch.Generator(device=dev).manual_seed(4)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    w = 0.8 + 0.199 * torch.rand((B, S, H, dh), generator=g, device=dev)
+    args = (r(B, S, H, dh), 0.3 * r(B, S, H, dh), r(B, S, H, dh), w,
+            0.2 * r(H, dh), 0.1 * r(B, H, dh, dh))
+    before = rwkv_ops.rwkv_scan.launches
+    y, s = rwkv_ops.rwkv_scan(*args)
+    torch.cuda.synchronize()
+    assert rwkv_ops.rwkv_scan.launches == before + 1
+    yr, sr = rwkv_scan_ref(*args)
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, sr, rtol=1e-4, atol=1e-4)
+    # the plain version repeats the kernel's order of rounding: same bits
+    assert torch.equal(y, yr) and torch.equal(s, sr)
+    # deterministic: a second launch gives the same bits
+    y2, s2 = rwkv_ops.rwkv_scan(*args)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+def test_rwkv_scan_kernel_refuses_what_it_cannot_run(dev):
+    args = [torch.zeros(shape, device=dev) for shape in
+            ((1, 2, 1, 8),) * 4 + ((1, 8), (1, 1, 8, 8))]
+    with pytest.raises(TypeError):
+        rwkv_ops.rwkv_scan(*[a.double() for a in args])
+    with pytest.raises(ValueError):
+        rwkv_ops.rwkv_scan(torch.zeros((1, 8, 1, 2), device=dev)
+                           .permute(0, 3, 2, 1), *args[1:])
+    with pytest.raises(ValueError):
+        rwkv_ops.rwkv_scan(*args[:5], torch.zeros((1, 1, 8, 4), device=dev))
+    big = [torch.zeros((1, 1, 1, 129), device=dev)] * 4
+    with pytest.raises(ValueError):
+        rwkv_ops.rwkv_scan(*big, torch.zeros((1, 129), device=dev),
+                           torch.zeros((1, 1, 129, 129), device=dev))

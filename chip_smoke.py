@@ -40,16 +40,31 @@ result line when any phase fails or when no CUDA device is present):
    launches per device decode step and none in prefill, a torch.profiler
    pass, and a teacher-forced replay of the streams with the kernel and
    with its plain version (logits within 1e-4, greedy tokens equal to the
-   plain oracle's argmax wherever its top-2 gap exceeds 1e-4).
+   plain oracle's argmax wherever its top-2 gap exceeds 1e-4);
+7. jamba — after the rwkv phase's model is freed: kernel 5 (the
+   selective scan) against its plain version at the reference test's
+   shapes, the decode shape (4, 1, 8192, 16) and the prefill shapes
+   (1, 64, 8192, 16) and (1, 512, 8192, 16), timed at the last three;
+   then jamba-v0.1-52b at full width, its depth cut from 32 layers to one
+   super-block of 8 (attention at index 4, mamba at the other seven, MoE
+   on the odd layers; 13.3e9 parameters, 53 GB in f32: the full depth
+   does not fit the card), random weights from seed 0, served through
+   ``LPUEngine`` from the dense cache: 8 prompts x 32 new tokens on 4
+   slots, exactly 7 kernel launches per device decode step and per
+   prefill, a torch.profiler pass, and a teacher-forced replay of the
+   streams in the engine's batching with the kernel and with its plain
+   version (logits within 1e-4, greedy tokens equal to the plain
+   oracle's argmax wherever its top-2 gap exceeds 1e-4).
 
 The last lines are a ``{"kernels": [...]}`` line, an ``{"engine": ...}``
-line, a ``{"chain": ...}`` line, an ``{"rwkv": ...}`` line, the
-nvidia-smi line and
+line, a ``{"chain": ...}`` line, an ``{"rwkv": ...}`` line, a
+``{"jamba": ...}`` line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX: the port
 stands alone.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -597,8 +612,10 @@ def _counts():
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, paged_decode_attention)
     from repro_torch.kernels.gemv.ops import gemv
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
     from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
-    return gemv, paged_decode_attention, decode_attention, rwkv_scan
+    return gemv, paged_decode_attention, decode_attention, rwkv_scan, \
+        mamba_scan
 
 
 def _reset_counts():
@@ -1017,11 +1034,14 @@ def _leaves(tree):
             yield v
 
 
-def rwkv_serve(torch, dev, model, params, prompts, max_new):
+def serve_dense(torch, dev, model, params, prompts, max_new, slots=4,
+                max_seq=512):
+    """The engine on the dense per-slot cache (a recurrent family's
+    default), greedy; -> (streams, engine)."""
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import LPUEngine
-    eng = LPUEngine(model, params, EngineConfig(slots=RWKV_SLOTS,
-                                                max_seq=512), device=dev)
+    eng = LPUEngine(model, params, EngineConfig(slots=slots,
+                                                max_seq=max_seq), device=dev)
     outs = eng.generate(prompts, max_new_tokens=max_new)
     torch.cuda.synchronize()
     return outs, eng
@@ -1062,26 +1082,30 @@ def rwkv_replay(torch, dev, model, params, prompts, outs, use_kernels):
     return torch.stack(first), prefill_launches, rwkv_scan.launches, ms
 
 
-def profile_rwkv(torch, dev, model, params, prompts, wall_s):
-    """Device time by kernel over the same engine run under
-    torch.profiler; busy share against the unprofiled run's wall."""
+def profile_serve(torch, dev, model, params, prompts, max_new, wall_s,
+                  kernel, **serve_kw):
+    """Device time by kernel over the same engine run (``serve_dense``
+    with ``serve_kw``) under torch.profiler; busy share against the
+    unprofiled run's wall; the time and launches of the kernels whose
+    name holds ``kernel``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        rwkv_serve(torch, dev, model, params, prompts, RWKV_NEW)
+        serve_dense(torch, dev, model, params, prompts, max_new, **serve_kw)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us:
         return None
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    wkv_us = sum(e.self_device_time_total for e in kernels
-                 if "wkv_kernel" in e.key)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    mine = [e for e in kernels if kernel in e.key]
     return {"device_busy_ms": busy_us / 1e3,
             "unprofiled_wall_ms": wall_s * 1e3,
             "device_busy_share": busy_us / 1e6 / wall_s,
-            "wkv_kernel_ms": wkv_us / 1e3,
+            f"{kernel}_ms": sum(e.self_device_time_total
+                                for e in mine) / 1e3,
+            f"{kernel}_launches": sum(e.count for e in mine),
             "top_kernels": [{"name": e.key[:80], "count": e.count,
                              "ms": e.self_device_time_total / 1e3}
                             for e in top]}
@@ -1101,9 +1125,11 @@ def run_rwkv(torch, dev):
     prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size,
                                             size=rng.randint(2, 65))]
                for _ in range(RWKV_REQUESTS)]
-    rwkv_serve(torch, dev, model, params, prompts[:2], 4)     # warm-up
+    serve_dense(torch, dev, model, params, prompts[:2], 4,
+                RWKV_SLOTS)                                   # warm-up
     _reset_counts()
-    outs, eng = rwkv_serve(torch, dev, model, params, prompts, RWKV_NEW)
+    outs, eng = serve_dense(torch, dev, model, params, prompts, RWKV_NEW,
+                            RWKV_SLOTS)
     counts = _read_counts()
     st = eng.stats
     want = {name: 0 for name in counts}
@@ -1115,7 +1141,8 @@ def run_rwkv(torch, dev):
     for o in outs:
         if len(o) != RWKV_NEW or not all(0 <= t < cfg.vocab_size for t in o):
             raise AssertionError(f"bad rwkv stream {o}")
-    profile = profile_rwkv(torch, dev, model, params, prompts, st.wall)
+    profile = profile_serve(torch, dev, model, params, prompts, RWKV_NEW,
+                            st.wall, "wkv_kernel", slots=RWKV_SLOTS)
 
     got, pre_k, dec_k, ms_k = rwkv_replay(torch, dev, model, params, prompts,
                                           outs, True)
@@ -1193,6 +1220,293 @@ def run_rwkv(torch, dev):
             "profile": profile}
 
 
+# kernel 5 against its plain version: the shapes of tests/test_kernels.py
+# (:56-57), the jamba engine's decode shape (4 slots, d_inner 8192,
+# d_state 16), its longest prefill (64 tokens) and a longer prefill
+MAMBA_DECODE = (4, 1, 8192, 16)
+MAMBA_PREFILL = (1, 64, 8192, 16)
+MAMBA_LONG = (1, 512, 8192, 16)
+MAMBA_CHECK_SHAPES = ((1, 32, 8, 8), (2, 128, 16, 16), (2, 64, 32, 8),
+                      MAMBA_DECODE, MAMBA_PREFILL, MAMBA_LONG)
+# f32 throughout; the plain version repeats the kernel's rounding order
+MAMBA_TOL = 1e-4
+# jamba-v0.1-52b at full width, cut from 32 layers to one super-block of
+# 8 (52B parameters do not fit one 80 GB card, even in bf16; depth 8 is
+# 13.3e9 parameters, 53 GB in f32)
+JAMBA_DEPTH = 8
+JAMBA_SLOTS, JAMBA_REQUESTS, JAMBA_NEW, JAMBA_MAX_SEQ = 4, 8, 32, 512
+JAMBA_TOL = 1e-4
+
+
+def mamba_inputs(torch, dev, shape, seed):
+    """da, bx, c, h0 with the distributions of the reference's kernel
+    test (da in [0.5, 0.99)), and a nonzero h0."""
+    B, S, C, N = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (0.5 + 0.49 * torch.rand((B, S, C, N), generator=g, device=dev),
+            0.1 * torch.randn((B, S, C, N), generator=g, device=dev),
+            torch.randn((B, S, N), generator=g, device=dev),
+            0.1 * torch.randn((B, C, N), generator=g, device=dev))
+
+
+def mamba_bound(shape, card_name):
+    """Least work of one call: da, bx, c and h0 read once, y and the
+    final state written once; 4 f32 operations per (b, t, c, n) element
+    (the update's product and sum, the output's product and sum)."""
+    B, S, C, N = shape
+    nbytes = 4 * (2 * B * S * C * N + B * S * N + 2 * B * C * N + B * S * C)
+    return bound_for(nbytes, 4 * B * S * C * N, "float32", card_name)
+
+
+def check_time_mamba_scan(torch, dev, card_name):
+    """Kernel 5 against its plain version at every listed shape, then
+    timed at the decode, the engine's longest prefill and a 512-token
+    prefill beside the plain version.  No single PyTorch call computes
+    the recurrence, so there is no library time."""
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    errs, exact = {}, {}
+    for i, shape in enumerate(MAMBA_CHECK_SHAPES):
+        args = mamba_inputs(torch, dev, shape, seed=30 + i)
+        y, h = mamba_scan(*args)
+        yr, hr = mamba_scan_ref(*args)
+        torch.cuda.synchronize()
+        err = max((y - yr).abs().max().item(), (h - hr).abs().max().item())
+        ok = all(torch.isfinite(t).all() for t in (y, h)) and \
+            torch.allclose(y, yr, rtol=MAMBA_TOL, atol=MAMBA_TOL) and \
+            torch.allclose(h, hr, rtol=MAMBA_TOL, atol=MAMBA_TOL)
+        if not ok:
+            raise AssertionError(f"mamba_scan {shape}: kernel vs plain "
+                                 f"beyond {MAMBA_TOL} (max abs {err})")
+        key = "x".join(map(str, shape))
+        errs[key] = err
+        exact[key] = bool(torch.equal(y, yr) and torch.equal(h, hr))
+        del args, y, h, yr, hr
+    times = {}
+    for name, shape, slow in (("decode", MAMBA_DECODE, None),
+                              ("prefill64", MAMBA_PREFILL, (20, 2)),
+                              ("prefill512", MAMBA_LONG, (3, 1))):
+        args = mamba_inputs(torch, dev, shape, seed=40)
+        per_set = 4 * sum(a.numel() for a in args)
+        sets = [tuple(a.clone() for a in args)
+                for _ in range(sets_for(per_set))]
+        del args
+        fns = {"ms": lambda i: mamba_scan(*sets[i]),
+               "plain_ms": lambda i: mamba_scan_ref(*sets[i])}
+        t = timed(torch, fns, len(sets),
+                  iters={"plain_ms": slow} if slow else None)
+        t["bound_ms"], t["bound_by"] = mamba_bound(shape, card_name)
+        t["shape"] = list(shape)
+        times[name] = t
+        del sets, fns
+        torch.cuda.empty_cache()
+    return errs, exact, times
+
+
+def jamba_schedule(cfg):
+    return ["/".join(("attn" if cfg.is_attention_layer(j) else "mamba",
+                      "moe" if cfg.is_moe_layer(j) else "mlp"))
+            for j in range(cfg.n_layers)]
+
+
+def jamba_model(torch, dev):
+    import dataclasses
+    from repro_torch.compiler.mapper import plan_model
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.weights import _expected_shapes
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_DEPTH)
+    plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
+                      remat="none", compute_dtype="float32",
+                      param_dtype="float32")
+    nbytes = 4 * sum(math.prod(s) for s in _expected_shapes(cfg, plan)
+                     .values())
+    print(f"[jamba] {cfg.name}: depth cut from {full.n_layers} to "
+          f"{cfg.n_layers} layers (one super-block; the card's memory), "
+          f"full width: d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads x {cfg.d_head}, d_inner {cfg.mamba.expand * cfg.d_model}, "
+          f"d_state {cfg.mamba.d_state}, dt_rank {cfg.mamba.dt_rank}, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} x "
+          f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab_size}; schedule "
+          f"{jamba_schedule(cfg)}; f32 weights {nbytes / 1e9:.2f} GB",
+          flush=True)
+    model = build_model(cfg, plan, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    got = sum(t.numel() * t.element_size() for t in _leaves(params))
+    if got != nbytes:
+        raise AssertionError(f"weights hold {got} bytes, reckoned {nbytes}")
+    return cfg, model, params, nbytes, time.perf_counter() - t0
+
+
+def jamba_replay(torch, dev, model, params, prompts, outs, use_kernels):
+    """Teacher-forced replay of the engine's streams in the engine's own
+    batching: the 8 requests ran as two batches of 4 slots (all streams
+    have the same length, so a batch finishes together and the next is
+    admitted into the same slots), so each batch of 4 rows gets a dense
+    cache of the engine's shape; each prompt is prefilled at its exact
+    length into its row, then the stream's tokens are fed one decode step
+    at a time at their positions.  -> (logits (new, rows, V_pad), prefill
+    launches, decode launches, decode ms per step)."""
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    from repro_torch.serving.kv_cache import scatter_prefill_dense
+    out, pre_l, dec_l, dec_s, steps = [], 0, 0, 0.0, 0
+    for lo in range(0, len(prompts), JAMBA_SLOTS):
+        ps, os_ = prompts[lo:lo + JAMBA_SLOTS], outs[lo:lo + JAMBA_SLOTS]
+        cache = model.init_cache(len(ps), JAMBA_MAX_SEQ)
+        rows = []
+        mamba_scan.launches = 0
+        for b, p in enumerate(ps):
+            logits, pc = model.forward(
+                params, torch.tensor([p], device=dev), mode="prefill",
+                cache=model.init_cache(1, len(p)), use_kernels=use_kernels)
+            rows.append(logits[0, -1])
+            scatter_prefill_dense(cache, pc, b)
+        pre_l += mamba_scan.launches
+        got = [torch.stack(rows)]
+        toks = torch.tensor(os_, device=dev).t()          # (new, rows)
+        pos = torch.tensor([len(p) for p in ps], dtype=torch.int32,
+                           device=dev)
+        mamba_scan.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(toks.shape[0] - 1):
+            logits, _ = model.forward(params, toks[t][:, None],
+                                      mode="decode", positions=pos + t,
+                                      cache=cache, use_kernels=use_kernels)
+            got.append(logits[:, -1])
+        torch.cuda.synchronize()
+        dec_s += time.perf_counter() - t0
+        steps += toks.shape[0] - 1
+        dec_l += mamba_scan.launches
+        out.append(torch.stack(got))
+        del cache
+    return torch.cat(out, 1), pre_l, dec_l, dec_s / steps * 1e3
+
+
+def run_jamba(torch, dev):
+    """Full-width jamba-v0.1-52b at depth 8 (f32, random weights from
+    seed 0) served by ``LPUEngine``: 8 prompts of 2-64 tokens x 32 new
+    tokens, 4 slots, greedy, dense cache.  Kernel 5 must launch exactly
+    once per mamba layer (7) per device decode step and per prefill, and
+    no other kernel may launch; the streams are replayed teacher-forced
+    with the kernel and with its plain version (the oracle): logits
+    within JAMBA_TOL, and the engine's tokens equal the oracle's argmax
+    wherever its top-2 gap exceeds JAMBA_TOL."""
+    import numpy as np
+    cfg, model, params, nbytes, init_s = jamba_model(torch, dev)
+    peak_init = torch.cuda.max_memory_allocated()
+    print(f"[jamba] weights on the card: {nbytes} bytes, init "
+          f"{init_s:.1f} s, peak device memory {peak_init / 1e9:.2f} GB",
+          flush=True)
+    n_mamba = sum(not cfg.is_attention_layer(i) for i in range(cfg.n_layers))
+    rng = np.random.RandomState(0)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size,
+                                            size=rng.randint(2, 65))]
+               for _ in range(JAMBA_REQUESTS)]
+    serve_dense(torch, dev, model, params, prompts[:2], 4, JAMBA_SLOTS,
+                JAMBA_MAX_SEQ)                                # warm-up
+    _reset_counts()
+    outs, eng = serve_dense(torch, dev, model, params, prompts, JAMBA_NEW,
+                            JAMBA_SLOTS, JAMBA_MAX_SEQ)
+    counts = _read_counts()
+    st = eng.stats
+    want = {name: 0 for name in counts}
+    want["mamba_scan"] = n_mamba * (st.device_decode_steps + st.prefills)
+    if st.device_decode_steps == 0 or st.prefills != len(prompts) or \
+            counts != want:
+        raise AssertionError(
+            f"jamba engine launches {counts}, expected {want} ({n_mamba} per "
+            f"device decode step and per prefill; {st.prefills} prefills)")
+    for o in outs:
+        if len(o) != JAMBA_NEW or not all(0 <= t < cfg.vocab_size
+                                          for t in o):
+            raise AssertionError(f"bad jamba stream {o}")
+    profile = profile_serve(torch, dev, model, params, prompts, JAMBA_NEW,
+                            st.wall, "scan_kernel", slots=JAMBA_SLOTS,
+                            max_seq=JAMBA_MAX_SEQ)
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # as the engine sets
+    torch.backends.cudnn.allow_tf32 = False
+    got, pre_k, dec_k, ms_k = jamba_replay(torch, dev, model, params,
+                                           prompts, outs, True)
+    ref, pre_p, dec_p, ms_p = jamba_replay(torch, dev, model, params,
+                                           prompts, outs, False)
+    steps = JAMBA_NEW - 1
+    want_dec = n_mamba * steps * math.ceil(len(prompts) / JAMBA_SLOTS)
+    if pre_p or dec_p or pre_k != n_mamba * len(prompts) or \
+            dec_k != want_dec:
+        raise AssertionError(
+            f"replay launches: prefill {pre_k} (want "
+            f"{n_mamba * len(prompts)})/{pre_p} (want 0), decode {dec_k} "
+            f"(want {want_dec})/{dec_p} (want 0)")
+    if not torch.isfinite(got).all() or not torch.isfinite(ref).all():
+        raise AssertionError("jamba replay: non-finite logits")
+    err = (got - ref).abs().max().item()
+    if err > JAMBA_TOL:
+        raise AssertionError(f"jamba replay: kernel vs plain max abs {err} "
+                             f"> {JAMBA_TOL}")
+    gap = top2_gap(ref)
+    decided = gap > JAMBA_TOL
+    toks = torch.tensor(outs, device=dev).t()
+    ref_arg = ref.argmax(-1)
+    if not torch.equal(toks[decided], ref_arg[decided]) or \
+            not torch.equal(got.argmax(-1)[decided], ref_arg[decided]):
+        raise AssertionError("jamba: greedy tokens differ from the plain "
+                             "oracle's argmax where its top-2 gap exceeds "
+                             f"{JAMBA_TOL}")
+
+    # the model's decode step at the engine's batch, on its own
+    cache = model.init_cache(JAMBA_SLOTS, JAMBA_MAX_SEQ)
+    tok = torch.ones((JAMBA_SLOTS, 1), dtype=torch.long, device=dev)
+    pos = torch.full((JAMBA_SLOTS,), 64, dtype=torch.int32, device=dev)
+    model.forward(params, tok, mode="decode", positions=pos, cache=cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        model.forward(params, tok, mode="decode", positions=pos, cache=cache)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 8 * 1e3
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "n_layers_published": 32, "schedule": jamba_schedule(cfg),
+            "d_model": cfg.d_model, "heads": cfg.n_heads,
+            "kv_heads": cfg.n_kv_heads, "d_inner":
+                cfg.mamba.expand * cfg.d_model, "d_state": cfg.mamba.d_state,
+            "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+            "d_ff_expert": cfg.moe.d_ff_expert, "vocab": cfg.vocab_size,
+            "dtype": "float32", "weight_bytes": nbytes, "init_s": init_s,
+            "peak_memory_after_init_bytes": peak_init,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "slots": JAMBA_SLOTS, "requests": len(prompts),
+            "prompt_lens": [len(p) for p in prompts], "max_new": JAMBA_NEW,
+            "tokens": st.tokens, "tokens_per_s": st.tokens_per_s,
+            "wall_s": st.wall, "decode_steps": st.steps,
+            "device_decode_steps": st.device_decode_steps,
+            "prefills": st.prefills, "cache_bytes": eng.kv_cache_bytes(),
+            "kv_bytes_moved_per_step": eng.kv_bytes_moved_per_step(),
+            "launches": counts,
+            "mamba_scan_per_device_decode_step_and_prefill": n_mamba,
+            "decode_step_ms_b4": step_ms,
+            "replay": {"rows": len(prompts), "batches_of": JAMBA_SLOTS,
+                       "steps": steps,
+                       "kernel_ms_per_step": ms_k,
+                       "plain_ms_per_step": ms_p,
+                       "prefill_launches_kernel": pre_k,
+                       "decode_launches_kernel": dec_k,
+                       "max_abs_err_vs_plain": err, "tol": JAMBA_TOL,
+                       "bit_equal": bool(torch.equal(got, ref)),
+                       "engine_tokens_equal_kernel_argmax": bool(
+                           torch.equal(toks, got.argmax(-1))),
+                       "argmax_checked": int(decided.sum()),
+                       "argmax_total": int(decided.numel()),
+                       "ref_logit_std": ref.std().item(),
+                       "ref_top2_gap_min": gap.min().item()},
+            "profile": profile}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1201,6 +1515,11 @@ def main() -> int:
     from repro_torch.kernels import build
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def lap(phase):
+        print(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {smi} | torch {torch.__version__} cuda "
@@ -1220,6 +1539,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    lap("build")
     errs = check_paged_kernel(torch, dev)
     print(f"[kernel] paged_decode_attention vs plain: {errs}")
     times = time_paged_kernel(torch, dev, smi)
@@ -1235,6 +1555,7 @@ def main() -> int:
     for c in gemv_calls:
         print(f"[kernel] gemv {c}")
 
+    lap("kernels 1-3")
     engine = run_engine(torch, dev)
     print(f"[engine] {engine['tokens']} tokens, "
           f"{engine['tokens_per_s']:.1f} tok/s, "
@@ -1242,6 +1563,7 @@ def main() -> int:
           f"{engine['preempt_run']['preemptions']} preemptions in the "
           "small-pool run")
 
+    lap("engine")
     ctx, chain, chain_launches, wall_stream = run_chain_phase(torch, dev)
     chain["chunk_prefill"] = chunk_vs_sequential(torch, dev, ctx)
     chain.update(chain_costs(torch, ctx, wall_stream))
@@ -1259,6 +1581,7 @@ def main() -> int:
           f"{rwkv_exact}")
     for name, t in rwkv_t.items():
         print(f"[kernel] rwkv_scan {name} timing: {t}")
+    lap("chain, kernel 4")
     rwkv = run_rwkv(torch, dev)
     print(f"[rwkv] {rwkv['tokens']} tokens, {rwkv['tokens_per_s']:.1f} "
           f"tok/s, {rwkv['device_decode_steps']} device decode steps, "
@@ -1266,6 +1589,35 @@ def main() -> int:
           f"per step, decode step {rwkv['decode_step_ms_b4']:.2f} ms at "
           f"{RWKV_SLOTS} rows, replay kernel vs plain max abs "
           f"{rwkv['replay']['max_abs_err_vs_plain']:.3g}")
+
+    # the jamba phase holds ~54 GB: free everything the rwkv phase held
+    # first, so two full-width models never share the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    print(f"[jamba] device memory allocated before the phase: {held} bytes",
+          flush=True)
+    if held > 2e9:
+        raise AssertionError(f"{held} bytes still allocated after the rwkv "
+                             "phase")
+    mamba_errs, mamba_exact, mamba_t = check_time_mamba_scan(torch, dev, smi)
+    print(f"[kernel] mamba_scan vs plain: {mamba_errs}; bit-equal: "
+          f"{mamba_exact}")
+    for name, t in mamba_t.items():
+        print(f"[kernel] mamba_scan {name} timing: {t}")
+    lap("rwkv, kernel 5")
+    jamba = run_jamba(torch, dev)
+    lap("jamba")
+    print(f"[jamba] {jamba['tokens']} tokens, {jamba['tokens_per_s']:.1f} "
+          f"tok/s, {jamba['device_decode_steps']} device decode steps + "
+          f"{jamba['prefills']} prefills, "
+          f"{jamba['mamba_scan_per_device_decode_step_and_prefill']} "
+          f"mamba_scan launches per decode step and per prefill, decode "
+          f"step {jamba['decode_step_ms_b4']:.2f} ms at {JAMBA_SLOTS} rows, "
+          f"peak memory {jamba['peak_memory_bytes'] / 1e9:.2f} GB, replay "
+          f"kernel vs plain max abs "
+          f"{jamba['replay']['max_abs_err_vs_plain']:.3g}")
 
     def src(name):
         return os.path.relpath(build.source_path(name), HERE)
@@ -1352,11 +1704,37 @@ def main() -> int:
                         comparator="chunked_ms: the port's wkv_chunked "
                                    "(plain PyTorch), time_mix_fwd's "
                                    "prefill path"),
+    }, {
+        "name": "mamba_scan", "route": "cuda", "source": src("mamba_scan"),
+        "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:52",
+        "ok": True, "launches": jamba["launches"]["mamba_scan"],
+        "launches_by_path": {
+            "jamba_engine": jamba["launches"]["mamba_scan"],
+            "jamba_replay_kernel":
+                jamba["replay"]["prefill_launches_kernel"]
+                + jamba["replay"]["decode_launches_kernel"]},
+        "max_abs_err": max(mamba_errs.values()),
+        "max_abs_err_by_shape": mamba_errs,
+        "bit_equal_by_shape": mamba_exact,
+        # at the engine's decode shape; no PyTorch call computes the
+        # recurrence, so library_ms is null
+        "ms": mamba_t["decode"]["ms"],
+        "plain_ms": mamba_t["decode"]["plain_ms"],
+        "bound_ms": mamba_t["decode"]["bound_ms"],
+        "bound_by": mamba_t["decode"]["bound_by"], "library_ms": None,
+        "host_ms": mamba_t["decode"]["host_ms"],
+        "plain_host_ms": mamba_t["decode"]["plain_host_ms"],
+        "shapes": {"B": MAMBA_DECODE[0], "S": MAMBA_DECODE[1],
+                   "C": MAMBA_DECODE[2], "N": MAMBA_DECODE[3],
+                   "dtype": "float32"},
+        "prefill64": mamba_t["prefill64"],
+        "prefill512": mamba_t["prefill512"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"engine": engine}))
     print(json.dumps({"chain": chain}))
     print(json.dumps({"rwkv": rwkv}))
+    print(json.dumps({"jamba": jamba}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

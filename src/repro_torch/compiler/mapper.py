@@ -11,7 +11,8 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from repro_torch.compiler.plan import PhysicalPlan, _ceil_to, plan_attention
+from repro_torch.compiler.plan import (MoEPlan, PhysicalPlan, _ceil_to,
+                                       plan_attention)
 from repro_torch.configs.base import ArchConfig
 
 LANE = 128  # padding unit of d_ff / vocab (kept so plans match the reference)
@@ -34,10 +35,11 @@ def plan_model(cfg: ArchConfig,
         raise NotImplementedError(
             "plan_model: tensor parallelism (mesh_axes) arrives with the "
             "port's tp slice; only mesh_axes=None (tp=1) is supported")
-    if cfg.moe is not None or cfg.family not in ("dense", "rwkv"):
+    if cfg.family not in ("dense", "rwkv", "hybrid"):
         raise NotImplementedError(
             f"plan_model: family {cfg.family!r} arrives with its own "
-            "slice of the port; dense decoders and rwkv are planned here")
+            "slice of the port; dense, rwkv and hybrid stacks are planned "
+            "here")
     if param_dtype is None:
         param_dtype = "float32" if mode == "train" else "bfloat16"
     tp = 1
@@ -48,11 +50,19 @@ def plan_model(cfg: ArchConfig,
         attn = plan_attention(cfg.n_heads, cfg.n_kv_heads, cfg.d_head, tp)
     d_ff_padded = _ceil_to(cfg.d_ff, max(tp * 8, LANE))
     vocab_padded = _ceil_to(cfg.vocab_size, max(tp * LANE, LANE))
+    moe_plan = None
+    if cfg.moe is not None:
+        # one device: no expert axes, every expert local, no FFN split
+        e = cfg.moe.n_experts
+        moe_plan = MoEPlan(
+            n_experts=e, ep=1, ffn_split=1, experts_per_rank=e,
+            d_ff_expert_shard=_ceil_to(cfg.moe.d_ff_expert, 8),
+            expert_axes=(), capacity_factor=cfg.moe.capacity_factor)
     return PhysicalPlan(
         arch=cfg.name, mode=mode, mesh_axes=None, mesh_shape=(1,), tp=tp,
         tp_axis=None, dp_axes=(), fsdp_axes=(), attn=attn,
         d_ff_shard=d_ff_padded // tp, d_ff_padded=d_ff_padded,
-        vocab_padded=vocab_padded, moe=None, esl_overlap=esl_overlap,
+        vocab_padded=vocab_padded, moe=moe_plan, esl_overlap=esl_overlap,
         esl_chunks=esl_chunks, remat=remat, scan_unroll=scan_unroll,
         use_kernels=use_kernels, compute_dtype=compute_dtype,
         param_dtype=param_dtype)

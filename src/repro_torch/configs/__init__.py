@@ -7,13 +7,15 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import rwkv6_7b, smollm_135m
+from repro_torch.configs import jamba_v01_52b, rwkv6_7b, smollm_135m
 from repro_torch.configs.base import ArchConfig
 
 REGISTRY: Dict[str, ArchConfig] = {
-    c.name: c for c in [smollm_135m.CONFIG, rwkv6_7b.CONFIG]}
+    c.name: c for c in [smollm_135m.CONFIG, rwkv6_7b.CONFIG,
+                        jamba_v01_52b.CONFIG]}
 
-ALIASES = {"smollm": "smollm-135m", "rwkv6": "rwkv6-7b"}
+ALIASES = {"smollm": "smollm-135m", "rwkv6": "rwkv6-7b",
+           "jamba": "jamba-v0.1-52b"}
 
 
 def get_config(name: str) -> ArchConfig:

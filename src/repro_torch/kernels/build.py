@@ -32,6 +32,7 @@ SOURCES: Dict[str, str] = {
     "decode_attention": "decode_attention/csrc/decode_attention.cu",
     "gemv": "gemv/csrc/gemv.cu",
     "rwkv_scan": "rwkv_scan/csrc/rwkv_scan.cu",
+    "mamba_scan": "mamba_scan/csrc/mamba_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

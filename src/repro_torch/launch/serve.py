@@ -6,12 +6,15 @@ and run the engine on a batch of random prompts.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba \
+        --reduced --device cpu
 
 Runs on the CUDA device unless ``--device cpu`` is given (and fails when
 there is none).  Prints the reference driver's stats lines plus the
-launch count of the family's decode kernel: the paged decode attention
-(dense decoders) or the WKV recurrence (rwkv), 0 on the CPU, where the
-plain versions run.
+launch count of the family's kernel: the paged decode attention (dense
+decoders), the WKV recurrence (rwkv) or the selective scan (hybrid:
+every mamba layer, prefill and decode), 0 on the CPU, where the plain
+versions run.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.compiler.mapper import plan_model
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+from repro_torch.kernels.mamba_scan.ops import mamba_scan
 from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
 from repro_torch.models.registry import build_model
 from repro_torch.serving.config import EngineConfig
@@ -99,7 +103,8 @@ def main(argv=None):
                                 size=rng.randint(2, 10)))
                for _ in range(args.requests)]
     sp = SamplingParams(args.temperature, args.top_k, args.top_p)
-    kernel = rwkv_scan if cfg.family == "rwkv" else paged_decode_attention
+    kernel = {"rwkv": rwkv_scan, "hybrid": mamba_scan}.get(
+        cfg.family, paged_decode_attention)
     kernel.launches = 0
     outs = engine.generate(prompts, max_new_tokens=args.max_new, params=sp)
     mode = f"paged/{engine.paged_kernel}" if engine.paged else "dense"
@@ -121,9 +126,16 @@ def main(argv=None):
           f"{st.bytes_to_host_per_token:.1f} B->host/token, "
           f"overrun={st.overrun_tokens}, "
           f"block_s={engine.decode_block_s()}")
-    print(f"[serve] {kernel.__name__} kernel launches={kernel.launches} "
-          f"(device decode steps {st.device_decode_steps} x "
-          f"{cfg.n_layers} layers)")
+    if cfg.family == "hybrid":
+        n_mamba = sum(not cfg.is_attention_layer(i)
+                      for i in range(cfg.n_layers))
+        print(f"[serve] {kernel.__name__} kernel launches={kernel.launches} "
+              f"((device decode steps {st.device_decode_steps} + prefills "
+              f"{st.prefills}) x {n_mamba} mamba layers)")
+    else:
+        print(f"[serve] {kernel.__name__} kernel launches={kernel.launches} "
+              f"(device decode steps {st.device_decode_steps} x "
+              f"{cfg.n_layers} layers)")
     for i, o in enumerate(outs[:4]):
         print(f"  req{i}: {o[:12]}")
     return outs

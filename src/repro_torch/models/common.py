@@ -92,8 +92,9 @@ class _Init:
         self.dtype = dtype
 
     def normal(self, shape, std: float) -> torch.Tensor:
+        # scaled in place: a 3.8 GB expert leaf is held once, not twice
         return torch.randn(shape, generator=self.gen, device=self.device,
-                           dtype=torch.float32) * std
+                           dtype=torch.float32).mul_(std)
 
     def param(self, shape, scale: float = 1.0) -> torch.Tensor:
         """InitCtx.param(init="normal"): std = scale / sqrt(shape[0])."""
@@ -182,8 +183,70 @@ def _init_channel_mix(ini: _Init, cfg, plan) -> Params:
             "w_r": ini.param((D, D))}
 
 
+def _init_mamba(ini: _Init, cfg, plan) -> Params:
+    """The reference's ``mamba.init_mamba`` (tp=1: d_inner unpadded)."""
+    m, D = cfg.mamba, cfg.d_model
+    d_in = m.expand * D
+    a_log = torch.log(torch.arange(1, m.d_state + 1, dtype=torch.float32,
+                                   device=ini.device))
+    return {
+        "in_x": ini.param((D, d_in)), "in_z": ini.param((D, d_in)),
+        "conv_w": ini.param((m.d_conv, d_in)),
+        "conv_b": ini.zeros((d_in,)),
+        "x_proj": ini.param((d_in, m.dt_rank + 2 * m.d_state)),
+        "dt_proj": ini.param((m.dt_rank, d_in)),
+        "dt_bias": ini.zeros((d_in,)),
+        "a_log": a_log.expand(d_in, m.d_state).contiguous().to(ini.dtype),
+        "d_skip": ini.ones((d_in,)),
+        # the reference's scale 1/sqrt(d_in) is divided by sqrt(fan_in)
+        # again: std 1/d_in
+        "out_proj": ini.param((d_in, D), scale=1.0 / math.sqrt(d_in)),
+    }
+
+
+def _init_moe(ini: _Init, cfg, plan) -> Params:
+    """The reference's ``moe.init_moe`` at tp=1: one rank (W = 1) holds
+    every expert, no FFN split; expert leaves (1, E, D, ffh) / (1, E, ffh,
+    D) with std 1/sqrt(D) and 1/sqrt(d_ff_expert), router std
+    1/sqrt(D)."""
+    from repro_torch.models.moe import moe_layout
+    w, _, _, ecell, e_pad, ffh = moe_layout(plan)
+    if cfg.moe.n_shared_experts:
+        raise NotImplementedError("init_params: shared experts arrive with "
+                                  "a model of the port that has them")
+    D = cfg.d_model
+    s1, s2 = 1.0 / math.sqrt(D), 1.0 / math.sqrt(max(ffh, 1))
+    return {"router": ini.param((D, e_pad)),
+            "wg": ini.normal((w, ecell, D, ffh), s1).to(ini.dtype),
+            "wu": ini.normal((w, ecell, D, ffh), s1).to(ini.dtype),
+            "wd": ini.normal((w, ecell, ffh, D), s2).to(ini.dtype)}
+
+
+def init_super_block(ini: _Init, cfg, plan) -> Params:
+    """One super-block of a hybrid stack, ``l0..l{sb-1}``: attention or
+    mamba by ``cfg.is_attention_layer(j)``, MoE or MLP by
+    ``cfg.is_moe_layer(j)``, as the reference's ``init_layer``."""
+    from repro_torch.models.transformer import super_block_size
+    D = cfg.d_model
+    out: Params = {}
+    for j in range(super_block_size(cfg)):
+        p: Params = {"ln1": _init_norm(ini, D, cfg.norm)}
+        if cfg.is_attention_layer(j):
+            p["attn"] = _init_attention(ini, cfg, plan)
+        else:
+            p["mamba"] = _init_mamba(ini, cfg, plan)
+        p["ln2"] = _init_norm(ini, D, cfg.norm)
+        if cfg.is_moe_layer(j):
+            p["moe"] = _init_moe(ini, cfg, plan)
+        else:
+            p["mlp"] = _init_mlp(ini, cfg, plan)
+        out[f"l{j}"] = p
+    return out
+
+
 def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
-    """Random weights for a dense decoder or an rwkv stack, drawn from a
+    """Random weights for a dense decoder, an rwkv stack or a hybrid
+    (jamba) stack, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (``cuda``
     unless the caller asks for the CPU, as every entry point of the
     port).
@@ -193,18 +256,23 @@ def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
     (vocab_padded, D), wq (D, hp, dh), wk/wv (D, gp, dh), wo (hp, dh, D),
     norm scales of one; rwkv: untied ``embed_in`` (vocab, D) and ``head``
     (D, vocab_padded), layernorm scale and bias, ``tmix``/``cmix`` with
-    uniform ``mu_*``, ``decay_w0`` and ``bonus_u``), with decoder layers
+    uniform ``mu_*``, ``decay_w0`` and ``bonus_u``; hybrid: untied
+    embeddings and super-blocks ``l0..l{sb-1}`` of attention or mamba
+    with MoE or MLP, see :func:`init_super_block`), with decoder layers
     stacked on a leading super-block axis; the numbers differ from the
-    reference's.  Layers are drawn one by one into the stacked tensors,
-    so the peak is the model plus one layer."""
-    if cfg.family not in ("dense", "rwkv") or cfg.moe is not None:
+    reference's.  Super-blocks are drawn one by one into the stacked
+    tensors, so the peak is the model plus one super-block; a single
+    super-block (jamba at depth 8) is stacked as a view, so the peak is
+    the model plus one leaf."""
+    if cfg.family not in ("dense", "rwkv", "hybrid") or \
+            (cfg.moe is not None and cfg.family != "hybrid"):
         raise NotImplementedError(
             f"init_params: family {cfg.family!r} arrives with its own slice")
-    if cfg.family == "dense" and (cfg.qkv_bias or cfg.norm != "rmsnorm"
-                                  or not cfg.mlp_gated):
+    if cfg.family in ("dense", "hybrid") and (
+            cfg.qkv_bias or cfg.norm != "rmsnorm" or not cfg.mlp_gated):
         raise NotImplementedError(
-            "init_params covers the llama-style decoder (no qkv bias, "
-            "rmsnorm, gated MLP) of this slice")
+            "init_params covers llama-style attention layers (no qkv bias, "
+            "rmsnorm, gated MLP)")
     ini = _Init(seed, resolve_device(device), dtype_of(plan.param_dtype))
     D = cfg.d_model
     params: Params = {}
@@ -214,27 +282,40 @@ def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
         params["embed_in"] = ini.param((cfg.vocab_size, D))
         params["head"] = ini.param((D, plan.vocab_padded))
 
-    if cfg.family == "rwkv":
-        def layer():
-            return {"ln1": _init_norm(ini, D, cfg.norm),
-                    "tmix": _init_time_mix(ini, cfg, plan),
-                    "ln2": _init_norm(ini, D, cfg.norm),
-                    "cmix": _init_channel_mix(ini, cfg, plan)}
+    if cfg.family == "hybrid":
+        from repro_torch.models.transformer import n_super_blocks
+        params["blocks"] = _stacked(n_super_blocks(cfg),
+                                    lambda: init_super_block(ini, cfg, plan))
     else:
-        def layer():
-            return {"ln1": {"scale": ini.ones((D,))},
-                    "attn": _init_attention(ini, cfg, plan),
-                    "ln2": {"scale": ini.ones((D,))},
-                    "mlp": _init_mlp(ini, cfg, plan)}
-    params["blocks"] = {"l0": _stacked(cfg.n_layers, layer)}
+        if cfg.family == "rwkv":
+            def layer():
+                return {"ln1": _init_norm(ini, D, cfg.norm),
+                        "tmix": _init_time_mix(ini, cfg, plan),
+                        "ln2": _init_norm(ini, D, cfg.norm),
+                        "cmix": _init_channel_mix(ini, cfg, plan)}
+        else:
+            def layer():
+                return {"ln1": {"scale": ini.ones((D,))},
+                        "attn": _init_attention(ini, cfg, plan),
+                        "ln2": {"scale": ini.ones((D,))},
+                        "mlp": _init_mlp(ini, cfg, plan)}
+        params["blocks"] = {"l0": _stacked(cfg.n_layers, layer)}
     params["ln_f"] = _init_norm(ini, D, cfg.norm)
     return params
 
 
 def _stacked(n: int, make) -> Params:
     """``n`` trees from ``make()``, stacked leaf by leaf on a new leading
-    axis; each tree is written into the stack as soon as it is drawn."""
+    axis; each tree is written into the stack as soon as it is drawn.
+    One tree is stacked as views (``unsqueeze``): no copy, so a model
+    that is one tree (jamba at depth 8) is never held twice."""
     first = make()
+    if n == 1:
+        def view(t):
+            if isinstance(t, dict):
+                return {k: view(v) for k, v in t.items()}
+            return t.unsqueeze(0)
+        return view(first)
 
     def alloc(t):
         if isinstance(t, dict):

@@ -6,10 +6,13 @@ reference's ``serving/engine.py`` ``LPUEngine``).
 * **Scheduler** — a fixed decode batch of ``slots``; queued requests are
   admitted at step boundaries (:class:`repro_torch.serving.scheduler.
   Scheduler`), finished sequences release their slot and blocks.
-* **Families** — the dense decoder (paged or dense KV) and the
-  attention-free rwkv stack, whose per-slot recurrent state lives in the
-  dense cache (``supports_paged_kv`` is False) and is replaced wholesale
-  when a slot is admitted; its decode recurrence runs on the WKV kernel.
+* **Families** — the dense decoder (paged or dense KV), the
+  attention-free rwkv stack and the jamba hybrid (mamba + attention +
+  MoE).  The recurrent families keep their per-slot state in the dense
+  cache (``supports_paged_kv`` is False) and replace it wholesale when a
+  slot is admitted: rwkv's decode recurrence runs on the WKV kernel,
+  every mamba scan (prefill and decode) on the selective-scan kernel, and
+  a hybrid's attention layers keep dense per-slot k/v beside the states.
 * **KV cache** — paged by default: a shared pool of fixed-size blocks
   with per-request block tables.  Decode **streams** KV tiles straight
   from the pool through the hand-written paged decode-attention kernel
@@ -669,14 +672,19 @@ class LPUEngine:
         for the dense and streamed paths, 3V for the gather oracle (read
         the pool, write the view, read the view back).  A recurrent
         family's state is read whole and written whole every step: twice
-        its bytes."""
-        if self.cfg.family == "rwkv":
+        its bytes.  A hybrid stack counts its attention layers' k/v and
+        twice its mamba states (``conv``, ``ssm``)."""
+        cfg = self.cfg
+        if cfg.family == "rwkv":
             return 2 * self.kv_cache_bytes()
         a = self.plan.attn
         row = self.kv_prec.bytes_per_row_head(a.d_head)
-        v = 2 * self.cfg.n_layers * self.slots * self.table_len \
+        n_attn = sum(cfg.is_attention_layer(i) for i in range(cfg.n_layers))
+        v = 2 * n_attn * self.slots * self.table_len \
             * self.block_size * a.gp * row
-        return 3 * v if self.paged_kernel == "gather" else v
+        v = 3 * v if self.paged_kernel == "gather" else v
+        states = {lj: c for lj, c in self.cache.items() if "ssm" in c}
+        return v + 2 * cache_bytes(states)
 
     def dense_equiv_bytes(self) -> int:
         """Bytes a dense (slots, max_seq) cache of this model would take."""

@@ -130,8 +130,8 @@ def assert_pool_balanced(pool: BlockPool) -> None:
 # ---------------------------------------------------------------------------
 
 def cache_bytes(cache: Params) -> int:
-    """Total bytes of a cache tree (dense slot cache, block pool, or an
-    rwkv stack's recurrent state)."""
+    """Total bytes of a cache tree (dense slot cache, block pool, or the
+    recurrent state of an rwkv or hybrid stack)."""
     if isinstance(cache, dict):
         return sum(cache_bytes(v) for v in cache.values())
     return cache.numel() * cache.element_size()
@@ -160,8 +160,8 @@ def scatter_prefill_dense(cache: Params, prefill_cache: Params,
                           slot: int) -> None:
     """Copy a batch=1 prefill cache into one slot of the dense cache, in
     place.  KV leaves ("k"/"v") fill the sequence prefix of the slot;
-    recurrent-state leaves (rwkv shift/wkv) replace the slot's state
-    wholesale."""
+    recurrent-state leaves (rwkv shift/wkv, mamba conv/ssm) replace the
+    slot's state wholesale."""
     for lj, c in cache.items():
         for key, tgt in c.items():
             dn = prefill_cache[lj][key]

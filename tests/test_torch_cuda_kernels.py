@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card:
 paged decode attention (fp, int8 and fp8 pools), dense decode attention,
-the decode GEMV, one streamlined decode layer with kernels vs plain, and
-the WKV recurrence.
+the decode GEMV, one streamlined decode layer with kernels vs plain, the
+WKV recurrence and the selective scan.
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test, never at import).  On a machine with a card:
@@ -15,6 +15,8 @@ from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
                                                       paged_decode_attention_ref)
 from repro_torch.kernels.gemv import ops as gemv_ops
 from repro_torch.kernels.gemv.ref import gemv_ref
+from repro_torch.kernels.mamba_scan import ops as mamba_ops
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 from repro_torch.kernels.rwkv_scan import ops as rwkv_ops
 from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_ref
 from repro_torch.serving.kv_cache import quantize_kv_rows
@@ -224,3 +226,48 @@ def test_rwkv_scan_kernel_refuses_what_it_cannot_run(dev):
     with pytest.raises(ValueError):
         rwkv_ops.rwkv_scan(*big, torch.zeros((1, 129), device=dev),
                            torch.zeros((1, 1, 129, 129), device=dev))
+
+
+def _mamba_inputs(dev, B, S, C, N, seed=5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    da = torch.exp(-torch.rand((B, S, C, N), generator=g, device=dev))
+    return (da, 0.1 * torch.randn((B, S, C, N), generator=g, device=dev),
+            torch.randn((B, S, N), generator=g, device=dev),
+            0.1 * torch.randn((B, C, N), generator=g, device=dev))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 8), (1, 64, 128, 16),
+                                   (4, 1, 8192, 16), (1, 64, 8192, 16),
+                                   (2, 37, 200, 16), (1, 5, 100, 6),
+                                   (2, 3, 130, 33), (1, 70, 64, 64)])
+def test_mamba_scan_kernel_matches_plain(dev, shape):
+    """Kernel 5 against its plain version: the reference test's shapes,
+    the engine's decode and prefill shapes of jamba, an odd S and C
+    (ragged last block, more than one cc chunk), N off the float4 path
+    and off the template widths."""
+    args = _mamba_inputs(dev, *shape)
+    before = mamba_ops.mamba_scan.launches
+    y, h = mamba_ops.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert mamba_ops.mamba_scan.launches == before + 1
+    yr, hr = mamba_scan_ref(*args)
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, hr, rtol=1e-4, atol=1e-4)
+    # the plain version repeats the kernel's order of rounding: same bits
+    assert torch.equal(y, yr) and torch.equal(h, hr)
+    y2, h2 = mamba_ops.mamba_scan(*args)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_mamba_scan_kernel_refuses_what_it_cannot_run(dev):
+    args = _mamba_inputs(dev, 1, 2, 8, 4)
+    with pytest.raises(TypeError):
+        mamba_ops.mamba_scan(*[a.double() for a in args])
+    with pytest.raises(ValueError):
+        mamba_ops.mamba_scan(args[0].transpose(1, 2).contiguous()
+                             .transpose(1, 2), *args[1:])
+    with pytest.raises(ValueError):
+        mamba_ops.mamba_scan(*args[:3], torch.zeros((1, 8, 5), device=dev))
+    big = _mamba_inputs(dev, 1, 2, 8, 65)
+    with pytest.raises(ValueError, match="d_state"):
+        mamba_ops.mamba_scan(*big)

@@ -68,13 +68,16 @@ def test_kernel_build_is_lazy():
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.gemv import ops as gemv_ops
+    from repro_torch.kernels.mamba_scan import ops as mamba_ops
     from repro_torch.kernels.rwkv_scan import ops as rwkv_ops
     assert ops._fn is None or torch.cuda.is_available()
     assert ops._dense_fn is None or torch.cuda.is_available()
     assert gemv_ops._fn is None or torch.cuda.is_available()
     assert rwkv_ops._fn is None or torch.cuda.is_available()
+    assert mamba_ops._fn is None or torch.cuda.is_available()
     assert set(build.SOURCES) == {"paged_decode_attention",
-                                  "decode_attention", "gemv", "rwkv_scan"}
+                                  "decode_attention", "gemv", "rwkv_scan",
+                                  "mamba_scan"}
     for name in build.SOURCES:
         assert build.source_path(name).exists()
         assert build.library_path(name).parent == \

@@ -14,9 +14,11 @@ result line when any phase fails or when no CUDA device is present):
    a PyTorch library call of the same function, beside the bound the
    card's data sheet gives for the same work: the paged decode attention
    (f32/bf16/f16 pools, and int8/fp8 pools with their scales), the dense
-   decode attention, and the decode GEMV at the four shapes of one
-   full-width layer (f32, bf16 and int8 weights; B = 4 bit-identical to
-   four B = 1 calls);
+   decode attention (each row alone bit-identical to its row in the
+   batch; the chunked prefill's stride-0 cache at C = 64), and the decode
+   GEMV at the four shapes of one full-width layer (f32, bf16 and int8
+   weights; B = 4 bit-identical to four B = 1 calls); first, the timing
+   floor: a one-element ``add_`` timed the same way;
 4. engine — serve full-width smollm-135m (random weights from seed 0)
    through ``LPUEngine``: the streamed paged kernel, the gather oracle,
    and a run that preempts with 4-step windows; the greedy streams must
@@ -29,8 +31,10 @@ result line when any phase fails or when no CUDA device is present):
    weights), each with kernels and with the plain versions; logits are
    held against each other and (fp variants) against the model's own
    decode, launches per step must be exact; plus one full-width
-   ``chunk_prefill_layer`` (C = 64) against 64 sequential decode steps and
-   a torch.profiler pass of the stream variant;
+   ``chunk_prefill_layer`` (C = 64) against 64 sequential decode steps,
+   through kernel 1 and through kernel 2's broadcast cache, and
+   a torch.profiler pass of the stream and the dense variants (device ms
+   per step of each port kernel);
 6. rwkv — kernel 4 (the WKV recurrence) against its plain version at the
    reference test's shapes, the decode shape (4, 1, 64, 64) and a prefill
    length (1, 512, 64, 64), timed at the last two (at the prefill length
@@ -56,9 +60,9 @@ result line when any phase fails or when no CUDA device is present):
    version (logits within 1e-4, greedy tokens equal to the plain
    oracle's argmax wherever its top-2 gap exceeds 1e-4).
 
-The last lines are a ``{"kernels": [...]}`` line, an ``{"engine": ...}``
-line, a ``{"chain": ...}`` line, an ``{"rwkv": ...}`` line, a
-``{"jamba": ...}`` line, the nvidia-smi line and
+The last lines are a ``{"kernels": [...], "floor_ms": ...}`` line, an
+``{"engine": ...}`` line, a ``{"chain": ...}`` line, an ``{"rwkv": ...}``
+line, a ``{"jamba": ...}`` line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX: the port
 stands alone.
 """
@@ -221,6 +225,14 @@ def time_ms(torch, fn, n_sets, iters=200, warmup=20):
     return start.elapsed_time(stop) / iters, host_s / iters * 1e3
 
 
+def time_floor(torch, dev):
+    """(device ms, host ms) of a call of known-trivial device work, a
+    one-element ``add_`` on a tensor already on the card, through the
+    same time_ms: the floor under every single-launch kernel's time."""
+    t = torch.zeros(1, device=dev)
+    return time_ms(torch, lambda i: t.add_(1.0), 1)
+
+
 def time_paged_kernel(torch, dev, card_name):
     """Kernel, plain and library times at the main path's shapes (f32,
     with the fold, as decode calls it) and the data-sheet bound."""
@@ -362,17 +374,24 @@ def check_time_quantized_pool(torch, dev, card_name):
     return out
 
 
-# dense decode attention (kernel 2) at the chain's dense shapes
+# dense decode attention (kernel 2) at the chain's dense shapes, and the
+# chunked prefill's call (C queries over one request's cache broadcast
+# over the batch, lengths start + i + 1)
 DENSE_S = 512
 DENSE_LENGTHS = (0, 78, 301, 512)
+CHUNK_START = 300
 
 
 def check_time_dense(torch, dev, card_name):
     """Kernel 2 against its plain version on the card, f32/bf16/f16,
-    lengths with an empty row (the mean of its S V rows); timed in f32
-    beside gather-free SDPA on the same cache."""
+    lengths with an empty row (the mean of its S V rows), each row alone
+    bit-equal to its row in the batch, and the chunked prefill's stride-0
+    cache at C = 64 queries; timed in f32 beside gather-free SDPA on the
+    same cache."""
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ops import (SPLIT,
+                                                          decode_attention,
+                                                          dense_plan)
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     g = torch.Generator(device=dev).manual_seed(1)
     ln = torch.tensor(DENSE_LENGTHS, dtype=torch.int32, device=dev)
@@ -397,7 +416,25 @@ def check_time_dense(torch, dev, card_name):
                               rtol=tol, atol=tol):
             raise AssertionError(f"dense {name}: length-0 row is not the "
                                  "mean of its V rows")
+        for b in range(B):
+            if not torch.equal(decode_attention(q[b:b + 1], k[b:b + 1],
+                                                v[b:b + 1], ln[b:b + 1])[0],
+                               got[b]):
+                raise AssertionError(f"dense {name}: row {b} alone differs "
+                                     "from its row in the batch")
         errs[name] = err
+    # the chunked prefill's call: one cache read in place by C queries
+    qc = torch.randn((CHUNK_C, H, DH), generator=g, device=dev)
+    kc, vc = (torch.randn((1, DENSE_S, G, DH), generator=g, device=dev)
+              .expand(CHUNK_C, -1, -1, -1) for _ in range(2))
+    lc = torch.arange(CHUNK_START + 1, CHUNK_START + CHUNK_C + 1,
+                      dtype=torch.int32, device=dev)
+    got = decode_attention(qc, kc, vc, lc)
+    err = (got - decode_attention_ref(qc, kc, vc, lc)).abs().max().item()
+    if not torch.isfinite(got).all() or err > TOL["float32"]:
+        raise AssertionError(f"dense stride-0 cache, C={CHUNK_C}: kernel vs "
+                             f"plain max abs {err}")
+    errs["float32,stride0,C=64"] = err
     q = torch.randn((B, H, DH), generator=g, device=dev)
     k = torch.randn((B, DENSE_S, G, DH), generator=g, device=dev)
     n_sets = sets_for(2 * k.numel() * 4)
@@ -419,6 +456,9 @@ def check_time_dense(torch, dev, card_name):
     ops = 4 * DH * H * k_rows + v_rows * G * DH
     t["bound_ms"], t["bound_by"] = bound_for(nbytes, ops, "float32",
                                              card_name)
+    L, stages = dense_plan(DENSE_S, DH, 4)
+    t["plan"] = {"grid": [SPLIT, G, B], "cluster": [SPLIT, 1, 1],
+                 "blocks": SPLIT * G * B, "tile_rows": L, "stages": stages}
     return errs, t
 
 
@@ -432,7 +472,7 @@ def check_time_gemv(torch, dev, card_name):
     bf16 and int8 weights, with and without bias; the B = 4 result must
     equal four B = 1 calls bit for bit.  Timed without bias, beside
     torch.matmul on the fp weight."""
-    from repro_torch.kernels.gemv.ops import gemv, quantize_weight
+    from repro_torch.kernels.gemv.ops import gemv, gemv_plan, quantize_weight
     from repro_torch.kernels.gemv.ref import gemv_ref
     g = torch.Generator(device=dev).manual_seed(2)
     errs, per_call = {}, []
@@ -480,7 +520,9 @@ def check_time_gemv(torch, dev, card_name):
                                                     else 0))
             t["bound_ms"], t["bound_by"] = bound_for(
                 nbytes, 2 * B * K * N, str(xdt).split(".")[-1], card_name)
-            t.update(shape=shape_name, K=K, N=N, B=B, w_dtype=wname)
+            ksplit, n_tiles = gemv_plan(K, N)
+            t.update(shape=shape_name, K=K, N=N, B=B, w_dtype=wname,
+                     ksplit=ksplit, blocks=ksplit * n_tiles)
             per_call.append(t)
             del ws, wls
     return errs, per_call
@@ -812,13 +854,20 @@ def run_chain_phase(torch, dev):
                  "steps": n_steps, "block_size": 128, "max_seq": 512,
                  "ref_logit_std": ref.std().item(),
                  "ref_top2_gap_min": ref_gap.min().item(),
-                 "variants": variants}, total, walls["stream"]
+                 "variants": variants}, total, walls
 
 
-def chunk_vs_sequential(torch, dev, ctx):
+def chunk_vs_sequential(torch, dev, ctx, mode):
     """chunk_prefill_layer on one full-width layer (C = 64 rows) against
-    64 sequential decode_layer calls on a fresh pool."""
+    64 sequential decode_layer calls on a fresh pool, attending through
+    the paged kernel ("stream") or the dense kernel over the gathered,
+    broadcast view ("gather").  Also whether the layer's first steps,
+    the norm and the QKV gemv, give each row the same bits in the chunk
+    as alone: where they do not, the chunk and the sequential run start
+    from different inputs."""
     from repro_torch.core import streamline as sl
+    from repro_torch.kernels.gemv.ops import gemv
+    from repro_torch.models.common import apply_norm
     cfg, plan = ctx["cfg"], ctx["plan"]
     a = plan.attn
     p = ctx["layers"][0]
@@ -831,49 +880,91 @@ def chunk_vs_sequential(torch, dev, ctx):
                 for k in "kv"}
     y_c, pool_c = sl.chunk_prefill_layer(p, xs, fresh(), table, 0, CHUNK_C,
                                          cfg=cfg, plan=plan,
-                                         paged_kernel="stream")
+                                         paged_kernel=mode)
     pool_s, ys = fresh(), []
     for i in range(CHUNK_C):
         y, _ = sl.decode_layer(p, xs[i:i + 1], pool_s,
                                torch.tensor([i], dtype=torch.int32,
                                             device=dev),
                                cfg=cfg, plan=plan, block_table=table[None],
-                               paged_kernel="stream")
+                               paged_kernel=mode)
         ys.append(y)
     y_s = torch.cat(ys)
+    h = apply_norm(p["ln1"], xs, cfg.norm)
+    h_rows = torch.cat([apply_norm(p["ln1"], xs[i:i + 1], cfg.norm)
+                        for i in range(CHUNK_C)])
+    wq = p["attn"]["wq"].reshape(cfg.d_model, -1)
     torch.cuda.synchronize()
     if not torch.isfinite(y_c).all():
-        raise AssertionError("chunk_prefill_layer: non-finite output")
+        raise AssertionError(f"chunk_prefill_layer {mode}: non-finite output")
     err_y = (y_c - y_s).abs().max().item()
     err_kv = max((pool_c[k] - pool_s[k]).abs().max().item() for k in "kv")
     if err_y > CHAIN_TOL or err_kv > CHAIN_TOL:
-        raise AssertionError(f"chunk vs sequential: {err_y}, {err_kv} > "
-                             f"{CHAIN_TOL}")
-    return {"C": CHUNK_C, "max_abs_diff_y": err_y,
+        raise AssertionError(f"chunk vs sequential ({mode}): {err_y}, "
+                             f"{err_kv} > {CHAIN_TOL}")
+    gemv_rows_equal = torch.equal(
+        gemv(h_rows, wq), torch.cat([gemv(h_rows[i:i + 1], wq)
+                                     for i in range(CHUNK_C)]))
+    if not gemv_rows_equal:
+        raise AssertionError("gemv: a row of the chunk differs from the "
+                             "same row alone")
+    return {"C": CHUNK_C, "mode": mode, "max_abs_diff_y": err_y,
             "max_abs_diff_pool": err_kv, "tol": CHAIN_TOL,
             "exact": bool(torch.equal(y_c, y_s) and all(
-                torch.equal(pool_c[k], pool_s[k]) for k in "kv"))}
+                torch.equal(pool_c[k], pool_s[k]) for k in "kv")),
+            "norm_rows_bit_equal": bool(torch.equal(h, h_rows)),
+            "norm_rows_max_abs_diff": (h - h_rows).abs().max().item(),
+            "gemv_rows_bit_equal": gemv_rows_equal}
 
 
-def chain_costs(torch, ctx, wall_stream):
-    """torch.profiler over the stream variant (device busy share, device
-    ms by kernel, the concatenations' device ms per step), and the wall
-    time of one decode step's per-call weight work run on its own: the
-    wq|wk|wv and wg|wu concatenations, and the int8 quantization of every
-    weight (w_dtype="int8")."""
+# the port's kernels on the chain, by the names the profiler shows
+CHAIN_KERNELS = ("gemv_kernel", "dense_decode_kernel", "paged_decode_kernel")
+
+
+def profile_chain(torch, ctx, tables, mode, wall):
+    """torch.profiler over one kernel run of a chain variant: device busy
+    share against the unprofiled wall time, the concatenations' and each
+    port kernel's device ms per step, and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels.gemv.ops import quantize_weight
+    cache = ctx["caches"]["pool" if tables is not None else "dense"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_chain(torch, ctx, ctx["caches"]["pool"], ctx["tables"], True,
-                  "stream", "auto")
+        run_chain(torch, ctx, cache, tables, True, mode, "auto")
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    if not busy_us:
+        return None
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     cat_us = sum(e.self_device_time_total for e in kernels
                  if "CatArray" in e.key or "cat" in e.key.lower())
+    per_kernel = {}
+    for name in CHAIN_KERNELS:
+        hits = [e for e in kernels if name in e.key]
+        if hits:
+            us = sum(e.self_device_time_total for e in hits)
+            n = sum(e.count for e in hits)
+            per_kernel[name] = {"launches": n,
+                                "device_ms_per_step": us / 1e3 / CHAIN_STEPS,
+                                "us_per_launch": us / n}
+    return {"device_busy_ms": busy_us / 1e3,
+            "unprofiled_wall_ms": wall * 1e3,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "device_ms_per_step": busy_us / 1e3 / CHAIN_STEPS,
+            "cat_device_ms_per_step": cat_us / 1e3 / CHAIN_STEPS,
+            "port_kernels": per_kernel,
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def chain_costs(torch, ctx, walls):
+    """torch.profiler over the stream and the dense variants, and the
+    wall time of one decode step's per-call weight work run on its own:
+    the wq|wk|wv and wg|wu concatenations, and the int8 quantization of
+    every weight (w_dtype="int8")."""
+    from repro_torch.kernels.gemv.ops import quantize_weight
     D = ctx["cfg"].d_model
     a = ctx["plan"].attn
 
@@ -902,16 +993,10 @@ def chain_costs(torch, ctx, wall_stream):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / n * 1e3
 
-    prof_rec = None
-    if busy_us:
-        prof_rec = {"device_busy_ms": busy_us / 1e3,
-                    "unprofiled_wall_ms": wall_stream * 1e3,
-                    "device_busy_share": busy_us / 1e6 / wall_stream,
-                    "cat_device_ms_per_step": cat_us / 1e3 / CHAIN_STEPS,
-                    "top_kernels": [{"name": e.key[:80], "count": e.count,
-                                     "ms": e.self_device_time_total / 1e3}
-                                    for e in top]}
-    return {"profile_stream": prof_rec,
+    return {"profile_stream": profile_chain(torch, ctx, ctx["tables"],
+                                            "stream", walls["stream"]),
+            "profile_dense": profile_chain(torch, ctx, None, "auto",
+                                           walls["dense"]),
             "per_step_weight_concat_wall_ms": wall_ms(concat),
             "per_step_weight_quantize_wall_ms": wall_ms(quantize)}
 
@@ -1540,6 +1625,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     lap("build")
+    floor_ms, floor_host_ms = time_floor(torch, dev)
+    print(f"[kernel] timing floor (one-element add_): {floor_ms} ms device, "
+          f"{floor_host_ms} ms host")
     errs = check_paged_kernel(torch, dev)
     print(f"[kernel] paged_decode_attention vs plain: {errs}")
     times = time_paged_kernel(torch, dev, smi)
@@ -1564,9 +1652,11 @@ def main() -> int:
           "small-pool run")
 
     lap("engine")
-    ctx, chain, chain_launches, wall_stream = run_chain_phase(torch, dev)
-    chain["chunk_prefill"] = chunk_vs_sequential(torch, dev, ctx)
-    chain.update(chain_costs(torch, ctx, wall_stream))
+    ctx, chain, chain_launches, walls = run_chain_phase(torch, dev)
+    chain["chunk_prefill"] = chunk_vs_sequential(torch, dev, ctx, "stream")
+    chain["chunk_prefill_gather"] = chunk_vs_sequential(torch, dev, ctx,
+                                                        "gather")
+    chain.update(chain_costs(torch, ctx, walls))
     for name, rec in chain["variants"].items():
         print(f"[chain] {name}: {rec['ms_per_step']:.2f} ms/step, "
               f"{rec['tokens_per_s']:.1f} tok/s, kernels vs plain "
@@ -1663,6 +1753,7 @@ def main() -> int:
         "library_host_ms": dense_t["library_host_ms"],
         "shapes": {"B": B, "H": H, "G": G, "dh": DH, "S": DENSE_S,
                    "lengths": list(DENSE_LENGTHS), "dtype": "float32"},
+        "plan": dense_t["plan"],
     }, {
         "name": "gemv", "route": "cuda", "source": src("gemv"),
         "replaces": "src/repro/kernels/gemv/gemv.py:55",
@@ -1730,7 +1821,8 @@ def main() -> int:
         "prefill64": mamba_t["prefill64"],
         "prefill512": mamba_t["prefill512"],
     }]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "floor_ms": floor_ms,
+                      "floor_host_ms": floor_host_ms}))
     print(json.dumps({"engine": engine}))
     print(json.dumps({"chain": chain}))
     print(json.dumps({"rwkv": rwkv}))

@@ -13,7 +13,7 @@ VMEM budget) applies.  Each launch adds one to the wrapper's
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,10 +26,28 @@ MAX_GROUP = 8          # query heads per kv head
 MAX_D_HEAD = 256
 MAX_BLOCK_SIZE = 256   # pool rows per tile (scores live in shared memory)
 
+# the dense kernel's split over S (csrc/decode_split.cuh): a cluster of
+# SPLIT blocks per (b, kv head), tiles of at most MAX_TILE_ROWS rows and
+# TILE_BYTES bytes of K (and as many of V)
+SPLIT = 16
+MAX_TILE_ROWS = 64
+TILE_BYTES = 16384
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # a pool may also be int8 / fp8, with f16 scales per (row, kv head)
 _POOL_CODE = {**_DTYPE_CODE, torch.int8: 3, torch.float8_e4m3fn: 4}
 SCALE_DTYPE = torch.float16
+
+
+def dense_plan(S: int, d_head: int, item: int) -> Tuple[int, int]:
+    """(tile rows L, stages) of the dense kernel for a cache of S rows of
+    ``d_head`` values of ``item`` bytes: L covers one block's share of S
+    in one tile where the tile's bytes allow, and a second stage
+    double-buffers the tiles only when a share can exceed one.  A
+    function of S and the row's bytes only: never of B or a length."""
+    per = -(-S // SPLIT)
+    L = max(1, min(per, MAX_TILE_ROWS, TILE_BYTES // (d_head * item)))
+    return L, 1 if per <= L else 2
 
 
 def kernel_supports(gs: int, d_head: int, block_size: int) -> bool:
@@ -84,7 +102,7 @@ def _bind_paged(lib: ctypes.CDLL):
 def _bind_dense(lib: ctypes.CDLL):
     fn = lib.decode_attention
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -241,9 +259,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    L, stages = dense_plan(S, dh, k.element_size())
     err = _dense_launch_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, G, dh, S, k.stride(0), v.stride(0),
+        out.data_ptr(), B, H, G, dh, S, k.stride(0), v.stride(0), L, stages,
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

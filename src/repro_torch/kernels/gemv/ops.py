@@ -11,32 +11,33 @@ kernel picks its own tile.  Each launch adds one to ``gemv.launches``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.gemv.ref import gemv_ref
 
-# the kernel's tile (csrc/gemv.cu)
-TILE_N = 128        # output columns per block
-TILE_ROWS = 4       # rows of x per block
-CHUNK_K = 16        # weight rows per warp chunk
-WARPS = 4
-TARGET_BLOCKS = 264  # two blocks per SM of an H100's 132
+# the kernel's tile and its cluster limit (csrc/gemv.cu)
+TILE_N = 32          # output columns per block
+STAGE_K = 32         # weight rows per stage of the shared-memory ring
+MAX_CLUSTER = 8      # K splits per cluster (the portable cluster size)
+TARGET_BLOCKS = 384  # about three blocks per SM of an H100's 132
 
 _X_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _W_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
            torch.int8: 3}
 
 
-def split_k(K: int, N: int) -> int:
-    """Blocks along K per column tile: enough to put ~TARGET_BLOCKS on
-    the card, at most one chunk per warp.  A function of (K, N) only,
+def gemv_plan(K: int, N: int) -> Tuple[int, int]:
+    """(ksplit, column tiles): the K split that puts about TARGET_BLOCKS
+    blocks of one row group on the card, within one cluster and with at
+    least one stage of weight rows per split.  A function of (K, N) only,
     so row b's result never depends on the number of rows."""
     n_tiles = -(-N // TILE_N)
-    chunks = -(-K // CHUNK_K)
-    return max(1, min(-(-TARGET_BLOCKS // n_tiles), -(-chunks // WARPS)))
+    ksplit = max(1, min(MAX_CLUSTER, -(-TARGET_BLOCKS // n_tiles),
+                        -(-K // STAGE_K)))
+    return ksplit, n_tiles
 
 
 def quantize_weight(w: torch.Tensor, store_dtype: torch.dtype = torch.int8
@@ -56,16 +57,13 @@ def quantize_weight(w: torch.Tensor, store_dtype: torch.dtype = torch.int8
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.gemv
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 _fn = None
-# per device: split-K tickets, zero between launches (the kernel's last
-# block of a tile resets its own)
-_counters: Dict[torch.device, torch.Tensor] = {}
 
 
 def _launch_fn():
@@ -73,14 +71,6 @@ def _launch_fn():
     if _fn is None:
         _fn = _bind(build.load("gemv"))
     return _fn
-
-
-def _counter_buffer(dev: torch.device, n: int) -> torch.Tensor:
-    buf = _counters.get(dev)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
-        _counters[dev] = buf
-    return buf
 
 
 def gemv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -122,20 +112,13 @@ def gemv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
         return out
     if K == 0:
         raise ValueError("gemv: K = 0")
-    ksplit = split_k(K, N)
-    ws = counters = None
-    if ksplit > 1:
-        ws = torch.empty((ksplit, B, N), dtype=torch.float32, device=dev)
-        counters = _counter_buffer(dev, -(-N // TILE_N) * -(-B // TILE_ROWS))
-    vec_ok = int(N % 4 == 0 and w.data_ptr() % (4 * w.element_size()) == 0)
+    ksplit, _ = gemv_plan(K, N)
     err = _launch_fn()(
         x.data_ptr(), w.data_ptr(),
         b.data_ptr() if b is not None else None,
         w_scale.data_ptr() if w_scale is not None else None,
-        out.data_ptr(), ws.data_ptr() if ws is not None else None,
-        counters.data_ptr() if counters is not None else None,
-        B, K, N, ksplit, _X_CODE[x.dtype], _W_CODE[w.dtype],
-        _X_CODE[b.dtype] if b is not None else 0, vec_ok,
+        out.data_ptr(), B, K, N, ksplit, _X_CODE[x.dtype], _W_CODE[w.dtype],
+        _X_CODE[b.dtype] if b is not None else 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gemv kernel launch failed: cudaError {err}")

@@ -127,6 +127,84 @@ def test_dense_kernel_matches_plain(dev, shape, dtype):
         atol=TOL[dtype])
 
 
+def _dense_case(dev, B, H, G, dh, S, dtype, seed=6):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa
+    return r(B, H, dh), r(B, S, G, dh), r(B, S, G, dh)
+
+
+@pytest.mark.parametrize("S", [5, 15, 512, 1030])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_dense_kernel_split_boundaries(dev, S, dtype):
+    """Lengths on the split's share and tile boundaries (0, 1, L, L+1,
+    SPLIT*L, S) at S below the cluster's 16 blocks, the chain's S and an
+    S whose shares take two tiles; each row computed alone equals its
+    row inside the batch bit for bit."""
+    L, _ = ops.dense_plan(S, 64, torch.tensor([], dtype=dtype).element_size())
+    lens = [min(n, S) for n in (0, 1, L, L + 1, ops.SPLIT * L, S)]
+    q, k, v = _dense_case(dev, len(lens), 9, 3, 64, S, dtype)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = ops.decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    want = decode_attention_ref(q, k, v, ln)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    for b in range(len(lens)):
+        alone = ops.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                     ln[b:b + 1])
+        assert torch.equal(alone[0], got[b])
+    assert torch.equal(ops.decode_attention(q, k, v, ln), got)
+
+
+def test_dense_kernel_broadcast_cache_at_the_chunk_shape(dev):
+    """The chunked prefill's call: C = 64 queries over one request's
+    cache broadcast over the batch (stride 0), lengths start + i + 1."""
+    C, S, start = 64, 512, 300
+    q, k, v = _dense_case(dev, C, 9, 3, 64, S, torch.float32)
+    kb, vb = k[:1].expand(C, -1, -1, -1), v[:1].expand(C, -1, -1, -1)
+    ln = torch.arange(start + 1, start + C + 1, dtype=torch.int32,
+                      device=dev)
+    before = ops.decode_attention.launches
+    got = ops.decode_attention(q, kb, vb, ln)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    torch.testing.assert_close(got, decode_attention_ref(q, kb, vb, ln),
+                               rtol=1e-4, atol=1e-4)
+    for i in (0, 17, C - 1):
+        assert torch.equal(ops.decode_attention(q[i:i + 1], kb[:1], vb[:1],
+                                                ln[i:i + 1])[0], got[i])
+
+
+@pytest.mark.parametrize("KN", [(5, 576), (100, 37), (1000, 33), (33, 1),
+                                (1500, 4224), (576, 3071)])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16,
+                                 torch.float16, torch.int8])
+def test_gemv_kernel_plan_edges(dev, KN, wdt):
+    """K below one stage and not a multiple of it, odd N and N = 1, a
+    split wider than one x chunk (K 1500 on 132 column tiles), int8 with
+    bias; rows 1 / 4 / 64 agree bit for bit."""
+    K, N = KN
+    g = torch.Generator(device=dev).manual_seed(7)
+    xdt = torch.float32 if wdt == torch.int8 else wdt
+    x = torch.randn((64, K), generator=g, device=dev).to(xdt)
+    w = torch.randn((K, N), generator=g, device=dev) / K ** 0.5
+    b = torch.randn((N,), generator=g, device=dev).to(xdt)
+    scale = None
+    if wdt == torch.int8:
+        w, scale = gemv_ops.quantize_weight(w)
+    else:
+        w = w.to(wdt)
+    got = gemv_ops.gemv(x, w, b, w_scale=scale)
+    torch.cuda.synchronize()
+    tol = 1e-4 if xdt == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(),
+                               gemv_ref(x, w, b, w_scale=scale).float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(gemv_ops.gemv(x[:4], w, b, w_scale=scale), got[:4])
+    assert torch.equal(gemv_ops.gemv(x[5:6], w, b, w_scale=scale)[0], got[5])
+
+
 @pytest.mark.parametrize("KN", [(576, 960), (576, 576), (576, 3072),
                                 (1536, 576), (100, 37)])
 @pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16, torch.int8])

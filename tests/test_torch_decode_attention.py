@@ -1,7 +1,8 @@
 """The port's decode attention (plain versions, as the wrappers run them
 on CPU tensors) against the JAX reference's kernels in interpret mode and
 its oracles: the paged kernel 1 with fp, int8 and fp8 pools, and the
-dense kernel 2; plus the null-block property on the port itself."""
+dense kernel 2; plus the null-block property on the port itself, and
+kernel 2's split plan with a CPU replay of its split-and-merge."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -337,6 +338,127 @@ def test_dense_broadcast_cache_and_launch_count():
                                 torch.from_numpy(lengths))
     assert torch.equal(got, want)
     assert ops.decode_attention.launches == 0
+
+
+# kernel 2's split plan (ops.dense_plan; csrc/decode_split.cuh)
+MAX_SMEM = 227 * 1024          # shared memory one block may use (H100)
+MAX_CLUSTER = 16               # Hopper's largest (non-portable) cluster
+
+
+def _share(n, rank):
+    """Block ``rank``'s rows [lo, hi) of a row's n attended positions, as
+    ``share_of`` in csrc/decode_split.cuh computes them."""
+    share = -(-n // ops.SPLIT)
+    lo = min(n, rank * share)
+    return lo, min(n, lo + share)
+
+
+def _smem(gs, dh, item, L, stages):
+    """``smem_bytes`` of csrc/decode_split.cuh."""
+    pitch = -(-dh * item // 16) * 16 + 16
+    return stages * 2 * L * pitch + 4 * (
+        gs * dh + gs * L + (4 + ops.SPLIT) * ops.MAX_GROUP
+        + ops.SPLIT * (2 * ops.MAX_GROUP + gs * dh))
+
+
+def _split_replay(q, k, v, lengths):
+    """The dense kernel's arithmetic in float64 on the CPU: each row's
+    attended positions cut into SPLIT shares walked in tiles of the
+    plan's L rows (online softmax), the shares' (m, l, acc) merged in
+    rank order as rank 0 merges them."""
+    B, H, dh = q.shape
+    S, G = k.shape[1], k.shape[2]
+    gs = H // G
+    L, stages = ops.dense_plan(S, dh, 4)
+    out = np.zeros((B, H, dh))
+    for b in range(B):
+        n = min(int(lengths[b]), S)
+        uniform = n <= 0
+        cover = S if uniform else n
+        for g in range(G):
+            qs = q[b, g * gs:(g + 1) * gs].astype(np.float64) / np.sqrt(dh)
+            parts = []
+            for rank in range(ops.SPLIT):
+                lo, hi = _share(cover, rank)
+                assert -(-(hi - lo) // L) <= (1 if stages == 1 else hi - lo)
+                m, l, acc = np.full(gs, -1e30), np.zeros(gs), \
+                    np.zeros((gs, dh))
+                for r0 in range(lo, hi, L):
+                    kt = k[b, r0:min(hi, r0 + L), g].astype(np.float64)
+                    vt = v[b, r0:min(hi, r0 + L), g].astype(np.float64)
+                    sc = np.zeros((gs, len(kt))) if uniform else qs @ kt.T
+                    m_new = np.maximum(m, sc.max(1))
+                    p = np.exp(sc - m_new[:, None])
+                    c = np.exp(m - m_new)
+                    l, acc, m = l * c + p.sum(1), acc * c[:, None] + p @ vt, \
+                        m_new
+                parts.append((m, l, acc))
+            M = np.max([m for m, _, _ in parts], 0)
+            lt = sum(l * np.exp(m - M) for m, l, _ in parts)
+            at = sum(a * np.exp(m - M)[:, None] for m, _, a in parts)
+            out[b, g * gs:(g + 1) * gs] = at / np.maximum(lt, 1e-30)[:, None]
+    return out
+
+
+def test_dense_plan_at_the_chain_shape():
+    """The C1 chain's dense shape (B 4, G 3, dh 64, S 512, f32): one tile
+    of 32 rows per block, a single stage, and 16 x 3 x 4 = 192 blocks,
+    more than the card's 132 SMs, in clusters within Hopper's limit."""
+    assert ops.dense_plan(512, 64, 4) == (32, 1)
+    assert ops.SPLIT * 3 * 4 == 192 >= 132
+    assert ops.SPLIT <= MAX_CLUSTER
+    assert _smem(3, 64, 4, 32, 1) <= 48 * 1024
+
+
+@pytest.mark.parametrize("S", [1, 3, 15, 16, 17, 100, 511, 512, 513, 1000,
+                               1024, 1025, 4096])
+@pytest.mark.parametrize("dh", [32, 64, 100, 128, 256])
+@pytest.mark.parametrize("item", [2, 4])
+def test_dense_plan_depends_on_S_and_row_bytes(S, dh, item):
+    """S below one split (S < 16), S not a multiple of SPLIT * L, and the
+    widest rows: L within its limits, two stages exactly when a share can
+    exceed one tile, shared memory within a block's limit, and shares
+    that tile [0, n) for every length n."""
+    L, stages = ops.dense_plan(S, dh, item)
+    assert 1 <= L <= ops.MAX_TILE_ROWS
+    assert L == 1 or L * dh * item <= ops.TILE_BYTES
+    per = -(-S // ops.SPLIT)
+    assert stages == (1 if per <= L else 2)
+    assert _smem(ops.MAX_GROUP, dh, item, L, stages) <= MAX_SMEM
+    for n in sorted({1, L, L + 1, ops.SPLIT * L, ops.SPLIT * L + 1, S - 1,
+                     S}):
+        if not 1 <= n <= S:
+            continue
+        spans = [_share(n, r) for r in range(ops.SPLIT)]
+        assert spans[0][0] == 0 and spans[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+        assert all(hi - lo <= per for lo, hi in spans)
+        if stages == 1:
+            assert all(hi - lo <= L for lo, hi in spans)
+
+
+@pytest.mark.parametrize("S", [5, 48, 100, 512, 1030])
+def test_dense_split_replay_matches_plain_and_reference(S):
+    """The kernel's split, tiles and rank-order merge, replayed on the
+    CPU, equal the plain version and the reference's oracle at lengths
+    on split and tile boundaries (0, 1, L, L+1, SPLIT*L, S)."""
+    B, H, G, dh = 6, 6, 2, 32
+    L, _ = ops.dense_plan(S, dh, 4)
+    lengths = np.array([min(n, S) for n in
+                        (0, 1, L, L + 1, ops.SPLIT * L, S)], np.int32)
+    r = np.random.default_rng(S)
+    q, k, v = (r.standard_normal(shape).astype(np.float32) for shape in
+               ((B, H, dh), (B, S, G, dh), (B, S, G, dh)))
+    got = _split_replay(q, k, v, lengths)
+    plain = ops.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v),
+                                 torch.from_numpy(lengths)).numpy()
+    np.testing.assert_allclose(got, plain, **TOL_F32)
+    gs = H // G
+    want = jax_decode_ref(jnp.asarray(q), jnp.repeat(jnp.asarray(k), gs, 2),
+                          jnp.repeat(jnp.asarray(v), gs, 2),
+                          jnp.asarray(lengths))
+    np.testing.assert_allclose(got, np.asarray(want), **TOL_F32)
 
 
 class _Plan:

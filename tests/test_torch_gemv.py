@@ -1,6 +1,7 @@
 """The port's decode GEMV (plain version, as its wrapper runs it on CPU
 tensors) against the JAX reference's kernel 3 in interpret mode and its
-oracle, and the port's int8 weight quantizer against the reference's."""
+oracle, the port's int8 weight quantizer against the reference's, and
+the kernel's plan (`gemv_plan`)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -98,6 +99,46 @@ def test_rows_do_not_depend_on_the_batch():
     for i in range(6):
         torch.testing.assert_close(ops.gemv(x[i:i + 1], w, b)[0], full[i],
                                    **TOL["float32"])
-    assert all(1 <= ops.split_k(k, n) <= -(-k // (ops.CHUNK_K * ops.WARPS))
+    assert all(1 <= ops.gemv_plan(k, n)[0] <= ops.MAX_CLUSTER
                for k, n in [(576, 960), (576, 576), (576, 3072),
                             (1536, 576), (16, 8)])
+
+
+# the four gemvs of a full-width smollm-135m layer in the C1 chain, and
+# the plan's numbers the kernel's source note states for them
+CHAIN_SHAPES = {(576, 960): (8, 30), (576, 576): (8, 18),
+                (576, 3072): (4, 96), (1536, 576): (8, 18)}
+SMS = 132                                  # an H100's streaming processors
+
+
+@pytest.mark.parametrize("KN", sorted(CHAIN_SHAPES))
+def test_plan_fills_the_card_at_the_chain_shapes(KN):
+    """At least one block per SM (132) for one row group, within one
+    cluster of at most MAX_CLUSTER K splits."""
+    ksplit, n_tiles = ops.gemv_plan(*KN)
+    assert (ksplit, n_tiles) == CHAIN_SHAPES[KN]
+    assert ksplit * n_tiles >= SMS
+    assert 1 <= ksplit <= ops.MAX_CLUSTER
+
+
+@pytest.mark.parametrize("K,N", [(5, 7), (31, 576), (32, 33), (33, 1),
+                                 (100, 37), (1536, 1), (576, 8192),
+                                 (100000, 3)])
+def test_plan_edges(K, N):
+    """K below one stage, K not a multiple of the stage, N not a multiple
+    of the tile or of 4, N so wide that one split fills the card: every
+    split holds at least one weight row, the cluster limit holds, and
+    the plan is a function of (K, N) alone."""
+    ksplit, n_tiles = ops.gemv_plan(K, N)
+    assert n_tiles == -(-N // ops.TILE_N)
+    assert 1 <= ksplit <= ops.MAX_CLUSTER
+    kc = -(-K // ksplit)                      # rows per split (csrc/gemv.cu)
+    assert (ksplit - 1) * kc < K              # no split is empty
+    if K <= ops.STAGE_K:
+        assert ksplit == 1
+    if n_tiles >= ops.TARGET_BLOCKS:
+        assert ksplit == 1
+    elif K >= ops.MAX_CLUSTER * ops.STAGE_K:
+        assert ksplit * n_tiles >= ops.TARGET_BLOCKS or \
+            ksplit == ops.MAX_CLUSTER
+    assert ops.gemv_plan(K, N) == (ksplit, n_tiles)

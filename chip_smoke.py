@@ -13,7 +13,12 @@ result line when any phase fails or when no CUDA device is present):
    card at the main paths' shapes, then time kernel, plain version and
    a PyTorch library call of the same function, beside the bound the
    card's data sheet gives for the same work: the paged decode attention
-   (f32/bf16/f16 pools, and int8/fp8 pools with their scales), the dense
+   (f32/bf16/f16 pools, and int8/fp8 pools with their scales; and at the
+   edges of its split over 16 blocks, for all five pool types with and
+   without the fold: lengths 0, 1, 15, 16, 17, bs - 1, bs, bs + 1, 300,
+   511 and T*bs over tables out of order, each row alone bit-identical
+   to its row in the batch, the null block inert, the length-0 row the
+   mean of its table's V rows), the dense
    decode attention (each row alone bit-identical to its row in the
    batch; the chunked prefill's stride-0 cache at C = 64), and the decode
    GEMV at the four shapes of one full-width layer (f32, bf16 and int8
@@ -35,9 +40,11 @@ result line when any phase fails or when no CUDA device is present):
    through kernel 1 and through kernel 2's broadcast cache, and
    a torch.profiler pass of the stream and the dense variants (device ms
    per step of each port kernel);
-6. rwkv — kernel 4 (the WKV recurrence) against its plain version at the
-   reference test's shapes, the decode shape (4, 1, 64, 64) and a prefill
-   length (1, 512, 64, 64), timed at the last two (at the prefill length
+6. rwkv — kernel 4 (the WKV recurrence) bit-identical to its plain
+   version at the reference test's shapes, the decode shape
+   (4, 1, 64, 64), a prefill length (1, 512, 64, 64), dh 32, 64, 100
+   and 128 and B*H = 1, timed at the decode and prefill shapes (at the
+   prefill length
    beside the port's chunked form too); then full-width rwkv6-7b (32
    layers, f32, random weights from seed 0, ~30 GB) served through
    ``LPUEngine``: 8 prompts x 32 new tokens on 4 slots, exactly 32 kernel
@@ -60,7 +67,8 @@ result line when any phase fails or when no CUDA device is present):
    version (logits within 1e-4, greedy tokens equal to the plain
    oracle's argmax wherever its top-2 gap exceeds 1e-4).
 
-The last lines are a ``{"kernels": [...], "floor_ms": ...}`` line, an
+A ``[time]`` line closes each phase and one gives the total.  The last
+lines are a ``{"kernels": [...], "floor_ms": ...}`` line, an
 ``{"engine": ...}`` line, a ``{"chain": ...}`` line, an ``{"rwkv": ...}``
 line, a ``{"jamba": ...}`` line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX: the port
@@ -202,10 +210,13 @@ def time_ms(torch, fn, n_sets, iters=200, warmup=20):
     dispatch included).  Device ms comes from CUDA events around the
     same calls queued behind a device-side sleep that outlasts their
     launching, so they run back to back on the card and the host's
-    dispatch cost is hidden.  That holds while the queued launches fit
-    the driver's queue: for a function of many small launches (a plain
-    version) the device ms may be paced by the host, and is then an
-    upper bound."""
+    dispatch cost is hidden.  When the launching took longer than the
+    sleep can have lasted (the host slowed down between the two loops),
+    the calls may have been paced by the host, and the run is repeated
+    behind a 4x longer sleep, up to twice.  That holds while the queued
+    launches fit the driver's queue: for a function of many small
+    launches (a plain version) the device ms may be paced by the host,
+    and is then an upper bound."""
     for i in range(warmup):
         fn(i % n_sets)
     torch.cuda.synchronize()
@@ -216,12 +227,19 @@ def time_ms(torch, fn, n_sets, iters=200, warmup=20):
     host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(4e9 * host_s) + 1_000_000)   # cycles, >= 2 GHz
-    start.record()
-    for i in range(iters):
-        fn(i % n_sets)
-    stop.record()
-    torch.cuda.synchronize()
+    cycles = int(4e9 * host_s) + 1_000_000
+    for _ in range(3):
+        torch.cuda._sleep(cycles)
+        t1 = time.perf_counter()
+        start.record()
+        for i in range(iters):
+            fn(i % n_sets)
+        stop.record()
+        queued_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        if queued_s < 0.9 * cycles / 2.0e9:   # the sleep's least length
+            break
+        cycles *= 4
     return start.elapsed_time(stop) / iters, host_s / iters * 1e3
 
 
@@ -237,8 +255,8 @@ def time_paged_kernel(torch, dev, card_name):
     """Kernel, plain and library times at the main path's shapes (f32,
     with the fold, as decode calls it) and the data-sheet bound."""
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention.ops import \
-        paged_decode_attention
+    from repro_torch.kernels.decode_attention.ops import (
+        SPLIT, dense_plan, paged_decode_attention)
     from repro_torch.kernels.decode_attention.ref import (
         gather_kv_pages, paged_decode_attention_ref)
     q, kp, vp, tb, ln, kn, vn = kernel_inputs(torch, dev, torch.float32,
@@ -279,6 +297,10 @@ def time_paged_kernel(torch, dev, card_name):
                      + B * H * DH) + 4 * (B * T + B)
     times["bound_ms"], times["bound_by"] = bound_for(
         nbytes, 4 * DH * H * (rows + B), "float32", card_name)
+    L, stages = dense_plan(T * BS, DH, 4)
+    times["plan"] = {"grid": [SPLIT, G, B], "cluster": [SPLIT, 1, 1],
+                     "blocks": SPLIT * G * B, "tile_rows": L,
+                     "stages": stages}
     return times
 
 
@@ -372,6 +394,119 @@ def check_time_quantized_pool(torch, dev, card_name):
         t["max_abs_err"] = err
         out[name] = t
     return out
+
+
+# kernel 1's split at its edges, at the main path's pool (bs 128, T 4):
+# lengths on share and pool-block boundaries (300 and 511: shares of 19
+# and 32 rows, the first crossing blocks), each row's blocks out of order
+SPLIT_LENGTHS = (0, 1, 15, 16, 17, BS - 1, BS, BS + 1, 300, 511, T * BS)
+
+
+def split_inputs(torch, dev, pool_dtype, seed=5):
+    """(q, kp, vp, tables, lengths, kn, vn, scales) at SPLIT_LENGTHS, the
+    rows' blocks drawn from a shuffled pool, table tails on the null
+    block 0; an int8 / fp8 pool is quantized from an f32 one with f16
+    scales (q stays f32)."""
+    from repro_torch.serving.kv_cache import quantize_kv_rows
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nb = len(SPLIT_LENGTHS)
+    n_blocks = nb * T + 1
+    quant = pool_dtype in (torch.int8, torch.float8_e4m3fn)
+    q_dtype = torch.float32 if quant else pool_dtype
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    perm = torch.randperm(n_blocks - 1, generator=g, device=dev) + 1
+    tables = torch.zeros((nb, T), dtype=torch.int32, device=dev)
+    for b, n in enumerate(SPLIT_LENGTHS):
+        used = -(-n // BS)
+        tables[b, :used] = perm[b * T:b * T + used]
+    kp, vp = rnd(n_blocks, BS, G, DH), rnd(n_blocks, BS, G, DH)
+    scales = {}
+    if quant:
+        kp, ks = quantize_kv_rows(kp, pool_dtype, torch.float16)
+        vp, vs = quantize_kv_rows(vp, pool_dtype, torch.float16)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp = kp.to(pool_dtype), vp.to(pool_dtype)
+    lengths = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=dev)
+    return (rnd(nb, H, DH).to(q_dtype), kp, vp, tables, lengths,
+            rnd(nb, G, DH).to(q_dtype), rnd(nb, G, DH).to(q_dtype), scales)
+
+
+def check_paged_split(torch, dev):
+    """Kernel 1 at its split's edges, for f32, bf16, f16, int8 and fp8
+    pools, with and without the fold: within tolerance of its plain
+    version; each row alone bit-equal to its row in the batch; the
+    length-0 row the mean of its table's V rows (v_new with the fold);
+    the null block inert under +-1e30 fills (the largest stored values
+    and f16 scales for a quantized pool).  Returns the largest error per
+    case."""
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    from repro_torch.kernels.decode_attention.ref import \
+        paged_decode_attention_ref
+    errs = {}
+    for pool_dtype in (torch.float32, torch.bfloat16, torch.float16,
+                       torch.int8, torch.float8_e4m3fn):
+        name = str(pool_dtype).split(".")[-1]
+        tol = TOL.get(name, TOL["float32"])
+        for fold in (False, True):
+            key = f"{name},fold={fold}"
+            q, kp, vp, tb, ln, kn, vn, sc = split_inputs(torch, dev,
+                                                         pool_dtype)
+            extra = dict(k_new=kn, v_new=vn) if fold else {}
+            got = paged_decode_attention(q, kp, vp, tb, ln, **sc, **extra)
+            want = paged_decode_attention_ref(q, kp, vp, tb, ln, **sc,
+                                              **extra)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.isfinite(got).all() or not torch.allclose(
+                    got.float(), want.float(), rtol=tol, atol=tol):
+                raise AssertionError(f"split {key}: kernel vs plain beyond "
+                                     f"rtol=atol={tol} (max abs {err})")
+            errs[key] = err
+            for b in range(len(SPLIT_LENGTHS)):
+                one = {k: v[b:b + 1] for k, v in extra.items()}
+                alone = paged_decode_attention(q[b:b + 1], kp, vp,
+                                               tb[b:b + 1], ln[b:b + 1],
+                                               **sc, **one)
+                if not torch.equal(alone[0], got[b]):
+                    raise AssertionError(f"split {key}: row {b} alone "
+                                         "differs from its row in the batch")
+            if fold:
+                row0 = vn[0].float()[:, None].expand(-1, H // G, -1)
+            else:
+                v0 = vp[tb[0].long()].float()             # (T, BS, G, DH)
+                if sc:
+                    v0 = v0 * sc["v_scale"][tb[0].long()].float()[..., None]
+                row0 = v0.reshape(-1, G, DH).mean(0)[:, None].expand(
+                    -1, H // G, -1)
+            if not torch.allclose(got[0].float().reshape(G, H // G, DH),
+                                  row0, rtol=tol, atol=tol):
+                raise AssertionError(f"split {key}: the length-0 row is not "
+                                     + ("v_new" if fold else
+                                        "the mean of its table's V rows"))
+            for fill in (1e30, -1e30):
+                kz, vz = kp.clone(), vp.clone()
+                scz = {k: v.clone() for k, v in sc.items()}
+                if sc:
+                    big = 127.0 if pool_dtype == torch.int8 else 448.0
+                    for v in scz.values():
+                        v[0] = 65504.0 if fill > 0 else -65504.0
+                else:
+                    big = min(abs(fill), torch.finfo(pool_dtype).max)
+                for t, val in ((kz, big if fill > 0 else -big), (vz, -big)):
+                    t[0] = torch.full(t.shape[1:], val,
+                                      device=dev).to(pool_dtype)
+                out = paged_decode_attention(q, kz, vz, tb, ln, **scz,
+                                             **extra)
+                keep = (ln > 0) | fold
+                if not torch.isfinite(out).all() or \
+                        not torch.equal(out[keep], got[keep]):
+                    raise AssertionError(f"split {key}: null block filled "
+                                         f"with {fill} changed the output")
+    return errs
 
 
 # dense decode attention (kernel 2) at the chain's dense shapes, and the
@@ -1011,7 +1146,9 @@ def chain_costs(torch, ctx, walls):
 RWKV_DECODE = (4, 1, 64, 64)
 RWKV_PREFILL = (1, 512, 64, 64)
 RWKV_CHECK_SHAPES = ((1, 16, 1, 8), (2, 64, 2, 16), (2, 32, 4, 32),
-                     RWKV_DECODE, RWKV_PREFILL)
+                     RWKV_DECODE, RWKV_PREFILL, (1, 5, 1, 64),
+                     (1, 3, 1, 32), (2, 3, 3, 100), (1, 4, 2, 128),
+                     (4, 1, 64, 128))
 # f32 throughout; only the order of the sums differs from the plain version
 RWKV_TOL = 1e-4
 RWKV_SLOTS, RWKV_REQUESTS, RWKV_NEW = 4, 8, 32
@@ -1065,6 +1202,9 @@ def check_time_rwkv_scan(torch, dev, card_name):
         errs[key] = err
         # the plain version repeats the kernel's order of rounding
         exact[key] = bool(torch.equal(y, yr) and torch.equal(s, sr))
+        if not exact[key]:
+            raise AssertionError(f"rwkv_scan {shape}: kernel not bit-equal "
+                                 f"to its plain version (max abs {err})")
     times = {}
     for name, shape in (("decode", RWKV_DECODE), ("prefill", RWKV_PREFILL)):
         args = rwkv_inputs(torch, dev, shape, seed=20)
@@ -1634,6 +1774,10 @@ def main() -> int:
     print(f"[kernel] paged_decode_attention timing: {times}")
     quant = check_time_quantized_pool(torch, dev, smi)
     print(f"[kernel] paged_decode_attention int8/fp8 pools: {quant}")
+    split_errs = check_paged_split(torch, dev)
+    print(f"[kernel] paged_decode_attention split edges (lengths "
+          f"{list(SPLIT_LENGTHS)}, tables out of order; rows alone equal "
+          f"rows in the batch; null block inert): {split_errs}")
     dense_errs, dense_t = check_time_dense(torch, dev, smi)
     print(f"[kernel] decode_attention vs plain: {dense_errs}; timing: "
           f"{dense_t}")
@@ -1726,6 +1870,7 @@ def main() -> int:
             "chain_kernel_runs": chain_launches["paged_decode_attention"]},
         "max_abs_err": errs["q=float32,pool=float32"],
         "max_abs_err_by_dtype": errs,
+        "max_abs_err_split_edges": split_errs,
         "ms": times["ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": times["library_ms"],
@@ -1734,6 +1879,7 @@ def main() -> int:
         "shapes": {"B": B, "H": H, "G": G, "dh": DH, "bs": BS, "T": T,
                    "N": N, "lengths": list(LENGTHS), "dtype": "float32",
                    "fold": True},
+        "plan": times["plan"],
         "quantized_pools": quant,
     }, {
         "name": "decode_attention", "route": "cuda",
@@ -1827,6 +1973,8 @@ def main() -> int:
     print(json.dumps({"chain": chain}))
     print(json.dumps({"rwkv": rwkv}))
     print(json.dumps({"jamba": jamba}))
+    print(f"[time] total {time.perf_counter() - t_start:.1f} s (limit "
+          "1200 s)")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -112,7 +112,7 @@ __global__ void __launch_bounds__(kThreads)
     attend_tile<KT, J>(sl, t % stages, min(L, count - t * L), uniform, gs,
                        dh, acc);
   }
-  cluster_merge<QT, J>(sl, gs, dh, acc, out + q_base);
+  cluster_merge<QT, J>(sl, gs, dh, acc, out + q_base, false);
 }
 
 template <typename QT, typename KT, int J>

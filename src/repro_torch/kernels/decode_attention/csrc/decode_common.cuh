@@ -1,16 +1,7 @@
 // Pieces shared by the paged and the dense decode-attention kernels
-// (paged_decode_attention.cu, decode_attention.cu): type conversions,
-// warp reductions, the online-softmax update over one tile of KV rows,
-// and the flush of a block's result.
-//
-// A block of 4 warps serves one (sequence b, kv head g) and all gs query
-// heads of the group, so each K/V row is read once per group.  At
-// smollm-135m's gs=3, dh=64 there are fewer than the 16 rows an MMA
-// needs, so the dots are plain f32 FMAs: a warp takes one KV row at a
-// time (its lanes read the row's dh contiguous values, coalesced) and
-// reduces the gs dot products with shuffles.  Partial P.V sums live in
-// registers per warp and are reduced across the warps in a fixed order,
-// so a run is deterministic.
+// (paged_decode_attention.cu, decode_attention.cu, through
+// decode_split.cuh): the block size, the group limit, type conversions
+// (f32, bf16, f16, and int8 / fp8 e4m3 pool values) and warp reductions.
 
 #pragma once
 
@@ -75,221 +66,6 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Shared memory of one block: q_s gs*dh (scaled q), p_s gs*tile (scores,
-// then probabilities), acc_s gs*dh, and m, l, correction and the folded
-// token's weight, kMaxGs each.
-struct Smem {
-  float* q_s;
-  float* p_s;
-  float* acc_s;
-  float* m_s;
-  float* l_s;
-  float* c_s;
-  float* self_s;
-  int tile;
-};
-
-__host__ __device__ inline size_t smem_bytes(int gs, int dh, int tile) {
-  return sizeof(float) * ((size_t)2 * gs * dh + (size_t)gs * tile +
-                          4 * kMaxGs);
-}
-
-__device__ __forceinline__ Smem carve(float* base, int gs, int dh,
-                                      int tile) {
-  Smem s;
-  s.q_s = base;
-  s.p_s = s.q_s + gs * dh;
-  s.acc_s = s.p_s + gs * tile;
-  s.m_s = s.acc_s + gs * dh;
-  s.l_s = s.m_s + kMaxGs;
-  s.c_s = s.l_s + kMaxGs;
-  s.self_s = s.c_s + kMaxGs;
-  s.tile = tile;
-  return s;
-}
-
-// Load the group's gs query heads, scaled by 1/sqrt(dh), into q_s and the
-// lanes' registers; reset m, l and the register accumulators.
-template <typename QT, int DPL>
-__device__ __forceinline__ void load_q(const QT* q, const Smem& sm, int gs,
-                                       int dh, float scale,
-                                       float (&qr)[kMaxGs][DPL],
-                                       float (&acc)[kMaxGs][DPL]) {
-  const int lane = threadIdx.x % 32;
-  for (int i = threadIdx.x; i < gs * dh; i += kThreads)
-    sm.q_s[i] = to_f(q[i]) * scale;
-  if (threadIdx.x < kMaxGs) {
-    sm.m_s[threadIdx.x] = kNeg;
-    sm.l_s[threadIdx.x] = 0.f;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int h = 0; h < kMaxGs; ++h) {
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      const int d = lane + 32 * j;
-      qr[h][j] = (h < gs && d < dh) ? sm.q_s[h * dh + d] : 0.f;
-      acc[h][j] = 0.f;
-    }
-  }
-}
-
-// Online-softmax update over n KV rows (n <= sm.tile), all attended: row
-// r's K at kb + r*stride, V at vb + r*stride; for an int8/fp8 cache its
-// scales at ks[r*sstride], vs[r*sstride], applied right after the load.
-// `uniform`: every score is the same (a row with nothing to attend), so
-// the result is the mean of the V rows, as in the reference.
-template <typename KT, int DPL>
-__device__ __forceinline__ void attend_rows(
-    const KT* __restrict__ kb, const KT* __restrict__ vb,
-    const __half* __restrict__ ks, const __half* __restrict__ vs,
-    size_t stride, size_t sstride, int n, bool uniform, int gs, int dh,
-    const Smem& sm, const float (&qr)[kMaxGs][DPL],
-    float (&acc)[kMaxGs][DPL]) {
-  constexpr bool kQuant = is_quantized<KT>::value;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* p_s = sm.p_s;
-  const int ld = sm.tile;
-
-  // scores: one warp per row, lanes across dh
-  for (int r = warp; r < n; r += kWarps) {
-    if (uniform) {
-      if (lane < gs) p_s[lane * ld + r] = 0.f;
-      continue;
-    }
-    const float sc = kQuant ? __half2float(ks[r * sstride]) : 1.f;
-    float kr[DPL];
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      const int d = lane + 32 * j;
-      kr[j] = 0.f;
-      if (d < dh) {
-        kr[j] = to_f(kb[r * stride + d]);
-        if (kQuant) kr[j] *= sc;
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < kMaxGs; ++h) {
-      if (h < gs) {
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) s += qr[h][j] * kr[j];
-        s = warp_sum(s);
-        if (lane == 0) p_s[h * ld + r] = s;
-      }
-    }
-  }
-  __syncthreads();
-
-  // online-softmax update per head: one warp per head
-  for (int h = warp; h < gs; h += kWarps) {
-    float mx = kNeg;
-    for (int r = lane; r < n; r += 32) mx = fmaxf(mx, p_s[h * ld + r]);
-    mx = warp_max(mx);
-    const float m_old = sm.m_s[h];
-    const float m_new = fmaxf(m_old, mx);
-    float sum = 0.f;
-    for (int r = lane; r < n; r += 32) {
-      const float p = expf(p_s[h * ld + r] - m_new);
-      p_s[h * ld + r] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      const float corr = expf(m_old - m_new);
-      sm.c_s[h] = corr;
-      sm.l_s[h] = sm.l_s[h] * corr + sum;
-      sm.m_s[h] = m_new;
-    }
-  }
-  __syncthreads();
-
-  // P.V: partial sums per warp in registers
-#pragma unroll
-  for (int h = 0; h < kMaxGs; ++h) {
-    if (h < gs) {
-      const float corr = sm.c_s[h];
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) acc[h][j] *= corr;
-    }
-  }
-  for (int r = warp; r < n; r += kWarps) {
-    const float sc = kQuant ? __half2float(vs[r * sstride]) : 1.f;
-    float vr[DPL];
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      const int d = lane + 32 * j;
-      vr[j] = 0.f;
-      if (d < dh) {
-        vr[j] = to_f(vb[r * stride + d]);
-        if (kQuant) vr[j] *= sc;
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < kMaxGs; ++h) {
-      if (h < gs) {
-        const float p = p_s[h * ld + r];
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) acc[h][j] += p * vr[j];
-      }
-    }
-  }
-  __syncthreads();  // p_s is rewritten by the next tile
-}
-
-// Reduce the warps' accumulators in a fixed order, fold the new token
-// (kn/vn, may be null) in after the last tile, and write
-// out = acc / max(l, 1e-30) in QT.
-template <typename QT, int DPL>
-__device__ __forceinline__ void finish(const Smem& sm, int gs, int dh,
-                                       float (&acc)[kMaxGs][DPL],
-                                       const QT* kn, const QT* vn, QT* out) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int w = 0; w < kWarps; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int h = 0; h < kMaxGs; ++h) {
-        if (h < gs) {
-#pragma unroll
-          for (int j = 0; j < DPL; ++j) {
-            const int d = lane + 32 * j;
-            if (d < dh)
-              sm.acc_s[h * dh + d] =
-                  (w == 0) ? acc[h][j] : sm.acc_s[h * dh + d] + acc[h][j];
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (kn != nullptr) {
-    for (int h = warp; h < gs; h += kWarps) {
-      float s = 0.f;
-      for (int d = lane; d < dh; d += 32) s += sm.q_s[h * dh + d] * to_f(kn[d]);
-      s = warp_sum(s);
-      if (lane == 0) {
-        const float m_f = fmaxf(sm.m_s[h], s);
-        const float p_self = expf(s - m_f);
-        const float c = expf(sm.m_s[h] - m_f);
-        sm.l_s[h] = sm.l_s[h] * c + p_self;
-        sm.c_s[h] = c;
-        sm.self_s[h] = p_self;
-        sm.m_s[h] = m_f;
-      }
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < gs * dh; i += kThreads) {
-    const int h = i / dh;
-    const int d = i % dh;
-    float a = sm.acc_s[i];
-    if (kn != nullptr) a = a * sm.c_s[h] + sm.self_s[h] * to_f(vn[d]);
-    out[i] = from_f<QT>(a / fmaxf(sm.l_s[h], 1e-30f));
-  }
 }
 
 }  // namespace decode

@@ -21,14 +21,14 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
 
-# the kernel's own limits (csrc/paged_decode_attention.cu)
+# the paged kernel's limits (csrc/paged_decode_attention.cu)
 MAX_GROUP = 8          # query heads per kv head
 MAX_D_HEAD = 256
-MAX_BLOCK_SIZE = 256   # pool rows per tile (scores live in shared memory)
+MAX_BLOCK_SIZE = 256   # rows per pool block
 
-# the dense kernel's split over S (csrc/decode_split.cuh): a cluster of
-# SPLIT blocks per (b, kv head), tiles of at most MAX_TILE_ROWS rows and
-# TILE_BYTES bytes of K (and as many of V)
+# both kernels' split over the cache (csrc/decode_split.cuh): a cluster
+# of SPLIT blocks per (b, kv head), tiles of at most MAX_TILE_ROWS rows
+# and TILE_BYTES bytes of K (and as many of V)
 SPLIT = 16
 MAX_TILE_ROWS = 64
 TILE_BYTES = 16384
@@ -44,7 +44,10 @@ def dense_plan(S: int, d_head: int, item: int) -> Tuple[int, int]:
     ``d_head`` values of ``item`` bytes: L covers one block's share of S
     in one tile where the tile's bytes allow, and a second stage
     double-buffers the tiles only when a share can exceed one.  A
-    function of S and the row's bytes only: never of B or a length."""
+    function of S and the row's bytes only: never of B or a length.  The
+    paged kernel computes the same plan itself (``tile_plan`` in
+    csrc/decode_split.cuh) for S = T * block_size and the pool's item
+    size."""
     per = -(-S // SPLIT)
     L = max(1, min(per, MAX_TILE_ROWS, TILE_BYTES // (d_head * item)))
     return L, 1 if per <= L else 2
@@ -153,9 +156,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     block_tables: (B,T) int32 physical block ids (each < N); lengths:
     (B,) int32 resident tokens per row; k_new/v_new: (B,G,dh) in q's
     dtype, the current token attended in addition (the pool is read
-    before the caller scatters it); k_scale/v_scale: (N,bs,G) scales of
-    a quantized pool (plain version only for now).  -> (B,H,dh) in q's
-    dtype."""
+    before the caller scatters it); k_scale/v_scale: (N,bs,G) f16 scales
+    of an int8/fp8 pool.  A row with length 0 returns v_new with the
+    fold, else the mean of the V rows of its whole table, as the
+    reference does.  -> (B,H,dh) in q's dtype."""
     if (k_new is None) != (v_new is None):
         raise ValueError("k_new and v_new go together")
     if (k_scale is None) != (v_scale is None):

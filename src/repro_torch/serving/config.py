@@ -88,7 +88,7 @@ class EngineConfig:
 UNPORTED = {
     "prefill_chunk": "chunked prefill", "prefix_cache": "prefix cache",
     "speculate": "speculation", "draft_k": "speculation",
-    "w_dtype": "int8 weights", "chaos": "fault tolerance",
+    "chaos": "fault tolerance",
     "max_migrations": "fault tolerance",
     "heartbeat_timeout_s": "fault tolerance",
     "ft_straggler_drain": "fault tolerance", "affinity": "front end",

@@ -39,8 +39,9 @@ reference's ``serving/engine.py`` ``LPUEngine``).
 Not in this slice (each raises ``NotImplementedError``): a mesh / tp > 1,
 the int8/fp8 KV pool, and any value other than the default of a config
 field whose subsystem is not ported (``serving.config.UNPORTED``:
-chunked prefill, the prefix cache, speculation, int8 weights, fault
-tolerance, the front end).
+chunked prefill, the prefix cache, speculation, fault tolerance, the
+front end).  ``w_dtype`` is carried as the reference carries it, for
+telemetry: the engine's decode keeps the fp weights at any value.
 """
 from __future__ import annotations
 

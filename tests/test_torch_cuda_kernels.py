@@ -100,6 +100,95 @@ def test_quantized_pool_matches_plain(dev, qdt, shape, fold):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+# kernel 1's split (csrc/decode_split.cuh) at its edges: bs 16, T 5, so
+# S = 80 and a full row's shares of 5 positions cross pool blocks
+SPLIT_BS, SPLIT_T = 16, 5
+SPLIT_LENGTHS = (0, 1, 15, 16, 17, SPLIT_BS - 1, SPLIT_BS, SPLIT_BS + 1,
+                 SPLIT_T * SPLIT_BS)
+POOL_DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.int8,
+               torch.float8_e4m3fn]
+
+
+def _split_case(dev, pool_dtype, seed=8, H=9, G=3, dh=64):
+    """Kernel 1's inputs at the split's edge lengths, each row's blocks
+    drawn out of order from a shuffled pool, table tails on the null
+    block 0; an int8 / fp8 pool is quantized from an f32 one (q stays
+    f32).  -> (q, kp, vp, tables, lengths, kn, vn, scales)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, bs, T = len(SPLIT_LENGTHS), SPLIT_BS, SPLIT_T
+    N = B * T + 1
+    quant = pool_dtype in (torch.int8, torch.float8_e4m3fn)
+    qdt = torch.float32 if quant else pool_dtype
+    r = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    perm = torch.randperm(N - 1, generator=g, device=dev) + 1
+    tables = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    for b, n in enumerate(SPLIT_LENGTHS):
+        used = -(-n // bs)
+        tables[b, :used] = perm[b * T:b * T + used]
+    kp, vp = r(N, bs, G, dh), r(N, bs, G, dh)
+    scales = {}
+    if quant:
+        kp, ks = quantize_kv_rows(kp, pool_dtype, torch.float16)
+        vp, vs = quantize_kv_rows(vp, pool_dtype, torch.float16)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp = kp.to(pool_dtype), vp.to(pool_dtype)
+    lengths = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=dev)
+    return (r(B, H, dh).to(qdt), kp, vp, tables, lengths,
+            r(B, G, dh).to(qdt), r(B, G, dh).to(qdt), scales)
+
+
+@pytest.mark.parametrize("pool_dtype", POOL_DTYPES)
+@pytest.mark.parametrize("fold", [False, True])
+def test_paged_kernel_split_boundaries(dev, pool_dtype, fold):
+    """Lengths 0, 1, 15, 16, 17, bs - 1, bs, bs + 1 and T*bs, shares
+    that cross pool blocks of tables out of order: within tolerance of
+    the plain version; each row alone bit-equal to its row in the batch;
+    the length-0 row the mean of its table's V rows (v_new with the
+    fold); the null block inert under extreme fills."""
+    q, kp, vp, tb, ln, kn, vn, sc = _split_case(dev, pool_dtype)
+    extra = dict(k_new=kn, v_new=vn) if fold else {}
+    before = ops.paged_decode_attention.launches
+    got = ops.paged_decode_attention(q, kp, vp, tb, ln, **sc, **extra)
+    torch.cuda.synchronize()
+    assert ops.paged_decode_attention.launches == before + 1
+    want = paged_decode_attention_ref(q, kp, vp, tb, ln, **sc, **extra)
+    tol = TOL.get(pool_dtype, 1e-4)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    B, H, dh = q.shape
+    G = kp.shape[2]
+    for b in range(B):
+        one = {k: v[b:b + 1] for k, v in extra.items()}
+        alone = ops.paged_decode_attention(q[b:b + 1], kp, vp, tb[b:b + 1],
+                                           ln[b:b + 1], **sc, **one)
+        assert torch.equal(alone[0], got[b])
+    if fold:
+        row0 = vn[0].float()[:, None].expand(-1, H // G, -1)
+    else:
+        v0 = vp[tb[0].long()].float()                     # (T, bs, G, dh)
+        if sc:
+            v0 = v0 * sc["v_scale"][tb[0].long()].float()[..., None]
+        row0 = v0.reshape(-1, G, dh).mean(0)[:, None].expand(-1, H // G, -1)
+    torch.testing.assert_close(got[0].float().reshape(G, H // G, dh), row0,
+                               rtol=tol, atol=tol)
+    # the null block scribbled: no row that attends something changes
+    for fill in (1e30, -1e30):
+        kz, vz = kp.clone(), vp.clone()
+        scz = {k: v.clone() for k, v in sc.items()}
+        if sc:      # the largest stored values and scales
+            big = 127.0 if pool_dtype == torch.int8 else 448.0
+            for v in scz.values():
+                v[0] = 65504.0 if fill > 0 else -65504.0
+        else:
+            big = min(abs(fill), torch.finfo(pool_dtype).max)
+        for t, val in ((kz, big if fill > 0 else -big), (vz, -big)):
+            t[0] = torch.full(t.shape[1:], val, device=dev).to(pool_dtype)
+        out = ops.paged_decode_attention(q, kz, vz, tb, ln, **scz, **extra)
+        keep = (ln > 0) | fold
+        assert torch.isfinite(out).all()
+        assert torch.equal(out[keep], got[keep])
+
+
 @pytest.mark.parametrize("shape", [(4, 9, 3, 64, 512), (3, 4, 2, 32, 100),
                                    (2, 16, 2, 128, 300)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -288,6 +377,24 @@ def test_rwkv_scan_kernel_matches_plain(dev, shape):
     # deterministic: a second launch gives the same bits
     y2, s2 = rwkv_ops.rwkv_scan(*args)
     assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.parametrize("dh", [32, 33, 64, 100, 128])
+@pytest.mark.parametrize("BH", [(1, 1), (1, 7), (4, 16), (4, 64)])
+@pytest.mark.parametrize("S", [1, 5])
+def test_rwkv_scan_kernel_bit_equal_across_widths(dev, dh, BH, S):
+    """Kernel 4's column blocks at dh 32, 64, 100 and 128 (and 33, off
+    the 16-byte copies) and B*H from 1 to 256: bit-equal to its plain
+    version."""
+    B, H = BH
+    g = torch.Generator(device=dev).manual_seed(dh + 7 * H)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    w = 0.8 + 0.199 * torch.rand((B, S, H, dh), generator=g, device=dev)
+    args = (r(B, S, H, dh), 0.3 * r(B, S, H, dh), r(B, S, H, dh), w,
+            0.2 * r(H, dh), 0.1 * r(B, H, dh, dh))
+    y, s = rwkv_ops.rwkv_scan(*args)
+    yr, sr = rwkv_scan_ref(*args)
+    assert torch.equal(y, yr) and torch.equal(s, sr)
 
 
 def test_rwkv_scan_kernel_refuses_what_it_cannot_run(dev):

@@ -2,7 +2,9 @@
 on CPU tensors) against the JAX reference's kernels in interpret mode and
 its oracles: the paged kernel 1 with fp, int8 and fp8 pools, and the
 dense kernel 2; plus the null-block property on the port itself, and
-kernel 2's split plan with a CPU replay of its split-and-merge."""
+both kernels' split plan with CPU replays of their split-and-merge."""
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -354,11 +356,14 @@ def _share(n, rank):
 
 
 def _smem(gs, dh, item, L, stages):
-    """``smem_bytes`` of csrc/decode_split.cuh."""
+    """``smem_bytes`` of csrc/decode_split.cuh: the K/V tiles, then q,
+    the scores, the softmax state, the merge weights, the folded k, the
+    row scales and SPLIT + 1 merge slots (the ranks and the fold)."""
     pitch = -(-dh * item // 16) * 16 + 16
+    parts = ops.SPLIT + 1
     return stages * 2 * L * pitch + 4 * (
-        gs * dh + gs * L + (4 + ops.SPLIT) * ops.MAX_GROUP
-        + ops.SPLIT * (2 * ops.MAX_GROUP + gs * dh))
+        gs * dh + gs * L + (4 + parts) * ops.MAX_GROUP + dh + stages * 2 * L
+        + parts * (2 * ops.MAX_GROUP + gs * dh))
 
 
 def _split_replay(q, k, v, lengths):
@@ -459,6 +464,171 @@ def test_dense_split_replay_matches_plain_and_reference(S):
                           jnp.repeat(jnp.asarray(v), gs, 2),
                           jnp.asarray(lengths))
     np.testing.assert_allclose(got, np.asarray(want), **TOL_F32)
+
+
+# kernel 1's split: the dense kernel's plan at S = T * bs, shares that
+# cross pool blocks, the block table as the row address, the fold as a
+# 17th partial merged after the ranks (csrc/paged_decode_attention.cu)
+PAGED_SPLIT = [(16, 5), (64, 34)]      # (bs, T): one stage; two stages
+
+
+def _paged_split_replay(q, kf, vf, tables, lengths, item, kn=None,
+                        vn=None):
+    """The paged kernel's arithmetic in float64 on the CPU over the
+    dequantized pool ``kf``/``vf`` (N, bs, G, dh): each row's attended
+    positions cut into SPLIT shares walked in tiles of the plan's L rows,
+    each position looked up through the block table; the shares'
+    (m, l, acc) merged in rank order and the folded token's
+    (q.k_new, 1, v_new) after them.  -> (out, {(b, table index) read})."""
+    B, H, dh = q.shape
+    _, bs, G, _ = kf.shape
+    T = tables.shape[1]
+    S, gs = T * bs, H // G
+    L, stages = ops.dense_plan(S, dh, item)
+    fold = kn is not None
+    out = np.zeros((B, H, dh))
+    read = set()
+    for b in range(B):
+        uniform = lengths[b] <= 0 and not fold
+        n = S if uniform else min(max(int(lengths[b]), 0), S)
+        for g in range(G):
+            qs = q[b, g * gs:(g + 1) * gs].astype(np.float64) / np.sqrt(dh)
+            parts = []
+            for rank in range(ops.SPLIT):
+                lo, hi = _share(n, rank)
+                assert -(-(hi - lo) // L) <= (1 if stages == 1 else hi - lo)
+                m, l, acc = np.full(gs, -1e30), np.zeros(gs), \
+                    np.zeros((gs, dh))
+                for p0 in range(lo, hi, L):
+                    pos = np.arange(p0, min(hi, p0 + L))
+                    read.update((b, int(t)) for t in pos // bs)
+                    blk = tables[b, pos // bs]
+                    kt = kf[blk, pos % bs, g].astype(np.float64)
+                    vt = vf[blk, pos % bs, g].astype(np.float64)
+                    sc = np.zeros((gs, len(pos))) if uniform else qs @ kt.T
+                    m_new = np.maximum(m, sc.max(1))
+                    p = np.exp(sc - m_new[:, None])
+                    c = np.exp(m - m_new)
+                    l, acc, m = l * c + p.sum(1), acc * c[:, None] + p @ vt, \
+                        m_new
+                parts.append((m, l, acc))
+            if fold:
+                parts.append((qs @ kn[b, g].astype(np.float64), np.ones(gs),
+                              np.tile(vn[b, g].astype(np.float64), (gs, 1))))
+            M = np.max([m for m, _, _ in parts], 0)
+            lt = sum(l * np.exp(m - M) for m, l, _ in parts)
+            at = sum(a * np.exp(m - M)[:, None] for m, _, a in parts)
+            out[b, g * gs:(g + 1) * gs] = at / np.maximum(lt, 1e-30)[:, None]
+    return out, read
+
+
+def _paged_split_inputs(bs, T, seed, G=2, gs=2, dh=32):
+    """Lengths on every share and pool-block boundary (0, 1, 15, 16, 17,
+    bs - 1, bs, bs + 1, 2*bs + 1, L, L + 1, SPLIT*L, S - 1, S, and one
+    whose shares of 5 or 9 rows straddle blocks), each row's blocks drawn
+    out of order, table tails on the null block 0."""
+    S = T * bs
+    L, _ = ops.dense_plan(S, dh, 4)
+    lens = sorted({n for n in (0, 1, 15, 16, 17, bs - 1, bs, bs + 1,
+                               2 * bs + 1, L, L + 1, ops.SPLIT * L, S - 1,
+                               S, 16 * 5 - 3, 16 * 9 - 1) if 0 <= n <= S})
+    B, H = len(lens), G * gs
+    N = B * T + 1
+    r = np.random.default_rng(seed)
+    perm = r.permutation(N - 1) + 1
+    tables = np.zeros((B, T), np.int32)
+    for b, n in enumerate(lens):
+        used = -(-n // bs)
+        tables[b, :used] = perm[b * T:b * T + used]
+    a = dict(q=r.standard_normal((B, H, dh)),
+             kp=r.standard_normal((N, bs, G, dh)),
+             vp=r.standard_normal((N, bs, G, dh)),
+             kn=r.standard_normal((B, G, dh)),
+             vn=r.standard_normal((B, G, dh)))
+    a = {k: v.astype(np.float32) for k, v in a.items()}
+    return a, tables, np.array(lens, np.int32)
+
+
+@pytest.mark.parametrize("bs_T", PAGED_SPLIT, ids=["1stage", "2stages"])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("pool", ["float32", "int8", "fp8"])
+def test_paged_split_replay_matches_plain_and_reference(bs_T, fold, pool):
+    """Kernel 1's shares, tiles, table lookups, fold and rank-order
+    merge, replayed on the CPU, equal the plain version and the
+    reference's oracle at lengths on every share and pool-block
+    boundary, for an fp pool and for int8 / fp8 pools with their scales;
+    no table entry at or past ceil(length / bs) is read, except by a
+    length-0 row without the fold (the mean of its whole table)."""
+    bs, T = bs_T
+    a, tables, lengths = _paged_split_inputs(bs, T, seed=bs + T)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    extra = dict(k_new=t["kn"], v_new=t["vn"]) if fold else {}
+    jextra = dict(k_new=jnp.asarray(a["kn"]),
+                  v_new=jnp.asarray(a["vn"])) if fold else {}
+    if pool == "float32":
+        kp, vp, item, scales, jscales = t["kp"], t["vp"], 4, {}, {}
+        jk, jv = jnp.asarray(a["kp"]), jnp.asarray(a["vp"])
+        kf, vf = a["kp"], a["vp"]
+    else:
+        port, ref = _quantized_pools(a, pool)
+        (kp, ks), (vp, vs) = port["kp"], port["vp"]
+        item, scales = 1, dict(k_scale=ks, v_scale=vs)
+        jk, jv = ref["kp"][0], ref["vp"][0]
+        jscales = dict(k_scale=ref["kp"][1], v_scale=ref["vp"][1])
+        kf = kv_cache.dequantize_kv(kp, ks).numpy()
+        vf = kv_cache.dequantize_kv(vp, vs).numpy()
+    got, read = _paged_split_replay(a["q"], kf, vf, tables, lengths, item,
+                                    a["kn"] if fold else None,
+                                    a["vn"] if fold else None)
+    for b, n in enumerate(lengths):
+        if n > 0 or fold:
+            assert all(i < -(-int(n) // bs) for bb, i in read if bb == b)
+    plain = ops.paged_decode_attention(
+        t["q"], kp, vp, torch.from_numpy(tables), torch.from_numpy(lengths),
+        **scales, **extra).numpy()
+    np.testing.assert_allclose(got, plain, **TOL_F32)
+    want = np.asarray(jax_paged_decode_attention(
+        jnp.asarray(a["q"]), jk, jv, jnp.asarray(tables),
+        jnp.asarray(lengths), use_pallas=False, **jscales, **jextra))
+    # the reference's gather oracle writes the folded token at position
+    # `length` of the gathered view, so a full row with the fold is
+    # outside its domain (the position is clamped onto the last row)
+    rows = (lengths < T * bs) | (not fold)
+    np.testing.assert_allclose(got[rows], want[rows], **TOL_F32)
+
+
+@pytest.mark.parametrize("S", [1, 16, 80, 512, 2176, 4096])
+@pytest.mark.parametrize("dh", [32, 64, 100, 256])
+@pytest.mark.parametrize("item", [1, 2, 4])
+def test_paged_plan_depends_on_S_and_row_bytes(S, dh, item):
+    """Kernel 1 plans in C (``tile_plan``) as ``dense_plan`` does, from
+    T * bs and the pool's item size only: every (bs, T) with the same
+    S shares the plan, L stays within its limits and shared memory within
+    a block's limit at the widest group (int8 / fp8 pools included); the
+    C constants are the wrapper's."""
+    plans = {ops.dense_plan(bs * (S // bs), dh, item)
+             for bs in (1, 2, 4, 8, 16) if S % bs == 0}
+    assert len(plans) == 1
+    L, stages = plans.pop()
+    assert 1 <= L <= ops.MAX_TILE_ROWS
+    assert L == 1 or L * dh * item <= ops.TILE_BYTES
+    assert stages == (1 if -(-S // ops.SPLIT) <= L else 2)
+    assert _smem(ops.MAX_GROUP, dh, item, L, stages) <= MAX_SMEM
+    src = (Path(ops.__file__).parent / "csrc" / "decode_split.cuh"
+           ).read_text()
+    for name, want in (("kSplit", ops.SPLIT),
+                       ("kMaxTileRows", ops.MAX_TILE_ROWS),
+                       ("kTileBytes", ops.TILE_BYTES)):
+        assert f"constexpr int {name} = {want};" in src
+
+
+def test_paged_plan_at_the_main_path_shape():
+    """smollm-135m's pool (bs 128, T 4, dh 64): one tile of 32 rows per
+    block in f32 and int8 alike, 16 x 3 x 4 = 192 blocks at slots 4, and
+    33,888 bytes of shared memory in f32."""
+    assert ops.dense_plan(4 * 128, 64, 4) == ops.dense_plan(4 * 128, 64, 1) \
+        == (32, 1)
+    assert _smem(3, 64, 4, 32, 1) == 33888
 
 
 class _Plan:

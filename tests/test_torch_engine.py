@@ -14,6 +14,7 @@ from repro.configs import get_config as jax_get_config
 from repro.models.registry import build_model as jax_build_model
 from repro.serving import kv_cache as jax_kv
 from repro.serving import sampler as jax_sampler
+from repro.serving.config import EngineConfig as JaxEngineConfig
 from repro.serving.engine import LPUEngine as JaxEngine
 from repro_torch.compiler.mapper import plan_model
 from repro_torch.configs import get_config
@@ -32,11 +33,17 @@ MAX_NEW = 20
 
 
 @pytest.fixture(scope="module")
-def setup():
+def jax_setup():
     jcfg = jax_get_config("smollm-135m").reduced()
     jplan = jax_plan_model(jcfg, None, (1,), "serve", **SERVE_F32)
     jmodel = jax_build_model(jcfg, jplan)
     jparams, _ = jmodel.init(jax.random.PRNGKey(0))
+    return jmodel, jparams
+
+
+@pytest.fixture(scope="module")
+def setup(jax_setup):
+    jmodel, jparams = jax_setup
     ref = JaxEngine(jmodel, jparams, slots=3, max_seq=64,
                     paged=False).generate(
         PROMPTS, max_new_tokens=MAX_NEW)
@@ -107,7 +114,6 @@ def test_decode_launch_count_and_stats(setup):
                                   dict(prefix_cache=True),
                                   dict(speculate="ngram"),
                                   dict(draft_k=2),
-                                  dict(w_dtype="int8"),
                                   dict(chaos="ring@3"),
                                   dict(max_migrations=1),
                                   dict(heartbeat_timeout_s=5.0),
@@ -122,6 +128,28 @@ def test_later_slices_raise(setup, knob):
     with pytest.raises(NotImplementedError):
         LPUEngine(model, params, EngineConfig(slots=2, max_seq=64, **knob),
                   device="cpu")
+
+
+def test_w_dtype_int8_is_carried_and_decodes_with_fp_weights(jax_setup,
+                                                             setup):
+    """``w_dtype="int8"`` is carried as the reference carries it (the
+    streamed-weight precision, for telemetry): the engine reports it and
+    decodes with its fp weights, so its greedy streams equal the
+    ``"auto"`` engine's and the reference engine's at ``"int8"``."""
+    jmodel, jparams = jax_setup
+    model, params, _ = setup
+    streams = {}
+    for w in ("auto", "int8"):
+        eng = LPUEngine(model, params,
+                        EngineConfig(slots=3, max_seq=64, block_size=16,
+                                     w_dtype=w), device="cpu")
+        assert eng.w_dtype == w
+        streams[w] = eng.generate(PROMPTS, max_new_tokens=MAX_NEW)
+    ref_eng = JaxEngine(jmodel, jparams, JaxEngineConfig(
+        slots=3, max_seq=64, paged=False, w_dtype="int8"))
+    assert ref_eng.w_dtype == "int8"
+    ref = ref_eng.generate(PROMPTS, max_new_tokens=MAX_NEW)
+    assert streams["int8"] == streams["auto"] == ref
 
 
 def test_mesh_raises(setup):

@@ -53,15 +53,18 @@ result line when any phase fails or when no CUDA device is present):
    with its plain version (logits within 1e-4, greedy tokens equal to the
    plain oracle's argmax wherever its top-2 gap exceeds 1e-4);
 7. jamba — after the rwkv phase's model is freed: kernel 5 (the
-   selective scan) against its plain version at the reference test's
-   shapes, the decode shape (4, 1, 8192, 16) and the prefill shapes
-   (1, 64, 8192, 16) and (1, 512, 8192, 16), timed at the last three;
+   selective scan), both entries (a: da, bx given; b: fused, da and bx
+   formed in registers from dt, x, a, b) bit-identical to their plain
+   versions at the reference test's shapes, the decode shape
+   (4, 1, 8192, 16) and the prefill shapes (1, 64, 8192, 16) and
+   (1, 512, 8192, 16), timed at the last three, entry (b) beside the
+   path it replaced (PyTorch's producers of da and bx, then entry a);
    then jamba-v0.1-52b at full width, its depth cut from 32 layers to one
    super-block of 8 (attention at index 4, mamba at the other seven, MoE
    on the odd layers; 13.3e9 parameters, 53 GB in f32: the full depth
    does not fit the card), random weights from seed 0, served through
    ``LPUEngine`` from the dense cache: 8 prompts x 32 new tokens on 4
-   slots, exactly 7 kernel launches per device decode step and per
+   slots, exactly 7 launches of entry (b) per device decode step and per
    prefill, a torch.profiler pass, and a teacher-forced replay of the
    streams in the engine's batching with the kernel and with its plain
    version (logits within 1e-4, greedy tokens equal to the plain
@@ -789,10 +792,11 @@ def _counts():
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, paged_decode_attention)
     from repro_torch.kernels.gemv.ops import gemv
-    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    from repro_torch.kernels.mamba_scan.ops import (mamba_scan,
+                                                    mamba_scan_fused)
     from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
     return gemv, paged_decode_attention, decode_attention, rwkv_scan, \
-        mamba_scan
+        mamba_scan, mamba_scan_fused
 
 
 def _reset_counts():
@@ -1474,6 +1478,22 @@ def mamba_inputs(torch, dev, shape, seed):
             0.1 * torch.randn((B, C, N), generator=g, device=dev))
 
 
+def mamba_fused_inputs(torch, dev, shape, seed):
+    """dt (softplus of a normal, shifted as jamba's dt_bias leaves it), x,
+    a = -exp(a_log) with jamba's a_log = log(1..N) plus noise, b, c and a
+    nonzero h0."""
+    B, S, C, N = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, C), generator=g, device=dev) - 2.0)
+    a = -torch.exp(torch.log(torch.arange(1, N + 1, device=dev).float())
+                   + 0.1 * torch.randn((C, N), generator=g, device=dev))
+    return (dt, torch.randn((B, S, C), generator=g, device=dev), a,
+            torch.randn((B, S, N), generator=g, device=dev),
+            torch.randn((B, S, N), generator=g, device=dev),
+            0.1 * torch.randn((B, C, N), generator=g, device=dev))
+
+
 def mamba_bound(shape, card_name):
     """Least work of one call: da, bx, c and h0 read once, y and the
     final state written once; 4 f32 operations per (b, t, c, n) element
@@ -1483,30 +1503,77 @@ def mamba_bound(shape, card_name):
     return bound_for(nbytes, 4 * B * S * C * N, "float32", card_name)
 
 
-def check_time_mamba_scan(torch, dev, card_name):
-    """Kernel 5 against its plain version at every listed shape, then
-    timed at the decode, the engine's longest prefill and a 512-token
-    prefill beside the plain version.  No single PyTorch call computes
-    the recurrence, so there is no library time."""
-    from repro_torch.kernels.mamba_scan.ops import mamba_scan
-    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
-    errs, exact = {}, {}
+# the SFUs' exp2 rate: 16 a clock per SM (NVIDIA's CUDA programming
+# guide, compute capability 9.0) x 132 SMs x the H100 SXM's 1.98 GHz boost
+SFU_PER_S = 16 * 132 * 1.98e9
+
+
+def mamba_fused_bound(shape, card_name):
+    """Least work of one fused call: dt, x, a, b, c and h0 read once, y
+    and the final state written once; per (b, t, c, n) element one
+    exponential on the SFUs and 6 f32 operations (dt*a, (dt*x)*b, the
+    update's product and sum, the output's product and sum).  The larger
+    of the bytes' time and the exponentials' time on the SFUs (the f32
+    operations take less than either)."""
+    B, S, C, N = shape
+    nbytes = 4 * (3 * B * S * C + C * N + 2 * B * S * N + 2 * B * C * N)
+    t_bytes, _ = bound_for(nbytes, 0, "float32", card_name)
+    elems = B * S * C * N
+    t_ops = max(elems / SFU_PER_S, 6 * elems / PEAK_OPS["float32"]) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def mamba_producers(torch, dt, x, a, b):
+    """The jamba layer's PyTorch producers of da and bx, as
+    ``models/mamba.py`` ran them before the fused entry: the
+    comparator's first half."""
+    da = torch.exp(dt[..., None] * a)
+    bx = (dt * x)[..., None] * b[:, :, None, :]
+    return da.contiguous(), bx.contiguous()
+
+
+def check_mamba_entry(torch, entry, kernel, plain, inputs, errs, exact):
+    """One entry of kernel 5 against its plain version at every listed
+    shape: finite, within MAMBA_TOL, and whether bit-equal."""
     for i, shape in enumerate(MAMBA_CHECK_SHAPES):
-        args = mamba_inputs(torch, dev, shape, seed=30 + i)
-        y, h = mamba_scan(*args)
-        yr, hr = mamba_scan_ref(*args)
+        args = inputs(shape, 30 + i)
+        y, h = kernel(*args)
+        yr, hr = plain(*args)
         torch.cuda.synchronize()
         err = max((y - yr).abs().max().item(), (h - hr).abs().max().item())
         ok = all(torch.isfinite(t).all() for t in (y, h)) and \
             torch.allclose(y, yr, rtol=MAMBA_TOL, atol=MAMBA_TOL) and \
             torch.allclose(h, hr, rtol=MAMBA_TOL, atol=MAMBA_TOL)
         if not ok:
-            raise AssertionError(f"mamba_scan {shape}: kernel vs plain "
+            raise AssertionError(f"{entry} {shape}: kernel vs plain "
                                  f"beyond {MAMBA_TOL} (max abs {err})")
         key = "x".join(map(str, shape))
         errs[key] = err
         exact[key] = bool(torch.equal(y, yr) and torch.equal(h, hr))
         del args, y, h, yr, hr
+
+
+def check_time_mamba_scan(torch, dev, card_name):
+    """Kernel 5's two entries against their plain versions at every
+    listed shape, then timed at the decode, the engine's longest prefill
+    and a 512-token prefill: entry (a) beside its plain version, entry
+    (b) (fused) beside its plain version and the path it replaced, the
+    PyTorch producers of da and bx followed by entry (a).  No single
+    PyTorch call computes the recurrence, so there is no library time.
+    -> ({entry: {shape: err}}, {entry: {shape: bit-equal}}, times)."""
+    from repro_torch.kernels.mamba_scan.ops import (mamba_plan, mamba_scan,
+                                                    mamba_scan_fused)
+    from repro_torch.kernels.mamba_scan.ref import (mamba_scan_fused_ref,
+                                                    mamba_scan_ref)
+    errs, exact = {"a": {}, "fused": {}}, {"a": {}, "fused": {}}
+    check_mamba_entry(torch, "mamba_scan", mamba_scan, mamba_scan_ref,
+                      lambda sh, sd: mamba_inputs(torch, dev, sh, sd),
+                      errs["a"], exact["a"])
+    check_mamba_entry(torch, "mamba_scan_fused", mamba_scan_fused,
+                      mamba_scan_fused_ref,
+                      lambda sh, sd: mamba_fused_inputs(torch, dev, sh, sd),
+                      errs["fused"], exact["fused"])
     times = {}
     for name, shape, slow in (("decode", MAMBA_DECODE, None),
                               ("prefill64", MAMBA_PREFILL, (20, 2)),
@@ -1521,9 +1588,31 @@ def check_time_mamba_scan(torch, dev, card_name):
         t = timed(torch, fns, len(sets),
                   iters={"plain_ms": slow} if slow else None)
         t["bound_ms"], t["bound_by"] = mamba_bound(shape, card_name)
-        t["shape"] = list(shape)
-        times[name] = t
         del sets, fns
+        torch.cuda.empty_cache()
+        args = mamba_fused_inputs(torch, dev, shape, seed=41)
+        per_set = 4 * sum(a.numel() for a in args)
+        fsets = [tuple(a.clone() for a in args)
+                 for _ in range(sets_for(per_set))]
+        del args
+
+        def old_path(i):
+            dt, x, a, b, c, h0 = fsets[i]
+            return mamba_scan(*mamba_producers(torch, dt, x, a, b), c, h0)
+        ft = timed(torch, {"ms": lambda i: mamba_scan_fused(*fsets[i]),
+                           "plain_ms":
+                               lambda i: mamba_scan_fused_ref(*fsets[i]),
+                           "old_path_ms": old_path}, len(fsets),
+                   iters={"plain_ms": slow} if slow else None)
+        t.update({("" if k.startswith("old_path") else "fused_") + k: v
+                  for k, v in ft.items()})
+        t["fused_bound_ms"], t["fused_bound_by"] = mamba_fused_bound(
+            shape, card_name)
+        t["shape"] = list(shape)
+        t["plan_a"] = mamba_plan(*shape, fused=False)
+        t["plan_fused"] = mamba_plan(*shape, fused=True)
+        times[name] = t
+        del fsets
         torch.cuda.empty_cache()
     return errs, exact, times
 
@@ -1576,26 +1665,26 @@ def jamba_replay(torch, dev, model, params, prompts, outs, use_kernels):
     length into its row, then the stream's tokens are fed one decode step
     at a time at their positions.  -> (logits (new, rows, V_pad), prefill
     launches, decode launches, decode ms per step)."""
-    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused
     from repro_torch.serving.kv_cache import scatter_prefill_dense
     out, pre_l, dec_l, dec_s, steps = [], 0, 0, 0.0, 0
     for lo in range(0, len(prompts), JAMBA_SLOTS):
         ps, os_ = prompts[lo:lo + JAMBA_SLOTS], outs[lo:lo + JAMBA_SLOTS]
         cache = model.init_cache(len(ps), JAMBA_MAX_SEQ)
         rows = []
-        mamba_scan.launches = 0
+        mamba_scan_fused.launches = 0
         for b, p in enumerate(ps):
             logits, pc = model.forward(
                 params, torch.tensor([p], device=dev), mode="prefill",
                 cache=model.init_cache(1, len(p)), use_kernels=use_kernels)
             rows.append(logits[0, -1])
             scatter_prefill_dense(cache, pc, b)
-        pre_l += mamba_scan.launches
+        pre_l += mamba_scan_fused.launches
         got = [torch.stack(rows)]
         toks = torch.tensor(os_, device=dev).t()          # (new, rows)
         pos = torch.tensor([len(p) for p in ps], dtype=torch.int32,
                            device=dev)
-        mamba_scan.launches = 0
+        mamba_scan_fused.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for t in range(toks.shape[0] - 1):
@@ -1606,7 +1695,7 @@ def jamba_replay(torch, dev, model, params, prompts, outs, use_kernels):
         torch.cuda.synchronize()
         dec_s += time.perf_counter() - t0
         steps += toks.shape[0] - 1
-        dec_l += mamba_scan.launches
+        dec_l += mamba_scan_fused.launches
         out.append(torch.stack(got))
         del cache
     return torch.cat(out, 1), pre_l, dec_l, dec_s / steps * 1e3
@@ -1615,12 +1704,13 @@ def jamba_replay(torch, dev, model, params, prompts, outs, use_kernels):
 def run_jamba(torch, dev):
     """Full-width jamba-v0.1-52b at depth 8 (f32, random weights from
     seed 0) served by ``LPUEngine``: 8 prompts of 2-64 tokens x 32 new
-    tokens, 4 slots, greedy, dense cache.  Kernel 5 must launch exactly
-    once per mamba layer (7) per device decode step and per prefill, and
-    no other kernel may launch; the streams are replayed teacher-forced
-    with the kernel and with its plain version (the oracle): logits
-    within JAMBA_TOL, and the engine's tokens equal the oracle's argmax
-    wherever its top-2 gap exceeds JAMBA_TOL."""
+    tokens, 4 slots, greedy, dense cache.  Kernel 5's fused entry must
+    launch exactly once per mamba layer (7) per device decode step and
+    per prefill, and no other kernel (nor entry (a)) may launch; the
+    streams are replayed teacher-forced with the kernel and with its
+    plain version (the oracle): logits within JAMBA_TOL, and the engine's
+    tokens equal the oracle's argmax wherever its top-2 gap exceeds
+    JAMBA_TOL."""
     import numpy as np
     cfg, model, params, nbytes, init_s = jamba_model(torch, dev)
     peak_init = torch.cuda.max_memory_allocated()
@@ -1640,7 +1730,8 @@ def run_jamba(torch, dev):
     counts = _read_counts()
     st = eng.stats
     want = {name: 0 for name in counts}
-    want["mamba_scan"] = n_mamba * (st.device_decode_steps + st.prefills)
+    want["mamba_scan_fused"] = n_mamba * (st.device_decode_steps
+                                          + st.prefills)
     if st.device_decode_steps == 0 or st.prefills != len(prompts) or \
             counts != want:
         raise AssertionError(
@@ -1836,8 +1927,8 @@ def main() -> int:
         raise AssertionError(f"{held} bytes still allocated after the rwkv "
                              "phase")
     mamba_errs, mamba_exact, mamba_t = check_time_mamba_scan(torch, dev, smi)
-    print(f"[kernel] mamba_scan vs plain: {mamba_errs}; bit-equal: "
-          f"{mamba_exact}")
+    print(f"[kernel] mamba_scan (a) and mamba_scan_fused vs plain: "
+          f"{mamba_errs}; bit-equal: {mamba_exact}")
     for name, t in mamba_t.items():
         print(f"[kernel] mamba_scan {name} timing: {t}")
     lap("rwkv, kernel 5")
@@ -1847,7 +1938,7 @@ def main() -> int:
           f"tok/s, {jamba['device_decode_steps']} device decode steps + "
           f"{jamba['prefills']} prefills, "
           f"{jamba['mamba_scan_per_device_decode_step_and_prefill']} "
-          f"mamba_scan launches per decode step and per prefill, decode "
+          f"mamba_scan_fused launches per decode step and per prefill, decode "
           f"step {jamba['decode_step_ms_b4']:.2f} ms at {JAMBA_SLOTS} rows, "
           f"peak memory {jamba['peak_memory_bytes'] / 1e9:.2f} GB, replay "
           f"kernel vs plain max abs "
@@ -1944,26 +2035,36 @@ def main() -> int:
     }, {
         "name": "mamba_scan", "route": "cuda", "source": src("mamba_scan"),
         "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:52",
-        "ok": True, "launches": jamba["launches"]["mamba_scan"],
+        # the jamba engine runs entry (b), mamba_scan_fused, only
+        "ok": True, "launches": jamba["launches"]["mamba_scan_fused"],
+        "main_path_entry": "mamba_scan_fused",
         "launches_by_path": {
-            "jamba_engine": jamba["launches"]["mamba_scan"],
+            "jamba_engine": jamba["launches"]["mamba_scan_fused"],
             "jamba_replay_kernel":
                 jamba["replay"]["prefill_launches_kernel"]
                 + jamba["replay"]["decode_launches_kernel"]},
-        "max_abs_err": max(mamba_errs.values()),
-        "max_abs_err_by_shape": mamba_errs,
-        "bit_equal_by_shape": mamba_exact,
-        # at the engine's decode shape; no PyTorch call computes the
-        # recurrence, so library_ms is null
+        "max_abs_err": max(max(e.values()) for e in mamba_errs.values()),
+        "max_abs_err_by_entry_and_shape": mamba_errs,
+        "bit_equal_by_entry_and_shape": mamba_exact,
+        # at the engine's decode shape: ms, plain_ms and bound_ms are
+        # entry (a)'s, fused_* entry (b)'s, old_path_ms the producers of
+        # da and bx + entry (a); no PyTorch call computes the recurrence,
+        # so library_ms is null
         "ms": mamba_t["decode"]["ms"],
         "plain_ms": mamba_t["decode"]["plain_ms"],
         "bound_ms": mamba_t["decode"]["bound_ms"],
         "bound_by": mamba_t["decode"]["bound_by"], "library_ms": None,
         "host_ms": mamba_t["decode"]["host_ms"],
         "plain_host_ms": mamba_t["decode"]["plain_host_ms"],
+        "fused_ms": mamba_t["decode"]["fused_ms"],
+        "fused_plain_ms": mamba_t["decode"]["fused_plain_ms"],
+        "fused_bound_ms": mamba_t["decode"]["fused_bound_ms"],
+        "fused_bound_by": mamba_t["decode"]["fused_bound_by"],
+        "old_path_ms": mamba_t["decode"]["old_path_ms"],
         "shapes": {"B": MAMBA_DECODE[0], "S": MAMBA_DECODE[1],
                    "C": MAMBA_DECODE[2], "N": MAMBA_DECODE[3],
                    "dtype": "float32"},
+        "decode": mamba_t["decode"],
         "prefill64": mamba_t["prefill64"],
         "prefill512": mamba_t["prefill512"],
     }]

@@ -26,7 +26,7 @@ from repro_torch.compiler.mapper import plan_model
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
-from repro_torch.kernels.mamba_scan.ops import mamba_scan
+from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused
 from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
 from repro_torch.models.registry import build_model
 from repro_torch.serving.config import EngineConfig
@@ -103,7 +103,7 @@ def main(argv=None):
                                 size=rng.randint(2, 10)))
                for _ in range(args.requests)]
     sp = SamplingParams(args.temperature, args.top_k, args.top_p)
-    kernel = {"rwkv": rwkv_scan, "hybrid": mamba_scan}.get(
+    kernel = {"rwkv": rwkv_scan, "hybrid": mamba_scan_fused}.get(
         cfg.family, paged_decode_attention)
     kernel.launches = 0
     outs = engine.generate(prompts, max_new_tokens=args.max_new, params=sp)

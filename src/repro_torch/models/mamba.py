@@ -5,7 +5,9 @@ At tp=1 the reference's ESL ``ag_matmul``/``rs_matmul`` are plain
 products and its psum over the ring is the identity.  The selective scan
 runs on the hand-written Hopper kernel (``kernels/mamba_scan``, kernel 5)
 at every sequence length: the prefill scan and the S = 1 decode step
-alike.  The reference's chunked associative scan ``_ssm_scan`` (its
+alike, through its fused entry, which forms da = exp(dt*A) and
+bx = dt*x*B in registers: the (B,S,d_inner,N) tensors are never
+written.  The reference's chunked associative scan ``_ssm_scan`` (its
 prefill path) and its inline decode step have no counterpart here: on
 the card the kernel carries every scan, on the CPU its plain version
 does.  ``use_kernels=False`` takes the plain version on the card too:
@@ -20,8 +22,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.mamba_scan.ops import mamba_scan
-from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_fused_ref
 
 Params = Dict[str, torch.Tensor]
 
@@ -74,14 +76,14 @@ def mamba_fwd(p: Params, x: torch.Tensor, *, cfg, plan,
                                          device=dt.device))  # softplus
 
     a = -torch.exp(p["a_log"].float())                 # (d_in,N)
-    da = torch.exp(dt[..., None] * a)                  # (B,S,d_in,N)
-    bx = (dt * xs.float())[..., None] * bmat.float()[:, :, None, :]
 
     h0 = (state["ssm"] if state is not None else
           torch.zeros((B, xs.shape[-1], m.d_state), dtype=torch.float32,
                       device=x.device))
-    scan = mamba_scan if use_kernels else mamba_scan_ref
-    y, h = scan(da.contiguous(), bx.contiguous(), cmat.float().contiguous(),
+    # da = exp(dt*a) and bx = (dt*x)*b are formed inside the scan
+    scan = mamba_scan_fused if use_kernels else mamba_scan_fused_ref
+    y, h = scan(dt.contiguous(), xs.float().contiguous(), a.contiguous(),
+                bmat.float().contiguous(), cmat.float().contiguous(),
                 h0.contiguous())
 
     y = y.to(xs.dtype) + xs * p["d_skip"]

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card:
 paged decode attention (fp, int8 and fp8 pools), dense decode attention,
 the decode GEMV, one streamlined decode layer with kernels vs plain, the
-WKV recurrence and the selective scan.
+WKV recurrence and the selective scan (both entries).
 
 Marked ``cuda``: each test skips without a CUDA device (decided inside
 the test, never at import).  On a machine with a card:
@@ -16,7 +16,8 @@ from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
 from repro_torch.kernels.gemv import ops as gemv_ops
 from repro_torch.kernels.gemv.ref import gemv_ref
 from repro_torch.kernels.mamba_scan import ops as mamba_ops
-from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+from repro_torch.kernels.mamba_scan.ref import (mamba_scan_fused_ref,
+                                                mamba_scan_ref)
 from repro_torch.kernels.rwkv_scan import ops as rwkv_ops
 from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_ref
 from repro_torch.serving.kv_cache import quantize_kv_rows
@@ -456,3 +457,75 @@ def test_mamba_scan_kernel_refuses_what_it_cannot_run(dev):
     big = _mamba_inputs(dev, 1, 2, 8, 65)
     with pytest.raises(ValueError, match="d_state"):
         mamba_ops.mamba_scan(*big)
+
+
+# kernel 5's two entries at chip_smoke.MAMBA_CHECK_SHAPES and at ragged
+# shapes: N in {1, 5, 16, 64} (one to eight lanes, a ragged lane group), C
+# below and off a block's channels, S off the chunk (several ring refills)
+MAMBA_SHAPES = [(1, 32, 8, 8), (2, 128, 16, 16), (2, 64, 32, 8),
+                (4, 1, 8192, 16), (1, 64, 8192, 16), (1, 512, 8192, 16),
+                (1, 33, 20, 1), (2, 70, 45, 5), (1, 37, 100, 16),
+                (2, 9, 19, 64), (3, 65, 130, 33), (1, 1, 7, 3),
+                (1, 100, 40, 64)]
+
+
+def _fused_inputs(dev, B, S, C, N, seed=6):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, C), generator=g, device=dev) - 2.0)
+    a = -torch.exp(torch.log(torch.arange(1, N + 1, device=dev).float())
+                   + 0.1 * torch.randn((C, N), generator=g, device=dev))
+    return (dt, torch.randn((B, S, C), generator=g, device=dev), a,
+            torch.randn((B, S, N), generator=g, device=dev),
+            torch.randn((B, S, N), generator=g, device=dev),
+            0.1 * torch.randn((B, C, N), generator=g, device=dev))
+
+
+@pytest.mark.parametrize("shape", MAMBA_SHAPES)
+def test_mamba_scan_fused_kernel_matches_plain(dev, shape):
+    """Entry (b) against its plain version, bit for bit: the kernel's
+    expf is the CUDA math library's, which torch.exp runs too."""
+    args = _fused_inputs(dev, *shape)
+    before = (mamba_ops.mamba_scan.launches,
+              mamba_ops.mamba_scan_fused.launches)
+    y, h = mamba_ops.mamba_scan_fused(*args)
+    torch.cuda.synchronize()
+    assert (mamba_ops.mamba_scan.launches,
+            mamba_ops.mamba_scan_fused.launches) == (before[0],
+                                                     before[1] + 1)
+    yr, hr = mamba_scan_fused_ref(*args)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, hr, rtol=1e-4, atol=1e-4)
+    assert torch.equal(y, yr) and torch.equal(h, hr)
+    y2, h2 = mamba_ops.mamba_scan_fused(*args)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.parametrize("shape", MAMBA_SHAPES)
+def test_mamba_scan_kernel_matches_plain_at_ragged_shapes(dev, shape):
+    """Entry (a) at the same shapes, bit for bit, one launch a call."""
+    args = _mamba_inputs(dev, *shape, seed=7)
+    before = mamba_ops.mamba_scan.launches
+    y, h = mamba_ops.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert mamba_ops.mamba_scan.launches == before + 1
+    yr, hr = mamba_scan_ref(*args)
+    assert torch.equal(y, yr) and torch.equal(h, hr)
+
+
+def test_mamba_scan_fused_kernel_refuses_what_it_cannot_run(dev):
+    args = _fused_inputs(dev, 1, 2, 8, 4)
+    with pytest.raises(TypeError):
+        mamba_ops.mamba_scan_fused(*[t.double() for t in args])
+    with pytest.raises(ValueError):
+        mamba_ops.mamba_scan_fused(args[0].transpose(1, 2).contiguous()
+                                   .transpose(1, 2), *args[1:])
+    with pytest.raises(ValueError):
+        mamba_ops.mamba_scan_fused(*args[:5],
+                                   torch.zeros((1, 8, 5), device=dev))
+    with pytest.raises(ValueError):
+        mamba_ops.mamba_scan_fused(*args[:2], args[2].cpu(), *args[3:])
+    big = _fused_inputs(dev, 1, 2, 8, 65)
+    with pytest.raises(ValueError, match="d_state"):
+        mamba_ops.mamba_scan_fused(*big)

@@ -1,6 +1,7 @@
-"""The port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and its entry points
-refuse to fall back to the CPU when no device was asked for."""
+"""The port stands alone: no file of ``src/repro_torch``, not
+``chip_smoke.py`` and no kernel probe under ``tools/`` imports JAX or the
+JAX package, and its entry points refuse to fall back to the CPU when no
+device was asked for."""
 import ast
 import pathlib
 
@@ -9,7 +10,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*_probe/*.py"))
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -75,6 +76,7 @@ def test_kernel_build_is_lazy():
     assert gemv_ops._fn is None or torch.cuda.is_available()
     assert rwkv_ops._fn is None or torch.cuda.is_available()
     assert mamba_ops._fn is None or torch.cuda.is_available()
+    assert mamba_ops._fused_fn is None or torch.cuda.is_available()
     assert set(build.SOURCES) == {"paged_decode_attention",
                                   "decode_attention", "gemv", "rwkv_scan",
                                   "mamba_scan"}

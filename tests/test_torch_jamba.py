@@ -29,6 +29,7 @@ from repro.serving.engine import LPUEngine as JaxEngine
 from repro_torch.compiler.mapper import plan_model
 from repro_torch.configs import get_config
 from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import init_params
@@ -237,10 +238,12 @@ def test_mamba_fwd_matches_reference(setup, with_state, S):
                                    cfg=setup["jmodel"].cfg,
                                    plan=setup["jmodel"].plan,
                                    env=setup["env"], state=jst)
-    before = scan_ops.mamba_scan.launches
+    before = (scan_ops.mamba_scan.launches,
+              scan_ops.mamba_scan_fused.launches)
     y, st2 = mamba_mod.mamba_fwd(p, torch.from_numpy(x), cfg=cfg, plan=plan,
                                  state=st)
-    assert scan_ops.mamba_scan.launches == before   # CPU: the plain version
+    assert (scan_ops.mamba_scan.launches,
+            scan_ops.mamba_scan_fused.launches) == before  # CPU: plain
     np.testing.assert_allclose(y.numpy(), np.asarray(yr), **LAYER_TOL)
     for key in ("conv", "ssm"):
         np.testing.assert_allclose(st2[key].numpy(), np.asarray(str_[key]),
@@ -249,6 +252,29 @@ def test_mamba_fwd_matches_reference(setup, with_state, S):
     y_plain, _ = mamba_mod.mamba_fwd(p, torch.from_numpy(x), cfg=cfg,
                                      plan=plan, state=st, use_kernels=False)
     assert torch.equal(y_plain, y)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("S", [1, 5])
+def test_mamba_fwd_equals_the_unfused_path_bit_for_bit(setup, monkeypatch,
+                                                      with_state, S):
+    """The layer's output and state through the fused entry's plain
+    version equal the former PyTorch producers + plain scan, bit for bit."""
+    model = setup["model"]
+    p = _torch_block(setup["params"], "l3", 1)["mamba"]
+    x = torch.from_numpy(_x(2, S, model.cfg.d_model, seed=S + 1))
+    g = np.random.default_rng(8)
+    st = ({"conv": torch.from_numpy(g.standard_normal(
+              (2, model.cfg.mamba.d_conv - 1, 256)).astype(np.float32)),
+           "ssm": torch.from_numpy((0.1 * g.standard_normal(
+               (2, 256, model.cfg.mamba.d_state))).astype(np.float32))}
+          if with_state else None)
+    kw = dict(cfg=model.cfg, plan=model.plan, state=st)
+    y, new = mamba_mod.mamba_fwd(p, x, **kw)
+    monkeypatch.setattr(mamba_mod, "mamba_scan_fused_ref", _unfused_scan)
+    y_old, old = mamba_mod.mamba_fwd(p, x, use_kernels=False, **kw)
+    assert torch.equal(y, y_old)
+    assert all(torch.equal(new[k], old[k]) for k in ("conv", "ssm"))
 
 
 def test_causal_conv_matches_reference():
@@ -407,6 +433,27 @@ def test_logits_match_reference(setup):
         np.testing.assert_array_equal(got, want)
 
 
+def _unfused_scan(dt, x, a, b, c, h0):
+    """The mamba layer's scan before the fused entry: da and bx formed by
+    PyTorch as (B,S,C,N) tensors, then the plain scan."""
+    da = torch.exp(dt[..., None] * a)
+    bx = (dt * x)[..., None] * b[:, :, None, :]
+    return mamba_scan_ref(da.contiguous(), bx.contiguous(), c, h0)
+
+
+def test_logits_equal_the_unfused_path_bit_for_bit(setup, monkeypatch):
+    """The fused entry leaves the CPU results as they were: logits over
+    prefill + 8 decode steps and every cache entry, bit for bit."""
+    rows, cache = _run_torch(setup)
+    monkeypatch.setattr(mamba_mod, "mamba_scan_fused_ref", _unfused_scan)
+    old_rows, old_cache = _run_torch(setup, use_kernels=False)
+    for got, want in zip(rows, old_rows):
+        np.testing.assert_array_equal(got, want)
+    for lj, c in cache.items():
+        for key, t in c.items():
+            assert torch.equal(t, old_cache[lj][key]), (lj, key)
+
+
 def test_cache_layout_and_bytes_match_reference(setup):
     model, jmodel = setup["model"], setup["jmodel"]
     cache = model.init_cache(3, 64)
@@ -498,10 +545,12 @@ def test_engine_streams_match_reference(setup, ref_streams, name):
                     EngineConfig(slots=3, max_seq=64, **ENGINES[name]),
                     device="cpu")
     assert not eng.paged and not eng.bucketed
-    before = scan_ops.mamba_scan.launches
+    before = (scan_ops.mamba_scan.launches,
+              scan_ops.mamba_scan_fused.launches)
     got = eng.generate(PROMPTS, max_new_tokens=MAX_NEW)
     assert got == ref_streams
-    assert scan_ops.mamba_scan.launches == before   # CPU: the plain version
+    assert (scan_ops.mamba_scan.launches,
+            scan_ops.mamba_scan_fused.launches) == before  # CPU: plain
     assert eng.stats.tokens == len(PROMPTS) * (MAX_NEW - 1)
     # prefill at the exact prompt length: one per distinct length
     assert eng.stats.prefill_traces == len({len(p) for p in PROMPTS})
@@ -547,5 +596,5 @@ def test_serve_cli_jamba(capsys):
     assert len(outs) == 3 and all(len(o) == 4 for o in outs)
     out = capsys.readouterr().out
     assert "kv=dense" in out
-    assert "mamba_scan kernel launches=0" in out
+    assert "mamba_scan_fused kernel launches=0" in out
     assert "x 6 mamba layers" in out

@@ -18,7 +18,9 @@ result line when any phase fails or when no CUDA device is present):
    without the fold: lengths 0, 1, 15, 16, 17, bs - 1, bs, bs + 1, 300,
    511 and T*bs over tables out of order, each row alone bit-identical
    to its row in the batch, the null block inert, the length-0 row the
-   mean of its table's V rows), the dense
+   mean of its table's V rows; and as the chunked prefill calls it, the
+   C = 64 queries of one chunk over one broadcast table, lengths
+   449..512, each query alone bit-identical to its row), the dense
    decode attention (each row alone bit-identical to its row in the
    batch; the chunked prefill's stride-0 cache at C = 64), and the decode
    GEMV at the four shapes of one full-width layer (f32, bf16 and int8
@@ -28,7 +30,16 @@ result line when any phase fails or when no CUDA device is present):
    through ``LPUEngine``: the streamed paged kernel, the gather oracle,
    and a run that preempts with 4-step windows; the greedy streams must
    agree and the kernel must have launched once per layer per decode
-   step;
+   step; then the prefill paths: (a) the 8 prompts and a 448-token one
+   in chunks of 64 against the monolithic run (no decode stall), (b) the
+   same on the gather oracle (no launch), (c) 4 prompts sharing a
+   256-token system prompt with the prefix cache on against off, (d)
+   two identical 256-token prompts at once (copy-on-write), (e) chunks
+   with a pool small enough to preempt; greedy streams equal, or apart
+   only where the model's top-2 gap is at most 1e-4 (a near tie), the
+   pool balanced, and kernel 1 launched exactly once per layer per
+   decode step, per chunk and per prefix tail; plus the last row of the
+   448-token prompt by both prefill paths;
 5. chain — the C1 streamlined chain (``core/streamline.py``) at full
    width: 4 prompts prefilled by the model, then 32 teacher-forced decode
    steps of ``decode_layer`` stacked over the 30 layers, in six variants
@@ -512,6 +523,81 @@ def check_paged_split(torch, dev):
     return errs
 
 
+# kernel 1 as the chunked prefill calls it: the C = 64 queries of the
+# 448-token prompt's last chunk are the batch, one table of T = 4 blocks
+# broadcast over them (out of order in the pool), lengths 449..512, no fold
+PCHUNK_C, PCHUNK_START = 64, 448
+PCHUNK_TABLE = (5, 2, 9, 14)
+
+
+def check_time_paged_chunk(torch, dev, card_name):
+    """Kernel 1 at the chunk shape against its plain version (1e-4), then
+    kernel, plain and library times (gather + scaled_dot_product_attention
+    with the offset causal mask) beside the bound: each valid K/V row,
+    q, the table and the lengths read once, the output written once,
+    4*dh flops per q head per attended position."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        gather_kv_pages, paged_decode_attention_ref)
+    g = torch.Generator(device=dev).manual_seed(7)
+    C = PCHUNK_C
+    q = torch.randn((C, H, DH), generator=g, device=dev)
+    kp = torch.randn((N, BS, G, DH), generator=g, device=dev)
+    vp = torch.randn((N, BS, G, DH), generator=g, device=dev)
+    table = torch.tensor(PCHUNK_TABLE, dtype=torch.int32, device=dev)
+    tabs = table[None].expand(C, T).contiguous()
+    lens = PCHUNK_START + 1 + torch.arange(C, dtype=torch.int32, device=dev)
+    got = paged_decode_attention(q, kp, vp, tabs, lens)
+    want = paged_decode_attention_ref(q, kp, vp, tabs, lens)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.isfinite(got).all() or not torch.allclose(
+            got, want, rtol=TOL["float32"], atol=TOL["float32"]):
+        raise AssertionError(f"chunk shape: kernel vs plain beyond 1e-4 "
+                             f"(max abs {err})")
+    for i in (0, C // 2, C - 1):
+        alone = paged_decode_attention(q[i:i + 1], kp, vp, tabs[i:i + 1],
+                                       lens[i:i + 1])
+        if not torch.equal(alone[0], got[i]):
+            raise AssertionError(f"chunk shape: query {i} alone differs "
+                                 "from its row in the chunk")
+    n_sets = sets_for(2 * kp.numel() * kp.element_size())
+    pools = [(kp.clone(), vp.clone()) for _ in range(n_sets)]
+    S = T * BS
+    mask = (torch.arange(S, device=dev)[None, :]
+            < lens[:, None])[None, None]                  # (1,1,C,S)
+    qh = q.transpose(0, 1)[None]                          # (1,H,C,dh)
+
+    def kernel(i):
+        paged_decode_attention(q, pools[i][0], pools[i][1], tabs, lens)
+
+    def plain(i):
+        paged_decode_attention_ref(q, pools[i][0], pools[i][1], tabs, lens)
+
+    def library(i):
+        k = gather_kv_pages(pools[i][0], table[None]).transpose(1, 2)
+        v = gather_kv_pages(pools[i][1], table[None]).transpose(1, 2)
+        F.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
+                                       enable_gqa=True)
+
+    t = timed(torch, {"ms": kernel, "plain_ms": plain,
+                      "library_ms": library}, n_sets)
+    rows = PCHUNK_START + C          # unique K/V rows the chunk reads
+    nbytes = 4 * (2 * C * H * DH + 2 * rows * G * DH) + 4 * (C * T + C)
+    attended = int(lens.sum())
+    t["bound_ms"], t["bound_by"] = bound_for(nbytes, 4 * DH * H * attended,
+                                             "float32", card_name)
+    t["bytes_only_ms"] = nbytes / bandwidth_for(card_name) * 1e3
+    t["max_abs_err"] = err
+    t["shapes"] = {"C": C, "H": H, "G": G, "dh": DH, "bs": BS, "T": T,
+                   "N": N, "lengths": [PCHUNK_START + 1, PCHUNK_START + C],
+                   "dtype": "float32", "fold": False,
+                   "grid": [16, G, C]}
+    return t
+
+
 # dense decode attention (kernel 2) at the chain's dense shapes, and the
 # chunked prefill's call (C queries over one request's cache broadcast
 # over the batch, lengths start + i + 1)
@@ -680,17 +766,26 @@ def serve(torch, dev, model, params, prompts, **kw):
     return outs, eng, paged_decode_attention.launches
 
 
-def profile_engine(torch, dev, model, params, prompts, wall_s):
-    """Device time by kernel over the same streamed run under
-    torch.profiler; the busy share divides it by that run's unprofiled
-    wall time.  None where the profiler saw no device activity."""
+def device_kernels(fn):
+    """Run ``fn()`` under torch.profiler recording the card's activity
+    only (recording the host's ops as well cost ~80 s more over one
+    engine run, most of it in ``key_averages``) and return the kernels'
+    averages by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        serve(torch, dev, model, params, prompts, paged_kernel="stream")
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def profile_engine(torch, dev, model, params, prompts, wall_s, **kw):
+    """Device time by kernel over the same run (streamed, with the
+    engine knobs ``kw``) under torch.profiler; the busy share divides it
+    by that run's unprofiled wall time.  None where the profiler saw no
+    device activity."""
+    kernels = device_kernels(lambda: serve(
+        torch, dev, model, params, prompts, paged_kernel="stream", **kw))
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us:
         return None
@@ -767,7 +862,199 @@ def run_engine(torch, dev):
                             "kernel_launches": plaunch},
             "streams_equal_gather": True,
             "streams_equal_preempt": True,
-            "profile": profile}
+            "profile": profile,
+            "prefill_paths": run_prefill_paths(torch, dev, model, params,
+                                               prompts, stream)}
+
+
+# the prefill paths of the engine (chunked prefill, prefix cache,
+# copy-on-write): chunks of 64, a 448-token prompt, a 256-token system
+# prompt (two full blocks of 128)
+PREFILL_CHUNK = 64
+LONG_PROMPT = 448
+SYS_PROMPT = 256
+
+
+def agree(torch, model, params, prompts, a, b, what):
+    """Greedy streams ``a`` and ``b`` equal, or first apart where the
+    model's own logits (a plain forward over the prompt and the shared
+    tokens) have a top-2 gap of at most CHAIN_TOL: a near tie, where
+    another order of f32 sums may pick either token.  Raises otherwise.
+    Returns how many streams were equal, each divergence with its gap,
+    and the smallest top-2 gap over the tokens both streams share (the
+    margin the prefill paths' rounding noise has to cross)."""
+    out, margin = [], float("inf")
+    for i, (p, x, y) in enumerate(zip(prompts, a, b)):
+        toks = torch.tensor([list(p) + list(x[:-1])], device=model.device)
+        logits, _ = model.forward(params, toks, mode="train")
+        gaps = top2_gap(logits[0, len(p) - 1:])     # row j picks x[j]
+        at = next((j for j, (u, v) in enumerate(zip(x, y)) if u != v),
+                  None)
+        if at is None and len(x) != len(y):
+            raise AssertionError(f"{what}: stream {i} lengths differ")
+        if at is not None:
+            gap = gaps[at].item()
+            if gap > CHAIN_TOL:
+                raise AssertionError(
+                    f"{what}: stream {i} differs at token {at} where the "
+                    f"top-2 gap is {gap} > {CHAIN_TOL}")
+            out.append({"request": i, "at": at, "top2_gap": gap})
+            gaps = gaps[:at]
+        if len(gaps):
+            margin = min(margin, gaps.min().item())
+    return {"equal": len(prompts) - len(out), "diverged_at_near_ties": out,
+            "min_top2_gap": margin}
+
+
+def chunk_vs_monolithic_row(torch, dev, model, params, prompt):
+    """The last prompt row's logits by the engine's two prefill paths:
+    the monolithic bucketed prefill (plain flash attention, norms and
+    products over the whole bucket) and 64-token chunks against a fresh
+    pool through kernel 1.  Their difference is the noise a chunk adds."""
+    n = len(prompt)
+    bucket = 512
+    buf = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+    buf[0, :n] = torch.tensor(prompt, device=dev)
+    logits, _ = model.forward(params, buf, mode="prefill",
+                              cache=model.init_cache(1, bucket),
+                              positions=torch.arange(bucket,
+                                                     device=dev)[None])
+    mono = logits[0, n - 1]
+    pool = model.init_cache(1, bucket, paged=True, num_blocks=5,
+                            block_size=128)
+    table = torch.arange(1, 5, dtype=torch.int32, device=dev)[None]
+    for start in range(0, n, PREFILL_CHUNK):
+        nv = min(PREFILL_CHUNK, n - start)
+        tok = torch.zeros((1, PREFILL_CHUNK), dtype=torch.long, device=dev)
+        tok[0, :nv] = buf[0, start:start + nv]
+        logits, _ = model.forward(
+            params, tok, mode="chunk_prefill",
+            positions=start + torch.arange(PREFILL_CHUNK, dtype=torch.int32,
+                                           device=dev)[None],
+            cache=pool, block_tables=table, paged_kernel="stream",
+            kv_valid_len=torch.tensor(start + nv, dtype=torch.int32,
+                                      device=dev))
+    chunk = logits[0, nv - 1]
+    torch.cuda.synchronize()
+    return {"prompt_len": n, "chunk": PREFILL_CHUNK,
+            "max_abs_diff_logits": (chunk - mono).abs().max().item(),
+            "top2_gap_monolithic": top2_gap(mono).item(),
+            "argmax_equal": bool(chunk.argmax() == mono.argmax())}
+
+
+def run_prefill_paths(torch, dev, model, params, prompts, stream):
+    """Runs (a)-(e) of the engine's prefill paths at full width, each
+    held against its monolithic / prefix-off twin by :func:`agree`, with
+    kernel 1's exact launch count: 30 per device decode step, per prefill
+    chunk and per prefix tail."""
+    import numpy as np
+    t0 = time.perf_counter()
+    L = model.cfg.n_layers
+    V = model.cfg.vocab_size
+    rng = np.random.RandomState(18)
+    long9 = prompts + [[int(t) for t in rng.randint(1, V,
+                                                    size=LONG_PROMPT)]]
+    sysp = [int(t) for t in rng.randint(1, V, size=SYS_PROMPT)]
+    shared = [sysp + [int(t) for t in rng.randint(1, V, size=n)]
+              for n in (5, 17, 29, 40)]
+
+    def rec(eng, launches, **extra):
+        s = eng.stats
+        out = {"tokens": s.tokens, "tokens_per_s": s.tokens_per_s,
+               "wall_s": s.wall, "decode_steps": s.steps,
+               "device_decode_steps": s.device_decode_steps,
+               "prefills": s.prefills, "prefill_chunks": s.prefill_chunks,
+               "decode_stalls": s.decode_stalls,
+               "preemptions": s.preemptions, "kernel_launches": launches}
+        if eng.prefix is not None:
+            out.update(prefix_hits=s.prefix_hits,
+                       prefix_hit_blocks=s.prefix_hit_blocks,
+                       prefill_tokens_saved=s.prefill_tokens_saved,
+                       cow_blocks=s.cow_blocks,
+                       evicted_blocks=s.evicted_blocks)
+        out.update(extra)
+        return out
+
+    def want(eng, tails=0):
+        s = eng.stats
+        return L * (s.device_decode_steps + s.prefill_chunks + tails)
+
+    out = {"chunk_row_vs_monolithic": chunk_vs_monolithic_row(
+        torch, dev, model, params, long9[-1])}
+    # (a) chunked against monolithic on the 9 prompts
+    mono, meng, ml = serve(torch, dev, model, params, long9,
+                           paged_kernel="stream")
+    chunked, ceng, cl = serve(torch, dev, model, params, long9,
+                              paged_kernel="stream",
+                              prefill_chunk=PREFILL_CHUNK)
+    if ceng.stats.decode_stalls != 0 or ceng.stats.prefill_chunks < 7:
+        raise AssertionError(f"(a) chunked: {ceng.stats}")
+    if cl != want(ceng):
+        raise AssertionError(f"(a) kernel launches {cl} != {want(ceng)}")
+    if ml != want(meng):
+        raise AssertionError(f"(a) monolithic launches {ml}")
+    ceng.check_pool_balanced()
+    out["monolithic"] = rec(meng, ml)
+    out["chunked"] = rec(ceng, cl, vs_monolithic=agree(
+        torch, model, params, long9, chunked, mono, "(a) chunked"))
+    out["chunked"]["profile"] = profile_engine(
+        torch, dev, model, params, long9, ceng.stats.wall,
+        prefill_chunk=PREFILL_CHUNK)
+    # (b) the same on the gather oracle
+    gathered, geng, gl = serve(torch, dev, model, params, long9,
+                               paged_kernel="gather",
+                               prefill_chunk=PREFILL_CHUNK)
+    if gl != 0:
+        raise AssertionError("(b) the gather oracle launched the kernel")
+    out["chunked_gather"] = rec(geng, gl, vs_monolithic=agree(
+        torch, model, params, long9, gathered, mono, "(b) chunked gather"))
+    # (c) a shared system prompt, prefix on against off
+    off, oeng, ol = serve(torch, dev, model, params, shared,
+                          paged_kernel="stream")
+    on, peng, pl = serve(torch, dev, model, params, shared,
+                         paged_kernel="stream", prefix_cache=True)
+    ps = peng.stats
+    if ps.prefix_hits < 3 or ps.prefill_tokens_saved < 3 * SYS_PROMPT:
+        raise AssertionError(f"(c) prefix: {ps}")
+    if pl != want(peng, ps.prefix_hits):
+        raise AssertionError(f"(c) kernel launches {pl} != "
+                             f"{want(peng, ps.prefix_hits)}")
+    peng.check_pool_balanced()
+    out["prefix_off"] = rec(oeng, ol)
+    out["prefix_on"] = rec(peng, pl, vs_off=agree(
+        torch, model, params, shared, on, off, "(c) prefix on"))
+    # (d) two identical prompts at once: the tail's write copies on write
+    twin = [list(sysp), list(sysp)]
+    t_off, _, _ = serve(torch, dev, model, params, twin,
+                        paged_kernel="stream")
+    t_on, teng, tl = serve(torch, dev, model, params, twin,
+                           paged_kernel="stream", prefix_cache=True)
+    if teng.stats.cow_blocks < 1:
+        raise AssertionError("(d) no copy-on-write")
+    if tl != want(teng, teng.stats.prefix_hits):
+        raise AssertionError(f"(d) kernel launches {tl}")
+    teng.check_pool_balanced()
+    out["cow"] = rec(teng, tl, vs_off=agree(
+        torch, model, params, twin, t_on, t_off, "(d) copy-on-write"),
+        twins=agree(torch, model, params, twin, t_on, t_on[::-1],
+                    "(d) the twins"))
+    # (e) chunked with a pool small enough to preempt
+    pre, reng, rl = serve(torch, dev, model, params, prompts,
+                          paged_kernel="stream", prefill_chunk=PREFILL_CHUNK,
+                          block_size=32, num_blocks=7, steps_per_sync=4)
+    if reng.stats.preemptions == 0:
+        raise AssertionError("(e) the small pool did not force a "
+                             "preemption")
+    if rl != want(reng):
+        raise AssertionError(f"(e) kernel launches {rl} != {want(reng)}")
+    reng.check_pool_balanced()
+    out["chunked_preempt"] = rec(
+        reng, rl, block_size=32, num_blocks=7, steps_per_sync=4,
+        vs_monolithic=agree(torch, model, params, prompts, pre, stream,
+                            "(e) chunked under preemption"))
+    out["kernel_launches"] = cl + pl + tl + rl
+    out["phase_s"] = time.perf_counter() - t0
+    return out
 
 
 # the C1 chain: 32 teacher-forced decode steps in six variants, named
@@ -1064,14 +1351,9 @@ def profile_chain(torch, ctx, tables, mode, wall):
     """torch.profiler over one kernel run of a chain variant: device busy
     share against the unprofiled wall time, the concatenations' and each
     port kernel's device ms per step, and the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     cache = ctx["caches"]["pool" if tables is not None else "dense"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run_chain(torch, ctx, cache, tables, True, mode, "auto")
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(lambda: run_chain(torch, ctx, cache, tables,
+                                               True, mode, "auto"))
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us:
         return None
@@ -1317,13 +1599,8 @@ def profile_serve(torch, dev, model, params, prompts, max_new, wall_s,
     with ``serve_kw``) under torch.profiler; busy share against the
     unprofiled run's wall; the time and launches of the kernels whose
     name holds ``kernel``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        serve_dense(torch, dev, model, params, prompts, max_new, **serve_kw)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(lambda: serve_dense(
+        torch, dev, model, params, prompts, max_new, **serve_kw))
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us:
         return None
@@ -1869,6 +2146,10 @@ def main() -> int:
     print(f"[kernel] paged_decode_attention split edges (lengths "
           f"{list(SPLIT_LENGTHS)}, tables out of order; rows alone equal "
           f"rows in the batch; null block inert): {split_errs}")
+    chunk_t = check_time_paged_chunk(torch, dev, smi)
+    print(f"[kernel] paged_decode_attention at the chunk shape (C "
+          f"{PCHUNK_C} queries, one table, lengths {PCHUNK_START + 1}.."
+          f"{PCHUNK_START + PCHUNK_C}): {chunk_t}")
     dense_errs, dense_t = check_time_dense(torch, dev, smi)
     print(f"[kernel] decode_attention vs plain: {dense_errs}; timing: "
           f"{dense_t}")
@@ -1885,6 +2166,20 @@ def main() -> int:
           f"{engine['decode_steps']} decode steps, "
           f"{engine['preempt_run']['preemptions']} preemptions in the "
           "small-pool run")
+    pp = engine["prefill_paths"]
+    print(f"[engine] prefill paths in {pp['phase_s']:.1f} s: chunked "
+          f"{pp['chunked']['tokens_per_s']:.1f} tok/s "
+          f"({pp['chunked']['prefill_chunks']} chunks, decode_stalls "
+          f"{pp['chunked']['decode_stalls']}) against monolithic "
+          f"{pp['monolithic']['tokens_per_s']:.1f} (decode_stalls "
+          f"{pp['monolithic']['decode_stalls']}); prefix on "
+          f"{pp['prefix_on']['tokens_per_s']:.1f} tok/s (hits "
+          f"{pp['prefix_on']['prefix_hits']}, tokens saved "
+          f"{pp['prefix_on']['prefill_tokens_saved']}) against off "
+          f"{pp['prefix_off']['tokens_per_s']:.1f}; copy-on-write blocks "
+          f"{pp['cow']['cow_blocks']}; chunked preemptions "
+          f"{pp['chunked_preempt']['preemptions']}; chunk row vs "
+          f"monolithic {pp['chunk_row_vs_monolithic']}")
 
     lap("engine")
     ctx, chain, chain_launches, walls = run_chain_phase(torch, dev)
@@ -1948,16 +2243,22 @@ def main() -> int:
         return os.path.relpath(build.source_path(name), HERE)
 
     f32_calls = [c for c in gemv_calls if c["w_dtype"] == "float32"]
+    L_ = engine["n_layers"]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": src("paged_decode_attention"),
         "replaces": "src/repro/kernels/decode_attention/"
                     "decode_attention.py:142",
         "ok": True,
-        "launches": engine["kernel_launches"]
+        "launches": engine["kernel_launches"] + pp["kernel_launches"]
         + chain_launches["paged_decode_attention"],
         "launches_by_path": {
             "engine_stream": engine["kernel_launches"],
+            "engine_chunked": pp["chunked"]["kernel_launches"],
+            "engine_prefix": pp["prefix_on"]["kernel_launches"],
+            "engine_cow": pp["cow"]["kernel_launches"],
+            "engine_chunked_preempt":
+                pp["chunked_preempt"]["kernel_launches"],
             "chain_kernel_runs": chain_launches["paged_decode_attention"]},
         "max_abs_err": errs["q=float32,pool=float32"],
         "max_abs_err_by_dtype": errs,
@@ -1972,6 +2273,10 @@ def main() -> int:
                    "fold": True},
         "plan": times["plan"],
         "quantized_pools": quant,
+        # as the chunked prefill and the prefix tails call it
+        "chunk": dict(chunk_t, launches=sum(
+            pp[k]["kernel_launches"] - L_ * pp[k]["device_decode_steps"]
+            for k in ("chunked", "prefix_on", "cow", "chunked_preempt"))),
     }, {
         "name": "decode_attention", "route": "cuda",
         "source": src("decode_attention"),

@@ -4,6 +4,8 @@ and run the engine on a batch of random prompts.
     python -m repro_torch.launch.serve                      # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --prefill-chunk 64 --prefix-cache on
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba \
@@ -14,7 +16,11 @@ there is none).  Prints the reference driver's stats lines plus the
 launch count of the family's kernel: the paged decode attention (dense
 decoders), the WKV recurrence (rwkv) or the selective scan (hybrid:
 every mamba layer, prefill and decode), 0 on the CPU, where the plain
-versions run.
+versions run.  ``--prefill-chunk C`` makes prompts resident C tokens per
+step, interleaved with decode windows, and ``--prefix-cache on`` maps a
+cached block-aligned prompt prefix into a new request's table (both on
+the paged pool only); every chunk and prefix tail runs the paged kernel
+too.
 """
 from __future__ import annotations
 
@@ -75,6 +81,17 @@ def main(argv=None):
                              "int8", "fp8"),
                     help="KV pool storage precision (int8/fp8 arrive "
                          "with a later slice)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: make prompts resident N "
+                         "tokens per step, interleaved with decode "
+                         "windows (paged only; 0 = monolithic bucketed "
+                         "prefill)")
+    ap.add_argument("--prefix-cache", default="off",
+                    choices=("on", "off"),
+                    help="prefix caching: admissions whose prompt hits "
+                         "a cached block-aligned prefix map the shared "
+                         "blocks (refcounted, copy-on-write) into their "
+                         "table and prefill only the tail (paged only)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -95,7 +112,9 @@ def main(argv=None):
                          paged_kernel=args.paged_kernel,
                          sampling=args.sampling,
                          steps_per_sync=args.steps_per_sync,
-                         kv_dtype=args.kv_dtype)
+                         kv_dtype=args.kv_dtype,
+                         prefill_chunk=args.prefill_chunk,
+                         prefix_cache=args.prefix_cache == "on")
     engine = LPUEngine(model, params, econf, device=dev)
 
     rng = np.random.RandomState(0)
@@ -126,6 +145,14 @@ def main(argv=None):
           f"{st.bytes_to_host_per_token:.1f} B->host/token, "
           f"overrun={st.overrun_tokens}, "
           f"block_s={engine.decode_block_s()}")
+    print(f"[serve] prefill_chunk={engine.prefill_chunk}: "
+          f"{st.prefill_chunks} chunks, decode_stalls={st.decode_stalls}")
+    print(f"[serve] prefix_cache={args.prefix_cache}: "
+          f"hit_rate={st.prefix_hit_rate:.2f} "
+          f"({st.prefix_hits}/{st.prefix_lookups}), "
+          f"hit_blocks={st.prefix_hit_blocks}, "
+          f"prefill_tokens_saved={st.prefill_tokens_saved}, "
+          f"cow={st.cow_blocks}, evicted={st.evicted_blocks}")
     if cfg.family == "hybrid":
         n_mamba = sum(not cfg.is_attention_layer(i)
                       for i in range(cfg.n_layers))
@@ -134,8 +161,8 @@ def main(argv=None):
               f"{st.prefills}) x {n_mamba} mamba layers)")
     else:
         print(f"[serve] {kernel.__name__} kernel launches={kernel.launches} "
-              f"(device decode steps {st.device_decode_steps} x "
-              f"{cfg.n_layers} layers)")
+              f"((device decode steps {st.device_decode_steps} + prefill "
+              f"chunks and prefix tails) x {cfg.n_layers} layers)")
     for i, o in enumerate(outs[:4]):
         print(f"  req{i}: {o[:12]}")
     return outs

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
 from repro_torch.models.common import apply_rope, big_neg
+from repro_torch.serving.kv_cache import scatter_chunk_rows
 
 Params = Dict[str, Any]
 
@@ -251,6 +252,62 @@ def decode_attention(p: Params, x: torch.Tensor, *, cfg, plan,
             chunk=block_s or 2048, k_new=k_new, v_new=v_new)
         kc[rows, pos] = k_new[:, 0].to(kc.dtype)
         vc[rows, pos] = v_new[:, 0].to(vc.dtype)
+    return out_proj(p, out, plan)
+
+
+def chunk_prefill_attention(p: Params, x: torch.Tensor, *, cfg, plan,
+                            positions: torch.Tensor,
+                            cache: Dict[str, torch.Tensor],
+                            block_table: torch.Tensor,
+                            kv_valid_len: torch.Tensor,
+                            paged_kernel: str = "stream") -> torch.Tensor:
+    """Prefill ONE chunk of a partly resident prompt against the pool.
+
+    x: (1,C,D) the chunk's activations; positions: (1,C) int32 absolute
+    positions ``start + [0..C)``; cache: {"k","v": (N,bs,Gp,dh)} the
+    shared pool, updated in place; block_table: (1,T) int32 the
+    request's physical blocks; kv_valid_len: int32 scalar, the resident
+    tokens after this chunk (rows at or past it are padding: they go to
+    the null block 0 and are masked on read).
+
+    The chunk's K and V are scattered through the table first, so one
+    length mask covers history and self.  Then, with ``paged_kernel``
+    resolved by the caller:
+
+    * ``"stream"`` — the C queries are the paged kernel's batch: one
+      table broadcast over them, per-query lengths ``pos + 1`` (clamped
+      to ``kv_valid_len`` for pad rows), no fold;
+    * ``"gather"`` — the oracle: flash attention over the gathered view
+      with the chunk's offset.
+
+    An int8/fp8 pool (scale leaves) arrives with the quantized-KV slice.
+    """
+    if "k_scale" in cache:
+        raise NotImplementedError(
+            "chunked prefill into an int8/fp8 pool arrives with the "
+            "quantized-KV slice of the port")
+    q, k, v = _qkv_rope(p, x, cfg, plan, positions)
+    kc, vc = cache["k"], cache["v"]
+    table = block_table[0]
+    pos = positions[0]
+    valid = pos < kv_valid_len
+    scatter_chunk_rows(kc, k[0], table, pos, valid)
+    scatter_chunk_rows(vc, v[0], table, pos, valid)
+    C, T = q.shape[1], table.shape[0]
+    if paged_kernel == "stream":
+        lens = torch.minimum(pos + 1, kv_valid_len).to(torch.int32)
+        tabs = table[None].expand(C, T).contiguous()
+        out = paged_decode_attention(q[0], kc, vc, tabs, lens)[None]
+    else:
+        bs = kc.shape[1]
+        tbl = table.long()
+        kview = kc[tbl].reshape(1, T * bs, kc.shape[2], kc.shape[3])
+        vview = vc[tbl].reshape(1, T * bs, vc.shape[2], vc.shape[3])
+        kmap = local_kmap(plan, x.device)
+        out = flash_attention(q, _expand_kv(kview, kmap),
+                              _expand_kv(vview, kmap), causal=True,
+                              q_offset=pos[:1],
+                              kv_valid_len=kv_valid_len.reshape(1))
     return out_proj(p, out, plan)
 
 

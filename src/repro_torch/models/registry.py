@@ -35,12 +35,13 @@ class Model:
     def forward(self, params: Params, tokens: torch.Tensor, *, mode: str,
                 positions=None, cache=None, block_tables=None,
                 paged_kernel: str = "stream", block_s: int = 0,
-                use_kernels: bool = True):
+                use_kernels: bool = True, kv_valid_len=None):
         return tf.forward(params, tokens, cfg=self.cfg, plan=self.plan,
                           mode=mode, positions=positions, cache=cache,
                           block_tables=block_tables,
                           paged_kernel=paged_kernel, block_s=block_s,
-                          use_kernels=use_kernels)
+                          use_kernels=use_kernels,
+                          kv_valid_len=kv_valid_len)
 
     def supports_paged_kv(self) -> bool:
         """Paged KV needs every layer to be attention (pure transformer):

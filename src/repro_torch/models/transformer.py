@@ -76,11 +76,18 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
                 cache: Optional[Params] = None,
                 block_tables: Optional[torch.Tensor] = None,
                 paged_kernel: str = "stream", block_s: int = 0,
-                use_kernels: bool = True) -> torch.Tensor:
+                use_kernels: bool = True,
+                kv_valid_len: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
     """One decoder layer (pre-norm, residual): attention or mamba, then
     MLP or MoE; or time mix + channel mix of one rwkv layer.  A mamba
     layer with a cache overwrites its ``conv``/``ssm`` state in place;
-    the MoE's auxiliary loss is dropped (no training path yet)."""
+    the MoE's auxiliary loss is dropped (no training path yet).
+
+    ``mode="chunk_prefill"`` (attention-only stacks) prefills one chunk
+    of a partly resident prompt straight against the paged pool:
+    ``cache`` is the pool, ``block_tables`` the request's (1, T) table
+    and ``kv_valid_len`` the resident tokens after the chunk."""
     if cfg.family == "rwkv":
         return _apply_rwkv_layer(p, x, cfg=cfg, plan=plan, mode=mode,
                                  cache=cache, use_kernels=use_kernels)
@@ -103,13 +110,18 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
     elif mode == "prefill":
         h = attn_mod.prefill_attention(p["attn"], h_in, cfg=cfg, plan=plan,
                                        positions=positions, cache=cache)
+    elif mode == "chunk_prefill":
+        h = attn_mod.chunk_prefill_attention(
+            p["attn"], h_in, cfg=cfg, plan=plan, positions=positions,
+            cache=cache, block_table=block_tables,
+            kv_valid_len=kv_valid_len, paged_kernel=paged_kernel)
     elif mode == "train":
         h = attn_mod.self_attention(p["attn"], h_in, cfg=cfg, plan=plan,
                                     positions=positions)
     else:
         raise NotImplementedError(
-            f"mode={mode!r} (chunked prefill / verify) arrives with a "
-            "later slice of the port")
+            f"mode={mode!r} (speculative verify) arrives with a later "
+            "slice of the port")
     x = x + h
     h_in = apply_norm(p["ln2"], x, cfg.norm)
     if "moe" in p:
@@ -150,7 +162,9 @@ def apply_super_block(p: Params, x: torch.Tensor, *, cfg, plan,
                       cache: Optional[Params] = None,
                       block_tables: Optional[torch.Tensor] = None,
                       paged_kernel: str = "stream", block_s: int = 0,
-                      use_kernels: bool = True) -> torch.Tensor:
+                      use_kernels: bool = True,
+                      kv_valid_len: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Layers ``l0..l{sb-1}`` of one super-block in order; ``cache`` is
     the super-block's slice ({"l{j}": {leaf: view}}), updated in place."""
     for j in range(super_block_size(cfg)):
@@ -158,7 +172,8 @@ def apply_super_block(p: Params, x: torch.Tensor, *, cfg, plan,
                         positions=positions, mode=mode,
                         cache=cache[f"l{j}"] if cache is not None else None,
                         block_tables=block_tables, paged_kernel=paged_kernel,
-                        block_s=block_s, use_kernels=use_kernels)
+                        block_s=block_s, use_kernels=use_kernels,
+                        kv_valid_len=kv_valid_len)
     return x
 
 
@@ -169,15 +184,19 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
             block_tables: Optional[torch.Tensor] = None,
             paged_kernel: str = "stream",
             block_s: int = 0,
-            use_kernels: bool = True) -> Tuple[torch.Tensor,
-                                               Optional[Params]]:
-    """Shared forward in the train/prefill/decode modes.
+            use_kernels: bool = True,
+            kv_valid_len: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Shared forward in the train/prefill/decode/chunk_prefill modes.
 
     ``cache`` ({"l{j}": {"k","v": (n_sb, ...)}}) is updated in place:
     prefill fills a batch cache covering exactly the S positions; decode
     reads each layer's cache before scattering that layer's new row.
     ``positions``: (B,S) for train/prefill (default arange), (B,) for
-    decode.  ``paged_kernel`` is the resolved paged dataflow, ``"stream"``
+    decode, (1,C) absolute offsets for chunk_prefill, where
+    ``block_tables`` is the request's (1,T) table and ``kv_valid_len``
+    the resident length after the chunk (see
+    :func:`repro_torch.models.attention.chunk_prefill_attention`).  ``paged_kernel`` is the resolved paged dataflow, ``"stream"``
     or ``"gather"`` (resolve ``"auto"`` with ``resolve_paged_kernel``
     once, as the engine does).  An rwkv stack's cache is {"l0":
     {"shift_t","shift_c","wkv"}}, overwritten in place; its positions are
@@ -208,6 +227,7 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
                               plan=plan, positions=positions, mode=mode,
                               cache=block_cache, block_tables=block_tables,
                               paged_kernel=paged_kernel, block_s=block_s,
-                              use_kernels=use_kernels)
+                              use_kernels=use_kernels,
+                              kv_valid_len=kv_valid_len)
     x = apply_norm(params["ln_f"], x, cfg.norm)
     return lm_logits(params, x, cfg, plan), cache

@@ -3,8 +3,8 @@
 
 The fields and defaults are the reference's, so one configuration reads
 the same in both packages.  Knobs whose subsystem has not been ported
-yet (:data:`UNPORTED`: chunked prefill, prefix cache, speculation,
-quantized weights, fault tolerance, the async front end) are kept here,
+yet (:data:`UNPORTED`: speculation, fault tolerance, the async front
+end) are kept here,
 and :class:`repro_torch.serving.engine.LPUEngine` rejects any value
 other than the default with ``NotImplementedError``.
 """
@@ -86,7 +86,6 @@ class EngineConfig:
 
 # field -> the later slice of the port that brings its subsystem
 UNPORTED = {
-    "prefill_chunk": "chunked prefill", "prefix_cache": "prefix cache",
     "speculate": "speculation", "draft_k": "speculation",
     "chaos": "fault tolerance",
     "max_migrations": "fault tolerance",

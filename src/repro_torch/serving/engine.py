@@ -24,7 +24,18 @@ reference's ``serving/engine.py`` ``LPUEngine``).
 * **Prefill** — per request at batch 1, padded to power-of-two buckets
   (a recurrent family prefills at the exact prompt length: padded tokens
   would fold into its state); the resulting cache is copied into the pool
-  (or the slot's dense region).
+  (or the slot's dense region).  With ``prefill_chunk=C`` (paged pool
+  only) the prompt instead becomes resident C tokens per ``step()``, its
+  K/V scattered into the pool chunk by chunk while the same step still
+  dispatches a decode window, so a long prompt never freezes the
+  streams in flight (``decode_stalls`` stays 0).  Each chunk's queries
+  are the paged kernel's batch, one broadcast block table, lengths
+  ``start + i + 1``.
+* **Prefix cache** — with ``prefix_cache=True`` (paged pool only) a
+  block-aligned hash index over prompt prefixes lets a new request map
+  resident blocks (refcounted) into its table and prefill only the tail;
+  a shared block is copied (copy-on-write) before a write into it, and
+  cached blocks at refcount zero are recycled LRU-first.
 * **Preemption** — when the pool is exhausted the newest sequence is
   evicted and re-prefilled later (recompute).
 * **Fused sampling** — by default the sampler runs on the device after
@@ -39,8 +50,7 @@ reference's ``serving/engine.py`` ``LPUEngine``).
 Not in this slice (each raises ``NotImplementedError``): a mesh / tp > 1,
 the int8/fp8 KV pool, and any value other than the default of a config
 field whose subsystem is not ported (``serving.config.UNPORTED``:
-chunked prefill, the prefix cache, speculation, fault tolerance, the
-front end).  ``w_dtype`` is carried as the reference carries it, for
+speculation, fault tolerance, the front end).  ``w_dtype`` is carried as the reference carries it, for
 telemetry: the engine's decode keeps the fp weights at any value.
 """
 from __future__ import annotations
@@ -56,8 +66,9 @@ from repro_torch.compiler.plan import resolve_kv_precision
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.kernels.decode_attention.ops import resolve_paged_kernel
 from repro_torch.serving.config import DEFAULTS, UNPORTED, EngineConfig
-from repro_torch.serving.kv_cache import (LANE, BlockPool,
+from repro_torch.serving.kv_cache import (LANE, BlockPool, PrefixCache,
                                           assert_pool_balanced, cache_bytes,
+                                          copy_pool_block,
                                           per_rank_block_bytes,
                                           pool_blocks_for_budget,
                                           scatter_prefill_dense,
@@ -105,8 +116,18 @@ class EngineStats:
     prefill_syncs: int = 0        # ...of which sample a prefill row
     bytes_to_host: int = 0        # payload bytes of those readbacks
     overrun_tokens: int = 0       # sampled in a window, discarded by host
-    decode_stalls: int = 0        # prefills run while decode streams were
-                                  # in flight (each froze every stream)
+    prefill_chunks: int = 0       # chunk launches (chunked prefill mode)
+    decode_stalls: int = 0        # monolithic prefills run while other
+                                  # decode streams were in flight (each
+                                  # froze them; 0 in chunked mode)
+    prefix_lookups: int = 0       # admissions that consulted the index
+    prefix_hits: int = 0          # ...that admitted with shared blocks
+    prefix_hit_blocks: int = 0    # pool blocks mapped from the index
+    prefill_tokens_saved: int = 0 # prompt tokens not prefilled thanks to
+                                  # prefix hits
+    evicted_blocks: int = 0       # cached refcount-0 blocks recycled by
+                                  # the pool's LRU
+    cow_blocks: int = 0           # copy-on-write splits of shared blocks
     rejected_requests: int = 0    # admissions rejected with a structured
                                   # per-request failure
     device_decode_steps: int = 0  # decode forwards dispatched (each runs
@@ -127,6 +148,11 @@ class EngineStats:
     @property
     def syncs_per_token(self) -> float:
         return self.host_syncs / max(self.tokens, 1)
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Share of prefix-index lookups that mapped a shared block."""
+        return self.prefix_hits / max(self.prefix_lookups, 1)
 
 
 class LPUEngine:
@@ -232,11 +258,26 @@ class LPUEngine:
                 f"block_size ({self.block_size}); block_s={self.block_s} "
                 "conflicts (use block_size, or the gather/dense paths "
                 "where block_s sets the flash chunk)")
-        self.sched = Scheduler(self.slots, self.max_seq, pool, c.min_bucket)
+        if c.prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk={c.prefill_chunk} must be >= 0")
+        if c.prefill_chunk and not self.paged:
+            raise ValueError(
+                "prefill_chunk needs the paged KV pool (attention-only "
+                "stacks); dense / recurrent-state caches prefill "
+                "monolithically")
+        self.prefill_chunk = int(c.prefill_chunk)
+        if c.prefix_cache and not self.paged:
+            raise ValueError(
+                "prefix_cache needs the paged KV pool (attention-only "
+                "stacks); the dense per-slot cache cannot share blocks")
+        self.prefix = PrefixCache(pool) if c.prefix_cache else None
+        self.sched = Scheduler(self.slots, self.max_seq, pool, c.min_bucket,
+                               prefix=self.prefix)
         self.stats = EngineStats()
         self._results: Dict[int, List[int]] = {}
         self._rid = 0
-        self._buckets_traced: Set[int] = set()
+        self._chunk_rr = -1           # admit_seq of the last chunk served
+        self._buckets_traced: Set = set()
 
     def _init_kv_state(self) -> Optional[BlockPool]:
         """A zeroed cache (pool or dense), fresh block tables and — paged
@@ -259,7 +300,7 @@ class LPUEngine:
     def check_pool_balanced(self) -> None:
         """Raise unless every pool block's refcount balances to zero."""
         if self.sched.pool is not None:
-            assert_pool_balanced(self.sched.pool)
+            assert_pool_balanced(self.sched.pool, self.prefix)
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -313,6 +354,33 @@ class LPUEngine:
             positions=positions)
         return logits[0, true_len - 1], cache
 
+    def _chunk_fn(self, seq: SeqSlot, tokens: List[int], start: int,
+                  n_valid: int, C: int) -> torch.Tensor:
+        """ONE prefill chunk of ``seq``'s prompt, straight against the
+        pool: ``tokens[start:start + n_valid]`` padded to C rows, their
+        K/V scattered through the request's table and their queries
+        attending the resident history plus the chunk's causal prefix
+        (see :func:`repro_torch.models.attention.chunk_prefill_attention`).
+        Returns the logits row of the chunk's last valid token
+        (meaningful for the final chunk only)."""
+        buf = np.zeros((1, C), np.int32)
+        buf[0, :n_valid] = tokens[start:start + n_valid]
+        table = np.zeros((self.table_len,), np.int32)
+        table[:len(seq.blocks)] = seq.blocks
+        positions = start + torch.arange(C, dtype=torch.int32,
+                                         device=self.device)[None]
+        kv_valid_len = torch.full((), start + n_valid, dtype=torch.int32,
+                                  device=self.device)
+        logits, _ = self.model.forward(
+            self.params, self._to_dev(buf), mode="chunk_prefill",
+            positions=positions, cache=self.cache,
+            block_tables=self._to_dev(table)[None],
+            paged_kernel=self.paged_kernel or "gather",
+            kv_valid_len=kv_valid_len)
+        self._buckets_traced.add(("chunk", C))
+        self.stats.prefills += 1
+        return logits[0, n_valid - 1]
+
     # -- sampling ------------------------------------------------------
 
     def _sample(self, logits_np: np.ndarray, row: torch.Tensor,
@@ -352,14 +420,17 @@ class LPUEngine:
 
     def _refresh_tables(self) -> None:
         """Mirror decode-ready sequences' block lists into the (slots, T)
-        table the decode steps read.  Empty slots stay all-zero: their
-        don't-care writes land in the null block.  A fresh array every
-        time: on the CPU ``torch.from_numpy`` shares its memory."""
+        table the decode steps read.  Empty and still-prefilling slots
+        stay all-zero: their don't-care writes land in the null block,
+        so a window never touches a partly resident prompt.  A fresh
+        array every time, never an in-place rewrite: on the CPU
+        ``torch.from_numpy`` shares its memory, and a pipelined window
+        may still read the previous one."""
         if not self.paged:
             return
         tables = np.zeros((self.slots, self.table_len), np.int32)
         for slot, seq in enumerate(self.sched.active):
-            if seq is not None and seq.blocks:
+            if seq is not None and seq.blocks and not seq.prefilling:
                 tables[slot, :len(seq.blocks)] = seq.blocks
         self.block_tables = tables
 
@@ -378,11 +449,16 @@ class LPUEngine:
 
     def _do_prefill(self, seq: SeqSlot) -> Optional[Request]:
         """Monolithic bucketed prefill of a just-admitted sequence; its
-        cache is copied into the pool (or the slot's dense region).
-        Returns the request if it finished immediately."""
+        cache is copied into the pool (or the slot's dense region).  A
+        prefix hit prefills only its tail (:meth:`_prefill_tail`).  A
+        prefill that runs while other decode streams are in flight froze
+        them: ``decode_stalls`` counts it.  Returns the request if it
+        finished immediately."""
         tokens = seq.req.resume_tokens()
-        if self.sched.num_active() > 0:
+        if self.sched.num_decoding() > 1:       # streams besides seq
             self.stats.decode_stalls += 1
+        if seq.cached:
+            return self._prefill_tail(seq, tokens)
         bucket = (self.sched.bucket(len(tokens)) if self.bucketed
                   else len(tokens))
         buf = np.zeros((1, bucket), np.int32)
@@ -398,10 +474,66 @@ class LPUEngine:
             scatter_prefill_dense(self.cache, pc, self.sched.slot_of(seq))
         return self._finish_prefill(seq, row)
 
+    def _prefill_tail(self, seq: SeqSlot, tokens: List[int]
+                      ) -> Optional[Request]:
+        """Prefill only the un-cached tail of a prefix hit, through the
+        chunk program padded to a pow2 bucket; a shared block the tail
+        writes into (a hit capped mid-block) is copied on write first."""
+        n, start = len(tokens), seq.cached
+        self._ensure_writable(seq, start, n)
+        row = self._chunk_fn(seq, tokens, start, n - start,
+                             self.sched.bucket(n - start))
+        return self._finish_prefill(seq, row)
+
+    def _ensure_writable(self, seq: SeqSlot, lo: int, hi: int,
+                         allow_preempt: bool = True) -> bool:
+        """Copy-on-write guard: before K/V for positions ``[lo, hi)`` of
+        ``seq`` is scattered, each block of that span referenced by more
+        than one table is copied into a fresh block (on the current
+        stream, so in order with every window and chunk), the fresh
+        block swapped into ``seq``'s table and the original released.
+        Returns False when a fresh block cannot be had without
+        preemption and ``allow_preempt`` is False (the chunk path
+        retries next step).  Sole-owner blocks are written in place:
+        hits are capped at ``n - 1``, so such a write re-stores the same
+        token's K/V."""
+        if self.sched.pool is None or hi <= lo:
+            return True
+        bs = self.block_size
+        for li in range(lo // bs, (hi - 1) // bs + 1):
+            if li >= len(seq.blocks):
+                break
+            old = seq.blocks[li]
+            if self.sched.pool.ref[old] <= 1:
+                continue
+            new = self.sched.cow_alloc(seq, allow_preempt)
+            if new is None:
+                return False
+            copy_pool_block(self.cache, old, new)
+            seq.blocks[li] = new
+            self.sched.pool.free([old])
+            self.stats.cow_blocks += 1
+        return True
+
+    def _cow_pending(self, seq: SeqSlot, lo: int, hi: int) -> bool:
+        """True while a block of the span is still shared (the guard has
+        not run, or could not finish)."""
+        pool = self.sched.pool
+        if pool is None or hi <= lo:
+            return False
+        bs = self.block_size
+        top = min((hi - 1) // bs + 1, len(seq.blocks))
+        return any(pool.ref[seq.blocks[li]] > 1
+                   for li in range(lo // bs, top))
+
     def _finish_prefill(self, seq: SeqSlot, row) -> Optional[Request]:
-        """Restore the last sampled token (preemption resume) or sample
-        the first one from the prefill row, then apply the finish rules."""
+        """Shared tail of every prefill path once the prompt is resident:
+        register it in the prefix index, then restore the last sampled
+        token (preemption resume) or sample the first one from the
+        prefill row, and apply the finish rules."""
         req = seq.req
+        if self.prefix is not None:
+            self.prefix.register(req.resume_tokens(), seq.blocks)
         if seq.resumed:
             seq.last_token = req.out[-1]
             return None
@@ -413,6 +545,55 @@ class LPUEngine:
         if self._should_finish(seq, tok):
             return self._finish(seq)
         return None
+
+    def _run_prefill_chunk(self, seq: SeqSlot) -> Optional[Request]:
+        """Make the next ``prefill_chunk`` prompt tokens of ``seq``
+        resident; on the final chunk hand off to :meth:`_finish_prefill`.
+        The caller has reserved the chunk's blocks and run the
+        copy-on-write guard.  Returns the request if it finished."""
+        tokens = seq.req.resume_tokens()
+        C = self.prefill_chunk
+        start = seq.prefilled
+        n_valid = min(C, len(tokens) - start)
+        if self._cow_pending(seq, start, start + n_valid):
+            raise RuntimeError("chunk scatter into a shared block")
+        row = self._chunk_fn(seq, tokens, start, n_valid, C)
+        seq.prefilled = seq.pos = start + n_valid
+        self.stats.prefill_chunks += 1
+        if seq.prefilling:
+            return None              # more chunks next step
+        return self._finish_prefill(seq, row)
+
+    def _admit_and_chunk(self) -> List[Request]:
+        """Chunked-mode admission: admit while slots and first-chunk
+        blocks allow, then run ONE prefill chunk — the step's prefill
+        budget — for one prefilling sequence, round-robin by admission
+        order from the last one served, so a long prompt cannot hold a
+        short one's first token hostage.  The decode window dispatched
+        later in the same step is what keeps the streams moving."""
+        finished: List[Request] = []
+        while self.sched.admit_next(chunk=self.prefill_chunk) is not None:
+            pass
+        cands = self.sched.prefilling()
+        i = next((j for j, s in enumerate(cands)
+                  if s.admit_seq > self._chunk_rr), 0)
+        for seq in cands[i:] + cands[:i]:
+            # preempt only when no decode stream could free blocks
+            allow_preempt = self.sched.num_decoding() == 0
+            if not self.sched.chunk_reserve(seq, self.prefill_chunk,
+                                            allow_preempt=allow_preempt):
+                continue             # pool pressure: try the next seq
+            nxt = min(seq.prefilled + self.prefill_chunk,
+                      seq.prefill_target)
+            if not self._ensure_writable(seq, seq.prefilled, nxt,
+                                         allow_preempt=allow_preempt):
+                continue             # no block for the copy: next seq
+            self._chunk_rr = seq.admit_seq
+            done = self._run_prefill_chunk(seq)
+            if done is not None:
+                finished.append(done)
+            break                    # ONE chunk per step
+        return finished
 
     # -- public API ----------------------------------------------------
 
@@ -448,20 +629,30 @@ class LPUEngine:
 
     def _step(self) -> List[Request]:
         finished: List[Request] = []
-        while True:
-            seq = self.sched.admit_next()
-            if seq is None:
-                break
-            done = self._do_prefill(seq)
-            if done is not None:
-                finished.append(done)
+        if self.prefill_chunk:
+            finished += self._admit_and_chunk()
+        else:
+            while True:
+                seq = self.sched.admit_next()
+                if seq is None:
+                    break
+                done = self._do_prefill(seq)
+                if done is not None:
+                    finished.append(done)
         finished += self._harvest_rejections()
         self.sched.ensure_decode_capacity()     # may preempt (recompute)
-        self.stats.preemptions = self.sched.preemptions
+        st = self.stats
+        st.preemptions = self.sched.preemptions
         if self.sched.pool is not None:
-            self.stats.peak_pool_blocks = max(self.stats.peak_pool_blocks,
-                                              self.sched.pool.num_used)
-        if self.sched.num_active() == 0:
+            st.peak_pool_blocks = max(st.peak_pool_blocks,
+                                      self.sched.pool.num_used)
+            st.evicted_blocks = self.sched.pool.evicted_blocks
+        if self.prefix is not None:
+            st.prefix_lookups = self.prefix.lookups
+            st.prefix_hits = self.prefix.hits
+            st.prefix_hit_blocks = self.prefix.hit_blocks
+            st.prefill_tokens_saved = self.prefix.tokens_saved
+        if self.sched.num_decoding() == 0:
             return finished
         if self.sampling == "fused":
             finished += self._fused_decode_round()
@@ -492,7 +683,7 @@ class LPUEngine:
         toks = np.zeros((self.slots, 1), np.int32)
         pos = np.zeros((self.slots,), np.int32)
         for slot, seq in enumerate(self.sched.active):
-            if seq is not None:
+            if seq is not None and not seq.prefilling:
                 toks[slot, 0] = seq.last_token
                 pos[slot] = seq.pos
         tables = self._to_dev(self.block_tables) if self.paged else None
@@ -505,7 +696,7 @@ class LPUEngine:
         self.stats.steps += 1
         self.stats.slot_steps += self.slots
         for slot, seq in enumerate(self.sched.active):
-            if seq is None:
+            if seq is None or seq.prefilling:
                 continue
             req = seq.req
             self.stats.busy_slot_steps += 1
@@ -524,7 +715,9 @@ class LPUEngine:
 
     def _slot_state(self) -> Tuple[tuple, tuple, bool]:
         """Host slot state -> the window's carry, per-slot sampling
-        parameters (small uploads) and whether any slot samples."""
+        parameters (small uploads) and whether any slot samples.  Only
+        decode-ready slots are ``alive``; empty and prefilling slots stay
+        dead zeros, frozen by the window."""
         B = self.slots
         last = np.zeros((B,), np.int32)
         pos = np.zeros((B,), np.int32)
@@ -535,7 +728,7 @@ class LPUEngine:
         top_ps = np.ones((B,), np.float32)
         max_new = np.zeros((B,), np.int32)
         for slot, seq in enumerate(self.sched.active):
-            if seq is None:
+            if seq is None or seq.prefilling:
                 continue
             sp = seq.req.params
             last[slot] = seq.last_token
@@ -562,7 +755,7 @@ class LPUEngine:
         """Could any decode-ready slot still be alive after ``steps``
         more tokens?  (Budget/length check only.)"""
         for seq in self.sched.active:
-            if seq is None:
+            if seq is None or seq.prefilling:
                 continue
             if (seq.req.max_new_tokens - len(seq.req.out)) > steps and \
                     (self.max_seq - 1 - seq.pos) > steps:
@@ -576,7 +769,8 @@ class LPUEngine:
         tables = self._to_dev(self.block_tables) if self.paged else None
         tok_mat, carry = self._window_fn(win, tables, *carry, *samp,
                                          stochastic)
-        snapshot = [s is not None for s in self.sched.active]
+        snapshot = [s is not None and not s.prefilling
+                    for s in self.sched.active]
         return (win, tok_mat, snapshot), carry
 
     def _reconcile(self, handle) -> List[Request]:
@@ -589,14 +783,14 @@ class LPUEngine:
         self.stats.bytes_to_host += toks.nbytes
         finished: List[Request] = []
         for s in range(win):
-            if self.sched.num_active() == 0:
+            if self.sched.num_decoding() == 0:
                 self.stats.overrun_tokens += \
                     (win - s) * sum(dispatch_active)
                 break
             self.stats.steps += 1
             self.stats.slot_steps += self.slots
             for slot, seq in enumerate(self.sched.active):
-                if seq is None:
+                if seq is None or seq.prefilling:
                     if dispatch_active[slot]:
                         self.stats.overrun_tokens += 1
                     continue

@@ -1,14 +1,15 @@
 """Paged KV-cache: a shared pool of fixed-size blocks + per-request tables.
 
 Host side: a plain-Python copy of the reference's accounting
-(``serving/kv_cache.py`` there) — pow2 prefill buckets and the
-refcounting :class:`BlockPool`, without the prefix-cache index and its
-LRU of parked blocks, which come back with the prefix-cache slice.
-Device side: the port's in-place copies of a prefilled
-batch-1 cache into the pool (:func:`scatter_prefill_pages`) or a dense
-slot (:func:`scatter_prefill_dense`), the positionwise scatter of a
-prefill chunk (:func:`scatter_chunk_rows`), and the absmax quantization
-of an int8/fp8 pool's rows (:func:`quantize_kv_rows`).
+(``serving/kv_cache.py`` there) — pow2 prefill buckets, the refcounting
+:class:`BlockPool` with its LRU of parked cached blocks, and the
+block-aligned prefix index :class:`PrefixCache`.  Device side: the
+port's in-place copies of a prefilled batch-1 cache into the pool
+(:func:`scatter_prefill_pages`) or a dense slot
+(:func:`scatter_prefill_dense`), the positionwise scatter of a prefill
+chunk (:func:`scatter_chunk_rows`), the copy-on-write copy of one pool
+block (:func:`copy_pool_block`), and the absmax quantization of an
+int8/fp8 pool's rows (:func:`quantize_kv_rows`).
 
 Block id 0 is reserved as the **null block**: table entries past a
 request's used length point at it, padded prefill tokens are written to
@@ -18,7 +19,9 @@ valid length, so it absorbs all don't-care traffic.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Sequence
+import zlib
+from collections import OrderedDict
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -70,7 +73,15 @@ class BlockPool:
 
     Block 0 is reserved (null block) and never handed out.  ``alloc``
     returns None when the request cannot be satisfied — the scheduler
-    turns that into queueing or preemption, never a partial grant."""
+    turns that into queueing or preemption, never a partial grant.
+
+    A prefix-cache hit maps one physical block into several tables
+    (:meth:`share`); ``free`` drops one reference and returns the block
+    to circulation at zero.  A block registered in the prefix index
+    (:meth:`mark_cached`) parks in an LRU at refcount zero, its KV still
+    valid for later hits; ``alloc`` drains the plain free list first and
+    only then evicts LRU-oldest cached blocks, calling ``on_evict`` so
+    the index drops them (counted in ``evicted_blocks``)."""
 
     def __init__(self, num_blocks: int, block_size: int):
         if num_blocks < 2:
@@ -79,10 +90,14 @@ class BlockPool:
         self.block_size = block_size
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))
         self.ref: List[int] = [0] * num_blocks
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        self._cached: set = set()
+        self.on_evict: Optional[Callable[[int], None]] = None
+        self.evicted_blocks = 0
 
     @property
     def num_free(self) -> int:
-        return len(self._free)
+        return len(self._free) + len(self._lru)
 
     @property
     def num_used(self) -> int:
@@ -93,14 +108,23 @@ class BlockPool:
             return None
         out: List[int] = []
         for _ in range(n):
-            b = self._free.pop()
+            if self._free:
+                b = self._free.pop()
+            else:
+                b, _ = self._lru.popitem(last=False)
+                self._cached.discard(b)
+                self.evicted_blocks += 1
+                if self.on_evict is not None:
+                    self.on_evict(b)
             self.ref[b] = 1
             out.append(b)
         return out
 
     def free(self, blocks: Sequence[int]) -> None:
         """Drop one reference per listed block; raises on ids outside the
-        pool, the null block, and blocks already at refcount zero."""
+        pool, the null block, and blocks already at refcount zero (once
+        blocks are shared, a silent bad free corrupts another request's
+        KV)."""
         for b in blocks:
             if not 0 < b < self.num_blocks:
                 raise ValueError(f"bad block id {b}")
@@ -109,12 +133,44 @@ class BlockPool:
                     f"double free (or free of never-allocated) block {b}")
             self.ref[b] -= 1
             if self.ref[b] == 0:
-                self._free.append(b)
+                if b in self._cached:
+                    self._lru[b] = None       # most-recently-used end
+                else:
+                    self._free.append(b)
+
+    def share(self, blocks: Sequence[int]) -> None:
+        """Take one more reference on each block (a prefix hit mapping
+        cached blocks into a new table); a block parked in the LRU is
+        revived."""
+        for b in blocks:
+            if not 0 < b < self.num_blocks:
+                raise ValueError(f"bad block id {b}")
+            if self.ref[b] == 0:
+                if b not in self._lru:
+                    raise ValueError(f"share of free, un-cached block {b}")
+                del self._lru[b]
+            self.ref[b] += 1
+
+    def mark_cached(self, block: int) -> None:
+        """Flag a live block as registered in the prefix index: at
+        refcount zero it parks in the LRU instead of the free list."""
+        if self.ref[block] <= 0:
+            raise ValueError(f"mark_cached of free block {block}")
+        self._cached.add(block)
+
+    def touch(self, blocks: Sequence[int]) -> None:
+        """Refresh the LRU recency of parked cached blocks."""
+        for b in blocks:
+            if b in self._lru:
+                self._lru.move_to_end(b)
 
 
-def assert_pool_balanced(pool: BlockPool) -> None:
+def assert_pool_balanced(pool: BlockPool,
+                         prefix: Optional["PrefixCache"] = None) -> None:
     """Refcount-balance invariant after a full drain: every block at
-    refcount zero and every non-null block on the free list."""
+    refcount zero (cached blocks park at zero too), the free list and
+    the LRU accounting for every non-null block, and — with a prefix
+    index — every index entry pointing at a parked block."""
     leaked = [b for b in range(1, pool.num_blocks) if pool.ref[b] != 0]
     if leaked:
         raise AssertionError(
@@ -122,7 +178,111 @@ def assert_pool_balanced(pool: BlockPool) -> None:
     if pool.num_used != 0:
         raise AssertionError(
             f"pool accounting imbalance: {pool.num_used} blocks used "
-            "after drain (the free list lost track of them)")
+            "after drain (free + LRU lists lost track of them)")
+    if prefix is not None:
+        stray = [b for b in prefix._by_block if b not in pool._lru]
+        if stray:
+            raise AssertionError(
+                f"prefix index entries for non-parked blocks: {stray}")
+
+
+# ---------------------------------------------------------------------------
+# prefix cache: block-aligned hash index over token prefixes
+# ---------------------------------------------------------------------------
+
+def _chain_hash(prev: int, tokens: Sequence[int]) -> int:
+    """crc32 of one block's tokens chained on the hash of everything
+    before it (crc32, not ``hash``: the same in every process)."""
+    data = prev.to_bytes(4, "little") + \
+        b"".join(int(t).to_bytes(4, "little", signed=True) for t in tokens)
+    return zlib.crc32(data)
+
+
+class PrefixCache:
+    """Block-aligned prefix index over the pool.
+
+    Maps the chained hash of each *full* block of prompt tokens to the
+    physical block holding its KV.  At admission the longest chain of
+    hits is mapped (refcounted) into the new table and only the tail is
+    prefilled.  One entry per physical block; eviction from the pool's
+    LRU drops the entry through ``pool.on_evict``.  A registered block's
+    contents never change: a write into a block with refcount > 1 is
+    copied first (the engine's copy-on-write), and a sole owner only
+    appends past the hashed span."""
+
+    def __init__(self, pool: BlockPool):
+        self.pool = pool
+        self.block_size = pool.block_size
+        self._by_hash: Dict[int, int] = {}
+        self._by_block: Dict[int, int] = {}
+        self.lookups = 0
+        self.hits = 0
+        self.hit_blocks = 0
+        self.tokens_saved = 0
+        pool.on_evict = self._evict
+
+    def _evict(self, block: int) -> None:
+        h = self._by_block.pop(block, None)
+        if h is not None and self._by_hash.get(h) == block:
+            del self._by_hash[h]
+
+    def _hit_blocks(self, tokens: Sequence[int]) -> List[int]:
+        bs = self.block_size
+        hit: List[int] = []
+        h = 0
+        for i in range(len(tokens) // bs):
+            h = _chain_hash(h, tokens[i * bs:(i + 1) * bs])
+            b = self._by_hash.get(h)
+            if b is None:
+                break
+            hit.append(b)
+        return hit
+
+    def match(self, tokens: Sequence[int]) -> Tuple[List[int], int]:
+        """Longest cached prefix of ``tokens``: ``(shared_blocks,
+        cached_tokens)``.  ``cached_tokens`` is capped at ``len(tokens)
+        - 1`` so at least one tail token is prefilled (its logits row
+        gives the first sampled token); when the cap lands mid-block,
+        the last shared block is the one a tail write copies on write."""
+        self.lookups += 1
+        hit = self._hit_blocks(tokens)
+        cached = min(len(hit) * self.block_size, len(tokens) - 1)
+        if cached <= 0:
+            return [], 0
+        shared = hit[:blocks_for(cached, self.block_size)]
+        self.pool.touch(shared)
+        return shared, cached
+
+    def peek(self, tokens: Sequence[int]) -> int:
+        """Prefix tokens :meth:`match` would map now, with its cap, but
+        counting no lookup and touching no LRU entry."""
+        hit = self._hit_blocks(tokens)
+        return max(min(len(hit) * self.block_size, len(tokens) - 1), 0)
+
+    def note_hit(self, shared: Sequence[int], cached: int) -> None:
+        """Count a hit that admitted (called once the tail's blocks were
+        granted, so a request that waits is not counted twice)."""
+        self.hits += 1
+        self.hit_blocks += len(shared)
+        self.tokens_saved += cached
+
+    def register(self, tokens: Sequence[int], blocks: Sequence[int]) -> None:
+        """Index every full block of a fully prefilled prompt; the first
+        entry wins a hash or a block, so each block keeps one entry."""
+        bs = self.block_size
+        h = 0
+        for i in range(len(tokens) // bs):
+            h = _chain_hash(h, tokens[i * bs:(i + 1) * bs])
+            if i >= len(blocks):
+                break
+            b = blocks[i]
+            if self._by_hash.get(h) == b:
+                continue
+            if h in self._by_hash or b in self._by_block:
+                continue
+            self._by_hash[h] = b
+            self._by_block[b] = h
+            self.pool.mark_cached(b)
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +351,17 @@ def scatter_chunk_rows(pages: torch.Tensor, rows: torch.Tensor,
                       torch.zeros((), dtype=torch.long, device=pages.device))
     pages[blk, pos % bs] = rows.to(pages.dtype)
     return pages
+
+
+def copy_pool_block(cache: Params, src: int, dst: int) -> None:
+    """Copy physical block ``src`` over ``dst`` in every leaf of the
+    pool, in place, on the current stream (copy-on-write: a shared block
+    is duplicated before its writer's next scatter).
+
+    cache: {lj: {"k", "v", ...: (n_sb, N, bs, ...)}}"""
+    for c in cache.values():
+        for pg in c.values():
+            pg[:, dst].copy_(pg[:, src])
 
 
 # ---------------------------------------------------------------------------

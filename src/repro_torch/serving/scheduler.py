@@ -2,17 +2,21 @@
 
 A copy of the reference's ``serving/scheduler.py`` (``SeqSlot`` and
 ``Scheduler``; the reference module imports its JAX ``kv_cache``, so the
-port keeps its own), cut to the monolithic-prefill path this slice
-serves: the prefix-cache, chunked-admission, copy-on-write and
-speculative-lookahead branches come back with their slices.  All policy
-is host-side: the device programs only ever see a full slot batch plus
-block tables.
+port keeps its own), without the speculative lookahead's ``draft_k``,
+which comes back with its slice.  All policy is host-side: the device
+programs only ever see a full slot batch plus block tables.
 
 * **Admission** — FIFO: a queued request is admitted when a slot is free
   AND (paged mode) the block pool can cover its prompt; prompt lengths
-  are padded to power-of-two buckets.
-* **Growth** — before every decode step each active sequence must own
-  the block its next token lands in.
+  are padded to power-of-two buckets.  With a prefix index the longest
+  cached chain of full blocks is pinned into the new table first and
+  only the tail's blocks are allocated.
+* **Chunked admission** (``admit_next(chunk=C)``) — only the first
+  chunk's blocks are reserved; :meth:`Scheduler.chunk_reserve` grows the
+  block set one chunk per engine step, and the sequence joins decode
+  windows once its prompt is resident (``SeqSlot.prefilling``).
+* **Growth** — before every decode step each decode-ready sequence must
+  own the block its next token lands in.
 * **Preemption** — when growth cannot be satisfied, the most recently
   admitted *other* sequence is evicted (recompute-style: its blocks are
   freed, it re-enters the queue front, and its tokens so far are
@@ -24,19 +28,33 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, List, Optional, Tuple
 
-from repro_torch.serving.kv_cache import BlockPool, blocks_for, bucket_for
+from repro_torch.serving.kv_cache import (BlockPool, PrefixCache,
+                                          blocks_for, bucket_for)
 
 
 @dataclass
 class SeqSlot:
     """An active request's per-slot serving state.  ``pos`` is the
-    number of tokens resident in KV: prompt + generated-so-far."""
+    number of tokens resident in KV: prompt + generated-so-far for a
+    decode-ready sequence; under chunked prefill it starts at the cached
+    prefix and advances one chunk at a time (``prefilled == pos`` until
+    the prompt is resident)."""
     req: "object"                 # repro_torch.serving.engine.Request
     pos: int                      # tokens resident in KV cache
     blocks: List[int] = field(default_factory=list)
     admit_seq: int = 0            # admission order (monotonic)
     resumed: bool = False         # re-admitted after preemption
     last_token: int = 0           # sampled but not yet fed to the model
+    prefilled: int = 0            # prompt tokens resident (chunked mode)
+    prefill_target: int = 0       # prompt tokens to make resident (0 =
+                                  # monolithic prefill, done at admit)
+    cached: int = 0               # prompt tokens covered by a prefix hit
+
+    @property
+    def prefilling(self) -> bool:
+        """True while the prompt is only partly resident: the slot takes
+        no part in decode windows (its table row stays null)."""
+        return self.prefilled < self.prefill_target
 
 
 class Scheduler:
@@ -48,10 +66,12 @@ class Scheduler:
     """
 
     def __init__(self, slots: int, max_seq: int,
-                 pool: Optional[BlockPool] = None, min_bucket: int = 16):
+                 pool: Optional[BlockPool] = None, min_bucket: int = 16,
+                 prefix: Optional[PrefixCache] = None):
         self.slots = slots
         self.max_seq = max_seq
         self.pool = pool
+        self.prefix = prefix
         self.min_bucket = min_bucket
         if pool is not None:
             self.min_bucket = max(min_bucket, pool.block_size)
@@ -91,20 +111,24 @@ class Scheduler:
                     f"{self.pool.num_blocks - 1} allocatable blocks")
         self.queue.append(req)
 
-    def admit_next(self) -> Optional[SeqSlot]:
+    def admit_next(self, chunk: int = 0) -> Optional[SeqSlot]:
         """Admit the head of the queue if a slot and blocks are available.
 
-        The whole prompt's blocks are reserved at admission and ``pos``
-        starts fully resident — the engine runs one bucketed prefill
-        immediately after.
+        ``chunk == 0`` (monolithic prefill): the whole prompt's blocks
+        are reserved and ``pos`` starts fully resident — the engine runs
+        one bucketed prefill immediately after.  ``chunk > 0``: only the
+        first chunk's blocks are reserved, the slot starts at ``pos ==
+        prefilled == cached`` with ``prefill_target`` the prompt length,
+        and the engine makes the prompt resident one chunk per step.
+
+        With a prefix index the cached chain is pinned (shared) BEFORE
+        the tail is allocated, so ``alloc``'s LRU eviction cannot recycle
+        the blocks the hit needs; on shortfall the pin is rolled back.
 
         A queue head that can never fit — the whole pool is free yet
         still short of its resume-state blocks — is **rejected**, not
         raised over: it is popped into :attr:`rejected` with a reason
-        and the next queued request gets its chance in the same call,
-        so one oversized request can neither livelock admission nor
-        kill the engine its co-tenants share (the engine turns the
-        rejection into a structured per-request failure).
+        and the next queued request gets its chance in the same call.
 
         Returns the newly filled SeqSlot (prefill is the engine's job)
         or None when nothing can be admitted right now.
@@ -115,12 +139,23 @@ class Scheduler:
             if free_slot is None:
                 return None
             req = self.queue[0]
-            n_tok = len(req.resume_tokens())
+            tokens = req.resume_tokens()
+            n_tok = len(tokens)
             blocks: List[int] = []
+            shared: List[int] = []
+            cached = 0
             if self.pool is not None:
-                need = blocks_for(n_tok, self.pool.block_size)
-                got = self.pool.alloc(need)
+                if self.prefix is not None:
+                    shared, cached = self.prefix.match(tokens)
+                    if shared:
+                        self.pool.share(shared)
+                reserve = min(n_tok, cached + chunk) if chunk else n_tok
+                need = blocks_for(reserve, self.pool.block_size) \
+                    - len(shared)
+                got = self.pool.alloc(max(need, 0))
                 if got is None:
+                    if shared:
+                        self.pool.free(shared)    # unpin; index kept
                     if self.num_active() == 0 and \
                             self.pool.num_used == 0:
                         # whole pool free yet still short: this request
@@ -129,16 +164,23 @@ class Scheduler:
                         # it and move on to the next queued request
                         self.queue.popleft()
                         self.rejected.append((req, (
-                            f"needs {need} blocks but the pool holds "
-                            f"only {self.pool.num_blocks - 1}; increase "
+                            f"needs "
+                            f"{blocks_for(reserve, self.pool.block_size)}"
+                            f" blocks but the pool holds only "
+                            f"{self.pool.num_blocks - 1}; increase "
                             f"num_blocks")))
                         continue
                     return None      # pool pressure: wait for finishes
-                blocks = got
+                blocks = shared + got
+                if shared:
+                    self.prefix.note_hit(shared, cached)
             self.queue.popleft()
-            seq = SeqSlot(req=req, pos=n_tok, blocks=blocks,
-                          admit_seq=self._admit_counter,
-                          resumed=bool(req.out))
+            seq = SeqSlot(req=req, pos=cached if chunk else n_tok,
+                          blocks=blocks, admit_seq=self._admit_counter,
+                          resumed=bool(req.out),
+                          prefilled=cached if chunk else 0,
+                          prefill_target=n_tok if chunk else 0,
+                          cached=cached)
             self._admit_counter += 1
             self.active[free_slot] = seq
             return seq
@@ -153,18 +195,62 @@ class Scheduler:
     def slot_of(self, seq: SeqSlot) -> int:
         return self.active.index(seq)
 
+    def prefilling(self) -> List[SeqSlot]:
+        """Active sequences whose prompt is still partly resident, in
+        admission order (the engine serves them one chunk per step,
+        round-robin)."""
+        return sorted((s for s in self.active
+                       if s is not None and s.prefilling),
+                      key=lambda s: s.admit_seq)
+
+    def num_decoding(self) -> int:
+        """Active sequences that take part in decode windows (fully
+        prefilled); the complement of :meth:`prefilling`."""
+        return sum(1 for s in self.active
+                   if s is not None and not s.prefilling)
+
     # -- growth / preemption ----------------------------------------------
 
+    def chunk_reserve(self, seq: SeqSlot, chunk: int,
+                      allow_preempt: bool = False) -> bool:
+        """Reserve the blocks the next prefill chunk of ``seq`` lands in:
+        every block up to ``min(prefilled + chunk, prefill_target)``
+        tokens; True once they are owned.  Without ``allow_preempt``
+        (the engine sets it only when no decode stream could free
+        blocks) nothing is allocated on shortfall and False is returned:
+        the caller retries next step.  With it, the newest other
+        sequences are preempted until the blocks fit."""
+        target = min(seq.prefilled + chunk, seq.prefill_target)
+        while True:
+            short = blocks_for(target, self.pool.block_size) \
+                - len(seq.blocks)
+            if short <= 0:
+                return True
+            got = self.pool.alloc(short)
+            if got is not None:
+                seq.blocks.extend(got)
+                return True
+            if not allow_preempt:
+                return False
+            victim = self._pick_victim(exclude=seq)
+            if victim is None:
+                raise RuntimeError(
+                    "KV block pool exhausted by a single prefilling "
+                    "sequence; increase num_blocks or lower max_seq")
+            self._preempt(victim)
+
     def ensure_decode_capacity(self) -> List[SeqSlot]:
-        """Guarantee every active sequence owns the block its next token
-        writes into, preempting the newest other sequences if the pool
-        is exhausted.  Returns the list of preempted SeqSlots."""
+        """Guarantee every decode-ready sequence owns the block its next
+        token writes into, preempting the newest other sequences if the
+        pool is exhausted.  Prefilling sequences are skipped (their
+        growth is chunk-driven) but stay possible victims.  Returns the
+        list of preempted SeqSlots."""
         if self.pool is None:
             return []
         preempted: List[SeqSlot] = []
         for i in range(self.slots):
             seq = self.active[i]
-            if seq is None:
+            if seq is None or seq.prefilling:
                 continue
             need_blocks = blocks_for(seq.pos + 1, self.pool.block_size)
             while len(seq.blocks) < need_blocks:
@@ -181,6 +267,24 @@ class Scheduler:
                 preempted.append(victim)
         return preempted
 
+    def cow_alloc(self, seq: SeqSlot, allow_preempt: bool = True
+                  ) -> Optional[int]:
+        """One fresh block for a copy-on-write split of a shared block in
+        ``seq``'s table, with decode growth's grow-or-preempt policy;
+        None when the pool is dry and ``allow_preempt`` is False."""
+        while True:
+            got = self.pool.alloc(1)
+            if got is not None:
+                return got[0]
+            if not allow_preempt:
+                return None
+            victim = self._pick_victim(exclude=seq)
+            if victim is None:
+                raise RuntimeError(
+                    "KV block pool exhausted by a copy-on-write split; "
+                    "increase num_blocks")
+            self._preempt(victim)
+
     def reserve_lookahead(self, steps: int) -> bool:
         """All-or-nothing block reservation for a multi-step decode window.
 
@@ -192,13 +296,14 @@ class Scheduler:
         shortfall nothing is allocated and the caller falls back to
         single-step dispatch (where the usual grow-or-preempt policy
         applies).  Reserved-but-unused blocks stay owned by the sequence
-        and are freed at release.
+        and are freed at release.  Prefilling sequences sit windows out
+        and are skipped.
         """
         if self.pool is None:
             return True
         needs = []
         for seq in self.active:
-            if seq is None:
+            if seq is None or seq.prefilling:
                 continue
             target = min(seq.pos + steps, self.max_seq)
             short = blocks_for(target, self.pool.block_size) \

@@ -110,9 +110,7 @@ def test_decode_launch_count_and_stats(setup):
         device="cpu").kv_bytes_moved_per_step()
 
 
-@pytest.mark.parametrize("knob", [dict(prefill_chunk=16),
-                                  dict(prefix_cache=True),
-                                  dict(speculate="ngram"),
+@pytest.mark.parametrize("knob", [dict(speculate="ngram"),
                                   dict(draft_k=2),
                                   dict(chaos="ring@3"),
                                   dict(max_migrations=1),

@@ -20,7 +20,10 @@ result line when any phase fails or when no CUDA device is present):
    to its row in the batch, the null block inert, the length-0 row the
    mean of its table's V rows; and as the chunked prefill calls it, the
    C = 64 queries of one chunk over one broadcast table, lengths
-   449..512, each query alone bit-identical to its row), the dense
+   449..512, each query alone bit-identical to its row; and as
+   speculative verify calls it, 4 slots x 5 queries with a table each,
+   positions 72, 295, 506, 0, f32/int8/fp8 pools, each query alone
+   bit-identical to its row), the dense
    decode attention (each row alone bit-identical to its row in the
    batch; the chunked prefill's stride-0 cache at C = 64), and the decode
    GEMV at the four shapes of one full-width layer (f32, bf16 and int8
@@ -39,7 +42,20 @@ result line when any phase fails or when no CUDA device is present):
    only where the model's top-2 gap is at most 1e-4 (a near tie), the
    pool balanced, and kernel 1 launched exactly once per layer per
    decode step, per chunk and per prefix tail; plus the last row of the
-   448-token prompt by both prefill paths;
+   448-token prompt by both prefill paths; then (f) the same traffic on
+   an int8 and an fp8 pool, every run prefilled in chunks of 64: kernel 1
+   against the gather oracle of the same pool, prefix on against off,
+   a pool of 7 blocks of 32 that preempts against the uncontended run,
+   exact launches, the pool balanced and its bytes its leaves'; the
+   common prefix with the f32 pool's streams and the bytes moved per
+   step against f16 reported; and (g) speculation with draft_k 4 on
+   prompts that repeat a motif: the n-gram drafter, an oracle drafter
+   (all accepted), an adversarial one (all rejected), the model drafter
+   (a reduced smollm-135m over the full vocabulary), the n-gram drafter
+   on the int8 pool and
+   with chunks of 64 and the prefix cache, each against its plain twin,
+   kernel 1 launched once per layer per decode step, verify round,
+   chunk and prefix tail;
 5. chain — the C1 streamlined chain (``core/streamline.py``) at full
    width: 4 prompts prefilled by the model, then 32 teacher-forced decode
    steps of ``decode_layer`` stacked over the 30 layers, in six variants
@@ -90,6 +106,7 @@ stands alone.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -598,6 +615,115 @@ def check_time_paged_chunk(torch, dev, card_name):
     return t
 
 
+# kernel 1 as speculative verify calls it: B = 4 slots x (K + 1 = 5)
+# queries, each slot's table (out of order in the pool) repeated 5 times,
+# lengths pos + 1 .. pos + 5, no fold
+VERIFY_POS, VERIFY_K1 = (72, 295, 506, 0), 5
+
+
+def verify_inputs(torch, dev, pool_dtype, seed=11):
+    """(q, kp, vp, tables, lengths, scales, f32 pools) of the verify
+    shape; an int8 / fp8 pool is quantized from the f32 one."""
+    from repro_torch.serving.kv_cache import quantize_kv_rows
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Q = len(VERIFY_POS) * VERIFY_K1
+    q = torch.randn((Q, H, DH), generator=g, device=dev)
+    kf = torch.randn((N, BS, G, DH), generator=g, device=dev)
+    vf = torch.randn((N, BS, G, DH), generator=g, device=dev)
+    perm = torch.randperm(N - 1, generator=g, device=dev) + 1
+    slot_tables = torch.zeros((len(VERIFY_POS), T), dtype=torch.int32,
+                              device=dev)
+    for b, p in enumerate(VERIFY_POS):
+        used = -(-(p + VERIFY_K1) // BS)
+        slot_tables[b, :used] = perm[b * T:b * T + used]
+    tables = slot_tables.repeat_interleave(VERIFY_K1, 0).contiguous()
+    lens = (torch.tensor(VERIFY_POS, device=dev)[:, None] + 1
+            + torch.arange(VERIFY_K1, device=dev)).reshape(-1).to(
+                torch.int32)
+    scales, kp, vp = {}, kf, vf
+    if pool_dtype != torch.float32:
+        kp, ks = quantize_kv_rows(kf, pool_dtype, torch.float16)
+        vp, vs = quantize_kv_rows(vf, pool_dtype, torch.float16)
+        scales = dict(k_scale=ks, v_scale=vs)
+    return q, kp, vp, tables, lens, scales
+
+
+def check_time_paged_verify(torch, dev, card_name):
+    """Kernel 1 at the verify shape, f32 / int8 / fp8 pools: against its
+    plain version (1e-4), each query alone bit-identical to its row;
+    then kernel, plain and library times (gather through each query's
+    table, dequantized for int8 / fp8, + scaled_dot_product_attention
+    with the per-query length mask) beside the bound: q, each slot's
+    valid K/V rows (and scales) once, the tables and lengths read, the
+    output written; 4*dh flops per q head per attended position."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        gather_kv_pages, paged_decode_attention_ref)
+    out = {}
+    S = T * BS
+    for name, pdt in (("float32", torch.float32), ("int8", torch.int8),
+                      ("fp8", torch.float8_e4m3fn)):
+        q, kp, vp, tb, ln, sc = verify_inputs(torch, dev, pdt)
+        Q = q.shape[0]
+        got = paged_decode_attention(q, kp, vp, tb, ln, **sc)
+        want = paged_decode_attention_ref(q, kp, vp, tb, ln, **sc)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.isfinite(got).all() or not torch.allclose(
+                got, want, rtol=TOL["float32"], atol=TOL["float32"]):
+            raise AssertionError(f"verify shape, {name} pool: kernel vs "
+                                 f"plain beyond 1e-4 (max abs {err})")
+        for i in range(Q):
+            alone = paged_decode_attention(q[i:i + 1], kp, vp, tb[i:i + 1],
+                                           ln[i:i + 1], **sc)
+            if not torch.equal(alone[0], got[i]):
+                raise AssertionError(f"verify shape, {name} pool: query "
+                                     f"{i} alone differs from its row")
+        leaves = (kp, vp) + tuple(sc.values())
+        n_sets = sets_for(sum(t.numel() * t.element_size() for t in leaves))
+        pools = [tuple(t.clone() for t in leaves) for _ in range(n_sets)]
+        mask = (torch.arange(S, device=dev)[None, :]
+                < ln[:, None])[:, None, None, :]              # (Q,1,1,S)
+        qh = q[:, :, None]                                    # (Q,H,1,dh)
+
+        def call(fn, i, pools=pools, q=q, tb=tb, ln=ln, quant=bool(sc)):
+            k, v, *rest = pools[i]
+            extra = dict(k_scale=rest[0], v_scale=rest[1]) if quant else {}
+            fn(q, k, v, tb, ln, **extra)
+
+        def library(i, pools=pools, tb=tb, mask=mask, qh=qh):
+            k, v, *rest = pools[i]
+            kv = gather_kv_pages(k, tb), gather_kv_pages(v, tb)
+            if rest:
+                kv = tuple(x.float() * gather_kv_pages(s, tb).float()[
+                    ..., None] for x, s in zip(kv, rest))
+            F.scaled_dot_product_attention(
+                qh, kv[0].transpose(1, 2), kv[1].transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+
+        t = timed(torch, {
+            "ms": lambda i: call(paged_decode_attention, i),
+            "plain_ms": lambda i: call(paged_decode_attention_ref, i),
+            "library_ms": library}, n_sets)
+        row = G * DH * kp.element_size() + (2 * G if sc else 0)
+        rows = sum(p + VERIFY_K1 for p in VERIFY_POS)
+        nbytes = 4 * 2 * Q * H * DH + 2 * rows * row + 4 * (Q * T + Q)
+        t["bound_ms"], t["bound_by"] = bound_for(
+            nbytes, 4 * DH * H * int(ln.sum()), "float32", card_name)
+        t["bytes_only_ms"] = nbytes / bandwidth_for(card_name) * 1e3
+        t["max_abs_err"] = err
+        out[name] = t
+    out["shapes"] = {"slots": len(VERIFY_POS), "K": VERIFY_K1 - 1,
+                     "Q": len(VERIFY_POS) * VERIFY_K1, "H": H, "G": G,
+                     "dh": DH, "bs": BS, "T": T, "N": N,
+                     "positions": list(VERIFY_POS), "q_dtype": "float32",
+                     "fold": False, "grid": [16, G, len(VERIFY_POS)
+                                             * VERIFY_K1]}
+    return out
+
+
 # dense decode attention (kernel 2) at the chain's dense shapes, and the
 # chunked prefill's call (C queries over one request's cache broadcast
 # over the batch, lengths start + i + 1)
@@ -752,14 +878,22 @@ def check_time_gemv(torch, dev, card_name):
     return errs, per_call
 
 
-def serve(torch, dev, model, params, prompts, **kw):
+def serve(torch, dev, model, params, prompts, engine_kw=None, warm=None,
+          **kw):
+    """Serve ``prompts`` x 32 new tokens on 4 slots with the config knobs
+    ``kw`` (``engine_kw``: the engine's other arguments, e.g. a drafter;
+    ``warm``: one prompt served alone first, x 4 new tokens, so its
+    blocks are in the prefix index before the others are admitted);
+    returns (streams, engine, kernel 1 launches in the run)."""
     from repro_torch.kernels.decode_attention.ops import \
         paged_decode_attention
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import LPUEngine
     eng = LPUEngine(model, params, EngineConfig(slots=4, max_seq=512, **kw),
-                    device=dev)
+                    device=dev, **(engine_kw or {}))
     paged_decode_attention.launches = 0
+    if warm is not None:
+        eng.generate([warm], max_new_tokens=4)
     outs = eng.generate(prompts, max_new_tokens=32)
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -801,7 +935,9 @@ def profile_engine(torch, dev, model, params, prompts, wall_s, **kw):
                             for e in top]}
 
 
-def run_engine(torch, dev):
+def smollm(torch, dev):
+    """Full-width smollm-135m (f32, random weights from seed 0) and the
+    engine phases' 8 seeded prompts of 2-64 tokens."""
     import numpy as np
     from repro_torch.compiler.mapper import plan_model
     from repro_torch.configs import get_config
@@ -817,6 +953,11 @@ def run_engine(torch, dev):
     prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size,
                                             size=rng.randint(2, 65))]
                for _ in range(8)]
+    return model, params, prompts
+
+
+def run_engine(torch, dev, model, params, prompts):
+    cfg = model.cfg
     serve(torch, dev, model, params, prompts[:2], paged_kernel="stream")
     stream, eng, launches = serve(torch, dev, model, params, prompts,
                                   paged_kernel="stream")
@@ -875,29 +1016,39 @@ LONG_PROMPT = 448
 SYS_PROMPT = 256
 
 
-def agree(torch, model, params, prompts, a, b, what):
+def agree(torch, model, params, prompts, a, b, what, gaps_fn=None):
     """Greedy streams ``a`` and ``b`` equal, or first apart where the
     model's own logits (a plain forward over the prompt and the shared
     tokens) have a top-2 gap of at most CHAIN_TOL: a near tie, where
-    another order of f32 sums may pick either token.  Raises otherwise.
+    another order of f32 sums may pick either token.  On an int8/fp8
+    pool (``gaps_fn(prompt, stream)`` gives the gaps of the quantized
+    path) the bound is CHAIN_TOL_QUANT: there a last-bit difference in a
+    K/V row can round its stored code one step apart, and the chain
+    holds its quantized variants' logits to that bound.  Raises
+    otherwise.
     Returns how many streams were equal, each divergence with its gap,
     and the smallest top-2 gap over the tokens both streams share (the
     margin the prefill paths' rounding noise has to cross)."""
     out, margin = [], float("inf")
     for i, (p, x, y) in enumerate(zip(prompts, a, b)):
-        toks = torch.tensor([list(p) + list(x[:-1])], device=model.device)
-        logits, _ = model.forward(params, toks, mode="train")
-        gaps = top2_gap(logits[0, len(p) - 1:])     # row j picks x[j]
+        if gaps_fn is not None:
+            gaps = gaps_fn(p, x)                    # row j picks x[j]
+        else:
+            toks = torch.tensor([list(p) + list(x[:-1])],
+                                device=model.device)
+            logits, _ = model.forward(params, toks, mode="train")
+            gaps = top2_gap(logits[0, len(p) - 1:])
         at = next((j for j, (u, v) in enumerate(zip(x, y)) if u != v),
                   None)
         if at is None and len(x) != len(y):
             raise AssertionError(f"{what}: stream {i} lengths differ")
         if at is not None:
             gap = gaps[at].item()
-            if gap > CHAIN_TOL:
+            tol = CHAIN_TOL if gaps_fn is None else CHAIN_TOL_QUANT
+            if gap > tol:
                 raise AssertionError(
                     f"{what}: stream {i} differs at token {at} where the "
-                    f"top-2 gap is {gap} > {CHAIN_TOL}")
+                    f"top-2 gap is {gap} > {tol}")
             out.append({"request": i, "at": at, "top2_gap": gap})
             gaps = gaps[:at]
         if len(gaps):
@@ -997,6 +1148,7 @@ def run_prefill_paths(torch, dev, model, params, prompts, stream):
     out["monolithic"] = rec(meng, ml)
     out["chunked"] = rec(ceng, cl, vs_monolithic=agree(
         torch, model, params, long9, chunked, mono, "(a) chunked"))
+    out["chunked_streams"] = chunked
     out["chunked"]["profile"] = profile_engine(
         torch, dev, model, params, long9, ceng.stats.wall,
         prefill_chunk=PREFILL_CHUNK)
@@ -1053,6 +1205,297 @@ def run_prefill_paths(torch, dev, model, params, prompts, stream):
         vs_monolithic=agree(torch, model, params, prompts, pre, stream,
                             "(e) chunked under preemption"))
     out["kernel_launches"] = cl + pl + tl + rl
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# (f) the int8/fp8 pool and (g) speculation, through the engine
+# ---------------------------------------------------------------------------
+
+def quant_gaps(torch, model, params, tokens, qdtype):
+    """Top-2 gaps along ``tokens`` by the quantized path: the tokens
+    prefilled in chunks of 64 into a fresh int8/fp8 pool (each chunk
+    attends the stored rows, as decode and verify do); row j scores
+    token j + 1."""
+    dev = model.device
+    n = len(tokens)
+    pool = model.init_cache(1, 512, paged=True, num_blocks=T + 1,
+                            block_size=BS, dtype=qdtype,
+                            scale_dtype=torch.float16)
+    table = torch.arange(1, T + 1, dtype=torch.int32, device=dev)[None]
+    buf = torch.tensor(tokens, dtype=torch.long, device=dev)
+    rows = []
+    for start in range(0, n, PREFILL_CHUNK):
+        nv = min(PREFILL_CHUNK, n - start)
+        tok = torch.zeros((1, PREFILL_CHUNK), dtype=torch.long, device=dev)
+        tok[0, :nv] = buf[start:start + nv]
+        logits, _ = model.forward(
+            params, tok, mode="chunk_prefill",
+            positions=start + torch.arange(PREFILL_CHUNK, dtype=torch.int32,
+                                           device=dev)[None],
+            cache=pool, block_tables=table, paged_kernel="gather",
+            kv_valid_len=torch.tensor(start + nv, dtype=torch.int32,
+                                      device=dev))
+        rows.append(logits[0, :nv])
+    return top2_gap(torch.cat(rows))
+
+
+def pool_checks(eng, what):
+    """The pool balanced after the drain, and its reported bytes those
+    of its leaves: per-rank block bytes x blocks."""
+    from repro_torch.serving.kv_cache import cache_bytes, per_rank_block_bytes
+    eng.check_pool_balanced()
+    a = eng.plan.attn
+    want = per_rank_block_bytes(eng.cfg.n_layers, a.kv_per_rank, a.d_head,
+                                eng.block_size, eng.kv_prec.itemsize,
+                                eng.kv_prec.scale_itemsize) * eng.num_blocks
+    if eng.kv_cache_bytes() != want or cache_bytes(eng.cache) != want:
+        raise AssertionError(f"{what}: kv_cache_bytes "
+                             f"{eng.kv_cache_bytes()} != {want}")
+
+
+def run_rec(eng, launches, **extra):
+    """One run's record: its counters, tokens/s and kernel 1 launches."""
+    s = eng.stats
+    out = {"tokens": s.tokens, "tokens_per_s": s.tokens_per_s,
+           "wall_s": s.wall, "decode_steps": s.steps,
+           "device_decode_steps": s.device_decode_steps,
+           "spec_rounds": s.spec_rounds, "prefill_chunks": s.prefill_chunks,
+           "prefills": s.prefills, "preemptions": s.preemptions,
+           "kernel_launches": launches}
+    if eng.prefix is not None:
+        out.update(prefix_hits=s.prefix_hits, cow_blocks=s.cow_blocks,
+                   prefill_tokens_saved=s.prefill_tokens_saved)
+    if eng.drafter is not None:
+        out.update(draft_tokens=s.draft_tokens,
+                   accepted_tokens=s.accepted_tokens,
+                   acceptance_rate=s.acceptance_rate,
+                   accepted_per_window=s.accepted_per_window)
+    out.update(extra)
+    return out
+
+
+def launches_want(eng):
+    """Kernel 1's exact launches in a streamed run: once per layer per
+    device decode step, verify round, prefill chunk and prefix tail (a
+    prefix hit's tail is one more chunk when the engine prefills in
+    chunks, and counted with them)."""
+    s = eng.stats
+    tails = s.prefix_hits if eng.prefix is not None and \
+        not eng.prefill_chunk else 0
+    return eng.cfg.n_layers * (s.device_decode_steps + s.spec_rounds
+                               + s.prefill_chunks + tails)
+
+
+def run_quantized_engine(torch, dev, model, params, prompts, f32_streams):
+    """(f): full-width smollm-135m on an int8 and an fp8 pool.  Every run
+    prefills in chunks of 64 (a monolithic prefill attends the prompt's
+    f32 rows, chunks and decode the stored rows, so twins that prefill
+    differently part by the quantization noise; ROADMAP §3): the 8
+    prompts and the 448-token one through kernel 1 and through the
+    gather oracle of the same pool, the shared 256-token system prompt
+    (served after it alone, so its blocks are indexed) with the prefix
+    cache on and off, and a pool of 7 blocks of 32 that
+    preempts against the uncontended run; streams equal or apart only
+    at a near tie of the quantized path, exact launches, the pool
+    balanced and its bytes its leaves'.  Reported without a gate: the
+    common prefix with the f32 pool's streams and the bytes moved per
+    step against an f16 pool."""
+    import numpy as np
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine
+    t0 = time.perf_counter()
+    V = model.cfg.vocab_size
+    rng = np.random.RandomState(18)
+    long9 = prompts + [[int(t) for t in rng.randint(1, V,
+                                                    size=LONG_PROMPT)]]
+    sysp = [int(t) for t in rng.randint(1, V, size=SYS_PROMPT)]
+    shared = [sysp + [int(t) for t in rng.randint(1, V, size=n)]
+              for n in (5, 17, 29, 40)]
+    f16 = LPUEngine(model, params, EngineConfig(
+        slots=4, max_seq=512, kv_dtype="float16"), device=dev)
+    out, launches = {}, 0
+    for qname, qdt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        def gaps(p, x, qdt=qdt):
+            return quant_gaps(torch, model, params, list(p) + list(x[:-1]),
+                              qdt)[len(p) - 1:]
+
+        def run(ps, **kw):
+            o, e, n = serve(torch, dev, model, params, ps, kv_dtype=qname,
+                            prefill_chunk=PREFILL_CHUNK, **kw)
+            if kw.get("paged_kernel") != "gather" and \
+                    n != launches_want(e):
+                raise AssertionError(f"(f) {qname}: kernel launches {n} "
+                                     f"!= {launches_want(e)}")
+            pool_checks(e, f"(f) {qname} {kw}")
+            return o, e, n
+
+        rec = {}
+        st, seng, sl = run(long9, paged_kernel="stream")
+        ga, geng, gl = run(long9, paged_kernel="gather")
+        if gl != 0:
+            raise AssertionError("(f) the gather oracle launched kernel 1")
+        rec["stream"] = run_rec(seng, sl)
+        rec["gather"] = run_rec(geng, gl, vs_stream=agree(
+            torch, model, params, long9, ga, st, f"(f) {qname} gather",
+            gaps_fn=gaps))
+        off, oeng, ol = run(shared, paged_kernel="stream", warm=sysp)
+        on, peng, pl = run(shared, paged_kernel="stream", prefix_cache=True,
+                           warm=sysp)
+        if peng.stats.prefix_hits < 3:
+            raise AssertionError(f"(f) {qname} prefix: {peng.stats}")
+        rec["prefix_off"] = run_rec(oeng, ol)
+        rec["prefix_on"] = run_rec(peng, pl, vs_off=agree(
+            torch, model, params, shared, on, off, f"(f) {qname} prefix",
+            gaps_fn=gaps))
+        pre, reng, rl = run(prompts, paged_kernel="stream", block_size=32,
+                            num_blocks=7, steps_per_sync=4)
+        if reng.stats.preemptions == 0:
+            raise AssertionError(f"(f) {qname}: the small pool did not "
+                                 "preempt")
+        rec["preempt"] = run_rec(reng, rl, block_size=32, num_blocks=7,
+                                 steps_per_sync=4, vs_uncontended=agree(
+                                     torch, model, params, prompts, pre,
+                                     st[:len(prompts)],
+                                     f"(f) {qname} preempted",
+                                     gaps_fn=gaps))
+        common = []
+        for a, b in zip(st, f32_streams):
+            k = next((i for i, (u, v) in enumerate(zip(a, b)) if u != v),
+                     min(len(a), len(b)))
+            common.append(k / min(len(a), len(b)))
+        rec["common_prefix_vs_f32"] = {
+            "mean": sum(common) / len(common), "per_stream": common,
+            "reference_gate": 0.75}
+        rec["kv_bytes_moved_per_step"] = seng.kv_bytes_moved_per_step()
+        rec["moved_vs_f16"] = (seng.kv_bytes_moved_per_step()
+                               / f16.kv_bytes_moved_per_step())
+        dh = seng.plan.attn.d_head
+        rec["moved_vs_f16_expected"] = (dh + 2) / (2 * dh)
+        rec["kv_cache_bytes"] = seng.kv_cache_bytes()
+        launches += sl + ol + pl + rl
+        rec["kernel_launches"] = sl + ol + pl + rl
+        out[qname] = rec
+    out["kernel_launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+class OracleDrafter:
+    """Proposes the plain run's own continuation: every draft accepted.
+    With ``shift`` it proposes that continuation's tokens plus one
+    (mod the vocabulary), so the first draft of every window differs
+    from the plain run's greedy token: every draft rejected."""
+
+    def __init__(self, prompts, outs, vocab, shift=0):
+        self.ref = {tuple(p): o for p, o in zip(prompts, outs)}
+        self.vocab, self.shift = vocab, shift
+
+    def propose(self, tokens, k):
+        for p, out in self.ref.items():
+            if len(p) <= len(tokens) and tuple(tokens[:len(p)]) == p:
+                done = len(tokens) - len(p)
+                return [(t + self.shift) % self.vocab
+                        for t in out[done:done + k]]
+        return []
+
+
+SPEC_K = 4
+
+
+def run_speculative_engine(torch, dev, model, params, prompts):
+    """(g): full-width smollm-135m with draft_k = 4 on the f32 pool: the
+    n-gram drafter on prompts that repeat a motif, an oracle drafter
+    (the plain run's continuation: all accepted), an adversarial one
+    (that continuation shifted by one token: all rejected), the model
+    drafter (a reduced smollm-135m over the target's vocabulary, seed 1),
+    the n-gram drafter on the
+    int8 pool, and with chunks of 64 and the prefix cache (4 prompts
+    sharing a 256-token system prompt and the bare system prompt, served
+    after it alone); each against
+    the plain run with the same knobs: streams equal or apart only at a
+    near tie, the pool balanced after every rollback, kernel 1 launched
+    exactly once per layer per device decode step, verify round, chunk
+    and prefix tail."""
+    import numpy as np
+    from repro_torch.compiler.mapper import plan_model
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    t0 = time.perf_counter()
+    V = model.cfg.vocab_size
+    rng = np.random.RandomState(19)
+    motif = []
+    for n_m, reps, tail in ((8, 6, 3), (12, 4, 5), (16, 3, 0), (5, 9, 2),
+                            (10, 5, 7), (24, 2, 4), (6, 8, 1), (9, 5, 6)):
+        m = [int(t) for t in rng.randint(1, V, size=n_m)]
+        motif.append(m * reps + m[:tail])
+    sysp = [int(t) for t in rng.randint(1, V, size=SYS_PROMPT)]
+    shared = [sysp + [int(t) for t in rng.randint(1, V, size=n)]
+              for n in (5, 17, 29, 40)] + [list(sysp)]
+    # the drafter shares the target's vocabulary, as a deployed one does
+    dcfg = dataclasses.replace(get_config("smollm-135m").reduced(),
+                               vocab_size=V)
+    dplan = plan_model(dcfg, None, (1,), "serve", esl_overlap=False,
+                       remat="none", compute_dtype="float32",
+                       param_dtype="float32")
+    dmodel = build_model(dcfg, dplan, dev)
+    dparams = dmodel.init(seed=1)
+    out, launches, plain = {}, 0, {}
+
+    def run(name, ps, engine_kw=None, twin=None, **kw):
+        nonlocal launches
+        o, e, n = serve(torch, dev, model, params, ps, engine_kw=engine_kw,
+                        **kw)
+        if n != launches_want(e):
+            raise AssertionError(f"(g) {name}: kernel launches {n} != "
+                                 f"{launches_want(e)}")
+        pool_checks(e, f"(g) {name}")
+        extra = {}
+        if twin is not None:
+            qdt = {"int8": torch.int8}.get(kw.get("kv_dtype"))
+            gaps = None if qdt is None else (
+                lambda p, x: quant_gaps(torch, model, params,
+                                        list(p) + list(x[:-1]),
+                                        qdt)[len(p) - 1:])
+            extra["vs_plain"] = agree(torch, model, params, ps, o, twin,
+                                      f"(g) {name}", gaps_fn=gaps)
+        launches += n
+        out[name] = run_rec(e, n, **extra)
+        return o, e
+
+    spec = dict(speculate="ngram", draft_k=SPEC_K)
+    plain["motif"], _ = run("plain", motif)
+    run("ngram", motif, twin=plain["motif"], **spec)
+    _, oe = run("oracle", motif, twin=plain["motif"], draft_k=SPEC_K,
+                engine_kw=dict(drafter=OracleDrafter(motif, plain["motif"],
+                                                     V)))
+    _, ae = run("adversarial", motif, twin=plain["motif"], draft_k=SPEC_K,
+                engine_kw=dict(drafter=OracleDrafter(
+                    motif, plain["motif"], V, shift=1)))
+    if oe.stats.acceptance_rate != 1.0 or oe.stats.draft_tokens == 0:
+        raise AssertionError(f"(g) oracle acceptance "
+                             f"{oe.stats.acceptance_rate}")
+    if ae.stats.accepted_tokens != 0 or ae.stats.draft_tokens == 0:
+        raise AssertionError(f"(g) adversarial acceptance "
+                             f"{ae.stats.acceptance_rate}")
+    run("model_drafter", motif, twin=plain["motif"], speculate="model",
+        draft_k=SPEC_K, engine_kw=dict(draft_model=dmodel,
+                                       draft_params=dparams))
+    plain["int8"], _ = run("plain_int8", motif, kv_dtype="int8")
+    run("ngram_int8", motif, twin=plain["int8"], kv_dtype="int8", **spec)
+    cp = dict(prefill_chunk=PREFILL_CHUNK, prefix_cache=True)
+    plain["chunk_prefix"], _ = run("plain_chunk_prefix", shared, warm=sysp,
+                                   **cp)
+    _, ce = run("ngram_chunk_prefix", shared, twin=plain["chunk_prefix"],
+                warm=sysp, **cp, **spec)
+    if ce.stats.prefix_hits < 3 or ce.stats.prefill_chunks == 0 or \
+            ce.stats.spec_rounds == 0:
+        raise AssertionError(f"(g) chunk + prefix: {ce.stats}")
+    out["kernel_launches"] = launches
+    out["verify_rounds"] = sum(r["spec_rounds"] for r in out.values()
+                               if isinstance(r, dict))
+    out["draft_k"] = SPEC_K
     out["phase_s"] = time.perf_counter() - t0
     return out
 
@@ -2150,6 +2593,13 @@ def main() -> int:
     print(f"[kernel] paged_decode_attention at the chunk shape (C "
           f"{PCHUNK_C} queries, one table, lengths {PCHUNK_START + 1}.."
           f"{PCHUNK_START + PCHUNK_C}): {chunk_t}")
+    t_v = time.perf_counter()
+    verify_t = check_time_paged_verify(torch, dev, smi)
+    print(f"[kernel] paged_decode_attention at the verify shape "
+          f"({len(VERIFY_POS)} slots x {VERIFY_K1} queries, a table each, "
+          f"positions {list(VERIFY_POS)}; f32/int8/fp8 pools; queries alone "
+          f"equal their rows): {verify_t}")
+    print(f"[time] verify-shape check {time.perf_counter() - t_v:.1f} s")
     dense_errs, dense_t = check_time_dense(torch, dev, smi)
     print(f"[kernel] decode_attention vs plain: {dense_errs}; timing: "
           f"{dense_t}")
@@ -2160,7 +2610,8 @@ def main() -> int:
         print(f"[kernel] gemv {c}")
 
     lap("kernels 1-3")
-    engine = run_engine(torch, dev)
+    model, params, prompts = smollm(torch, dev)
+    engine = run_engine(torch, dev, model, params, prompts)
     print(f"[engine] {engine['tokens']} tokens, "
           f"{engine['tokens_per_s']:.1f} tok/s, "
           f"{engine['decode_steps']} decode steps, "
@@ -2182,6 +2633,31 @@ def main() -> int:
           f"monolithic {pp['chunk_row_vs_monolithic']}")
 
     lap("engine")
+    qpool = run_quantized_engine(torch, dev, model, params, prompts,
+                                 pp.pop("chunked_streams"))
+    for qname in ("int8", "fp8"):
+        r = qpool[qname]
+        print(f"[engine] (f) {qname} pool: stream "
+              f"{r['stream']['tokens_per_s']:.1f} tok/s, gather "
+              f"{r['gather']['tokens_per_s']:.1f}; streams equal: gather "
+              f"{r['gather']['vs_stream']['equal']}/9, prefix on "
+              f"{r['prefix_on']['vs_off']['equal']}/4, preempted "
+              f"{r['preempt']['vs_uncontended']['equal']}/8 "
+              f"({r['preempt']['preemptions']} preemptions); common prefix "
+              f"with f32 {r['common_prefix_vs_f32']['mean']:.3f}; bytes "
+              f"moved vs f16 {r['moved_vs_f16']:.4f} (expected "
+              f"{r['moved_vs_f16_expected']:.4f})")
+    lap("engine (f) int8/fp8 pool")
+    spec = run_speculative_engine(torch, dev, model, params, prompts)
+    for name, r in spec.items():
+        if isinstance(r, dict):
+            print(f"[engine] (g) {name}: {r['tokens_per_s']:.1f} tok/s, "
+                  f"spec_rounds {r['spec_rounds']}, acceptance "
+                  f"{r.get('acceptance_rate')}, accepted/window "
+                  f"{r.get('accepted_per_window')}, kernel 1 launches "
+                  f"{r['kernel_launches']}")
+    lap("engine (g) speculation")
+    del model, params
     ctx, chain, chain_launches, walls = run_chain_phase(torch, dev)
     chain["chunk_prefill"] = chunk_vs_sequential(torch, dev, ctx, "stream")
     chain["chunk_prefill_gather"] = chunk_vs_sequential(torch, dev, ctx,
@@ -2251,9 +2727,12 @@ def main() -> int:
                     "decode_attention.py:142",
         "ok": True,
         "launches": engine["kernel_launches"] + pp["kernel_launches"]
+        + qpool["kernel_launches"] + spec["kernel_launches"]
         + chain_launches["paged_decode_attention"],
         "launches_by_path": {
             "engine_stream": engine["kernel_launches"],
+            "engine_int8_fp8_pool": qpool["kernel_launches"],
+            "engine_speculative": spec["kernel_launches"],
             "engine_chunked": pp["chunked"]["kernel_launches"],
             "engine_prefix": pp["prefix_on"]["kernel_launches"],
             "engine_cow": pp["cow"]["kernel_launches"],
@@ -2277,6 +2756,9 @@ def main() -> int:
         "chunk": dict(chunk_t, launches=sum(
             pp[k]["kernel_launches"] - L_ * pp[k]["device_decode_steps"]
             for k in ("chunked", "prefix_on", "cow", "chunked_preempt"))),
+        # as speculative verify calls it: every slot's K + 1 queries
+        "verify": dict(verify_t["float32"], by_pool=verify_t,
+                       launches=L_ * spec["verify_rounds"]),
     }, {
         "name": "decode_attention", "route": "cuda",
         "source": src("decode_attention"),
@@ -2375,7 +2857,8 @@ def main() -> int:
     }]
     print(json.dumps({"kernels": kernels, "floor_ms": floor_ms,
                       "floor_host_ms": floor_host_ms}))
-    print(json.dumps({"engine": engine}))
+    print(json.dumps({"engine": dict(engine, quantized_pool=qpool,
+                                     speculation=spec)}))
     print(json.dumps({"chain": chain}))
     print(json.dumps({"rwkv": rwkv}))
     print(json.dumps({"jamba": jamba}))

@@ -6,6 +6,8 @@ and run the engine on a batch of random prompts.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --prefill-chunk 64 --prefix-cache on
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --kv-dtype int8 --speculate ngram --draft-k 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba \
@@ -20,11 +22,17 @@ versions run.  ``--prefill-chunk C`` makes prompts resident C tokens per
 step, interleaved with decode windows, and ``--prefix-cache on`` maps a
 cached block-aligned prompt prefix into a new request's table (both on
 the paged pool only); every chunk and prefix tail runs the paged kernel
-too.
+too.  ``--kv-dtype int8|fp8`` stores the pool quantized (one f16 scale
+per row and kv head).  ``--speculate ngram|model`` with ``--draft-k K``
+drafts K tokens per slot (n-gram suffix match, or greedy decoding of a
+reduced smollm-135m with its own seed, over the target's vocabulary)
+and verifies every slot's drafts in one forward, the paged kernel's
+batch being the slots' K+1 queries.
 """
 from __future__ import annotations
 
 import argparse
+from dataclasses import replace
 
 import numpy as np
 
@@ -79,8 +87,9 @@ def main(argv=None):
     ap.add_argument("--kv-dtype", default="auto",
                     choices=("auto", "float16", "bfloat16", "float32",
                              "int8", "fp8"),
-                    help="KV pool storage precision (int8/fp8 arrive "
-                         "with a later slice)")
+                    help="KV pool storage precision: fp dtypes cast on "
+                         "store; int8/fp8 quantize each row and kv head "
+                         "with an f16 absmax scale (paged only)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked prefill: make prompts resident N "
                          "tokens per step, interleaved with decode "
@@ -92,6 +101,15 @@ def main(argv=None):
                          "a cached block-aligned prefix map the shared "
                          "blocks (refcounted, copy-on-write) into their "
                          "table and prefill only the tail (paged only)")
+    ap.add_argument("--speculate", default="off",
+                    choices=("off", "ngram", "model"),
+                    help="speculative decoding: draft k tokens per slot "
+                         "(ngram: suffix match over the visible stream; "
+                         "model: a reduced smollm-135m drafter), verify "
+                         "them all in one forward and accept a "
+                         "rejection-sampled prefix (paged only)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="draft tokens proposed per speculative round")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -103,6 +121,17 @@ def main(argv=None):
                       param_dtype="float32")
     model = build_model(cfg, plan, dev)
     params = model.init(seed=0)
+    draft_model = draft_params = None
+    if args.speculate == "model":
+        # the drafter is its own small model, reduced and seeded apart,
+        # over the target's vocabulary
+        dcfg = replace(get_config("smollm-135m").reduced(),
+                       vocab_size=cfg.vocab_size)
+        dplan = plan_model(dcfg, None, (1,), "serve", esl_overlap=False,
+                           remat="none", compute_dtype="float32",
+                           param_dtype="float32")
+        draft_model = build_model(dcfg, dplan, dev)
+        draft_params = draft_model.init(seed=1)
     econf = EngineConfig(slots=args.slots, max_seq=args.max_seq,
                          paged=False if args.dense else None,
                          block_size=args.block_size,
@@ -114,8 +143,10 @@ def main(argv=None):
                          steps_per_sync=args.steps_per_sync,
                          kv_dtype=args.kv_dtype,
                          prefill_chunk=args.prefill_chunk,
-                         prefix_cache=args.prefix_cache == "on")
-    engine = LPUEngine(model, params, econf, device=dev)
+                         prefix_cache=args.prefix_cache == "on",
+                         speculate=args.speculate, draft_k=args.draft_k)
+    engine = LPUEngine(model, params, econf, device=dev,
+                       draft_model=draft_model, draft_params=draft_params)
 
     rng = np.random.RandomState(0)
     prompts = [list(rng.randint(1, cfg.vocab_size,
@@ -153,6 +184,11 @@ def main(argv=None):
           f"hit_blocks={st.prefix_hit_blocks}, "
           f"prefill_tokens_saved={st.prefill_tokens_saved}, "
           f"cow={st.cow_blocks}, evicted={st.evicted_blocks}")
+    print(f"[serve] speculate={engine.speculate} "
+          f"draft_k={engine.draft_k}: {st.spec_rounds} rounds, "
+          f"acceptance={st.acceptance_rate:.2f} "
+          f"({st.accepted_tokens}/{st.draft_tokens}), "
+          f"accepted/window={st.accepted_per_window:.2f}")
     if cfg.family == "hybrid":
         n_mamba = sum(not cfg.is_attention_layer(i)
                       for i in range(cfg.n_layers))
@@ -161,8 +197,9 @@ def main(argv=None):
               f"{st.prefills}) x {n_mamba} mamba layers)")
     else:
         print(f"[serve] {kernel.__name__} kernel launches={kernel.launches} "
-              f"((device decode steps {st.device_decode_steps} + prefill "
-              f"chunks and prefix tails) x {cfg.n_layers} layers)")
+              f"((device decode steps {st.device_decode_steps} + verify "
+              f"rounds {st.spec_rounds} + prefill chunks and prefix tails)"
+              f" x {cfg.n_layers} layers)")
     for i, o in enumerate(outs[:4]):
         print(f"  req{i}: {o[:12]}")
     return outs

@@ -7,7 +7,14 @@ wk/wv (D, Gp, dh), wo (Hp, dh, D).  At tp=1 the reference's ESL
 Decode reads the cache *before* this step's update and folds the new
 token into the online softmax; the caller then scatters (k_new, v_new)
 into the cache.  In the port the scatter happens in place, right after
-the layer's attention, so the per-layer pool is never copied.
+the layer's attention, so the per-layer pool is never copied.  A chunk
+of prefill and a speculative verify window scatter their rows first and
+then read them back through one length mask.
+
+An int8/fp8 pool carries ``k_scale``/``v_scale`` leaves (one f16 absmax
+scale per stored row and kv head): every row is quantized at pool-write
+time, and every reader (the paged kernel, the gather oracle, decode's
+fold of the new token) sees the dequantized stored value.
 """
 from __future__ import annotations
 
@@ -18,7 +25,9 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
 from repro_torch.models.common import apply_rope, big_neg
-from repro_torch.serving.kv_cache import scatter_chunk_rows
+from repro_torch.serving.kv_cache import (dequantize_kv, quantize_kv_rows,
+                                          scatter_chunk_rows,
+                                          scatter_spec_rows)
 
 Params = Dict[str, Any]
 
@@ -62,6 +71,43 @@ def local_kmap(plan, device) -> torch.Tensor:
 def _expand_kv(k: torch.Tensor, kmap: torch.Tensor) -> torch.Tensor:
     """(B,S,kpr,dh) -> (B,S,qpr,dh) per the local q->kv map."""
     return k.index_select(2, kmap)
+
+
+def _pool_scales(cache: Dict[str, torch.Tensor]):
+    """(k_scale, v_scale) of an int8/fp8 pool, (None, None) for an fp
+    one; a quantized pool without its scale leaves is refused (its raw
+    codes would be read as values)."""
+    if "k_scale" in cache:
+        return cache["k_scale"], cache["v_scale"]
+    if not cache["k"].is_floating_point() or \
+            cache["k"].dtype == torch.float8_e4m3fn:
+        raise ValueError(f"a {cache['k'].dtype} pool needs its k_scale/"
+                         "v_scale leaves")
+    return None, None
+
+
+def _quantized_rows(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                    v: torch.Tensor):
+    """(K rows, V rows, K scales, V scales) as the pool stores them:
+    quantized with their scales for an int8/fp8 pool, else the rows and
+    None."""
+    if "k_scale" not in cache:
+        return k, v, None, None
+    kq, ksc = quantize_kv_rows(k, cache["k"].dtype, cache["k_scale"].dtype)
+    vq, vsc = quantize_kv_rows(v, cache["v"].dtype, cache["v_scale"].dtype)
+    return kq, vq, ksc, vsc
+
+
+def _gather_view(pages: torch.Tensor, scales: Optional[torch.Tensor],
+                 tables: torch.Tensor) -> torch.Tensor:
+    """The contiguous (B, T*bs, G, dh) view of each row's blocks through
+    its (B, T) table, dequantized to f32 for an int8/fp8 pool."""
+    B, T = tables.shape
+    tbl = tables.long()
+    view = pages[tbl].reshape(B, T * pages.shape[1], *pages.shape[2:])
+    if scales is not None:
+        view = dequantize_kv(view, scales[tbl].reshape(view.shape[:-1]))
+    return view
 
 
 # ---------------------------------------------------------------------------
@@ -222,30 +268,39 @@ def decode_attention(p: Params, x: torch.Tensor, *, cfg, plan,
       the table and run the chunked flash decode of the dense cache.
 
     Both read the pool before the update; the new row is scattered
-    afterwards (rows of idle slots land in the null block 0)."""
+    afterwards (rows of idle slots land in the null block 0).  On an
+    int8/fp8 pool the new row is quantized FIRST and both dataflows fold
+    its dequantized round-trip, the value every later read of the row
+    sees; the stored row and its scale are then scattered."""
     q, k_new, v_new = _qkv_rope(p, x, cfg, plan, positions[:, None])
     kc, vc = cache["k"], cache["v"]
     B = x.shape[0]
     rows = torch.arange(B, device=x.device)
     pos = positions.long()
     if block_table is not None:
-        bs = kc.shape[1]
+        ks, vs = _pool_scales(cache)
+        k_st, v_st, ksc, vsc = _quantized_rows(cache, k_new, v_new)
+        if ks is not None:
+            k_new = dequantize_kv(k_st, ksc).to(q.dtype)
+            v_new = dequantize_kv(v_st, vsc).to(q.dtype)
         if paged_kernel == "stream":
             out = paged_decode_attention(
                 q[:, 0], kc, vc, block_table, positions,
-                k_new=k_new[:, 0], v_new=v_new[:, 0])[:, None]
+                k_new=k_new[:, 0], v_new=v_new[:, 0], k_scale=ks,
+                v_scale=vs)[:, None]
         else:
-            T = block_table.shape[1]
-            tbl = block_table.long()
-            kview = kc[tbl].reshape(B, T * bs, kc.shape[2], kc.shape[3])
-            vview = vc[tbl].reshape(B, T * bs, vc.shape[2], vc.shape[3])
             out = _flash_decode_chunked(
-                q, kview, vview, local_kmap(plan, x.device),
+                q, _gather_view(kc, ks, block_table),
+                _gather_view(vc, vs, block_table), local_kmap(plan, x.device),
                 kv_valid_len=positions, chunk=block_s or 2048,
                 k_new=k_new, v_new=v_new)
+        bs = kc.shape[1]
         blk = block_table.long()[rows, pos // bs]
-        kc[blk, pos % bs] = k_new[:, 0].to(kc.dtype)
-        vc[blk, pos % bs] = v_new[:, 0].to(vc.dtype)
+        kc[blk, pos % bs] = k_st[:, 0].to(kc.dtype)
+        vc[blk, pos % bs] = v_st[:, 0].to(vc.dtype)
+        if ks is not None:
+            ks[blk, pos % bs] = ksc[:, 0]
+            vs[blk, pos % bs] = vsc[:, 0]
     else:
         out = _flash_decode_chunked(
             q, kc, vc, local_kmap(plan, x.device), kv_valid_len=positions,
@@ -265,49 +320,103 @@ def chunk_prefill_attention(p: Params, x: torch.Tensor, *, cfg, plan,
 
     x: (1,C,D) the chunk's activations; positions: (1,C) int32 absolute
     positions ``start + [0..C)``; cache: {"k","v": (N,bs,Gp,dh)} the
-    shared pool, updated in place; block_table: (1,T) int32 the
-    request's physical blocks; kv_valid_len: int32 scalar, the resident
-    tokens after this chunk (rows at or past it are padding: they go to
-    the null block 0 and are masked on read).
+    shared pool (plus ``k_scale``/``v_scale`` for an int8/fp8 pool),
+    updated in place; block_table: (1,T) int32 the request's physical
+    blocks; kv_valid_len: int32 scalar, the resident tokens after this
+    chunk (rows at or past it are padding: they go to the null block 0
+    and are masked on read).
 
-    The chunk's K and V are scattered through the table first, so one
-    length mask covers history and self.  Then, with ``paged_kernel``
-    resolved by the caller:
+    The chunk's K and V are scattered through the table first (quantized
+    on an int8/fp8 pool, so the chunk attends its own rows as stored),
+    and one length mask covers history and self.  Then, with
+    ``paged_kernel`` resolved by the caller:
 
     * ``"stream"`` — the C queries are the paged kernel's batch: one
       table broadcast over them, per-query lengths ``pos + 1`` (clamped
       to ``kv_valid_len`` for pad rows), no fold;
     * ``"gather"`` — the oracle: flash attention over the gathered view
       with the chunk's offset.
-
-    An int8/fp8 pool (scale leaves) arrives with the quantized-KV slice.
     """
-    if "k_scale" in cache:
-        raise NotImplementedError(
-            "chunked prefill into an int8/fp8 pool arrives with the "
-            "quantized-KV slice of the port")
+    ks, vs = _pool_scales(cache)
     q, k, v = _qkv_rope(p, x, cfg, plan, positions)
     kc, vc = cache["k"], cache["v"]
     table = block_table[0]
     pos = positions[0]
     valid = pos < kv_valid_len
-    scatter_chunk_rows(kc, k[0], table, pos, valid)
-    scatter_chunk_rows(vc, v[0], table, pos, valid)
+    k_st, v_st, ksc, vsc = _quantized_rows(cache, k[0], v[0])
+    scatter_chunk_rows(kc, k_st, table, pos, valid)
+    scatter_chunk_rows(vc, v_st, table, pos, valid)
+    if ks is not None:
+        scatter_chunk_rows(ks, ksc, table, pos, valid)
+        scatter_chunk_rows(vs, vsc, table, pos, valid)
     C, T = q.shape[1], table.shape[0]
     if paged_kernel == "stream":
         lens = torch.minimum(pos + 1, kv_valid_len).to(torch.int32)
         tabs = table[None].expand(C, T).contiguous()
-        out = paged_decode_attention(q[0], kc, vc, tabs, lens)[None]
+        out = paged_decode_attention(q[0], kc, vc, tabs, lens, k_scale=ks,
+                                     v_scale=vs)[None]
     else:
-        bs = kc.shape[1]
-        tbl = table.long()
-        kview = kc[tbl].reshape(1, T * bs, kc.shape[2], kc.shape[3])
-        vview = vc[tbl].reshape(1, T * bs, vc.shape[2], vc.shape[3])
         kmap = local_kmap(plan, x.device)
-        out = flash_attention(q, _expand_kv(kview, kmap),
-                              _expand_kv(vview, kmap), causal=True,
-                              q_offset=pos[:1],
-                              kv_valid_len=kv_valid_len.reshape(1))
+        out = flash_attention(
+            q, _expand_kv(_gather_view(kc, ks, block_table), kmap),
+            _expand_kv(_gather_view(vc, vs, block_table), kmap),
+            causal=True, q_offset=pos[:1],
+            kv_valid_len=kv_valid_len.reshape(1))
+    return out_proj(p, out, plan)
+
+
+def verify_attention(p: Params, x: torch.Tensor, *, cfg, plan,
+                     positions: torch.Tensor, cache: Dict[str, torch.Tensor],
+                     block_tables: torch.Tensor, kv_valid_len: torch.Tensor,
+                     paged_kernel: str = "stream") -> torch.Tensor:
+    """Score a speculative verify window against the pool, in place.
+
+    Every decode slot's (last committed token + K drafts) are flattened
+    into ONE batch of Q = slots*(K+1) single-token queries, each with its
+    own block table.
+
+    x: (1,Q,D); positions: (1,Q) each query's absolute position;
+    cache: the shared pool (with scale leaves on an int8/fp8 pool);
+    block_tables: (Q,T) int32, a slot's K+1 rows repeat its table (idle
+    slots ride the null block); kv_valid_len: (Q,) int32 each query's
+    span INCLUDING itself (``pos + 1``; 1 for idle rows).
+
+    The window's K/V rows are scattered FIRST (quantized on an int8/fp8
+    pool), each through its own table, so query i attends its resident
+    history plus drafts < i of its window: decode's dataflow, with no
+    fold.  Rejected drafts need no undo: their rows lie past the
+    accepted length, stay masked, and later windows overwrite them.
+    With ``paged_kernel`` resolved by the caller:
+
+    * ``"stream"`` — the Q queries are the paged kernel's batch with
+      their own tables and lengths;
+    * ``"gather"`` — the oracle: flash attention of each query over its
+      gathered view with ``q_offset = pos``.
+    """
+    ks, vs = _pool_scales(cache)
+    q, k, v = _qkv_rope(p, x, cfg, plan, positions)
+    kc, vc = cache["k"], cache["v"]
+    pos = positions[0]
+    lens = kv_valid_len
+    valid = lens > pos
+    k_st, v_st, ksc, vsc = _quantized_rows(cache, k[0], v[0])
+    scatter_spec_rows(kc, k_st, block_tables, pos, valid)
+    scatter_spec_rows(vc, v_st, block_tables, pos, valid)
+    if ks is not None:
+        scatter_spec_rows(ks, ksc, block_tables, pos, valid)
+        scatter_spec_rows(vs, vsc, block_tables, pos, valid)
+    if paged_kernel == "stream":
+        out = paged_decode_attention(q[0], kc, vc, block_tables,
+                                     lens.to(torch.int32), k_scale=ks,
+                                     v_scale=vs)[None]
+    else:
+        kmap = local_kmap(plan, x.device)
+        out = flash_attention(
+            q[0][:, None], _expand_kv(_gather_view(kc, ks, block_tables),
+                                      kmap),
+            _expand_kv(_gather_view(vc, vs, block_tables), kmap),
+            causal=True, q_offset=pos, kv_valid_len=lens)
+        out = out.transpose(0, 1)
     return out_proj(p, out, plan)
 
 
@@ -317,11 +426,17 @@ def chunk_prefill_attention(p: Params, x: torch.Tensor, *, cfg, plan,
 
 def init_cache(plan, batch: int, max_seq: int, dtype: torch.dtype,
                device: torch.device, paged: bool = False,
-               num_blocks: int = 0, block_size: int = 0
+               num_blocks: int = 0, block_size: int = 0,
+               scale_dtype: Optional[torch.dtype] = None
                ) -> Dict[str, torch.Tensor]:
     """One layer's KV cache in the stored (local-head) layout: dense
     (batch, max_seq, Gp, dh), or — paged — a shared pool (num_blocks,
-    block_size, Gp, dh) with block 0 reserved as the null block."""
+    block_size, Gp, dh) with block 0 reserved as the null block.
+
+    ``scale_dtype`` (paged only) marks the pool as quantized: ``dtype``
+    is the int8/fp8 storage type, and ``k_scale``/``v_scale`` leaves of
+    shape (num_blocks, block_size, Gp) ride beside the values, zeroed so
+    the null block dequantizes to exact zeros."""
     a = plan.attn
     if paged:
         if num_blocks < 2 or block_size <= 0:
@@ -329,6 +444,15 @@ def init_cache(plan, batch: int, max_seq: int, dtype: torch.dtype,
                              f"size > 0, got {num_blocks}, {block_size}")
         shape = (num_blocks, block_size, a.gp, a.d_head)
     else:
+        if scale_dtype is not None:
+            raise ValueError("quantized KV storage needs the paged pool "
+                             "(the row scatters carry the scales)")
         shape = (batch, max_seq, a.gp, a.d_head)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    out = {"k": torch.zeros(shape, dtype=dtype, device=device),
+           "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if scale_dtype is not None:
+        out["k_scale"] = torch.zeros(shape[:-1], dtype=scale_dtype,
+                                     device=device)
+        out["v_scale"] = torch.zeros(shape[:-1], dtype=scale_dtype,
+                                     device=device)
+    return out

@@ -54,14 +54,18 @@ class Model:
 
     def init_cache(self, batch: int, max_seq: int, *,
                    dtype: Optional[torch.dtype] = None, paged: bool = False,
-                   num_blocks: int = 0, block_size: int = 0) -> Params:
+                   num_blocks: int = 0, block_size: int = 0,
+                   scale_dtype: Optional[torch.dtype] = None) -> Params:
         """Zeroed cache stacked per super-block, one entry per in-block
         index: {"l{j}": {"k","v": (n_sb, ...)}} with the layer's dense or
         paged shape; for rwkv the recurrent state {"l0": {"shift_t",
         "shift_c": (n_sb, batch, 1, D), "wkv": (n_sb, batch, H, dh, dh)
         f32}}; for a hybrid stack, mamba indices hold {"conv": (n_sb,
         batch, K-1, d_in) in the cache dtype, "ssm": (n_sb, batch, d_in,
-        N) f32}.  ``max_seq`` sizes only the dense k/v."""
+        N) f32}.  ``max_seq`` sizes only the dense k/v.  ``scale_dtype``
+        (paged only) makes the pool an int8/fp8 one: ``dtype`` is its
+        storage type and each attention layer gains zeroed ``k_scale``/
+        ``v_scale`` leaves (n_sb, N, bs, Gp)."""
         if paged and not self.supports_paged_kv():
             raise ValueError(f"{self.cfg.name}: paged KV needs an "
                              "attention-only stack")
@@ -76,7 +80,8 @@ class Model:
             elif cfg.is_attention_layer(j):
                 one = attn_mod.init_cache(plan, batch, max_seq, dtype, meta,
                                           paged=paged, num_blocks=num_blocks,
-                                          block_size=block_size)
+                                          block_size=block_size,
+                                          scale_dtype=scale_dtype)
             else:
                 one = mamba_mod.init_mamba_state(cfg, plan, batch, dtype,
                                                  meta)

@@ -87,7 +87,11 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
     ``mode="chunk_prefill"`` (attention-only stacks) prefills one chunk
     of a partly resident prompt straight against the paged pool:
     ``cache`` is the pool, ``block_tables`` the request's (1, T) table
-    and ``kv_valid_len`` the resident tokens after the chunk."""
+    and ``kv_valid_len`` the resident tokens after the chunk.
+    ``mode="verify"`` (attention-only stacks) scores a speculative verify
+    window of Q single-token queries against the pool: ``block_tables``
+    is (Q, T), one table per query, and ``kv_valid_len`` (Q,) each
+    query's span including itself."""
     if cfg.family == "rwkv":
         return _apply_rwkv_layer(p, x, cfg=cfg, plan=plan, mode=mode,
                                  cache=cache, use_kernels=use_kernels)
@@ -115,13 +119,16 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
             p["attn"], h_in, cfg=cfg, plan=plan, positions=positions,
             cache=cache, block_table=block_tables,
             kv_valid_len=kv_valid_len, paged_kernel=paged_kernel)
+    elif mode == "verify":
+        h = attn_mod.verify_attention(
+            p["attn"], h_in, cfg=cfg, plan=plan, positions=positions,
+            cache=cache, block_tables=block_tables,
+            kv_valid_len=kv_valid_len, paged_kernel=paged_kernel)
     elif mode == "train":
         h = attn_mod.self_attention(p["attn"], h_in, cfg=cfg, plan=plan,
                                     positions=positions)
     else:
-        raise NotImplementedError(
-            f"mode={mode!r} (speculative verify) arrives with a later "
-            "slice of the port")
+        raise ValueError(f"unknown mode {mode!r}")
     x = x + h
     h_in = apply_norm(p["ln2"], x, cfg.norm)
     if "moe" in p:
@@ -187,7 +194,8 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
             use_kernels: bool = True,
             kv_valid_len: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Shared forward in the train/prefill/decode/chunk_prefill modes.
+    """Shared forward in the train/prefill/decode/chunk_prefill/verify
+    modes.
 
     ``cache`` ({"l{j}": {"k","v": (n_sb, ...)}}) is updated in place:
     prefill fills a batch cache covering exactly the S positions; decode
@@ -196,7 +204,10 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
     decode, (1,C) absolute offsets for chunk_prefill, where
     ``block_tables`` is the request's (1,T) table and ``kv_valid_len``
     the resident length after the chunk (see
-    :func:`repro_torch.models.attention.chunk_prefill_attention`).  ``paged_kernel`` is the resolved paged dataflow, ``"stream"``
+    :func:`repro_torch.models.attention.chunk_prefill_attention`), and
+    (1,Q) for verify, with (Q,T) tables and (Q,) spans (see
+    :func:`repro_torch.models.attention.verify_attention`).
+    ``paged_kernel`` is the resolved paged dataflow, ``"stream"``
     or ``"gather"`` (resolve ``"auto"`` with ``resolve_paged_kernel``
     once, as the engine does).  An rwkv stack's cache is {"l0":
     {"shift_t","shift_c","wkv"}}, overwritten in place; its positions are

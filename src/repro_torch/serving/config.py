@@ -3,10 +3,12 @@
 
 The fields and defaults are the reference's, so one configuration reads
 the same in both packages.  Knobs whose subsystem has not been ported
-yet (:data:`UNPORTED`: speculation, fault tolerance, the async front
-end) are kept here,
-and :class:`repro_torch.serving.engine.LPUEngine` rejects any value
-other than the default with ``NotImplementedError``.
+yet (:data:`UNPORTED`: fault tolerance, the async front end) are kept
+here, and :class:`repro_torch.serving.engine.LPUEngine` rejects any
+value other than the default with ``NotImplementedError``.  As in the
+reference, the engine checks the knobs that depend on the model (the
+paged pool that int8/fp8 storage and speculation need) and the
+speculation knobs (``speculate`` in ``SPECULATE``, ``draft_k >= 1``).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Optional
 KV_DTYPES = ("auto", "float16", "fp16", "bfloat16", "bf16", "float32",
              "fp32", "int8", "fp8", "float8_e4m3fn")
 W_DTYPES = ("auto", "int8")
+SPECULATE = ("off", "ngram", "model")
 
 
 @dataclass(frozen=True)
@@ -86,7 +89,6 @@ class EngineConfig:
 
 # field -> the later slice of the port that brings its subsystem
 UNPORTED = {
-    "speculate": "speculation", "draft_k": "speculation",
     "chaos": "fault tolerance",
     "max_migrations": "fault tolerance",
     "heartbeat_timeout_s": "fault tolerance",

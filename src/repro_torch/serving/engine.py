@@ -36,6 +36,19 @@ reference's ``serving/engine.py`` ``LPUEngine``).
   resident blocks (refcounted) into its table and prefill only the tail;
   a shared block is copied (copy-on-write) before a write into it, and
   cached blocks at refcount zero are recycled LRU-first.
+* **Quantized KV** — ``kv_dtype="int8"|"fp8"`` (paged pool only)
+  stores K/V as int8 or ``float8_e4m3fn`` with one f16 absmax scale per
+  row and kv head in ``k_scale``/``v_scale`` leaves beside the values.
+  Every row is quantized at pool-write time (prefill, chunk, decode,
+  verify), the paged kernel dequantizes in its tile loop, and decode
+  folds the dequantized round-trip of its new row.
+* **Speculative decoding** — ``speculate="ngram"|"model"`` (or a
+  ``drafter=`` object; paged pool only): a host-side drafter proposes
+  up to ``draft_k`` tokens per slot, ONE verify forward scores every
+  slot's K+1 positions (the queries are the paged kernel's batch, one
+  block table each) and rejection sampling accepts a per-slot prefix.
+  Rejected rows roll back logically: ``pos`` advances over emitted
+  tokens only, and the stale rows are masked and later overwritten.
 * **Preemption** — when the pool is exhausted the newest sequence is
   evicted and re-prefilled later (recompute).
 * **Fused sampling** — by default the sampler runs on the device after
@@ -48,9 +61,9 @@ reference's ``serving/engine.py`` ``LPUEngine``).
   parity oracle).
 
 Not in this slice (each raises ``NotImplementedError``): a mesh / tp > 1,
-the int8/fp8 KV pool, and any value other than the default of a config
-field whose subsystem is not ported (``serving.config.UNPORTED``:
-speculation, fault tolerance, the front end).  ``w_dtype`` is carried as the reference carries it, for
+and any value other than the default of a config field whose subsystem
+is not ported (``serving.config.UNPORTED``: fault tolerance, the front
+end).  ``w_dtype`` is carried as the reference carries it, for
 telemetry: the engine's decode keeps the fp weights at any value.
 """
 from __future__ import annotations
@@ -65,7 +78,9 @@ import torch
 from repro_torch.compiler.plan import resolve_kv_precision
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.kernels.decode_attention.ops import resolve_paged_kernel
-from repro_torch.serving.config import DEFAULTS, UNPORTED, EngineConfig
+from repro_torch.serving.config import (DEFAULTS, SPECULATE, UNPORTED,
+                                        EngineConfig)
+from repro_torch.serving.drafter import make_drafter
 from repro_torch.serving.kv_cache import (LANE, BlockPool, PrefixCache,
                                           assert_pool_balanced, cache_bytes,
                                           copy_pool_block,
@@ -74,7 +89,8 @@ from repro_torch.serving.kv_cache import (LANE, BlockPool, PrefixCache,
                                           scatter_prefill_dense,
                                           scatter_prefill_pages)
 from repro_torch.serving.sampler import (SamplingParams, sample_batched,
-                                         sample_local)
+                                         sample_local, spec_verify_rows,
+                                         speculative_verify_batched)
 from repro_torch.serving.scheduler import Scheduler, SeqSlot
 
 StreamCB = Callable[[int, int], None]   # (request_id, token)
@@ -132,6 +148,10 @@ class EngineStats:
                                   # per-request failure
     device_decode_steps: int = 0  # decode forwards dispatched (each runs
                                   # every layer's decode attention once)
+    spec_rounds: int = 0          # speculative verify rounds (one verify
+                                  # forward each)
+    draft_tokens: int = 0         # drafter-proposed tokens verified
+    accepted_tokens: int = 0      # ...accepted by rejection sampling
 
     @property
     def tokens_per_s(self) -> float:
@@ -154,6 +174,19 @@ class EngineStats:
         """Share of prefix-index lookups that mapped a shared block."""
         return self.prefix_hits / max(self.prefix_lookups, 1)
 
+    @property
+    def acceptance_rate(self) -> float:
+        """Share of drafter-proposed tokens the verify pass accepted
+        (real proposals only, never the padding of slots the drafter
+        had nothing for)."""
+        return self.accepted_tokens / max(self.draft_tokens, 1)
+
+    @property
+    def accepted_per_window(self) -> float:
+        """Mean accepted draft tokens per speculative round: each one is
+        a decode step the engine did not run."""
+        return self.accepted_tokens / max(self.spec_rounds, 1)
+
 
 class LPUEngine:
     """Slot-based continuous-batching decode engine on one device.
@@ -162,11 +195,14 @@ class LPUEngine:
     seed=...)``; ``config`` defaults to ``EngineConfig()``.  ``device``
     defaults to ``cuda`` and raises when there is none: pass
     ``device="cpu"`` to run the plain PyTorch path.  ``seed`` seeds the
-    sampler's ``torch.Generator``."""
+    sampler's ``torch.Generator``.  ``drafter=`` injects a proposer (any
+    object with ``propose(tokens, k)``) and turns speculation on;
+    ``speculate="model"`` needs ``draft_model``/``draft_params``."""
 
     def __init__(self, model, params,
                  config: Optional[EngineConfig] = None, *,
-                 mesh=None, seed: int = 0, device=None):
+                 mesh=None, seed: int = 0, device=None, drafter=None,
+                 draft_model=None, draft_params=None):
         c = EngineConfig() if config is None else config
         self.config = c
         self.device = resolve_device(device)
@@ -204,10 +240,10 @@ class LPUEngine:
         paged = c.paged if c.paged is not None else model.supports_paged_kv()
         self.paged = paged
         self.kv_prec = resolve_kv_precision(c.kv_dtype, self.plan.cache_dtype)
-        if self.kv_prec.quantized:
-            raise NotImplementedError(
-                f"kv_dtype={c.kv_dtype!r} (int8/fp8 pool) arrives with the "
-                "quantized-KV slice of the port")
+        if self.kv_prec.quantized and not paged:
+            raise ValueError(
+                f"kv_dtype={c.kv_dtype!r} needs the paged KV pool: the "
+                "scales live beside pool blocks; dense caches store fp")
         self.kv_dtype = self.kv_prec.store_dtype
         self.w_dtype = c.w_dtype
         if c.paged_kernel not in ("auto", "stream", "gather"):
@@ -271,6 +307,27 @@ class LPUEngine:
                 "prefix_cache needs the paged KV pool (attention-only "
                 "stacks); the dense per-slot cache cannot share blocks")
         self.prefix = PrefixCache(pool) if c.prefix_cache else None
+        if c.speculate not in SPECULATE:
+            raise ValueError(f"speculate={c.speculate!r} not in {SPECULATE}")
+        if c.draft_k < 1:
+            raise ValueError(f"draft_k={c.draft_k} must be >= 1")
+        if c.speculate == "model" and draft_model is not None and \
+                draft_model.cfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"the draft model's vocabulary ({draft_model.cfg.vocab_size}"
+                f") is not the target's ({self.cfg.vocab_size}): its "
+                "embedding cannot read the target's tokens")
+        self.drafter = drafter if drafter is not None else make_drafter(
+            c.speculate, draft_model=draft_model, draft_params=draft_params,
+            max_seq=self.max_seq)
+        if self.drafter is not None and not self.paged:
+            raise ValueError(
+                "speculate needs the paged KV pool: the verify pass "
+                "scatters draft KV per query through block tables")
+        self.speculate = ("off" if self.drafter is None
+                          else c.speculate if c.speculate != "off"
+                          else "custom")
+        self.draft_k = int(c.draft_k)
         self.sched = Scheduler(self.slots, self.max_seq, pool, c.min_bucket,
                                prefix=self.prefix)
         self.stats = EngineStats()
@@ -288,7 +345,9 @@ class LPUEngine:
             self.cache = self.model.init_cache(
                 self.slots, self.max_seq, paged=True,
                 num_blocks=self.num_blocks, block_size=self.block_size,
-                dtype=store)
+                dtype=store,
+                scale_dtype=(dtype_of(self.kv_prec.scale_dtype)
+                             if self.kv_prec.quantized else None))
             self.block_tables = np.zeros((self.slots, self.table_len),
                                          np.int32)
             return BlockPool(self.num_blocks, self.block_size)
@@ -380,6 +439,21 @@ class LPUEngine:
         self._buckets_traced.add(("chunk", C))
         self.stats.prefills += 1
         return logits[0, n_valid - 1]
+
+    def _verify_fwd(self, tokens: torch.Tensor, positions: torch.Tensor,
+                    tables: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        """ONE speculative verify forward: every slot's (last token + K
+        drafts) as a (1, slots*(K+1)) batch of single-token queries with
+        per-query (Q, T) tables and (Q,) spans ``pos + 1`` (see
+        :func:`repro_torch.models.attention.verify_attention`).  The
+        drafts' K/V land in the pool in place; rows past the accepted
+        prefix stay there, masked by length and overwritten by the next
+        round.  Returns the (Q, V_pad) logits."""
+        logits, _ = self.model.forward(
+            self.params, tokens, mode="verify", positions=positions,
+            cache=self.cache, block_tables=tables,
+            paged_kernel=self.paged_kernel or "gather", kv_valid_len=lens)
+        return logits[0]
 
     # -- sampling ------------------------------------------------------
 
@@ -654,7 +728,9 @@ class LPUEngine:
             st.prefill_tokens_saved = self.prefix.tokens_saved
         if self.sched.num_decoding() == 0:
             return finished
-        if self.sampling == "fused":
+        if self.drafter is not None:
+            finished += self._spec_decode_round()
+        elif self.sampling == "fused":
             finished += self._fused_decode_round()
         else:
             finished += self._host_decode_step()
@@ -715,9 +791,17 @@ class LPUEngine:
 
     def _slot_state(self) -> Tuple[tuple, tuple, bool]:
         """Host slot state -> the window's carry, per-slot sampling
-        parameters (small uploads) and whether any slot samples.  Only
-        decode-ready slots are ``alive``; empty and prefilling slots stay
-        dead zeros, frozen by the window."""
+        parameters (small uploads) and whether any slot samples."""
+        carry, samp, stochastic = self._slot_arrays()
+        return (tuple(self._to_dev(a) for a in carry),
+                tuple(self._to_dev(a) for a in samp), stochastic)
+
+    def _slot_arrays(self) -> Tuple[tuple, tuple, bool]:
+        """The host arrays behind :meth:`_slot_state`: ``(last, pos,
+        n_out, alive)``, ``(temps, top_ks, top_ps, max_new)`` and whether
+        any alive slot samples.  Only decode-ready slots are ``alive``;
+        empty and prefilling slots stay dead zeros, frozen by the
+        window."""
         B = self.slots
         last = np.zeros((B,), np.int32)
         pos = np.zeros((B,), np.int32)
@@ -740,10 +824,8 @@ class LPUEngine:
             top_ps[slot] = sp.top_p
             max_new[slot] = seq.req.max_new_tokens
         stochastic = bool((temps[alive] > 0.0).any())
-        carry = tuple(self._to_dev(a) for a in (last, pos, n_out, alive))
-        samp = tuple(self._to_dev(a)
-                     for a in (temps, top_ks, top_ps, max_new))
-        return carry, samp, stochastic
+        return ((last, pos, n_out, alive), (temps, top_ks, top_ps, max_new),
+                stochastic)
 
     def _admission_waiting(self) -> bool:
         """A queued request AND a free slot: windows shrink to one step so
@@ -832,6 +914,109 @@ class LPUEngine:
         finished = self._reconcile(h1)
         if h2 is not None:
             finished += self._reconcile(h2)
+        return finished
+
+    def _spec_decode_round(self) -> List[Request]:
+        """One draft-and-verify speculative round.
+
+        Per decode-ready slot the drafter proposes up to ``draft_k``
+        tokens from the request's visible stream; ONE verify forward
+        scores all K+1 positions of every slot and rejection sampling
+        accepts a per-slot prefix.  Slots the drafter had nothing for
+        ride along with zero drafts: the rule is exact for any
+        deterministic proposal, so only the acceptance counters (real
+        proposals) depend on the drafter.  The copy-on-write guard runs
+        BEFORE the speculative write, so a rejected row never lands in a
+        block another table references.  Rejected positions roll back
+        logically (``pos`` advances over emitted tokens only).  A round
+        that cannot speculate (no proposal, no room before max_seq, or
+        no blocks for the window without preemption) runs one plain
+        round instead.  With fused sampling only the ``(out, n_acc)``
+        int32 vectors cross to the host; the host oracle reads the
+        verify rows back."""
+        K = self.draft_k
+        for seq in self.sched.active:
+            if seq is not None and not seq.prefilling:
+                K = min(K, self.max_seq - 1 - seq.pos)
+        props: Dict[int, List[int]] = {}
+        if K >= 1:
+            for slot, seq in enumerate(self.sched.active):
+                if seq is None or seq.prefilling:
+                    continue
+                p = self.drafter.propose(
+                    list(seq.req.prompt) + list(seq.req.out), K)[:K]
+                if p:
+                    props[slot] = [int(t) for t in p]
+        if K < 1 or not props \
+                or not self.sched.reserve_lookahead(1, draft_k=K):
+            return (self._fused_decode_round() if self.sampling == "fused"
+                    else self._host_decode_step())
+        for seq in self.sched.active:
+            if seq is not None and not seq.prefilling:
+                self._ensure_writable(seq, seq.pos, seq.pos + K + 1)
+        self._refresh_tables()
+        (last, pos, _, alive), (temps, top_ks, top_ps, _), stochastic = \
+            self._slot_arrays()
+        B, K1 = self.slots, K + 1
+        draft = np.zeros((B, K), np.int32)
+        real = np.zeros((B,), np.int32)
+        for slot, p in props.items():
+            draft[slot, :len(p)] = p
+            real[slot] = len(p)
+        toks = np.concatenate([last[:, None], draft], 1)
+        positions = np.where(alive[:, None],
+                             pos[:, None] + np.arange(K1, dtype=np.int32),
+                             0).astype(np.int32)
+        lens = np.where(alive[:, None], positions + 1, 1).astype(np.int32)
+        tables = np.repeat(self.block_tables, K1, axis=0)
+        rows = self._verify_fwd(
+            self._to_dev(toks.reshape(1, B * K1)),
+            self._to_dev(positions.reshape(1, B * K1)),
+            self._to_dev(tables), self._to_dev(lens.reshape(-1)))
+        rows = rows.reshape(B, K1, -1)
+        self.stats.spec_rounds += 1
+        if self.sampling == "fused":
+            out, n_acc = speculative_verify_batched(
+                rows, self._to_dev(draft), self.gen, self._to_dev(temps),
+                self._to_dev(top_ks), self._to_dev(top_ps), stochastic)
+            out, n_acc = out.cpu().numpy(), n_acc.cpu().numpy()
+            self.stats.host_syncs += 1
+            self.stats.bytes_to_host += out.nbytes + n_acc.nbytes
+        else:
+            rows_np = rows.cpu().numpy()
+            self.stats.host_syncs += 1
+            self.stats.bytes_to_host += rows_np.nbytes
+            out = np.zeros((B, K1), np.int32)
+            n_acc = np.zeros((B,), np.int32)
+            for slot, seq in enumerate(self.sched.active):
+                if alive[slot]:
+                    o, n = spec_verify_rows(rows[slot],
+                                            self._to_dev(draft[slot]),
+                                            self.gen, seq.req.params)
+                    out[slot], n_acc[slot] = o.cpu().numpy(), n
+        finished: List[Request] = []
+        self.stats.steps += 1
+        self.stats.slot_steps += self.slots
+        for slot, seq in enumerate(self.sched.active):
+            if seq is None or seq.prefilling:
+                continue
+            req = seq.req
+            self.stats.busy_slot_steps += 1
+            n = int(n_acc[slot])
+            self.stats.draft_tokens += int(real[slot])
+            self.stats.accepted_tokens += min(n, int(real[slot]))
+            emit = [int(t) for t in out[slot, :n + 1]]
+            for j, tok in enumerate(emit):
+                self.stats.tokens += 1
+                req.out.append(tok)
+                seq.pos += 1
+                seq.last_token = tok
+                if req.stream_cb:
+                    req.stream_cb(req.rid, tok)
+                if self._should_finish(seq, tok):
+                    self.stats.overrun_tokens += len(emit) - j - 1
+                    finished.append(self._finish(seq))
+                    break
         return finished
 
     def drain(self) -> Dict[int, List[int]]:

@@ -7,9 +7,10 @@ block-aligned prefix index :class:`PrefixCache`.  Device side: the
 port's in-place copies of a prefilled batch-1 cache into the pool
 (:func:`scatter_prefill_pages`) or a dense slot
 (:func:`scatter_prefill_dense`), the positionwise scatter of a prefill
-chunk (:func:`scatter_chunk_rows`), the copy-on-write copy of one pool
-block (:func:`copy_pool_block`), and the absmax quantization of an
-int8/fp8 pool's rows (:func:`quantize_kv_rows`).
+chunk (:func:`scatter_chunk_rows`) and of a speculative verify window
+with one table per query (:func:`scatter_spec_rows`), the copy-on-write
+copy of one pool block (:func:`copy_pool_block`), and the absmax
+quantization of an int8/fp8 pool's rows (:func:`quantize_kv_rows`).
 
 Block id 0 is reserved as the **null block**: table entries past a
 request's used length point at it, padded prefill tokens are written to
@@ -301,11 +302,17 @@ def scatter_prefill_pages(cache: Params, prefill_cache: Params,
                           table: torch.Tensor) -> None:
     """Copy a batch=1 prefill cache into the shared block pool, in place.
 
-    cache:         {lj: {"k": (n_sb, N, bs, gp, dh), "v": ...}}
+    cache:         {lj: {"k": (n_sb, N, bs, gp, dh), "v": ...}}, plus
+                   ``k_scale``/``v_scale`` (n_sb, N, bs, gp) leaves for
+                   an int8/fp8 pool
     prefill_cache: {lj: {"k": (n_sb, 1, S, gp, dh), "v": ...}}, S a
                    multiple of bs
     table:         (S // bs,) physical block ids; pad entries point at
-                   the null block 0, which absorbs the padded tokens."""
+                   the null block 0, which absorbs the padded tokens.
+
+    The prefill cache stays full precision; a quantized pool's rows are
+    quantized HERE, at pool-write time, as every other row scatter
+    does."""
     idx = table.long()
     for lj, c in cache.items():
         for key in ("k", "v"):
@@ -313,7 +320,13 @@ def scatter_prefill_pages(cache: Params, prefill_cache: Params,
             n_sb, bs = pg.shape[0], pg.shape[2]
             nb = dn.shape[2] // bs
             chunks = dn[:, 0].reshape((n_sb, nb, bs) + tuple(dn.shape[3:]))
-            pg[:, idx] = chunks.to(pg.dtype)
+            spg = c.get(key + "_scale")
+            if spg is not None:
+                q, s = quantize_kv_rows(chunks, pg.dtype, spg.dtype)
+                pg[:, idx] = q
+                spg[:, idx] = s
+            else:
+                pg[:, idx] = chunks.to(pg.dtype)
 
 
 def scatter_prefill_dense(cache: Params, prefill_cache: Params,
@@ -348,6 +361,33 @@ def scatter_chunk_rows(pages: torch.Tensor, rows: torch.Tensor,
     pos = positions.long()
     idx = torch.clamp(pos // bs, 0, T - 1)
     blk = torch.where(valid, block_table.long()[idx],
+                      torch.zeros((), dtype=torch.long, device=pages.device))
+    pages[blk, pos % bs] = rows.to(pages.dtype)
+    return pages
+
+
+def scatter_spec_rows(pages: torch.Tensor, rows: torch.Tensor,
+                      block_tables: torch.Tensor, positions: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """Per-query scatter of a speculative verify window into the block
+    pool, in place; returns ``pages``.  The per-query form of
+    :func:`scatter_chunk_rows`: each row resolves its (block, offset)
+    through its OWN table.  Rejected drafts are never un-written: their
+    rows lie past the slot's resident length, masked on every later read
+    and overwritten by the next window (logical rollback).
+
+    pages:        (N, bs, ...) one layer of the shared pool (values, or
+                  a quantized pool's (N, bs, G) scales)
+    rows:         (Q, ...) the verify queries' K (or V, or scale) rows
+    block_tables: (Q, T) each query's physical block ids
+    positions:    (Q,) absolute token positions
+    valid:        (Q,) bool; invalid rows go to the null block 0."""
+    bs = pages.shape[1]
+    T = block_tables.shape[1]
+    pos = positions.long()
+    idx = torch.clamp(pos // bs, 0, T - 1)
+    blk = block_tables.long().gather(1, idx[:, None])[:, 0]
+    blk = torch.where(valid, blk,
                       torch.zeros((), dtype=torch.long, device=pages.device))
     pages[blk, pos % bs] = rows.to(pages.dtype)
     return pages

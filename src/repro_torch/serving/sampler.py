@@ -5,18 +5,25 @@ The port of the reference's ``serving/sampler.py`` at tp=1:
 * :func:`sample_local` — temperature / top-k / top-p over full logits
   rows with one static :class:`SamplingParams`;
 * :func:`sample_batched` — the fused form the engine runs on the device
-  every decode step, with per-slot parameters as tensors.
+  every decode step, with per-slot parameters as tensors;
+* :func:`speculative_verify_batched` / :func:`spec_verify_rows` — the
+  rejection sampling of a speculative verify window (every slot's, or
+  one slot's), which accepts a prefix of a deterministic drafter's
+  proposal and keeps every emitted token an exact draw from the
+  filtered target distribution.
 
 Both share one filter chain (temperature -> top-k -> top-p, the top-p
 cutoff being the SMALLEST kept logit, as the reference fixed it) and
 draw a categorical sample with the exponential race (argmax of
 ``logits - log E``, E ~ Exp(1)).  Greedy rows (temperature <= 0) are the
 argmax of the raw row and consume no random numbers.  The draws cannot
-match JAX's threefry bit for bit; tests compare distributions.
+match JAX's threefry bit for bit; tests compare distributions.  Where the
+reference splits one key per verify position (``split_spec_rng_chain``),
+the port draws independent numbers per position from the generator.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -83,3 +90,76 @@ def sample_local(logits: torch.Tensor, generator: torch.Generator,
         torch.full((B,), params.temperature, device=dev),
         torch.full((B,), params.top_k, dtype=torch.int32, device=dev),
         torch.full((B,), params.top_p, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: rejection sampling of a verify window
+# ---------------------------------------------------------------------------
+
+def speculative_verify_batched(logits: torch.Tensor, draft: torch.Tensor,
+                               generator: torch.Generator,
+                               temps: torch.Tensor, top_ks: torch.Tensor,
+                               top_ps: torch.Tensor, stochastic: bool = True
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rejection sampling of one verify window for every slot.
+
+    logits: (B, K+1, V) verify rows, row i scoring the token after
+    verify position i; draft: (B, K) the proposed tokens; per-slot
+    ``temps``/``top_ks``/``top_ps`` (B,) on the logits' device.  Returns
+    ``(out (B, K+1) int32, n_acc (B,) int32)``: slot b emits
+    ``out[b, :n_acc[b] + 1]``.
+
+    The drafter is deterministic, so its proposal is one-hot and the
+    rule is: accept ``draft[i]`` with probability ``p_i(draft[i])``
+    (``p_i`` the softmax of the :func:`filter_rows`-filtered row i), else
+    emit a draw from ``p_i`` with the draft masked out; after K accepts,
+    a bonus draw from ``p_K``.  Every emitted token is then an exact
+    draw from ``p_i`` whatever the drafter proposed, and a draft of zero
+    mass is never accepted.  Each position takes its own uniform and
+    its own categorical draw (the exponential race), independent of the
+    others.  Greedy rows (temperature <= 0) take the argmax of each raw
+    row, and ``n_acc`` counts the leading drafts equal to it: the
+    sequential greedy stream, token for token.  ``stochastic=False``
+    (the caller knows every row is greedy) skips the filter and the
+    draws, so greedy windows consume no random numbers."""
+    B, K1, V = logits.shape
+    K = K1 - 1
+    lg_raw = logits.float()
+    g_out = lg_raw.argmax(-1)
+    draft = draft.long()
+    out, match = g_out, g_out[:, :K] == draft
+    if stochastic:
+        rep = lambda t: t.repeat_interleave(K1)             # noqa: E731
+        lg = filter_rows(lg_raw.reshape(B * K1, V), rep(temps),
+                         rep(top_ks), rep(top_ps)).reshape(B, K1, V)
+        probs = torch.softmax(lg, -1)
+        p_draft = probs[:, :K].gather(-1, draft[..., None])[..., 0]
+        u = torch.rand((B, K), generator=generator, device=logits.device)
+        acc = u < p_draft
+        masked = lg.clone()
+        masked[:, :K].scatter_(-1, draft[..., None], -torch.inf)
+        drawn = _draw(masked, generator)                     # (B, K+1)
+        s_out = torch.cat([torch.where(acc, draft, drawn[:, :K]),
+                           drawn[:, K:]], 1)
+        greedy = (temps <= 0.0)[:, None]
+        out = torch.where(greedy, g_out, s_out)
+        match = torch.where(greedy, match, acc)
+    n_acc = match.int().cumprod(-1).sum(-1)
+    return out.to(torch.int32), n_acc.to(torch.int32)
+
+
+def spec_verify_rows(rows: torch.Tensor, draft: torch.Tensor,
+                     generator: torch.Generator,
+                     params: SamplingParams) -> Tuple[torch.Tensor, int]:
+    """One slot's verify window over its (K+1, V) rows with one static
+    parameter set: the host-sampling oracle's form of
+    :func:`speculative_verify_batched`.  Returns ``(out (K+1,), n_acc)``;
+    a greedy slot consumes no random numbers."""
+    dev = rows.device
+    out, n_acc = speculative_verify_batched(
+        rows[None], draft[None], generator,
+        torch.tensor([params.temperature], device=dev),
+        torch.tensor([params.top_k], dtype=torch.int32, device=dev),
+        torch.tensor([params.top_p], device=dev),
+        params.temperature > 0.0)
+    return out[0], int(n_acc[0])

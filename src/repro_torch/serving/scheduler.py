@@ -2,9 +2,8 @@
 
 A copy of the reference's ``serving/scheduler.py`` (``SeqSlot`` and
 ``Scheduler``; the reference module imports its JAX ``kv_cache``, so the
-port keeps its own), without the speculative lookahead's ``draft_k``,
-which comes back with its slice.  All policy is host-side: the device
-programs only ever see a full slot batch plus block tables.
+port keeps its own).  All policy is host-side: the device programs only
+ever see a full slot batch plus block tables.
 
 * **Admission** — FIFO: a queued request is admitted when a slot is free
   AND (paged mode) the block pool can cover its prompt; prompt lengths
@@ -16,7 +15,9 @@ programs only ever see a full slot batch plus block tables.
   block set one chunk per engine step, and the sequence joins decode
   windows once its prompt is resident (``SeqSlot.prefilling``).
 * **Growth** — before every decode step each decode-ready sequence must
-  own the block its next token lands in.
+  own the block its next token lands in; a multi-step window or a
+  speculative verify window reserves its whole lookahead up front
+  (:meth:`Scheduler.reserve_lookahead`), or falls back to one step.
 * **Preemption** — when growth cannot be satisfied, the most recently
   admitted *other* sequence is evicted (recompute-style: its blocks are
   freed, it re-enters the queue front, and its tokens so far are
@@ -285,7 +286,7 @@ class Scheduler:
                     "increase num_blocks")
             self._preempt(victim)
 
-    def reserve_lookahead(self, steps: int) -> bool:
+    def reserve_lookahead(self, steps: int, draft_k: int = 0) -> bool:
         """All-or-nothing block reservation for a multi-step decode window.
 
         The engine's fused ``steps_per_sync`` window runs ``steps`` decode
@@ -298,6 +299,12 @@ class Scheduler:
         applies).  Reserved-but-unused blocks stay owned by the sequence
         and are freed at release.  Prefilling sequences sit windows out
         and are skipped.
+
+        ``draft_k``: the extra rows of a speculative verify window, which
+        writes KV at ``pos .. pos + steps + draft_k - 1`` before the host
+        knows how many drafts were accepted; without them an all-accept
+        window crossing a block boundary would scatter into the null
+        block.
         """
         if self.pool is None:
             return True
@@ -305,7 +312,7 @@ class Scheduler:
         for seq in self.active:
             if seq is None or seq.prefilling:
                 continue
-            target = min(seq.pos + steps, self.max_seq)
+            target = min(seq.pos + steps + draft_k, self.max_seq)
             short = blocks_for(target, self.pool.block_size) \
                 - len(seq.blocks)
             if short > 0:

@@ -137,21 +137,30 @@ def test_chunk_prefill_attention_matches_reference(jax_setup, setup, mode,
 
 
 def test_chunk_prefill_refuses_quantized_pool(setup):
+    """An int8 pool without its scale leaves is refused (its codes would
+    be read as values); with them the chunk is quantized into the pool
+    (the int8/fp8 cases against the reference are in
+    tests/test_torch_quantized_kv.py)."""
     model, params = setup
     cfg, plan = model.cfg, model.plan
     a = plan.attn
     p = {k: v[0] for k, v in params["blocks"]["l0"]["attn"].items()}
     pool = {k: torch.zeros((4, 8, a.gp, a.d_head), dtype=torch.int8)
             for k in "kv"}
+    args = dict(cfg=cfg, plan=plan,
+                positions=torch.arange(4, dtype=torch.int32)[None],
+                block_table=torch.tensor([[1, 2]], dtype=torch.int32),
+                kv_valid_len=torch.tensor(4, dtype=torch.int32))
+    x = torch.ones((1, 4, cfg.d_model))
+    with pytest.raises(ValueError, match="scale"):
+        attn.chunk_prefill_attention(p, x, cache=pool, **args)
     pool.update({k + "_scale": torch.zeros((4, 8, a.gp),
                                            dtype=torch.float16)
                  for k in "kv"})
-    with pytest.raises(NotImplementedError):
-        attn.chunk_prefill_attention(
-            p, torch.zeros((1, 4, cfg.d_model)), cfg=cfg, plan=plan,
-            positions=torch.arange(4, dtype=torch.int32)[None], cache=pool,
-            block_table=torch.tensor([[1, 2]], dtype=torch.int32),
-            kv_valid_len=torch.tensor(4, dtype=torch.int32))
+    out = attn.chunk_prefill_attention(p, x, cache=pool, **args)
+    assert torch.isfinite(out).all()
+    assert (pool["k_scale"][1, :4] > 0).all() and \
+        (pool["k_scale"][1, 4:] == 0).all()
 
 
 # ---------------------------------------------------------------------------

@@ -190,6 +190,96 @@ def test_paged_kernel_split_boundaries(dev, pool_dtype, fold):
         assert torch.equal(out[keep], got[keep])
 
 
+# kernel 1 as speculative verify calls it: slots x (K+1) single-token
+# queries, each slot's table repeated K+1 times, lengths pos+1 .. pos+K+1
+VERIFY_POS = (72, 295, 506, 0)
+
+
+def _verify_case(dev, pool_dtype, positions=VERIFY_POS, K1=5, H=9, G=3,
+                 dh=64, bs=128, T=4, seed=9):
+    """(q, kp, vp, tables, lengths, scales) of one verify window: slot b's
+    blocks drawn out of order from a shuffled pool, its table tail on
+    the null block; an int8 / fp8 pool quantized from an f32 one."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(positions)
+    N = B * T + 1
+    r = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    perm = torch.randperm(N - 1, generator=g, device=dev) + 1
+    slot_tables = torch.zeros((B, T), dtype=torch.int32, device=dev)
+    for b, p in enumerate(positions):
+        used = -(-(p + K1) // bs)
+        slot_tables[b, :used] = perm[b * T:b * T + used]
+    kp, vp = r(N, bs, G, dh), r(N, bs, G, dh)
+    scales = {}
+    if pool_dtype in (torch.int8, torch.float8_e4m3fn):
+        kp, ks = quantize_kv_rows(kp, pool_dtype, torch.float16)
+        vp, vs = quantize_kv_rows(vp, pool_dtype, torch.float16)
+        scales = dict(k_scale=ks, v_scale=vs)
+    tables = slot_tables.repeat_interleave(K1, 0).contiguous()
+    lengths = (torch.tensor(positions, device=dev)[:, None] + 1
+               + torch.arange(K1, device=dev)).reshape(-1).to(torch.int32)
+    return r(B * K1, H, dh), kp, vp, tables, lengths, scales
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.int8,
+                                        torch.float8_e4m3fn])
+@pytest.mark.parametrize("shape", [dict(), dict(K1=3, H=4, G=2, dh=32, bs=8,
+                                                T=5, positions=(5, 30, 0))])
+def test_paged_kernel_at_the_verify_shape(dev, pool_dtype, shape):
+    """Q = slots x (K+1) queries with per-query tables: the kernel within
+    1e-4 of its plain version, and each query alone bit-identical to its
+    row in the batch."""
+    q, kp, vp, tb, ln, sc = _verify_case(dev, pool_dtype, **shape)
+    got = ops.paged_decode_attention(q, kp, vp, tb, ln, **sc)
+    want = paged_decode_attention_ref(q, kp, vp, tb, ln, **sc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for i in range(q.shape[0]):
+        alone = ops.paged_decode_attention(q[i:i + 1], kp, vp, tb[i:i + 1],
+                                           ln[i:i + 1], **sc)
+        assert torch.equal(alone[0], got[i]), i
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8", "fp8"])
+def test_engine_speculation_on_the_card(dev, kv_dtype):
+    """The reduced smollm-135m served on the card with n-gram speculation
+    on an f32 / int8 / fp8 pool: streams equal the plain run's and the
+    gather oracle's, kernel 1 launched once per layer per decode step
+    and per verify round, the pool balanced."""
+    from repro_torch.compiler.mapper import plan_model
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine
+    cfg = get_config("smollm-135m").reduced()
+    plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
+                      remat="none", compute_dtype="float32",
+                      param_dtype="float32")
+    model = build_model(cfg, plan, dev)
+    params = model.init(seed=0)
+    motif = [3, 1, 4, 1]
+    prompts = [motif * 6, motif * 5, [7, 9, 11]]
+    kw = dict(slots=2, max_seq=128, block_size=16, kv_dtype=kv_dtype)
+    outs = {}
+    for name, extra in (("plain", {}),
+                        ("spec", dict(speculate="ngram", draft_k=4)),
+                        ("gather", dict(speculate="ngram", draft_k=4,
+                                        paged_kernel="gather"))):
+        eng = LPUEngine(model, params, EngineConfig(**kw, **extra),
+                        device=dev)
+        before = ops.paged_decode_attention.launches
+        outs[name] = eng.generate(prompts, max_new_tokens=12)
+        launches = ops.paged_decode_attention.launches - before
+        st = eng.stats
+        want = 0 if name == "gather" else \
+            cfg.n_layers * (st.device_decode_steps + st.spec_rounds)
+        assert launches == want, (name, launches, want)
+        eng.check_pool_balanced()
+        if name == "spec":
+            assert st.spec_rounds > 0 and st.accepted_tokens > 0
+    assert outs["spec"] == outs["plain"] == outs["gather"]
+
+
 @pytest.mark.parametrize("shape", [(4, 9, 3, 64, 512), (3, 4, 2, 32, 100),
                                    (2, 16, 2, 128, 300)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

@@ -110,20 +110,30 @@ def test_decode_launch_count_and_stats(setup):
         device="cpu").kv_bytes_moved_per_step()
 
 
-@pytest.mark.parametrize("knob", [dict(speculate="ngram"),
-                                  dict(draft_k=2),
-                                  dict(chaos="ring@3"),
+@pytest.mark.parametrize("knob", [dict(chaos="ring@3"),
                                   dict(max_migrations=1),
                                   dict(heartbeat_timeout_s=5.0),
                                   dict(ft_straggler_drain=True),
                                   dict(affinity="prefix"),
                                   dict(budget_ms=50.0),
-                                  dict(max_pending=8),
-                                  dict(kv_dtype="int8"),
-                                  dict(kv_dtype="fp8")])
+                                  dict(max_pending=8)])
 def test_later_slices_raise(setup, knob):
     model, params, _ = setup
     with pytest.raises(NotImplementedError):
+        LPUEngine(model, params, EngineConfig(slots=2, max_seq=64, **knob),
+                  device="cpu")
+
+
+@pytest.mark.parametrize("knob,match", [
+    (dict(kv_dtype="int8", paged=False), "paged"),
+    (dict(speculate="ngram", paged=False), "paged"),
+    (dict(speculate="ngram", draft_k=0), "draft_k"),
+    (dict(speculate="banana"), "speculate")])
+def test_quantized_and_speculative_refusals(setup, knob, match):
+    """The reference's checks of the two subsystems: int8/fp8 storage and
+    speculation need the paged pool, draft_k >= 1, a known drafter."""
+    model, params, _ = setup
+    with pytest.raises(ValueError, match=match):
         LPUEngine(model, params, EngineConfig(slots=2, max_seq=64, **knob),
                   device="cpu")
 

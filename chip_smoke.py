@@ -95,14 +95,36 @@ result line when any phase fails or when no CUDA device is present):
    prefill, a torch.profiler pass, and a teacher-forced replay of the
    streams in the engine's batching with the kernel and with its plain
    version (logits within 1e-4, greedy tokens equal to the plain
-   oracle's argmax wherever its top-2 gap exceeds 1e-4).
+   oracle's argmax wherever its top-2 gap exceeds 1e-4);
+8. opt (h), the paper's own models, run between the chain and rwkv
+   phases — full-width opt-1.3b (24 layers, d 2048, 32 heads over 32 kv
+   heads of 64; random weights from seed 0, every bias and the learned
+   positions refilled non-zero from a seeded generator): (h1) in f32
+   through ``LPUEngine`` with the smollm engine phase's traffic, kernel
+   1 against the gather oracle, a pool that preempts, and chunks of 64
+   with the prefix cache on 4 prompts sharing a 256-token system prompt
+   against the monolithic run (streams equal or apart only at a top-2
+   gap <= 1e-4, kernel 1's launches exact, the pool balanced); (h2) the
+   C1 chain over its 24 layers at 4 rows, stream and dense variants
+   (kernels 1-3, the gemvs with their bias) against their plain
+   versions and the model's decode, exact launches and a profile; (h3)
+   kernel 1 at the protocol's shape (B 1, H = G = 32, length 1040, bf16
+   pool, dh 64 and 128) and kernel 3 at opt-1.3b's four gemvs with bias
+   (1 and 4 rows, f32 and bf16), each checked and timed beside its plain
+   version, its library call and its bound; (h4) the paper's protocol
+   at batch 1 in bf16 (1 slot, max_seq 2048, 8-step windows, a 32-token
+   prompt; opt-1.3b out 512 and full-width opt-6.7b out 256, each freed
+   before the next loads): wall and device ms per token (torch.profiler
+   over 64 decode steps at the middle of the output), the busy share,
+   bytes per token and bandwidth use, beside the paper's figures,
+   labelled as the paper's.
 
 A ``[time]`` line closes each phase and one gives the total.  The last
 lines are a ``{"kernels": [...], "floor_ms": ...}`` line, an
 ``{"engine": ...}`` line, a ``{"chain": ...}`` line, an ``{"rwkv": ...}``
-line, a ``{"jamba": ...}`` line, the nvidia-smi line and
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX: the port
-stands alone.
+line, a ``{"jamba": ...}`` line, an ``{"opt": ...}`` line, the
+nvidia-smi line and ``{"ok": true, "device": {...}}``.  Imports nothing
+of JAX: the port stands alone.
 """
 from __future__ import annotations
 
@@ -1544,7 +1566,8 @@ def run_chain(torch, ctx, cache0, tables, use_kernels, paged_kernel,
     from a copy of ``cache0``; -> (logits (steps, B, V_pad), wall s)."""
     from repro_torch.core import streamline as sl
     from repro_torch.models.common import apply_norm
-    from repro_torch.models.transformer import lm_logits
+    from repro_torch.models.transformer import (add_positional,
+                                                embed_tokens, lm_logits)
     cfg, plan, params = ctx["cfg"], ctx["plan"], ctx["params"]
     cache = {k: v.clone() for k, v in cache0.items()}
     layers = [{k: v[i] for k, v in cache.items()}
@@ -1554,7 +1577,11 @@ def run_chain(torch, ctx, cache0, tables, use_kernels, paged_kernel,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for step in range(CHAIN_STEPS):
-        x = params["embed"][ctx["tokens"][step]]
+        # the token's embedding and, for learned positions (OPT), its
+        # position's row, as the model's forward adds them
+        x = add_positional(params, embed_tokens(
+            params, ctx["tokens"][step][:, None], cfg, plan),
+            pos[:, None], cfg)[:, 0]
         for i, lp in enumerate(ctx["layers"]):
             x, _ = sl.decode_layer(lp, x, layers[i], pos, cfg=cfg, plan=plan,
                                    use_kernels=use_kernels,
@@ -1568,26 +1595,20 @@ def run_chain(torch, ctx, cache0, tables, use_kernels, paged_kernel,
     return torch.stack(out), time.perf_counter() - t0
 
 
-def chain_context(torch, dev):
-    """Full-width smollm-135m (f32, random weights from seed 0), the
-    engine phase's first 4 prompts prefilled by the model into a paged
-    pool (block 128, max_seq 512) and a dense cache, and the model's own
-    greedy decode: its tokens drive every variant (teacher forcing), its
-    logits are the reference."""
+def chain_context(torch, dev, model=None, params=None):
+    """Full-width smollm-135m (f32, random weights from seed 0; or the
+    given ``model`` and ``params``), the engine phase's first 4 prompts
+    prefilled by the model into a paged pool (block 128, max_seq 512)
+    and a dense cache, and the model's own greedy decode: its tokens
+    drive every variant (teacher forcing), its logits are the
+    reference."""
     import numpy as np
-    from repro_torch.compiler.mapper import plan_model
-    from repro_torch.configs import get_config
-    from repro_torch.models.common import init_params
-    from repro_torch.models.registry import build_model
     from repro_torch.models.transformer import layer_params
     from repro_torch.serving.kv_cache import (scatter_prefill_dense,
                                               scatter_prefill_pages)
-    cfg = get_config("smollm-135m")
-    plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
-                      remat="none", compute_dtype="float32",
-                      param_dtype="float32")
-    model = build_model(cfg, plan, dev)
-    params = init_params(cfg, plan, seed=0, device=dev)
+    if model is None:
+        model, params, _ = smollm(torch, dev)
+    cfg, plan = model.cfg, model.plan
     rng = np.random.RandomState(0)
     prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size,
                                             size=rng.randint(2, 65))]
@@ -1649,21 +1670,24 @@ def top2_gap(logits):
     return top[..., 0] - top[..., 1]
 
 
-def run_chain_phase(torch, dev):
-    """The six variants, kernels and plain; launch counts, tolerances and
-    argmax checks; times per step.  Returns the ``chain`` record."""
-    ctx = chain_context(torch, dev)
+def run_chain_phase(torch, dev, ctx=None, names=None):
+    """The six variants (or those ``names``), kernels and plain; launch
+    counts, tolerances and argmax checks; times per step.  Returns the
+    ``chain`` record."""
+    ctx = ctx or chain_context(torch, dev)
     n_steps, L = CHAIN_STEPS, ctx["cfg"].n_layers
     B_ = len(ctx["prompt_lens"])
     caches = dict(ctx["caches"])
-    caches["int8"] = quantized_cache(torch, caches["pool"], torch.int8)
-    caches["fp8"] = quantized_cache(torch, caches["pool"],
-                                    torch.float8_e4m3fn)
+    run = [v for v in CHAIN_VARIANTS if names is None or v[0] in names]
+    if any(kind in ("int8", "fp8") for _, kind, _, _ in run):
+        caches["int8"] = quantized_cache(torch, caches["pool"], torch.int8)
+        caches["fp8"] = quantized_cache(torch, caches["pool"],
+                                        torch.float8_e4m3fn)
     ref, ref_gap = ctx["ref"], top2_gap(ctx["ref"])
     ref_arg = ref.argmax(-1)
     variants, logits_of, walls = {}, {}, {}
     total = dict.fromkeys(_read_counts(), 0)
-    for name, kind, mode, w_dtype in CHAIN_VARIANTS:
+    for name, kind, mode, w_dtype in run:
         tables = None if kind == "dense" else ctx["tables"]
         cache0 = caches[kind]
         _reset_counts()
@@ -1721,7 +1745,8 @@ def run_chain_phase(torch, dev):
                  "d_model": ctx["cfg"].d_model, "dtype": "float32",
                  "batch": B_, "prompt_lens": ctx["prompt_lens"],
                  "steps": n_steps, "block_size": 128, "max_seq": 512,
-                 "ref_logit_std": ref.std().item(),
+                 "ref_logit_std":
+                     ref[..., :ctx["cfg"].vocab_size].std().item(),
                  "ref_top2_gap_min": ref_gap.min().item(),
                  "variants": variants}, total, walls
 
@@ -1863,6 +1888,460 @@ def chain_costs(torch, ctx, walls):
                                            walls["dense"]),
             "per_step_weight_concat_wall_ms": wall_ms(concat),
             "per_step_weight_quantize_wall_ms": wall_ms(quantize)}
+
+
+# ---------------------------------------------------------------------------
+# (h) the paper's own models: opt-1.3b at full width through the engine
+# and the chain, kernels 1 and 3 at OPT's shapes, and the paper's
+# protocol at batch 1 on opt-1.3b and opt-6.7b
+# ---------------------------------------------------------------------------
+
+# the paper's measurement protocol and published figures, copied from
+# benchmarks/paper_constants.py (IN_TOKENS, OUT_TOKENS; PAPER_LATENCY,
+# PAPER_SPEEDUP_VS_GPU, PAPER_BW_UTIL, PAPER_GPU_BW_UTIL at batch 1): the
+# port imports nothing of the reference's benchmarks.  They are the
+# paper's numbers, printed beside the port's, never as the port's.
+PAPER_IN_TOKENS, PAPER_OUT_TOKENS = 32, 2016
+PAPER = {"opt-1.3b": {"lpu_ms_per_token": 1.25, "gpu_slower_x": 2.09,
+                      "lpu_bandwidth_use": 0.633,
+                      "gpu_bandwidth_use": 0.289},
+         "opt-6.7b": {"lpu_ms_per_token": 4.62}}
+# the outputs are cut from the protocol's 2016 tokens to keep the run
+# inside its limit (the engine's steps are paced by the host; PERF.md
+# §4): 512 for opt-1.3b (mean length 288), 256 for opt-6.7b (mean
+# length 160)
+OPT_OUT = {"opt-1.3b": 512, "opt-6.7b": 256}
+OPT_MAX_SEQ = 2048
+OPT_WINDOW = 8                 # steps_per_sync of the protocol's engine
+OPT_PROFILE_STEPS = 64         # decode steps under torch.profiler
+OPT_BIAS_STD = 0.02
+OPT_BIAS_LEAVES = ("bq", "bk", "bv", "bi", "bd", "bias")
+# kernel 1 at the protocol's shape: batch 1, OPT's 32 heads over 32 kv
+# heads, blocks of 128 under max_seq 2048 (T 16), the mean length of
+# in 32 + out 2016, bf16; dh 64 (opt-1.3b) and 128 (opt-6.7b)
+OPT_K1_HEADS, OPT_K1_T, OPT_K1_LEN = 32, 16, 1040
+OPT_K1_DH = (64, 128)
+# opt-1.3b's four gemvs of a layer (the qkv, fc1 and fc2 with their
+# bias; OPT's out projection has none in the reference's init)
+OPT_GEMV_SHAPES = (("qkv", 2048, 6144, True), ("o", 2048, 2048, False),
+                   ("fc1", 2048, 8192, True), ("fc2", 8192, 2048, True))
+
+
+def opt_model(torch, dev, name, dtype="float32"):
+    """Full-width ``name`` with random weights drawn on the card by
+    ``init_params`` (seed 0), then every bias leaf refilled from an
+    explicit generator with N(0, 0.02^2) and ``pos_embed`` with its init
+    law N(0, 1/max_seq): the init's zero biases would leave every bias
+    add, kernel 3's included, adding nothing."""
+    from repro_torch.compiler.mapper import plan_model
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import init_params
+    from repro_torch.models.registry import build_model
+    cfg = get_config(name)
+    plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
+                      remat="none", compute_dtype=dtype, param_dtype=dtype)
+    model = build_model(cfg, plan, dev)
+    params = init_params(cfg, plan, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(20)
+
+    def refill(tree):
+        for leaf, t in tree.items():
+            if isinstance(t, dict):
+                refill(t)
+            elif leaf in OPT_BIAS_LEAVES or leaf == "pos_embed":
+                std = OPT_BIAS_STD if leaf != "pos_embed" \
+                    else 1.0 / math.sqrt(cfg.max_seq)
+                t.copy_(torch.randn(t.shape, generator=g, device=dev) * std)
+    refill(params)
+    return model, params
+
+
+def opt_prompts(cfg):
+    """The engine phase's traffic over OPT's vocabulary: 8 seeded prompts
+    of 2-64 tokens, and 4 prompts sharing a 256-token system prompt."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size,
+                                            size=rng.randint(2, 65))]
+               for _ in range(8)]
+    rng = np.random.RandomState(20)
+    sysp = [int(t) for t in rng.randint(1, cfg.vocab_size, size=SYS_PROMPT)]
+    shared = [sysp + [int(t) for t in rng.randint(1, cfg.vocab_size,
+                                                  size=n)]
+              for n in (5, 17, 29, 40)]
+    return prompts, sysp, shared
+
+
+def path_counts(want_nonzero, what, counts=None):
+    """The kernels' launch counts since the last _reset_counts (or
+    ``counts``); raises unless each kernel the path runs launched and no
+    other did."""
+    counts = counts or _read_counts()
+    for k, v in counts.items():
+        if (v > 0) != (k in want_nonzero):
+            raise AssertionError(f"{what}: launches {counts}, expected "
+                                 f"exactly {sorted(want_nonzero)} > 0")
+    return counts
+
+
+def run_opt_engine(torch, dev, model, params):
+    """(h1): full-width opt-1.3b in f32 through the engine, as the smollm
+    engine phase serves smollm-135m: kernel 1 against the gather oracle,
+    a run that preempts against the uncontended one, and one run in
+    chunks of 64 with the prefix cache on (the shared system prompt
+    served alone first, so it is indexed) against the monolithic run;
+    streams equal or apart only at a top-2 gap <= 1e-4, kernel 1's
+    launches exact, the pool balanced after every run."""
+    cfg = model.cfg
+    prompts, sysp, shared = opt_prompts(cfg)
+    _reset_counts()
+    _, _, warm = serve(torch, dev, model, params, prompts[:2],
+                       paged_kernel="stream")
+    stream, eng, launches = serve(torch, dev, model, params, prompts,
+                                  paged_kernel="stream")
+    if launches != launches_want(eng) or not launches:
+        raise AssertionError(f"(h1) kernel launches {launches} != "
+                             f"{launches_want(eng)}")
+    for o in stream:
+        if len(o) != 32 or not all(0 <= t < cfg.vocab_size for t in o):
+            raise AssertionError(f"(h1) bad stream {o}")
+    pool_checks(eng, "(h1) stream")
+    gather, geng, gl = serve(torch, dev, model, params, prompts,
+                             paged_kernel="gather")
+    if gl != 0:
+        raise AssertionError("(h1) the gather oracle launched the kernel")
+    pool_checks(geng, "(h1) gather")
+    pre, peng, pl = serve(torch, dev, model, params, prompts,
+                          paged_kernel="stream", block_size=32,
+                          num_blocks=7, steps_per_sync=4)
+    if peng.stats.preemptions == 0:
+        raise AssertionError("(h1) the small pool did not preempt")
+    if pl != launches_want(peng):
+        raise AssertionError(f"(h1) preempted launches {pl}")
+    pool_checks(peng, "(h1) preempted")
+    mono, meng, ml = serve(torch, dev, model, params, shared,
+                           paged_kernel="stream")
+    pool_checks(meng, "(h1) monolithic")
+    chunked, ceng, cl = serve(torch, dev, model, params, shared,
+                              paged_kernel="stream", warm=sysp,
+                              prefill_chunk=PREFILL_CHUNK, prefix_cache=True)
+    cs = ceng.stats
+    if cs.prefix_hits < 4 or not cs.prefill_chunks or cs.decode_stalls:
+        raise AssertionError(f"(h1) chunked + prefix: {cs}")
+    if cl != launches_want(ceng):
+        raise AssertionError(f"(h1) chunked launches {cl} != "
+                             f"{launches_want(ceng)}")
+    pool_checks(ceng, "(h1) chunked + prefix")
+    # serve() zeroes kernel 1's count per run: the path's is their sum
+    counts = _read_counts()
+    counts["paged_decode_attention"] = warm + launches + gl + pl + ml + cl
+    counts = path_counts({"paged_decode_attention"}, "(h1)", counts)
+    return {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.d_head],
+        "dtype": "float32", "slots": 4, "max_seq": 512, "block_size": 128,
+        "requests": len(prompts), "max_new": 32,
+        "distinct_tokens_per_stream": [len(set(o)) for o in stream],
+        "stream": run_rec(eng, launches),
+        "gather": run_rec(geng, gl, vs_stream=agree(
+            torch, model, params, prompts, gather, stream, "(h1) gather")),
+        "preempt": run_rec(peng, pl, block_size=32, num_blocks=7,
+                           steps_per_sync=4, vs_uncontended=agree(
+                               torch, model, params, prompts, pre, stream,
+                               "(h1) preempted")),
+        "monolithic_shared": run_rec(meng, ml),
+        "chunked_prefix": run_rec(ceng, cl, chunk=PREFILL_CHUNK,
+                                  decode_stalls=cs.decode_stalls,
+                                  vs_monolithic=agree(
+                                      torch, model, params, shared, chunked,
+                                      mono, "(h1) chunked + prefix")),
+        "launches": counts}
+
+
+def run_opt_chain(torch, dev, model, params):
+    """(h2): the C1 chain over opt-1.3b's 24 layers at 4 rows, its
+    stream (kernels 1 and 3) and dense (kernels 2 and 3) variants
+    against their plain versions and the model's own decode, exact
+    launches, and a torch.profiler pass of the stream variant."""
+    ctx = chain_context(torch, dev, model, params)
+    # run_chain_phase sums each variant's kernel runs
+    _, chain, total, walls = run_chain_phase(torch, dev, ctx,
+                                             names=("stream", "dense"))
+    chain["launches"] = path_counts({"gemv", "paged_decode_attention",
+                                     "decode_attention"}, "(h2)", total)
+    chain["profile_stream"] = profile_chain(torch, ctx, ctx["tables"],
+                                            "stream", walls["stream"])
+    return chain
+
+
+def check_time_paged_opt(torch, dev, card_name):
+    """(h3): kernel 1 at the protocol's shape (B 1, H = G = 32, bs 128,
+    T 16, length 1040 over a table out of order, bf16 pool, the fold as
+    decode calls it) for dh 64 and 128: against its plain version, then
+    timed beside the plain version and the library call (gather + SDPA),
+    with its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import (
+        SPLIT, dense_plan, paged_decode_attention)
+    from repro_torch.kernels.decode_attention.ref import (
+        gather_kv_pages, paged_decode_attention_ref)
+    Hq, T_, n = OPT_K1_HEADS, OPT_K1_T, OPT_K1_LEN
+    out = {}
+    for dh in OPT_K1_DH:
+        g = torch.Generator(device=dev).manual_seed(dh)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(
+                torch.bfloat16)
+        q, kn, vn = rnd(1, Hq, dh), rnd(1, Hq, dh), rnd(1, Hq, dh)
+        kp, vp = rnd(T_ + 1, BS, Hq, dh), rnd(T_ + 1, BS, Hq, dh)
+        used = -(-n // BS)
+        tb = torch.zeros((1, T_), dtype=torch.int32)
+        tb[0, :used] = torch.randperm(
+            T_, generator=torch.Generator().manual_seed(dh))[:used] + 1
+        tb = tb.to(dev)
+        ln = torch.tensor([n], dtype=torch.int32, device=dev)
+        got = paged_decode_attention(q, kp, vp, tb, ln, k_new=kn, v_new=vn)
+        want = paged_decode_attention_ref(q, kp, vp, tb, ln, k_new=kn,
+                                          v_new=vn)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = TOL["bfloat16"]
+        if not torch.isfinite(got).all() or err > tol:
+            raise AssertionError(f"(h3) kernel 1 at dh {dh}: vs plain max "
+                                 f"abs {err} > {tol}")
+        n_sets = sets_for(2 * kp.numel() * kp.element_size())
+        pools = [(kp.clone(), vp.clone()) for _ in range(n_sets)]
+        valid = torch.arange(T_ * BS, device=dev)[None] < ln[:, None]
+        mask = torch.cat([valid, torch.ones((1, 1), dtype=torch.bool,
+                                            device=dev)], 1)[:, None, None]
+
+        def library(i):
+            k = torch.cat([gather_kv_pages(pools[i][0], tb), kn[:, None]], 1)
+            v = torch.cat([gather_kv_pages(pools[i][1], tb), vn[:, None]], 1)
+            F.scaled_dot_product_attention(q[:, :, None], k.transpose(1, 2),
+                                           v.transpose(1, 2), attn_mask=mask)
+        t = timed(torch, {
+            "ms": lambda i: paged_decode_attention(
+                q, pools[i][0], pools[i][1], tb, ln, k_new=kn, v_new=vn),
+            "plain_ms": lambda i: paged_decode_attention_ref(
+                q, pools[i][0], pools[i][1], tb, ln, k_new=kn, v_new=vn),
+            "library_ms": library}, n_sets)
+        # least work: q, the valid K/V rows, the new token, the table and
+        # length read once, the output written once; 4 dh flops per head
+        # per attended position
+        nbytes = 2 * (Hq * dh + 2 * n * Hq * dh + 2 * Hq * dh + Hq * dh) \
+            + 4 * (T_ + 1)
+        t["bound_ms"], t["bound_by"] = bound_for(
+            nbytes, 4 * dh * Hq * (n + 1), "bfloat16", card_name)
+        L, stages = dense_plan(T_ * BS, dh, 2)
+        t.update(max_abs_err=err, tol=tol, shapes={
+            "B": 1, "H": Hq, "G": Hq, "dh": dh, "bs": BS, "T": T_,
+            "length": n, "dtype": "bfloat16", "fold": True},
+            plan={"grid": [SPLIT, Hq, 1], "blocks": SPLIT * Hq,
+                  "tile_rows": L, "stages": stages})
+        out[f"dh{dh}"] = t
+        del pools
+    return out
+
+
+def check_time_gemv_opt(torch, dev, card_name):
+    """(h3): kernel 3 at opt-1.3b's four gemvs with their bias, at 1 and
+    4 rows, f32 and bf16: against its plain version, then timed beside it
+    and ``torch.addmm`` (``torch.matmul`` where there is no bias)."""
+    from repro_torch.kernels.gemv.ops import gemv, gemv_plan
+    from repro_torch.kernels.gemv.ref import gemv_ref
+    g = torch.Generator(device=dev).manual_seed(21)
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        for rows in (1, 4):
+            for shape_name, K, N_, bias in OPT_GEMV_SHAPES:
+                x = torch.randn((rows, K), generator=g, device=dev).to(dt)
+                w = (torch.randn((K, N_), generator=g, device=dev)
+                     / math.sqrt(K)).to(dt)
+                b = (torch.randn((N_,), generator=g, device=dev)
+                     * OPT_BIAS_STD).to(dt) if bias else None
+                got = gemv(x, w, b)
+                want = gemv_ref(x, w, b)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                tol = TOL[dname]
+                if not torch.isfinite(got).all() or err > tol:
+                    raise AssertionError(f"(h3) gemv {shape_name} {dname} "
+                                         f"B={rows}: max abs {err} > {tol}")
+                n_sets = sets_for(w.numel() * w.element_size())
+                ws = [w.clone() for _ in range(n_sets)]
+                lib = (lambda i: torch.addmm(b, x, ws[i])) if bias else \
+                    (lambda i: torch.matmul(x, ws[i]))
+                t = timed(torch, {"ms": lambda i: gemv(x, ws[i], b),
+                                  "plain_ms": lambda i: gemv_ref(x, ws[i], b),
+                                  "library_ms": lib}, n_sets)
+                item = x.element_size()
+                nbytes = item * (rows * K + K * N_ + rows * N_
+                                 + (N_ if bias else 0))
+                t["bound_ms"], t["bound_by"] = bound_for(
+                    nbytes, 2 * rows * K * N_, dname, card_name)
+                ksplit, n_tiles = gemv_plan(K, N_)
+                t.update(shape=shape_name, K=K, N=N_, B=rows, dtype=dname,
+                         bias=bias, max_abs_err=err, tol=tol, ksplit=ksplit,
+                         blocks=ksplit * n_tiles)
+                out.append(t)
+                del ws
+    return out
+
+
+def weight_bytes(params):
+    """Bytes of the weights a decode step reads: every leaf but the
+    learned position table, of which it reads one row (the tied
+    embedding is read whole, as the head)."""
+    pe = params["pos_embed"]
+    return sum(t.numel() * t.element_size() for t in _leaves(params)) \
+        - pe.numel() * pe.element_size()
+
+
+def paper_protocol(torch, dev, name, card_name):
+    """(h4): the paper's protocol at batch 1 on ``name`` in bf16 (a plan
+    the reference builds too) with a bf16 pool (the ``kv_dtype`` knob:
+    the plan's cache dtype is float32, in the reference too): engine
+    with 1 slot, max_seq 2048, 8-step windows, one prompt of 32 tokens
+    and OPT_OUT[name] new tokens, greedy.  In the middle of the output
+    (KV at the mean length) 64 decode steps run under torch.profiler:
+    device ms per token from them; wall ms per output token from the
+    engine's own clock over the rest of the run.  Bytes per token are
+    the weights plus the KV at the mean length; bandwidth use against
+    the data sheet's.  Measures, does not gate (beyond a finite,
+    exact-launch run)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine
+    model, params = opt_model(torch, dev, name, "bfloat16")
+    cfg, plan = model.cfg, model.plan
+    out_n = OPT_OUT[name]
+    rng = np.random.RandomState(32)
+    prompt = [int(t) for t in rng.randint(1, cfg.vocab_size,
+                                          size=PAPER_IN_TOKENS)]
+
+    def engine():
+        return LPUEngine(model, params, EngineConfig(
+            slots=1, max_seq=OPT_MAX_SEQ, steps_per_sync=OPT_WINDOW,
+            kv_dtype="bfloat16"), device=dev)
+    engine().generate([prompt], max_new_tokens=2 * OPT_WINDOW)   # warm
+    torch.cuda.synchronize()
+    _reset_counts()
+    eng = engine()
+    st = eng.stats
+    rid = eng.submit(prompt, out_n)
+    mid = PAPER_IN_TOKENS + out_n // 2 - OPT_PROFILE_STEPS // 2
+    seq = None
+    while seq is None or seq.pos < mid:
+        eng.step()
+        seq = eng.sched.active[0]
+    pos0, steps0, wall0 = seq.pos, st.device_decode_steps, st.wall
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while st.device_decode_steps - steps0 < OPT_PROFILE_STEPS and \
+                eng.sched.has_work():
+            eng.step()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    steps = st.device_decode_steps - steps0
+    window_wall = st.wall - wall0
+    out = eng.drain()[rid]
+    torch.cuda.synchronize()
+    counts = path_counts({"paged_decode_attention"}, f"(h4) {name}")
+    if counts["paged_decode_attention"] != launches_want(eng):
+        raise AssertionError(f"(h4) {name}: launches {counts}")
+    pool_checks(eng, f"(h4) {name}")
+    if not all(0 <= t < cfg.vocab_size for t in out):
+        raise AssertionError(f"(h4) {name}: bad stream")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not busy_us or not steps:
+        raise AssertionError(f"(h4) {name}: the profiler saw {busy_us} us "
+                             f"over {steps} decode steps")
+    device_ms = busy_us / 1e3 / steps
+    # the profiled steps' own wall is left out of the wall per token
+    wall_ms = (st.wall - window_wall) * 1e3 / (len(out) - steps)
+    mean_len = PAPER_IN_TOKENS + len(out) / 2
+    a = plan.attn
+    kv_item = torch.empty((), dtype=eng.cache["l0"]["k"].dtype).element_size()
+    w_bytes = weight_bytes(params)
+    kv_bytes = 2 * cfg.n_layers * a.gp * a.d_head * kv_item * mean_len
+    bw = bandwidth_for(card_name)
+    per_tok = w_bytes + kv_bytes
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    rec = {"arch": name, "dtype": "bfloat16", "batch": 1,
+           "in_tokens": PAPER_IN_TOKENS, "out_tokens_asked": out_n,
+           "paper_out_tokens": PAPER_OUT_TOKENS,
+           "out_tokens": len(out), "max_seq": OPT_MAX_SEQ,
+           "steps_per_sync": OPT_WINDOW, "pool_dtype": str(
+               eng.cache["l0"]["k"].dtype).split(".")[-1],
+           "wall_ms_per_token": wall_ms,
+           "device_ms_per_token": device_ms,
+           "device_busy_share": device_ms / wall_ms,
+           "profiled_window": {"decode_steps": steps,
+                               "positions": [pos0, pos0 + steps],
+                               "profiled_wall_ms_per_token":
+                                   window_s * 1e3 / steps},
+           "total_wall_s": st.wall,
+           "weight_bytes_per_token": w_bytes,
+           "kv_bytes_per_token_at_mean_length": kv_bytes,
+           "mean_length": mean_len, "bytes_per_token": per_tok,
+           "bound_ms_per_token": per_tok / bw * 1e3,
+           "bandwidth_Bps": bw,
+           "bandwidth_use_device": per_tok / (device_ms / 1e3) / bw,
+           "bandwidth_use_wall": per_tok / (wall_ms / 1e3) / bw,
+           "distinct_tokens": len(set(out)),
+           "launches": counts,
+           "top_kernels": [{"name": e.key[:80], "count": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in top],
+           "card": card_name}
+    paper = PAPER.get(name, {})
+    if "gpu_slower_x" in paper:
+        paper = dict(paper, gpu_ms_per_token=paper["lpu_ms_per_token"]
+                     * paper["gpu_slower_x"])
+    rec["paper"] = dict(paper, source="benchmarks/paper_constants.py "
+                                      "(the paper's figures, not the "
+                                      "port's)")
+    del model, params
+    return rec
+
+
+def run_opt(torch, dev, card_name, t_start):
+    """Phase (h), h1 to h4, each closed by a [time] line."""
+    def lap(what, t0):
+        print(f"[time] ({what}) {time.perf_counter() - t0:.1f} s, done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    rec = {}
+    t0 = time.perf_counter()
+    model, params = opt_model(torch, dev, "opt-1.3b")
+    rec["h1_engine"] = run_opt_engine(torch, dev, model, params)
+    lap("h1 opt-1.3b engine", t0)
+    t0 = time.perf_counter()
+    rec["h2_chain"] = run_opt_chain(torch, dev, model, params)
+    lap("h2 opt-1.3b chain", t0)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["h3_kernel1"] = check_time_paged_opt(torch, dev, card_name)
+    rec["h3_gemv"] = check_time_gemv_opt(torch, dev, card_name)
+    lap("h3 kernels at OPT shapes", t0)
+    t0 = time.perf_counter()
+    rec["h4_protocol"] = {}
+    for name in OPT_OUT:
+        rec["h4_protocol"][name] = paper_protocol(torch, dev, name,
+                                                  card_name)
+        gc.collect()
+        torch.cuda.empty_cache()
+    lap("h4 the paper's protocol", t0)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2668,8 +3147,63 @@ def main() -> int:
               f"{rec['tokens_per_s']:.1f} tok/s, kernels vs plain "
               f"{rec['max_abs_err_vs_plain']:.3g}")
 
-    # the rwkv phase needs ~31 GB: free what the earlier phases hold
+    # phase (h) holds at most ~16 GB (opt-6.7b in bf16): free what the
+    # earlier phases hold first
     del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("chain")
+    opt = run_opt(torch, dev, smi, t_start)
+    h1 = opt["h1_engine"]
+    print(f"[opt] (h1) {h1['arch']} f32 at full width: stream "
+          f"{h1['stream']['tokens_per_s']:.1f} tok/s, kernel 1 launches "
+          f"{h1['launches']['paged_decode_attention']}; streams equal: "
+          f"gather {h1['gather']['vs_stream']['equal']}/8, preempted "
+          f"{h1['preempt']['vs_uncontended']['equal']}/8 "
+          f"({h1['preempt']['preemptions']} preemptions), chunked + prefix "
+          f"{h1['chunked_prefix']['vs_monolithic']['equal']}/4 "
+          f"({h1['chunked_prefix']['prefix_hits']} hits, "
+          f"{h1['chunked_prefix']['prefill_chunks']} chunks); distinct "
+          f"tokens per stream {h1['distinct_tokens_per_stream']}")
+    for name, rec in opt["h2_chain"]["variants"].items():
+        print(f"[opt] (h2) chain {name}: {rec['ms_per_step']:.2f} ms/step "
+              f"wall, kernels vs plain {rec['max_abs_err_vs_plain']:.3g}, "
+              f"vs the model {rec['max_abs_err_vs_model']:.3g}")
+    prof_h2 = opt["h2_chain"]["profile_stream"]
+    if prof_h2:
+        print(f"[opt] (h2) chain stream: {prof_h2['device_ms_per_step']:.3f}"
+              f" device ms/step, busy {prof_h2['device_busy_share']:.3f}")
+    for key, t in opt["h3_kernel1"].items():
+        print(f"[opt] (h3) kernel 1 {key}: {t['ms']:.5f} ms, plain "
+              f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
+              f"{t['bound_ms']:.6f} ({t['bound_by']}), max abs "
+              f"{t['max_abs_err']:.3g}")
+    for t in opt["h3_gemv"]:
+        print(f"[opt] (h3) gemv {t['shape']} {t['dtype']} B={t['B']} "
+              f"bias={t['bias']}: {t['ms']:.5f} ms, plain "
+              f"{t['plain_ms']:.5f}, library {t['library_ms']:.5f}, bound "
+              f"{t['bound_ms']:.5f}")
+    for name, r in opt["h4_protocol"].items():
+        paper = ", ".join(f"{k} {v:.4g}" for k, v in r["paper"].items()
+                          if k != "source")
+        print(f"[opt] (h4) {name} bf16 batch 1, in {r['in_tokens']} out "
+              f"{r['out_tokens']} (asked {r['out_tokens_asked']}): wall "
+              f"{r['wall_ms_per_token']:.3f} ms/token, device "
+              f"{r['device_ms_per_token']:.3f} ms/token (torch.profiler, "
+              f"{r['profiled_window']['decode_steps']} decode steps at "
+              f"positions {r['profiled_window']['positions']}), busy "
+              f"{r['device_busy_share']:.3f}, "
+              f"{r['bytes_per_token'] / 1e9:.3f} GB/token (weights "
+              f"{r['weight_bytes_per_token'] / 1e9:.3f} + KV at mean "
+              f"length {r['mean_length']:.0f}), bandwidth use "
+              f"{r['bandwidth_use_device']:.3f} by device time, "
+              f"{r['bandwidth_use_wall']:.3f} by wall, of "
+              f"{r['bandwidth_Bps'] / 1e12:.2f} TB/s (bound "
+              f"{r['bound_ms_per_token']:.3f} ms/token) | {smi} | the "
+              f"paper's figures ({r['paper']['source']}): {paper}")
+
+    # the rwkv phase needs ~31 GB: free what the earlier phases hold
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rwkv_errs, rwkv_exact, rwkv_t = check_time_rwkv_scan(torch, dev, smi)
@@ -2677,7 +3211,7 @@ def main() -> int:
           f"{rwkv_exact}")
     for name, t in rwkv_t.items():
         print(f"[kernel] rwkv_scan {name} timing: {t}")
-    lap("chain, kernel 4")
+    lap("opt, kernel 4")
     rwkv = run_rwkv(torch, dev)
     print(f"[rwkv] {rwkv['tokens']} tokens, {rwkv['tokens_per_s']:.1f} "
           f"tok/s, {rwkv['device_decode_steps']} device decode steps, "
@@ -2720,6 +3254,13 @@ def main() -> int:
 
     f32_calls = [c for c in gemv_calls if c["w_dtype"] == "float32"]
     L_ = engine["n_layers"]
+    opt_k1 = {"opt_engine": opt["h1_engine"]["launches"][
+                  "paged_decode_attention"],
+              "opt_chain": opt["h2_chain"]["launches"][
+                  "paged_decode_attention"],
+              "opt_paper_protocol": sum(
+                  r["launches"]["paged_decode_attention"]
+                  for r in opt["h4_protocol"].values())}
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": src("paged_decode_attention"),
@@ -2728,7 +3269,7 @@ def main() -> int:
         "ok": True,
         "launches": engine["kernel_launches"] + pp["kernel_launches"]
         + qpool["kernel_launches"] + spec["kernel_launches"]
-        + chain_launches["paged_decode_attention"],
+        + chain_launches["paged_decode_attention"] + sum(opt_k1.values()),
         "launches_by_path": {
             "engine_stream": engine["kernel_launches"],
             "engine_int8_fp8_pool": qpool["kernel_launches"],
@@ -2738,7 +3279,8 @@ def main() -> int:
             "engine_cow": pp["cow"]["kernel_launches"],
             "engine_chunked_preempt":
                 pp["chunked_preempt"]["kernel_launches"],
-            "chain_kernel_runs": chain_launches["paged_decode_attention"]},
+            "chain_kernel_runs": chain_launches["paged_decode_attention"],
+            **opt_k1},
         "max_abs_err": errs["q=float32,pool=float32"],
         "max_abs_err_by_dtype": errs,
         "max_abs_err_split_edges": split_errs,
@@ -2759,14 +3301,19 @@ def main() -> int:
         # as speculative verify calls it: every slot's K + 1 queries
         "verify": dict(verify_t["float32"], by_pool=verify_t,
                        launches=L_ * spec["verify_rounds"]),
+        # at the paper's protocol shape (B 1, H = G = 32, length 1040,
+        # bf16), as OPT's decode calls it
+        "opt_shapes": opt["h3_kernel1"],
     }, {
         "name": "decode_attention", "route": "cuda",
         "source": src("decode_attention"),
         "replaces": "src/repro/kernels/decode_attention/"
                     "decode_attention.py:218",
-        "ok": True, "launches": chain_launches["decode_attention"],
+        "ok": True, "launches": chain_launches["decode_attention"]
+        + opt["h2_chain"]["launches"]["decode_attention"],
         "launches_by_path": {
-            "chain_kernel_runs": chain_launches["decode_attention"]},
+            "chain_kernel_runs": chain_launches["decode_attention"],
+            "opt_chain": opt["h2_chain"]["launches"]["decode_attention"]},
         "max_abs_err": dense_errs["float32"],
         "max_abs_err_by_dtype": dense_errs,
         "ms": dense_t["ms"], "plain_ms": dense_t["plain_ms"],
@@ -2781,8 +3328,10 @@ def main() -> int:
     }, {
         "name": "gemv", "route": "cuda", "source": src("gemv"),
         "replaces": "src/repro/kernels/gemv/gemv.py:55",
-        "ok": True, "launches": chain_launches["gemv"],
-        "launches_by_path": {"chain_kernel_runs": chain_launches["gemv"]},
+        "ok": True, "launches": chain_launches["gemv"]
+        + opt["h2_chain"]["launches"]["gemv"],
+        "launches_by_path": {"chain_kernel_runs": chain_launches["gemv"],
+                             "opt_chain": opt["h2_chain"]["launches"]["gemv"]},
         "max_abs_err": max(v for k, v in gemv_errs.items()
                            if ",float32," in k),
         "max_abs_err_by_case": gemv_errs,
@@ -2795,6 +3344,8 @@ def main() -> int:
         "library_ms": sum(c["library_ms"] for c in f32_calls),
         "unit": "sum of the 4 gemvs of one layer, float32, B=4",
         "per_call": gemv_calls,
+        # opt-1.3b's four gemvs with their bias, 1 and 4 rows, f32, bf16
+        "opt_shapes": opt["h3_gemv"],
     }, {
         "name": "rwkv_scan", "route": "cuda", "source": src("rwkv_scan"),
         "replaces": "src/repro/kernels/rwkv_scan/rwkv_scan.py:50",
@@ -2862,6 +3413,7 @@ def main() -> int:
     print(json.dumps({"chain": chain}))
     print(json.dumps({"rwkv": rwkv}))
     print(json.dumps({"jamba": jamba}))
+    print(json.dumps({"opt": opt}))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s (limit "
           "1200 s)")
     print(smi)

@@ -12,22 +12,30 @@ and run the engine on a batch of random prompts.
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b \
+        --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b  # card
 
-Runs on the CUDA device unless ``--device cpu`` is given (and fails when
-there is none).  Prints the reference driver's stats lines plus the
-launch count of the family's kernel: the paged decode attention (dense
-decoders), the WKV recurrence (rwkv) or the selective scan (hybrid:
-every mamba layer, prefill and decode), 0 on the CPU, where the plain
-versions run.  ``--prefill-chunk C`` makes prompts resident C tokens per
-step, interleaved with decode windows, and ``--prefix-cache on`` maps a
-cached block-aligned prompt prefix into a new request's table (both on
-the paged pool only); every chunk and prefix tail runs the paged kernel
-too.  ``--kv-dtype int8|fp8`` stores the pool quantized (one f16 scale
-per row and kv head).  ``--speculate ngram|model`` with ``--draft-k K``
-drafts K tokens per slot (n-gram suffix match, or greedy decoding of a
-reduced smollm-135m with its own seed, over the target's vocabulary)
-and verifies every slot's drafts in one forward, the paged kernel's
-batch being the slots' K+1 queries.
+``--arch`` takes any name or alias of the port's registry: the dense
+decoders (smollm-135m, the paper's opt-1.3b/6.7b/30b/66b and gpt3-20b,
+qwen1.5-4b, deepseek-coder-33b, minicpm-2b), rwkv6-7b and jamba.  A
+config with learned positions (OPT, GPT3) refuses ``--max-seq`` past its
+position table.  Runs on the CUDA device unless ``--device cpu`` is
+given (and fails when there is none).  Prints the stats lines of the
+reference's ``launch/serve.py`` plus the launch count of the family's
+kernel: the paged decode attention (dense decoders), the WKV recurrence
+(rwkv) or the selective scan (hybrid: every mamba layer, prefill and
+decode), 0 on the CPU, where the plain versions run.  ``--prefill-chunk C``
+makes prompts resident C tokens per step, interleaved with decode
+windows, and ``--prefix-cache on`` maps a cached block-aligned prompt
+prefix into a new request's table (both on the paged pool only); every
+chunk and prefix tail runs the paged kernel too.  ``--kv-dtype
+int8|fp8`` stores the pool quantized (one f16 scale per row and kv
+head).  ``--speculate ngram|model`` with ``--draft-k K`` drafts K tokens
+per slot (n-gram suffix match, or greedy decoding of a reduced
+smollm-135m with its own seed, over the target's vocabulary) and
+verifies every slot's drafts in one forward, the paged kernel's batch
+being the slots' K+1 queries.
 """
 from __future__ import annotations
 

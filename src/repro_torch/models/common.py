@@ -133,18 +133,33 @@ def _init_attention(ini: _Init, cfg, plan) -> Params:
     s_in = 1.0 / math.sqrt(D)
     s_out = 1.0 / math.sqrt(max(a.n_heads * a.d_head, 1))
     g = max(a.n_kv_heads, 1)
-    return {
+    p = {
         "wq": ini.heads((D, a.n_heads, a.d_head), s_in, a.q_orig, 1),
         "wk": ini.heads((D, g, a.d_head), s_in, a.kv_orig, 1),
         "wv": ini.heads((D, g, a.d_head), s_in, a.kv_orig, 1),
         "wo": ini.heads((a.n_heads, a.d_head, D), s_out, a.q_orig, 0),
     }
+    if cfg.qkv_bias:
+        p["bq"] = ini.zeros((a.hp, a.d_head))
+        p["bk"] = ini.zeros((a.gp, a.d_head))
+        p["bv"] = ini.zeros((a.gp, a.d_head))
+    return p
+
+
+def mlp_has_bias(cfg) -> bool:
+    """The reference's rule (``transformer.init_layer``): an ungated MLP
+    under layernorm (OPT, GPT3) carries ``bi``/``bd``; no other does."""
+    return cfg.norm == "layernorm" and not cfg.mlp_gated
 
 
 def _init_mlp(ini: _Init, cfg, plan) -> Params:
     D, ff = cfg.d_model, plan.d_ff_shard * plan.tp
-    return {"wg": ini.param((D, ff)), "wu": ini.param((D, ff)),
-            "wd": ini.param((ff, D))}
+    p = ({"wg": ini.param((D, ff)), "wu": ini.param((D, ff))}
+         if cfg.mlp_gated else {"wi": ini.param((D, ff))})
+    p["wd"] = ini.param((ff, D))
+    if mlp_has_bias(cfg):
+        p["bi"], p["bd"] = ini.zeros((ff,)), ini.zeros((D,))
+    return p
 
 
 def _init_norm(ini: _Init, D: int, kind: str) -> Params:
@@ -253,26 +268,26 @@ def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
 
     Shapes, stored layouts and init laws follow the reference's
     ``InitCtx.param``/``param_from`` (dense: tied embedding
-    (vocab_padded, D), wq (D, hp, dh), wk/wv (D, gp, dh), wo (hp, dh, D),
-    norm scales of one; rwkv: untied ``embed_in`` (vocab, D) and ``head``
-    (D, vocab_padded), layernorm scale and bias, ``tmix``/``cmix`` with
-    uniform ``mu_*``, ``decay_w0`` and ``bonus_u``; hybrid: untied
-    embeddings and super-blocks ``l0..l{sb-1}`` of attention or mamba
-    with MoE or MLP, see :func:`init_super_block`), with decoder layers
-    stacked on a leading super-block axis; the numbers differ from the
-    reference's.  Super-blocks are drawn one by one into the stacked
-    tensors, so the peak is the model plus one super-block; a single
-    super-block (jamba at depth 8) is stacked as a view, so the peak is
-    the model plus one leaf."""
+    (vocab_padded, D) or untied ``embed_in``/``head``, wq (D, hp, dh),
+    wk/wv (D, gp, dh), wo (hp, dh, D), norm scales of one; with the
+    config's options, zero ``bq`` (hp, dh) and ``bk``/``bv`` (gp, dh),
+    zero layernorm ``bias``, the ungated ``wi``/``wd`` with zero
+    ``bi``/``bd`` (:func:`mlp_has_bias`) and learned ``pos_embed``
+    (max_seq, D) of std 1/sqrt(max_seq); rwkv: untied ``embed_in``
+    (vocab, D) and ``head`` (D, vocab_padded), layernorm scale and bias,
+    ``tmix``/``cmix`` with uniform ``mu_*``, ``decay_w0`` and
+    ``bonus_u``; hybrid: untied embeddings and super-blocks
+    ``l0..l{sb-1}`` of attention or mamba with MoE or MLP, see
+    :func:`init_super_block`), with decoder layers stacked on a leading
+    super-block axis; the numbers differ from the reference's.
+    Super-blocks are drawn one by one into the stacked tensors, so the
+    peak is the model plus one super-block; a single super-block (jamba
+    at depth 8) is stacked as a view, so the peak is the model plus one
+    leaf."""
     if cfg.family not in ("dense", "rwkv", "hybrid") or \
             (cfg.moe is not None and cfg.family != "hybrid"):
         raise NotImplementedError(
             f"init_params: family {cfg.family!r} arrives with its own slice")
-    if cfg.family in ("dense", "hybrid") and (
-            cfg.qkv_bias or cfg.norm != "rmsnorm" or not cfg.mlp_gated):
-        raise NotImplementedError(
-            "init_params covers llama-style attention layers (no qkv bias, "
-            "rmsnorm, gated MLP)")
     ini = _Init(seed, resolve_device(device), dtype_of(plan.param_dtype))
     D = cfg.d_model
     params: Params = {}
@@ -281,6 +296,8 @@ def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
     else:
         params["embed_in"] = ini.param((cfg.vocab_size, D))
         params["head"] = ini.param((D, plan.vocab_padded))
+    if cfg.positional == "learned":
+        params["pos_embed"] = ini.param((cfg.max_seq, D))
 
     if cfg.family == "hybrid":
         from repro_torch.models.transformer import n_super_blocks
@@ -295,9 +312,9 @@ def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
                         "cmix": _init_channel_mix(ini, cfg, plan)}
         else:
             def layer():
-                return {"ln1": {"scale": ini.ones((D,))},
+                return {"ln1": _init_norm(ini, D, cfg.norm),
                         "attn": _init_attention(ini, cfg, plan),
-                        "ln2": {"scale": ini.ones((D,))},
+                        "ln2": _init_norm(ini, D, cfg.norm),
                         "mlp": _init_mlp(ini, cfg, plan)}
         params["blocks"] = {"l0": _stacked(cfg.n_layers, layer)}
     params["ln_f"] = _init_norm(ini, D, cfg.norm)

@@ -61,6 +61,22 @@ def embed_tokens(p: Params, tokens: torch.Tensor, cfg, plan) -> torch.Tensor:
     return w[tokens.long()]
 
 
+def add_positional(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                   cfg) -> torch.Tensor:
+    """x (B,S,D) + the learned position rows ``pos_embed[positions]``
+    (positions broadcastable to (B,S)); x itself for any other
+    positional scheme.  An index past the table reads its last row: the
+    engine refuses ``max_seq > cfg.max_seq``, so only the padded rows of
+    a chunk or a prefix tail can reach past it, and those are dropped
+    (the reference's ``jnp.take`` fills them with NaN; an index past the
+    table would be a device-side assert on the card)."""
+    if cfg.positional != "learned":
+        return x
+    pe = p["pos_embed"]
+    idx = positions.long().clamp(0, pe.shape[0] - 1)
+    return x + pe[idx].to(x.dtype)
+
+
 def lm_logits(p: Params, x: torch.Tensor, cfg, plan) -> torch.Tensor:
     """-> (B,S,V_pad) logits, padded vocab columns masked to
     finfo(f32).min / 2."""
@@ -206,17 +222,19 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
     the resident length after the chunk (see
     :func:`repro_torch.models.attention.chunk_prefill_attention`), and
     (1,Q) for verify, with (Q,T) tables and (Q,) spans (see
-    :func:`repro_torch.models.attention.verify_attention`).
-    ``paged_kernel`` is the resolved paged dataflow, ``"stream"``
-    or ``"gather"`` (resolve ``"auto"`` with ``resolve_paged_kernel``
-    once, as the engine does).  An rwkv stack's cache is {"l0":
-    {"shift_t","shift_c","wkv"}}, overwritten in place; its positions are
-    unused.  A hybrid stack's cache holds, per in-block index ``j``, the
-    dense k/v of its attention layer or the ``conv``/``ssm`` state of a
-    mamba layer.  ``use_kernels=False`` runs the recurrences (rwkv's
-    decode recurrence, every mamba scan) on the plain versions of their
-    kernels (the oracle; attention layers pick their kernel with
-    ``paged_kernel``).  Returns (logits (B,S,V_pad), cache)."""
+    :func:`repro_torch.models.attention.verify_attention`); learned
+    positions (OPT, GPT3) add ``pos_embed`` at exactly these positions
+    (:func:`add_positional`).  ``paged_kernel`` is the resolved paged
+    dataflow, ``"stream"`` or ``"gather"`` (resolve ``"auto"`` with
+    ``resolve_paged_kernel`` once, as the engine does).  An rwkv stack's
+    cache is {"l0": {"shift_t","shift_c","wkv"}}, overwritten in place;
+    its positions are unused.  A hybrid stack's cache holds, per
+    in-block index ``j``, the dense k/v of its attention layer or the
+    ``conv``/``ssm`` state of a mamba layer.  ``use_kernels=False`` runs
+    the recurrences (rwkv's decode recurrence, every mamba scan) on the
+    plain versions of their kernels (the oracle; attention layers pick
+    their kernel with ``paged_kernel``).  Returns (logits (B,S,V_pad),
+    cache)."""
     if paged_kernel not in ("stream", "gather"):
         raise ValueError(f"paged_kernel={paged_kernel!r}: pass the resolved "
                          "dataflow, 'stream' or 'gather'")
@@ -227,8 +245,10 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = embed_tokens(params, tokens, cfg, plan).to(
-        dtype_of(plan.compute_dtype))
+    compute = dtype_of(plan.compute_dtype)
+    x = embed_tokens(params, tokens, cfg, plan).to(compute)
+    x = add_positional(params, x, positions[:, None] if mode == "decode"
+                       else positions, cfg).to(compute)
     for i in range(n_super_blocks(cfg)):
         block_cache = None
         if cache is not None:

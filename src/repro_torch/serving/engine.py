@@ -232,6 +232,15 @@ class LPUEngine:
         self.params = params
         self.slots = c.slots
         self.max_seq = c.max_seq
+        if self.cfg.positional == "learned" and \
+                self.max_seq > self.cfg.max_seq:
+            # the window rule keeps every position below max_seq, so this
+            # bound keeps every lookup inside the table (on the card a
+            # lookup past it is a device-side assert; the reference's
+            # take fills NaN there)
+            raise ValueError(
+                f"max_seq={self.max_seq} exceeds {self.cfg.name}'s learned "
+                f"position table of {self.cfg.max_seq} rows")
         self.eos_id = c.eos_id
         self.tp = 1
         self.gen = torch.Generator(device=self.device)

@@ -5,9 +5,13 @@ stored-layout parameter tree — converted to numpy by the caller, so this
 module imports no JAX — into the port's tensors, leaf for leaf.  The
 layouts are the same in both packages: decoder layers stacked on a
 leading super-block axis under ``blocks``; wq (D, hp, dh), wk/wv
-(D, gp, dh), wo (hp, dh, D); the tied ``embed`` (vocab_padded, D); for
-rwkv the untied ``embed_in`` (vocab, D) and ``head`` (D, vocab_padded)
-and the ``tmix``/``cmix`` leaves of ``models/rwkv.py`` there; for a
+(D, gp, dh), wo (hp, dh, D) and, with a qkv bias, bq (hp, dh) and
+bk/bv (gp, dh); the tied ``embed`` (vocab_padded, D) or the untied
+``embed_in`` and ``head``; learned ``pos_embed`` (max_seq, D); a gated
+MLP's wg/wu or an ungated one's wi with, under layernorm, bi/bd; norm
+``scale`` and, for layernorm, ``bias``; for rwkv the untied
+``embed_in`` (vocab, D) and ``head`` (D, vocab_padded) and the
+``tmix``/``cmix`` leaves of ``models/rwkv.py`` there; for a
 hybrid stack the untied embeddings and, per in-block index ``j``,
 ``blocks/l{j}`` with ``attn`` or ``mamba`` and ``mlp`` or ``moe`` (expert
 leaves in the rank-major ``(n_sb, W, Ecell, ...)`` layout).
@@ -19,31 +23,71 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.models.common import mlp_has_bias
 from repro_torch.models.transformer import n_super_blocks
 
 Params = Dict[str, Any]
 
 
 def _expected_shapes(cfg, plan) -> Dict[str, tuple]:
-    a, D, L = plan.attn, cfg.d_model, n_super_blocks(cfg)
-    ff = plan.d_ff_shard * plan.tp
+    """Every leaf path of the config's tree and its stored shape, drawn
+    up from ``cfg`` the way ``init_params`` builds the tree."""
     if cfg.family == "rwkv":
         return _rwkv_shapes(cfg, plan)
     if cfg.family == "hybrid":
         return _hybrid_shapes(cfg, plan)
-    return {
-        "embed": (plan.vocab_padded, D),
-        "blocks/l0/attn/wq": (L, D, a.hp, a.d_head),
-        "blocks/l0/attn/wk": (L, D, a.gp, a.d_head),
-        "blocks/l0/attn/wv": (L, D, a.gp, a.d_head),
-        "blocks/l0/attn/wo": (L, a.hp, a.d_head, D),
-        "blocks/l0/mlp/wg": (L, D, ff),
-        "blocks/l0/mlp/wu": (L, D, ff),
-        "blocks/l0/mlp/wd": (L, ff, D),
-        "blocks/l0/ln1/scale": (L, D),
-        "blocks/l0/ln2/scale": (L, D),
-        "ln_f/scale": (D,),
-    }
+    D, L = cfg.d_model, n_super_blocks(cfg)
+    want = _embed_shapes(cfg, plan)
+    pre = "blocks/l0/"
+    want.update(_norm_shapes(cfg, pre + "ln1", (L, D)))
+    want.update(_norm_shapes(cfg, pre + "ln2", (L, D)))
+    want.update(_attn_shapes(cfg, plan, pre + "attn/", L))
+    want.update(_mlp_shapes(cfg, plan, pre + "mlp/", L))
+    return want
+
+
+def _embed_shapes(cfg, plan) -> Dict[str, tuple]:
+    """The embeddings (tied, or untied input and head), learned
+    positions and the final norm."""
+    D = cfg.d_model
+    want = ({"embed": (plan.vocab_padded, D)} if cfg.tie_embeddings else
+            {"embed_in": (cfg.vocab_size, D), "head": (D, plan.vocab_padded)})
+    if cfg.positional == "learned":
+        want["pos_embed"] = (cfg.max_seq, D)
+    want.update(_norm_shapes(cfg, "ln_f", (D,)))
+    return want
+
+
+def _norm_shapes(cfg, path: str, shape: tuple) -> Dict[str, tuple]:
+    want = {path + "/scale": shape}
+    if cfg.norm == "layernorm":
+        want[path + "/bias"] = shape
+    return want
+
+
+def _attn_shapes(cfg, plan, pre: str, L: int) -> Dict[str, tuple]:
+    a, D = plan.attn, cfg.d_model
+    want = {pre + "wq": (L, D, a.hp, a.d_head),
+            pre + "wk": (L, D, a.gp, a.d_head),
+            pre + "wv": (L, D, a.gp, a.d_head),
+            pre + "wo": (L, a.hp, a.d_head, D)}
+    if cfg.qkv_bias:
+        want.update({pre + "bq": (L, a.hp, a.d_head),
+                     pre + "bk": (L, a.gp, a.d_head),
+                     pre + "bv": (L, a.gp, a.d_head)})
+    return want
+
+
+def _mlp_shapes(cfg, plan, pre: str, L: int) -> Dict[str, tuple]:
+    D, ff = cfg.d_model, plan.d_ff_shard * plan.tp
+    if cfg.mlp_gated:
+        want = {pre + "wg": (L, D, ff), pre + "wu": (L, D, ff)}
+    else:
+        want = {pre + "wi": (L, D, ff)}
+    want[pre + "wd"] = (L, ff, D)
+    if mlp_has_bias(cfg):
+        want.update({pre + "bi": (L, ff), pre + "bd": (L, D)})
+    return want
 
 
 def _rwkv_shapes(cfg, plan) -> Dict[str, tuple]:
@@ -76,19 +120,15 @@ def _hybrid_shapes(cfg, plan) -> Dict[str, tuple]:
     from repro_torch.models.mamba import mamba_dims
     from repro_torch.models.moe import moe_layout
     from repro_torch.models.transformer import super_block_size
-    a, D, L = plan.attn, cfg.d_model, n_super_blocks(cfg)
-    m, ff = cfg.mamba, plan.d_ff_shard * plan.tp
+    D, L, m = cfg.d_model, n_super_blocks(cfg), cfg.mamba
     d_in, _ = mamba_dims(cfg, plan)
-    want = {"embed_in": (cfg.vocab_size, D), "head": (D, plan.vocab_padded),
-            "ln_f/scale": (D,)}
+    want = _embed_shapes(cfg, plan)
     for j in range(super_block_size(cfg)):
         pre = f"blocks/l{j}/"
-        want[pre + "ln1/scale"] = want[pre + "ln2/scale"] = (L, D)
+        want.update(_norm_shapes(cfg, pre + "ln1", (L, D)))
+        want.update(_norm_shapes(cfg, pre + "ln2", (L, D)))
         if cfg.is_attention_layer(j):
-            want.update({pre + "attn/wq": (L, D, a.hp, a.d_head),
-                         pre + "attn/wk": (L, D, a.gp, a.d_head),
-                         pre + "attn/wv": (L, D, a.gp, a.d_head),
-                         pre + "attn/wo": (L, a.hp, a.d_head, D)})
+            want.update(_attn_shapes(cfg, plan, pre + "attn/", L))
         else:
             mb = pre + "mamba/"
             want.update({mb + "in_x": (L, D, d_in), mb + "in_z": (L, D, d_in),
@@ -107,25 +147,37 @@ def _hybrid_shapes(cfg, plan) -> Dict[str, tuple]:
                          pre + "moe/wu": (L, w, ecell, D, ffh),
                          pre + "moe/wd": (L, w, ecell, ffh, D)})
         else:
-            want.update({pre + "mlp/wg": (L, D, ff), pre + "mlp/wu": (L, D, ff),
-                         pre + "mlp/wd": (L, ff, D)})
+            want.update(_mlp_shapes(cfg, plan, pre + "mlp/", L))
     return want
 
 
 def params_from_jax(tree: Params, cfg, plan, device) -> Params:
     """numpy tree in the reference's stored layout -> tensors on
-    ``device`` (dtype kept).  Raises when a known leaf has another shape
-    than the plan's layout gives it."""
+    ``device`` (dtype kept).  Raises when a leaf has another shape than
+    the plan's layout gives it, when the tree holds a leaf the config
+    does not have, and when one of the config's leaves is missing."""
     want = _expected_shapes(cfg, plan)
+    seen = set()
 
     def conv(t, path):
         if isinstance(t, dict):
             return {k: conv(v, f"{path}/{k}" if path else k)
                     for k, v in t.items()}
+        if path not in want:
+            raise ValueError(f"{path}: not a leaf of {cfg.name}'s tree")
         arr = np.asarray(t)
-        if path in want and tuple(arr.shape) != want[path]:
+        if tuple(arr.shape) != want[path]:
             raise ValueError(f"{path}: shape {arr.shape}, the plan's "
                              f"stored layout is {want[path]}")
+        seen.add(path)
+        if arr.dtype.name == "bfloat16":
+            # ml_dtypes' bfloat16, which torch.from_numpy does not take
+            return torch.from_numpy(arr.view(np.uint16).copy()).view(
+                torch.bfloat16).to(device)
         return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
-    return conv(tree, "")
+    out = conv(tree, "")
+    missing = sorted(set(want) - seen)
+    if missing:
+        raise ValueError(f"{cfg.name}'s tree lacks {missing}")
+    return out

@@ -559,8 +559,33 @@ def test_paged_split_replay_matches_plain_and_reference(bs_T, fold, pool):
     boundary, for an fp pool and for int8 / fp8 pools with their scales;
     no table entry at or past ceil(length / bs) is read, except by a
     length-0 row without the fold (the mean of its whole table)."""
+    _check_paged_split_replay(bs_T, fold, pool, G=2, gs=2, dh=32)
+
+
+# the paper's OPT models: multi-head attention (one query head per kv
+# head, G = H) at dh 64 (opt-1.3b) and 128 (opt-6.7b)
+OPT_HEADS = {"gs1-dh64": (4, 1, 64), "gs1-dh128": (3, 1, 128)}
+
+
+@pytest.mark.parametrize("heads", list(OPT_HEADS))
+@pytest.mark.parametrize("bs_T", PAGED_SPLIT, ids=["1stage", "2stages"])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8", "fp8"])
+def test_paged_split_replay_at_opt_heads(heads, bs_T, fold, pool):
+    """The same replay at OPT's head shapes: gs 1 (G = H), dh 64 and
+    128, for f32, bf16 (the paper's protocol), int8 and fp8 pools."""
+    G, gs, dh = OPT_HEADS[heads]
+    _check_paged_split_replay(bs_T, fold, pool, G=G, gs=gs, dh=dh)
+
+
+def _check_paged_split_replay(bs_T, fold, pool, G, gs, dh):
     bs, T = bs_T
-    a, tables, lengths = _paged_split_inputs(bs, T, seed=bs + T)
+    a, tables, lengths = _paged_split_inputs(bs, T, bs + T, G, gs, dh)
+    if pool == "bfloat16":
+        # the new row as a bf16 plan computes it (the reference's oracle
+        # stores it into the gathered bf16 view before attending it)
+        for key in ("kn", "vn"):
+            a[key] = torch.from_numpy(a[key]).bfloat16().float().numpy()
     t = {k: torch.from_numpy(v) for k, v in a.items()}
     extra = dict(k_new=t["kn"], v_new=t["vn"]) if fold else {}
     jextra = dict(k_new=jnp.asarray(a["kn"]),
@@ -569,6 +594,11 @@ def test_paged_split_replay_matches_plain_and_reference(bs_T, fold, pool):
         kp, vp, item, scales, jscales = t["kp"], t["vp"], 4, {}, {}
         jk, jv = jnp.asarray(a["kp"]), jnp.asarray(a["vp"])
         kf, vf = a["kp"], a["vp"]
+    elif pool == "bfloat16":
+        kp, vp = t["kp"].bfloat16(), t["vp"].bfloat16()
+        item, scales, jscales = 2, {}, {}
+        kf, vf = kp.float().numpy(), vp.float().numpy()
+        jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (kf, vf))
     else:
         port, ref = _quantized_pools(a, pool)
         (kp, ks), (vp, vs) = port["kp"], port["vp"]
@@ -631,6 +661,18 @@ def test_paged_plan_at_the_main_path_shape():
     assert _smem(3, 64, 4, 32, 1) == 33888
 
 
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("item", [1, 2, 4])
+def test_paged_plan_at_opt_shapes(dh, item):
+    """OPT's pool at the engine's max_seq 2048 (bs 128, T 16): one query
+    head per kv head fits a block's shared memory at every pool item
+    size, with 16 x 32 blocks per slot (dh 64: opt-1.3b; dh 128:
+    opt-6.7b)."""
+    L, stages = ops.dense_plan(16 * 128, dh, item)
+    assert 1 <= L <= ops.MAX_TILE_ROWS and stages == 2
+    assert _smem(1, dh, item, L, stages) <= MAX_SMEM
+
+
 class _Plan:
     def __init__(self, attn, arch="test"):
         self.attn, self.arch = attn, arch
@@ -642,6 +684,8 @@ class _Plan:
     ((9, 3, 64), 512, "gather"),        # block beyond the kernel's tile
     ((36, 2, 64), 16, "gather"),        # 18 query heads per kv head
     ((4, 1, 512), 16, "gather"),        # d_head beyond 256
+    ((32, 32, 64), 128, "stream"),      # opt-1.3b: one query head per kv
+    ((32, 32, 128), 128, "stream"),     # opt-6.7b
 ])
 def test_resolve_paged_kernel(heads, bs, want):
     plan = _Plan(plan_attention(*heads, 1))

@@ -30,21 +30,24 @@ result line when any phase fails or when no CUDA device is present):
    weights; B = 4 bit-identical to four B = 1 calls); first, the timing
    floor: a one-element ``add_`` timed the same way;
 4. engine — serve full-width smollm-135m (random weights from seed 0)
-   through ``LPUEngine``: the streamed paged kernel, the gather oracle,
-   and a run that preempts with 4-step windows; the greedy streams must
-   agree and the kernel must have launched once per layer per decode
-   step; then the prefill paths: (a) the 8 prompts and a 448-token one
-   in chunks of 64 against the monolithic run (no decode stall), (b) the
-   same on the gather oracle (no launch), (c) 4 prompts sharing a
-   256-token system prompt with the prefix cache on against off, (d)
-   two identical 256-token prompts at once (copy-on-write), (e) chunks
-   with a pool small enough to preempt; greedy streams equal, or apart
-   only where the model's top-2 gap is at most 1e-4 (a near tie), the
-   pool balanced, and kernel 1 launched exactly once per layer per
+   through ``LPUEngine``: the streamed paged kernel, its eager twin
+   (``graphs=False``: the same windows launched op by op from Python),
+   the gather oracle, and a run that preempts with 4-step windows; the
+   greedy streams must agree, the kernel must have launched once per
+   layer per decode step, and both twins are profiled (wall against
+   device ms per token, the profiler's count of kernel 1 against the
+   launch registry's); then the prefill paths: (a) the 8 prompts and a
+   448-token one in chunks of 64 against the monolithic run (no decode
+   stall), (b) the same on the gather oracle (no launch), (c) 4 prompts
+   sharing a 256-token system prompt with the prefix cache on against
+   off, (d) two identical 256-token prompts at once (copy-on-write), (e)
+   chunks with a pool small enough to preempt; greedy streams equal, or
+   apart only where the model's top-2 gap is at most 1e-4 (a near tie),
+   the pool balanced, and kernel 1 launched exactly once per layer per
    decode step, per chunk and per prefix tail; plus the last row of the
    448-token prompt by both prefill paths; then (f) the same traffic on
-   an int8 and an fp8 pool, every run prefilled in chunks of 64: kernel 1
-   against the gather oracle of the same pool, prefix on against off,
+   an int8 and an fp8 pool, every run prefilled in chunks of 64: kernel
+   1 against the gather oracle of the same pool, prefix on against off,
    a pool of 7 blocks of 32 that preempts against the uncontended run,
    exact launches, the pool balanced and its bytes its leaves'; the
    common prefix with the f32 pool's streams and the bytes moved per
@@ -52,10 +55,9 @@ result line when any phase fails or when no CUDA device is present):
    prompts that repeat a motif: the n-gram drafter, an oracle drafter
    (all accepted), an adversarial one (all rejected), the model drafter
    (a reduced smollm-135m over the full vocabulary), the n-gram drafter
-   on the int8 pool and
-   with chunks of 64 and the prefix cache, each against its plain twin,
-   kernel 1 launched once per layer per decode step, verify round,
-   chunk and prefix tail;
+   on the int8 pool and with chunks of 64 and the prefix cache, each
+   against its plain twin, kernel 1 launched once per layer per decode
+   step, verify round, chunk and prefix tail;
 5. chain — the C1 streamlined chain (``core/streamline.py``) at full
    width: 4 prompts prefilled by the model, then 32 teacher-forced decode
    steps of ``decode_layer`` stacked over the 30 layers, in six variants
@@ -113,11 +115,18 @@ result line when any phase fails or when no CUDA device is present):
    (1 and 4 rows, f32 and bf16), each checked and timed beside its plain
    version, its library call and its bound; (h4) the paper's protocol
    at batch 1 in bf16 (1 slot, max_seq 2048, 8-step windows, a 32-token
-   prompt; opt-1.3b out 512 and full-width opt-6.7b out 256, each freed
-   before the next loads): wall and device ms per token (torch.profiler
+   prompt; opt-1.3b and full-width opt-6.7b, out OPT_OUT tokens, each
+   freed before the next loads), on captured windows and on the eager
+   twin, streams equal: wall and device ms per token (torch.profiler
    over 64 decode steps at the middle of the output), the busy share,
    bytes per token and bandwidth use, beside the paper's figures,
    labelled as the paper's.
+
+Every engine runs its fused decode windows and verify rounds as replays
+of CUDA graphs captured on first use (``repro_torch/serving/graphs.py``);
+a served run that replayed none fails.  A replay adds the launches its
+capture made to the kernels' counters, so every exact-launch gate counts
+per replay.
 
 A ``[time]`` line closes each phase and one gives the total.  The last
 lines are a ``{"kernels": [...], "floor_ms": ...}`` line, an
@@ -255,7 +264,7 @@ def check_paged_kernel(torch, dev):
     return errs
 
 
-def time_ms(torch, fn, n_sets, iters=200, warmup=20):
+def time_ms(torch, fn, n_sets, iters=200, warmup=20, tries=3):
     """(device ms, host ms) of one call, cycling over ``n_sets`` input
     sets so the caches stay cold like the main path's per-layer pools.
 
@@ -266,10 +275,10 @@ def time_ms(torch, fn, n_sets, iters=200, warmup=20):
     dispatch cost is hidden.  When the launching took longer than the
     sleep can have lasted (the host slowed down between the two loops),
     the calls may have been paced by the host, and the run is repeated
-    behind a 4x longer sleep, up to twice.  That holds while the queued
-    launches fit the driver's queue: for a function of many small
-    launches (a plain version) the device ms may be paced by the host,
-    and is then an upper bound."""
+    behind a 4x longer sleep, up to ``tries - 1`` times.  That holds
+    while the queued launches fit the launch queue: for a function of
+    many small launches (a plain version) the device ms may be paced by
+    the host, and is then an upper bound."""
     for i in range(warmup):
         fn(i % n_sets)
     torch.cuda.synchronize()
@@ -281,7 +290,7 @@ def time_ms(torch, fn, n_sets, iters=200, warmup=20):
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     cycles = int(4e9 * host_s) + 1_000_000
-    for _ in range(3):
+    for _ in range(tries):
         torch.cuda._sleep(cycles)
         t1 = time.perf_counter()
         start.record()
@@ -367,12 +376,17 @@ def bound_for(nbytes, ops, op_dtype, card_name):
 
 def timed(torch, fns, n_sets, iters=None):
     """{"ms", "host_ms", ...} for each named function, as time_ms gives
-    them; ``iters`` ({name: (iters, warmup)}) shortens the slow ones."""
+    them; ``iters`` ({name: (iters, warmup)}) shortens the slow ones.  A
+    slow one (a plain recurrence over hundreds of positions) launches
+    more than the launch queue holds, so a longer sleep cannot keep
+    the host's pace out of its device ms: it is timed behind one sleep,
+    and its device ms is an upper bound."""
     out = {}
     for key, fn in fns.items():
         it, warm = (iters or {}).get(key, (200, 20))
         out[key], out[key.replace("ms", "host_ms")] = time_ms(
-            torch, fn, n_sets, iters=it, warmup=warm)
+            torch, fn, n_sets, iters=it, warmup=warm,
+            tries=1 if key in (iters or {}) else 3)
     return out
 
 
@@ -919,7 +933,18 @@ def serve(torch, dev, model, params, prompts, engine_kw=None, warm=None,
     outs = eng.generate(prompts, max_new_tokens=32)
     if dev.type == "cuda":
         torch.cuda.synchronize()
+    on_graphs(eng)
     return outs, eng, paged_decode_attention.launches
+
+
+def on_graphs(eng):
+    """Raise unless an engine with graphs on ran its decode windows and
+    verify rounds as replays of captured graphs."""
+    st = eng.stats
+    if eng.graphs and (st.device_decode_steps or st.spec_rounds) and \
+            not st.graph_replays:
+        raise AssertionError(f"the engine replayed no captured program: "
+                             f"{st}")
 
 
 def device_kernels(fn):
@@ -935,23 +960,43 @@ def device_kernels(fn):
             if e.device_type == DeviceType.CUDA]
 
 
-def profile_engine(torch, dev, model, params, prompts, wall_s, **kw):
+def profile_engine(torch, dev, model, params, prompts, wall_s,
+                   engine_kw=None, **kw):
     """Device time by kernel over the same run (streamed, with the
-    engine knobs ``kw``) under torch.profiler; the busy share divides it
-    by that run's unprofiled wall time.  None where the profiler saw no
-    device activity."""
-    kernels = device_kernels(lambda: serve(
-        torch, dev, model, params, prompts, paged_kernel="stream", **kw))
+    engine knobs ``kw`` and the engine's other arguments ``engine_kw``)
+    under torch.profiler; the busy share divides it by that run's
+    unprofiled wall time, the per-token times by its tokens.  The
+    profiler's count of kernel 1 beside the launch registry's for the
+    run plus the warm-ups before its captures (which the registry does
+    not count): equal when the profiler sees the kernels inside a graph
+    replay.  None where the profiler saw no device activity."""
+    ran = {}
+
+    def run():
+        _, ran["eng"], ran["launches"] = serve(
+            torch, dev, model, params, prompts, engine_kw=engine_kw,
+            paged_kernel="stream", **kw)
+    kernels = device_kernels(run)
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us:
         return None
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    paged_us = sum(e.self_device_time_total for e in kernels
-                   if "paged_decode_kernel" in e.key)
+    paged = [e for e in kernels if "paged_decode_kernel" in e.key]
+    eng = ran["eng"]
+    tokens = eng.stats.tokens
+    warm = eng._programs.warm_launches.get("paged_decode_attention", 0)
     return {"device_busy_ms": busy_us / 1e3,
             "unprofiled_wall_ms": wall_s * 1e3,
             "device_busy_share": busy_us / 1e6 / wall_s,
-            "paged_kernel_ms": paged_us / 1e3,
+            "tokens": tokens,
+            "device_ms_per_token": busy_us / 1e3 / tokens,
+            "wall_ms_per_token": wall_s * 1e3 / tokens,
+            "paged_kernel_ms": sum(e.self_device_time_total
+                                   for e in paged) / 1e3,
+            "kernel1_profiler_count": sum(e.count for e in paged),
+            "kernel1_registry_launches": ran["launches"],
+            "kernel1_warm_up_launches": warm,
+            "graph_replays": eng.stats.graph_replays,
             "top_kernels": [{"name": e.key[:80], "count": e.count,
                              "ms": e.self_device_time_total / 1e3}
                             for e in top]}
@@ -992,7 +1037,24 @@ def run_engine(torch, dev, model, params, prompts):
     for o in stream:
         if len(o) != 32 or not all(0 <= t < cfg.vocab_size for t in o):
             raise AssertionError(f"bad stream {o}")
+    if st.graph_captures == 0 or st.graph_replays == 0:
+        raise AssertionError(f"the engine ran no captured window: {st}")
     profile = profile_engine(torch, dev, model, params, prompts, st.wall)
+    # the eager twin: the same windows launched op by op from Python
+    eager, eeng, elaunch = serve(torch, dev, model, params, prompts,
+                                 engine_kw=dict(graphs=False),
+                                 paged_kernel="stream")
+    if eager != stream:
+        raise AssertionError("graph and eager-twin greedy streams differ")
+    if elaunch != launches or \
+            eeng.stats.device_decode_steps != st.device_decode_steps:
+        raise AssertionError(f"eager twin: {elaunch} launches over "
+                             f"{eeng.stats.device_decode_steps} decode "
+                             f"steps against {launches} over "
+                             f"{st.device_decode_steps}")
+    eager_profile = profile_engine(torch, dev, model, params, prompts,
+                                   eeng.stats.wall,
+                                   engine_kw=dict(graphs=False))
     gather, geng, glaunch = serve(torch, dev, model, params, prompts,
                                   paged_kernel="gather")
     if gather != stream:
@@ -1025,7 +1087,14 @@ def run_engine(torch, dev, model, params, prompts):
                             "kernel_launches": plaunch},
             "streams_equal_gather": True,
             "streams_equal_preempt": True,
+            "graph_captures": st.graph_captures,
+            "graph_replays": st.graph_replays,
             "profile": profile,
+            "eager_twin": {"tokens_per_s": eeng.stats.tokens_per_s,
+                           "wall_s": eeng.stats.wall,
+                           "kernel_launches": elaunch,
+                           "streams_equal_graphs": True,
+                           "profile": eager_profile},
             "prefill_paths": run_prefill_paths(torch, dev, model, params,
                                                prompts, stream)}
 
@@ -1285,6 +1354,8 @@ def run_rec(eng, launches, **extra):
            "device_decode_steps": s.device_decode_steps,
            "spec_rounds": s.spec_rounds, "prefill_chunks": s.prefill_chunks,
            "prefills": s.prefills, "preemptions": s.preemptions,
+           "graph_captures": s.graph_captures,
+           "graph_replays": s.graph_replays,
            "kernel_launches": launches}
     if eng.prefix is not None:
         out.update(prefix_hits=s.prefix_hits, cow_blocks=s.cow_blocks,
@@ -1540,24 +1611,17 @@ CHAIN_TOL_QUANT = 1e-2
 CHUNK_C = 64
 
 
-def _counts():
-    from repro_torch.kernels.decode_attention.ops import (
-        decode_attention, paged_decode_attention)
-    from repro_torch.kernels.gemv.ops import gemv
-    from repro_torch.kernels.mamba_scan.ops import (mamba_scan,
-                                                    mamba_scan_fused)
-    from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
-    return gemv, paged_decode_attention, decode_attention, rwkv_scan, \
-        mamba_scan, mamba_scan_fused
-
-
 def _reset_counts():
-    for fn in _counts():
-        fn.launches = 0
+    from repro_torch.kernels import reset_launches
+    reset_launches()
 
 
 def _read_counts():
-    return {fn.__name__: fn.launches for fn in _counts()}
+    """{wrapper: launches} of the port's one registry of counted kernel
+    wrappers (``repro_torch.kernels.counted``); a replayed graph adds the
+    launches its capture made."""
+    from repro_torch.kernels import read_launches
+    return read_launches()
 
 
 def run_chain(torch, ctx, cache0, tables, use_kernels, paged_kernel,
@@ -1910,7 +1974,10 @@ PAPER = {"opt-1.3b": {"lpu_ms_per_token": 1.25, "gpu_slower_x": 2.09,
 # inside its limit (the engine's steps are paced by the host; PERF.md
 # §4): 512 for opt-1.3b (mean length 288), 256 for opt-6.7b (mean
 # length 160)
-OPT_OUT = {"opt-1.3b": 512, "opt-6.7b": 256}
+# new tokens of the protocol on captured windows, and on the eager twin
+# (whose stream must equal the first tokens of the graphs' one)
+OPT_OUT = {"opt-1.3b": PAPER_OUT_TOKENS, "opt-6.7b": 256}
+OPT_EAGER_OUT = {"opt-1.3b": 512, "opt-6.7b": 256}
 OPT_MAX_SEQ = 2048
 OPT_WINDOW = 8                 # steps_per_sync of the protocol's engine
 OPT_PROFILE_STEPS = 64         # decode steps under torch.profiler
@@ -2200,39 +2267,31 @@ def weight_bytes(params):
         - pe.numel() * pe.element_size()
 
 
-def paper_protocol(torch, dev, name, card_name):
-    """(h4): the paper's protocol at batch 1 on ``name`` in bf16 (a plan
-    the reference builds too) with a bf16 pool (the ``kv_dtype`` knob:
-    the plan's cache dtype is float32, in the reference too): engine
-    with 1 slot, max_seq 2048, 8-step windows, one prompt of 32 tokens
-    and OPT_OUT[name] new tokens, greedy.  In the middle of the output
-    (KV at the mean length) 64 decode steps run under torch.profiler:
-    device ms per token from them; wall ms per output token from the
-    engine's own clock over the rest of the run.  Bytes per token are
-    the weights plus the KV at the mean length; bandwidth use against
-    the data sheet's.  Measures, does not gate (beyond a finite,
-    exact-launch run)."""
-    import numpy as np
+def protocol_run(torch, dev, model, params, prompt, out_n, graphs):
+    """One engine of the protocol (1 slot, max_seq 2048, 8-step windows,
+    a bf16 pool), greedy, on captured windows or (``graphs=False``) the
+    eager twin, warmed by a first request of 16 tokens (which captures
+    its windows, as a server does once), then serving the measured one.
+    In the middle of its output (KV at the mean length) 64 decode steps
+    run under torch.profiler: device ms per token from them; wall ms per
+    output token from the engine's own clock over the rest of the
+    request, its eager prefill included.  The profiler's count of kernel
+    1 over those steps beside the launch registry's: equal when the
+    profiler sees the kernels inside a replay."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import LPUEngine
-    model, params = opt_model(torch, dev, name, "bfloat16")
-    cfg, plan = model.cfg, model.plan
-    out_n = OPT_OUT[name]
-    rng = np.random.RandomState(32)
-    prompt = [int(t) for t in rng.randint(1, cfg.vocab_size,
-                                          size=PAPER_IN_TOKENS)]
+    cfg = model.cfg
 
-    def engine():
-        return LPUEngine(model, params, EngineConfig(
-            slots=1, max_seq=OPT_MAX_SEQ, steps_per_sync=OPT_WINDOW,
-            kv_dtype="bfloat16"), device=dev)
-    engine().generate([prompt], max_new_tokens=2 * OPT_WINDOW)   # warm
+    eng = LPUEngine(model, params, EngineConfig(
+        slots=1, max_seq=OPT_MAX_SEQ, steps_per_sync=OPT_WINDOW,
+        kv_dtype="bfloat16"), device=dev, graphs=graphs)
+    eng.generate([prompt], max_new_tokens=2 * OPT_WINDOW)       # warm
     torch.cuda.synchronize()
     _reset_counts()
-    eng = engine()
     st = eng.stats
+    base = dataclasses.replace(st)
     rid = eng.submit(prompt, out_n)
     mid = PAPER_IN_TOKENS + out_n // 2 - OPT_PROFILE_STEPS // 2
     seq = None
@@ -2240,6 +2299,7 @@ def paper_protocol(torch, dev, name, card_name):
         eng.step()
         seq = eng.sched.active[0]
     pos0, steps0, wall0 = seq.pos, st.device_decode_steps, st.wall
+    k1_0 = _read_counts()["paged_decode_attention"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2250,45 +2310,106 @@ def paper_protocol(torch, dev, name, card_name):
         window_s = time.perf_counter() - t0
     steps = st.device_decode_steps - steps0
     window_wall = st.wall - wall0
+    k1_window = _read_counts()["paged_decode_attention"] - k1_0
     out = eng.drain()[rid]
     torch.cuda.synchronize()
-    counts = path_counts({"paged_decode_attention"}, f"(h4) {name}")
-    if counts["paged_decode_attention"] != launches_want(eng):
-        raise AssertionError(f"(h4) {name}: launches {counts}")
-    pool_checks(eng, f"(h4) {name}")
+    what = f"(h4) {cfg.name} graphs={graphs}"
+    counts = path_counts({"paged_decode_attention"}, what)
+    replays = st.graph_replays - base.graph_replays
+    if counts["paged_decode_attention"] != cfg.n_layers * (
+            st.device_decode_steps - base.device_decode_steps):
+        raise AssertionError(f"{what}: launches {counts}")
+    if graphs != (replays > 0) or st.graph_captures != base.graph_captures:
+        raise AssertionError(f"{what}: {replays} graph replays, "
+                             f"{st.graph_captures - base.graph_captures} "
+                             "captures while measured")
+    pool_checks(eng, what)
     if not all(0 <= t < cfg.vocab_size for t in out):
-        raise AssertionError(f"(h4) {name}: bad stream")
+        raise AssertionError(f"{what}: bad stream")
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us or not steps:
-        raise AssertionError(f"(h4) {name}: the profiler saw {busy_us} us "
-                             f"over {steps} decode steps")
+        raise AssertionError(f"{what}: the profiler saw {busy_us} us over "
+                             f"{steps} decode steps")
     device_ms = busy_us / 1e3 / steps
     # the profiled steps' own wall is left out of the wall per token
-    wall_ms = (st.wall - window_wall) * 1e3 / (len(out) - steps)
+    wall_ms = (st.wall - base.wall - window_wall) * 1e3 / (len(out) - steps)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"out": out, "wall_ms_per_token": wall_ms,
+            "device_ms_per_token": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "profiled_window": {
+                "decode_steps": steps, "positions": [pos0, pos0 + steps],
+                "profiled_wall_ms_per_token": window_s * 1e3 / steps,
+                "device_ms_per_token": device_ms,
+                "kernel1_profiler_count": sum(
+                    e.count for e in kernels
+                    if "paged_decode_kernel" in e.key),
+                "kernel1_registry_launches": k1_window},
+            "total_wall_s": st.wall - base.wall,
+            "graph_captures": st.graph_captures, "graph_replays": replays,
+            "launches": counts,
+            "pool_dtype": str(eng.cache["l0"]["k"].dtype).split(".")[-1],
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def paper_protocol(torch, dev, name, card_name):
+    """(h4): the paper's protocol at batch 1 on ``name`` in bf16 (a plan
+    the reference builds too) with a bf16 pool (the ``kv_dtype`` knob:
+    the plan's cache dtype is float32, in the reference too): one prompt
+    of 32 tokens, greedy, by :func:`protocol_run` on captured windows
+    (OPT_OUT[name] new tokens) and on the eager twin (OPT_EAGER_OUT[name]
+    new tokens), whose stream must equal the graphs' first tokens.
+    Bytes per token are the weights plus the KV at the mean length;
+    bandwidth use against the data sheet's.  Measures, does not gate
+    (beyond finite, equal, exact-launch runs)."""
+    import numpy as np
+    model, params = opt_model(torch, dev, name, "bfloat16")
+    cfg, plan = model.cfg, model.plan
+    out_n = OPT_OUT[name]
+    rng = np.random.RandomState(32)
+    prompt = [int(t) for t in rng.randint(1, cfg.vocab_size,
+                                          size=PAPER_IN_TOKENS)]
+    run = protocol_run(torch, dev, model, params, prompt, out_n, True)
+    twin = protocol_run(torch, dev, model, params, prompt,
+                        OPT_EAGER_OUT[name], False)
+    out, twin_out = run.pop("out"), twin.pop("out")
+    if twin_out != out[:len(twin_out)]:
+        raise AssertionError(f"(h4) {name}: graph and eager-twin streams "
+                             "differ")
+    # kernel 1 launches the profiler missed in each twin's 64 steps: its
+    # buffers can drop records at full depth, in an eager run too
+    missed = [r["profiled_window"]["kernel1_registry_launches"]
+              - r["profiled_window"]["kernel1_profiler_count"]
+              for r in (run, twin)]
+    sees = missed[0] <= max(missed[1], 0)
+    if not sees:
+        # the profiler missed kernels inside the replays: the device time
+        # per token is the eager twin's (no kernel changes between them)
+        run["device_ms_per_token"] = twin["device_ms_per_token"]
+        run["device_busy_share"] = (run["device_ms_per_token"]
+                                    / run["wall_ms_per_token"])
+    device_ms, wall_ms = run["device_ms_per_token"], run["wall_ms_per_token"]
     mean_len = PAPER_IN_TOKENS + len(out) / 2
     a = plan.attn
-    kv_item = torch.empty((), dtype=eng.cache["l0"]["k"].dtype).element_size()
+    kv_item = torch.empty((), dtype=getattr(
+        torch, run["pool_dtype"])).element_size()
     w_bytes = weight_bytes(params)
     kv_bytes = 2 * cfg.n_layers * a.gp * a.d_head * kv_item * mean_len
     bw = bandwidth_for(card_name)
     per_tok = w_bytes + kv_bytes
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     rec = {"arch": name, "dtype": "bfloat16", "batch": 1,
            "in_tokens": PAPER_IN_TOKENS, "out_tokens_asked": out_n,
            "paper_out_tokens": PAPER_OUT_TOKENS,
            "out_tokens": len(out), "max_seq": OPT_MAX_SEQ,
-           "steps_per_sync": OPT_WINDOW, "pool_dtype": str(
-               eng.cache["l0"]["k"].dtype).split(".")[-1],
-           "wall_ms_per_token": wall_ms,
-           "device_ms_per_token": device_ms,
-           "device_busy_share": device_ms / wall_ms,
-           "profiled_window": {"decode_steps": steps,
-                               "positions": [pos0, pos0 + steps],
-                               "profiled_wall_ms_per_token":
-                                   window_s * 1e3 / steps},
-           "total_wall_s": st.wall,
+           "steps_per_sync": OPT_WINDOW, **run,
+           "profiler_sees_replays": sees,
+           "kernel1_missed_by_profiler": {"graphs": missed[0],
+                                          "eager_twin": missed[1]},
+           "device_ms_source": "graphs" if sees else "eager twin",
            "weight_bytes_per_token": w_bytes,
            "kv_bytes_per_token_at_mean_length": kv_bytes,
            "mean_length": mean_len, "bytes_per_token": per_tok,
@@ -2297,10 +2418,10 @@ def paper_protocol(torch, dev, name, card_name):
            "bandwidth_use_device": per_tok / (device_ms / 1e3) / bw,
            "bandwidth_use_wall": per_tok / (wall_ms / 1e3) / bw,
            "distinct_tokens": len(set(out)),
-           "launches": counts,
-           "top_kernels": [{"name": e.key[:80], "count": e.count,
-                            "ms": e.self_device_time_total / 1e3}
-                           for e in top],
+           "eager_twin": dict(twin, out_tokens=len(twin_out),
+                              mean_length=PAPER_IN_TOKENS
+                              + len(twin_out) / 2,
+                              stream_equals_graphs_prefix=True),
            "card": card_name}
     paper = PAPER.get(name, {})
     if "gpu_slower_x" in paper:
@@ -2477,6 +2598,7 @@ def serve_dense(torch, dev, model, params, prompts, max_new, slots=4,
                                                 max_seq=max_seq), device=dev)
     outs = eng.generate(prompts, max_new_tokens=max_new)
     torch.cuda.synchronize()
+    on_graphs(eng)
     return outs, eng
 
 
@@ -2566,6 +2688,8 @@ def run_rwkv(torch, dev):
         raise AssertionError(f"rwkv engine launches {counts}, expected "
                              f"{want} ({cfg.n_layers} per device decode "
                              "step, none in prefill)")
+    if st.graph_replays == 0:
+        raise AssertionError("the rwkv engine replayed no captured window")
     for o in outs:
         if len(o) != RWKV_NEW or not all(0 <= t < cfg.vocab_size for t in o):
             raise AssertionError(f"bad rwkv stream {o}")
@@ -2629,6 +2753,8 @@ def run_rwkv(torch, dev):
             "wall_s": st.wall, "decode_steps": st.steps,
             "device_decode_steps": st.device_decode_steps,
             "prefills": st.prefills, "state_bytes": eng.kv_cache_bytes(),
+            "graph_captures": st.graph_captures,
+            "graph_replays": st.graph_replays,
             "launches": counts,
             "launches_per_device_decode_step":
                 counts["rwkv_scan"] / st.device_decode_steps,
@@ -2936,6 +3062,8 @@ def run_jamba(torch, dev):
         raise AssertionError(
             f"jamba engine launches {counts}, expected {want} ({n_mamba} per "
             f"device decode step and per prefill; {st.prefills} prefills)")
+    if st.graph_replays == 0:
+        raise AssertionError("the jamba engine replayed no captured window")
     for o in outs:
         if len(o) != JAMBA_NEW or not all(0 <= t < cfg.vocab_size
                                           for t in o):
@@ -3002,6 +3130,8 @@ def run_jamba(torch, dev):
             "device_decode_steps": st.device_decode_steps,
             "prefills": st.prefills, "cache_bytes": eng.kv_cache_bytes(),
             "kv_bytes_moved_per_step": eng.kv_bytes_moved_per_step(),
+            "graph_captures": st.graph_captures,
+            "graph_replays": st.graph_replays,
             "launches": counts,
             "mamba_scan_per_device_decode_step_and_prefill": n_mamba,
             "decode_step_ms_b4": step_ms,
@@ -3096,6 +3226,18 @@ def main() -> int:
           f"{engine['decode_steps']} decode steps, "
           f"{engine['preempt_run']['preemptions']} preemptions in the "
           "small-pool run")
+    for twin, r in (("graphs", engine),
+                    ("eager twin", engine["eager_twin"])):
+        pr = r["profile"] or {}
+        print(f"[engine] {twin}: {r.get('graph_captures', 0)} captured "
+              f"windows, {pr.get('graph_replays')} replays in the profiled "
+              f"run, {r['tokens_per_s']:.1f} tok/s, wall "
+              f"{pr.get('wall_ms_per_token')} ms/token, device "
+              f"{pr.get('device_ms_per_token')} ms/token, busy "
+              f"{pr.get('device_busy_share')}; kernel 1: profiler "
+              f"{pr.get('kernel1_profiler_count')}, registry "
+              f"{pr.get('kernel1_registry_launches')} + warm-ups "
+              f"{pr.get('kernel1_warm_up_launches')} | {smi}")
     pp = engine["prefill_paths"]
     print(f"[engine] prefill paths in {pp['phase_s']:.1f} s: chunked "
           f"{pp['chunked']['tokens_per_s']:.1f} tok/s "
@@ -3184,6 +3326,17 @@ def main() -> int:
               f"{t['plain_ms']:.5f}, library {t['library_ms']:.5f}, bound "
               f"{t['bound_ms']:.5f}")
     for name, r in opt["h4_protocol"].items():
+        tw, pw = r["eager_twin"], r["profiled_window"]
+        print(f"[opt] (h4) {name} graphs: {r['graph_captures']} captured "
+              f"windows, {r['graph_replays']} replays, wall "
+              f"{r['wall_ms_per_token']:.3f} ms/token, device "
+              f"{r['device_ms_per_token']:.3f} ({r['device_ms_source']}; "
+              f"kernel 1 in the profiled steps: profiler "
+              f"{pw['kernel1_profiler_count']}, registry "
+              f"{pw['kernel1_registry_launches']}); eager twin: wall "
+              f"{tw['wall_ms_per_token']:.3f} ms/token, device "
+              f"{tw['device_ms_per_token']:.3f}, busy "
+              f"{tw['device_busy_share']:.3f}; streams equal | {smi}")
         paper = ", ".join(f"{k} {v:.4g}" for k, v in r["paper"].items()
                           if k != "source")
         print(f"[opt] (h4) {name} bf16 batch 1, in {r['in_tokens']} out "

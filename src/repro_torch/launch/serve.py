@@ -183,7 +183,9 @@ def main(argv=None):
           f"({st.syncs_per_token:.2f}/token), "
           f"{st.bytes_to_host_per_token:.1f} B->host/token, "
           f"overrun={st.overrun_tokens}, "
-          f"block_s={engine.decode_block_s()}")
+          f"block_s={engine.decode_block_s()}, "
+          f"graphs: {st.graph_captures} captured, {st.graph_replays} "
+          "replays")
     print(f"[serve] prefill_chunk={engine.prefill_chunk}: "
           f"{st.prefill_chunks} chunks, decode_stalls={st.decode_stalls}")
     print(f"[serve] prefix_cache={args.prefix_cache}: "

@@ -62,10 +62,20 @@ def out_proj(p: Params, attn_out: torch.Tensor, plan) -> torch.Tensor:
     return attn_out.reshape(B, S, -1) @ w
 
 
+_KMAPS: Dict[Tuple, torch.Tensor] = {}
+
+
 def local_kmap(plan, device) -> torch.Tensor:
-    """(qpr,) local kv index per local q head (rank 0 at tp=1)."""
-    return torch.as_tensor(plan.attn.q_to_kv_local[0], dtype=torch.long,
-                           device=device)
+    """(qpr,) local kv index per local q head (rank 0 at tp=1).  Made
+    once per map and device: a host-to-device copy cannot run inside a
+    captured graph, and the first call happens in the eager warm-up."""
+    kmap = tuple(int(i) for i in plan.attn.q_to_kv_local[0])
+    key = (kmap, torch.device(device))
+    t = _KMAPS.get(key)
+    if t is None:
+        t = _KMAPS[key] = torch.as_tensor(kmap, dtype=torch.long,
+                                          device=device)
+    return t
 
 
 def _expand_kv(k: torch.Tensor, kmap: torch.Tensor) -> torch.Tensor:

@@ -53,12 +53,25 @@ reference's ``serving/engine.py`` ``LPUEngine``).
   evicted and re-prefilled later (recompute).
 * **Fused sampling** — by default the sampler runs on the device after
   each decode step and only token ids reach the host.
-  ``steps_per_sync=S`` runs S decode steps per host readback (the
-  reference's ``lax.scan`` window becomes a Python loop of S device
-  steps with the finish rules applied on the device), and ``pipeline``
-  enqueues window k+1 off window k's device state before reading window
-  k back.  ``sampling="host"`` reads the logits row back every step (the
-  parity oracle).
+  ``steps_per_sync=S`` runs S decode steps per host readback with the
+  finish rules applied on the device, and ``pipeline`` enqueues window
+  k+1 off window k's device state before reading window k back.
+  ``sampling="host"`` reads the logits row back every step (the parity
+  oracle).
+* **One program per window** — as the reference jits its ``lax.scan``
+  window once per S and its fused verify round once per K, the engine
+  runs each fused window and each fused verify round as the replay of a
+  CUDA graph, keyed by ``(S, stochastic)`` and ``(K, stochastic)``
+  (:mod:`repro_torch.serving.graphs`).  The window reads its block
+  tables, carry and sampling arrays from persistent device buffers and
+  writes its carry back into them, so a pipelined window replays off
+  the previous one's carry; the host uploads only what changed.  The
+  graphs are captured on first use, after one eager warm-up with a dead
+  carry (a dense or recurrent cache and the generator are restored
+  around it).  On the CPU the same functions run eagerly on the same
+  buffers.  ``graphs=False`` runs them eagerly on the card too: the
+  eager twin, as ``jax.disable_jit`` is the reference's.  Prefill,
+  chunks, prefix tails and the host-sampled paths stay eager.
 
 Not in this slice (each raises ``NotImplementedError``): a mesh / tp > 1,
 and any value other than the default of a config field whose subsystem
@@ -68,6 +81,7 @@ telemetry: the engine's decode keeps the fp weights at any value.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple, Union
@@ -81,6 +95,7 @@ from repro_torch.kernels.decode_attention.ops import resolve_paged_kernel
 from repro_torch.serving.config import (DEFAULTS, SPECULATE, UNPORTED,
                                         EngineConfig)
 from repro_torch.serving.drafter import make_drafter
+from repro_torch.serving.graphs import Programs, StagedBuffer
 from repro_torch.serving.kv_cache import (LANE, BlockPool, PrefixCache,
                                           assert_pool_balanced, cache_bytes,
                                           copy_pool_block,
@@ -148,6 +163,8 @@ class EngineStats:
                                   # per-request failure
     device_decode_steps: int = 0  # decode forwards dispatched (each runs
                                   # every layer's decode attention once)
+    graph_captures: int = 0       # window / verify programs captured
+    graph_replays: int = 0        # ...and replayed
     spec_rounds: int = 0          # speculative verify rounds (one verify
                                   # forward each)
     draft_tokens: int = 0         # drafter-proposed tokens verified
@@ -197,12 +214,15 @@ class LPUEngine:
     ``device="cpu"`` to run the plain PyTorch path.  ``seed`` seeds the
     sampler's ``torch.Generator``.  ``drafter=`` injects a proposer (any
     object with ``propose(tokens, k)``) and turns speculation on;
-    ``speculate="model"`` needs ``draft_model``/``draft_params``."""
+    ``speculate="model"`` needs ``draft_model``/``draft_params``.
+    ``graphs=False`` runs the fused windows and verify rounds eagerly
+    instead of replaying their captured CUDA graphs (the eager twin; on
+    the CPU nothing is captured either way)."""
 
     def __init__(self, model, params,
                  config: Optional[EngineConfig] = None, *,
                  mesh=None, seed: int = 0, device=None, drafter=None,
-                 draft_model=None, draft_params=None):
+                 draft_model=None, draft_params=None, graphs: bool = True):
         c = EngineConfig() if config is None else config
         self.config = c
         self.device = resolve_device(device)
@@ -344,6 +364,22 @@ class LPUEngine:
         self._rid = 0
         self._chunk_rr = -1           # admit_seq of the last chunk served
         self._buckets_traced: Set = set()
+        # the window's static inputs (carry + sampling arrays, tables) and
+        # its token matrix per length; the verify round's per K
+        self.graphs = bool(graphs)
+        self._programs = Programs(self.device)
+        B = self.slots
+        self._win = StagedBuffer(
+            [(n, (B,), "i32") for n in ("last", "pos", "n_out", "alive",
+                                        "top_ks", "max_new")]
+            + [(n, (B,), "f32") for n in ("temps", "top_ps")], self.device)
+        self._tables = (StagedBuffer([("tables", (B, self.table_len), "i32")],
+                                     self.device) if self.paged else None)
+        self._tok_out = {w: torch.zeros((w, B), dtype=torch.int32,
+                                        device=self.device)
+                         for w in {1, self.steps_per_sync}}
+        self._ver: Dict[int, StagedBuffer] = {}
+        self._ver_out: Dict[int, torch.Tensor] = {}
 
     def _init_kv_state(self) -> Optional[BlockPool]:
         """A zeroed cache (pool or dense), fresh block tables and — paged
@@ -378,38 +414,97 @@ class LPUEngine:
     def _decode_fn(self, tokens: torch.Tensor, positions: torch.Tensor,
                    tables: Optional[torch.Tensor]) -> torch.Tensor:
         """One decode forward for the whole slot batch; the cache is
-        updated in place.  Returns the (slots, V_pad) logits rows."""
+        updated in place.  Returns the (slots, V_pad) logits rows.  The
+        caller counts it in ``device_decode_steps`` (a captured window
+        runs it only at capture)."""
         logits, _ = self.model.forward(
             self.params, tokens, mode="decode", positions=positions,
             cache=self.cache, block_tables=tables,
             paged_kernel=self.paged_kernel or "gather",
             block_s=self.block_s)
-        self.stats.device_decode_steps += 1
         return logits[:, -1]
 
-    def _window_fn(self, S: int, tables, last, pos, n_out, alive, temps,
-                   top_ks, top_ps, max_new, stochastic: bool):
+    def _window_fn(self, S: int, stochastic: bool) -> None:
         """``S`` decode steps with sampling and the finish rules applied
-        on the device; no host sync inside.  A slot that hits eos / its
-        token budget / max_seq drops out of ``alive`` and is frozen: its
-        (last, pos) stop advancing, so later steps rewrite the same KV
-        row with the same value.  Returns the (S, slots) token matrix and
-        the carry."""
+        on the device, reading the block tables, the carry ``(last, pos,
+        n_out, alive)`` and the sampling arrays from the static buffers:
+        no host sync and no host-made tensor inside, so it captures as
+        one graph.  A slot that hits eos / its token budget / max_seq
+        drops out of ``alive`` and is frozen: its (last, pos) stop
+        advancing, so later steps rewrite the same KV row with the same
+        value.  Writes the (S, slots) token matrix into ``_tok_out[S]``
+        and the carry back into its buffers."""
+        w = self._win.view
+        tables = self._tables.view["tables"] if self.paged else None
         eos = -1 if self.eos_id is None else self.eos_id
+        last, pos, n_out = w["last"], w["pos"], w["n_out"]
+        alive = w["alive"] != 0
         toks_all = []
         for _ in range(S):
             row = self._decode_fn(last[:, None], pos, tables)
-            toks = sample_batched(row, self.gen, temps, top_ks, top_ps,
-                                  stochastic)
+            toks = sample_batched(row, self.gen, w["temps"], w["top_ks"],
+                                  w["top_ps"], stochastic)
             live = alive.to(torch.int32)
             n_out = n_out + live
             pos = pos + live
-            fin = (n_out >= max_new) | (toks == eos) | \
+            fin = (n_out >= w["max_new"]) | (toks == eos) | \
                 (pos >= self.max_seq - 1)
             last = torch.where(alive, toks, last)
             alive = alive & ~fin
             toks_all.append(toks)
-        return torch.stack(toks_all), (last, pos, n_out, alive)
+        torch.stack(toks_all, out=self._tok_out[S])
+        for name, t in (("last", last), ("pos", pos), ("n_out", n_out),
+                        ("alive", alive)):
+            w[name].copy_(t)
+
+    def _carry_after(self, toks: np.ndarray) -> None:
+        """Replay on the host mirror of the window's state buffer what a
+        window that sampled ``toks`` (S, slots) did to its carry, so the
+        mirror stays what the device holds (the same rules as
+        :meth:`_window_fn`)."""
+        if self._win.mirror is None:
+            return
+        m = self._win.fields(self._win.mirror)
+        eos = -1 if self.eos_id is None else self.eos_id
+        for row in toks:
+            live = m["alive"] != 0
+            m["n_out"] += live
+            m["pos"] += live
+            fin = (m["n_out"] >= m["max_new"]) | (row == eos) | \
+                (m["pos"] >= self.max_seq - 1)
+            m["last"][...] = np.where(live, row, m["last"])
+            m["alive"][...] = live & ~fin
+
+    @contextlib.contextmanager
+    def _held(self, dead: Callable[[], None]):
+        """Guard of a program's warm-up and capture: ``dead()`` uploads
+        inputs that leave every slot dead (the warm-up's K/V writes land
+        in the null block); a dense or recurrent cache, which the
+        forward rewrites for every slot, dead or alive, is saved and
+        restored, and so is the generator's state; the window buffers'
+        mirrors are dropped, so the next dispatch uploads."""
+        dead()
+        gen = self.gen.get_state()
+        saved = None if self.paged else [
+            (t, t.clone()) for c in self.cache.values() for t in c.values()]
+        try:
+            yield
+        finally:
+            for t, copy in saved or ():
+                t.copy_(copy)
+            self.gen.set_state(gen)
+            for buf in (self._win, self._tables, *self._ver.values()):
+                if buf is not None:
+                    buf.mirror = None
+
+    def _program(self, key, fn: Callable[[], None], stochastic: bool,
+                 dead: Callable[[], None]):
+        """The captured program of ``key`` (None for the eager twin)."""
+        if not self.graphs:
+            return None
+        return self._programs.get(
+            key, fn, generator=self.gen if stochastic else None,
+            held=lambda: self._held(dead))
 
     def _prefill_fn(self, tokens: torch.Tensor, true_len: int):
         """Batch-1 prefill of a bucket-padded prompt into a fresh bucket
@@ -506,9 +601,9 @@ class LPUEngine:
         table the decode steps read.  Empty and still-prefilling slots
         stay all-zero: their don't-care writes land in the null block,
         so a window never touches a partly resident prompt.  A fresh
-        array every time, never an in-place rewrite: on the CPU
-        ``torch.from_numpy`` shares its memory, and a pipelined window
-        may still read the previous one."""
+        array every time, never an in-place rewrite: the host decode
+        step hands it to ``torch.from_numpy``, which shares its memory
+        on the CPU."""
         if not self.paged:
             return
         tables = np.zeros((self.slots, self.table_len), np.int32)
@@ -743,7 +838,9 @@ class LPUEngine:
             finished += self._fused_decode_round()
         else:
             finished += self._host_decode_step()
-        self.stats.prefill_traces = len(self._buckets_traced)
+        st.prefill_traces = len(self._buckets_traced)
+        st.graph_captures = self._programs.captures
+        st.graph_replays = self._programs.replays
         return finished
 
     def _harvest_rejections(self) -> List[Request]:
@@ -774,6 +871,7 @@ class LPUEngine:
         tables = self._to_dev(self.block_tables) if self.paged else None
         logits = self._decode_fn(self._to_dev(toks), self._to_dev(pos),
                                  tables)
+        self.stats.device_decode_steps += 1
         logits_np = logits.cpu().numpy()
         self.stats.host_syncs += 1
         self.stats.bytes_to_host += logits_np.nbytes
@@ -798,19 +896,12 @@ class LPUEngine:
 
     # -- fused decode: multi-step windows ------------------------------
 
-    def _slot_state(self) -> Tuple[tuple, tuple, bool]:
-        """Host slot state -> the window's carry, per-slot sampling
-        parameters (small uploads) and whether any slot samples."""
-        carry, samp, stochastic = self._slot_arrays()
-        return (tuple(self._to_dev(a) for a in carry),
-                tuple(self._to_dev(a) for a in samp), stochastic)
-
     def _slot_arrays(self) -> Tuple[tuple, tuple, bool]:
-        """The host arrays behind :meth:`_slot_state`: ``(last, pos,
-        n_out, alive)``, ``(temps, top_ks, top_ps, max_new)`` and whether
-        any alive slot samples.  Only decode-ready slots are ``alive``;
-        empty and prefilling slots stay dead zeros, frozen by the
-        window."""
+        """Host slot state -> the window's carry ``(last, pos, n_out,
+        alive)``, the per-slot sampling arrays ``(temps, top_ks, top_ps,
+        max_new)`` and whether any alive slot samples.  Only
+        decode-ready slots are ``alive``; empty and prefilling slots stay
+        dead zeros, frozen by the window."""
         B = self.slots
         last = np.zeros((B,), np.int32)
         pos = np.zeros((B,), np.int32)
@@ -853,16 +944,45 @@ class LPUEngine:
                 return True
         return False
 
-    def _dispatch_window(self, win: int, carry: tuple, samp: tuple,
-                         stochastic: bool):
-        """Enqueue one window (the device runs it asynchronously).
-        Returns ((win, token matrix, active snapshot), device carry)."""
-        tables = self._to_dev(self.block_tables) if self.paged else None
-        tok_mat, carry = self._window_fn(win, tables, *carry, *samp,
-                                         stochastic)
+    def _window_state(self, state: Optional[tuple]) -> np.ndarray:
+        """The packed state buffer of ``state`` = ``(carry, samp)`` from
+        :meth:`_slot_arrays`, or of a batch with every slot dead."""
+        if state is None:
+            B = self.slots
+            z = np.zeros((B,), np.int32)
+            state = ((z, z, z, z), (np.zeros((B,), np.float32), z,
+                                    np.ones((B,), np.float32), z))
+        (last, pos, n_out, alive), (temps, top_ks, top_ps, max_new) = state
+        return self._win.pack(dict(
+            last=last, pos=pos, n_out=n_out, alive=alive, temps=temps,
+            top_ks=top_ks, top_ps=top_ps, max_new=max_new))
+
+    def _dead_window(self) -> None:
+        self._win.upload(self._window_state(None))
+        if self.paged:
+            self._tables.upload(np.zeros_like(self.block_tables))
+
+    def _dispatch_window(self, win: int, stochastic: bool,
+                         state: Optional[tuple]):
+        """Enqueue one window (the device runs it asynchronously): its
+        program (captured on first use), then the uploads of what
+        changed — the block tables, and ``state`` (``(carry, samp)``;
+        None continues off the device carry of the window before) — then
+        the replay.  The token matrix is cloned at once: the next replay
+        rewrites ``_tok_out``.  Returns (win, token matrix, active
+        snapshot)."""
+        fn = lambda: self._window_fn(win, stochastic)       # noqa: E731
+        prog = self._program(("window", win, stochastic), fn, stochastic,
+                             self._dead_window)
+        if self.paged:
+            self._tables.upload(self.block_tables)
+        if state is not None:
+            self._win.upload(self._window_state(state))
+        self._programs.run(prog, fn)
+        self.stats.device_decode_steps += win
         snapshot = [s is not None and not s.prefilling
                     for s in self.sched.active]
-        return (win, tok_mat, snapshot), carry
+        return win, self._tok_out[win].clone(), snapshot
 
     def _reconcile(self, handle) -> List[Request]:
         """Read a window's token matrix back (the ONE device->host sync
@@ -872,6 +992,7 @@ class LPUEngine:
         toks = tok_mat.cpu().numpy()                   # (win, slots)
         self.stats.host_syncs += 1
         self.stats.bytes_to_host += toks.nbytes
+        self._carry_after(toks)
         finished: List[Request] = []
         for s in range(win):
             if self.sched.num_decoding() == 0:
@@ -912,18 +1033,62 @@ class LPUEngine:
         win = S if (S > 1 and not self._admission_waiting()
                     and self.sched.reserve_lookahead(S)) else 1
         self._refresh_tables()
-        carry, samp, stochastic = self._slot_state()
-        h1, dev_carry = self._dispatch_window(win, carry, samp, stochastic)
+        carry, samp, stochastic = self._slot_arrays()
+        h1 = self._dispatch_window(win, stochastic, (carry, samp))
         h2 = None
         if self.pipeline and not self.sched.queue \
                 and self._may_survive(win) \
                 and self.sched.reserve_lookahead(2 * win):
             self._refresh_tables()
-            h2, _ = self._dispatch_window(win, dev_carry, samp, stochastic)
+            h2 = self._dispatch_window(win, stochastic, None)
         finished = self._reconcile(h1)
         if h2 is not None:
             finished += self._reconcile(h2)
         return finished
+
+    def _verify_fn(self, K: int, stochastic: bool) -> None:
+        """The fused verify round for draft length ``K`` on its static
+        buffers: the verify forward, then the rejection sampling of
+        every slot; writes ``out`` (B, K+1) and ``n_acc`` (B,) side by
+        side into ``_ver_out[K]``."""
+        v, B, K1 = self._ver[K].view, self.slots, K + 1
+        rows = self._verify_fwd(v["tokens"], v["positions"], v["tables"],
+                                v["lens"]).reshape(B, K1, -1)
+        out, n_acc = speculative_verify_batched(
+            rows, v["draft"], self.gen, v["temps"], v["top_ks"],
+            v["top_ps"], stochastic)
+        self._ver_out[K][:, :K1].copy_(out)
+        self._ver_out[K][:, K1].copy_(n_acc)
+
+    def _verify_round(self, K: int, stochastic: bool,
+                      inputs: Dict[str, np.ndarray]) -> np.ndarray:
+        """Upload one round's ``inputs`` and run the verify program of
+        ``(K, stochastic)`` (captured on first use).  Returns the (B,
+        K+2) host array of ``out`` and ``n_acc``: the round's one host
+        read."""
+        B, K1, T = self.slots, K + 1, self.table_len
+        Q = B * K1
+        buf = self._ver.get(K)
+        if buf is None:
+            buf = self._ver[K] = StagedBuffer(
+                [("tokens", (1, Q), "i32"), ("positions", (1, Q), "i32"),
+                 ("lens", (Q,), "i32"), ("tables", (Q, T), "i32"),
+                 ("draft", (B, K), "i32"), ("top_ks", (B,), "i32"),
+                 ("temps", (B,), "f32"), ("top_ps", (B,), "f32")],
+                self.device)
+            self._ver_out[K] = torch.zeros((B, K1 + 1), dtype=torch.int32,
+                                           device=self.device)
+        ones = np.ones((B,), np.float32)
+
+        def dead():
+            buf.upload(buf.pack(dict(
+                tokens=0, positions=0, lens=0, tables=0, draft=0, top_ks=0,
+                temps=0.0, top_ps=ones)))
+        fn = lambda: self._verify_fn(K, stochastic)         # noqa: E731
+        prog = self._program(("verify", K, stochastic), fn, stochastic, dead)
+        buf.upload(buf.pack(inputs))
+        self._programs.run(prog, fn)
+        return self._ver_out[K].cpu().numpy()
 
     def _spec_decode_round(self) -> List[Request]:
         """One draft-and-verify speculative round.
@@ -978,20 +1143,20 @@ class LPUEngine:
                              0).astype(np.int32)
         lens = np.where(alive[:, None], positions + 1, 1).astype(np.int32)
         tables = np.repeat(self.block_tables, K1, axis=0)
-        rows = self._verify_fwd(
-            self._to_dev(toks.reshape(1, B * K1)),
-            self._to_dev(positions.reshape(1, B * K1)),
-            self._to_dev(tables), self._to_dev(lens.reshape(-1)))
-        rows = rows.reshape(B, K1, -1)
         self.stats.spec_rounds += 1
         if self.sampling == "fused":
-            out, n_acc = speculative_verify_batched(
-                rows, self._to_dev(draft), self.gen, self._to_dev(temps),
-                self._to_dev(top_ks), self._to_dev(top_ps), stochastic)
-            out, n_acc = out.cpu().numpy(), n_acc.cpu().numpy()
+            res = self._verify_round(K, stochastic, dict(
+                tokens=toks, positions=positions, lens=lens, tables=tables,
+                draft=draft, temps=temps, top_ks=top_ks, top_ps=top_ps))
+            out, n_acc = res[:, :K1], res[:, K1]
             self.stats.host_syncs += 1
-            self.stats.bytes_to_host += out.nbytes + n_acc.nbytes
+            self.stats.bytes_to_host += res.nbytes
         else:
+            rows = self._verify_fwd(
+                self._to_dev(toks.reshape(1, B * K1)),
+                self._to_dev(positions.reshape(1, B * K1)),
+                self._to_dev(tables), self._to_dev(lens.reshape(-1)))
+            rows = rows.reshape(B, K1, -1)
             rows_np = rows.cpu().numpy()
             self.stats.host_syncs += 1
             self.stats.bytes_to_host += rows_np.nbytes

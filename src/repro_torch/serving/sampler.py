@@ -129,7 +129,9 @@ def speculative_verify_batched(logits: torch.Tensor, draft: torch.Tensor,
     draft = draft.long()
     out, match = g_out, g_out[:, :K] == draft
     if stochastic:
-        rep = lambda t: t.repeat_interleave(K1)             # noqa: E731
+        # each slot's parameters over its K+1 rows (an expand: no host
+        # sync, so the fused verify round captures as one graph)
+        rep = lambda t: t[:, None].expand(B, K1).reshape(-1)  # noqa: E731
         lg = filter_rows(lg_raw.reshape(B * K1, V), rep(temps),
                          rep(top_ks), rep(top_ps)).reshape(B, K1, V)
         probs = torch.softmax(lg, -1)

@@ -38,14 +38,20 @@ result line when any phase fails or when no CUDA device is present):
    device ms per token, the profiler's count of kernel 1 against the
    launch registry's); then the prefill paths: (a) the 8 prompts and a
    448-token one in chunks of 64 against the monolithic run (no decode
-   stall), (b) the same on the gather oracle (no launch), (c) 4 prompts
+   stall), each beside its eager twin, (b) the same on the gather
+   oracle (no launch), (c) 4 prompts
    sharing a 256-token system prompt with the prefix cache on against
    off, (d) two identical 256-token prompts at once (copy-on-write), (e)
    chunks with a pool small enough to preempt; greedy streams equal, or
    apart only where the model's top-2 gap is at most 1e-4 (a near tie),
    the pool balanced, and kernel 1 launched exactly once per layer per
    decode step, per chunk and per prefix tail; plus the last row of the
-   448-token prompt by both prefill paths; then (f) the same traffic on
+   448-token prompt by both prefill paths; then the time to first
+   token of the 448-token prompt on a warmed engine, monolithic (bucket
+   512) and in chunks of 64, on captured programs and on the eager twin
+   (median of 5 requests from ``submit`` to the first token's
+   ``stream_cb``, and torch.profiler's device time of one prefill); then
+   (f) the same traffic on
    an int8 and an fp8 pool, every run prefilled in chunks of 64: kernel
    1 against the gather oracle of the same pool, prefix on against off,
    a pool of 7 blocks of 32 that preempts against the uncontended run,
@@ -120,18 +126,24 @@ result line when any phase fails or when no CUDA device is present):
    twin, streams equal: wall and device ms per token (torch.profiler
    over 64 decode steps at the middle of the output), the busy share,
    bytes per token and bandwidth use, beside the paper's figures,
-   labelled as the paper's.
+   labelled as the paper's; and the time to first token of the
+   protocol's 32-token prompt (bucket 128) on each warmed twin.
 
-Every engine runs its fused decode windows and verify rounds as replays
-of CUDA graphs captured on first use (``repro_torch/serving/graphs.py``);
-a served run that replayed none fails.  A replay adds the launches its
-capture made to the kernels' counters, so every exact-launch gate counts
-per replay.
+Every engine runs its fused decode windows, verify rounds, monolithic
+prefills, prefill chunks, prefix tails, first-token sampling and
+copy-on-write block copies as replays of CUDA graphs captured on first
+use (``repro_torch/serving/graphs.py``; a recurrent stack's exact-length
+prefill stays eager); a served run that ran one of these steps without
+replaying its program fails.  A replay adds the launches its capture
+made to the kernels' counters, so every exact-launch gate counts per
+replay.
 
 A ``[time]`` line closes each phase and one gives the total.  The last
 lines are a ``{"kernels": [...], "floor_ms": ...}`` line, an
 ``{"engine": ...}`` line, a ``{"chain": ...}`` line, an ``{"rwkv": ...}``
-line, a ``{"jamba": ...}`` line, an ``{"opt": ...}`` line, the
+line, a ``{"jamba": ...}`` line, an ``{"opt": ...}`` line, a
+``{"ttft": ...}`` line (smollm-135m's and (h4)'s times to first token,
+graphs and eager twin, with the card's name and power limit), the
 nvidia-smi line and ``{"ok": true, "device": {...}}``.  Imports nothing
 of JAX: the port stands alone.
 """
@@ -937,13 +949,38 @@ def serve(torch, dev, model, params, prompts, engine_kw=None, warm=None,
     return outs, eng, paged_decode_attention.launches
 
 
+ADMISSION_KINDS = ("prefill", "chunk", "sample", "cow")
+
+
+def admission_replays(eng):
+    """{kind: replays} of the engine's admission programs."""
+    return {k: eng._admit.replays_of(k) for k in ADMISSION_KINDS}
+
+
 def on_graphs(eng):
     """Raise unless an engine with graphs on ran its decode windows and
-    verify rounds as replays of captured graphs."""
+    verify rounds as replays of captured graphs, and (an attention-only
+    stack, whose prompts are bucketed) each kind of admission step it
+    ran — monolithic prefills, chunks and prefix tails, the first-token
+    sampler, copy-on-write block copies — as well."""
+    if not eng.graphs:
+        return
     st = eng.stats
-    if eng.graphs and (st.device_decode_steps or st.spec_rounds) and \
-            not st.graph_replays:
-        raise AssertionError(f"the engine replayed no captured program: "
+    if (st.device_decode_steps or st.spec_rounds) and \
+            not eng._programs.replays:
+        raise AssertionError(f"the engine replayed no captured window: "
+                             f"{st}")
+    ran = {"sample": eng.sampling == "fused" and st.prefill_syncs > 0}
+    if eng.bucketed:
+        ran.update(
+            chunk=st.prefill_chunks > 0 or st.prefix_hits > 0,
+            prefill=not eng.prefill_chunk and st.prefills > st.prefix_hits,
+            cow=st.cow_blocks > 0)
+    missing = [k for k, r in ran.items() if r and not
+               eng._admit.replays_of(k)]
+    if missing:
+        raise AssertionError(f"the engine ran {missing} without replaying "
+                             f"their programs: {admission_replays(eng)}, "
                              f"{st}")
 
 
@@ -984,7 +1021,8 @@ def profile_engine(torch, dev, model, params, prompts, wall_s,
     paged = [e for e in kernels if "paged_decode_kernel" in e.key]
     eng = ran["eng"]
     tokens = eng.stats.tokens
-    warm = eng._programs.warm_launches.get("paged_decode_attention", 0)
+    warm = sum(p.warm_launches.get("paged_decode_attention", 0)
+               for p in (eng._programs, eng._admit))
     return {"device_busy_ms": busy_us / 1e3,
             "unprofiled_wall_ms": wall_s * 1e3,
             "device_busy_share": busy_us / 1e6 / wall_s,
@@ -1207,7 +1245,10 @@ def run_prefill_paths(torch, dev, model, params, prompts, stream):
                "device_decode_steps": s.device_decode_steps,
                "prefills": s.prefills, "prefill_chunks": s.prefill_chunks,
                "decode_stalls": s.decode_stalls,
-               "preemptions": s.preemptions, "kernel_launches": launches}
+               "preemptions": s.preemptions, "kernel_launches": launches,
+               "graphs": eng.graphs, "graph_captures": s.graph_captures,
+               "graph_replays": s.graph_replays,
+               "admission_replays": admission_replays(eng)}
         if eng.prefix is not None:
             out.update(prefix_hits=s.prefix_hits,
                        prefix_hit_blocks=s.prefix_hit_blocks,
@@ -1243,6 +1284,23 @@ def run_prefill_paths(torch, dev, model, params, prompts, stream):
     out["chunked"]["profile"] = profile_engine(
         torch, dev, model, params, long9, ceng.stats.wall,
         prefill_chunk=PREFILL_CHUNK)
+    # (a) their eager twins: every prefill, chunk and window launched op
+    # by op from Python
+    t_e = time.perf_counter()
+    for name, streams, kw in (("monolithic", mono, {}),
+                              ("chunked", chunked,
+                               dict(prefill_chunk=PREFILL_CHUNK))):
+        e_out, e_eng, e_l = serve(torch, dev, model, params, long9,
+                                  engine_kw=dict(graphs=False),
+                                  paged_kernel="stream", **kw)
+        if e_l != want(e_eng):
+            raise AssertionError(f"(a) {name} eager twin: kernel launches "
+                                 f"{e_l} != {want(e_eng)}")
+        e_eng.check_pool_balanced()
+        out[name]["eager_twin"] = rec(e_eng, e_l, vs_graphs=agree(
+            torch, model, params, long9, e_out, streams,
+            f"(a) {name} eager twin"))
+    out["eager_twins_s"] = time.perf_counter() - t_e
     # (b) the same on the gather oracle
     gathered, geng, gl = serve(torch, dev, model, params, long9,
                                paged_kernel="gather",
@@ -1296,7 +1354,88 @@ def run_prefill_paths(torch, dev, model, params, prompts, stream):
         vs_monolithic=agree(torch, model, params, prompts, pre, stream,
                             "(e) chunked under preemption"))
     out["kernel_launches"] = cl + pl + tl + rl
+    out["long_prompt"] = long9[-1]
     out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# time to first token: requests of one new token each on a warmed, idle
+# engine
+TTFT_REQUESTS = 5
+
+
+def time_to_first_token(torch, eng, prompt):
+    """Time to first token of ``prompt`` on a warmed, idle engine (its
+    programs captured): the host clock from ``submit`` to the first
+    token's ``stream_cb``, over TTFT_REQUESTS requests of one new token
+    (median and all), then torch.profiler's device time over one more:
+    one prefill (all its chunks, on a chunked engine) and the first
+    token's sampling.  A graph engine must capture nothing while
+    measured and replay every step."""
+    import statistics
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    caps, reps = eng._admit.captures, eng._admit.replays
+    ms, first = [], set()
+    for _ in range(TTFT_REQUESTS):
+        hit = []
+        t0 = time.perf_counter()
+        eng.submit(prompt, 1, stream_cb=lambda rid, tok: hit.append(
+            (time.perf_counter(), tok)))
+        while not hit:
+            eng.step()
+        ms.append((hit[0][0] - t0) * 1e3)
+        first.add(hit[0][1])
+        eng.drain()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        first.add(eng.generate([prompt], 1)[0][0])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    what = f"ttft {eng.cfg.name} graphs={eng.graphs}"
+    if len(first) != 1 or not busy_us:
+        raise AssertionError(f"{what}: first tokens {first}, device time "
+                             f"{busy_us} us")
+    if eng.graphs and (eng._admit.captures != caps
+                       or eng._admit.replays == reps):
+        raise AssertionError(f"{what}: {eng._admit.captures - caps} "
+                             "captures while measured, replays "
+                             f"{eng._admit.replays - reps}")
+    return {"ttft_ms": statistics.median(ms), "ttft_ms_all": ms,
+            "prefill_device_ms": busy_us / 1e3,
+            "device_kernels": sum(e.count for e in kernels),
+            "prompt_len": len(prompt),
+            "bucket": eng.sched.bucket(len(prompt)),
+            "prefill_chunk": eng.prefill_chunk, "graphs": eng.graphs,
+            "admission_replays": eng._admit.replays - reps,
+            "first_token": first.pop(), "requests": TTFT_REQUESTS}
+
+
+def run_ttft_smollm(torch, dev, model, params, prompt):
+    """Time to first token of full-width smollm-135m (f32, 4 slots,
+    max_seq 512) on ``prompt`` (the 448-token one): monolithic (bucket
+    512) and in chunks of 64, each on captured programs and on the eager
+    twin, each engine warmed by one request of the same prompt; the
+    twins' first tokens equal (or apart at a near tie)."""
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine
+    out = {}
+    for name, kw in (("monolithic", {}),
+                     ("chunked", dict(prefill_chunk=PREFILL_CHUNK))):
+        for graphs in (True, False):
+            eng = LPUEngine(model, params, EngineConfig(
+                slots=4, max_seq=512, **kw), device=dev, graphs=graphs)
+            eng.generate([prompt], 1)                       # warm
+            on_graphs(eng)
+            out[name + ("" if graphs else "_eager")] = \
+                time_to_first_token(torch, eng, prompt)
+            del eng
+        g, e = out[name], out[name + "_eager"]
+        g["vs_eager"] = agree(torch, model, params, [prompt],
+                              [[g["first_token"]]], [[e["first_token"]]],
+                              f"ttft {name}")
     return out
 
 
@@ -1356,6 +1495,7 @@ def run_rec(eng, launches, **extra):
            "prefills": s.prefills, "preemptions": s.preemptions,
            "graph_captures": s.graph_captures,
            "graph_replays": s.graph_replays,
+           "admission_replays": admission_replays(eng),
            "kernel_launches": launches}
     if eng.prefix is not None:
         out.update(prefix_hits=s.prefix_hits, cow_blocks=s.cow_blocks,
@@ -2271,13 +2411,15 @@ def protocol_run(torch, dev, model, params, prompt, out_n, graphs):
     """One engine of the protocol (1 slot, max_seq 2048, 8-step windows,
     a bf16 pool), greedy, on captured windows or (``graphs=False``) the
     eager twin, warmed by a first request of 16 tokens (which captures
-    its windows, as a server does once), then serving the measured one.
-    In the middle of its output (KV at the mean length) 64 decode steps
-    run under torch.profiler: device ms per token from them; wall ms per
-    output token from the engine's own clock over the rest of the
-    request, its eager prefill included.  The profiler's count of kernel
-    1 over those steps beside the launch registry's: equal when the
-    profiler sees the kernels inside a replay."""
+    its prefill, sampler and windows, as a server does once), then
+    serving the measured one.  In the middle of its output (KV at the
+    mean length) 64 decode steps run under torch.profiler: device ms per
+    token from them; wall ms per output token from the engine's own
+    clock over the rest of the request, its prefill included.  The
+    profiler's count of kernel 1 over those steps beside the launch
+    registry's: equal when the profiler sees the kernels inside a
+    replay.  Then the time to first token of the same prompt on the
+    warmed engine (:func:`time_to_first_token`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.config import EngineConfig
@@ -2336,6 +2478,9 @@ def protocol_run(torch, dev, model, params, prompt, out_n, graphs):
     # the profiled steps' own wall is left out of the wall per token
     wall_ms = (st.wall - base.wall - window_wall) * 1e3 / (len(out) - steps)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    t_ttft = time.perf_counter()
+    ttft = time_to_first_token(torch, eng, prompt)
+    ttft["phase_s"] = time.perf_counter() - t_ttft
     return {"out": out, "wall_ms_per_token": wall_ms,
             "device_ms_per_token": device_ms,
             "device_busy_share": device_ms / wall_ms,
@@ -2350,6 +2495,7 @@ def protocol_run(torch, dev, model, params, prompt, out_n, graphs):
             "total_wall_s": st.wall - base.wall,
             "graph_captures": st.graph_captures, "graph_replays": replays,
             "launches": counts,
+            "ttft": ttft,
             "pool_dtype": str(eng.cache["l0"]["k"].dtype).split(".")[-1],
             "top_kernels": [{"name": e.key[:80], "count": e.count,
                              "ms": e.self_device_time_total / 1e3}
@@ -3252,8 +3398,27 @@ def main() -> int:
           f"{pp['cow']['cow_blocks']}; chunked preemptions "
           f"{pp['chunked_preempt']['preemptions']}; chunk row vs "
           f"monolithic {pp['chunk_row_vs_monolithic']}")
+    for name in ("monolithic", "chunked"):
+        g, e = pp[name], pp[name]["eager_twin"]
+        print(f"[engine] (a) {name}: graphs {g['tokens_per_s']:.1f} tok/s "
+              f"(admission replays {g['admission_replays']}), eager twin "
+              f"{e['tokens_per_s']:.1f} tok/s, streams equal "
+              f"{e['vs_graphs']['equal']}/9 | {smi}")
+    print(f"[time] (a) eager twins {pp['eager_twins_s']:.1f} s (of the "
+          f"prefill paths' {pp['phase_s']:.1f} s)")
 
     lap("engine")
+    t_tt = time.perf_counter()
+    ttft_smollm = run_ttft_smollm(torch, dev, model, params,
+                                  pp.pop("long_prompt"))
+    for name, r in ttft_smollm.items():
+        print(f"[ttft] smollm-135m {name}: {r['ttft_ms']:.3f} ms (median "
+              f"of {r['requests']}: {[round(x, 3) for x in r['ttft_ms_all']]}"
+              f"), prefill device {r['prefill_device_ms']:.3f} ms over "
+              f"{r['device_kernels']} kernels; prompt {r['prompt_len']}, "
+              f"bucket {r['bucket']}, chunk {r['prefill_chunk']} | {smi}")
+    print(f"[time] ttft smollm {time.perf_counter() - t_tt:.1f} s",
+          flush=True)
     qpool = run_quantized_engine(torch, dev, model, params, prompts,
                                  pp.pop("chunked_streams"))
     for qname in ("int8", "fp8"):
@@ -3337,6 +3502,14 @@ def main() -> int:
               f"{tw['wall_ms_per_token']:.3f} ms/token, device "
               f"{tw['device_ms_per_token']:.3f}, busy "
               f"{tw['device_busy_share']:.3f}; streams equal | {smi}")
+        for twin, t in (("graphs", r["ttft"]), ("eager twin", tw["ttft"])):
+            print(f"[ttft] {name} bf16 {twin}: {t['ttft_ms']:.3f} ms "
+                  f"(median of {t['requests']}: "
+                  f"{[round(x, 3) for x in t['ttft_ms_all']]}), prefill "
+                  f"device {t['prefill_device_ms']:.3f} ms over "
+                  f"{t['device_kernels']} kernels; prompt "
+                  f"{t['prompt_len']}, bucket {t['bucket']} | {smi}")
+            print(f"[time] (h4) ttft {name} {twin} {t['phase_s']:.1f} s")
         paper = ", ".join(f"{k} {v:.4g}" for k, v in r["paper"].items()
                           if k != "source")
         print(f"[opt] (h4) {name} bf16 batch 1, in {r['in_tokens']} out "
@@ -3567,6 +3740,11 @@ def main() -> int:
     print(json.dumps({"rwkv": rwkv}))
     print(json.dumps({"jamba": jamba}))
     print(json.dumps({"opt": opt}))
+    print(json.dumps({"ttft": {
+        "smollm-135m": ttft_smollm,
+        **{name: {"graphs": r["ttft"], "eager_twin": r["eager_twin"]["ttft"]}
+           for name, r in opt["h4_protocol"].items()},
+        "card": smi}}))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s (limit "
           "1200 s)")
     print(smi)

@@ -58,20 +58,31 @@ reference's ``serving/engine.py`` ``LPUEngine``).
   k+1 off window k's device state before reading window k back.
   ``sampling="host"`` reads the logits row back every step (the parity
   oracle).
-* **One program per window** — as the reference jits its ``lax.scan``
-  window once per S and its fused verify round once per K, the engine
-  runs each fused window and each fused verify round as the replay of a
-  CUDA graph, keyed by ``(S, stochastic)`` and ``(K, stochastic)``
-  (:mod:`repro_torch.serving.graphs`).  The window reads its block
-  tables, carry and sampling arrays from persistent device buffers and
-  writes its carry back into them, so a pipelined window replays off
-  the previous one's carry; the host uploads only what changed.  The
-  graphs are captured on first use, after one eager warm-up with a dead
-  carry (a dense or recurrent cache and the generator are restored
-  around it).  On the CPU the same functions run eagerly on the same
-  buffers.  ``graphs=False`` runs them eagerly on the card too: the
-  eager twin, as ``jax.disable_jit`` is the reference's.  Prefill,
-  chunks, prefix tails and the host-sampled paths stay eager.
+* **One program per device step** — as the reference jits its
+  ``lax.scan`` window once per S, its fused verify round once per K,
+  its prefill once per bucket, its chunk program once per C, its
+  first-token sampler, its block copy and its host-sampled decode step,
+  the engine runs each of them as the replay of a CUDA graph
+  (:mod:`repro_torch.serving.graphs`), keyed by ``("window", S,
+  stochastic)``, ``("verify", K, stochastic)``, ``("prefill",
+  bucket)``, ``("chunk", C)`` (chunks and prefix tails alike),
+  ``("sample", stochastic)``, ``("cow",)`` and ``("host_decode",)``.
+  Every value that changes between calls — tokens, lengths, block
+  tables, slot, carry, sampling arrays — is read inside the program
+  from a persistent device buffer, never baked in as a Python number;
+  the host uploads only what changed and reads back token ids (one per
+  prefill).  The monolithic prefill allocates its bucket's scratch
+  cache inside its graph, scatters it into the pool and copies its last
+  valid logits row into the sampler's static row; the sampler is a
+  program of its own, so a non-final chunk draws nothing.  The graphs
+  are captured on first use, after one eager warm-up on dead inputs (a
+  dense or recurrent cache and the generator are restored around it).
+  On the CPU the same functions run on the same buffers, each program
+  the function it was first built from.  ``graphs=False`` runs them
+  eagerly on the card too: the eager twin, as ``jax.disable_jit`` is
+  the reference's.  The exact-length prefill of a recurrent stack
+  (rwkv, jamba) stays eager: one program per prompt length would
+  capture again for every new length.
 
 Not in this slice (each raises ``NotImplementedError``): a mesh / tp > 1,
 and any value other than the default of a config field whose subsystem
@@ -163,7 +174,7 @@ class EngineStats:
                                   # per-request failure
     device_decode_steps: int = 0  # decode forwards dispatched (each runs
                                   # every layer's decode attention once)
-    graph_captures: int = 0       # window / verify programs captured
+    graph_captures: int = 0       # programs captured (every kind)
     graph_replays: int = 0        # ...and replayed
     spec_rounds: int = 0          # speculative verify rounds (one verify
                                   # forward each)
@@ -215,9 +226,9 @@ class LPUEngine:
     sampler's ``torch.Generator``.  ``drafter=`` injects a proposer (any
     object with ``propose(tokens, k)``) and turns speculation on;
     ``speculate="model"`` needs ``draft_model``/``draft_params``.
-    ``graphs=False`` runs the fused windows and verify rounds eagerly
-    instead of replaying their captured CUDA graphs (the eager twin; on
-    the CPU nothing is captured either way)."""
+    ``graphs=False`` runs the device steps eagerly instead of replaying
+    their captured CUDA graphs (the eager twin; on the CPU nothing is
+    captured either way)."""
 
     def __init__(self, model, params,
                  config: Optional[EngineConfig] = None, *,
@@ -380,6 +391,20 @@ class LPUEngine:
                          for w in {1, self.steps_per_sync}}
         self._ver: Dict[int, StagedBuffer] = {}
         self._ver_out: Dict[int, torch.Tensor] = {}
+        # the admission side's programs (prefill, chunk, first-token
+        # sampler, block copy) and the host-sampled decode step, in the
+        # windows' memory pool, with their static inputs by key; the
+        # prefill and the chunk write their last valid logits row into
+        # _row, which the sampler reads, writing its token into _first
+        self._admit = Programs(self.device, share=self._programs)
+        self._bufs: Dict[tuple, StagedBuffer] = {}
+        v_pad = (params["head"].shape[-1] if "head" in params
+                 else params["embed"].shape[0])
+        self._row = torch.zeros((v_pad,), dtype=dtype_of(
+            self.plan.compute_dtype), device=self.device)
+        self._first = torch.zeros((1,), dtype=torch.int32,
+                                  device=self.device)
+        self._host_logits = None      # (slots, V_pad), at first use
 
     def _init_kv_state(self) -> Optional[BlockPool]:
         """A zeroed cache (pool or dense), fresh block tables and — paged
@@ -481,8 +506,8 @@ class LPUEngine:
         inputs that leave every slot dead (the warm-up's K/V writes land
         in the null block); a dense or recurrent cache, which the
         forward rewrites for every slot, dead or alive, is saved and
-        restored, and so is the generator's state; the window buffers'
-        mirrors are dropped, so the next dispatch uploads."""
+        restored, and so is the generator's state; every static buffer's
+        mirror is dropped, so the next dispatch uploads."""
         dead()
         gen = self.gen.get_state()
         saved = None if self.paged else [
@@ -493,56 +518,97 @@ class LPUEngine:
             for t, copy in saved or ():
                 t.copy_(copy)
             self.gen.set_state(gen)
-            for buf in (self._win, self._tables, *self._ver.values()):
+            for buf in (self._win, self._tables, *self._ver.values(),
+                        *self._bufs.values()):
                 if buf is not None:
                     buf.mirror = None
 
     def _program(self, key, fn: Callable[[], None], stochastic: bool,
-                 dead: Callable[[], None]):
-        """The captured program of ``key`` (None for the eager twin)."""
+                 dead: Callable[[], None],
+                 programs: Optional[Programs] = None):
+        """The captured program of ``key`` in ``programs`` (the windows'
+        by default; None for the eager twin)."""
         if not self.graphs:
             return None
-        return self._programs.get(
+        return (programs or self._programs).get(
             key, fn, generator=self.gen if stochastic else None,
             held=lambda: self._held(dead))
 
-    def _prefill_fn(self, tokens: torch.Tensor, true_len: int):
-        """Batch-1 prefill of a bucket-padded prompt into a fresh bucket
-        cache.  Returns (last-valid-token logits row, filled cache)."""
-        S = tokens.shape[1]
+    def _run_static(self, key: tuple, fields, body: Callable,
+                    inputs: Dict, dead: Dict, stochastic: bool = False
+                    ) -> None:
+        """Upload ``inputs`` into the static buffer of ``key`` (``fields``,
+        made at first use) and run ``body(buffer views)`` as the program
+        of ``key`` in ``_admit`` (captured on first use after a warm-up
+        on ``dead``)."""
+        buf = self._bufs.get(key)
+        if buf is None:
+            buf = self._bufs[key] = StagedBuffer(fields, self.device)
+        fn = lambda: body(buf.view)                          # noqa: E731
+        prog = self._program(key, fn, stochastic,
+                             lambda: buf.upload(buf.pack(dead)), self._admit)
+        buf.upload(buf.pack(inputs))
+        self._admit.run(prog, fn)
+
+    def _prefill_fn(self, S: int, v: Dict[str, torch.Tensor]) -> None:
+        """Batch-1 prefill of a prompt padded to ``S`` (``v["tokens"]``
+        (1, S), its length ``v["true_len"]`` (1,)) into a scratch bucket
+        cache, scattered into the pool through ``v["table"]`` (S // bs,)
+        or into the dense cache's slot ``v["slot"]`` (1,); the last valid
+        token's logits row goes to the sampler's static row.  Under
+        capture the scratch cache comes from the graphs' pool and is not
+        held between replays."""
         cache = self.model.init_cache(1, S)
         positions = torch.arange(S, device=self.device)[None]
         logits, cache = self.model.forward(
-            self.params, tokens, mode="prefill", cache=cache,
+            self.params, v["tokens"], mode="prefill", cache=cache,
             positions=positions)
-        return logits[0, true_len - 1], cache
+        self._row.copy_(logits[0].index_select(0, v["true_len"] - 1)[0])
+        if self.paged:
+            scatter_prefill_pages(self.cache, cache, v["table"])
+        else:
+            scatter_prefill_dense(self.cache, cache, v["slot"])
 
-    def _chunk_fn(self, seq: SeqSlot, tokens: List[int], start: int,
-                  n_valid: int, C: int) -> torch.Tensor:
-        """ONE prefill chunk of ``seq``'s prompt, straight against the
-        pool: ``tokens[start:start + n_valid]`` padded to C rows, their
-        K/V scattered through the request's table and their queries
-        attending the resident history plus the chunk's causal prefix
-        (see :func:`repro_torch.models.attention.chunk_prefill_attention`).
-        Returns the logits row of the chunk's last valid token
-        (meaningful for the final chunk only)."""
+    def _chunk_fn(self, C: int, v: Dict[str, torch.Tensor]) -> None:
+        """ONE prefill chunk of C rows straight against the pool: the
+        ``v["n_valid"]`` tokens of ``v["tokens"]`` (1, C) at positions
+        ``v["start"] + i``, their K/V scattered through the request's
+        table ``v["table"]`` (T,) and their queries attending the
+        resident history plus the chunk's causal prefix (see
+        :func:`repro_torch.models.attention.chunk_prefill_attention`).
+        The logits row of the chunk's last valid token goes to the
+        sampler's static row (read after the final chunk only)."""
+        start, n_valid = v["start"], v["n_valid"]
+        positions = (start + torch.arange(C, dtype=torch.int32,
+                                          device=self.device))[None]
+        logits, _ = self.model.forward(
+            self.params, v["tokens"], mode="chunk_prefill",
+            positions=positions, cache=self.cache,
+            block_tables=v["table"][None],
+            paged_kernel=self.paged_kernel or "gather",
+            kv_valid_len=(start + n_valid).reshape(()))
+        self._row.copy_(logits[0].index_select(0, n_valid - 1)[0])
+
+    def _run_chunk(self, seq: SeqSlot, tokens: List[int], start: int,
+                   n_valid: int, C: int) -> None:
+        """Run the chunk program of C on ``tokens[start:start +
+        n_valid]`` of ``seq`` (a prefill chunk, or a prefix hit's tail)."""
         buf = np.zeros((1, C), np.int32)
         buf[0, :n_valid] = tokens[start:start + n_valid]
         table = np.zeros((self.table_len,), np.int32)
         table[:len(seq.blocks)] = seq.blocks
-        positions = start + torch.arange(C, dtype=torch.int32,
-                                         device=self.device)[None]
-        kv_valid_len = torch.full((), start + n_valid, dtype=torch.int32,
-                                  device=self.device)
-        logits, _ = self.model.forward(
-            self.params, self._to_dev(buf), mode="chunk_prefill",
-            positions=positions, cache=self.cache,
-            block_tables=self._to_dev(table)[None],
-            paged_kernel=self.paged_kernel or "gather",
-            kv_valid_len=kv_valid_len)
+        # dead inputs: one valid row at position 0 and a zero table, so
+        # every K/V row lands in the null block and no query of kernel 1
+        # has length 0
+        self._run_static(
+            ("chunk", C),
+            [("tokens", (1, C), "i32"), ("start", (1,), "i32"),
+             ("n_valid", (1,), "i32"), ("table", (self.table_len,), "i32")],
+            lambda v: self._chunk_fn(C, v),
+            dict(tokens=buf, start=start, n_valid=n_valid, table=table),
+            dict(tokens=0, start=0, n_valid=1, table=0))
         self._buckets_traced.add(("chunk", C))
         self.stats.prefills += 1
-        return logits[0, n_valid - 1]
 
     def _verify_fwd(self, tokens: torch.Tensor, positions: torch.Tensor,
                     tables: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
@@ -570,22 +636,33 @@ class LPUEngine:
         self.stats.bytes_to_host += 4
         return int(sample_local(row[None], self.gen, params)[0])
 
-    def _sample_first(self, row: torch.Tensor,
-                      params: SamplingParams) -> int:
+    def _sample_fn(self, stochastic: bool,
+                   v: Dict[str, torch.Tensor]) -> None:
+        """The fused first-token sampler: the static prefill row sampled
+        with ``v``'s (temp, top_k, top_p), its token into ``_first``."""
+        self._first.copy_(sample_batched(
+            self._row[None], self.gen, v["temp"], v["top_k"], v["top_p"],
+            stochastic))
+
+    def _sample_first(self, params: SamplingParams) -> int:
         """Sample the prefill row per the engine's sampling mode (fused:
-        only the token id crosses to the host)."""
+        the sampler's program, keyed by ``stochastic``; only the token id
+        crosses to the host)."""
+        row = self._row
         if self.sampling == "fused":
-            d = self.device
-            tok = sample_batched(
-                row[None], self.gen,
-                torch.tensor([params.temperature], device=d),
-                torch.tensor([params.top_k], dtype=torch.int32, device=d),
-                torch.tensor([params.top_p], device=d),
-                params.temperature > 0.0)
+            stochastic = params.temperature > 0.0
+            self._run_static(
+                ("sample", stochastic),
+                [("temp", (1,), "f32"), ("top_k", (1,), "i32"),
+                 ("top_p", (1,), "f32")],
+                lambda v: self._sample_fn(stochastic, v),
+                dict(temp=params.temperature, top_k=params.top_k,
+                     top_p=params.top_p),
+                dict(temp=0.0, top_k=0, top_p=1.0), stochastic=stochastic)
             self.stats.host_syncs += 1
             self.stats.prefill_syncs += 1
             self.stats.bytes_to_host += 4
-            return int(tok[0])
+            return int(self._first.cpu()[0])
         row_np = row.cpu().numpy()
         self.stats.host_syncs += 1
         self.stats.bytes_to_host += row_np.nbytes
@@ -637,20 +714,42 @@ class LPUEngine:
             self.stats.decode_stalls += 1
         if seq.cached:
             return self._prefill_tail(seq, tokens)
-        bucket = (self.sched.bucket(len(tokens)) if self.bucketed
-                  else len(tokens))
-        buf = np.zeros((1, bucket), np.int32)
-        buf[0, :len(tokens)] = tokens
-        row, pc = self._prefill_fn(self._to_dev(buf), len(tokens))
+        n = len(tokens)
+        slot = self.sched.slot_of(seq)
+        if self.bucketed:
+            bucket = self.sched.bucket(n)
+            buf = np.zeros((1, bucket), np.int32)
+            buf[0, :n] = tokens
+            fields = [("tokens", (1, bucket), "i32"),
+                      ("true_len", (1,), "i32")]
+            inputs = dict(tokens=buf, true_len=n)
+            dead = dict(tokens=0, true_len=1)
+            if self.paged:
+                nb = bucket // self.block_size
+                table = np.zeros((nb,), np.int32)
+                table[:len(seq.blocks)] = seq.blocks
+                fields.append(("table", (nb,), "i32"))
+                inputs.update(table=table)
+                dead.update(table=0)
+            else:
+                fields.append(("slot", (1,), "i32"))
+                inputs.update(slot=slot)
+                dead.update(slot=0)
+            self._run_static(("prefill", bucket), fields,
+                             lambda v: self._prefill_fn(bucket, v), inputs,
+                             dead)
+        else:
+            # a recurrent stack prefills at the exact length (padding
+            # would fold into its state), eagerly: a program per length
+            # would capture again for every new prompt length
+            bucket = n
+            self._prefill_fn(n, dict(
+                tokens=self._to_dev(np.asarray([tokens], np.int32)),
+                true_len=self._to_dev(np.asarray([n], np.int32)),
+                slot=self._to_dev(np.asarray([slot], np.int32))))
         self._buckets_traced.add(bucket)
         self.stats.prefills += 1
-        if self.paged:
-            table = np.zeros((bucket // self.block_size,), np.int32)
-            table[:len(seq.blocks)] = seq.blocks
-            scatter_prefill_pages(self.cache, pc, self._to_dev(table))
-        else:
-            scatter_prefill_dense(self.cache, pc, self.sched.slot_of(seq))
-        return self._finish_prefill(seq, row)
+        return self._finish_prefill(seq)
 
     def _prefill_tail(self, seq: SeqSlot, tokens: List[int]
                       ) -> Optional[Request]:
@@ -659,9 +758,9 @@ class LPUEngine:
         writes into (a hit capped mid-block) is copied on write first."""
         n, start = len(tokens), seq.cached
         self._ensure_writable(seq, start, n)
-        row = self._chunk_fn(seq, tokens, start, n - start,
-                             self.sched.bucket(n - start))
-        return self._finish_prefill(seq, row)
+        self._run_chunk(seq, tokens, start, n - start,
+                        self.sched.bucket(n - start))
+        return self._finish_prefill(seq)
 
     def _ensure_writable(self, seq: SeqSlot, lo: int, hi: int,
                          allow_preempt: bool = True) -> bool:
@@ -687,7 +786,11 @@ class LPUEngine:
             new = self.sched.cow_alloc(seq, allow_preempt)
             if new is None:
                 return False
-            copy_pool_block(self.cache, old, new)
+            self._run_static(
+                ("cow",), [("pair", (2,), "i32")],
+                lambda v: copy_pool_block(self.cache, v["pair"][:1],
+                                          v["pair"][1:]),
+                dict(pair=[old, new]), dict(pair=0))
             seq.blocks[li] = new
             self.sched.pool.free([old])
             self.stats.cow_blocks += 1
@@ -704,7 +807,7 @@ class LPUEngine:
         return any(pool.ref[seq.blocks[li]] > 1
                    for li in range(lo // bs, top))
 
-    def _finish_prefill(self, seq: SeqSlot, row) -> Optional[Request]:
+    def _finish_prefill(self, seq: SeqSlot) -> Optional[Request]:
         """Shared tail of every prefill path once the prompt is resident:
         register it in the prefix index, then restore the last sampled
         token (preemption resume) or sample the first one from the
@@ -715,7 +818,7 @@ class LPUEngine:
         if seq.resumed:
             seq.last_token = req.out[-1]
             return None
-        tok = self._sample_first(row, req.params)
+        tok = self._sample_first(req.params)
         req.out.append(tok)
         seq.last_token = tok
         if req.stream_cb:
@@ -735,12 +838,12 @@ class LPUEngine:
         n_valid = min(C, len(tokens) - start)
         if self._cow_pending(seq, start, start + n_valid):
             raise RuntimeError("chunk scatter into a shared block")
-        row = self._chunk_fn(seq, tokens, start, n_valid, C)
+        self._run_chunk(seq, tokens, start, n_valid, C)
         seq.prefilled = seq.pos = start + n_valid
         self.stats.prefill_chunks += 1
         if seq.prefilling:
             return None              # more chunks next step
-        return self._finish_prefill(seq, row)
+        return self._finish_prefill(seq)
 
     def _admit_and_chunk(self) -> List[Request]:
         """Chunked-mode admission: admit while slots and first-chunk
@@ -804,6 +907,10 @@ class LPUEngine:
             return self._step()
         finally:
             self.stats.wall += time.perf_counter() - t0
+            self.stats.graph_captures = (self._programs.captures
+                                         + self._admit.captures)
+            self.stats.graph_replays = (self._programs.replays
+                                        + self._admit.replays)
 
     def _step(self) -> List[Request]:
         finished: List[Request] = []
@@ -839,8 +946,6 @@ class LPUEngine:
         else:
             finished += self._host_decode_step()
         st.prefill_traces = len(self._buckets_traced)
-        st.graph_captures = self._programs.captures
-        st.graph_replays = self._programs.replays
         return finished
 
     def _harvest_rejections(self) -> List[Request]:
@@ -858,19 +963,36 @@ class LPUEngine:
 
     # -- host-sampled decode (the parity oracle) -----------------------
 
+    def _host_decode_fn(self, v: Dict[str, torch.Tensor]) -> None:
+        """The host-sampled decode forward on its static buffers: the
+        (slots, V_pad) logits rows into ``_host_logits``."""
+        self._host_logits.copy_(self._decode_fn(
+            v["tokens"], v["pos"], v["tables"] if self.paged else None))
+
     def _host_decode_step(self) -> List[Request]:
-        """One decode step whose full (slots, vocab) logits cross to the
-        host, sampled there slot by slot."""
+        """One decode step (its program keyed ``("host_decode",)``) whose
+        full (slots, vocab) logits cross to the host, sampled there slot
+        by slot."""
         self._refresh_tables()
-        toks = np.zeros((self.slots, 1), np.int32)
-        pos = np.zeros((self.slots,), np.int32)
+        B = self.slots
+        toks = np.zeros((B, 1), np.int32)
+        pos = np.zeros((B,), np.int32)
         for slot, seq in enumerate(self.sched.active):
             if seq is not None and not seq.prefilling:
                 toks[slot, 0] = seq.last_token
                 pos[slot] = seq.pos
-        tables = self._to_dev(self.block_tables) if self.paged else None
-        logits = self._decode_fn(self._to_dev(toks), self._to_dev(pos),
-                                 tables)
+        if self._host_logits is None:
+            self._host_logits = torch.zeros(
+                (B,) + tuple(self._row.shape), dtype=self._row.dtype,
+                device=self.device)
+        fields = [("tokens", (B, 1), "i32"), ("pos", (B,), "i32")]
+        inputs = dict(tokens=toks, pos=pos)
+        if self.paged:
+            fields.append(("tables", (B, self.table_len), "i32"))
+            inputs.update(tables=self.block_tables)
+        self._run_static(("host_decode",), fields, self._host_decode_fn,
+                         inputs, dict(tokens=0, pos=0, tables=0))
+        logits = self._host_logits
         self.stats.device_decode_steps += 1
         logits_np = logits.cpu().numpy()
         self.stats.host_syncs += 1

@@ -1,7 +1,8 @@
-"""Static inputs and captured programs of the engine's decode window and
-verify round: the port's counterpart of the reference's jitted window
-and verify programs (``src/repro/serving/engine.py`` ``_window``,
-``_verify``).
+"""Static inputs and captured programs of the engine's device steps: the
+port's counterpart of the reference's jitted programs (the decode window
+and verify round, the prefill, the prefill chunk, the first-token
+sampler and the block copy; ``src/repro/serving/engine.py``
+``_window``, ``_verify``, ``:486-493``).
 
 * :class:`StagedBuffer` — one persistent int32 device buffer holding
   named fields (f32 fields are bit views), fed from pinned host staging
@@ -11,9 +12,12 @@ and verify programs (``src/repro/serving/engine.py`` ``_window``,
   change nothing is skipped.
 * :class:`Programs` — an engine's programs by key.  On the card each is
   a ``torch.cuda.CUDAGraph`` captured once, after one eager warm-up, all
-  in one memory pool; on the CPU the warm-up runs and the function
-  itself is the program.  A program's function reads and writes only
-  static buffers, so a replay needs no host work beyond its uploads.
+  in one memory pool (shared with another :class:`Programs` given as
+  ``share``); on the CPU the warm-up runs and the function the program
+  was built from is the program: every later run calls that function,
+  never the caller's current one, as a replay runs what was captured.
+  A program's function reads and writes only static buffers, so a
+  replay needs no host work beyond its uploads.
   A capture records the kernel launches it made
   (:func:`repro_torch.kernels.held_launches`) and every replay adds
   them back, so launch counts read the same as an eager run's.
@@ -95,14 +99,23 @@ class StagedBuffer:
 class Program:
     graph: Optional["torch.cuda.CUDAGraph"]
     launches: Dict[str, int] = field(default_factory=dict)
+    fn: Optional[Callable[[], None]] = None   # the CPU's program
+    replays: int = 0
 
 
 class Programs:
-    """An engine's programs by key, captured on first use."""
+    """An engine's programs by key, captured on first use.  ``share``:
+    another :class:`Programs` whose memory pool and capture stream these
+    programs use too."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 share: Optional["Programs"] = None):
         self.device = torch.device(device)
         self._by_key: Dict[Hashable, Program] = {}
+        # never a reference to self: an object in a reference cycle, and
+        # the graphs it holds, is freed by the cyclic collector, which may
+        # run in the middle of another capture and invalidate it
+        self._share = share
         self._pool = None
         self._stream = None
         self.captures = 0
@@ -125,39 +138,52 @@ class Programs:
 
     def _capture(self, fn, generator) -> Program:
         cuda = self.device.type == "cuda"
-        if cuda and self._stream is None:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(self.device)
+        own = self._share or self
+        if cuda and own._stream is None:
+            own._pool = torch.cuda.graph_pool_handle()
+            own._stream = torch.cuda.Stream(self.device)
         with kernels.held_launches() as warm:  # the warm-up counts nothing
             if cuda:
-                self._stream.wait_stream(
+                own._stream.wait_stream(
                     torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(self._stream):
+                with torch.cuda.stream(own._stream):
                     fn()
                 torch.cuda.current_stream(self.device).wait_stream(
-                    self._stream)
+                    own._stream)
             else:
                 fn()
         for k, n in warm.items():
             self.warm_launches[k] = self.warm_launches.get(k, 0) + n
         if not cuda:
-            return Program(None)
+            return Program(None, fn=fn)
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
         with kernels.held_launches() as made:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._stream):
+            with torch.cuda.graph(graph, pool=own._pool,
+                                  stream=own._stream):
                 fn()
         self.captures += 1
         return Program(graph, made)
 
     def run(self, prog: Optional[Program], fn: Callable[[], None]) -> None:
-        """Replay ``prog``'s graph and add its launches; with no graph
-        (the CPU, or no program: the eager twin) call ``fn``."""
-        if prog is None or prog.graph is None:
+        """Replay ``prog``'s graph and add its launches.  With no graph
+        (the CPU) call the function ``prog`` was built from, as a replay
+        would run what its capture recorded (``fn`` only for a program
+        made without one); with no program (the eager twin) call
+        ``fn``."""
+        if prog is None:
             fn()
+            return
+        if prog.graph is None:
+            (prog.fn or fn)()
             return
         prog.graph.replay()
         kernels.add_launches(prog.launches)
+        prog.replays += 1
         self.replays += 1
+
+    def replays_of(self, kind: str) -> int:
+        """Replays of the programs whose key starts with ``kind``."""
+        return sum(p.replays for k, p in self._by_key.items()
+                   if k[0] == kind)

@@ -22,7 +22,8 @@ from __future__ import annotations
 import math
 import zlib
 from collections import OrderedDict
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -329,19 +330,30 @@ def scatter_prefill_pages(cache: Params, prefill_cache: Params,
                 pg[:, idx] = chunks.to(pg.dtype)
 
 
+def _block_index(i: Union[int, torch.Tensor],
+                 device: torch.device) -> torch.Tensor:
+    """(1,) long index of a slot or block: a device int read in place
+    (what a captured program passes, so no value is baked into it), or
+    a host int."""
+    if torch.is_tensor(i):
+        return i.reshape(1).long()
+    return torch.tensor([int(i)], dtype=torch.long, device=device)
+
+
 def scatter_prefill_dense(cache: Params, prefill_cache: Params,
-                          slot: int) -> None:
+                          slot: Union[int, torch.Tensor]) -> None:
     """Copy a batch=1 prefill cache into one slot of the dense cache, in
     place.  KV leaves ("k"/"v") fill the sequence prefix of the slot;
     recurrent-state leaves (rwkv shift/wkv, mamba conv/ssm) replace the
-    slot's state wholesale."""
+    slot's state wholesale.  ``slot``: an int, or a (1,) device int."""
     for lj, c in cache.items():
         for key, tgt in c.items():
-            dn = prefill_cache[lj][key]
+            dn = prefill_cache[lj][key].to(tgt.dtype)
+            idx = _block_index(slot, tgt.device)
             if key in ("k", "v"):
-                tgt[:, slot, :dn.shape[2]] = dn[:, 0].to(tgt.dtype)
+                tgt[:, :, :dn.shape[2]].index_copy_(1, idx, dn)
             else:
-                tgt[:, slot] = dn[:, 0].to(tgt.dtype)
+                tgt.index_copy_(1, idx, dn)
 
 
 def scatter_chunk_rows(pages: torch.Tensor, rows: torch.Tensor,
@@ -393,15 +405,18 @@ def scatter_spec_rows(pages: torch.Tensor, rows: torch.Tensor,
     return pages
 
 
-def copy_pool_block(cache: Params, src: int, dst: int) -> None:
+def copy_pool_block(cache: Params, src: Union[int, torch.Tensor],
+                    dst: Union[int, torch.Tensor]) -> None:
     """Copy physical block ``src`` over ``dst`` in every leaf of the
     pool, in place, on the current stream (copy-on-write: a shared block
-    is duplicated before its writer's next scatter).
+    is duplicated before its writer's next scatter).  ``src``/``dst``:
+    ints, or (1,) device ints.
 
     cache: {lj: {"k", "v", ...: (n_sb, N, bs, ...)}}"""
     for c in cache.values():
         for pg in c.values():
-            pg[:, dst].copy_(pg[:, src])
+            pg.index_copy_(1, _block_index(dst, pg.device),
+                           pg.index_select(1, _block_index(src, pg.device)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,15 @@
-"""The engine's captured decode windows and verify rounds on the card
-against its eager twin (``graphs=False``): reduced smollm-135m (paged
-pool streamed and gathered, the dense cache, n-gram speculation, sampled
-streams), opt-1.3b, rwkv6-7b and jamba, random weights from seed 0.
+"""The engine's captured programs on the card against its eager twin
+(``graphs=False``): decode windows, verify rounds, monolithic prefills,
+prefill chunks, prefix tails, the first-token sampler and the
+copy-on-write block copy; reduced smollm-135m (paged pool streamed and
+gathered, the dense cache, n-gram speculation, sampled streams, chunks,
+the prefix cache), opt-1.3b, rwkv6-7b and jamba, random weights from
+seed 0.
 
 Streams, every counter but the wall clock, and the kernels' launch
-counts must be equal; the graph run must have captured and replayed.
+counts must be equal; the graph run must have captured and replayed,
+one capture per program key, and every admission program it built must
+have replayed.
 Sampled streams are equal too: the warm-up restores the generator, and
 a replay draws the Philox numbers the eager ops would.
 
@@ -28,6 +33,11 @@ pytestmark = pytest.mark.cuda
 
 PROMPTS = [[1, 2, 3], [4, 5], [6, 7, 8, 9], [10, 11],
            [3, 1, 4, 1, 5, 9, 2, 6], [2, 7], [5, 6, 5, 6, 5, 6, 5, 6]]
+# a 16-token system prompt (two blocks of 8) served alone first, then
+# prompts that share it: tails of 3 and 5 tokens, and the bare prompt,
+# whose 1-token tail copies a shared block on write
+SYS = [int(t) for t in range(40, 56)]
+SHARED = [SYS + [7, 8, 9], SYS + [1, 2, 3, 4, 5], list(SYS)]
 SERVE_F32 = dict(esl_overlap=False, remat="none", compute_dtype="float32",
                  param_dtype="float32")
 
@@ -50,7 +60,24 @@ CASES = {
     "opt-s8": ("opt-1.3b", dict(block_size=16, steps_per_sync=8), None),
     "rwkv-s4": ("rwkv6-7b", dict(steps_per_sync=4), None),
     "jamba-s4": ("jamba", dict(steps_per_sync=4), None),
+    "smollm-chunk5-s4": ("smollm-135m", dict(block_size=8, prefill_chunk=5,
+                                             steps_per_sync=4), None),
+    "smollm-prefix-cow": ("smollm-135m", dict(block_size=8,
+                                              prefix_cache=True), None),
+    "smollm-chunk8-prefix": ("smollm-135m", dict(block_size=8,
+                                                 prefill_chunk=8,
+                                                 prefix_cache=True), None),
+    "smollm-host-sampling": ("smollm-135m", dict(block_size=16,
+                                                 sampling="host"), None),
 }
+# the admission programs each run must have built and replayed (default:
+# the monolithic prefill and the first-token sampler; a recurrent
+# stack's exact-length prefill stays eager)
+ADMISSION = {"smollm-chunk5-s4": ("chunk", "sample"),
+             "smollm-prefix-cow": ("prefill", "chunk", "sample", "cow"),
+             "smollm-chunk8-prefix": ("chunk", "sample", "cow"),
+             "smollm-host-sampling": ("prefill", "host_decode"),
+             "rwkv-s4": ("sample",), "jamba-s4": ("sample",)}
 
 
 KERNEL = {"smollm-135m": {"paged_decode_attention"},
@@ -73,7 +100,11 @@ def _serve(dev, arch, kw, params_s, graphs):
     eng = LPUEngine(model, params, EngineConfig(slots=3, max_seq=64, **kw),
                     device=dev, graphs=graphs, seed=1)
     kernels.reset_launches()
-    out = eng.generate(PROMPTS, max_new_tokens=24, params=params_s)
+    prompts = PROMPTS
+    if kw.get("prefix_cache"):
+        eng.generate([SYS], max_new_tokens=2)
+        prompts = SHARED
+    out = eng.generate(prompts, max_new_tokens=24, params=params_s)
     torch.cuda.synchronize()
     return out, eng, kernels.read_launches()
 
@@ -98,4 +129,11 @@ def test_captured_programs_match_eager_twin(dev, case):
         set() if plain else KERNEL[arch])
     assert eng.stats.graph_captures > 0 and eng.stats.graph_replays > 0
     assert twin.stats.graph_captures == twin.stats.graph_replays == 0
+    # one capture per key, and every admission program replayed
+    adm = eng._admit
+    assert eng.stats.graph_captures == len(eng._programs._by_key) + \
+        len(adm._by_key)
+    kinds = ADMISSION.get(case, ("prefill", "sample"))
+    assert {k[0] for k in adm._by_key} == set(kinds)
+    assert all(adm.replays_of(k) > 0 for k in kinds), adm._by_key
     eng.check_pool_balanced()

@@ -23,7 +23,9 @@ result line when any phase fails or when no CUDA device is present):
    449..512, each query alone bit-identical to its row; and as
    speculative verify calls it, 4 slots x 5 queries with a table each,
    positions 72, 295, 506, 0, f32/int8/fp8 pools, each query alone
-   bit-identical to its row), the dense
+   bit-identical to its row; and on a corrupted pool, one NaN row in
+   two tables, in f32 K/V, int8 scales and fp8 codes: every head of the
+   rows that attend it NaN, every other row bit-identical), the dense
    decode attention (each row alone bit-identical to its row in the
    batch; the chunked prefill's stride-0 cache at C = 64), and the decode
    GEMV at the four shapes of one full-width layer (f32, bf16 and int8
@@ -127,7 +129,27 @@ result line when any phase fails or when no CUDA device is present):
    over 64 decode steps at the middle of the output), the busy share,
    bytes per token and bandwidth use, beside the paper's figures,
    labelled as the paper's; and the time to first token of the
-   protocol's 32-token prompt (bucket 128) on each warmed twin.
+   protocol's 32-token prompt (bucket 128) on each warmed twin;
+9. fleet, run after the engine phase on its model — ``MultiRingEngine``
+   over two engines of full-width smollm-135m (f32, seed 0) on the one
+   card, sharing its weight tensors: 4 slots each, max_seq 512, blocks
+   of 128, kernel 1 streamed, the engine phase's 8 prompts x 32 new
+   greedy tokens, a heartbeat timeout of 4 virtual seconds, straggler
+   monitors seeded by the latency model's prior (LPU-FPGA): (i) fault
+   free; (ii) chaos ``ring@2,stall@3:1,nan@5,corrupt@8``; (iii)
+   ``corrupt@4`` (caught as ``nan_logits``: the NaN block reached the
+   logits through kernel 1); (iv) ``nan@3`` in 4-step windows with a
+   second window in flight; (v) ``ring@2`` with ``max_migrations=0``
+   (structured failures); (vi) the eager twin of (ii), its streams and
+   events equal; (vii) ``affinity="prefix"`` with the prefix cache on
+   the 4 prompts sharing a 256-token system prompt, all routed to the
+   ring that owns it, with prefix hits.  Every stream (a failed one up
+   to its length) agrees with (i)'s, every pool is balanced and finite
+   after the drain, kernel 1 ran once per layer per device decode step
+   on every ring, every graph run replayed its programs, and every
+   ``reset()`` kept the cache tensors' storage and the ring's captures;
+   then the median wall of ``reset()`` on a warmed ring with 4 requests
+   in flight.
 
 Every engine runs its fused decode windows, verify rounds, monolithic
 prefills, prefill chunks, prefix tails, first-token sampling and
@@ -143,8 +165,10 @@ lines are a ``{"kernels": [...], "floor_ms": ...}`` line, an
 ``{"engine": ...}`` line, a ``{"chain": ...}`` line, an ``{"rwkv": ...}``
 line, a ``{"jamba": ...}`` line, an ``{"opt": ...}`` line, a
 ``{"ttft": ...}`` line (smollm-135m's and (h4)'s times to first token,
-graphs and eager twin, with the card's name and power limit), the
-nvidia-smi line and ``{"ok": true, "device": {...}}``.  Imports nothing
+graphs and eager twin, with the card's name and power limit), a
+``{"fleet": ...}`` line (phase 9 per run: wall, tokens/s over the
+fleet's wall, ``fleet_counters()``, straggler events; the reset wall;
+the card's name and power limit), the nvidia-smi line and ``{"ok": true, "device": {...}}``.  Imports nothing
 of JAX: the port stands alone.
 """
 from __future__ import annotations
@@ -586,6 +610,53 @@ def check_paged_split(torch, dev):
                     raise AssertionError(f"split {key}: null block filled "
                                          f"with {fill} changed the output")
     return errs
+
+
+# kernel 1 on a corrupted pool: one NaN row in the tables of two split
+# edge rows (length 17 at its last position, in K; length 300 at
+# position 150, in V), as the fleet's ``corrupt`` chaos leaves a block
+NAN_ROWS = ((4, 16, "k"), (8, 150, "v"))
+
+
+def check_paged_nan(torch, dev):
+    """Kernel 1 turns a NaN K/V row of an f32 pool, a NaN scale of an
+    int8 pool and NaN codes of an fp8 pool into a NaN output in every
+    head of the rows that attend it, and leaves every other row
+    bit-equal to its output without the NaN, with and without the fold:
+    a kernel that hid the corrupted row would let the engine's
+    finite-logits guard miss it.  Returns the rows hit per case."""
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    out = {}
+    for pool_dtype in (torch.float32, torch.int8, torch.float8_e4m3fn):
+        name = str(pool_dtype).split(".")[-1]
+        for fold in (False, True):
+            q, kp, vp, tb, ln, kn, vn, sc = split_inputs(torch, dev,
+                                                         pool_dtype)
+            extra = dict(k_new=kn, v_new=vn) if fold else {}
+            clean = paged_decode_attention(q, kp, vp, tb, ln, **sc, **extra)
+            nan = torch.tensor(float("nan"), device=dev)
+            for b, pos, which in NAN_ROWS:
+                blk = int(tb[b, pos // BS])
+                if pool_dtype == torch.int8:
+                    t = sc["k_scale" if which == "k" else "v_scale"]
+                else:
+                    t = kp if which == "k" else vp
+                t[blk, pos % BS] = nan.to(t.dtype)
+            got = paged_decode_attention(q, kp, vp, tb, ln, **sc, **extra)
+            torch.cuda.synchronize()
+            hit = [b for b, _, _ in NAN_ROWS]
+            rest = [b for b in range(len(SPLIT_LENGTHS)) if b not in hit]
+            key = f"{name},fold={fold}"
+            if not all(torch.isnan(got[b]).all() for b in hit):
+                raise AssertionError(f"nan {key}: a NaN K/V row (or scale) "
+                                     "did not reach every head of the rows "
+                                     "that attend it")
+            if not torch.equal(got[rest], clean[rest]):
+                raise AssertionError(f"nan {key}: rows that do not attend "
+                                     "the NaN row changed")
+            out[key] = {"nan_rows": hit, "rows_unchanged": len(rest)}
+    return out
 
 
 # kernel 1 as the chunked prefill calls it: the C = 64 queries of the
@@ -1730,6 +1801,273 @@ def run_speculative_engine(torch, dev, model, params, prompts):
                                if isinstance(r, dict))
     out["draft_k"] = SPEC_K
     out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 9. the fleet: MultiRingEngine over two engines of full-width smollm-135m
+# on the one card, under deterministic chaos
+# ---------------------------------------------------------------------------
+
+FLEET_CHAOS_ALL = "ring@2,stall@3:1,nan@5,corrupt@8"
+FLEET_KW = dict(slots=4, max_seq=512, block_size=128, paged=True,
+                paged_kernel="stream", heartbeat_timeout_s=4.0)
+# run: (config knobs, engine arguments, chaos kinds that must fire); the
+# corrupt@8 of CHAOS_ALL is best effort, as in the reference's test: by
+# its step ring 0 may be idle after the migrations
+FLEET_RUNS = {
+    "i_fault_free": ({}, {}, set()),
+    "ii_chaos_all": (dict(chaos=FLEET_CHAOS_ALL), {},
+                     {"ring", "stall", "nan"}),
+    "iii_corrupt": (dict(chaos="corrupt@4"), {}, {"corrupt"}),
+    "iv_nan_window4": (dict(chaos="nan@3", steps_per_sync=4), {}, {"nan"}),
+    "v_retries_exhausted": (dict(chaos="ring@2", max_migrations=0), {},
+                            {"ring"}),
+    "vi_chaos_all_eager": (dict(chaos=FLEET_CHAOS_ALL), dict(graphs=False),
+                           {"ring", "stall", "nan"}),
+}
+RESET_REPEATS = 5
+
+
+def cache_ptrs(eng):
+    return [t.data_ptr() for c in eng.cache.values() for t in c.values()]
+
+
+def captures_of(eng):
+    return eng._programs.captures + eng._admit.captures
+
+
+def fleet_events(fleet):
+    """The fleet's events but the straggler flags (wall-clock verdicts,
+    reported apart) and each ring's events, as (kind, step, detail)."""
+    return ([(e.kind, e.step, e.detail) for e in fleet.events
+             if e.kind != "straggler"],
+            [[(e.kind, e.step, e.detail) for e in eng.events]
+             for eng in fleet.engines])
+
+
+def serve_fleet(torch, dev, model, params, prompts, engine_kw=None,
+                warm=None, **kw):
+    """Serve ``prompts`` x 32 new greedy tokens on a two-ring host fleet
+    (4 slots each, the straggler monitors seeded with the latency
+    model's step-time prior at the LPU-FPGA point, as the serve CLI
+    seeds them); ``warm``: one prompt served first, x 4 tokens.  Returns
+    (rids, results, fleet, kernel 1 launches)."""
+    from repro_torch.core.latency_model import LPU_FPGA, step_time_prior
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import MultiRingEngine
+    conf = EngineConfig(**dict(FLEET_KW, **kw))
+    prior = step_time_prior(model.cfg, 1, LPU_FPGA, kv_len=conf.max_seq,
+                            steps_per_sync=conf.steps_per_sync)
+    fleet = MultiRingEngine(model, params, None, rings=2, config=conf,
+                            step_prior_s=prior, device=dev,
+                            **(engine_kw or {}))
+    paged_decode_attention.launches = 0
+    if warm is not None:
+        fleet.generate([warm], max_new_tokens=4)
+    rids = [fleet.submit(p, 32) for p in prompts]
+    results = fleet.drain()
+    torch.cuda.synchronize()
+    return rids, results, fleet, paged_decode_attention.launches
+
+
+def fleet_record(fleet, rids, results, launches, resets):
+    tokens = sum(s.tokens for s in fleet.per_ring_stats())
+    straggle = [e.detail for e in fleet.events if e.kind == "straggler"]
+    return {"wall_s": fleet.wall, "tokens": tokens,
+            "tokens_per_s": fleet.tokens_per_s,
+            "fleet_counters": fleet.fleet_counters(),
+            "routed": list(fleet.router.routed),
+            "failed": {rid: r.error for rid, r in fleet.failed.items()},
+            "straggler_events": straggle,
+            "ring_failures": [(e.detail["ring"], e.detail["reason"])
+                              for e in fleet.events
+                              if e.kind == "ring_failed"],
+            "resets_checked": resets,
+            "kernel_launches": launches,
+            "per_ring": [{"tokens": s.tokens,
+                          "device_decode_steps": s.device_decode_steps,
+                          "graph_captures": s.graph_captures,
+                          "graph_replays": s.graph_replays,
+                          "ring_failures": s.ring_failures,
+                          "migrated_requests": s.migrated_requests,
+                          "retries": s.retries}
+                         for s in fleet.per_ring_stats()]}
+
+
+def fleet_gates(torch, model, params, prompts, what, rids, results, fleet,
+                launches, fired_want, base):
+    """The gates every fleet run passes: kernel 1 launched once per layer
+    per device decode step (and chunk and prefix tail) of every ring,
+    counted per replay; every ring that served replayed its programs;
+    every pool balanced and every floating pool tensor finite after the
+    drain; the chaos kinds that must fire fired; every failed request
+    out of migrations with its partial stream kept; every stream (a
+    failed one up to its length) in agreement with the fault-free
+    fleet's ``base``.  Returns the agreement record."""
+    want = sum(launches_want(eng) for eng in fleet.engines)
+    if launches != want:
+        raise AssertionError(f"(9) {what}: kernel 1 launches {launches} != "
+                             f"{want}")
+    for eng in fleet.engines:
+        on_graphs(eng)
+        eng.check_pool_balanced()
+        for c in eng.cache.values():
+            for t in c.values():
+                if t.is_floating_point() and \
+                        not torch.isfinite(t.float()).all():
+                    raise AssertionError(f"(9) {what}: a non-finite pool "
+                                         f"tensor on ring {eng.ring_id}")
+    fired = {e.detail["kind"] for eng in fleet.engines for e in eng.events
+             if e.kind == "chaos"}
+    if not fired_want <= fired:
+        raise AssertionError(f"(9) {what}: chaos fired {fired}, not "
+                             f"{fired_want}")
+    for rid, req in fleet.failed.items():
+        if not (req.failed and "retries exhausted" in req.error
+                and results[rid] == req.out):
+            raise AssertionError(f"(9) {what}: request {rid} failed "
+                                 f"without its structure: {req.error}")
+    if base is None:
+        return None
+    got = [results[r] for r in rids]
+    ref = [b[:len(g)] if rid in fleet.failed else b
+           for rid, g, b in zip(rids, got, base)]
+    return agree(torch, model, params, prompts, got, ref, f"(9) {what}")
+
+
+def run_fleet(torch, dev, model, params, prompts, card_name):
+    """Phase 9: runs (i)-(vii) of the two-ring fleet at full width, each
+    held to its gates (:func:`fleet_gates`), every ``reset()`` checked to
+    keep the cache's storage and the ring's captures, then the median
+    wall of ``reset()`` on a warmed ring holding 4 requests in flight."""
+    import numpy as np
+    from repro_torch.serving.engine import LPUEngine
+    t0 = time.perf_counter()
+    orig_reset, orig_dispatch = LPUEngine.reset, LPUEngine._dispatch_window
+    resets, dispatches = [], []
+
+    def checked_reset(self):
+        ptrs, caps = cache_ptrs(self), captures_of(self)
+        keys = (set(self._programs._by_key), set(self._admit._by_key))
+        orphans = orig_reset(self)
+        if cache_ptrs(self) != ptrs or captures_of(self) != caps or \
+                keys != (set(self._programs._by_key),
+                         set(self._admit._by_key)):
+            raise AssertionError(f"(9) reset of ring {self.ring_id} moved "
+                                 "the cache or changed its programs")
+        resets.append(self.ring_id)
+        return orphans
+
+    def spy_dispatch(self, win, *a):
+        dispatches.append((self.ring_id, self._step_no, win))
+        return orig_dispatch(self, win, *a)
+    out, streams, events = {}, {}, {}
+    LPUEngine.reset = checked_reset
+    LPUEngine._dispatch_window = spy_dispatch
+    try:
+        for name, (kw, engine_kw, fired_want) in FLEET_RUNS.items():
+            t_run = time.perf_counter()
+            resets.clear()
+            dispatches.clear()
+            rids, results, fleet, launches = serve_fleet(
+                torch, dev, model, params, prompts, engine_kw, **kw)
+            rec = fleet_record(fleet, rids, results, launches, len(resets))
+            rec["vs_fault_free"] = fleet_gates(
+                torch, model, params, prompts, name, rids, results, fleet,
+                launches, fired_want, streams.get("i_fault_free"))
+            streams[name] = [results[r] for r in rids]
+            events[name] = fleet_events(fleet)
+            fails = rec["ring_failures"]
+            if name != "i_fault_free" and not fails:
+                raise AssertionError(f"(9) {name}: no ring failed")
+            if name == "iii_corrupt" and fails[0][1] != "nan_logits":
+                raise AssertionError(f"(9) {name}: the corrupted block was "
+                                     f"not caught as nan_logits: {fails}")
+            if name == "iv_nan_window4":
+                fault = next(e for e in fleet.engines[0].events
+                             if e.kind == "chaos")
+                wins = [w for r, s, w in dispatches
+                        if r == 0 and s == fault.step]
+                if wins != [4, 4] or fails[0][1] != "nan_logits":
+                    raise AssertionError(f"(9) {name}: the fault's step "
+                                         f"dispatched {wins}, {fails}")
+                rec["windows_in_flight_at_fault"] = wins
+            if name == "v_retries_exhausted" and (
+                    not fleet.failed or
+                    fleet.fleet_counters()["migrated_requests"]):
+                raise AssertionError(f"(9) {name}: {rec}")
+            if name == "vi_chaos_all_eager" and (
+                    streams[name] != streams["ii_chaos_all"]
+                    or events[name] != events["ii_chaos_all"]):
+                raise AssertionError("(9) the eager twin's streams or "
+                                     "events differ from the graphs'")
+            if name == "i_fault_free":
+                # the median wall of reset() on a warmed ring holding 4
+                # requests in flight (2 steps in, then drained in place)
+                eng, walls = fleet.engines[0], []
+                for _ in range(RESET_REPEATS):
+                    for p in prompts[:4]:
+                        eng.submit(p, 32)
+                    eng.step()
+                    eng.step()
+                    if eng.sched.num_active() != 4:
+                        raise AssertionError("(9) reset timing: 4 requests "
+                                             "not in flight")
+                    torch.cuda.synchronize()
+                    t_r = time.perf_counter()
+                    eng.reset()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t_r) * 1e3)
+                out["reset_ms"] = {"median": float(np.median(walls)),
+                                   "all": walls,
+                                   "requests_in_flight": 4,
+                                   "cache_bytes": eng.kv_cache_bytes()}
+            rec["phase_s"] = time.perf_counter() - t_run
+            out[name] = rec
+            del fleet
+            gc.collect()
+        # (vii) prefix affinity: 4 prompts sharing a 256-token system
+        # prompt, after that prompt was served on one ring
+        t_run = time.perf_counter()
+        resets.clear()
+        rng = np.random.RandomState(23)
+        V = model.cfg.vocab_size
+        sysp = [int(t) for t in rng.randint(1, V, size=SYS_PROMPT)]
+        shared = [sysp + [int(t) for t in rng.randint(1, V, size=n)]
+                  for n in (5, 17, 29, 40)]
+        rids, results, fleet, launches = serve_fleet(
+            torch, dev, model, params, shared, warm=sysp + [1],
+            affinity="prefix", prefix_cache=True)
+        owner = 0                        # the warm request went to ring 0
+        rec = fleet_record(fleet, rids, results, launches, len(resets))
+        plain, _, _ = serve(torch, dev, model, params, shared,
+                            paged_kernel="stream")
+        rec["vs_single_engine_prefix_off"] = fleet_gates(
+            torch, model, params, shared, "vii_prefix_affinity", rids,
+            results, fleet, launches, set(), plain)
+        hits = fleet.engines[owner].stats.prefix_hits
+        if [fleet.ring_of[r] for r in rids] != [owner] * 4 or hits < 4 or \
+                fleet.router.affinity_routed[owner] != 4:
+            raise AssertionError(f"(9) (vii): routed "
+                                 f"{[fleet.ring_of[r] for r in rids]}, "
+                                 f"{hits} prefix hits")
+        rec.update(prefix_hits=hits, affinity_routed=list(
+            fleet.router.affinity_routed), phase_s=time.perf_counter() - t_run)
+        out["vii_prefix_affinity"] = rec
+        del fleet
+        gc.collect()
+    finally:
+        LPUEngine.reset = orig_reset
+        LPUEngine._dispatch_window = orig_dispatch
+    out.update(arch=model.cfg.name, rings=2, fleet_kw=FLEET_KW,
+               chaos_all=FLEET_CHAOS_ALL, requests=len(prompts), max_new=32,
+               kernel_launches=sum(r["kernel_launches"] for r in out.values()
+                                   if isinstance(r, dict)
+                                   and "kernel_launches" in r),
+               phase_s=time.perf_counter() - t0, card=card_name)
     return out
 
 
@@ -3344,6 +3682,10 @@ def main() -> int:
     print(f"[kernel] paged_decode_attention split edges (lengths "
           f"{list(SPLIT_LENGTHS)}, tables out of order; rows alone equal "
           f"rows in the batch; null block inert): {split_errs}")
+    nan_t = check_paged_nan(torch, dev)
+    print(f"[kernel] paged_decode_attention on a NaN row (f32 K/V, int8 "
+          f"scale, fp8 codes; the rows that attend it all NaN, the others "
+          f"bit-equal): {nan_t}")
     chunk_t = check_time_paged_chunk(torch, dev, smi)
     print(f"[kernel] paged_decode_attention at the chunk shape (C "
           f"{PCHUNK_C} queries, one table, lengths {PCHUNK_START + 1}.."
@@ -3443,6 +3785,21 @@ def main() -> int:
                   f"{r.get('accepted_per_window')}, kernel 1 launches "
                   f"{r['kernel_launches']}")
     lap("engine (g) speculation")
+    fleet = run_fleet(torch, dev, model, params, prompts, smi)
+    for name, r in fleet.items():
+        if isinstance(r, dict) and "fleet_counters" in r:
+            print(f"[fleet] (9) {name}: {r['tokens']} tokens in "
+                  f"{r['wall_s']:.2f} s, {r['tokens_per_s']:.1f} tok/s over "
+                  f"the fleet's wall, counters {r['fleet_counters']}, ring "
+                  f"failures {r['ring_failures']}, resets checked "
+                  f"{r['resets_checked']}, straggler events "
+                  f"{len(r['straggler_events'])}, kernel 1 launches "
+                  f"{r['kernel_launches']} | {smi}")
+    print(f"[fleet] (9) reset() on a warmed ring with 4 requests in flight: "
+          f"median {fleet['reset_ms']['median']:.3f} ms of "
+          f"{[round(x, 3) for x in fleet['reset_ms']['all']]} | {smi}")
+    print(f"[time] (9) fleet {fleet['phase_s']:.1f} s", flush=True)
+    lap("fleet (9)")
     del model, params
     ctx, chain, chain_launches, walls = run_chain_phase(torch, dev)
     chain["chunk_prefill"] = chunk_vs_sequential(torch, dev, ctx, "stream")
@@ -3595,7 +3952,8 @@ def main() -> int:
         "ok": True,
         "launches": engine["kernel_launches"] + pp["kernel_launches"]
         + qpool["kernel_launches"] + spec["kernel_launches"]
-        + chain_launches["paged_decode_attention"] + sum(opt_k1.values()),
+        + chain_launches["paged_decode_attention"] + sum(opt_k1.values())
+        + fleet["kernel_launches"],
         "launches_by_path": {
             "engine_stream": engine["kernel_launches"],
             "engine_int8_fp8_pool": qpool["kernel_launches"],
@@ -3606,10 +3964,12 @@ def main() -> int:
             "engine_chunked_preempt":
                 pp["chunked_preempt"]["kernel_launches"],
             "chain_kernel_runs": chain_launches["paged_decode_attention"],
+            "fleet": fleet["kernel_launches"],
             **opt_k1},
         "max_abs_err": errs["q=float32,pool=float32"],
         "max_abs_err_by_dtype": errs,
         "max_abs_err_split_edges": split_errs,
+        "nan_row": nan_t,
         "ms": times["ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": times["library_ms"],
@@ -3745,6 +4105,7 @@ def main() -> int:
         **{name: {"graphs": r["ttft"], "eager_twin": r["eager_twin"]["ttft"]}
            for name, r in opt["h4_protocol"].items()},
         "card": smi}}))
+    print(json.dumps({"fleet": fleet}))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s (limit "
           "1200 s)")
     print(smi)

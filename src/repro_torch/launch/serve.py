@@ -15,6 +15,8 @@ and run the engine on a batch of random prompts.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b \
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b  # card
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --rings 2 --chaos ring@2,nan@5
 
 ``--arch`` takes any name or alias of the port's registry: the dense
 decoders (smollm-135m, the paper's opt-1.3b/6.7b/30b/66b and gpt3-20b,
@@ -35,7 +37,13 @@ head).  ``--speculate ngram|model`` with ``--draft-k K`` drafts K tokens
 per slot (n-gram suffix match, or greedy decoding of a reduced
 smollm-135m with its own seed, over the target's vocabulary) and
 verifies every slot's drafts in one forward, the paged kernel's batch
-being the slots' K+1 queries.
+being the slots' K+1 queries.  ``--rings N`` (N > 1) or ``--chaos``
+serves through the supervised host fleet (``MultiRingEngine``: N engines
+on the one device over the same weights), with the reference's
+``--max-migrations``, ``--heartbeat-timeout`` (virtual seconds under
+chaos) and ``--affinity``; each ring's straggler monitor is seeded with
+the latency model's step-time prior at the LPU-FPGA point, and the
+fleet prints the reference's per-ring and ``ft:`` lines.
 """
 from __future__ import annotations
 
@@ -46,13 +54,14 @@ import numpy as np
 
 from repro_torch.compiler.mapper import plan_model
 from repro_torch.configs import get_config
+from repro_torch.core.latency_model import LPU_FPGA, step_time_prior
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
 from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused
 from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
 from repro_torch.models.registry import build_model
 from repro_torch.serving.config import EngineConfig
-from repro_torch.serving.engine import LPUEngine
+from repro_torch.serving.engine import LPUEngine, MultiRingEngine
 from repro_torch.serving.sampler import SamplingParams
 
 
@@ -118,6 +127,25 @@ def main(argv=None):
                          "rejection-sampled prefix (paged only)")
     ap.add_argument("--draft-k", type=int, default=4,
                     help="draft tokens proposed per speculative round")
+    ap.add_argument("--rings", type=int, default=1,
+                    help="engines of the host fleet, all on the one device "
+                         "over the same weights (> 1: the fleet)")
+    ap.add_argument("--chaos", default="",
+                    help="deterministic fault injection: comma-separated "
+                         "kind@step[:ring] with kinds ring|stall|nan|"
+                         "corrupt (e.g. 'ring@3,nan@7:1'); forces the "
+                         "supervised fleet")
+    ap.add_argument("--max-migrations", type=int, default=3,
+                    help="recompute-migrations per request before it "
+                         "ends as a structured failure")
+    ap.add_argument("--heartbeat-timeout", type=float, default=30.0,
+                    help="ring liveness timeout in (virtual, under "
+                         "chaos) seconds before drain/rebuild")
+    ap.add_argument("--affinity", default="least_loaded",
+                    choices=("least_loaded", "prefix"),
+                    help="fleet routing: least-loaded, or the ring whose "
+                         "prefix cache owns the prompt's deepest "
+                         "block-aligned prefix (needs --prefix-cache on)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -152,9 +180,26 @@ def main(argv=None):
                          kv_dtype=args.kv_dtype,
                          prefill_chunk=args.prefill_chunk,
                          prefix_cache=args.prefix_cache == "on",
-                         speculate=args.speculate, draft_k=args.draft_k)
-    engine = LPUEngine(model, params, econf, device=dev,
-                       draft_model=draft_model, draft_params=draft_params)
+                         speculate=args.speculate, draft_k=args.draft_k,
+                         chaos=args.chaos,
+                         max_migrations=args.max_migrations,
+                         heartbeat_timeout_s=args.heartbeat_timeout,
+                         affinity=args.affinity)
+    fleet = args.rings > 1 or bool(args.chaos)
+    if fleet:
+        # each ring's straggler monitor starts from the latency model's
+        # step time (LPU-FPGA point), so detection is armed at once
+        prior = step_time_prior(cfg, 1, LPU_FPGA, kv_len=args.max_seq,
+                                steps_per_sync=args.steps_per_sync)
+        engine = MultiRingEngine(model, params, None,
+                                 rings=max(args.rings, 1), config=econf,
+                                 step_prior_s=prior, device=dev,
+                                 draft_model=draft_model,
+                                 draft_params=draft_params)
+    else:
+        engine = LPUEngine(model, params, econf, device=dev,
+                           draft_model=draft_model,
+                           draft_params=draft_params)
 
     rng = np.random.RandomState(0)
     prompts = [list(rng.randint(1, cfg.vocab_size,
@@ -165,6 +210,31 @@ def main(argv=None):
         cfg.family, paged_decode_attention)
     kernel.launches = 0
     outs = engine.generate(prompts, max_new_tokens=args.max_new, params=sp)
+    if fleet:
+        print(f"[serve] {len(outs)} requests over {engine.n_rings} "
+              f"sub-rings (tp=1 each), routed {engine.router.routed}, "
+              f"{engine.tokens_per_s:.1f} tok/s over the fleet's wall, "
+              f"device={dev}")
+        for i, (eng, st) in enumerate(zip(engine.engines,
+                                          engine.per_ring_stats())):
+            print(f"[serve]   ring{i}: {st.tokens} tokens, "
+                  f"{st.tokens_per_s:.1f} tok/s, occ {st.occupancy:.2f}, "
+                  f"kv/rank {eng.per_rank_kv_bytes()} B")
+        fc = engine.fleet_counters()
+        print(f"[serve] ft: chaos={args.chaos or 'off'} "
+              f"ring_failures={fc['ring_failures']} "
+              f"migrated={fc['migrated_requests']} "
+              f"retries={fc['retries']} "
+              f"rejected={fc['rejected_requests']} "
+              f"failed={fc['failed_requests']} "
+              f"events={fc['events']}")
+        st = engine.per_ring_stats()
+        print(f"[serve] {kernel.__name__} kernel launches={kernel.launches} "
+              f"(device decode steps "
+              f"{sum(s.device_decode_steps for s in st)} over the rings)")
+        for i, o in enumerate(outs[:4]):
+            print(f"  req{i}: {o[:12]}")
+        return outs
     mode = f"paged/{engine.paged_kernel}" if engine.paged else "dense"
     st = engine.stats
     print(f"[serve] {len(outs)} requests, {st.tokens} tokens, "

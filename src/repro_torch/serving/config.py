@@ -3,9 +3,10 @@
 
 The fields and defaults are the reference's, so one configuration reads
 the same in both packages.  Knobs whose subsystem has not been ported
-yet (:data:`UNPORTED`: fault tolerance, the async front end) are kept
-here, and :class:`repro_torch.serving.engine.LPUEngine` rejects any
-value other than the default with ``NotImplementedError``.  As in the
+yet (:data:`UNPORTED`: the async front end's step budget and admission
+bound) are kept here, and :class:`repro_torch.serving.engine.LPUEngine`
+rejects any value other than the default with ``NotImplementedError``.
+The chaos spec is parsed at construction, as the reference parses it.  As in the
 reference, the engine checks the knobs that depend on the model (the
 paged pool that int8/fp8 storage and speculation need) and the
 speculation knobs (``speculate`` in ``SPECULATE``, ``draft_k >= 1``).
@@ -14,6 +15,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, fields, replace
 from typing import Optional
+
+from repro_torch.serving.ft import parse_chaos
 
 KV_DTYPES = ("auto", "float16", "fp16", "bfloat16", "bf16", "float32",
              "fp32", "int8", "fp8", "float8_e4m3fn")
@@ -51,13 +54,16 @@ class EngineConfig:
     kv_dtype: str = "auto"             # auto|float16|bfloat16|float32|
                                        # int8|fp8 — pool storage precision
     w_dtype: str = "auto"              # auto|int8 — streamed weights
-    # fault tolerance
-    chaos: str = ""
-    max_migrations: int = 3
-    heartbeat_timeout_s: float = 30.0
-    ft_straggler_drain: bool = False
+    # fault tolerance (repro_torch.serving.ft)
+    chaos: str = ""                    # "" = off; else "kind@step[:ring],..."
+                                       # with kinds ring|stall|nan|corrupt
+    max_migrations: int = 3            # migrations per request before it
+                                       # ends as a structured failure
+    heartbeat_timeout_s: float = 30.0  # ring liveness timeout (virtual
+                                       # seconds in a chaos run)
+    ft_straggler_drain: bool = False   # drain a straggler-flagged ring
     # serving front end
-    affinity: str = "least_loaded"
+    affinity: str = "least_loaded"     # fleet routing: least_loaded|prefix
     budget_ms: float = 0.0
     max_pending: int = 0
 
@@ -74,6 +80,8 @@ class EngineConfig:
                              f"{KV_DTYPES}")
         if self.w_dtype not in W_DTYPES:
             raise ValueError(f"w_dtype={self.w_dtype!r} not in {W_DTYPES}")
+        if self.chaos:
+            parse_chaos(self.chaos)    # fail at construction, not mid-run
         if self.max_migrations < 0:
             raise ValueError(
                 f"max_migrations={self.max_migrations} must be >= 0")
@@ -88,11 +96,5 @@ class EngineConfig:
 
 
 # field -> the later slice of the port that brings its subsystem
-UNPORTED = {
-    "chaos": "fault tolerance",
-    "max_migrations": "fault tolerance",
-    "heartbeat_timeout_s": "fault tolerance",
-    "ft_straggler_drain": "fault tolerance", "affinity": "front end",
-    "budget_ms": "front end", "max_pending": "front end",
-}
+UNPORTED = {"budget_ms": "front end", "max_pending": "front end"}
 DEFAULTS = {f.name: f.default for f in fields(EngineConfig)}

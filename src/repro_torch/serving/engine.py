@@ -84,10 +84,28 @@ reference's ``serving/engine.py`` ``LPUEngine``).
   (rwkv, jamba) stays eager: one program per prompt length would
   capture again for every new length.
 
-Not in this slice (each raises ``NotImplementedError``): a mesh / tp > 1,
-and any value other than the default of a config field whose subsystem
-is not ported (``serving.config.UNPORTED``: fault tolerance, the front
-end).  ``w_dtype`` is carried as the reference carries it, for
+* **Fault tolerance** — ``chaos="kind@step[:ring],..."`` injects
+  deterministic faults (:mod:`repro_torch.serving.ft`): ``ring`` raises
+  :class:`RingFailure`, ``stall`` wedges the engine, ``nan`` poisons the
+  next decode window's logits on the device (a flag in the window's
+  static buffer, read inside the captured program), ``corrupt``
+  overwrites a resident pool block with NaN in place.  The window also
+  writes an (S, slots) "row was finite" matrix beside its tokens, read
+  back in the same one copy; the host raises ``RingFailure("nan_logits")``
+  at the first bad step, before that step's tokens commit.
+  :meth:`LPUEngine.reset` drains the engine: it zeroes every cache
+  tensor in place (each captured program holds their addresses), keeps
+  every program, rebuilds the host side (pool, prefix index, scheduler)
+  and returns the orphaned requests.  :class:`MultiRingEngine` (host
+  fleet: N engines on one device, sharing one set of weight tensors)
+  routes requests, supervises the rings' steps and runs drain ->
+  migrate (the recompute-resume path) -> rebuild on a ring failure, a
+  heartbeat timeout or, with ``ft_straggler_drain``, a straggler.
+
+Not in this slice (each raises ``NotImplementedError``): a mesh / tp > 1
+(the mesh fleet too), and any value other than the default of a config
+field whose subsystem is not ported (``serving.config.UNPORTED``: the
+front end's step budget and admission bound).  ``w_dtype`` is carried as the reference carries it, for
 telemetry: the engine's decode keeps the fp weights at any value.
 """
 from __future__ import annotations
@@ -106,6 +124,9 @@ from repro_torch.kernels.decode_attention.ops import resolve_paged_kernel
 from repro_torch.serving.config import (DEFAULTS, SPECULATE, UNPORTED,
                                         EngineConfig)
 from repro_torch.serving.drafter import make_drafter
+from repro_torch.serving.ft import (Event, FailureInjector, HeartbeatTracker,
+                                    ManualClock, RingFailure,
+                                    StragglerMonitor, parse_chaos)
 from repro_torch.serving.graphs import Programs, StagedBuffer
 from repro_torch.serving.kv_cache import (LANE, BlockPool, PrefixCache,
                                           assert_pool_balanced, cache_bytes,
@@ -117,9 +138,10 @@ from repro_torch.serving.kv_cache import (LANE, BlockPool, PrefixCache,
 from repro_torch.serving.sampler import (SamplingParams, sample_batched,
                                          sample_local, spec_verify_rows,
                                          speculative_verify_batched)
-from repro_torch.serving.scheduler import Scheduler, SeqSlot
+from repro_torch.serving.scheduler import RingRouter, Scheduler, SeqSlot
 
 StreamCB = Callable[[int, int], None]   # (request_id, token)
+FLEET_ROUND_S = 1.0   # one fleet round on a chaotic fleet's ManualClock
 
 
 @dataclass
@@ -131,8 +153,12 @@ class Request:
     out: List[int] = field(default_factory=list)
     done: bool = False
     stream_cb: Optional[StreamCB] = None
-    failed: bool = False          # rejected: can never fit the pool
+    failed: bool = False          # structured failure: rejected (can
+                                  # never fit the pool) or out of
+                                  # migrations; ``error`` says why
     error: Optional[str] = None
+    cancelled: bool = False       # aborted by the caller: done, not
+                                  # failed (the partial stream is kept)
 
     def resume_tokens(self) -> List[int]:
         """Tokens whose KV must be resident before decoding continues:
@@ -180,6 +206,12 @@ class EngineStats:
                                   # forward each)
     draft_tokens: int = 0         # drafter-proposed tokens verified
     accepted_tokens: int = 0      # ...accepted by rejection sampling
+    ring_failures: int = 0        # drain/rebuild cycles of this engine
+    migrated_requests: int = 0    # in-flight requests taken over from a
+                                  # failed ring (recompute resume)
+    retries: int = 0              # recovery resubmissions admitted here
+                                  # (incl. back onto a lone rebuilt ring)
+    cancelled_requests: int = 0   # aborted via cancel()
 
     @property
     def tokens_per_s(self) -> float:
@@ -368,27 +400,62 @@ class LPUEngine:
                           else c.speculate if c.speculate != "off"
                           else "custom")
         self.draft_k = int(c.draft_k)
+        # fault tolerance: ``ring_id`` is stamped by MultiRingEngine (a
+        # lone engine is ring 0); the injector's fired set lives outside
+        # what reset() rebuilds, so an event fires once per engine
+        self.ring_id = 0
+        self.events: List[Event] = []
+        self._step_no = 0
+        self._stalled = False
+        self._poison_next = False
+        self.injector: Optional[FailureInjector] = None
+        if c.chaos:
+            chaos_events = parse_chaos(c.chaos)
+            if self.drafter is not None:
+                raise ValueError(
+                    "chaos injection does not compose with speculative "
+                    "decoding yet: the verify path has no finite-logits "
+                    "guard, so a NaN fault could commit tokens")
+            if not self.paged and \
+                    any(e.kind == "corrupt" for e in chaos_events):
+                raise ValueError(
+                    "chaos kind 'corrupt' poisons a KV pool block and "
+                    "needs the paged pool (dense caches have no blocks)")
+            self.injector = FailureInjector(chaos=chaos_events)
         self.sched = Scheduler(self.slots, self.max_seq, pool, c.min_bucket,
                                prefix=self.prefix)
         self.stats = EngineStats()
+        # the stats fields assigned from subsystem counters (scheduler,
+        # pool, prefix index) add these bases, banked by reset() before
+        # it rebuilds those subsystems from zero: the stats stay monotone
+        self._ctr_base = dict(preemptions=0, evicted_blocks=0,
+                              prefix_lookups=0, prefix_hits=0,
+                              prefix_hit_blocks=0, prefill_tokens_saved=0)
         self._results: Dict[int, List[int]] = {}
         self._rid = 0
         self._chunk_rr = -1           # admit_seq of the last chunk served
         self._buckets_traced: Set = set()
-        # the window's static inputs (carry + sampling arrays, tables) and
-        # its token matrix per length; the verify round's per K
+        # the window's static inputs (carry + sampling arrays + the chaos
+        # poison flag, tables) and its output per length: the (S, slots)
+        # int32 token matrix and bool finite-row matrix in one byte
+        # buffer, read back in one copy; the verify round's per K
         self.graphs = bool(graphs)
         self._programs = Programs(self.device)
         B = self.slots
         self._win = StagedBuffer(
             [(n, (B,), "i32") for n in ("last", "pos", "n_out", "alive",
                                         "top_ks", "max_new")]
-            + [(n, (B,), "f32") for n in ("temps", "top_ps")], self.device)
+            + [(n, (B,), "f32") for n in ("temps", "top_ps")]
+            + [("poison", (1,), "i32")], self.device)
         self._tables = (StagedBuffer([("tables", (B, self.table_len), "i32")],
                                      self.device) if self.paged else None)
-        self._tok_out = {w: torch.zeros((w, B), dtype=torch.int32,
-                                        device=self.device)
-                         for w in {1, self.steps_per_sync}}
+        self._win_out, self._tok_out, self._ok_out = {}, {}, {}
+        for w in {1, self.steps_per_sync}:
+            buf = torch.zeros((5 * w * B,), dtype=torch.uint8,
+                              device=self.device)
+            self._win_out[w] = buf
+            self._tok_out[w] = buf[:4 * w * B].view(torch.int32).view(w, B)
+            self._ok_out[w] = buf[4 * w * B:].view(torch.bool).view(w, B)
         self._ver: Dict[int, StagedBuffer] = {}
         self._ver_out: Dict[int, torch.Tensor] = {}
         # the admission side's programs (prefill, chunk, first-token
@@ -407,8 +474,7 @@ class LPUEngine:
         self._host_logits = None      # (slots, V_pad), at first use
 
     def _init_kv_state(self) -> Optional[BlockPool]:
-        """A zeroed cache (pool or dense), fresh block tables and — paged
-        — a fresh :class:`BlockPool`."""
+        """A zeroed cache (pool or dense) and :meth:`_fresh_tables`."""
         store = (None if self.kv_prec.requested == "auto"
                  else dtype_of(self.kv_prec.store_dtype))
         if self.paged:
@@ -418,21 +484,113 @@ class LPUEngine:
                 dtype=store,
                 scale_dtype=(dtype_of(self.kv_prec.scale_dtype)
                              if self.kv_prec.quantized else None))
-            self.block_tables = np.zeros((self.slots, self.table_len),
-                                         np.int32)
-            return BlockPool(self.num_blocks, self.block_size)
-        self.cache = self.model.init_cache(self.slots, self.max_seq,
-                                           dtype=store)
-        self.block_tables = None
-        return None
+        else:
+            self.cache = self.model.init_cache(self.slots, self.max_seq,
+                                               dtype=store)
+        return self._fresh_tables()
+
+    def _fresh_tables(self) -> Optional[BlockPool]:
+        """Fresh block tables and — paged — a fresh :class:`BlockPool`."""
+        if not self.paged:
+            self.block_tables = None
+            return None
+        self.block_tables = np.zeros((self.slots, self.table_len), np.int32)
+        return BlockPool(self.num_blocks, self.block_size)
+
+    def reset(self) -> List[Request]:
+        """Drain this ring: drop every KV block, table and scheduling
+        structure and rebuild them empty — the rebuild half of a ring
+        drain/rebuild cycle.  Returns the orphaned in-flight requests
+        (active sequences in admission order, then the queue) for the
+        fleet to migrate through the recompute-resume path.
+
+        The reference builds a fresh zeroed cache; here every cache
+        tensor is zeroed in place instead, because each captured program
+        holds the addresses of the cache, its static buffers and its
+        outputs.  The zeroing is enqueued on the current stream, after a
+        window still in flight (a pipelined window whose handle the fault
+        dropped), and it clears a NaN block before a later sequence
+        reuses it.  Every program is kept; the host side (pool, prefix
+        index, scheduler, block tables) is rebuilt, and every static
+        buffer's mirror is dropped: a dropped window left a device carry
+        the mirror does not know.  Finished results, stats and the
+        injector's fired set survive."""
+        orphans = [s.req for s in
+                   sorted((s for s in self.sched.active if s is not None),
+                          key=lambda s: s.admit_seq)]
+        orphans += list(self.sched.queue)
+        for name in self._ctr_base:
+            self._ctr_base[name] = getattr(self.stats, name)
+        for c in self.cache.values():
+            for t in c.values():
+                t.zero_()
+        pool = self._fresh_tables()
+        self.prefix = PrefixCache(pool) if self.prefix is not None else None
+        self.sched = Scheduler(self.slots, self.max_seq, pool,
+                               self.config.min_bucket, prefix=self.prefix)
+        self._chunk_rr = -1
+        self._stalled = False
+        self._poison_next = False
+        self._drop_mirrors()
+        return orphans
 
     def check_pool_balanced(self) -> None:
         """Raise unless every pool block's refcount balances to zero."""
         if self.sched.pool is not None:
             assert_pool_balanced(self.sched.pool, self.prefix)
 
+    # -- chaos injection -----------------------------------------------
+
+    def _chaos_tick(self) -> None:
+        """Fire this step's chaos events (each once): ``ring`` raises
+        :class:`RingFailure`, ``stall`` wedges the engine until the
+        fleet's heartbeat timeout drains it, ``nan`` poisons the next
+        decode window's logits on the device and ``corrupt`` a resident
+        pool block; the finite-logits guard then detects both."""
+        if self.injector is None:
+            return
+        for ev in self.injector.fire(self._step_no, self.ring_id):
+            self.events.append(Event("chaos", self._step_no,
+                                     {"kind": ev.kind,
+                                      "ring": self.ring_id}))
+            if ev.kind == "ring":
+                raise RingFailure("injected_ring_failure", self._step_no,
+                                  self.ring_id)
+            if ev.kind == "stall":
+                self._stalled = True
+            elif ev.kind == "nan":
+                self._poison_next = True
+            elif ev.kind == "corrupt":
+                self._corrupt_pool_block()
+
+    def _corrupt_pool_block(self) -> None:
+        """Set the first decode-ready sequence's first resident block to
+        NaN, in place, in every floating cache tensor: K/V of an fp pool,
+        the scales of an int8 pool, codes and scales of an fp8 pool.  The
+        next decode's logits then go non-finite as under a real memory
+        fault, through the paged kernel."""
+        blk = None
+        for seq in self.sched.active:
+            if seq is not None and not seq.prefilling and seq.blocks:
+                blk = seq.blocks[0]
+                break
+        if blk is None:
+            return                   # nothing resident: the fault hits air
+        for c in self.cache.values():
+            for t in c.values():
+                if t.is_floating_point():
+                    t[:, blk] = float("nan")
+
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _drop_mirrors(self) -> None:
+        """Forget what every static buffer's host mirror says the device
+        holds, so the next dispatch uploads."""
+        for buf in (self._win, self._tables, *self._ver.values(),
+                    *self._bufs.values()):
+            if buf is not None:
+                buf.mirror = None
 
     # -- device steps --------------------------------------------------
 
@@ -457,16 +615,22 @@ class LPUEngine:
         one graph.  A slot that hits eos / its token budget / max_seq
         drops out of ``alive`` and is frozen: its (last, pos) stop
         advancing, so later steps rewrite the same KV row with the same
-        value.  Writes the (S, slots) token matrix into ``_tok_out[S]``
+        value.  The chaos flag ``poison`` marks every row as not finite
+        (the guard then refuses the whole window before any of its tokens
+        commits) and is consumed (zeroed) by the window that reads it.
+        Writes the (S, slots) token matrix into ``_tok_out[S]``, whether
+        each row was finite into ``_ok_out[S]`` (the NaN guard's input),
         and the carry back into its buffers."""
         w = self._win.view
         tables = self._tables.view["tables"] if self.paged else None
         eos = -1 if self.eos_id is None else self.eos_id
         last, pos, n_out = w["last"], w["pos"], w["n_out"]
         alive = w["alive"] != 0
-        toks_all = []
+        poison = w["poison"] != 0
+        toks_all, oks_all = [], []
         for _ in range(S):
             row = self._decode_fn(last[:, None], pos, tables)
+            oks_all.append(torch.isfinite(row).all(-1) & ~poison)
             toks = sample_batched(row, self.gen, w["temps"], w["top_ks"],
                                   w["top_ps"], stochastic)
             live = alive.to(torch.int32)
@@ -478,9 +642,11 @@ class LPUEngine:
             alive = alive & ~fin
             toks_all.append(toks)
         torch.stack(toks_all, out=self._tok_out[S])
+        torch.stack(oks_all, out=self._ok_out[S])
         for name, t in (("last", last), ("pos", pos), ("n_out", n_out),
                         ("alive", alive)):
             w[name].copy_(t)
+        w["poison"].zero_()
 
     def _carry_after(self, toks: np.ndarray) -> None:
         """Replay on the host mirror of the window's state buffer what a
@@ -499,6 +665,7 @@ class LPUEngine:
                 (m["pos"] >= self.max_seq - 1)
             m["last"][...] = np.where(live, row, m["last"])
             m["alive"][...] = live & ~fin
+        m["poison"][...] = 0
 
     @contextlib.contextmanager
     def _held(self, dead: Callable[[], None]):
@@ -518,10 +685,7 @@ class LPUEngine:
             for t, copy in saved or ():
                 t.copy_(copy)
             self.gen.set_state(gen)
-            for buf in (self._win, self._tables, *self._ver.values(),
-                        *self._bufs.values()):
-                if buf is not None:
-                    buf.mirror = None
+            self._drop_mirrors()
 
     def _program(self, key, fn: Callable[[], None], stochastic: bool,
                  dead: Callable[[], None],
@@ -899,9 +1063,41 @@ class LPUEngine:
         self.sched.submit(req)
         return req.rid
 
+    def cancel(self, rid: int) -> Optional[Request]:
+        """Abort one request between steps: pop it from the queue, or
+        release its slot and blocks (a shared prefix block just drops a
+        reference).  The partial stream is kept in the results.  Returns
+        the request, or None when ``rid`` is not in flight here.  Safe
+        on the host alone: ``step()`` reads back every window it
+        dispatched before it returns, so no program still writes into
+        the freed blocks."""
+        req = None
+        for r in self.sched.queue:
+            if r.rid == rid:
+                self.sched.queue.remove(r)
+                req = r
+                break
+        else:
+            for seq in self.sched.active:
+                if seq is not None and seq.req.rid == rid:
+                    self.sched.release(seq)
+                    req = seq.req
+                    break
+        if req is None:
+            return None
+        req.done = True
+        req.cancelled = True
+        self._results[rid] = req.out
+        self.stats.cancelled_requests += 1
+        self.events.append(Event("request_cancelled", self._step_no,
+                                 {"rid": rid, "tokens": len(req.out)}))
+        return req
+
     def step(self) -> List[Request]:
         """One scheduler round: admit + prefill, then one decode round
-        for the whole slot batch.  Returns requests finished this round."""
+        for the whole slot batch.  Returns requests finished this round.
+        A ring-level fault raises :class:`RingFailure` (the fleet
+        recovers it)."""
         t0 = time.perf_counter()
         try:
             return self._step()
@@ -913,6 +1109,12 @@ class LPUEngine:
                                         + self._admit.replays)
 
     def _step(self) -> List[Request]:
+        self._step_no += 1
+        self._chaos_tick()
+        if self._stalled:
+            # injected stall: no progress this step or any later one; the
+            # fleet's heartbeat tracker notices and drains the ring
+            return []
         finished: List[Request] = []
         if self.prefill_chunk:
             finished += self._admit_and_chunk()
@@ -926,17 +1128,20 @@ class LPUEngine:
                     finished.append(done)
         finished += self._harvest_rejections()
         self.sched.ensure_decode_capacity()     # may preempt (recompute)
-        st = self.stats
-        st.preemptions = self.sched.preemptions
+        st, base = self.stats, self._ctr_base
+        st.preemptions = base["preemptions"] + self.sched.preemptions
         if self.sched.pool is not None:
             st.peak_pool_blocks = max(st.peak_pool_blocks,
                                       self.sched.pool.num_used)
-            st.evicted_blocks = self.sched.pool.evicted_blocks
+            st.evicted_blocks = base["evicted_blocks"] \
+                + self.sched.pool.evicted_blocks
         if self.prefix is not None:
-            st.prefix_lookups = self.prefix.lookups
-            st.prefix_hits = self.prefix.hits
-            st.prefix_hit_blocks = self.prefix.hit_blocks
-            st.prefill_tokens_saved = self.prefix.tokens_saved
+            st.prefix_lookups = base["prefix_lookups"] + self.prefix.lookups
+            st.prefix_hits = base["prefix_hits"] + self.prefix.hits
+            st.prefix_hit_blocks = base["prefix_hit_blocks"] \
+                + self.prefix.hit_blocks
+            st.prefill_tokens_saved = base["prefill_tokens_saved"] \
+                + self.prefix.tokens_saved
         if self.sched.num_decoding() == 0:
             return finished
         if self.drafter is not None:
@@ -958,6 +1163,8 @@ class LPUEngine:
             req.error = why
             self._results[req.rid] = req.out
             self.stats.rejected_requests += 1
+            self.events.append(Event("request_rejected", self._step_no,
+                                     {"rid": req.rid, "why": why}))
             finished.append(req)
         return finished
 
@@ -997,6 +1204,16 @@ class LPUEngine:
         logits_np = logits.cpu().numpy()
         self.stats.host_syncs += 1
         self.stats.bytes_to_host += logits_np.nbytes
+        if self._poison_next:
+            # chaos "nan": poison the host copy, so the guard below trips
+            self._poison_next = False
+            logits_np = np.full_like(logits_np, np.nan)
+        act = [slot for slot, seq in enumerate(self.sched.active)
+               if seq is not None and not seq.prefilling]
+        bad = [slot for slot in act if not np.isfinite(logits_np[slot]).all()]
+        if bad:
+            raise RingFailure("nan_logits", self._step_no, self.ring_id,
+                              {"slots": bad})
         finished: List[Request] = []
         self.stats.steps += 1
         self.stats.slot_steps += self.slots
@@ -1066,9 +1283,11 @@ class LPUEngine:
                 return True
         return False
 
-    def _window_state(self, state: Optional[tuple]) -> np.ndarray:
+    def _window_state(self, state: Optional[tuple],
+                      poison: bool = False) -> np.ndarray:
         """The packed state buffer of ``state`` = ``(carry, samp)`` from
-        :meth:`_slot_arrays`, or of a batch with every slot dead."""
+        :meth:`_slot_arrays`, or of a batch with every slot dead, with
+        the chaos flag ``poison``."""
         if state is None:
             B = self.slots
             z = np.zeros((B,), np.int32)
@@ -1077,7 +1296,8 @@ class LPUEngine:
         (last, pos, n_out, alive), (temps, top_ks, top_ps, max_new) = state
         return self._win.pack(dict(
             last=last, pos=pos, n_out=n_out, alive=alive, temps=temps,
-            top_ks=top_ks, top_ps=top_ps, max_new=max_new))
+            top_ks=top_ks, top_ps=top_ps, max_new=max_new,
+            poison=int(poison)))
 
     def _dead_window(self) -> None:
         self._win.upload(self._window_state(None))
@@ -1090,8 +1310,11 @@ class LPUEngine:
         program (captured on first use), then the uploads of what
         changed — the block tables, and ``state`` (``(carry, samp)``;
         None continues off the device carry of the window before) — then
-        the replay.  The token matrix is cloned at once: the next replay
-        rewrites ``_tok_out``.  Returns (win, token matrix, active
+        the replay.  A pending chaos ``nan`` rides in the uploaded state
+        as the poison flag (a window chained off the device carry never
+        has one pending: the window before consumed it).  The output
+        (tokens and finite-row flags) is cloned at once: the next replay
+        rewrites ``_win_out``.  Returns (win, output bytes, active
         snapshot)."""
         fn = lambda: self._window_fn(win, stochastic)       # noqa: E731
         prog = self._program(("window", win, stochastic), fn, stochastic,
@@ -1099,24 +1322,37 @@ class LPUEngine:
         if self.paged:
             self._tables.upload(self.block_tables)
         if state is not None:
-            self._win.upload(self._window_state(state))
+            self._win.upload(self._window_state(state, self._poison_next))
+            self._poison_next = False
         self._programs.run(prog, fn)
         self.stats.device_decode_steps += win
         snapshot = [s is not None and not s.prefilling
                     for s in self.sched.active]
-        return win, self._tok_out[win].clone(), snapshot
+        return win, self._win_out[win].clone(), snapshot
 
     def _reconcile(self, handle) -> List[Request]:
-        """Read a window's token matrix back (the ONE device->host sync
-        per window) and replay the finish rules the device applied:
-        tokens of slots that finished earlier are overrun and dropped."""
-        win, tok_mat, dispatch_active = handle
-        toks = tok_mat.cpu().numpy()                   # (win, slots)
+        """Read a window's tokens and finite-row flags back (the ONE
+        device->host sync per window) and replay the finish rules the
+        device applied: tokens of slots that finished earlier are overrun
+        and dropped.  The NaN guard runs per window step before that
+        step's tokens commit: the first step whose sampled-from row was
+        non-finite for a dispatched slot raises :class:`RingFailure`, so
+        no token at or after the fault reaches a request."""
+        win, out, dispatch_active = handle
+        host = out.cpu().numpy()
+        n = win * self.slots
+        toks = host[:4 * n].view(np.int32).reshape(win, self.slots)
+        oks = host[4 * n:].view(np.bool_).reshape(win, self.slots)
         self.stats.host_syncs += 1
-        self.stats.bytes_to_host += toks.nbytes
+        self.stats.bytes_to_host += toks.nbytes + oks.nbytes
         self._carry_after(toks)
         finished: List[Request] = []
         for s in range(win):
+            bad = [slot for slot in range(self.slots)
+                   if dispatch_active[slot] and not oks[s, slot]]
+            if bad:
+                raise RingFailure("nan_logits", self._step_no, self.ring_id,
+                                  {"window_step": s, "slots": bad})
             if self.sched.num_decoding() == 0:
                 self.stats.overrun_tokens += \
                     (win - s) * sum(dispatch_active)
@@ -1343,6 +1579,10 @@ class LPUEngine:
     def per_rank_kv_bytes(self) -> int:
         return self.kv_cache_bytes() // self.tp
 
+    def pending_load(self) -> int:
+        """Outstanding tokens (queued + active): the router's signal."""
+        return self.sched.pending_tokens()
+
     def kv_bytes_moved_per_step(self) -> int:
         """Analytic KV bytes moved per decode step: the resident span V
         for the dense and streamed paths, 3V for the gather oracle (read
@@ -1376,3 +1616,241 @@ class LPUEngine:
         if self.paged and self.paged_kernel == "stream":
             return self.block_size
         return min(self.block_s or 2048, self.max_seq)
+
+
+class MultiRingEngine:
+    """A supervised fleet of :class:`LPUEngine` rings (paper C3), in
+    host-fleet mode: ``rings`` engines on one device, every one over the
+    same weight tensors, each with its own KV pool, scheduler and
+    captured programs.  Requests are routed per ring by
+    :class:`repro_torch.serving.scheduler.RingRouter` (least outstanding
+    tokens, or with ``affinity="prefix"`` the ring whose prefix index
+    owns the deepest prefix of the prompt).
+
+    ``step()`` runs the rings one after another from one host thread, as
+    the reference does, so the fleet's tokens/s is total tokens over the
+    fleet's wall time, never the sum of per-ring rates.
+
+    Fault tolerance: a :class:`RingFailure` raised by a ring (injected,
+    or the finite-logits guard), a ring silent past the heartbeat
+    timeout or, with ``ft_straggler_drain``, a straggler step starts the
+    recovery: drain the ring (:meth:`LPUEngine.reset` returns its
+    orphans and rebuilds it in place), migrate the orphans to the least
+    loaded surviving ring through the recompute-resume path
+    (``Request.resume_tokens``), and return the rebuilt ring to rotation
+    (:meth:`HeartbeatTracker.revive`).  A request migrated
+    ``max_migrations`` times already ends with ``failed=True`` and an
+    ``error``, never an exception.  A fleet with a chaotic ring runs on a
+    :class:`ManualClock` (one fleet round = 1 s), so heartbeat timeouts
+    are step-deterministic.
+
+    The mesh form (``mesh`` given, ``ring_size``: one ring-parallel
+    engine per sub-mesh) arrives with the port's tp slice.
+    ``**engine_kw`` goes to every ring's :class:`LPUEngine` (``device``,
+    ``graphs``, ``seed``, a drafter's model...)."""
+
+    def __init__(self, model, params, mesh=None, *, ring_size: int = 0,
+                 rings: int = 0, config: Optional[EngineConfig] = None,
+                 step_prior_s: float = 0.0, **engine_kw):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh fleets (ring-parallel sub-rings) arrive with the "
+                "port's tp slice; pass mesh=None and rings=N")
+        if rings < 1:
+            raise ValueError("host fleets need rings >= 1")
+        if model.plan.mesh_axes is not None:
+            raise ValueError(
+                "host-fleet mode needs a mesh-free plan "
+                f"(got mesh_axes={model.plan.mesh_axes})")
+        self.engines = [LPUEngine(model, params, config, **engine_kw)
+                        for _ in range(rings)]
+        for i, eng in enumerate(self.engines):
+            eng.ring_id = i
+        self.router = RingRouter(len(self.engines))
+        self.ring_of: Dict[int, int] = {}
+        self._rid = 0
+        c = self.engines[0].config
+        self.max_migrations = c.max_migrations
+        self.affinity = c.affinity
+        chaotic = any(e.injector is not None for e in self.engines)
+        self._clock = ManualClock() if chaotic else time.time
+        self.hb = HeartbeatTracker(len(self.engines),
+                                   timeout_s=c.heartbeat_timeout_s,
+                                   clock=self._clock)
+        self.monitors = [StragglerMonitor(mu0=step_prior_s or None)
+                         for _ in self.engines]
+        self.ft_straggler_drain = c.ft_straggler_drain
+        self.events: List[Event] = []
+        self._migrations: Dict[int, int] = {}   # rid -> resubmissions
+        self.failed: Dict[int, Request] = {}    # rid -> failed request
+        self._round = 0
+        self.wall = 0.0
+
+    @property
+    def n_rings(self) -> int:
+        return len(self.engines)
+
+    @property
+    def tokens_per_s(self) -> float:
+        """Total tokens over the fleet's wall time in ``step()``."""
+        tokens = sum(e.stats.tokens for e in self.engines)
+        return tokens / self.wall if self.wall else 0.0
+
+    def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
+               params: Optional[SamplingParams] = None,
+               stream_cb: Optional[StreamCB] = None) -> int:
+        """Route to the prefix-owning ring (``affinity="prefix"``) or the
+        least loaded one; returns a fleet-wide request id."""
+        prompt = list(prompt)
+        aff = None
+        if self.affinity == "prefix":
+            aff = [e.prefix.peek(prompt) if e.prefix is not None else 0
+                   for e in self.engines]
+        ring = self.router.route(
+            [e.pending_load() for e in self.engines], affinity=aff)
+        req = Request(self._rid, prompt, max_new_tokens,
+                      params or SamplingParams(0.0, 0, 1.0),
+                      stream_cb=stream_cb)
+        self._rid += 1
+        self.engines[ring].submit(req)
+        self.ring_of[req.rid] = ring
+        return req.rid
+
+    def cancel(self, rid: int) -> Optional[Request]:
+        """Abort one in-flight request on the ring that holds it now
+        (``ring_of`` follows migrations).  None if it already finished or
+        failed."""
+        ring = self.ring_of.get(rid)
+        if ring is None:
+            return None
+        return self.engines[ring].cancel(rid)
+
+    def step(self) -> List[Request]:
+        """One supervised round over every ring that has work.  An idle
+        ring heartbeats for free; a working ring beats only when its
+        round made progress (a decode step or a prefill, or it ran out of
+        work), so a wedged ring goes silent and the timeout check at the
+        end of the round drains it."""
+        t_round = time.perf_counter()
+        self._round += 1
+        done: List[Request] = []
+        for i, eng in enumerate(self.engines):
+            if not eng.sched.has_work():
+                self.hb.beat(i)
+                continue
+            before = eng.stats.steps + eng.stats.prefills
+            t0 = time.perf_counter()
+            try:
+                done.extend(eng.step())
+            except RingFailure as f:
+                done.extend(
+                    self._on_ring_failure(i, f.reason, dict(f.detail)))
+                continue
+            ev = self.monitors[i].record(self._round,
+                                         time.perf_counter() - t0)
+            if ev is not None:
+                self.events.append(Event("straggler", self._round,
+                                         {"ring": i, **ev.detail}))
+                if self.ft_straggler_drain:
+                    done.extend(self._on_ring_failure(
+                        i, "straggler", dict(ev.detail)))
+                    continue
+            progressed = (eng.stats.steps + eng.stats.prefills) > before \
+                or not eng.sched.has_work()
+            if progressed:
+                self.hb.beat(i)
+        if isinstance(self._clock, ManualClock):
+            self._clock.advance(FLEET_ROUND_S)
+        for i in self.hb.check():
+            done.extend(self._on_ring_failure(
+                i, "heartbeat_timeout", {"timeout_s": self.hb.timeout}))
+        self.wall += time.perf_counter() - t_round
+        return done
+
+    def _on_ring_failure(self, i: int, reason: str,
+                         detail: dict) -> List[Request]:
+        """Drain -> migrate -> rebuild ring ``i``.  Returns the requests
+        that ran out of migrations (now structured failures)."""
+        eng = self.engines[i]
+        eng.stats.ring_failures += 1
+        self.events.append(Event("ring_failed", self._round,
+                                 {"ring": i, "reason": reason, **detail}))
+        orphans = eng.reset()
+        self.hb.revive(i)
+        self.events.append(Event("ring_rebuilt", self._round,
+                                 {"ring": i, "orphans": len(orphans)}))
+        failed: List[Request] = []
+        for req in orphans:
+            got = self._migrate(req, i)
+            if got is not None:
+                failed.append(got)
+        return failed
+
+    def _migrate(self, req: Request, source: int) -> Optional[Request]:
+        """Resubmit one orphan through the recompute-resume path on the
+        least loaded other ring (the rebuilt ring itself when it is
+        alone).  Returns the request if its migrations are used up."""
+        n = self._migrations.get(req.rid, 0)
+        if n >= self.max_migrations:
+            req.done = True
+            req.failed = True
+            req.error = (f"retries exhausted: migrated {n}x "
+                         f"(max_migrations={self.max_migrations})")
+            self.failed[req.rid] = req
+            self.events.append(Event("request_failed", self._round,
+                                     {"rid": req.rid, "migrations": n}))
+            return req
+        self._migrations[req.rid] = n + 1
+        others = [j for j in range(len(self.engines)) if j != source]
+        ring = min(others or [source],
+                   key=lambda j: (self.engines[j].pending_load(), j))
+        tgt = self.engines[ring]
+        tgt.submit(req)
+        self.ring_of[req.rid] = ring
+        tgt.stats.retries += 1
+        if ring != source:
+            tgt.stats.migrated_requests += 1
+        return None
+
+    def has_work(self) -> bool:
+        return any(e.sched.has_work() for e in self.engines)
+
+    def drain(self) -> Dict[int, List[int]]:
+        """Step until every ring is idle; returns {rid: generated tokens}
+        of everything finished since the last drain, failed requests'
+        partial streams included (``Request.failed`` / ``error``; the
+        fleet keeps the requests in ``failed``)."""
+        while self.has_work():
+            self.step()
+        out: Dict[int, List[int]] = {}
+        for eng in self.engines:
+            out.update(eng.drain())
+        for rid, req in self.failed.items():
+            out[rid] = req.out
+        return out
+
+    def generate(self, prompts: Sequence[Sequence[int]],
+                 max_new_tokens: int = 32,
+                 params: Optional[SamplingParams] = None,
+                 stream_cb: Optional[StreamCB] = None) -> List[List[int]]:
+        rids = [self.submit(list(p), max_new_tokens, params,
+                            stream_cb=stream_cb) for p in prompts]
+        results = self.drain()
+        return [results[r] for r in rids]
+
+    def per_ring_stats(self) -> List[EngineStats]:
+        return [e.stats for e in self.engines]
+
+    def fleet_counters(self) -> Dict[str, int]:
+        """The fleet's fault-tolerance counters, summed over its rings."""
+        stats = self.per_ring_stats()
+        return {
+            "ring_failures": sum(s.ring_failures for s in stats),
+            "migrated_requests": sum(s.migrated_requests for s in stats),
+            "retries": sum(s.retries for s in stats),
+            "rejected_requests": sum(s.rejected_requests for s in stats),
+            "failed_requests": len(self.failed),
+            "submitted": self._rid,
+            "events": len(self.events)
+            + sum(len(e.events) for e in self.engines),
+        }

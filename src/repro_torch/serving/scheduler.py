@@ -1,7 +1,7 @@
 """Request-level scheduler: admission, bucketed prefill, preemption.
 
-A copy of the reference's ``serving/scheduler.py`` (``SeqSlot`` and
-``Scheduler``; the reference module imports its JAX ``kv_cache``, so the
+A copy of the reference's ``serving/scheduler.py`` (``SeqSlot``,
+``Scheduler`` and ``RingRouter``; the reference module imports its JAX ``kv_cache``, so the
 port keeps its own).  All policy is host-side: the device programs only
 ever see a full slot batch plus block tables.
 
@@ -22,12 +22,15 @@ ever see a full slot batch plus block tables.
   admitted *other* sequence is evicted (recompute-style: its blocks are
   freed, it re-enters the queue front, and its tokens so far are
   re-prefilled on re-admission).
+* **Routing** — :class:`RingRouter` sends a fleet's request to the ring
+  with the fewest outstanding tokens (:meth:`Scheduler.pending_tokens`),
+  or to the deepest owner of its prompt's cached prefix.
 """
 from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, List, Optional, Tuple
+from typing import Deque, List, Optional, Sequence, Tuple
 
 from repro_torch.serving.kv_cache import (BlockPool, PrefixCache,
                                           blocks_for, bucket_for)
@@ -97,6 +100,19 @@ class Scheduler:
 
     def num_active(self) -> int:
         return sum(1 for s in self.active if s is not None)
+
+    def pending_tokens(self) -> int:
+        """Outstanding work in tokens: queued prompts still to prefill
+        plus every request's remaining decode budget (host-side only;
+        the load :class:`RingRouter` balances on)."""
+        load = 0
+        for req in self.queue:
+            load += len(req.resume_tokens()) \
+                + max(req.max_new_tokens - len(req.out), 0)
+        for s in self.active:
+            if s is not None:
+                load += max(s.req.max_new_tokens - len(s.req.out), 1)
+        return load
 
     def bucket(self, n_tokens: int) -> int:
         return bucket_for(n_tokens, self.max_seq, self.min_bucket)
@@ -346,3 +362,46 @@ class Scheduler:
             self.pool.free(seq.blocks)
         seq.blocks = []
         self.active[slot] = None
+
+
+class RingRouter:
+    """Per-ring admission across a fleet's engines (paper C3).
+
+    Stateless beyond its routed counts: a request goes to the ring with
+    the least outstanding tokens (ties -> lowest ring id, so an idle
+    fleet fills round-robin).  Not work-stealing: once placed, a
+    request's KV lives in one ring's pool.
+
+    Prefix affinity (``EngineConfig.affinity="prefix"``): the fleet
+    probes every ring's ``PrefixCache.peek`` (counting nothing, touching
+    no LRU entry) and passes the per-ring cached-token counts; the
+    deepest owner wins, and least-loaded decides when no ring owns any
+    of the prompt.
+    """
+
+    def __init__(self, n_rings: int):
+        assert n_rings >= 1
+        self.n_rings = n_rings
+        self.routed = [0] * n_rings
+        self.affinity_routed = [0] * n_rings
+
+    def route(self, loads: Sequence[int],
+              affinity: Optional[Sequence[int]] = None) -> int:
+        """The target ring of one request, given per-ring loads
+        (:meth:`Scheduler.pending_tokens`) and optional per-ring
+        prefix-affinity scores (deepest owner wins, ties -> lowest ring
+        id, all zero -> least loaded)."""
+        assert len(loads) == self.n_rings, (len(loads), self.n_rings)
+        if affinity is not None:
+            assert len(affinity) == self.n_rings, \
+                (len(affinity), self.n_rings)
+            best = max(affinity)
+            if best > 0:
+                ring = min(i for i in range(self.n_rings)
+                           if affinity[i] == best)
+                self.routed[ring] += 1
+                self.affinity_routed[ring] += 1
+                return ring
+        ring = min(range(self.n_rings), key=lambda i: (loads[i], i))
+        self.routed[ring] += 1
+        return ring

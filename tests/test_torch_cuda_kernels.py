@@ -190,6 +190,39 @@ def test_paged_kernel_split_boundaries(dev, pool_dtype, fold):
         assert torch.equal(out[keep], got[keep])
 
 
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.int8,
+                                        torch.float8_e4m3fn])
+@pytest.mark.parametrize("fold", [False, True])
+def test_paged_kernel_propagates_a_nan_row(dev, pool_dtype, fold):
+    """One NaN row in two tables (the length-17 row's last position in
+    K, the full row's position 33 in V): a NaN K/V value of an f32 pool,
+    a NaN scale of an int8 pool, NaN codes of an fp8 pool.  Every head
+    of the two rows that attend it is NaN, as the reference's Pallas
+    kernel gives (its ``jnp.maximum`` keeps a NaN), so the engine's
+    finite-logits guard sees a corrupted block; every other row is
+    bit-equal to its output without the NaN."""
+    q, kp, vp, tb, ln, kn, vn, sc = _split_case(dev, pool_dtype)
+    extra = dict(k_new=kn, v_new=vn) if fold else {}
+    clean = ops.paged_decode_attention(q, kp, vp, tb, ln, **sc, **extra)
+    hit = {4: (16, "k"), len(SPLIT_LENGTHS) - 1: (33, "v")}
+    for b, (pos, which) in hit.items():
+        assert pos < SPLIT_LENGTHS[b]
+        blk = int(tb[b, pos // SPLIT_BS])
+        if pool_dtype == torch.int8:
+            t = sc["k_scale" if which == "k" else "v_scale"]
+        else:
+            t = kp if which == "k" else vp
+        t[blk, pos % SPLIT_BS] = torch.tensor(float("nan"),
+                                              device=dev).to(t.dtype)
+    got = ops.paged_decode_attention(q, kp, vp, tb, ln, **sc, **extra)
+    torch.cuda.synchronize()
+    for b in range(len(SPLIT_LENGTHS)):
+        if b in hit:
+            assert torch.isnan(got[b]).all()
+        else:
+            assert torch.equal(got[b], clean[b])
+
+
 # kernel 1 as speculative verify calls it: slots x (K+1) single-token
 # queries, each slot's table repeated K+1 times, lengths pos+1 .. pos+K+1
 VERIFY_POS = (72, 295, 506, 0)
@@ -278,6 +311,43 @@ def test_engine_speculation_on_the_card(dev, kv_dtype):
         if name == "spec":
             assert st.spec_rounds > 0 and st.accepted_tokens > 0
     assert outs["spec"] == outs["plain"] == outs["gather"]
+
+
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8", "fp8"])
+def test_engine_corrupt_block_on_the_card(dev, kv_dtype):
+    """A two-ring fleet of the reduced smollm-135m on the card with a
+    pool block corrupted in place (NaN in every floating pool tensor:
+    f32 K/V, int8 scales, fp8 codes and scales): the guard raises
+    ``nan_logits`` through kernel 1, the ring is rebuilt with its cache
+    zeroed in place, and the streams equal the fault-free fleet's."""
+    from repro_torch.compiler.mapper import plan_model
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import MultiRingEngine
+    cfg = get_config("smollm-135m").reduced()
+    plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
+                      remat="none", compute_dtype="float32",
+                      param_dtype="float32")
+    model = build_model(cfg, plan, dev)
+    params = model.init(seed=0)
+    prompts = [[1, 2, 3], [4, 5], [6, 7, 8, 9], [10, 11]]
+    kw = dict(slots=2, max_seq=64, block_size=16, kv_dtype=kv_dtype,
+              heartbeat_timeout_s=4.0)
+    outs = {}
+    for chaos in ("", "corrupt@4"):
+        fleet = MultiRingEngine(model, params, None, rings=2, device=dev,
+                                config=EngineConfig(**kw, chaos=chaos))
+        outs[chaos] = fleet.generate(prompts, max_new_tokens=8)
+        for eng in fleet.engines:
+            eng.check_pool_balanced()
+            for c in eng.cache.values():
+                for t in c.values():
+                    if t.is_floating_point():
+                        assert torch.isfinite(t.float()).all()
+    failed = [e for e in fleet.events if e.kind == "ring_failed"]
+    assert [e.detail["reason"] for e in failed] == ["nan_logits"]
+    assert outs["corrupt@4"] == outs[""]
 
 
 @pytest.mark.parametrize("shape", [(4, 9, 3, 64, 512), (3, 4, 2, 32, 100),

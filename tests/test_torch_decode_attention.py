@@ -25,6 +25,7 @@ from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
                                                       gather_kv_pages,
                                                       paged_decode_attention_ref)
 from repro_torch.serving import kv_cache
+from tests.torch_dense_util import one_torch_thread  # noqa: F401
 
 # (B, H, G, dh, bs, T, N): reduced test shapes and smollm's head geometry
 SHAPES = [(3, 4, 2, 32, 8, 4, 13), (3, 6, 2, 32, 16, 3, 10),

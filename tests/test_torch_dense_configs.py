@@ -29,6 +29,7 @@ from repro_torch.models.transformer import add_positional, layer_params
 from repro_torch.serving import kv_cache
 from repro_torch.weights import params_from_jax
 from tests.torch_dense_util import (BIAS_LEAVES, SERVE_BF16, SERVE_F32,
+                                    one_torch_thread,  # noqa: F401
                                     perturbed, reduced_pair)
 
 NAMES = ["opt-1.3b", "opt-6.7b", "gpt3-20b", "qwen1.5-4b",

@@ -12,7 +12,7 @@ from repro.serving.config import EngineConfig as JaxEngineConfig
 from repro.serving.engine import LPUEngine as JaxEngine
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.engine import LPUEngine
-from tests.torch_dense_util import reduced_pair
+from tests.torch_dense_util import one_torch_thread, reduced_pair  # noqa: F401
 
 MAX_NEW = 16
 

@@ -30,7 +30,7 @@ from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.engine import LPUEngine
 from repro_torch.serving.graphs import Programs
 from repro_torch.serving.sampler import SamplingParams
-from tests.torch_dense_util import reduced_pair
+from tests.torch_dense_util import one_torch_thread, reduced_pair  # noqa: F401
 
 VOCAB = 512                 # both reduced configs
 MAX_NEW = 4

@@ -28,6 +28,7 @@ from repro_torch.serving import kv_cache
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.engine import LPUEngine
 from repro_torch.weights import params_from_jax
+from tests.torch_dense_util import one_torch_thread  # noqa: F401
 
 SERVE_F32 = dict(esl_overlap=False, remat="none", compute_dtype="float32",
                  param_dtype="float32")

@@ -34,6 +34,7 @@ from repro_torch.serving.sampler import (SamplingParams, filter_rows,
                                          speculative_verify_batched)
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.weights import params_from_jax
+from tests.torch_dense_util import one_torch_thread  # noqa: F401
 
 SERVE_F32 = dict(esl_overlap=False, remat="none", compute_dtype="float32",
                  param_dtype="float32")

@@ -34,7 +34,8 @@ from repro_torch.serving.engine import LPUEngine
 from repro_torch.serving.graphs import Program, Programs
 from repro_torch.serving.sampler import SamplingParams
 from repro_torch.weights import params_from_jax
-from tests.torch_dense_util import SERVE_F32, reduced_pair
+from tests.torch_dense_util import (SERVE_F32, one_torch_thread,  # noqa: F401
+                                     reduced_pair)
 
 # tests/test_kv_cache.py's trace
 PROMPTS = [[1, 2, 3], [4, 5], [6, 7, 8, 9], [10, 11],

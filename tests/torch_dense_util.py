@@ -1,10 +1,13 @@
-"""Shared set-up of the port's dense-config tests: a reduced config's
-reference weights, with every bias and the learned positions redrawn
-from a seed (the reference's init gives every bias zeros, so a parity
-test on its own weights would never add one), carried across to the
-port."""
+"""Shared set-up of the port's tests: a reduced config's reference
+weights, with every bias and the learned positions redrawn from a seed
+(the reference's init gives every bias zeros, so a parity test on its
+own weights would never add one), carried across to the port; and
+``one_torch_thread``, an autouse fixture a test module imports to run
+its torch on one thread."""
 import jax
 import numpy as np
+import pytest
+import torch
 
 from repro.compiler.mapper import plan_model as jax_plan_model
 from repro.configs import get_config as jax_get_config
@@ -53,3 +56,15 @@ def reduced_pair(name: str, plan_kw=SERVE_F32):
     params = params_from_jax(tree, cfg, plan, "cpu")
     return ((jcfg, jplan, jmodel, jax.tree.map(jax.numpy.asarray, tree)),
             (cfg, plan, model, params))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the importing module's torch on one thread, restored after
+    the module.  The suite's workers each run a torch and an XLA thread
+    pool on the same few cores, and there torch's default pool made the
+    port's CPU tests several times slower than one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

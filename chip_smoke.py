@@ -149,7 +149,26 @@ result line when any phase fails or when no CUDA device is present):
    on every ring, every graph run replayed its programs, and every
    ``reset()`` kept the cache tensors' storage and the ring's captures;
    then the median wall of ``reset()`` on a warmed ring with 4 requests
-   in flight.
+   in flight;
+10. front end, run after phase 9 on its model — the async serving front
+   end (``AsyncFrontend``) over fresh engines of full-width smollm-135m
+   (the engine phase's: 4 slots, max_seq 512, blocks of 128, kernel 1
+   streamed, on graphs, chunks of 64), each with its captures inside its
+   wall, replaying one bursty two-tenant trace (``serving/traces.py``:
+   32 requests, Pareto arrivals at 200 requests/s, a 256-token system
+   prompt per tenant, tails of 4-64 tokens, 4-32 new tokens) at its own
+   arrival times: (a) budget off, every stream equal to the blocking
+   run's of the same prompts; (b) the SLO budget on (5 ms a step, the
+   scheduler seeded by the latency model's prior at the LPU-FPGA point,
+   chunks up to 512), streams equal to (a)'s, the plans and the EWMA's
+   trail recorded; (c) ``max_pending=4`` with one stream cancelled after
+   3 tokens and the rejected submits retried after ``join()``, the
+   others equal to their blocking streams; (d) a two-ring fleet with
+   prefix affinity and the prefix cache behind the front end, its
+   telemetry into a jsonl file read back and validated, each ring's
+   window deltas summing to its counters.  Streams equal or apart only
+   at a top-2 gap <= 1e-4, kernel 1's launches exact per replay, every
+   pool balanced; TTFT and ms/token p50/p99 from the request records.
 
 Every engine runs its fused decode windows, verify rounds, monolithic
 prefills, prefill chunks, prefix tails, first-token sampling and
@@ -168,7 +187,10 @@ line, a ``{"jamba": ...}`` line, an ``{"opt": ...}`` line, a
 graphs and eager twin, with the card's name and power limit), a
 ``{"fleet": ...}`` line (phase 9 per run: wall, tokens/s over the
 fleet's wall, ``fleet_counters()``, straggler events; the reset wall;
-the card's name and power limit), the nvidia-smi line and ``{"ok": true, "device": {...}}``.  Imports nothing
+the card's name and power limit), a ``{"frontend": ...}`` line (phase 10
+per run: counts, TTFT and ms/token p50/p99, tokens/s over the run's
+wall, captures in the run; for (b) the plans and the EWMA), the
+nvidia-smi line and ``{"ok": true, "device": {...}}``.  Imports nothing
 of JAX: the port stands alone.
 """
 from __future__ import annotations
@@ -2071,6 +2093,387 @@ def run_fleet(torch, dev, model, params, prompts, card_name):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the async front end
+# ---------------------------------------------------------------------------
+
+# the engine phase's engine, in chunks of 64, so the budget has both knobs
+# to turn
+FRONTEND_KW = dict(slots=4, max_seq=512, block_size=128, paged=True,
+                   paged_kernel="stream", prefill_chunk=PREFILL_CHUNK)
+# the reference harness's trace (benchmarks/serving_bench.py:379) with its
+# prefix aligned to two blocks of 128: bursts of chat turns of two
+# tenants, each opening with its tenant's system prompt
+FRONTEND_TRACE = dict(seed=7, requests=32, tenants=2, arrival="pareto",
+                      rate_rps=200.0, prefix_len=SYS_PROMPT, tail_min=4,
+                      tail_max=64, max_new_min=4, max_new_max=32)
+FRONTEND_BUDGET_MS = 5.0
+FRONTEND_MAX_CHUNK = 512
+FRONTEND_MAX_PENDING = 4
+FRONTEND_CANCEL_AFTER = 3
+FRONTEND_SETTLE = 0.2          # the EWMA has settled within 20% of its end
+
+
+def percentile(vals, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(vals, np.float64), q)) \
+        if vals else None
+
+
+def engines_of(eng):
+    return list(getattr(eng, "engines", [eng]))
+
+
+def frontend_engine(dev, model, params, rings=0, **kw):
+    """A fresh engine (or a fleet of ``rings``) of FRONTEND_KW + ``kw``."""
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine, MultiRingEngine
+    conf = EngineConfig(**dict(FRONTEND_KW, **kw))
+    if rings:
+        return MultiRingEngine(model, params, None, rings=rings,
+                               config=conf, device=dev)
+    return LPUEngine(model, params, conf, device=dev)
+
+
+def frontend_gates(eng, launches, what):
+    """Kernel 1 launched once per layer per device decode step and chunk
+    (prefix tails are chunks here) on every engine, counted per replay;
+    every engine on its programs; every pool balanced."""
+    want = sum(launches_want(e) for e in engines_of(eng))
+    if launches != want:
+        raise AssertionError(f"(10) {what}: kernel 1 launches {launches} "
+                             f"!= {want}")
+    for e in engines_of(eng):
+        on_graphs(e)
+        e.check_pool_balanced()
+
+
+def serve_blocking(torch, eng, trace):
+    """The trace's prompts through blocking ``submit`` / ``drain`` at
+    once, each with its own token budget.  Returns (streams in trace
+    order, wall, kernel 1 launches)."""
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    rids = [eng.submit(list(r.prompt), r.max_new_tokens) for r in trace]
+    res = eng.drain()
+    torch.cuda.synchronize()
+    return ([res[r] for r in rids], time.perf_counter() - t0,
+            paged_decode_attention.launches)
+
+
+def serve_frontend(torch, eng, trace, drive=None, tracker=None, **fe_kw):
+    """One run through ``AsyncFrontend(eng, **fe_kw)``: ``drive(fe,
+    trace)`` (default ``serve_trace``, arrivals at the trace's own times)
+    gives the streams.  The request and window records go to a ring
+    buffer (and ``tracker``).  Returns (front end, streams, records,
+    wall, captures made in the run, kernel 1 launches, the host clock
+    when the trace's time 0 began)."""
+    import asyncio
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    from repro_torch.serving.frontend import AsyncFrontend, serve_trace
+    from repro_torch.serving.tracker import (CompositeTracker,
+                                             RingBufferTracker)
+    sink = RingBufferTracker(1 << 16)
+    sinks = CompositeTracker([sink] + ([tracker] if tracker else []))
+    caps = sum(e.stats.graph_captures for e in engines_of(eng))
+
+    async def go():
+        async with AsyncFrontend(eng, tracker=sinks, **fe_kw) as fe:
+            start = time.perf_counter()
+            streams = await (drive or serve_trace)(fe, trace)
+        return fe, streams, start
+    paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    fe, streams, start = asyncio.run(go())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (fe, streams, sink.records(), wall,
+            sum(e.stats.graph_captures for e in engines_of(eng)) - caps,
+            paged_decode_attention.launches, start)
+
+
+def frontend_record(trace, fe, streams, records, wall, captures, launches,
+                    start):
+    """One run's counts, its TTFT and ms/token percentiles from the
+    request records (numpy's linear percentile; ms/token over streams of
+    2 tokens or more), tokens/s over the run's wall, its captures.  A
+    request record's TTFT runs from the submit the front end admitted;
+    ``ttft_arrival_ms`` runs from the request's arrival in the trace
+    (``start`` + ``arrival_s``), so it also holds the wait for the
+    event loop and, for a request rejected and submitted again, the
+    time it spent rejected."""
+    reqs = [r for r in records if r["kind"] == "request"]
+    ttft = [r["ttft_ms"] for r in reqs if r["ttft_ms"] >= 0]
+    arrival = [(s.timeline.t_first - start - r.arrival_s) * 1e3
+               for r, s in zip(trace, streams)
+               if s is not None and s.timeline.t_first is not None]
+    mpt = [r["ms_per_token"] for r in reqs if r["tokens"] >= 2]
+    tokens = sum(len(s.tokens) for s in streams if s is not None)
+    c = fe.counters
+    if c["completed"] + c["failed"] + c["cancelled"] != c["submitted"]:
+        raise AssertionError(f"(10) the admission ledger is off: {c}")
+    return {"completed": c["completed"], "failed": c["failed"],
+            "cancelled": c["cancelled"], "rejected": c["rejected"],
+            "submitted": c["submitted"],
+            "ttft_ms_p50": percentile(ttft, 50),
+            "ttft_ms_p99": percentile(ttft, 99),
+            "ttft_arrival_ms_p50": percentile(arrival, 50),
+            "ttft_arrival_ms_p99": percentile(arrival, 99),
+            "ms_per_token_p50": percentile(mpt, 50),
+            "ms_per_token_p99": percentile(mpt, 99),
+            "request_records": len(reqs),
+            "window_records": sum(r["kind"] == "engine_window"
+                                  for r in records),
+            "tokens": tokens, "tokens_per_s": tokens / wall,
+            "graph_captures": captures, "wall_s": wall,
+            "kernel_launches": launches}
+
+
+async def drive_cancel(fe, trace, box):
+    """(c): the trace at its own arrival times against ``max_pending``
+    (``serve_trace``), then every rejected request submitted again as
+    the front end admits it, the one among them with the most tokens to
+    make (the victim) cancelled after FRONTEND_CANCEL_AFTER tokens."""
+    import asyncio
+    from repro_torch.serving.frontend import serve_trace, submit_admitted
+    streams = await serve_trace(fe, trace)
+    rejected = [i for i, st in enumerate(streams) if st is None]
+    if not rejected:
+        raise AssertionError("(10) (c): no submit was rejected")
+    victim = max(rejected, key=lambda i: trace[i].max_new_tokens)
+    box.update(victim=victim, rejected_on_arrival=rejected,
+               rejected_on_retry=0)
+
+    async def cancel_after(stream):
+        got = 0
+        async for _ in stream:
+            got += 1
+            if got == FRONTEND_CANCEL_AFTER:
+                box["cancel_landed"] = await stream.cancel()
+                return
+    tasks = []
+    for i in rejected:
+        r = trace[i]
+        streams[i], n = await submit_admitted(fe, r.prompt, r.max_new_tokens,
+                                              tenant=r.tenant)
+        box["rejected_on_retry"] += n
+        if i == victim:
+            tasks.append(asyncio.create_task(cancel_after(streams[i])))
+    await fe.join()
+    for t in tasks:
+        await t
+    return streams
+
+
+def released(ref, what):
+    """Raise unless the engine behind the weak reference ``ref`` is gone
+    once its run's names are deleted: an engine in a reference cycle
+    through the front end would hold its graphs and pool until the
+    cyclic collector's next pass."""
+    if ref() is not None:
+        raise AssertionError(f"(10) {what}: the engine outlived its run "
+                             "(a reference cycle)")
+
+
+def budget_trail(recs, prior):
+    """(b)'s budget replayed from the run's ``engine_window`` records: a
+    BudgetScheduler seeded as (b)'s was observes each record's tick,
+    its own plan giving the tick's chunk width, as (b)'s plan did.
+    Returns (the replay, its mu_step after each observed window)."""
+    from repro_torch.serving.budget import BudgetScheduler
+    replay = BudgetScheduler(FRONTEND_BUDGET_MS, prior_step_s=prior,
+                             max_chunk=FRONTEND_MAX_CHUNK)
+    trail = []
+    for r in recs:
+        if r["kind"] != "engine_window":
+            continue
+        d, (chunk, _) = r["delta"], replay.plan()
+        seen = replay.observed_windows
+        replay.observe_tick(r["dt_ms"] / 1e3, d["steps"],
+                            d["prefill_chunks"], d["prefill_chunks"] * chunk)
+        if replay.observed_windows > seen:
+            trail.append(replay.mu_step)
+    return replay, trail
+
+
+def run_frontend(torch, dev, model, params, card_name):
+    """Phase 10: the trace FRONTEND_TRACE through ``AsyncFrontend`` on
+    fresh engines of full-width smollm-135m (captures inside each run's
+    wall): the blocking run of its prompts, (a) budget off, (b) budget
+    on (BudgetScheduler seeded by the latency model's step-time prior at
+    the LPU-FPGA point, as the reference harness seeds it), (c) cancel
+    and backpressure, (d) a two-ring prefix-affinity fleet with the
+    prefix cache and a jsonl tracker.  Every stream held to its twin by
+    :func:`agree`, kernel 1's launches exact per replay, every pool
+    balanced, every engine freed by reference count after its run."""
+    import tempfile
+    import weakref
+    from repro_torch.core.latency_model import LPU_FPGA, step_time_prior
+    from repro_torch.serving.budget import BudgetScheduler
+    from repro_torch.serving.traces import TraceConfig, generate_trace
+    from repro_torch.serving.tracker import (JsonlTracker, counter_fields,
+                                             read_jsonl, snapshot_stats)
+    t0 = time.perf_counter()
+    trace = generate_trace(TraceConfig(**FRONTEND_TRACE,
+                                       vocab=model.cfg.vocab_size))
+    prompts = [list(r.prompt) for r in trace]
+    out = {"trace": dict(FRONTEND_TRACE, vocab=model.cfg.vocab_size,
+                         arrivals_s=[r.arrival_s for r in trace],
+                         prompt_lens=[len(p) for p in prompts],
+                         max_new=[r.max_new_tokens for r in trace])}
+    launches = 0
+
+    # the blocking run of the same prompts on a fresh engine
+    eng = frontend_engine(dev, model, params)
+    base, wall, n = serve_blocking(torch, eng, trace)
+    frontend_gates(eng, n, "blocking")
+    launches += n
+    out["blocking"] = {"tokens": sum(map(len, base)), "wall_s": wall,
+                       "tokens_per_s": sum(map(len, base)) / wall,
+                       "graph_captures": eng.stats.graph_captures,
+                       "kernel_launches": n}
+    ref = weakref.ref(eng)
+    del eng
+    released(ref, "blocking")
+
+    # (a) budget off
+    eng = frontend_engine(dev, model, params)
+    run = serve_frontend(torch, eng, trace)
+    fe, streams, recs, _, _, n, _ = run
+    frontend_gates(eng, n, "(a)")
+    launches += n
+    a_streams = [s.tokens for s in streams]
+    out["a_budget_off"] = dict(
+        frontend_record(trace, *run),
+        vs_blocking=agree(torch, model, params, prompts, a_streams, base,
+                          "(10) (a) against blocking"))
+    ref = weakref.ref(eng)
+    del eng, fe, streams, run
+    released(ref, "(a)")
+
+    # (b) budget on
+    eng = frontend_engine(dev, model, params)
+    prior = step_time_prior(model.cfg, 1, LPU_FPGA,
+                            kv_len=FRONTEND_KW["max_seq"])
+    bud = BudgetScheduler(FRONTEND_BUDGET_MS, prior_step_s=prior,
+                          max_chunk=FRONTEND_MAX_CHUNK)
+    run = serve_frontend(torch, eng, trace, budget=bud)
+    fe, streams, recs, _, _, n, _ = run
+    frontend_gates(eng, n, "(b)")
+    launches += n
+    if not bud.planned or not bud.observed_windows:
+        raise AssertionError(f"(10) (b): {len(bud.planned)} plans, "
+                             f"{bud.observed_windows} windows observed")
+    replay, trail = budget_trail(recs, prior)
+    if (replay.observed_windows, replay.observed_chunks) != \
+            (bud.observed_windows, bud.observed_chunks) or \
+            abs(replay.mu_step - bud.mu_step) > 1e-9 * bud.mu_step or \
+            abs(replay.mu_tok - bud.mu_tok) > 1e-9 * bud.mu_tok:
+        raise AssertionError("(10) (b): the budget replayed from the "
+                             "window records is not the run's budget")
+    end = trail[-1]
+    settled = next(k for k in range(len(trail))
+                   if all(abs(x - end) <= FRONTEND_SETTLE * end
+                          for x in trail[k:]))
+    out["b_budget_on"] = dict(
+        frontend_record(trace, *run),
+        budget_ms=FRONTEND_BUDGET_MS, prior_step_ms=prior * 1e3,
+        max_chunk=FRONTEND_MAX_CHUNK, plans=len(bud.planned),
+        distinct_plans=sorted({(c, s) for c, s in bud.planned}),
+        first_plans=bud.planned[:8],
+        observed_windows=bud.observed_windows,
+        observed_chunks=bud.observed_chunks,
+        mu_step_ms=bud.mu_step * 1e3, mu_tok_ms=bud.mu_tok * 1e3,
+        mu_step_trail_ms=[x * 1e3 for x in trail[:16]],
+        windows_to_settle=settled,
+        programs=sorted(str(k) for k in (*eng._programs._by_key,
+                                         *eng._admit._by_key)),
+        vs_a=agree(torch, model, params, prompts,
+                   [s.tokens for s in streams], a_streams,
+                   "(10) (b) against (a)"))
+    ref = weakref.ref(eng)
+    del eng, fe, streams, run
+    released(ref, "(b)")
+
+    # (c) cancel and backpressure
+    eng = frontend_engine(dev, model, params)
+    box = {}
+    run = serve_frontend(torch, eng, trace,
+                         drive=lambda f, t: drive_cancel(f, t, box),
+                         max_pending=FRONTEND_MAX_PENDING)
+    fe, streams, _, _, _, n, _ = run
+    victim = box["victim"]
+    frontend_gates(eng, n, "(c)")
+    launches += n
+    got = [s.tokens for s in streams]
+    if not box.get("cancel_landed") or streams[victim].status != \
+            "cancelled" or eng.stats.cancelled_requests != 1 or \
+            fe.counters["cancelled"] != 1 or not fe.counters["rejected"] \
+            or len(got[victim]) >= trace[victim].max_new_tokens:
+        raise AssertionError(f"(10) (c): {box}, {fe.counters}, "
+                             f"cancelled_requests "
+                             f"{eng.stats.cancelled_requests}, victim "
+                             f"{len(got[victim])} tokens")
+    out["c_cancel_backpressure"] = dict(
+        frontend_record(trace, *run),
+        max_pending=FRONTEND_MAX_PENDING,
+        victim_tokens=len(got[victim]), **box,
+        cancelled_requests=eng.stats.cancelled_requests,
+        vs_blocking=agree(torch, model, params, prompts, got,
+                          [b[:len(g)] if i == victim else b
+                           for i, (g, b) in enumerate(zip(got, base))],
+                          "(10) (c) against blocking"))
+    ref = weakref.ref(eng)
+    del eng, fe, streams, run
+    released(ref, "(c)")
+
+    # (d) the fleet: two rings, prefix affinity, the prefix cache, jsonl
+    fleet = frontend_engine(dev, model, params, rings=2, affinity="prefix",
+                            prefix_cache=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "frontend.jsonl")
+        run = serve_frontend(torch, fleet, trace, tracker=JsonlTracker(path))
+        back = read_jsonl(path)
+    fe, streams, _, _, _, n, _ = run
+    frontend_gates(fleet, n, "(d)")
+    launches += n
+    reqs = [r for r in back if r["kind"] == "request"]
+    if len(reqs) != len(trace) or \
+            sorted(r["rid"] for r in reqs) != list(range(len(trace))):
+        raise AssertionError(f"(10) (d): {len(reqs)} request records for "
+                             f"{len(trace)} requests")
+    for i, e in enumerate(fleet.engines):
+        sums = dict.fromkeys(counter_fields(e.stats), 0)
+        for r in back:
+            if r["kind"] == "engine_window" and r["ring"] == i:
+                for k, v in r["delta"].items():
+                    sums[k] += v
+        if sums != snapshot_stats(e.stats):
+            raise AssertionError(f"(10) (d) ring {i}: the window deltas "
+                                 "do not sum to its counters")
+    st = fleet.per_ring_stats()
+    out["d_fleet"] = dict(
+        frontend_record(trace, *run),
+        jsonl_records=len(back), routed=list(fleet.router.routed),
+        affinity_routed=list(fleet.router.affinity_routed),
+        prefix_hits=sum(s.prefix_hits for s in st),
+        prefix_lookups=sum(s.prefix_lookups for s in st),
+        prefill_tokens_saved=sum(s.prefill_tokens_saved for s in st),
+        vs_blocking=agree(torch, model, params, prompts,
+                          [s.tokens for s in streams], base,
+                          "(10) (d) against blocking"))
+    ref = weakref.ref(fleet)
+    del fleet, fe, streams, st, run
+    released(ref, "(d)")
+    out.update(arch=model.cfg.name, engine_kw=FRONTEND_KW,
+               kernel_launches=launches,
+               phase_s=time.perf_counter() - t0, card=card_name)
+    return out
+
+
 # the C1 chain: 32 teacher-forced decode steps in six variants, named
 # (cache, paged dataflow, w_dtype)
 CHAIN_STEPS = 32
@@ -3800,6 +4203,31 @@ def main() -> int:
           f"{[round(x, 3) for x in fleet['reset_ms']['all']]} | {smi}")
     print(f"[time] (9) fleet {fleet['phase_s']:.1f} s", flush=True)
     lap("fleet (9)")
+    frontend = run_frontend(torch, dev, model, params, smi)
+    for name, r in frontend.items():
+        if isinstance(r, dict) and "ttft_ms_p50" in r:
+            print(f"[frontend] (10) {name}: completed {r['completed']} "
+                  f"failed {r['failed']} cancelled {r['cancelled']} "
+                  f"rejected {r['rejected']}; ttft p50/p99 "
+                  f"{r['ttft_ms_p50']:.3f}/{r['ttft_ms_p99']:.3f} ms from "
+                  f"the admitted submit, "
+                  f"{r['ttft_arrival_ms_p50']:.3f}/"
+                  f"{r['ttft_arrival_ms_p99']:.3f} ms from arrival, "
+                  f"ms/token p50/p99 {r['ms_per_token_p50']:.3f}/"
+                  f"{r['ms_per_token_p99']:.3f}, {r['tokens_per_s']:.1f} "
+                  f"tok/s over {r['wall_s']:.3f} s, "
+                  f"{r['graph_captures']} captures in the run | {smi}")
+    b = frontend["b_budget_on"]
+    print(f"[frontend] (10) budget {b['budget_ms']} ms: {b['plans']} plans, "
+          f"distinct (C, S) {b['distinct_plans']}, first "
+          f"{b['first_plans']}; {b['observed_windows']} windows and "
+          f"{b['observed_chunks']} chunks observed; mu_step "
+          f"{b['prior_step_ms']:.3f} -> {b['mu_step_ms']:.3f} ms (within "
+          f"{FRONTEND_SETTLE:.0%} of its end after "
+          f"{b['windows_to_settle']} windows), mu_tok {b['mu_tok_ms']:.4f} "
+          f"ms")
+    print(f"[time] (10) front end {frontend['phase_s']:.1f} s", flush=True)
+    lap("front end (10)")
     del model, params
     ctx, chain, chain_launches, walls = run_chain_phase(torch, dev)
     chain["chunk_prefill"] = chunk_vs_sequential(torch, dev, ctx, "stream")
@@ -3953,7 +4381,7 @@ def main() -> int:
         "launches": engine["kernel_launches"] + pp["kernel_launches"]
         + qpool["kernel_launches"] + spec["kernel_launches"]
         + chain_launches["paged_decode_attention"] + sum(opt_k1.values())
-        + fleet["kernel_launches"],
+        + fleet["kernel_launches"] + frontend["kernel_launches"],
         "launches_by_path": {
             "engine_stream": engine["kernel_launches"],
             "engine_int8_fp8_pool": qpool["kernel_launches"],
@@ -3965,6 +4393,7 @@ def main() -> int:
                 pp["chunked_preempt"]["kernel_launches"],
             "chain_kernel_runs": chain_launches["paged_decode_attention"],
             "fleet": fleet["kernel_launches"],
+            "frontend": frontend["kernel_launches"],
             **opt_k1},
         "max_abs_err": errs["q=float32,pool=float32"],
         "max_abs_err_by_dtype": errs,
@@ -4106,6 +4535,7 @@ def main() -> int:
            for name, r in opt["h4_protocol"].items()},
         "card": smi}}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"frontend": frontend}))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s (limit "
           "1200 s)")
     print(smi)

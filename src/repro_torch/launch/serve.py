@@ -17,6 +17,8 @@ and run the engine on a batch of random prompts.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b  # card
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --rings 2 --chaos ring@2,nan@5
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --budget-ms 5 --max-pending 2 --tracker t.jsonl
 
 ``--arch`` takes any name or alias of the port's registry: the dense
 decoders (smollm-135m, the paper's opt-1.3b/6.7b/30b/66b and gpt3-20b,
@@ -43,7 +45,15 @@ on the one device over the same weights), with the reference's
 ``--max-migrations``, ``--heartbeat-timeout`` (virtual seconds under
 chaos) and ``--affinity``; each ring's straggler monitor is seeded with
 the latency model's step-time prior at the LPU-FPGA point, and the
-fleet prints the reference's per-ring and ``ft:`` lines.
+fleet prints the reference's per-ring and ``ft:`` lines.  ``--budget-ms
+B`` (SLO step budget: the knobs ``prefill_chunk`` / ``steps_per_sync``
+retuned before every step from a measured EWMA seeded by the same
+prior), ``--max-pending N`` (admission bound with structured
+backpressure) or ``--tracker PATH`` (jsonl telemetry: per-window
+``EngineStats`` deltas and per-request TTFT / ms-per-token records)
+routes the batch through the async front end
+(:mod:`repro_torch.serving.frontend`) instead of the blocking
+``generate()``, and prints the reference's front-end summary lines.
 """
 from __future__ import annotations
 
@@ -63,6 +73,63 @@ from repro_torch.models.registry import build_model
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.engine import LPUEngine, MultiRingEngine
 from repro_torch.serving.sampler import SamplingParams
+
+
+def serve_async(engine, args, prompts, sp, prior):
+    """Drive the batch through the async streaming front end instead of
+    the blocking ``generate()`` loop: the path ``--budget-ms`` /
+    ``--max-pending`` / ``--tracker`` select.  A rejected submit is
+    retried once the engine has gone quiet (a CLI batch has nowhere else
+    to send its load), and the per-request TTFT / ms-per-token summary
+    of the streams' timelines is printed at the end.  ``prior``: the
+    latency model's step time that seeds the budget's EWMA."""
+    import asyncio
+
+    from repro_torch.serving.budget import BudgetScheduler
+    from repro_torch.serving.frontend import AsyncFrontend, submit_admitted
+    from repro_torch.serving.tracker import JsonlTracker
+
+    budget = None
+    if args.budget_ms > 0:
+        budget = BudgetScheduler(args.budget_ms, prior_step_s=prior,
+                                 max_chunk=args.max_seq)
+    tracker = JsonlTracker(args.tracker) if args.tracker else None
+    retries = 0
+
+    async def go():
+        nonlocal retries
+        async with AsyncFrontend(engine, budget=budget,
+                                 tracker=tracker) as fe:
+            streams = []
+            for p in prompts:
+                stream, n = await submit_admitted(fe, p, args.max_new, sp)
+                streams.append(stream)
+                retries += n
+            outs = [await s.drain() for s in streams]
+        return fe, streams, outs
+
+    fe, streams, outs = asyncio.run(go())
+    tl = [s.timeline for s in streams if s.timeline.t_first is not None]
+    ttft = sorted(t.ttft_ms for t in tl)
+    mpt = sorted(t.ms_per_token for t in tl if t.tokens >= 2)
+    c = fe.counters
+    print(f"[serve] frontend: {c['completed']} completed "
+          f"{c['failed']} failed {c['cancelled']} cancelled "
+          f"({c['rejected']} backpressure rejections, {retries} retried)")
+    if ttft:
+        print(f"[serve] ttft p50/max {ttft[len(ttft) // 2]:.1f}/"
+              f"{ttft[-1]:.1f} ms"
+              + (f", ms/token p50/max {mpt[len(mpt) // 2]:.2f}/"
+                 f"{mpt[-1]:.2f}" if mpt else ""))
+    if budget is not None:
+        print(f"[serve] budget={args.budget_ms}ms: {len(budget.planned)} "
+              f"plans, mu_step {budget.mu_step * 1e3:.3f} ms "
+              f"({budget.observed_windows} windows, "
+              f"{budget.observed_chunks} chunks observed)")
+    if tracker is not None:
+        print(f"[serve] tracker: {tracker.written} records -> "
+              f"{tracker.path}")
+    return outs
 
 
 def main(argv=None):
@@ -146,6 +213,21 @@ def main(argv=None):
                     help="fleet routing: least-loaded, or the ring whose "
                          "prefix cache owns the prompt's deepest "
                          "block-aligned prefix (needs --prefix-cache on)")
+    ap.add_argument("--budget-ms", type=float, default=0.0,
+                    help="per-step latency budget (SLO): the async front "
+                         "end retunes prefill_chunk / steps_per_sync "
+                         "each step from a measured EWMA seeded by the "
+                         "latency model's step-time prior (0 = off; "
+                         "forces the async front end)")
+    ap.add_argument("--max-pending", type=int, default=0,
+                    help="front-end admission bound: in-flight streams "
+                         "above it are rejected with a structured "
+                         "AdmissionRejected (0 = unbounded; forces the "
+                         "async front end)")
+    ap.add_argument("--tracker", default="",
+                    help="write per-window EngineStats deltas and "
+                         "per-request TTFT / ms-per-token records to "
+                         "this jsonl file (forces the async front end)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -184,13 +266,16 @@ def main(argv=None):
                          chaos=args.chaos,
                          max_migrations=args.max_migrations,
                          heartbeat_timeout_s=args.heartbeat_timeout,
-                         affinity=args.affinity)
+                         affinity=args.affinity,
+                         budget_ms=args.budget_ms,
+                         max_pending=args.max_pending)
+    # the latency model's step time (LPU-FPGA point): each ring's
+    # straggler monitor starts from it, so detection is armed at once, and
+    # so does the front end's step budget
+    prior = step_time_prior(cfg, 1, LPU_FPGA, kv_len=args.max_seq,
+                            steps_per_sync=args.steps_per_sync)
     fleet = args.rings > 1 or bool(args.chaos)
     if fleet:
-        # each ring's straggler monitor starts from the latency model's
-        # step time (LPU-FPGA point), so detection is armed at once
-        prior = step_time_prior(cfg, 1, LPU_FPGA, kv_len=args.max_seq,
-                                steps_per_sync=args.steps_per_sync)
         engine = MultiRingEngine(model, params, None,
                                  rings=max(args.rings, 1), config=econf,
                                  step_prior_s=prior, device=dev,
@@ -209,7 +294,11 @@ def main(argv=None):
     kernel = {"rwkv": rwkv_scan, "hybrid": mamba_scan_fused}.get(
         cfg.family, paged_decode_attention)
     kernel.launches = 0
-    outs = engine.generate(prompts, max_new_tokens=args.max_new, params=sp)
+    if args.budget_ms > 0 or args.max_pending > 0 or args.tracker:
+        outs = serve_async(engine, args, prompts, sp, prior)
+    else:
+        outs = engine.generate(prompts, max_new_tokens=args.max_new,
+                               params=sp)
     if fleet:
         print(f"[serve] {len(outs)} requests over {engine.n_rings} "
               f"sub-rings (tp=1 each), routed {engine.router.routed}, "

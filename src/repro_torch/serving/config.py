@@ -2,10 +2,9 @@
 ``serving/config.py`` ``EngineConfig``.
 
 The fields and defaults are the reference's, so one configuration reads
-the same in both packages.  Knobs whose subsystem has not been ported
-yet (:data:`UNPORTED`: the async front end's step budget and admission
-bound) are kept here, and :class:`repro_torch.serving.engine.LPUEngine`
-rejects any value other than the default with ``NotImplementedError``.
+the same in both packages; every subsystem a field selects is ported
+(``budget_ms`` and ``max_pending`` are read by the async front end,
+:mod:`repro_torch.serving.frontend`).
 The chaos spec is parsed at construction, as the reference parses it.  As in the
 reference, the engine checks the knobs that depend on the model (the
 paged pool that int8/fp8 storage and speculation need) and the
@@ -13,7 +12,7 @@ speculation knobs (``speculate`` in ``SPECULATE``, ``draft_k >= 1``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, fields, replace
+from dataclasses import dataclass, replace
 from typing import Optional
 
 from repro_torch.serving.ft import parse_chaos
@@ -64,8 +63,10 @@ class EngineConfig:
     ft_straggler_drain: bool = False   # drain a straggler-flagged ring
     # serving front end
     affinity: str = "least_loaded"     # fleet routing: least_loaded|prefix
-    budget_ms: float = 0.0
-    max_pending: int = 0
+    budget_ms: float = 0.0             # the front end's per-step SLO
+                                       # budget (0 = off)
+    max_pending: int = 0               # the front end's admission bound
+                                       # (0 = unbounded)
 
     def __post_init__(self):
         if self.affinity not in ("least_loaded", "prefix"):
@@ -93,8 +94,3 @@ class EngineConfig:
     def with_overrides(self, **kw) -> "EngineConfig":
         """A copy with the given fields replaced (frozen-safe)."""
         return replace(self, **kw)
-
-
-# field -> the later slice of the port that brings its subsystem
-UNPORTED = {"budget_ms": "front end", "max_pending": "front end"}
-DEFAULTS = {f.name: f.default for f in fields(EngineConfig)}

@@ -102,11 +102,17 @@ reference's ``serving/engine.py`` ``LPUEngine``).
   migrate (the recompute-resume path) -> rebuild on a ring failure, a
   heartbeat timeout or, with ``ft_straggler_drain``, a straggler.
 
-Not in this slice (each raises ``NotImplementedError``): a mesh / tp > 1
-(the mesh fleet too), and any value other than the default of a config
-field whose subsystem is not ported (``serving.config.UNPORTED``: the
-front end's step budget and admission bound).  ``w_dtype`` is carried as the reference carries it, for
-telemetry: the engine's decode keeps the fp weights at any value.
+* **Step knobs** — :meth:`LPUEngine.set_step_knobs` retunes
+  ``steps_per_sync`` and ``prefill_chunk`` between steps (the seam the
+  async front end's SLO budget scheduler drives,
+  :mod:`repro_torch.serving.frontend`).  A new S or C costs one program
+  (on the card one capture, counted in ``graph_captures``); a new S
+  first gets its window output buffer, which keeps its address for the
+  engine's life, because the captured window writes into it.
+
+Not in this slice (raises ``NotImplementedError``): a mesh / tp > 1 (the
+mesh fleet too).  ``w_dtype`` is carried as the reference carries it,
+for telemetry: the engine's decode keeps the fp weights at any value.
 """
 from __future__ import annotations
 
@@ -121,8 +127,7 @@ import torch
 from repro_torch.compiler.plan import resolve_kv_precision
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.kernels.decode_attention.ops import resolve_paged_kernel
-from repro_torch.serving.config import (DEFAULTS, SPECULATE, UNPORTED,
-                                        EngineConfig)
+from repro_torch.serving.config import SPECULATE, EngineConfig
 from repro_torch.serving.drafter import make_drafter
 from repro_torch.serving.ft import (Event, FailureInjector, HeartbeatTracker,
                                     ManualClock, RingFailure,
@@ -273,11 +278,6 @@ class LPUEngine:
             raise NotImplementedError(
                 "mesh / tensor parallelism (tp > 1) arrives with the port's "
                 "tp slice; this engine runs on one device")
-        for knob, subsystem in UNPORTED.items():
-            if getattr(c, knob) != DEFAULTS[knob]:
-                raise NotImplementedError(
-                    f"{knob}={getattr(c, knob)!r} arrives with the "
-                    f"{subsystem} slice of the port")
         self.model = model
         self.cfg = model.cfg
         self.plan = model.plan
@@ -436,9 +436,8 @@ class LPUEngine:
         self._chunk_rr = -1           # admit_seq of the last chunk served
         self._buckets_traced: Set = set()
         # the window's static inputs (carry + sampling arrays + the chaos
-        # poison flag, tables) and its output per length: the (S, slots)
-        # int32 token matrix and bool finite-row matrix in one byte
-        # buffer, read back in one copy; the verify round's per K
+        # poison flag, tables) and its outputs by length (_window_out);
+        # the verify round's by K
         self.graphs = bool(graphs)
         self._programs = Programs(self.device)
         B = self.slots
@@ -450,12 +449,6 @@ class LPUEngine:
         self._tables = (StagedBuffer([("tables", (B, self.table_len), "i32")],
                                      self.device) if self.paged else None)
         self._win_out, self._tok_out, self._ok_out = {}, {}, {}
-        for w in {1, self.steps_per_sync}:
-            buf = torch.zeros((5 * w * B,), dtype=torch.uint8,
-                              device=self.device)
-            self._win_out[w] = buf
-            self._tok_out[w] = buf[:4 * w * B].view(torch.int32).view(w, B)
-            self._ok_out[w] = buf[4 * w * B:].view(torch.bool).view(w, B)
         self._ver: Dict[int, StagedBuffer] = {}
         self._ver_out: Dict[int, torch.Tensor] = {}
         # the admission side's programs (prefill, chunk, first-token
@@ -472,6 +465,23 @@ class LPUEngine:
         self._first = torch.zeros((1,), dtype=torch.int32,
                                   device=self.device)
         self._host_logits = None      # (slots, V_pad), at first use
+
+    def _window_out(self, S: int) -> torch.Tensor:
+        """The output buffer of the S-step window, made at first use: the
+        (S, slots) int32 token matrix and bool finite-row matrix in one
+        byte buffer (``_tok_out[S]`` and ``_ok_out[S]`` are views), read
+        back in one copy.  It is made before the window's program is
+        built, outside any capture, and never replaced (``reset()`` keeps
+        it): the captured window writes to its address."""
+        buf = self._win_out.get(S)
+        if buf is None:
+            B = self.slots
+            buf = torch.zeros((5 * S * B,), dtype=torch.uint8,
+                              device=self.device)
+            self._win_out[S] = buf
+            self._tok_out[S] = buf[:4 * S * B].view(torch.int32).view(S, B)
+            self._ok_out[S] = buf[4 * S * B:].view(torch.bool).view(S, B)
+        return buf
 
     def _init_kv_state(self) -> Optional[BlockPool]:
         """A zeroed cache (pool or dense) and :meth:`_fresh_tables`."""
@@ -1093,6 +1103,44 @@ class LPUEngine:
                                  {"rid": rid, "tokens": len(req.out)}))
         return req
 
+    def has_work(self) -> bool:
+        """True while the queue or any slot holds an unfinished request
+        (the signal :meth:`drain` loops on; the async front end's pump
+        idles on it)."""
+        return self.sched.has_work()
+
+    def set_step_knobs(self, prefill_chunk: Optional[int] = None,
+                       steps_per_sync: Optional[int] = None) -> None:
+        """Retune the per-step latency knobs between steps: the seam the
+        SLO budget scheduler (:mod:`repro_torch.serving.budget`) drives.
+
+        A new ``steps_per_sync`` costs one window program (on the card a
+        capture, on the first window of that length) and its output
+        buffer; a new chunk width one chunk program (the budget
+        scheduler quantizes widths to powers of two to bound them).  The
+        checks are the constructor's; besides, a chunked engine never
+        drops back to ``prefill_chunk=0``: a sequence in the middle of
+        its prefill would starve (only chunked admission feeds it), and
+        a monolithic prefill cannot resume a half-resident prompt."""
+        if steps_per_sync is not None:
+            s = int(steps_per_sync)
+            if s < 1:
+                raise ValueError(f"steps_per_sync={s} must be >= 1")
+            if s > 1 and self.sampling != "fused":
+                raise ValueError("steps_per_sync > 1 needs fused sampling")
+            self.steps_per_sync = s
+        if prefill_chunk is not None:
+            c = int(prefill_chunk)
+            if c < 0:
+                raise ValueError(f"prefill_chunk={c} must be >= 0")
+            if c and not self.paged:
+                raise ValueError("prefill_chunk needs the paged KV pool")
+            if c == 0 and self.prefill_chunk:
+                raise ValueError(
+                    "cannot leave chunked-prefill mode mid-serve: "
+                    "admitted prompts may be partially resident")
+            self.prefill_chunk = c
+
     def step(self) -> List[Request]:
         """One scheduler round: admit + prefill, then one decode round
         for the whole slot batch.  Returns requests finished this round.
@@ -1316,6 +1364,7 @@ class LPUEngine:
         (tokens and finite-row flags) is cloned at once: the next replay
         rewrites ``_win_out``.  Returns (win, output bytes, active
         snapshot)."""
+        out = self._window_out(win)
         fn = lambda: self._window_fn(win, stochastic)       # noqa: E731
         prog = self._program(("window", win, stochastic), fn, stochastic,
                              self._dead_window)
@@ -1328,7 +1377,7 @@ class LPUEngine:
         self.stats.device_decode_steps += win
         snapshot = [s is not None and not s.prefilling
                     for s in self.sched.active]
-        return win, self._win_out[win].clone(), snapshot
+        return win, out.clone(), snapshot
 
     def _reconcile(self, handle) -> List[Request]:
         """Read a window's tokens and finite-row flags back (the ONE
@@ -1813,7 +1862,7 @@ class MultiRingEngine:
         return None
 
     def has_work(self) -> bool:
-        return any(e.sched.has_work() for e in self.engines)
+        return any(e.has_work() for e in self.engines)
 
     def drain(self) -> Dict[int, List[int]]:
         """Step until every ring is idle; returns {rid: generated tokens}

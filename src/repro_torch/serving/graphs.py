@@ -20,10 +20,15 @@ sampler and the block copy; ``src/repro/serving/engine.py``
   replay needs no host work beyond its uploads.
   A capture records the kernel launches it made
   (:func:`repro_torch.kernels.held_launches`) and every replay adds
-  them back, so launch counts read the same as an eager run's.
+  them back, so launch counts read the same as an eager run's.  The
+  cyclic collector is held off while a graph is captured: an object it
+  frees there (another engine's graph, in a reference cycle a caller
+  dropped) would invalidate the capture.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
 
@@ -95,6 +100,19 @@ class StagedBuffer:
         return True
 
 
+@contextlib.contextmanager
+def collector_off():
+    """The cyclic collector held off inside the block (as it was
+    after)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 @dataclass
 class Program:
     graph: Optional["torch.cuda.CUDAGraph"]
@@ -112,9 +130,8 @@ class Programs:
                  share: Optional["Programs"] = None):
         self.device = torch.device(device)
         self._by_key: Dict[Hashable, Program] = {}
-        # never a reference to self: an object in a reference cycle, and
-        # the graphs it holds, is freed by the cyclic collector, which may
-        # run in the middle of another capture and invalidate it
+        # never a reference to self, so the programs and their graphs
+        # are freed with their engine, by reference count
         self._share = share
         self._pool = None
         self._stream = None
@@ -159,7 +176,7 @@ class Programs:
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
-        with kernels.held_launches() as made:
+        with kernels.held_launches() as made, collector_off():
             with torch.cuda.graph(graph, pool=own._pool,
                                   stream=own._stream):
                 fn()

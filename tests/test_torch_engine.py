@@ -20,8 +20,10 @@ from repro_torch.compiler.mapper import plan_model
 from repro_torch.configs import get_config
 from repro_torch.models.registry import build_model
 from repro_torch.serving import kv_cache, sampler
+from repro_torch.serving.budget import BudgetScheduler
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.engine import LPUEngine
+from repro_torch.serving.frontend import AsyncFrontend
 from repro_torch.weights import params_from_jax
 from tests.torch_dense_util import one_torch_thread  # noqa: F401
 
@@ -114,10 +116,19 @@ def test_decode_launch_count_and_stats(setup):
 @pytest.mark.parametrize("knob", [dict(budget_ms=50.0),
                                   dict(max_pending=8)])
 def test_later_slices_raise(setup, knob):
+    """The front end's two knobs, refused until the front end was ported:
+    the engine now takes them and ``AsyncFrontend`` reads them from its
+    config (the step budget as a ``BudgetScheduler``)."""
     model, params, _ = setup
-    with pytest.raises(NotImplementedError):
-        LPUEngine(model, params, EngineConfig(slots=2, max_seq=64, **knob),
-                  device="cpu")
+    eng = LPUEngine(model, params, EngineConfig(slots=2, max_seq=64,
+                                                **knob), device="cpu")
+    fe = AsyncFrontend(eng)
+    if "budget_ms" in knob:
+        assert isinstance(fe.budget, BudgetScheduler)
+        assert fe.budget.budget_s == pytest.approx(0.05)
+        assert fe.max_pending == 0
+    else:
+        assert fe.max_pending == 8 and fe.budget is None
 
 
 @pytest.mark.parametrize("knob,match", [

@@ -26,7 +26,6 @@ the port's fleets ran some forty times slower on eight.
 import contextlib
 import io
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -50,7 +49,8 @@ from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.engine import (EngineStats, LPUEngine,
                                         MultiRingEngine, Request)
 from repro_torch.serving.sampler import SamplingParams
-from tests.torch_dense_util import one_torch_thread, reduced_pair  # noqa: F401
+from tests.torch_dense_util import (one_torch_thread,  # noqa: F401
+                                    reduced_pair, reference_compile_cache)
 
 CHAOS_ALL = "ring@2,stall@3:1,nan@5,corrupt@8"
 PROMPTS = [[1, 2, 3], [4, 5], [6, 7, 8, 9], [10, 11], [12, 13, 14],
@@ -67,26 +67,6 @@ SCENARIOS = {
     "stall-one-request": (dict(chaos="stall@2"), [[1, 2, 3, 4]], 6),
     "nan-window4": (dict(chaos="nan@3", steps_per_sync=4), PROMPTS, 8),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def reference_compile_cache(tmp_path_factory):
-    """Each reference engine jits its programs anew, so every ring of
-    every reference fleet compiles the same programs again; with JAX's
-    persistent compilation cache on for this module, a program compiled
-    once is loaded by the later engines.  The settings are restored
-    after the module."""
-    from jax._src import compilation_cache
-    keys = ("jax_compilation_cache_dir",
-            "jax_persistent_cache_min_compile_time_secs")
-    old = [getattr(jax.config, k) for k in keys]
-    jax.config.update(keys[0], str(tmp_path_factory.mktemp("jax-cache")))
-    jax.config.update(keys[1], 0)
-    compilation_cache.reset_cache()
-    yield
-    for k, v in zip(keys, old):
-        jax.config.update(k, v)
-    compilation_cache.reset_cache()
 
 
 @pytest.fixture(scope="module")

@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``src/repro_torch``, not
-``chip_smoke.py`` and no kernel probe under ``tools/`` imports JAX or the
-JAX package, and its entry points refuse to fall back to the CPU when no
+``chip_smoke.py`` and no kernel probe under ``tools/`` imports JAX, the
+JAX package or the reference's ``benchmarks/``, and its entry points refuse to fall back to the CPU when no
 device was asked for."""
 import ast
 import pathlib
@@ -11,7 +11,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*_probe/*.py"))
-BANNED = ("jax", "jaxlib", "repro")
+BANNED = ("jax", "jaxlib", "repro", "benchmarks", "traces")
 
 
 def _imports(path):
@@ -27,7 +27,8 @@ def _imports(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"engine.py", "ops.py", "chip_smoke.py"} <= names
+    assert {"engine.py", "ops.py", "chip_smoke.py", "frontend.py",
+            "budget.py", "tracker.py", "traces.py"} <= names
     assert len(PORT_FILES) > 20
 
 

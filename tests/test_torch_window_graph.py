@@ -12,6 +12,10 @@ cache resident; stats and launch accounting; and stochastic windows
 against the sampler's distribution gate.
 """
 import collections
+import contextlib
+import gc
+import types
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -256,6 +260,60 @@ def test_launch_registry_and_replay_accounting():
     progs.run(Program(None), lambda: called.append(1))
     assert called == [1, 1] and progs.replays == 2
     kernels.reset_launches()
+
+
+def test_no_cyclic_collection_inside_a_capture(models, monkeypatch):
+    """An engine dropped in a reference cycle (here a callback closed
+    over it, as a user's ``stream_cb`` may be) in the middle of another
+    program's capture is not freed until the capture has ended: on the
+    card a graph freed by the cyclic collector inside a capture
+    invalidates it.  The CUDA calls of a capture are stood in for on the
+    CPU; the captured function drops the cycle and allocates enough to
+    set off the collector."""
+    model, params, kw, _ = models["smollm-135m"]
+    capturing, freed = [False], []
+
+    @contextlib.contextmanager
+    def graph(g, pool=None, stream=None):
+        capturing[0] = True
+        try:
+            yield
+        finally:
+            capturing[0] = False
+
+    class Stream:
+        def __init__(self, *a):
+            pass
+
+        def wait_stream(self, other):
+            pass
+    for name, value in dict(
+            graph=graph, CUDAGraph=_FakeGraph, Stream=Stream,
+            current_stream=lambda *a: Stream(), graph_pool_handle=tuple,
+            stream=lambda s: contextlib.nullcontext()).items():
+        monkeypatch.setattr(torch.cuda, name, value)
+    eng = LPUEngine(model, params, EngineConfig(**GEOM, **kw), device="cpu")
+    weakref.finalize(eng, lambda: freed.append(capturing[0]))
+
+    def cycle_to(engine):
+        held = {"engine": engine}
+        held["stream_cb"] = lambda rid, tok: held["engine"]
+        return held
+    box = [cycle_to(eng)]
+    del eng
+
+    def fn():
+        if capturing[0]:
+            box.clear()
+            junk = [[] for _ in range(100_000)]
+            del junk
+    progs = Programs("cpu")
+    progs.device = types.SimpleNamespace(type="cuda")
+    assert gc.isenabled()
+    progs.get(("probe",), fn, generator=None, held=contextlib.nullcontext)
+    assert progs.captures == 1 and gc.isenabled() and freed == []
+    gc.collect()
+    assert freed == [False]
 
 
 @pytest.mark.parametrize("temp,top_k,top_p", [(1.0, 5, 0.85),

@@ -1,9 +1,11 @@
 """Shared set-up of the port's tests: a reduced config's reference
 weights, with every bias and the learned positions redrawn from a seed
 (the reference's init gives every bias zeros, so a parity test on its
-own weights would never add one), carried across to the port; and
-``one_torch_thread``, an autouse fixture a test module imports to run
-its torch on one thread."""
+own weights would never add one), carried across to the port; ``one_torch_thread``, an autouse fixture a
+test module imports to run its torch on one thread; and
+``reference_compile_cache``, one that turns JAX's persistent compilation
+cache on for the module, so the reference engines it builds compile
+their identical programs once."""
 import jax
 import numpy as np
 import pytest
@@ -68,3 +70,23 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_compile_cache(tmp_path_factory):
+    """Each reference engine jits its programs anew, so every ring of
+    every reference fleet compiles the same programs again; with JAX's
+    persistent compilation cache on for this module, a program compiled
+    once is loaded by the later engines.  The settings are restored
+    after the module."""
+    from jax._src import compilation_cache
+    keys = ("jax_compilation_cache_dir",
+            "jax_persistent_cache_min_compile_time_secs")
+    old = [getattr(jax.config, k) for k in keys]
+    jax.config.update(keys[0], str(tmp_path_factory.mktemp("jax-cache")))
+    jax.config.update(keys[1], 0)
+    compilation_cache.reset_cache()
+    yield
+    for k, v in zip(keys, old):
+        jax.config.update(k, v)
+    compilation_cache.reset_cache()

@@ -169,6 +169,31 @@ result line when any phase fails or when no CUDA device is present):
    window deltas summing to its counters.  Streams equal or apart only
    at a top-2 gap <= 1e-4, kernel 1's launches exact per replay, every
    pool balanced; TTFT and ms/token p50/p99 from the request records.
+11. families, run last, each model drawn on the card from seed 0 and
+   freed before the next — kernel 1 at the three GQA shapes the last
+   families give it (granite H 24 / G 8, dh 64, f32; llama4 40 / 8, dh
+   128, bf16; llava 56 / 8, dh 128, bf16): at its split's edges on the
+   engine's pool dtype and an int8 pool, then at the decode shape
+   against its plain version, timed beside it, the library call and
+   its bound; (a) granite-moe-3b-a800m at full width and depth, f32,
+   through ``LPUEngine`` on graphs (8 prompts of 2-64 tokens x 32 new,
+   4 slots, max_seq 512, blocks of 128) and its eager twin: streams
+   equal or apart only at a top-2 gap <= 1e-4, kernel 1 exact per
+   replay, pools balanced; the captures' time, the wall of a stretch of
+   pure decode steps on the warmed engine, one decode step's device
+   time (its 1-step window replayed alone), its kernels, and the
+   device time of the MoE layers alone (the expert loop); (b)
+   llama4-maverick-400b-a17b cut to depth 2 (a dense and an MoE layer
+   with its shared expert), bf16, 4 prompts x 16 new, the same gates
+   (bf16 near ties at 3e-2); (c) llava-next-34b cut to depth 8, bf16,
+   the same through the engine, then 2880 seeded patch embeddings and
+   16 text tokens through the prefill step of ``core/steps.py`` and 16
+   serve steps, each token equal to a recompute twin's (a prefill over
+   the grown sequence) or apart at a bf16 near tie, the prefill's
+   device ms; (d) whisper-tiny, f32, 4 rows of seeded (1500, 384)
+   frames and 4-token prompts through the prefill step and 32 serve
+   steps, each token equal to its recompute twin's or apart at a
+   top-2 gap <= 1e-4, wall and device ms per serve step.
 
 Every engine runs its fused decode windows, verify rounds, monolithic
 prefills, prefill chunks, prefix tails, first-token sampling and
@@ -189,12 +214,16 @@ graphs and eager twin, with the card's name and power limit), a
 fleet's wall, ``fleet_counters()``, straggler events; the reset wall;
 the card's name and power limit), a ``{"frontend": ...}`` line (phase 10
 per run: counts, TTFT and ms/token p50/p99, tokens/s over the run's
-wall, captures in the run; for (b) the plans and the EWMA), the
+wall, captures in the run; for (b) the plans and the EWMA), a
+``{"families": ...}`` line (phase 11: kernel 1 at each family's shape,
+each model's engine and twin, decode step, expert loop, llava's and
+whisper's steps, the laps; the card's name and power limit), the
 nvidia-smi line and ``{"ok": true, "device": {...}}``.  Imports nothing
 of JAX: the port stands alone.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -527,12 +556,13 @@ def check_time_quantized_pool(torch, dev, card_name):
 SPLIT_LENGTHS = (0, 1, 15, 16, 17, BS - 1, BS, BS + 1, 300, 511, T * BS)
 
 
-def split_inputs(torch, dev, pool_dtype, seed=5):
+def split_inputs(torch, dev, pool_dtype, seed=5, heads=(H, G, DH)):
     """(q, kp, vp, tables, lengths, kn, vn, scales) at SPLIT_LENGTHS, the
     rows' blocks drawn from a shuffled pool, table tails on the null
     block 0; an int8 / fp8 pool is quantized from an f32 one with f16
-    scales (q stays f32)."""
+    scales (q stays f32).  ``heads``: (query heads, kv heads, dh)."""
     from repro_torch.serving.kv_cache import quantize_kv_rows
+    hq, gk, dh = heads
     g = torch.Generator(device=dev).manual_seed(seed)
     nb = len(SPLIT_LENGTHS)
     n_blocks = nb * T + 1
@@ -546,7 +576,7 @@ def split_inputs(torch, dev, pool_dtype, seed=5):
     for b, n in enumerate(SPLIT_LENGTHS):
         used = -(-n // BS)
         tables[b, :used] = perm[b * T:b * T + used]
-    kp, vp = rnd(n_blocks, BS, G, DH), rnd(n_blocks, BS, G, DH)
+    kp, vp = rnd(n_blocks, BS, gk, dh), rnd(n_blocks, BS, gk, dh)
     scales = {}
     if quant:
         kp, ks = quantize_kv_rows(kp, pool_dtype, torch.float16)
@@ -555,31 +585,35 @@ def split_inputs(torch, dev, pool_dtype, seed=5):
     else:
         kp, vp = kp.to(pool_dtype), vp.to(pool_dtype)
     lengths = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=dev)
-    return (rnd(nb, H, DH).to(q_dtype), kp, vp, tables, lengths,
-            rnd(nb, G, DH).to(q_dtype), rnd(nb, G, DH).to(q_dtype), scales)
+    return (rnd(nb, hq, dh).to(q_dtype), kp, vp, tables, lengths,
+            rnd(nb, gk, dh).to(q_dtype), rnd(nb, gk, dh).to(q_dtype), scales)
 
 
-def check_paged_split(torch, dev):
+SPLIT_POOLS = ("float32", "bfloat16", "float16", "int8", "float8_e4m3fn")
+
+
+def check_paged_split(torch, dev, heads=(H, G, DH), pools=SPLIT_POOLS):
     """Kernel 1 at its split's edges, for f32, bf16, f16, int8 and fp8
-    pools, with and without the fold: within tolerance of its plain
-    version; each row alone bit-equal to its row in the batch; the
-    length-0 row the mean of its table's V rows (v_new with the fold);
-    the null block inert under +-1e30 fills (the largest stored values
-    and f16 scales for a quantized pool).  Returns the largest error per
-    case."""
+    pools (or ``pools``), with and without the fold, at the main path's
+    heads (or ``heads``: query heads, kv heads, dh): within tolerance of
+    its plain version; each row alone bit-equal to its row in the batch;
+    the length-0 row the mean of its table's V rows (v_new with the
+    fold); the null block inert under +-1e30 fills (the largest stored
+    values and f16 scales for a quantized pool).  Returns the largest
+    error per case."""
     from repro_torch.kernels.decode_attention.ops import \
         paged_decode_attention
     from repro_torch.kernels.decode_attention.ref import \
         paged_decode_attention_ref
+    hq, gk, dh = heads
     errs = {}
-    for pool_dtype in (torch.float32, torch.bfloat16, torch.float16,
-                       torch.int8, torch.float8_e4m3fn):
-        name = str(pool_dtype).split(".")[-1]
+    for name in pools:
+        pool_dtype = getattr(torch, name)
         tol = TOL.get(name, TOL["float32"])
         for fold in (False, True):
             key = f"{name},fold={fold}"
-            q, kp, vp, tb, ln, kn, vn, sc = split_inputs(torch, dev,
-                                                         pool_dtype)
+            q, kp, vp, tb, ln, kn, vn, sc = split_inputs(
+                torch, dev, pool_dtype, heads=heads)
             extra = dict(k_new=kn, v_new=vn) if fold else {}
             got = paged_decode_attention(q, kp, vp, tb, ln, **sc, **extra)
             want = paged_decode_attention_ref(q, kp, vp, tb, ln, **sc,
@@ -600,14 +634,14 @@ def check_paged_split(torch, dev):
                     raise AssertionError(f"split {key}: row {b} alone "
                                          "differs from its row in the batch")
             if fold:
-                row0 = vn[0].float()[:, None].expand(-1, H // G, -1)
+                row0 = vn[0].float()[:, None].expand(-1, hq // gk, -1)
             else:
                 v0 = vp[tb[0].long()].float()             # (T, BS, G, DH)
                 if sc:
                     v0 = v0 * sc["v_scale"][tb[0].long()].float()[..., None]
-                row0 = v0.reshape(-1, G, DH).mean(0)[:, None].expand(
-                    -1, H // G, -1)
-            if not torch.allclose(got[0].float().reshape(G, H // G, DH),
+                row0 = v0.reshape(-1, gk, dh).mean(0)[:, None].expand(
+                    -1, hq // gk, -1)
+            if not torch.allclose(got[0].float().reshape(gk, hq // gk, dh),
                                   row0, rtol=tol, atol=tol):
                 raise AssertionError(f"split {key}: the length-0 row is not "
                                      + ("v_new" if fold else
@@ -1238,7 +1272,8 @@ LONG_PROMPT = 448
 SYS_PROMPT = 256
 
 
-def agree(torch, model, params, prompts, a, b, what, gaps_fn=None):
+def agree(torch, model, params, prompts, a, b, what, gaps_fn=None,
+          tol=None):
     """Greedy streams ``a`` and ``b`` equal, or first apart where the
     model's own logits (a plain forward over the prompt and the shared
     tokens) have a top-2 gap of at most CHAIN_TOL: a near tie, where
@@ -1246,7 +1281,8 @@ def agree(torch, model, params, prompts, a, b, what, gaps_fn=None):
     pool (``gaps_fn(prompt, stream)`` gives the gaps of the quantized
     path) the bound is CHAIN_TOL_QUANT: there a last-bit difference in a
     K/V row can round its stored code one step apart, and the chain
-    holds its quantized variants' logits to that bound.  Raises
+    holds its quantized variants' logits to that bound.  ``tol`` sets
+    the bound (a bf16 model's gaps are its bf16 logits').  Raises
     otherwise.
     Returns how many streams were equal, each divergence with its gap,
     and the smallest top-2 gap over the tokens both streams share (the
@@ -1266,11 +1302,12 @@ def agree(torch, model, params, prompts, a, b, what, gaps_fn=None):
             raise AssertionError(f"{what}: stream {i} lengths differ")
         if at is not None:
             gap = gaps[at].item()
-            tol = CHAIN_TOL if gaps_fn is None else CHAIN_TOL_QUANT
-            if gap > tol:
+            bound = tol if tol is not None else \
+                CHAIN_TOL if gaps_fn is None else CHAIN_TOL_QUANT
+            if gap > bound:
                 raise AssertionError(
                     f"{what}: stream {i} differs at token {at} where the "
-                    f"top-2 gap is {gap} > {tol}")
+                    f"top-2 gap is {gap} > {bound}")
             out.append({"request": i, "at": at, "top2_gap": gap})
             gaps = gaps[:at]
         if len(gaps):
@@ -4039,6 +4076,559 @@ def run_jamba(torch, dev):
             "profile": profile}
 
 
+# ---------------------------------------------------------------------------
+# 11. the remaining families: granite-moe-3b at full width and depth
+# through the engine, llama4-maverick (its shared expert) and
+# llava-next-34b at a cut depth through the engine, llava's patch
+# projector and whisper-tiny's encoder-decoder through the serving steps
+# ---------------------------------------------------------------------------
+
+# kernel 1 at the GQA shapes these families give it: (family, query
+# heads, kv heads, dh, the engine's pool dtype); group sizes 3, 5, 7
+FAMILY_K1 = (("granite", 24, 8, 64, "float32"),
+             ("llama4", 40, 8, 128, "bfloat16"),
+             ("llava", 56, 8, 128, "bfloat16"))
+# the engine cell's traffic: 8 prompts of 2-64 tokens x 32 new on 4
+# slots, max_seq 512, blocks of 128; the bf16 models 4 prompts x 16 new
+FAMILY_SLOTS, FAMILY_MAX_SEQ = 4, 512
+GRANITE_REQUESTS, GRANITE_NEW = 8, 32
+BF16_REQUESTS, BF16_NEW = 4, 16
+# depth cuts: one super-block of llama4 (a dense layer and an MoE layer;
+# one MoE layer's 128 experts are 16.1e9 parameters), 8 of llava's 60
+LLAMA4_DEPTH, LLAVA_DEPTH = 2, 8
+# llava through the steps: 2880 patches + 16 text tokens, 16 serve steps
+LLAVA_TEXT, LLAVA_STEPS = 16, 16
+# whisper through the steps: 4 rows of (1500, 384) frames, 4-token
+# prompts, 32 serve steps
+WHISPER_ROWS, WHISPER_PROMPT, WHISPER_STEPS = 4, 4, 32
+FAMILY_REPLAYS = 20
+
+
+@contextlib.contextmanager
+def capture_clock(torch):
+    """{program kind: seconds} spent building programs (the eager warm-up
+    and the capture) inside the block: ``Programs.get`` timed at its
+    first use of a key, the card synchronised around it."""
+    from repro_torch.serving.graphs import Programs
+    get = Programs.get
+    spent = {}
+
+    def timed_get(self, key, fn, **kw):
+        if key in self._by_key:
+            return get(self, key, fn, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog = get(self, key, fn, **kw)
+        torch.cuda.synchronize()
+        spent[key[0]] = spent.get(key[0], 0.0) + time.perf_counter() - t0
+        return prog
+    Programs.get = timed_get
+    try:
+        yield spent
+    finally:
+        Programs.get = get
+
+
+def check_time_family_k1(torch, dev, card_name):
+    """Kernel 1 at each family's GQA shape: at its split's edges on the
+    engine's pool dtype and on an int8 pool (:func:`check_paged_split`),
+    then at the engine's decode shape (4 rows of lengths LENGTHS over
+    tables of 4 blocks of 128, the fold) against its plain version, timed
+    beside it, the library call (gather + SDPA with GQA) and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        gather_kv_pages, paged_decode_attention_ref)
+    out = {}
+    for fam, hq, gk, dh, pool in FAMILY_K1:
+        split = check_paged_split(torch, dev, heads=(hq, gk, dh),
+                                  pools=(pool, "int8"))
+        dt = getattr(torch, pool)
+        g = torch.Generator(device=dev).manual_seed(hq)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+        q, kn, vn = rnd(B, hq, dh), rnd(B, gk, dh), rnd(B, gk, dh)
+        kp, vp = rnd(N, BS, gk, dh), rnd(N, BS, gk, dh)
+        tb = torch.zeros((B, T), dtype=torch.int32)
+        for b, n in enumerate(LENGTHS):
+            used = -(-n // BS)
+            tb[b, :used] = torch.arange(1 + T * b, 1 + T * b + used)
+        tb = tb.to(dev)
+        ln = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+        got = paged_decode_attention(q, kp, vp, tb, ln, k_new=kn, v_new=vn)
+        want = paged_decode_attention_ref(q, kp, vp, tb, ln, k_new=kn,
+                                          v_new=vn)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = TOL[pool]
+        if not torch.isfinite(got).all() or err > tol:
+            raise AssertionError(f"(11) kernel 1 at {fam}'s shape: vs plain "
+                                 f"max abs {err} > {tol}")
+        n_sets = sets_for(2 * kp.numel() * kp.element_size())
+        pools = [(kp.clone(), vp.clone()) for _ in range(n_sets)]
+        valid = torch.arange(T * BS, device=dev)[None] < ln[:, None]
+        mask = torch.cat([valid, torch.ones((B, 1), dtype=torch.bool,
+                                            device=dev)], 1)[:, None, None]
+
+        def library(i):
+            k = torch.cat([gather_kv_pages(pools[i][0], tb), kn[:, None]], 1)
+            v = torch.cat([gather_kv_pages(pools[i][1], tb), vn[:, None]], 1)
+            F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+        t = timed(torch, {
+            "ms": lambda i: paged_decode_attention(
+                q, pools[i][0], pools[i][1], tb, ln, k_new=kn, v_new=vn),
+            "plain_ms": lambda i: paged_decode_attention_ref(
+                q, pools[i][0], pools[i][1], tb, ln, k_new=kn, v_new=vn),
+            "library_ms": library}, n_sets)
+        # least work: q, the valid K/V rows, the new token, tables and
+        # lengths read once, the output written once; 4 dh flops per q
+        # head per attended position
+        item = kp.element_size()
+        rows = sum(LENGTHS)
+        nbytes = item * (2 * B * hq * dh + 2 * rows * gk * dh
+                         + 2 * B * gk * dh) + 4 * (B * T + B)
+        t["bound_ms"], t["bound_by"] = bound_for(
+            nbytes, 4 * dh * hq * (rows + B), pool, card_name)
+        t.update(max_abs_err=err, tol=tol, split_edges=split, shapes={
+            "B": B, "H": hq, "G": gk, "gs": hq // gk, "dh": dh, "bs": BS,
+            "T": T, "lengths": list(LENGTHS), "dtype": pool, "fold": True})
+        out[fam] = t
+        del pools
+    return out
+
+
+def family_model(torch, dev, name, dtype, depth=None):
+    """(model, params, record) of ``name`` at full width (its depth cut
+    to ``depth`` layers when given) in ``dtype``, random weights drawn
+    on the card from seed 0 by the port's generator."""
+    import dataclasses
+    from repro_torch.compiler.mapper import plan_model
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.weights import _expected_shapes
+    full = get_config(name)
+    cfg = dataclasses.replace(full, n_layers=depth) if depth else full
+    plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
+                      remat="none", compute_dtype=dtype, param_dtype=dtype)
+    n_params = sum(math.prod(s) for s in _expected_shapes(cfg, plan)
+                   .values())
+    model = build_model(cfg, plan, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    if nbytes != n_params * torch.empty((), dtype=getattr(
+            torch, dtype)).element_size():
+        raise AssertionError(f"{name}: weights hold {nbytes} bytes for "
+                             f"{n_params} parameters")
+    rec = {"arch": name, "family": cfg.family, "n_layers": cfg.n_layers,
+           "n_layers_published": full.n_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "d_head": cfg.d_head, "vocab": cfg.vocab_size, "dtype": dtype,
+           "params": n_params, "weight_bytes": nbytes, "init_s": init_s,
+           "peak_memory_after_init_bytes": torch.cuda.max_memory_allocated()}
+    if cfg.moe is not None:
+        rec.update(experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                   d_ff_expert=cfg.moe.d_ff_expert,
+                   moe_every=cfg.moe.moe_every,
+                   shared_experts=cfg.moe.n_shared_experts)
+    print(f"[families] {name}: {cfg.n_layers} of {full.n_layers} layers, "
+          f"d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+          f"{cfg.d_head}, {n_params / 1e9:.3f}e9 parameters, {dtype} "
+          f"weights {nbytes / 1e9:.2f} GB, init {init_s:.1f} s",
+          flush=True)
+    return model, params, rec
+
+
+def family_prompts(cfg, n, seed=0):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return [[int(t) for t in rng.randint(1, cfg.vocab_size,
+                                         size=rng.randint(2, 65))]
+            for _ in range(n)]
+
+
+def window_step(torch, eng):
+    """One decode step on graphs: the engine's captured 1-step window
+    replayed alone after its run drained, over its static buffers (idle
+    rows' writes land in the null block; the launch registry is not
+    touched): device ms per step by CUDA events over FAMILY_REPLAYS back
+    to back replays, and two replays' kernels (count, kernel 1's time,
+    the products': cuBLAS's kernels and their split-K reductions) under
+    torch.profiler."""
+    g = eng._programs._by_key[("window", 1, False)].graph
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(FAMILY_REPLAYS):
+        g.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    reps = 2
+
+    def run():
+        for _ in range(reps):
+            g.replay()
+        torch.cuda.synchronize()
+    kernels = device_kernels(run)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    k1 = [e for e in kernels if "paged_decode_kernel" in e.key]
+    gemm = [e for e in kernels if any(w in e.key.lower() for w in
+                                      ("gemm", "gemv", "cutlass", "sm90_",
+                                       "nvjet", "xmma", "splitk"))]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"device_ms_per_step": start.elapsed_time(stop) / FAMILY_REPLAYS,
+            "profiled_device_busy_ms_per_step": busy,
+            "kernels_per_step": sum(e.count for e in kernels) / reps,
+            "kernel1_per_step": sum(e.count for e in k1) / reps,
+            "kernel1_ms_per_step": sum(e.self_device_time_total
+                                       for e in k1) / 1e3 / reps,
+            "products_ms_per_step": sum(e.self_device_time_total
+                                        for e in gemm) / 1e3 / reps,
+            "top_kernels": [{"name": e.key[:80], "count": e.count / reps,
+                             "ms": e.self_device_time_total / 1e3 / reps}
+                            for e in top]}
+
+
+def expert_loop(torch, dev, model, params, rows):
+    """The device time of the decode step's MoE layers alone: every MoE
+    layer's ``moe_fwd`` (the expert loop over every expert, as the
+    reference's single-device path) at ``rows`` tokens, run eagerly
+    under torch.profiler: busy ms and kernels."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import (layer_params,
+                                                n_super_blocks,
+                                                super_block_size)
+    cfg, plan = model.cfg, model.plan
+    moes = [layer_params(params, i)[f"l{j}"]["moe"]
+            for i in range(n_super_blocks(cfg))
+            for j in range(super_block_size(cfg)) if cfg.is_moe_layer(j)]
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((rows, 1, cfg.d_model), generator=g, device=dev).to(
+        moes[0]["router"].dtype)
+
+    def run():
+        for p in moes:
+            moe_mod.moe_fwd(p, x, cfg=cfg, plan=plan)
+        torch.cuda.synchronize()
+    run()
+    kernels = device_kernels(run)
+    return {"moe_layers": len(moes), "rows": rows,
+            "device_ms": sum(e.self_device_time_total
+                             for e in kernels) / 1e3,
+            "kernels": sum(e.count for e in kernels)}
+
+
+def decode_stretch(torch, eng, prompts):
+    """Wall per decode step of the warmed engine (its programs captured):
+    one request per slot admitted, then FAMILY_REPLAYS steps of pure
+    decode (1-step windows) timed on the host, the card synchronised
+    around them; the rest drained.  Kernel 1 exact in the stretch."""
+    st = eng.stats
+    rids = [eng.submit(p, FAMILY_REPLAYS + 4) for p in prompts[:eng.slots]]
+    n0 = st.prefills
+    while st.prefills - n0 < len(rids):
+        eng.step()
+    torch.cuda.synchronize()
+    _reset_counts()
+    steps0, cap0 = st.device_decode_steps, st.graph_captures
+    t0 = time.perf_counter()
+    for _ in range(FAMILY_REPLAYS):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = st.device_decode_steps - steps0
+    k1 = _read_counts()["paged_decode_attention"]
+    eng.drain()
+    if not steps or k1 != eng.cfg.n_layers * steps or \
+            st.graph_captures != cap0:
+        raise AssertionError(f"(11) {eng.cfg.name} decode stretch: {steps} "
+                             f"steps, kernel 1 {k1}, captures "
+                             f"{st.graph_captures - cap0}")
+    return {"rows": len(rids), "device_decode_steps": steps,
+            "wall_ms_per_step": wall * 1e3 / steps, "kernel_launches": k1}
+
+
+def family_engine(torch, dev, model, params, prompts, max_new, kv_dtype,
+                  tol):
+    """The family's model through ``LPUEngine`` on graphs (every capture
+    timed) and its eager twin (``graphs=False``), 4 slots, max_seq 512,
+    blocks of 128, kernel 1 streamed: greedy streams equal or apart only
+    at a top-2 gap <= ``tol`` (:func:`agree`), kernel 1 launched exactly
+    once per layer per device decode step, chunk and prefix tail in each
+    (per replay on graphs), every pool balanced; then, on the warmed
+    engine, the wall of a stretch of pure decode steps
+    (:func:`decode_stretch`) and one decode step's device time
+    (:func:`window_step`): their ratio is the busy share of decode on
+    graphs."""
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine
+    cfg = model.cfg
+    kw = dict(slots=FAMILY_SLOTS, max_seq=FAMILY_MAX_SEQ, block_size=BS,
+              kv_dtype=kv_dtype, paged_kernel="stream")
+
+    def run(graphs):
+        what = f"(11) {cfg.name} graphs={graphs}"
+        eng = LPUEngine(model, params, EngineConfig(**kw), device=dev,
+                        graphs=graphs)
+        _reset_counts()
+        outs = eng.generate(prompts, max_new_tokens=max_new)
+        torch.cuda.synchronize()
+        k1 = path_counts({"paged_decode_attention"}, what)[
+            "paged_decode_attention"]
+        if eng.stats.device_decode_steps == 0 or k1 != launches_want(eng):
+            raise AssertionError(f"{what}: kernel 1 launched {k1} times, "
+                                 f"want {launches_want(eng)}")
+        pool_checks(eng, what)
+        on_graphs(eng)
+        for o in outs:
+            if len(o) != max_new or not all(0 <= t < cfg.vocab_size
+                                            for t in o):
+                raise AssertionError(f"{what}: bad stream {o}")
+        return outs, eng, k1
+
+    with capture_clock(torch) as spent:
+        outs, eng, k1 = run(True)
+    rec = run_rec(eng, k1, capture_s=dict(spent), requests=len(prompts),
+                  distinct_tokens_per_stream=[len(set(o)) for o in outs],
+                  kv_bytes_moved_per_step=eng.kv_bytes_moved_per_step())
+    stretch = decode_stretch(torch, eng, prompts)
+    rec["kernel_launches"] += stretch["kernel_launches"]
+    rec["decode_step"] = step = window_step(torch, eng)
+    stretch["device_busy_share"] = (step["device_ms_per_step"]
+                                    / stretch["wall_ms_per_step"])
+    rec["decode_stretch"] = stretch
+    del eng
+    eager, eeng, ek1 = run(False)
+    rec["eager_twin"] = run_rec(eeng, ek1, vs_graphs=agree(
+        torch, model, params, prompts, outs, eager, f"(11) {cfg.name}",
+        tol=tol))
+    rec["kernel_launches"] += ek1
+    return rec
+
+
+def llava_steps(torch, dev, model, params):
+    """(c2): a prompt of 2880 seeded patch embeddings and LLAVA_TEXT text
+    tokens through the port's prefill step (``core/steps.py``: the
+    projector, the patches before the text), then LLAVA_STEPS serve
+    steps at positions that count the patches; each token equal to its
+    recompute twin's (a prefill over patches + text + the tokens so far,
+    from a fresh cache) or apart only at the twin's top-2 gap <= bf16's
+    tolerance.  The prefill's device ms under torch.profiler."""
+    import numpy as np
+    from repro_torch.core.steps import build_prefill_step, build_serve_step
+    cfg = model.cfg
+    dt = torch.bfloat16
+    n_p, S = cfg.vlm.n_patches, LLAVA_TEXT
+    max_seq = n_p + S + LLAVA_STEPS
+    g = torch.Generator(device=dev).manual_seed(11)
+    patches = (0.1 * torch.randn((1, n_p, cfg.vlm.patch_embed_dim),
+                                 generator=g, device=dev)).to(dt)
+    rng = np.random.RandomState(11)
+    text = torch.tensor(rng.randint(1, cfg.vocab_size, size=(1, S)),
+                        device=dev)
+    prefill, _ = build_prefill_step(model, None, 1, max_seq)
+    serve_step, _ = build_serve_step(model, None, 1, max_seq)
+    cache = model.init_cache(1, max_seq, dtype=dt)
+    tok, cache = prefill(params, cache, text, patch_embeds=patches)
+    toks = [tok]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(LLAVA_STEPS):
+        pos = torch.tensor([n_p + S + t], dtype=torch.int32, device=dev)
+        tok, cache = serve_step(params, cache, toks[-1][:, None].long(), pos)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t0) / LLAVA_STEPS * 1e3
+    out = torch.cat(toks).tolist()
+    kernels = device_kernels(lambda: (prefill(
+        params, model.init_cache(1, max_seq, dtype=dt), text,
+        patch_embeds=patches), torch.cuda.synchronize()))
+    prefill_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    gaps, apart = [], []
+    with torch.no_grad():
+        for j in range(len(out)):
+            grown = torch.cat([text, torch.tensor([out[:j]], device=dev,
+                                                  dtype=text.dtype)], 1)
+            logits, _ = model.forward(
+                params, grown, mode="prefill", patch_embeds=patches,
+                cache=model.init_cache(1, n_p + grown.shape[1], dtype=dt))
+            row = logits[0, -1].float()
+            gap = top2_gap(row).item()
+            gaps.append(gap)
+            if int(row.argmax()) != out[j]:
+                if gap > TOL["bfloat16"]:
+                    raise AssertionError(
+                        f"(11) llava steps: token {j} is {out[j]}, the "
+                        f"recompute twin's {int(row.argmax())} at a top-2 "
+                        f"gap {gap}")
+                apart.append({"at": j, "top2_gap": gap})
+    if not all(0 <= t < cfg.vocab_size for t in out):
+        raise AssertionError(f"(11) llava steps: bad tokens {out}")
+    return {"patches": n_p, "patch_embed_dim": cfg.vlm.patch_embed_dim,
+            "text_tokens": S, "serve_steps": LLAVA_STEPS,
+            "tokens": out, "distinct_tokens": len(set(out)),
+            "equal_to_recompute": len(out) - len(apart),
+            "apart_at_near_ties": apart, "min_top2_gap": min(gaps),
+            "prefill_device_ms": prefill_ms,
+            "prefill_kernels": sum(e.count for e in kernels),
+            "serve_wall_ms_per_step": serve_ms}
+
+
+def run_whisper(torch, dev):
+    """(d): whisper-tiny, whole, f32, through the serving steps:
+    WHISPER_ROWS rows of seeded (1500, 384) frames with
+    WHISPER_PROMPT-token prompts prefilled (the encoder runs once, the
+    cross K/V go into the cache), then WHISPER_STEPS serve steps reading
+    them; each token equal to its recompute twin's (a prefill over the
+    prompt + the tokens so far, the encoder run again) or apart only at
+    its top-2 gap <= CHAIN_TOL.  Wall and device ms per serve step."""
+    import numpy as np
+    from repro_torch.core.steps import build_prefill_step, build_serve_step
+    model, params, rec = family_model(torch, dev, "whisper-tiny", "float32")
+    cfg = model.cfg
+    rows, S, steps = WHISPER_ROWS, WHISPER_PROMPT, WHISPER_STEPS
+    max_seq = 64
+    g = torch.Generator(device=dev).manual_seed(13)
+    frames = 0.1 * torch.randn((rows, cfg.encdec.enc_seq, cfg.d_model),
+                               generator=g, device=dev)
+    rng = np.random.RandomState(13)
+    prompt = torch.tensor(rng.randint(1, cfg.vocab_size, size=(rows, S)),
+                          device=dev)
+    prefill, _ = build_prefill_step(model, None, rows, max_seq)
+    serve_step, _ = build_serve_step(model, None, rows, max_seq)
+    cache = model.init_cache(rows, max_seq)
+    tok, cache = prefill(params, cache, prompt, frames=frames)
+    toks = [tok]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for t in range(steps):
+        pos = torch.full((rows,), S + t, dtype=torch.int32, device=dev)
+        tok, cache = serve_step(params, cache, toks[-1][:, None].long(), pos)
+        toks.append(tok)
+    stop.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    out = torch.stack(toks, 1)                       # (rows, steps + 1)
+    pos = torch.full((rows,), S + steps, dtype=torch.int32, device=dev)
+    kernels = device_kernels(lambda: (serve_step(
+        params, cache, out[:, -1:].long(), pos), torch.cuda.synchronize()))
+    apart, gaps = [], []
+    with torch.no_grad():
+        for j in range(out.shape[1]):
+            grown = torch.cat([prompt, out[:, :j].to(prompt.dtype)], 1)
+            logits, _ = model.forward(
+                params, grown, mode="prefill", frames=frames,
+                cache=model.init_cache(rows, grown.shape[1]))
+            row = logits[:, -1].float()
+            gap = top2_gap(row)
+            gaps.append(gap.min().item())
+            for r in range(rows):
+                if int(row[r].argmax()) != int(out[r, j]):
+                    if gap[r].item() > CHAIN_TOL:
+                        raise AssertionError(
+                            f"(11) whisper: row {r} token {j} is "
+                            f"{int(out[r, j])}, the recompute twin's "
+                            f"{int(row[r].argmax())} at a top-2 gap "
+                            f"{gap[r].item()}")
+                    apart.append({"row": r, "at": j,
+                                  "top2_gap": gap[r].item()})
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError("(11) whisper: bad tokens")
+    rec.update(rows=rows, enc_seq=cfg.encdec.enc_seq,
+               enc_layers=cfg.encdec.n_enc_layers, prompt_tokens=S,
+               serve_steps=steps, tokens=out.tolist(),
+               distinct_tokens=len(set(out.flatten().tolist())),
+               checked=out.numel(),
+               equal_to_recompute=out.numel() - len(apart),
+               apart_at_near_ties=apart, min_top2_gap=min(gaps),
+               serve_wall_ms_per_step=wall_ms,
+               serve_event_ms_per_step=start.elapsed_time(stop) / steps,
+               serve_device_busy_ms_per_step=sum(
+                   e.self_device_time_total for e in kernels) / 1e3,
+               serve_kernels_per_step=sum(e.count for e in kernels))
+    return rec
+
+
+def free_card(torch, what):
+    """Collect and empty the allocator's cache; fail if more than 2 GB
+    is still allocated (a model of an earlier run still held)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    if held > 2e9:
+        raise AssertionError(f"{held} bytes still allocated {what}")
+    return held
+
+
+def run_families(torch, dev, card_name):
+    """Phase 11: kernel 1 at the three new GQA shapes, then (a) granite
+    at full width and depth in f32 through the engine, (b) llama4 at
+    depth 2 in bf16, (c) llava at depth 8 in bf16 through the engine and
+    through the steps with 2880 patches, (d) whisper-tiny through the
+    steps; each model freed before the next loads."""
+    t0 = time.perf_counter()
+    laps = {}
+
+    def lap(what, t):
+        laps[what] = time.perf_counter() - t
+        print(f"[time] (11) {what} {laps[what]:.1f} s", flush=True)
+        return time.perf_counter()
+    rec = {"card": card_name, "held_before_bytes": free_card(
+        torch, "before phase 11")}
+    t = time.perf_counter()
+    rec["kernel1"] = check_time_family_k1(torch, dev, card_name)
+    t = lap("kernel 1", t)
+
+    model, params, m = family_model(torch, dev, "granite-moe-3b-a800m",
+                                    "float32")
+    prompts = family_prompts(model.cfg, GRANITE_REQUESTS)
+    m["engine"] = family_engine(torch, dev, model, params, prompts,
+                                GRANITE_NEW, "auto", CHAIN_TOL)
+    m["expert_loop"] = expert_loop(torch, dev, model, params, FAMILY_SLOTS)
+    rec["granite"] = m
+    del model, params
+    free_card(torch, "after granite")
+    t = lap("(a) granite", t)
+
+    for key, name, depth in (("llama4", "llama4-maverick-400b-a17b",
+                              LLAMA4_DEPTH),
+                             ("llava", "llava-next-34b", LLAVA_DEPTH)):
+        model, params, m = family_model(torch, dev, name, "bfloat16", depth)
+        prompts = family_prompts(model.cfg, BF16_REQUESTS, seed=1)
+        m["engine"] = family_engine(torch, dev, model, params, prompts,
+                                    BF16_NEW, "bfloat16", TOL["bfloat16"])
+        if model.cfg.moe is not None:
+            m["expert_loop"] = expert_loop(torch, dev, model, params,
+                                           FAMILY_SLOTS)
+        if model.cfg.vlm is not None:
+            m["steps"] = llava_steps(torch, dev, model, params)
+        rec[key] = m
+        del model, params
+        free_card(torch, f"after {key}")
+        t = lap(f"({'b' if key == 'llama4' else 'c'}) {key}", t)
+    rec["whisper"] = run_whisper(torch, dev)
+    free_card(torch, "after whisper")
+    lap("(d) whisper", t)
+    rec["kernel_launches"] = sum(rec[k]["engine"]["kernel_launches"]
+                                 for k in ("granite", "llama4", "llava"))
+    rec["laps_s"] = laps
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4360,6 +4950,56 @@ def main() -> int:
           f"kernel vs plain max abs "
           f"{jamba['replay']['max_abs_err_vs_plain']:.3g}")
 
+    families = run_families(torch, dev, smi)
+    for fam, t in families["kernel1"].items():
+        sh = t["shapes"]
+        print(f"[kernel] paged_decode_attention at {fam}'s shape (H "
+              f"{sh['H']} over G {sh['G']}, gs {sh['gs']}, dh {sh['dh']}, "
+              f"{sh['dtype']} pool): {t['ms']:.5f} ms, plain "
+              f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
+              f"{t['bound_ms']:.6f} ({t['bound_by']}), max abs "
+              f"{t['max_abs_err']:.3g}; split edges {t['split_edges']} | "
+              f"{smi}")
+    for key in ("granite", "llama4", "llava"):
+        m = families[key]
+        e, ds = m["engine"], m["engine"]["decode_step"]
+        print(f"[families] ({key}) {m['arch']} {m['dtype']} {m['n_layers']}"
+              f"/{m['n_layers_published']} layers: {e['tokens']} tokens, "
+              f"{e['tokens_per_s']:.1f} tok/s on graphs (captures "
+              f"{ {k: round(v, 2) for k, v in e['capture_s'].items()} } s), "
+              f"eager twin {e['eager_twin']['tokens_per_s']:.1f} tok/s, "
+              f"streams equal {e['eager_twin']['vs_graphs']['equal']}/"
+              f"{e['requests']}; decode step on graphs "
+              f"{ds['device_ms_per_step']:.3f} ms, "
+              f"{ds['kernels_per_step']:.0f} kernels, kernel 1 "
+              f"{ds['kernel1_ms_per_step']:.4f} ms; kernel 1 launches "
+              f"{e['kernel_launches']} | {smi}")
+        print(f"[families] ({key}) decode on graphs: "
+              f"{e['decode_stretch']['wall_ms_per_step']:.3f} ms/step wall "
+              f"at {e['decode_stretch']['rows']} rows, busy "
+              f"{e['decode_stretch']['device_busy_share']:.3f}")
+        if "expert_loop" in m:
+            x = m["expert_loop"]
+            print(f"[families] ({key}) expert loop at {x['rows']} rows: "
+                  f"{x['device_ms']:.3f} device ms over {x['kernels']} "
+                  f"kernels in {x['moe_layers']} MoE layers")
+    st = families["llava"]["steps"]
+    print(f"[families] (c) llava steps: {st['patches']} patches + "
+          f"{st['text_tokens']} text tokens, prefill device "
+          f"{st['prefill_device_ms']:.3f} ms over {st['prefill_kernels']} "
+          f"kernels, serve {st['serve_wall_ms_per_step']:.3f} ms/step wall, "
+          f"equal to the recompute twin {st['equal_to_recompute']}/"
+          f"{len(st['tokens'])} | {smi}")
+    w = families["whisper"]
+    print(f"[families] (d) whisper-tiny: {w['rows']} rows x "
+          f"{w['serve_steps']} serve steps, {w['serve_wall_ms_per_step']:.3f}"
+          f" ms/step wall, {w['serve_device_busy_ms_per_step']:.3f} device "
+          f"busy over {w['serve_kernels_per_step']} kernels, equal to the "
+          f"recompute twin {w['equal_to_recompute']}/{w['checked']} | "
+          f"{smi}")
+    print(f"[time] (11) families {families['phase_s']:.1f} s", flush=True)
+    lap("families (11)")
+
     def src(name):
         return os.path.relpath(build.source_path(name), HERE)
 
@@ -4381,7 +5021,8 @@ def main() -> int:
         "launches": engine["kernel_launches"] + pp["kernel_launches"]
         + qpool["kernel_launches"] + spec["kernel_launches"]
         + chain_launches["paged_decode_attention"] + sum(opt_k1.values())
-        + fleet["kernel_launches"] + frontend["kernel_launches"],
+        + fleet["kernel_launches"] + frontend["kernel_launches"]
+        + families["kernel_launches"],
         "launches_by_path": {
             "engine_stream": engine["kernel_launches"],
             "engine_int8_fp8_pool": qpool["kernel_launches"],
@@ -4394,6 +5035,8 @@ def main() -> int:
             "chain_kernel_runs": chain_launches["paged_decode_attention"],
             "fleet": fleet["kernel_launches"],
             "frontend": frontend["kernel_launches"],
+            **{f"{k}_engine": families[k]["engine"]["kernel_launches"]
+               for k in ("granite", "llama4", "llava")},
             **opt_k1},
         "max_abs_err": errs["q=float32,pool=float32"],
         "max_abs_err_by_dtype": errs,
@@ -4419,6 +5062,10 @@ def main() -> int:
         # at the paper's protocol shape (B 1, H = G = 32, length 1040,
         # bf16), as OPT's decode calls it
         "opt_shapes": opt["h3_kernel1"],
+        # at the GQA shapes of granite (gs 3, dh 64, f32), llama4 (gs 5,
+        # dh 128, bf16) and llava (gs 7, dh 128, bf16), as their decode
+        # calls it
+        "family_shapes": families["kernel1"],
     }, {
         "name": "decode_attention", "route": "cuda",
         "source": src("decode_attention"),
@@ -4536,6 +5183,7 @@ def main() -> int:
         "card": smi}}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"frontend": frontend}))
+    print(json.dumps({"families": families}))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s (limit "
           "1200 s)")
     print(smi)

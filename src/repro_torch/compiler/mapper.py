@@ -4,7 +4,8 @@
 
 The port of the JAX package's ``compiler/mapper.py`` without its
 ``jax.sharding`` rule table: only the single-device plan
-(``mesh_axes=None``) is built here; the ring (tp > 1) arrives with the
+(``mesh_axes=None``) is built here, for every family (dense, moe, vlm,
+encdec, hybrid, rwkv); the ring (tp > 1) arrives with the
 tensor-parallel slice.
 """
 from __future__ import annotations
@@ -35,11 +36,9 @@ def plan_model(cfg: ArchConfig,
         raise NotImplementedError(
             "plan_model: tensor parallelism (mesh_axes) arrives with the "
             "port's tp slice; only mesh_axes=None (tp=1) is supported")
-    if cfg.family not in ("dense", "rwkv", "hybrid"):
-        raise NotImplementedError(
-            f"plan_model: family {cfg.family!r} arrives with its own "
-            "slice of the port; dense, rwkv and hybrid stacks are planned "
-            "here")
+    if cfg.family not in ("dense", "moe", "vlm", "encdec", "rwkv",
+                          "hybrid"):
+        raise ValueError(f"plan_model: unknown family {cfg.family!r}")
     if param_dtype is None:
         param_dtype = "float32" if mode == "train" else "bfloat16"
     tp = 1
@@ -52,7 +51,9 @@ def plan_model(cfg: ArchConfig,
     vocab_padded = _ceil_to(cfg.vocab_size, max(tp * LANE, LANE))
     moe_plan = None
     if cfg.moe is not None:
-        # one device: no expert axes, every expert local, no FFN split
+        # one device: no expert axes (the reference's giant-MoE serving
+        # plan spreads experts over data x model only on a mesh), every
+        # expert local, no FFN split
         e = cfg.moe.n_experts
         moe_plan = MoEPlan(
             n_experts=e, ep=1, ffn_split=1, experts_per_rank=e,

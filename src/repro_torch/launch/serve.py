@@ -15,6 +15,9 @@ and run the engine on a batch of random prompts.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b \
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b  # card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite \
+        --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite  # card
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --rings 2 --chaos ring@2,nan@5
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
@@ -22,7 +25,12 @@ and run the engine on a batch of random prompts.
 
 ``--arch`` takes any name or alias of the port's registry: the dense
 decoders (smollm-135m, the paper's opt-1.3b/6.7b/30b/66b and gpt3-20b,
-qwen1.5-4b, deepseek-coder-33b, minicpm-2b), rwkv6-7b and jamba.  A
+qwen1.5-4b, deepseek-coder-33b, minicpm-2b), the MoE stacks granite
+(granite-moe-3b-a800m) and llama4 (llama4-maverick-400b-a17b, its
+shared expert), llava (llava-next-34b, served as a text decoder: the
+engine passes no patch embeddings), rwkv6-7b and jamba.  whisper-tiny
+(an encoder-decoder) is refused with the engine's message: it is served
+through ``repro_torch.core.steps``.  A
 config with learned positions (OPT, GPT3) refuses ``--max-seq`` past its
 position table.  Runs on the CUDA device unless ``--device cpu`` is
 given (and fails when there is none).  Prints the stats lines of the
@@ -71,7 +79,8 @@ from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused
 from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
 from repro_torch.models.registry import build_model
 from repro_torch.serving.config import EngineConfig
-from repro_torch.serving.engine import LPUEngine, MultiRingEngine
+from repro_torch.serving.engine import (LPUEngine, MultiRingEngine,
+                                        refuse_encdec)
 from repro_torch.serving.sampler import SamplingParams
 
 
@@ -232,6 +241,7 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    refuse_encdec(cfg)
     if args.reduced:
         cfg = cfg.reduced()
     plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,

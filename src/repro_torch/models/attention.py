@@ -233,13 +233,50 @@ def _qkv_rope(p: Params, x: torch.Tensor, cfg, plan,
 
 
 def self_attention(p: Params, x: torch.Tensor, *, cfg, plan,
-                   positions: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention of a whole sequence (no cache)."""
+                   positions: torch.Tensor, causal: bool = True
+                   ) -> torch.Tensor:
+    """Self-attention of a whole sequence (no cache): causal for a
+    decoder, ``causal=False`` for whisper's encoder."""
     q, k, v = _qkv_rope(p, x, cfg, plan, positions)
     kmap = local_kmap(plan, x.device)
     out = flash_attention(q, _expand_kv(k, kmap), _expand_kv(v, kmap),
-                          causal=True)
+                          causal=causal)
     return out_proj(p, out, plan)
+
+
+def cross_attention(p: Params, x: torch.Tensor, *, cfg, plan,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor
+                    ) -> torch.Tensor:
+    """Decoder cross-attention (whisper) to precomputed encoder K/V
+    (B, S_enc, kpr, dh): only the query projection of x (with ``bq``),
+    no positions, no mask."""
+    a = plan.attn
+    D = p["wq"].shape[0]
+    B, S = x.shape[0], x.shape[1]
+    q = x @ p["wq"].reshape(D, a.q_per_rank * a.d_head)
+    if "bq" in p:
+        q = q + p["bq"].reshape(-1)
+    q = q.reshape(B, S, a.q_per_rank, a.d_head)
+    kmap = local_kmap(plan, x.device)
+    out = flash_attention(q, _expand_kv(enc_k, kmap),
+                          _expand_kv(enc_v, kmap), causal=False)
+    return out_proj(p, out, plan)
+
+
+def encode_cross_kv(p: Params, enc_x: torch.Tensor, *, cfg, plan
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K/V (B, S_enc, kpr, dh) of the encoder states for cross-attention
+    (with ``bk``/``bv``), computed once per request."""
+    a = plan.attn
+    D = p["wk"].shape[0]
+    B, S = enc_x.shape[0], enc_x.shape[1]
+    k = enc_x @ p["wk"].reshape(D, a.kv_per_rank * a.d_head)
+    v = enc_x @ p["wv"].reshape(D, a.kv_per_rank * a.d_head)
+    if "bk" in p:
+        k = k + p["bk"].reshape(-1)
+        v = v + p["bv"].reshape(-1)
+    return (k.reshape(B, S, a.kv_per_rank, a.d_head),
+            v.reshape(B, S, a.kv_per_rank, a.d_head))
 
 
 def prefill_attention(p: Params, x: torch.Tensor, *, cfg, plan,

@@ -223,23 +223,27 @@ def _init_moe(ini: _Init, cfg, plan) -> Params:
     """The reference's ``moe.init_moe`` at tp=1: one rank (W = 1) holds
     every expert, no FFN split; expert leaves (1, E, D, ffh) / (1, E, ffh,
     D) with std 1/sqrt(D) and 1/sqrt(d_ff_expert), router std
-    1/sqrt(D)."""
+    1/sqrt(D); with ``n_shared_experts``, a ``shared`` expert of hidden
+    width ``n_shared_experts x d_ff_shard`` (wg/wu (D, dsh) std
+    1/sqrt(D), wd (dsh, D) std 1/sqrt(dsh))."""
     from repro_torch.models.moe import moe_layout
     w, _, _, ecell, e_pad, ffh = moe_layout(plan)
-    if cfg.moe.n_shared_experts:
-        raise NotImplementedError("init_params: shared experts arrive with "
-                                  "a model of the port that has them")
     D = cfg.d_model
     s1, s2 = 1.0 / math.sqrt(D), 1.0 / math.sqrt(max(ffh, 1))
-    return {"router": ini.param((D, e_pad)),
-            "wg": ini.normal((w, ecell, D, ffh), s1).to(ini.dtype),
-            "wu": ini.normal((w, ecell, D, ffh), s1).to(ini.dtype),
-            "wd": ini.normal((w, ecell, ffh, D), s2).to(ini.dtype)}
+    p = {"router": ini.param((D, e_pad)),
+         "wg": ini.normal((w, ecell, D, ffh), s1).to(ini.dtype),
+         "wu": ini.normal((w, ecell, D, ffh), s1).to(ini.dtype),
+         "wd": ini.normal((w, ecell, ffh, D), s2).to(ini.dtype)}
+    if cfg.moe.n_shared_experts:
+        dsh = cfg.moe.n_shared_experts * plan.d_ff_shard * plan.tp
+        p["shared"] = {"wg": ini.param((D, dsh)), "wu": ini.param((D, dsh)),
+                       "wd": ini.param((dsh, D))}
+    return p
 
 
 def init_super_block(ini: _Init, cfg, plan) -> Params:
-    """One super-block of a hybrid stack, ``l0..l{sb-1}``: attention or
-    mamba by ``cfg.is_attention_layer(j)``, MoE or MLP by
+    """One super-block of a hybrid or MoE stack, ``l0..l{sb-1}``:
+    attention or mamba by ``cfg.is_attention_layer(j)``, MoE or MLP by
     ``cfg.is_moe_layer(j)``, as the reference's ``init_layer``."""
     from repro_torch.models.transformer import super_block_size
     D = cfg.d_model
@@ -260,8 +264,7 @@ def init_super_block(ini: _Init, cfg, plan) -> Params:
 
 
 def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
-    """Random weights for a dense decoder, an rwkv stack or a hybrid
-    (jamba) stack, drawn from a
+    """Random weights for any family of the reference, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (``cuda``
     unless the caller asks for the CPU, as every entry point of the
     port).
@@ -273,22 +276,23 @@ def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
     config's options, zero ``bq`` (hp, dh) and ``bk``/``bv`` (gp, dh),
     zero layernorm ``bias``, the ungated ``wi``/``wd`` with zero
     ``bi``/``bd`` (:func:`mlp_has_bias`) and learned ``pos_embed``
-    (max_seq, D) of std 1/sqrt(max_seq); rwkv: untied ``embed_in``
-    (vocab, D) and ``head`` (D, vocab_padded), layernorm scale and bias,
-    ``tmix``/``cmix`` with uniform ``mu_*``, ``decay_w0`` and
-    ``bonus_u``; hybrid: untied embeddings and super-blocks
+    (max_seq, D) of std 1/sqrt(max_seq); vlm: the dense tree and a
+    ``projector`` (patch_embed_dim, D) of std 1/sqrt(patch_embed_dim);
+    rwkv: untied ``embed_in`` (vocab, D) and ``head`` (D, vocab_padded),
+    layernorm scale and bias, ``tmix``/``cmix`` with uniform ``mu_*``,
+    ``decay_w0`` and ``bonus_u``; hybrid and moe: super-blocks
     ``l0..l{sb-1}`` of attention or mamba with MoE or MLP, see
-    :func:`init_super_block`), with decoder layers stacked on a leading
-    super-block axis; the numbers differ from the reference's.
-    Super-blocks are drawn one by one into the stacked tensors, so the
-    peak is the model plus one super-block; a single super-block (jamba
-    at depth 8) is stacked as a view, so the peak is the model plus one
-    leaf."""
-    if cfg.family not in ("dense", "rwkv", "hybrid") or \
-            (cfg.moe is not None and cfg.family != "hybrid"):
-        raise NotImplementedError(
-            f"init_params: family {cfg.family!r} arrives with its own slice")
+    :func:`init_super_block`; encdec: whisper's tree,
+    :func:`repro_torch.models.whisper.init_encdec`), with decoder layers
+    stacked on a leading super-block axis; the numbers differ from the
+    reference's.  Super-blocks are drawn one by one into the stacked
+    tensors, so the peak is the model plus one super-block; a single
+    super-block (jamba at depth 8, llama4 at depth 2) is stacked as a
+    view, so the peak is the model plus one leaf."""
     ini = _Init(seed, resolve_device(device), dtype_of(plan.param_dtype))
+    if cfg.family == "encdec":
+        from repro_torch.models.whisper import init_encdec
+        return init_encdec(ini, cfg, plan)
     D = cfg.d_model
     params: Params = {}
     if cfg.tie_embeddings:
@@ -298,8 +302,10 @@ def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
         params["head"] = ini.param((D, plan.vocab_padded))
     if cfg.positional == "learned":
         params["pos_embed"] = ini.param((cfg.max_seq, D))
+    if cfg.vlm is not None:
+        params["projector"] = ini.param((cfg.vlm.patch_embed_dim, D))
 
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "moe"):
         from repro_torch.models.transformer import n_super_blocks
         params["blocks"] = _stacked(n_super_blocks(cfg),
                                     lambda: init_super_block(ini, cfg, plan))
@@ -312,13 +318,18 @@ def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
                         "cmix": _init_channel_mix(ini, cfg, plan)}
         else:
             def layer():
-                return {"ln1": _init_norm(ini, D, cfg.norm),
-                        "attn": _init_attention(ini, cfg, plan),
-                        "ln2": _init_norm(ini, D, cfg.norm),
-                        "mlp": _init_mlp(ini, cfg, plan)}
+                return _init_dense_layer(ini, cfg, plan)
         params["blocks"] = {"l0": _stacked(cfg.n_layers, layer)}
     params["ln_f"] = _init_norm(ini, D, cfg.norm)
     return params
+
+
+def _init_dense_layer(ini: _Init, cfg, plan) -> Params:
+    D = cfg.d_model
+    return {"ln1": _init_norm(ini, D, cfg.norm),
+            "attn": _init_attention(ini, cfg, plan),
+            "ln2": _init_norm(ini, D, cfg.norm),
+            "mlp": _init_mlp(ini, cfg, plan)}
 
 
 def _stacked(n: int, make) -> Params:

@@ -16,10 +16,17 @@ lowest index first among equal values, which a stable descending sort
 reproduces (``torch.topk`` promises no order among ties).  Experts add
 into the output in expert order 0..E-1, as ``out.at[idx].add`` does.
 
-Not ported yet (each raises ``NotImplementedError``): the reference's
-expert parallelism over the model ring (``_moe_model_parallel``) and over
-data x model (``_moe_data_model``), which arrive with the tensor-parallel
-slice, and the shared-expert branch, which no model of the port has.
+A shared expert (llama4: ``n_shared_experts``) runs on every row after
+the routed experts, as the reference's branch does: the gated product
+of ``wg`` and ``wu`` (the reference streams them as one concatenated
+matmul; its columns are the same products), then ``wd``, its hidden
+width ``n_shared_experts x d_ff_shard`` (the dense ``d_ff``), added to
+the routed output.
+
+Not ported yet (raises ``NotImplementedError``): the reference's expert
+parallelism over the model ring (``_moe_model_parallel``) and over data
+x model (``_moe_data_model``), which arrive with the tensor-parallel
+slice.
 """
 from __future__ import annotations
 
@@ -127,11 +134,12 @@ def moe_fwd(p: Params, x: torch.Tensor, *, cfg, plan
         raise NotImplementedError(
             "expert parallelism (_moe_model_parallel, _moe_data_model) "
             "arrives with the port's tensor-parallel slice")
-    if "shared" in p:
-        raise NotImplementedError(
-            "shared experts arrive with a model of the port that has them")
     xt = x.reshape(-1, x.shape[-1])
     ids, gates, probs = _route(p, xt, cfg, plan)
     aux = _lb_loss(probs, ids, cfg.moe.n_experts)
     out = _moe_local_all(p, xt, ids, gates, cfg, plan)
+    if "shared" in p:
+        sh = p["shared"]
+        out = out + _expert_ffn(sh["wg"], sh["wu"], sh["wd"], xt,
+                                cfg.activation)
     return out.reshape(x.shape), aux

@@ -1,9 +1,10 @@
-"""Model registry: forward and cache constructors for the dense, rwkv
-and hybrid (jamba) families.
+"""Model registry: forward and cache constructors for every family.
 
 ``build_model(cfg, plan, device)`` returns a :class:`Model` — the port
-of the reference's ``registry.Model`` for decoder-only dense stacks,
-attention-free rwkv stacks and mamba/attention/MoE hybrids.
+of the reference's ``registry.Model``: decoder-only dense, MoE and vlm
+stacks, attention-free rwkv stacks and mamba/attention/MoE hybrids
+(:mod:`repro_torch.models.transformer`), and whisper's encoder-decoder
+(:mod:`repro_torch.models.whisper`).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import transformer as tf
+from repro_torch.models import whisper as wh
 from repro_torch.models.common import init_params
 
 Params = Dict[str, Any]
@@ -35,19 +37,36 @@ class Model:
     def forward(self, params: Params, tokens: torch.Tensor, *, mode: str,
                 positions=None, cache=None, block_tables=None,
                 paged_kernel: str = "stream", block_s: int = 0,
-                use_kernels: bool = True, kv_valid_len=None):
+                use_kernels: bool = True, kv_valid_len=None, frames=None,
+                patch_embeds=None):
+        """(logits, cache).  ``frames`` feed whisper's encoder (train and
+        prefill), ``patch_embeds`` a vlm's projector."""
+        if self.cfg.family == "encdec":
+            if block_s:
+                raise ValueError(
+                    "block_s override is not supported for encdec decode "
+                    "(no paged/flash-chunk seam to tune)")
+            if mode in ("chunk_prefill", "verify"):
+                raise ValueError(f"mode={mode!r} needs the paged pool; "
+                                 "encdec has no paged cache")
+            return wh.forward_encdec(params, tokens, cfg=self.cfg,
+                                     plan=self.plan, mode=mode,
+                                     frames=frames, positions=positions,
+                                     cache=cache)
         return tf.forward(params, tokens, cfg=self.cfg, plan=self.plan,
                           mode=mode, positions=positions, cache=cache,
                           block_tables=block_tables,
                           paged_kernel=paged_kernel, block_s=block_s,
                           use_kernels=use_kernels,
-                          kv_valid_len=kv_valid_len)
+                          kv_valid_len=kv_valid_len,
+                          patch_embeds=patch_embeds)
 
     def supports_paged_kv(self) -> bool:
         """Paged KV needs every layer to be attention (pure transformer):
-        recurrent states (mamba/rwkv) are per slot, not per token."""
+        recurrent states (mamba/rwkv) are per slot, not per token, and
+        an encoder-decoder's cache holds the cross K/V per slot."""
         cfg = self.cfg
-        if cfg.family == "rwkv":
+        if cfg.family in ("rwkv", "encdec"):
             return False
         return all(cfg.is_attention_layer(j)
                    for j in range(tf.super_block_size(cfg)))
@@ -62,7 +81,10 @@ class Model:
         "shift_c": (n_sb, batch, 1, D), "wkv": (n_sb, batch, H, dh, dh)
         f32}}; for a hybrid stack, mamba indices hold {"conv": (n_sb,
         batch, K-1, d_in) in the cache dtype, "ssm": (n_sb, batch, d_in,
-        N) f32}.  ``max_seq`` sizes only the dense k/v.  ``scale_dtype``
+        N) f32}; for an encoder-decoder {"k","v": (L, batch, max_seq, Gp,
+        dh), "ck","cv": (L, batch, enc_seq, Gp, dh)}
+        (:func:`repro_torch.models.whisper.init_encdec_cache`).
+        ``max_seq`` sizes only the dense k/v.  ``scale_dtype``
         (paged only) makes the pool an int8/fp8 one: ``dtype`` is its
         storage type and each attention layer gains zeroed ``k_scale``/
         ``v_scale`` leaves (n_sb, N, bs, Gp)."""
@@ -71,6 +93,9 @@ class Model:
                              "attention-only stack")
         cfg, plan = self.cfg, self.plan
         dtype = dtype or dtype_of(plan.cache_dtype)
+        if cfg.family == "encdec":
+            return wh.init_encdec_cache(cfg, plan, batch, max_seq, dtype,
+                                        self.device)
         meta = torch.device("meta")
         n_sb = tf.n_super_blocks(cfg)
         out = {}

@@ -1,16 +1,17 @@
-"""Decoder-only LM assembly for the dense, rwkv and hybrid (jamba)
-families at tp=1.
+"""Decoder-only LM assembly for the dense, moe, vlm, rwkv and hybrid
+(jamba) families at tp=1.
 
 Parameters keep the reference's layout: layers are grouped into
 *super-blocks* (jamba: ``attn_every`` layers, attention at one index,
-mamba at the others, MoE on every ``moe_every``-th; dense and rwkv: one
-layer) and stacked on a leading super-block axis
-(``params["blocks"]["l{j}"]``), which the reference scans and this port
-loops over.  Decode updates the KV cache in place layer by layer (the
-reference threads it through the scan carry and scatters the new rows in
-``_scatter_cache_updates``); a recurrent layer (rwkv; mamba's ``conv``
-and ``ssm``) overwrites its state in place, every row of the batch, as
-the reference's whole-slice update does.
+mamba at the others, MoE on every ``moe_every``-th; an MoE stack:
+``moe_every`` layers, the last one MoE, so llama4's is a dense layer and
+an MoE layer; dense, vlm and rwkv: one layer) and stacked on a leading
+super-block axis (``params["blocks"]["l{j}"]``), which the reference
+scans and this port loops over.  Decode updates the KV cache in place
+layer by layer (the reference threads it through the scan carry and
+scatters the new rows in ``_scatter_cache_updates``); a recurrent layer
+(rwkv; mamba's ``conv`` and ``ssm``) overwrites its state in place,
+every row of the batch, as the reference's whole-slice update does.
 """
 from __future__ import annotations
 
@@ -47,12 +48,15 @@ def n_super_blocks(cfg) -> int:
     return cfg.n_layers // sb
 
 
+def index_tree(tree: Params, i: int) -> Params:
+    """Entry ``i`` of every leaf of a stacked tree (views)."""
+    return {k: index_tree(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
 def layer_params(params: Params, i: int) -> Params:
     """Super-block ``i`` of the stacked decoder parameters (views)."""
-    def take(t):
-        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t[i]
-    return take(params["blocks"])
+    return index_tree(params["blocks"], i)
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor, cfg, plan) -> torch.Tensor:
@@ -208,10 +212,18 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
             paged_kernel: str = "stream",
             block_s: int = 0,
             use_kernels: bool = True,
-            kv_valid_len: Optional[torch.Tensor] = None
+            kv_valid_len: Optional[torch.Tensor] = None,
+            patch_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Shared forward in the train/prefill/decode/chunk_prefill/verify
     modes.
+
+    ``patch_embeds`` (B, n_patches, patch_embed_dim), a vlm's stub vision
+    tower output, go through the ``projector`` and sit before the text,
+    as the reference's forward does: the sequence is then n_patches + S
+    long and, outside decode, its positions are re-based to
+    ``arange(n_patches + S)``; a decode step's positions already count
+    the patches.
 
     ``cache`` ({"l{j}": {"k","v": (n_sb, ...)}}) is updated in place:
     prefill fills a batch cache covering exactly the S positions; decode
@@ -247,6 +259,12 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     compute = dtype_of(plan.compute_dtype)
     x = embed_tokens(params, tokens, cfg, plan).to(compute)
+    if patch_embeds is not None:
+        pe = patch_embeds.to(compute) @ params["projector"].to(compute)
+        x = torch.cat([pe, x], 1)
+        if mode != "decode":
+            S = x.shape[1]
+            positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = add_positional(params, x, positions[:, None] if mode == "decode"
                        else positions, cfg).to(compute)
     for i in range(n_super_blocks(cfg)):

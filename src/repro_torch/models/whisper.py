@@ -1,0 +1,152 @@
+"""Whisper-style encoder-decoder backbone at tp=1 (the port of the
+reference's ``models/whisper.py``; the audio frontend is a stub there
+too: ``frames`` are precomputed (B, enc_seq, d_model) embeddings).
+
+The encoder (non-causal self-attention + MLP per layer) runs once per
+request, at prefill.  The decoder is a cached LM with one more block
+per layer, cross-attention to the encoder states: their K/V are
+computed once at prefill, stored in the cache beside the self-attention
+K/V, and only read in decode.
+
+Cache per decoder layer, stacked on a leading layer axis:
+``{"k","v": (L, B, max_seq, Gp, dh), "ck","cv": (L, B, enc_seq, Gp,
+dh)}``.  Prefill fills ``k``/``v`` at the prompt's positions and
+``ck``/``cv`` in place; decode writes one row of ``k``/``v`` per layer
+in place (the reference scatters it into its scan carry).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.device import dtype_of
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import (_init_attention, _init_dense_layer,
+                                       _init_mlp, _init_norm, _stacked,
+                                       apply_norm)
+from repro_torch.models.transformer import (add_positional, embed_tokens,
+                                            index_tree, lm_logits)
+
+Params = Dict[str, Any]
+
+
+def init_encdec(ini, cfg, plan) -> Params:
+    """The reference's ``init_encdec`` tree: tied ``embed`` (vocab_padded,
+    D), learned ``pos_embed`` (max_seq, D), ``enc_blocks`` (n_enc_layers
+    x {ln1, attn, ln2, mlp}), ``ln_enc``, ``dec_blocks`` (n_layers x
+    {ln1, attn, lnx, xattn, ln2, mlp}) and ``ln_f``; the MLPs ungated
+    with ``bi``/``bd``, attention with the config's qkv bias.  Drawn by
+    ``ini`` (:class:`repro_torch.models.common._Init`)."""
+    D = cfg.d_model
+
+    def dec_layer():
+        return {"ln1": _init_norm(ini, D, cfg.norm),
+                "attn": _init_attention(ini, cfg, plan),
+                "lnx": _init_norm(ini, D, cfg.norm),
+                "xattn": _init_attention(ini, cfg, plan),
+                "ln2": _init_norm(ini, D, cfg.norm),
+                "mlp": _init_mlp(ini, cfg, plan)}
+
+    return {"embed": ini.param((plan.vocab_padded, D)),
+            "pos_embed": ini.param((cfg.max_seq, D)),
+            "enc_blocks": _stacked(cfg.encdec.n_enc_layers,
+                                   lambda: _init_dense_layer(ini, cfg, plan)),
+            "ln_enc": _init_norm(ini, D, cfg.norm),
+            "dec_blocks": _stacked(cfg.n_layers, dec_layer),
+            "ln_f": _init_norm(ini, D, cfg.norm)}
+
+
+def run_encoder(params: Params, frames: torch.Tensor, *, cfg, plan
+                ) -> torch.Tensor:
+    """frames (B, enc_seq, D) stub embeddings -> encoder states."""
+    x = frames.to(dtype_of(plan.compute_dtype))
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for i in range(cfg.encdec.n_enc_layers):
+        bp = index_tree(params["enc_blocks"], i)
+        x = x + attn_mod.self_attention(
+            bp["attn"], apply_norm(bp["ln1"], x, cfg.norm), cfg=cfg,
+            plan=plan, positions=positions, causal=False)
+        x = x + mlp_mod.mlp_fwd(bp["mlp"], apply_norm(bp["ln2"], x,
+                                                      cfg.norm),
+                                cfg=cfg, plan=plan)
+    return apply_norm(params["ln_enc"], x, cfg.norm)
+
+
+def forward_encdec(params: Params, tokens: torch.Tensor, *, cfg, plan,
+                   mode: str, frames: Optional[torch.Tensor] = None,
+                   positions: Optional[torch.Tensor] = None,
+                   cache: Optional[Params] = None
+                   ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Decoder logits (B, S, V_pad) in the train/prefill/decode modes.
+
+    train/prefill: ``frames`` required; the encoder runs, and every
+    layer's cross K/V come from its states (prefill stores them in
+    ``cache["ck"]``/``["cv"]`` and the prompt's self K/V in
+    ``cache["k"]``/``["v"]``, in place).  decode: ``tokens`` (B, 1),
+    ``positions`` (B,); cross K/V are read from the cache, the encoder
+    does not run.  Returns (logits, cache)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode={mode!r}: an encoder-decoder has no paged "
+                         "pool (chunked prefill and verify run against one)")
+    if mode != "decode" and frames is None:
+        raise ValueError(f"mode={mode!r} needs the encoder's frames")
+    if mode != "train" and cache is None:
+        raise ValueError(f"mode={mode!r} needs the decoder cache")
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    compute = dtype_of(plan.compute_dtype)
+    x = embed_tokens(params, tokens, cfg, plan).to(compute)
+    x = add_positional(params, x, positions[:, None] if mode == "decode"
+                       else positions, cfg).to(compute)
+    enc_x = None
+    if mode != "decode":
+        enc_x = run_encoder(params, frames, cfg=cfg, plan=plan)
+    for i in range(cfg.n_layers):
+        bp = index_tree(params["dec_blocks"], i)
+        h_in = apply_norm(bp["ln1"], x, cfg.norm)
+        if mode == "decode":
+            h = attn_mod.decode_attention(
+                bp["attn"], h_in, cfg=cfg, plan=plan,
+                cache={"k": cache["k"][i], "v": cache["v"][i]},
+                positions=positions)
+        elif mode == "prefill":
+            h = attn_mod.prefill_attention(
+                bp["attn"], h_in, cfg=cfg, plan=plan, positions=positions,
+                cache={"k": cache["k"][i], "v": cache["v"][i]})
+        else:
+            h = attn_mod.self_attention(bp["attn"], h_in, cfg=cfg,
+                                        plan=plan, positions=positions)
+        x = x + h
+        h_in = apply_norm(bp["lnx"], x, cfg.norm)
+        if mode == "decode":
+            ck, cv = cache["ck"][i], cache["cv"][i]
+        else:
+            ck, cv = attn_mod.encode_cross_kv(bp["xattn"], enc_x, cfg=cfg,
+                                              plan=plan)
+            if cache is not None:
+                cache["ck"][i].copy_(ck)
+                cache["cv"][i].copy_(cv)
+        x = x + attn_mod.cross_attention(bp["xattn"], h_in, cfg=cfg,
+                                         plan=plan, enc_k=ck.to(x.dtype),
+                                         enc_v=cv.to(x.dtype))
+        x = x + mlp_mod.mlp_fwd(bp["mlp"], apply_norm(bp["ln2"], x,
+                                                      cfg.norm),
+                                cfg=cfg, plan=plan)
+    x = apply_norm(params["ln_f"], x, cfg.norm)
+    return lm_logits(params, x, cfg, plan), cache
+
+
+def init_encdec_cache(cfg, plan, batch: int, max_seq: int,
+                      dtype: torch.dtype, device) -> Params:
+    """Zeroed decoder cache: self K/V (L, batch, max_seq, Gp, dh) and
+    cross K/V (L, batch, enc_seq, Gp, dh)."""
+    a = plan.attn
+    kv = (cfg.n_layers, batch, max_seq, a.gp, a.d_head)
+    ckv = (cfg.n_layers, batch, cfg.encdec.enc_seq, a.gp, a.d_head)
+    return {k: torch.zeros(shape, dtype=dtype, device=device)
+            for k, shape in (("k", kv), ("v", kv), ("ck", ckv),
+                             ("cv", ckv))}

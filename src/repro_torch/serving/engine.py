@@ -6,13 +6,19 @@ reference's ``serving/engine.py`` ``LPUEngine``).
 * **Scheduler** — a fixed decode batch of ``slots``; queued requests are
   admitted at step boundaries (:class:`repro_torch.serving.scheduler.
   Scheduler`), finished sequences release their slot and blocks.
-* **Families** — the dense decoder (paged or dense KV), the
+* **Families** — the dense decoder (paged or dense KV), the MoE
+  stacks (granite, llama4 with its shared expert) and the vlm (llava,
+  served as a text decoder: the reference's engine passes no patch
+  embeddings), all attention-only and so on the paged pool, the
   attention-free rwkv stack and the jamba hybrid (mamba + attention +
-  MoE).  The recurrent families keep their per-slot state in the dense
-  cache (``supports_paged_kv`` is False) and replace it wholesale when a
-  slot is admitted: rwkv's decode recurrence runs on the WKV kernel,
-  every mamba scan (prefill and decode) on the selective-scan kernel, and
-  a hybrid's attention layers keep dense per-slot k/v beside the states.
+  MoE).  An encoder-decoder (whisper) is refused: its prefill needs the
+  encoder's frames, which no engine path carries; it is served through
+  :mod:`repro_torch.core.steps`.  The recurrent families keep their
+  per-slot state in the dense cache (``supports_paged_kv`` is False)
+  and replace it wholesale when a slot is admitted: rwkv's decode
+  recurrence runs on the WKV kernel, every mamba scan (prefill and
+  decode) on the selective-scan kernel, and a hybrid's attention layers
+  keep dense per-slot k/v beside the states.
 * **KV cache** — paged by default: a shared pool of fixed-size blocks
   with per-request block tables.  Decode **streams** KV tiles straight
   from the pool through the hand-written paged decode-attention kernel
@@ -253,6 +259,17 @@ class EngineStats:
         return self.accepted_tokens / max(self.spec_rounds, 1)
 
 
+def refuse_encdec(cfg) -> None:
+    """Raise for an encoder-decoder config: the reference's engine has no
+    path for one (its prefill needs the encoder's frames)."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name}: the engine has no encoder-decoder path (its "
+            "prefill needs the encoder's frames); serve it through "
+            "repro_torch/core/steps.py (build_prefill_step, "
+            "build_serve_step)")
+
+
 class LPUEngine:
     """Slot-based continuous-batching decode engine on one device.
 
@@ -278,6 +295,7 @@ class LPUEngine:
             raise NotImplementedError(
                 "mesh / tensor parallelism (tp > 1) arrives with the port's "
                 "tp slice; this engine runs on one device")
+        refuse_encdec(model.cfg)
         self.model = model
         self.cfg = model.cfg
         self.plan = model.plan

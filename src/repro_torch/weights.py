@@ -12,9 +12,14 @@ MLP's wg/wu or an ungated one's wi with, under layernorm, bi/bd; norm
 ``scale`` and, for layernorm, ``bias``; for rwkv the untied
 ``embed_in`` (vocab, D) and ``head`` (D, vocab_padded) and the
 ``tmix``/``cmix`` leaves of ``models/rwkv.py`` there; for a
-hybrid stack the untied embeddings and, per in-block index ``j``,
-``blocks/l{j}`` with ``attn`` or ``mamba`` and ``mlp`` or ``moe`` (expert
-leaves in the rank-major ``(n_sb, W, Ecell, ...)`` layout).
+hybrid or an MoE stack, per in-block index ``j``, ``blocks/l{j}`` with
+``attn`` or ``mamba`` and ``mlp`` or ``moe`` (expert leaves in the
+rank-major ``(n_sb, W, Ecell, ...)`` layout; a shared expert's
+``moe/shared`` wg/wu (D, dsh) and wd (dsh, D)); for a vlm the dense tree
+and its ``projector`` (patch_embed_dim, D); for an encoder-decoder
+(whisper) ``embed``, ``pos_embed``, ``enc_blocks`` ({ln1, attn, ln2,
+mlp}), ``ln_enc``, ``dec_blocks`` ({ln1, attn, lnx, xattn, ln2, mlp})
+and ``ln_f``.
 """
 from __future__ import annotations
 
@@ -34,15 +39,40 @@ def _expected_shapes(cfg, plan) -> Dict[str, tuple]:
     up from ``cfg`` the way ``init_params`` builds the tree."""
     if cfg.family == "rwkv":
         return _rwkv_shapes(cfg, plan)
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "moe"):
         return _hybrid_shapes(cfg, plan)
+    if cfg.family == "encdec":
+        return _encdec_shapes(cfg, plan)
     D, L = cfg.d_model, n_super_blocks(cfg)
     want = _embed_shapes(cfg, plan)
-    pre = "blocks/l0/"
-    want.update(_norm_shapes(cfg, pre + "ln1", (L, D)))
+    if cfg.vlm is not None:
+        want["projector"] = (cfg.vlm.patch_embed_dim, D)
+    want.update(_layer_shapes(cfg, plan, "blocks/l0/", L))
+    return want
+
+
+def _layer_shapes(cfg, plan, pre: str, L: int,
+                  cross: bool = False) -> Dict[str, tuple]:
+    """One stacked attention + MLP layer (with whisper's ``lnx`` and
+    ``xattn`` when ``cross``)."""
+    D = cfg.d_model
+    want = _norm_shapes(cfg, pre + "ln1", (L, D))
     want.update(_norm_shapes(cfg, pre + "ln2", (L, D)))
     want.update(_attn_shapes(cfg, plan, pre + "attn/", L))
     want.update(_mlp_shapes(cfg, plan, pre + "mlp/", L))
+    if cross:
+        want.update(_norm_shapes(cfg, pre + "lnx", (L, D)))
+        want.update(_attn_shapes(cfg, plan, pre + "xattn/", L))
+    return want
+
+
+def _encdec_shapes(cfg, plan) -> Dict[str, tuple]:
+    want = _embed_shapes(cfg, plan)
+    want.update(_norm_shapes(cfg, "ln_enc", (cfg.d_model,)))
+    want.update(_layer_shapes(cfg, plan, "enc_blocks/",
+                              cfg.encdec.n_enc_layers))
+    want.update(_layer_shapes(cfg, plan, "dec_blocks/", cfg.n_layers,
+                              cross=True))
     return want
 
 
@@ -121,7 +151,6 @@ def _hybrid_shapes(cfg, plan) -> Dict[str, tuple]:
     from repro_torch.models.moe import moe_layout
     from repro_torch.models.transformer import super_block_size
     D, L, m = cfg.d_model, n_super_blocks(cfg), cfg.mamba
-    d_in, _ = mamba_dims(cfg, plan)
     want = _embed_shapes(cfg, plan)
     for j in range(super_block_size(cfg)):
         pre = f"blocks/l{j}/"
@@ -131,6 +160,7 @@ def _hybrid_shapes(cfg, plan) -> Dict[str, tuple]:
             want.update(_attn_shapes(cfg, plan, pre + "attn/", L))
         else:
             mb = pre + "mamba/"
+            d_in, _ = mamba_dims(cfg, plan)
             want.update({mb + "in_x": (L, D, d_in), mb + "in_z": (L, D, d_in),
                          mb + "conv_w": (L, m.d_conv, d_in),
                          mb + "conv_b": (L, d_in),
@@ -146,6 +176,11 @@ def _hybrid_shapes(cfg, plan) -> Dict[str, tuple]:
                          pre + "moe/wg": (L, w, ecell, D, ffh),
                          pre + "moe/wu": (L, w, ecell, D, ffh),
                          pre + "moe/wd": (L, w, ecell, ffh, D)})
+            if cfg.moe.n_shared_experts:
+                dsh = cfg.moe.n_shared_experts * plan.d_ff_shard * plan.tp
+                want.update({pre + "moe/shared/wg": (L, D, dsh),
+                             pre + "moe/shared/wu": (L, D, dsh),
+                             pre + "moe/shared/wd": (L, dsh, D)})
         else:
             want.update(_mlp_shapes(cfg, plan, pre + "mlp/", L))
     return want

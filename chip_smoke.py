@@ -194,6 +194,22 @@ result line when any phase fails or when no CUDA device is present):
    frames and 4-token prompts through the prefill step and 32 serve
    steps, each token equal to its recompute twin's or apart at a
    top-2 gap <= 1e-4, wall and device ms per serve step.
+12. training, after phase 11 has freed its models — full-width
+   smollm-135m, f32 masters and compute, TF32 off, random weights from
+   seed 0, through ``repro_torch.launch.train.run_training`` (eager
+   autograd, AdamW, the synthetic data stream): (a) 30 steps at batch 8
+   x seq 512, lr 6e-4, cosine: every loss finite, the mean of the last
+   5 below the mean of the first 5 by more than 0.5; (b) the same run
+   checkpointing every 8 steps under a temporary directory, crashed by
+   ``FailureInjector([12])`` and resumed from its latest checkpoint:
+   its losses from step 8 on equal (a)'s at rtol 1e-4; (c) one step
+   with ``accum_steps`` 1 against 4 on the same weights and batch,
+   losses within 1e-5, then 2 warm + 5 timed steps on the train step
+   (wall per step, the optimizer's device ms by CUDA events, peak
+   memory), one step under torch.profiler (device ms and kernels) and a
+   checkpoint save; (d) no launch of any of the five kernels across the
+   phase, and each kernel wrapper, given an input on the card that
+   requires grad, raises.
 
 Every engine runs its fused decode windows, verify rounds, monolithic
 prefills, prefill chunks, prefix tails, first-token sampling and
@@ -217,9 +233,12 @@ per run: counts, TTFT and ms/token p50/p99, tokens/s over the run's
 wall, captures in the run; for (b) the plans and the EWMA), a
 ``{"families": ...}`` line (phase 11: kernel 1 at each family's shape,
 each model's engine and twin, decode step, expert loop, llava's and
-whisper's steps, the laps; the card's name and power limit), the
-nvidia-smi line and ``{"ok": true, "device": {...}}``.  Imports nothing
-of JAX: the port stands alone.
+whisper's steps, the laps; the card's name and power limit), a
+``{"train": ...}`` line (phase 12: the losses, the resume, ms per step,
+one step's device ms and kernels, tokens/s, peak memory, the
+optimizer's device ms, the checkpoint's save wall, ``mfu_f32``, the
+card's name and power limit), the nvidia-smi line and ``{"ok": true,
+"device": {...}}``.  Imports nothing of JAX: the port stands alone.
 """
 from __future__ import annotations
 
@@ -4629,6 +4648,235 @@ def run_families(torch, dev, card_name):
     return rec
 
 
+TRAIN_RUN = dict(steps=30, global_batch=8, seq_len=512, lr=6e-4,
+                 schedule="cosine", seed=0)
+TRAIN_CKPT_EVERY = 8
+TRAIN_CRASH_AT = 12
+TRAIN_WARM, TRAIN_TIMED = 2, 5
+TRAIN_ACCUM = 4
+
+
+class TimedOptimizer:
+    """An optimizer that records CUDA events around the wrapped one's
+    ``apply``: its device ms per call, read after a synchronize."""
+
+    def __init__(self, torch, opt):
+        self.torch, self.opt, self.events = torch, opt, []
+
+    def apply(self, params, grads, state):
+        ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = self.opt.apply(params, grads, state)
+        ev[1].record()
+        self.events.append(ev)
+        return out
+
+    def device_ms(self):
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def train_flops_per_step(cfg, params, tokens, seq):
+    """6 N tokens (N every parameter: the tied embedding is the head's
+    product) plus attention's scores and weighted sums, forward and
+    backward, over the full S x S square the plain attention computes:
+    12 L H dh S per token."""
+    from repro_torch.tree import tree_leaves
+    n = sum(p.numel() for p in tree_leaves(params))
+    attn = 12 * cfg.n_layers * cfg.n_heads * cfg.d_head * seq
+    return n, (6 * n + attn) * tokens
+
+
+def check_kernels_refuse_grad(torch, dev):
+    """Each kernel wrapper, given an input on the card that requires
+    grad, raises before it launches (its output would carry no
+    autograd history)."""
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, paged_decode_attention)
+    from repro_torch.kernels.gemv.ops import gemv
+    from repro_torch.kernels.mamba_scan.ops import (mamba_scan,
+                                                    mamba_scan_fused)
+    from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
+
+    def r(*shape):
+        return torch.rand(shape, device=dev)
+    lens = torch.tensor([3, 5], dtype=torch.int32, device=dev)
+    tables = torch.tensor([[1, 2], [2, 1]], dtype=torch.int32, device=dev)
+    calls = {
+        "gemv": ((2, 8), lambda x: gemv(x, r(8, 4))),
+        "decode_attention": ((2, 2, 4), lambda q: decode_attention(
+            q, r(2, 6, 1, 4), r(2, 6, 1, 4), lens)),
+        "paged_decode_attention": ((2, 2, 4), lambda q: paged_decode_attention(
+            q, r(3, 4, 1, 4), r(3, 4, 1, 4), tables, lens)),
+        "rwkv_scan": ((1, 3, 2, 4), lambda x: rwkv_scan(
+            x, r(1, 3, 2, 4), r(1, 3, 2, 4), r(1, 3, 2, 4), r(2, 4),
+            r(1, 2, 4, 4))),
+        "mamba_scan": ((1, 3, 5, 2), lambda x: mamba_scan(
+            x, r(1, 3, 5, 2), r(1, 3, 2), r(1, 5, 2))),
+        "mamba_scan_fused": ((1, 3, 5), lambda x: mamba_scan_fused(
+            x, r(1, 3, 5), -r(5, 2), r(1, 3, 2), r(1, 3, 2), r(1, 5, 2))),
+    }
+    refused = {}
+    for name, (shape, call) in calls.items():
+        x = torch.rand(shape, device=dev, requires_grad=True)
+        try:
+            call(x)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            refused[name] = True
+        else:
+            raise AssertionError(f"{name} launched on an input that "
+                                 "requires grad")
+    return refused
+
+
+def run_training_phase(torch, dev, card_name):
+    """Phase 12: (a) 30 steps of full-width smollm-135m, (b) the same
+    run crashed at step 12 and resumed from its step-8 checkpoint, (c)
+    accumulation 1 against 4 and the step's times, (d) no kernel
+    launched and each wrapper refusing an input that requires grad."""
+    import statistics
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.compiler.mapper import plan_model
+    from repro_torch.configs import get_config
+    from repro_torch.core.steps import build_train_step
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.ft import FailureInjector
+    from repro_torch.launch.train import run_training
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamW, get_schedule
+    from repro_torch.tree import tree_map
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 12 trains with TF32 off")
+    t0 = time.perf_counter()
+    rec = {"card": card_name, "held_before_bytes": free_card(
+        torch, "before phase 12")}
+    cfg = get_config("smollm-135m")
+    run = dict(TRAIN_RUN, cfg=cfg, device=dev)
+    kernels.reset_launches()
+
+    t = time.perf_counter()
+    _, _, losses = run_training(**run)
+    rec["a"] = {"losses": losses, "wall_s": time.perf_counter() - t}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"(a) a loss is not finite: {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    rec["a"].update(first5_mean=first, last5_mean=last)
+    if not last < first - 0.5:
+        raise AssertionError(f"(a) the loss did not fall by 0.5: mean of "
+                             f"the first 5 {first}, of the last 5 {last}")
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as d:
+        try:
+            run_training(**run, ckpt_dir=d, ckpt_every=TRAIN_CKPT_EVERY,
+                         injector=FailureInjector([TRAIN_CRASH_AT]))
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        else:
+            raise AssertionError("(b) the injector did not fire")
+        crashed_at = CheckpointManager(d).latest_step()
+        _, _, resumed = run_training(**run, ckpt_dir=d,
+                                     ckpt_every=TRAIN_CKPT_EVERY)
+    start = len(losses) - len(resumed)
+    tail = losses[start:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, tail))
+    rec["b"] = {"resumed_at_step": start, "latest_checkpoint": crashed_at,
+                "losses": resumed, "max_rel_diff_vs_a": rel,
+                "bit_equal_to_a": resumed == tail,
+                "wall_s": time.perf_counter() - t}
+    if start != TRAIN_CKPT_EVERY or not rel <= 1e-4:
+        raise AssertionError(f"(b) resumed at step {start}, losses "
+                             f"{resumed} against (a)'s {tail}")
+
+    plan = plan_model(cfg, None, (1,), "train", esl_overlap=False,
+                      remat="none", compute_dtype="float32",
+                      param_dtype="float32")
+    model = build_model(cfg, plan, dev)
+    opt = AdamW(lr=get_schedule("cosine", TRAIN_RUN["lr"], 1,
+                                TRAIN_RUN["steps"]))
+    data = SyntheticLM(cfg.vocab_size, TRAIN_RUN["seq_len"], seed=0)
+    B = TRAIN_RUN["global_batch"]
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i, B).items()}
+    params0 = model.init(0)
+    t = time.perf_counter()
+    accum = {}
+    for n in (1, TRAIN_ACCUM):
+        params = tree_map(torch.clone, params0)
+        step, _ = build_train_step(model, opt, None, B, accum_steps=n)
+        _, _, m = step(params, opt.init(params), batch(0))
+        accum[n] = float(m["loss"])
+        del params
+    rec["c"] = {"accum_losses": accum, "accum_s": time.perf_counter() - t}
+    if not abs(accum[1] - accum[TRAIN_ACCUM]) < 1e-5:
+        raise AssertionError(f"(c) accumulation: {accum}")
+
+    timed = TimedOptimizer(torch, opt)
+    step, _ = build_train_step(model, timed, None, B)
+    params, state = params0, opt.init(params0)
+    walls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_WARM + TRAIN_TIMED):
+        b = batch(i)
+        t = time.perf_counter()
+        params, state, m = step(params, state, b)
+        float(m["loss"])
+        walls.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    opt_ms = timed.device_ms()[TRAIN_WARM:]
+    b = batch(TRAIN_WARM + TRAIN_TIMED)
+
+    def one_step():
+        nonlocal params, state
+        params, state, _ = step(params, state, b)
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    prof = device_kernels(one_step)
+    profile_s = time.perf_counter() - t
+    busy_us = sum(e.self_device_time_total for e in prof)
+    top = sorted(prof, key=lambda e: -e.self_device_time_total)[:10]
+    with tempfile.TemporaryDirectory(prefix="train_save_") as d:
+        t = time.perf_counter()
+        CheckpointManager(d).save(0, {"params": params, "opt": state})
+        save_s = time.perf_counter() - t
+    tokens = B * TRAIN_RUN["seq_len"]
+    n_params, flops = train_flops_per_step(cfg, params, tokens,
+                                           TRAIN_RUN["seq_len"])
+    ms = statistics.median(walls[TRAIN_WARM:]) * 1e3
+    rec["c"].update(
+        step_walls_ms=[w * 1e3 for w in walls], ms_per_step=ms,
+        tokens_per_s=tokens / ms * 1e3,
+        step_device_ms=busy_us / 1e3 if busy_us else None,
+        step_kernels=sum(e.count for e in prof),
+        device_busy_share=busy_us / 1e3 / ms if busy_us else None,
+        top_kernels=[{"name": e.key[:80], "count": e.count,
+                      "ms": e.self_device_time_total / 1e3} for e in top],
+        peak_memory_bytes=peak,
+        optimizer_device_ms=statistics.median(opt_ms),
+        checkpoint_save_s=save_s, profile_s=profile_s, params=n_params,
+        flops_per_step=flops,
+        mfu_f32=flops / (ms / 1e3) / PEAK_OPS["float32"])
+    del params, state, params0, model
+
+    rec["d"] = {"launches": kernels.read_launches(),
+                "refused": check_kernels_refuse_grad(torch, dev)}
+    if any(rec["d"]["launches"].values()):
+        raise AssertionError(f"(d) training launched a kernel: "
+                             f"{rec['d']['launches']}")
+    free_card(torch, "after phase 12")
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5000,6 +5248,23 @@ def main() -> int:
     print(f"[time] (11) families {families['phase_s']:.1f} s", flush=True)
     lap("families (11)")
 
+    train = run_training_phase(torch, dev, smi)
+    ta, tb, c = train["a"], train["b"], train["c"]
+    print(f"[train] (a) smollm-135m 30 steps: loss {ta['first5_mean']:.4f} "
+          f"-> {ta['last5_mean']:.4f} (means of 5); (b) resumed at step "
+          f"{tb['resumed_at_step']}, max rel diff "
+          f"{tb['max_rel_diff_vs_a']:.3g}; (c) accum 1 vs {TRAIN_ACCUM} "
+          f"{c['accum_losses']}; "
+          f"{c['ms_per_step']:.1f} ms/step wall, {c['step_device_ms']} "
+          f"device over {c['step_kernels']} kernels, "
+          f"{c['tokens_per_s']:.0f} tokens/s, peak "
+          f"{c['peak_memory_bytes'] / 1e9:.2f} GB, optimizer "
+          f"{c['optimizer_device_ms']:.3f} ms, save "
+          f"{c['checkpoint_save_s']:.2f} s, mfu_f32 {c['mfu_f32']:.3f}; (d) "
+          f"launches {train['d']['launches']} | {smi}")
+    print(f"[time] (12) training {train['phase_s']:.1f} s", flush=True)
+    lap("training (12)")
+
     def src(name):
         return os.path.relpath(build.source_path(name), HERE)
 
@@ -5184,6 +5449,7 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"frontend": frontend}))
     print(json.dumps({"families": families}))
+    print(json.dumps({"train": train}))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s (limit "
           "1200 s)")
     print(smi)

@@ -1,6 +1,11 @@
-"""Serving steps at tp=1: the port of the local (``mesh=None``) paths of
-the reference's ``core/steps.py`` ``build_prefill_step`` and
-``build_serve_step``.
+"""Step builders at tp=1: the port of the local (``mesh=None``) paths of
+the reference's ``core/steps.py`` ``build_train_step``,
+``build_prefill_step`` and ``build_serve_step``.
+
+* ``train_step(params, opt_state, batch)`` — forward and backward in
+  eager autograd, the optional microbatched accumulation, then the
+  optimizer's update in place; returns (params, opt_state, {"loss",
+  "aux", "grad_norm", "lr"}).
 
 These are the entry points that feed a family's extra inputs: whisper's
 encoder ``frames`` and a vlm's ``patch_embeds`` (the engine serves a vlm
@@ -17,14 +22,18 @@ update in place.
   step: tokens (B, 1) at ``positions`` (B,), each row's resident length
   (for a vlm it counts the patches); returns (next token (B,), cache).
 
-A mesh raises ``NotImplementedError`` (the tensor-parallel slice);
-``build_train_step`` arrives with the training slice.
+A mesh raises ``NotImplementedError`` (the tensor-parallel slice), as
+does the train step's int8 gradient sync over a pod axis.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+
+from repro_torch.device import dtype_of
+from repro_torch.models.transformer import sharded_xent
+from repro_torch.tree import tree_flatten
 
 Params = Dict[str, Any]
 
@@ -40,6 +49,95 @@ def _local(mesh, what: str) -> None:
         raise NotImplementedError(
             f"{what}: a mesh (tensor parallelism) arrives with the port's "
             "tp slice; pass mesh=None")
+
+
+def build_train_step(model, optimizer, mesh, global_batch: int,
+                     aux_weight: float = 0.01, accum_steps: int = 1,
+                     compress_pod_grads: bool = False
+                     ) -> Tuple[Callable, Dict[str, Any]]:
+    """fwd + bwd (+ microbatched gradient accumulation) + optimizer.
+
+    The loss is the token-mean cross-entropy ``lsum / max(cnt, 1)`` plus
+    ``aux_weight`` times the MoE auxiliary loss averaged over the
+    layers; a vlm's patch rows carry label -1 (no loss).  Floating
+    leaves are cast to ``plan.compute_dtype`` inside the differentiated
+    region, so the gradients, like the masters, keep the parameters'
+    dtype (the reference's ``gather_cast`` at tp=1).  ``accum_steps >
+    1`` splits the batch into that many microbatches along rows and
+    accumulates their gradients in float32, then divides by
+    ``accum_steps`` (as the loss and aux).
+
+    ``optimizer.apply(params, grads, opt_state)`` returns (params,
+    opt_state, metrics); the step adds its metrics to the loss's."""
+    _local(mesh, "build_train_step")
+    if compress_pod_grads:
+        raise NotImplementedError(
+            "compress_pod_grads: the int8 sync runs over a pod axis, which "
+            "arrives with the port's mesh slice")
+    cfg, plan = model.cfg, model.plan
+    compute = dtype_of(plan.compute_dtype)
+
+    def loss_fn(p, mb):
+        logits, _, aux = model.forward(
+            p, mb["tokens"], mode="train", frames=mb.get("frames"),
+            patch_embeds=mb.get("patch_embeds"), with_aux=True)
+        labels = mb["labels"]
+        if "patch_embeds" in mb:
+            # the image prefix carries no next-token loss
+            pad = torch.full(mb["patch_embeds"].shape[:2], -1,
+                             dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pad, labels], 1)
+        lsum, cnt = sharded_xent(logits, labels)
+        loss = lsum / torch.clamp(cnt, min=1).float()
+        aux_m = aux / max(cfg.n_layers, 1)
+        return loss + aux_weight * aux_m, loss, aux_m
+
+    def grads_of(params, mb):
+        leaves, treedef = tree_flatten(params)
+        xs = [p.detach().requires_grad_() if p.is_floating_point() else p
+              for p in leaves]
+        diff = [x for x in xs if x.requires_grad]
+        cast = [x.to(compute) if x.is_floating_point() else x for x in xs]
+        total, loss, aux = loss_fn(treedef.unflatten(cast), mb)
+        got = iter(torch.autograd.grad(total, diff, allow_unused=True))
+        grads = []
+        for x in xs:
+            g = next(got) if x.requires_grad else None
+            # a leaf the loss does not reach has a zero gradient
+            grads.append(torch.zeros_like(x) if g is None else g)
+        return treedef.unflatten(grads), loss.detach(), aux.detach()
+
+    def inner(params, batch):
+        if accum_steps <= 1:
+            return grads_of(params, batch)
+        rows = batch["tokens"].shape[0]
+        if rows % accum_steps:
+            raise ValueError(f"a batch of {rows} rows does not split into "
+                             f"{accum_steps} microbatches")
+        per = rows // accum_steps
+        leaves, treedef = tree_flatten(params)
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in leaves]
+        loss = aux = torch.zeros((), dtype=torch.float32,
+                                 device=leaves[0].device)
+        for i in range(accum_steps):
+            mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+            g, l_, a = grads_of(params, mb)
+            for s, gl in zip(acc, tree_flatten(g)[0]):
+                s.add_(gl.float())
+            loss, aux = loss + l_, aux + a
+        grads = treedef.unflatten([s / accum_steps for s in acc])
+        return grads, loss / accum_steps, aux / accum_steps
+
+    def step(params, opt_state, batch):
+        grads, loss, aux = inner(params, batch)
+        metrics = {"loss": loss, "aux": aux}
+        params, opt_state, gmetrics = optimizer.apply(params, grads,
+                                                      opt_state)
+        metrics.update(gmetrics)
+        return params, opt_state, metrics
+
+    return step, {"global_batch": global_batch, "accum_steps": accum_steps}
 
 
 def build_serve_step(model, mesh, batch: int, max_seq: int

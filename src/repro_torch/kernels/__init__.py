@@ -6,11 +6,31 @@ launches its kernel, and nowhere else.  A captured CUDA graph launches
 its kernels without calling the wrappers, so the engine records the
 counts a capture made (:func:`held_launches`) and adds them back on
 every replay (:func:`add_launches`).
+
+No kernel has a backward: each wrapper refuses an input that requires
+grad while autograd records (:func:`refuse_autograd`), on the card and
+on the CPU alike, so a kernel's output can never stand in a graph
+without its history.  The training path runs the kernels' plain
+versions.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
+
+import torch
+
+
+def refuse_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when autograd is recording and one of ``tensors`` requires
+    grad: the kernel's output would carry no autograd history, and
+    everything upstream of it would get a wrong gradient in silence."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward and an input requires "
+            "grad; differentiate through its plain version (the models' "
+            "train mode does) or call it under torch.no_grad()")
 
 
 def counted() -> Tuple:

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_attention_ref)
 
@@ -160,6 +160,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     of an int8/fp8 pool.  A row with length 0 returns v_new with the
     fold, else the mean of the V rows of its whole table, as the
     reference does.  -> (B,H,dh) in q's dtype."""
+    refuse_autograd("paged_decode_attention", q, k_pages, v_pages, k_new,
+                    v_new, k_scale, v_scale)
     if (k_new is None) != (v_new is None):
         raise ValueError("k_new and v_new go together")
     if (k_scale is None) != (v_scale is None):
@@ -234,6 +236,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cache broadcast over the batch, read in place); lengths: (B,) int32
     valid cache length.  A row with length 0 returns the mean of its S
     V rows, as the reference does.  -> (B,H,dh) in q's dtype."""
+    refuse_autograd("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, lengths)
     if q.device.type != "cuda":

@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.gemv.ref import gemv_ref
 
 # the kernel's tile and its cluster limit (csrc/gemv.cu)
@@ -78,6 +78,7 @@ def gemv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     """Decode GEMV: x (B,K) · w (K,N) [* w_scale (N,)] [+ b (N,)] ->
     (B,N) in x's dtype, f32 accumulation.  ``w_scale`` marks ``w`` as
     int8 quantized per output column (:func:`quantize_weight`)."""
+    refuse_autograd("gemv", x, w, b, w_scale)
     if x.device.type == "cpu":
         return gemv_ref(x, w, b, w_scale=w_scale)
     if x.device.type != "cuda":

@@ -24,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.mamba_scan.ref import (mamba_scan_fused_ref,
                                                 mamba_scan_ref)
 
@@ -145,6 +145,7 @@ def mamba_scan(da: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     """Selective scan.  da, bx: (B,S,C,N) f32; c: (B,S,N) f32; h0:
     (B,C,N) f32, all contiguous on one device.  Returns (y (B,S,C),
     h_final (B,C,N)), both new tensors."""
+    refuse_autograd("mamba_scan", da, bx, c, h0)
     if da.device.type == "cpu":
         return mamba_scan_ref(da, bx, c, h0)
     if da.device.type != "cuda":
@@ -175,6 +176,7 @@ def mamba_scan_fused(dt: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
     ``mamba_scan(exp(dt[..., None] * a), (dt * x)[..., None] * b[:, :,
     None], c, h0)``.  Returns (y (B,S,C), h_final (B,C,N)), both new
     tensors."""
+    refuse_autograd("mamba_scan_fused", dt, x, a, b, c, h0)
     if dt.device.type == "cpu":
         return mamba_scan_fused_ref(dt, x, a, b, c, h0)
     if dt.device.type != "cuda":

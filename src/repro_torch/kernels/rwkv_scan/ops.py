@@ -14,7 +14,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_ref
 
 MAX_DH = 128    # the kernel keeps a state column of dh floats per thread
@@ -44,6 +44,7 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """WKV recurrence.  r,k,v,w: (B,S,H,dh) f32; u: (H,dh) f32;
     s0: (B,H,dh,dh) f32, all contiguous on one device.  Returns
     (y (B,S,H,dh), s_final (B,H,dh,dh)), both new tensors."""
+    refuse_autograd("rwkv_scan", r, k, v, w, u, s0)
     if r.device.type == "cpu":
         return rwkv_scan_ref(r, k, v, w, u, s0)
     if r.device.type != "cuda":

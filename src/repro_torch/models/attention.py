@@ -79,8 +79,12 @@ def local_kmap(plan, device) -> torch.Tensor:
 
 
 def _expand_kv(k: torch.Tensor, kmap: torch.Tensor) -> torch.Tensor:
-    """(B,S,kpr,dh) -> (B,S,qpr,dh) per the local q->kv map."""
-    return k.index_select(2, kmap)
+    """(B,S,kpr,dh) -> (B,S,qpr,dh) per the local q->kv map.  An indexed
+    read, not ``index_select``: under autograd its backward is the
+    sorted accumulation of ``index_put_``, the same sums in the same
+    order on every run, where ``index_select``'s ``index_add_`` adds
+    a kv head's query heads with atomics in no fixed order on the card."""
+    return k[:, :, kmap]
 
 
 def _pool_scales(cache: Dict[str, torch.Tensor]):

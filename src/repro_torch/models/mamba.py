@@ -11,7 +11,9 @@ written.  The reference's chunked associative scan ``_ssm_scan`` (its
 prefill path) and its inline decode step have no counterpart here: on
 the card the kernel carries every scan, on the CPU its plain version
 does.  ``use_kernels=False`` takes the plain version on the card too:
-the oracle switch ``chip_smoke.py`` uses.
+the oracle switch ``chip_smoke.py`` uses, and train mode's path (the
+forward passes it there: the kernel has no backward, and its plain
+version is differentiable).
 
 Decode carries (conv_state, ssm_state): constant memory per token.
 """

@@ -38,9 +38,12 @@ class Model:
                 positions=None, cache=None, block_tables=None,
                 paged_kernel: str = "stream", block_s: int = 0,
                 use_kernels: bool = True, kv_valid_len=None, frames=None,
-                patch_embeds=None):
+                patch_embeds=None, with_aux: bool = False):
         """(logits, cache).  ``frames`` feed whisper's encoder (train and
-        prefill), ``patch_embeds`` a vlm's projector."""
+        prefill), ``patch_embeds`` a vlm's projector.  ``with_aux``
+        (which only the train step passes) returns (logits, cache, aux),
+        the MoE layers' auxiliary loss summed over the stack (a float32
+        zero for a family without MoE layers)."""
         if self.cfg.family == "encdec":
             if block_s:
                 raise ValueError(
@@ -52,14 +55,14 @@ class Model:
             return wh.forward_encdec(params, tokens, cfg=self.cfg,
                                      plan=self.plan, mode=mode,
                                      frames=frames, positions=positions,
-                                     cache=cache)
+                                     cache=cache, with_aux=with_aux)
         return tf.forward(params, tokens, cfg=self.cfg, plan=self.plan,
                           mode=mode, positions=positions, cache=cache,
                           block_tables=block_tables,
                           paged_kernel=paged_kernel, block_s=block_s,
                           use_kernels=use_kernels,
                           kv_valid_len=kv_valid_len,
-                          patch_embeds=patch_embeds)
+                          patch_embeds=patch_embeds, with_aux=with_aux)
 
     def supports_paged_kv(self) -> bool:
         """Paged KV needs every layer to be attention (pure transformer):

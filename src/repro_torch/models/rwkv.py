@@ -12,7 +12,9 @@ As in the reference, :func:`time_mix_fwd` runs the chunked formulation
 (:func:`wkv_chunked`, plain PyTorch) for S > 1 and the per-step
 recurrence (:func:`wkv_scan`) for S = 1; the latter is the hand-written
 Hopper kernel (``kernels/rwkv_scan``).  ``use_kernels=False`` takes the
-kernel's plain version instead: the oracle switch ``chip_smoke.py`` uses.
+kernel's plain version instead: the oracle switch ``chip_smoke.py`` uses,
+and train mode's path at S = 1 (the forward passes it there: the kernel
+has no backward, and its plain version is differentiable).
 At tp=1 the reference's ESL matmuls (``ag_matmul``/``rs_matmul``) are
 plain products and its vector slicing is the identity.
 """

@@ -12,12 +12,21 @@ layer by layer (the reference threads it through the scan carry and
 scatters the new rows in ``_scatter_cache_updates``); a recurrent layer
 (rwkv; mamba's ``conv`` and ``ssm``) overwrites its state in place,
 every row of the batch, as the reference's whole-slice update does.
+
+Training (``mode="train"``) differentiates the same forward: the
+recurrences take their kernels' plain versions there (a kernel has no
+backward), ``with_aux=True`` returns the MoE layers' load-balancing
+loss summed over the stack, a plan with ``remat != "none"`` recomputes
+each super-block in backward (``torch.utils.checkpoint``, as the
+reference's ``jax.checkpoint`` of its scan body), and
+:func:`sharded_xent` is the loss.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import dtype_of
 from repro_torch.models import attention as attn_mod
@@ -59,6 +68,18 @@ def layer_params(params: Params, i: int) -> Params:
     return index_tree(params["blocks"], i)
 
 
+def unstack_tree(tree: Params, n: int) -> List[Params]:
+    """The ``n`` entries of every leaf of a stacked tree (views, by one
+    ``unbind`` a leaf: under autograd a leaf's gradient is then one
+    ``stack`` of its entries', not ``n`` zero-padded full-size adds)."""
+    out: List[Params] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = unstack_tree(v, n) if isinstance(v, dict) else v.unbind(0)
+        for o, part in zip(out, parts):
+            o[k] = part
+    return out
+
+
 def embed_tokens(p: Params, tokens: torch.Tensor, cfg, plan) -> torch.Tensor:
     """tokens (B,S) -> (B,S,D)."""
     w = p["embed_in"] if "embed_in" in p else p["embed"]
@@ -91,6 +112,29 @@ def lm_logits(p: Params, x: torch.Tensor, cfg, plan) -> torch.Tensor:
                        torch.finfo(torch.float32).min / 2)
 
 
+def sharded_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 ignore: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy of (B,S,V) logits against (B,S) token ids (or
+    ``ignore``), the reference's ``sharded_xent`` at tp=1.  Returns
+    (sum of the loss, count of the labels that are not ``ignore``).
+
+    The max stabilizer is taken outside autograd, as the reference's
+    ``stop_gradient`` does (lse(x) = log sum exp(x - m) + m for any
+    constant m)."""
+    lg = logits.float()
+    v = lg.shape[-1]
+    m = lg.detach().amax(-1)
+    se = torch.exp(lg - m[..., None]).sum(-1)
+    lse = torch.log(se) + m                               # (B,S)
+    ok = (labels >= 0) & (labels < v)
+    picked = torch.gather(lg, -1, labels.long().clamp(0, v - 1)[..., None]
+                          )[..., 0]
+    picked = torch.where(ok, picked, 0.0)
+    valid = labels != ignore
+    loss = torch.where(valid, lse - picked, 0.0)
+    return loss.sum(), valid.sum()
+
+
 def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
                 positions: torch.Tensor, mode: str,
                 cache: Optional[Params] = None,
@@ -98,11 +142,12 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
                 paged_kernel: str = "stream", block_s: int = 0,
                 use_kernels: bool = True,
                 kv_valid_len: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One decoder layer (pre-norm, residual): attention or mamba, then
-    MLP or MoE; or time mix + channel mix of one rwkv layer.  A mamba
-    layer with a cache overwrites its ``conv``/``ssm`` state in place;
-    the MoE's auxiliary loss is dropped (no training path yet).
+    MLP or MoE; or time mix + channel mix of one rwkv layer.  Returns
+    (x, the MoE's auxiliary loss, or None for a layer without one).  A
+    mamba layer with a cache overwrites its ``conv``/``ssm`` state in
+    place.
 
     ``mode="chunk_prefill"`` (attention-only stacks) prefills one chunk
     of a partly resident prompt straight against the paged pool:
@@ -114,7 +159,7 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
     query's span including itself."""
     if cfg.family == "rwkv":
         return _apply_rwkv_layer(p, x, cfg=cfg, plan=plan, mode=mode,
-                                 cache=cache, use_kernels=use_kernels)
+                                 cache=cache, use_kernels=use_kernels), None
     h_in = apply_norm(p["ln1"], x, cfg.norm)
     if "mamba" in p:
         if mode not in ("train", "prefill", "decode"):
@@ -152,8 +197,9 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
     x = x + h
     h_in = apply_norm(p["ln2"], x, cfg.norm)
     if "moe" in p:
-        return x + moe_mod.moe_fwd(p["moe"], h_in, cfg=cfg, plan=plan)[0]
-    return x + mlp_mod.mlp_fwd(p["mlp"], h_in, cfg=cfg, plan=plan)
+        h, aux = moe_mod.moe_fwd(p["moe"], h_in, cfg=cfg, plan=plan)
+        return x + h, aux
+    return x + mlp_mod.mlp_fwd(p["mlp"], h_in, cfg=cfg, plan=plan), None
 
 
 def _apply_rwkv_layer(p: Params, x: torch.Tensor, *, cfg, plan, mode: str,
@@ -190,18 +236,24 @@ def apply_super_block(p: Params, x: torch.Tensor, *, cfg, plan,
                       block_tables: Optional[torch.Tensor] = None,
                       paged_kernel: str = "stream", block_s: int = 0,
                       use_kernels: bool = True,
-                      kv_valid_len: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      kv_valid_len: Optional[torch.Tensor] = None,
+                      with_aux: bool = False
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Layers ``l0..l{sb-1}`` of one super-block in order; ``cache`` is
-    the super-block's slice ({"l{j}": {leaf: view}}), updated in place."""
+    the super-block's slice ({"l{j}": {leaf: view}}), updated in place.
+    Returns (x, the sum of its MoE layers' auxiliary losses in layer
+    order, or None without ``with_aux`` or without an MoE layer)."""
+    aux_sum = None
     for j in range(super_block_size(cfg)):
-        x = apply_layer(p[f"l{j}"], x, cfg=cfg, plan=plan,
-                        positions=positions, mode=mode,
-                        cache=cache[f"l{j}"] if cache is not None else None,
-                        block_tables=block_tables, paged_kernel=paged_kernel,
-                        block_s=block_s, use_kernels=use_kernels,
-                        kv_valid_len=kv_valid_len)
-    return x
+        x, aux = apply_layer(
+            p[f"l{j}"], x, cfg=cfg, plan=plan, positions=positions,
+            mode=mode, cache=cache[f"l{j}"] if cache is not None else None,
+            block_tables=block_tables, paged_kernel=paged_kernel,
+            block_s=block_s, use_kernels=use_kernels,
+            kv_valid_len=kv_valid_len)
+        if with_aux and aux is not None:
+            aux_sum = aux if aux_sum is None else aux_sum + aux
+    return x, aux_sum
 
 
 def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
@@ -213,8 +265,8 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
             block_s: int = 0,
             use_kernels: bool = True,
             kv_valid_len: Optional[torch.Tensor] = None,
-            patch_embeds: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, Optional[Params]]:
+            patch_embeds: Optional[torch.Tensor] = None,
+            with_aux: bool = False):
     """Shared forward in the train/prefill/decode/chunk_prefill/verify
     modes.
 
@@ -245,8 +297,14 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
     ``conv``/``ssm`` state of a mamba layer.  ``use_kernels=False`` runs
     the recurrences (rwkv's decode recurrence, every mamba scan) on the
     plain versions of their kernels (the oracle; attention layers pick
-    their kernel with ``paged_kernel``).  Returns (logits (B,S,V_pad),
-    cache)."""
+    their kernel with ``paged_kernel``); train mode always does.
+    Returns (logits (B,S,V_pad), cache), and with ``with_aux`` (which
+    only the train step passes; the logits are the same either way)
+    (logits, cache, aux): the MoE layers' auxiliary losses summed per
+    super-block, then over the stack in order, as the reference's scan
+    carries them (a float32 zero without MoE layers).  With a plan
+    whose ``remat`` is not ``"none"``, train mode under autograd
+    recomputes each super-block in backward."""
     if paged_kernel not in ("stream", "gather"):
         raise ValueError(f"paged_kernel={paged_kernel!r}: pass the resolved "
                          "dataflow, 'stream' or 'gather'")
@@ -267,16 +325,30 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
             positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = add_positional(params, x, positions[:, None] if mode == "decode"
                        else positions, cfg).to(compute)
-    for i in range(n_super_blocks(cfg)):
+    n_sb = n_super_blocks(cfg)
+    remat = (mode == "train" and plan.remat != "none"
+             and torch.is_grad_enabled())
+    aux_total = (torch.zeros((), dtype=torch.float32, device=x.device)
+                 if with_aux else None)
+    for i, bp in enumerate(unstack_tree(params["blocks"], n_sb)):
         block_cache = None
         if cache is not None:
             block_cache = {lj: {k: v[i] for k, v in c.items()}
                            for lj, c in cache.items()}
-        x = apply_super_block(layer_params(params, i), x, cfg=cfg,
-                              plan=plan, positions=positions, mode=mode,
-                              cache=block_cache, block_tables=block_tables,
-                              paged_kernel=paged_kernel, block_s=block_s,
-                              use_kernels=use_kernels,
-                              kv_valid_len=kv_valid_len)
+        kw = dict(cfg=cfg, plan=plan, positions=positions, mode=mode,
+                  cache=block_cache, block_tables=block_tables,
+                  paged_kernel=paged_kernel, block_s=block_s,
+                  use_kernels=use_kernels and mode != "train",
+                  kv_valid_len=kv_valid_len, with_aux=with_aux)
+        if remat:
+            x, aux = checkpoint(apply_super_block, bp, x, use_reentrant=False,
+                                **kw)
+        else:
+            x, aux = apply_super_block(bp, x, **kw)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = apply_norm(params["ln_f"], x, cfg.norm)
-    return lm_logits(params, x, cfg, plan), cache
+    logits = lm_logits(params, x, cfg, plan)
+    if with_aux:
+        return logits, cache, aux_total
+    return logits, cache

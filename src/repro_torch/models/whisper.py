@@ -16,9 +16,10 @@ in place (the reference scatters it into its scan carry).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import dtype_of
 from repro_torch.models import attention as attn_mod
@@ -27,7 +28,7 @@ from repro_torch.models.common import (_init_attention, _init_dense_layer,
                                        _init_mlp, _init_norm, _stacked,
                                        apply_norm)
 from repro_torch.models.transformer import (add_positional, embed_tokens,
-                                            index_tree, lm_logits)
+                                            lm_logits, unstack_tree)
 
 Params = Dict[str, Any]
 
@@ -64,8 +65,7 @@ def run_encoder(params: Params, frames: torch.Tensor, *, cfg, plan
     x = frames.to(dtype_of(plan.compute_dtype))
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
-    for i in range(cfg.encdec.n_enc_layers):
-        bp = index_tree(params["enc_blocks"], i)
+    for bp in unstack_tree(params["enc_blocks"], cfg.encdec.n_enc_layers):
         x = x + attn_mod.self_attention(
             bp["attn"], apply_norm(bp["ln1"], x, cfg.norm), cfg=cfg,
             plan=plan, positions=positions, causal=False)
@@ -78,8 +78,8 @@ def run_encoder(params: Params, frames: torch.Tensor, *, cfg, plan
 def forward_encdec(params: Params, tokens: torch.Tensor, *, cfg, plan,
                    mode: str, frames: Optional[torch.Tensor] = None,
                    positions: Optional[torch.Tensor] = None,
-                   cache: Optional[Params] = None
-                   ) -> Tuple[torch.Tensor, Optional[Params]]:
+                   cache: Optional[Params] = None,
+                   with_aux: bool = False):
     """Decoder logits (B, S, V_pad) in the train/prefill/decode modes.
 
     train/prefill: ``frames`` required; the encoder runs, and every
@@ -87,7 +87,11 @@ def forward_encdec(params: Params, tokens: torch.Tensor, *, cfg, plan,
     ``cache["ck"]``/``["cv"]`` and the prompt's self K/V in
     ``cache["k"]``/``["v"]``, in place).  decode: ``tokens`` (B, 1),
     ``positions`` (B,); cross K/V are read from the cache, the encoder
-    does not run.  Returns (logits, cache)."""
+    does not run.  Returns (logits, cache), and with ``with_aux`` (which
+    only the train step passes) (logits, cache, a float32 zero: whisper
+    has no auxiliary loss).  With a plan whose ``remat`` is not ``"none"``,
+    train mode under autograd recomputes each decoder layer in backward,
+    as the reference checkpoints its decoder scan's body."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode={mode!r}: an encoder-decoder has no paged "
                          "pool (chunked prefill and verify run against one)")
@@ -105,39 +109,59 @@ def forward_encdec(params: Params, tokens: torch.Tensor, *, cfg, plan,
     enc_x = None
     if mode != "decode":
         enc_x = run_encoder(params, frames, cfg=cfg, plan=plan)
-    for i in range(cfg.n_layers):
-        bp = index_tree(params["dec_blocks"], i)
-        h_in = apply_norm(bp["ln1"], x, cfg.norm)
-        if mode == "decode":
-            h = attn_mod.decode_attention(
-                bp["attn"], h_in, cfg=cfg, plan=plan,
-                cache={"k": cache["k"][i], "v": cache["v"][i]},
-                positions=positions)
-        elif mode == "prefill":
-            h = attn_mod.prefill_attention(
-                bp["attn"], h_in, cfg=cfg, plan=plan, positions=positions,
-                cache={"k": cache["k"][i], "v": cache["v"][i]})
+    remat = (mode == "train" and plan.remat != "none"
+             and torch.is_grad_enabled())
+    for i, bp in enumerate(unstack_tree(params["dec_blocks"], cfg.n_layers)):
+        if remat:
+            x = checkpoint(_decoder_layer, bp, x, enc_x, i,
+                           use_reentrant=False, cfg=cfg, plan=plan,
+                           mode=mode, positions=positions, cache=cache)
         else:
-            h = attn_mod.self_attention(bp["attn"], h_in, cfg=cfg,
-                                        plan=plan, positions=positions)
-        x = x + h
-        h_in = apply_norm(bp["lnx"], x, cfg.norm)
-        if mode == "decode":
-            ck, cv = cache["ck"][i], cache["cv"][i]
-        else:
-            ck, cv = attn_mod.encode_cross_kv(bp["xattn"], enc_x, cfg=cfg,
-                                              plan=plan)
-            if cache is not None:
-                cache["ck"][i].copy_(ck)
-                cache["cv"][i].copy_(cv)
-        x = x + attn_mod.cross_attention(bp["xattn"], h_in, cfg=cfg,
-                                         plan=plan, enc_k=ck.to(x.dtype),
-                                         enc_v=cv.to(x.dtype))
-        x = x + mlp_mod.mlp_fwd(bp["mlp"], apply_norm(bp["ln2"], x,
-                                                      cfg.norm),
-                                cfg=cfg, plan=plan)
+            x = _decoder_layer(bp, x, enc_x, i, cfg=cfg, plan=plan,
+                               mode=mode, positions=positions, cache=cache)
     x = apply_norm(params["ln_f"], x, cfg.norm)
-    return lm_logits(params, x, cfg, plan), cache
+    logits = lm_logits(params, x, cfg, plan)
+    if with_aux:
+        return logits, cache, torch.zeros((), dtype=torch.float32,
+                                          device=logits.device)
+    return logits, cache
+
+
+def _decoder_layer(bp: Params, x: torch.Tensor,
+                   enc_x: Optional[torch.Tensor], i: int, *, cfg, plan,
+                   mode: str, positions: torch.Tensor,
+                   cache: Optional[Params]) -> torch.Tensor:
+    """Decoder layer ``i``: self-attention, cross-attention to the
+    encoder states (their K/V from ``enc_x``, or read from the cache in
+    decode), then the MLP; prefill writes the layer's cache rows."""
+    h_in = apply_norm(bp["ln1"], x, cfg.norm)
+    if mode == "decode":
+        h = attn_mod.decode_attention(
+            bp["attn"], h_in, cfg=cfg, plan=plan,
+            cache={"k": cache["k"][i], "v": cache["v"][i]},
+            positions=positions)
+    elif mode == "prefill":
+        h = attn_mod.prefill_attention(
+            bp["attn"], h_in, cfg=cfg, plan=plan, positions=positions,
+            cache={"k": cache["k"][i], "v": cache["v"][i]})
+    else:
+        h = attn_mod.self_attention(bp["attn"], h_in, cfg=cfg,
+                                    plan=plan, positions=positions)
+    x = x + h
+    h_in = apply_norm(bp["lnx"], x, cfg.norm)
+    if mode == "decode":
+        ck, cv = cache["ck"][i], cache["cv"][i]
+    else:
+        ck, cv = attn_mod.encode_cross_kv(bp["xattn"], enc_x, cfg=cfg,
+                                          plan=plan)
+        if cache is not None:
+            cache["ck"][i].copy_(ck)
+            cache["cv"][i].copy_(cv)
+    x = x + attn_mod.cross_attention(bp["xattn"], h_in, cfg=cfg,
+                                     plan=plan, enc_k=ck.to(x.dtype),
+                                     enc_v=cv.to(x.dtype))
+    return x + mlp_mod.mlp_fwd(bp["mlp"], apply_norm(bp["ln2"], x, cfg.norm),
+                               cfg=cfg, plan=plan)
 
 
 def init_encdec_cache(cfg, plan, batch: int, max_seq: int,

@@ -67,7 +67,7 @@ result line when any phase fails or when no CUDA device is present):
    against its plain twin, kernel 1 launched once per layer per decode
    step, verify round, chunk and prefix tail;
 5. chain — the C1 streamlined chain (``core/streamline.py``) at full
-   width: 4 prompts prefilled by the model, then 32 teacher-forced decode
+   width: 4 prompts prefilled by the model, then 16 teacher-forced decode
    steps of ``decode_layer`` stacked over the 30 layers, in six variants
    (paged stream, paged gather, dense, int8 pool, fp8 pool, int8
    weights), each with kernels and with the plain versions; logits are
@@ -82,10 +82,11 @@ result line when any phase fails or when no CUDA device is present):
    (4, 1, 64, 64), a prefill length (1, 512, 64, 64), dh 32, 64, 100
    and 128 and B*H = 1, timed at the decode and prefill shapes (at the
    prefill length
-   beside the port's chunked form too); then full-width rwkv6-7b (32
-   layers, f32, random weights from seed 0, ~30 GB) served through
-   ``LPUEngine``: 8 prompts x 32 new tokens on 4 slots, exactly 32 kernel
-   launches per device decode step and none in prefill, a torch.profiler
+   beside the port's chunked form too); then full-width rwkv6-7b, its
+   depth cut to 16 of 32 layers since phase 13 joined the run (f32,
+   random weights from seed 0, ~15 GB) served through
+   ``LPUEngine``: 8 prompts x 32 new tokens on 4 slots, exactly one kernel
+   launch per layer per device decode step and none in prefill, a torch.profiler
    pass, and a teacher-forced replay of the streams with the kernel and
    with its plain version (logits within 1e-4, greedy tokens equal to the
    plain oracle's argmax wherever its top-2 gap exceeds 1e-4);
@@ -125,7 +126,8 @@ result line when any phase fails or when no CUDA device is present):
    at batch 1 in bf16 (1 slot, max_seq 2048, 8-step windows, a 32-token
    prompt; opt-1.3b and full-width opt-6.7b, out OPT_OUT tokens, each
    freed before the next loads), on captured windows and on the eager
-   twin, streams equal: wall and device ms per token (torch.profiler
+   twin (OPT_EAGER_OUT tokens), streams equal: wall and device ms per
+   token (torch.profiler
    over 64 decode steps at the middle of the output), the busy share,
    bytes per token and bandwidth use, beside the paper's figures,
    labelled as the paper's; and the time to first token of the
@@ -175,7 +177,8 @@ result line when any phase fails or when no CUDA device is present):
    128, bf16; llava 56 / 8, dh 128, bf16): at its split's edges on the
    engine's pool dtype and an int8 pool, then at the decode shape
    against its plain version, timed beside it, the library call and
-   its bound; (a) granite-moe-3b-a800m at full width and depth, f32,
+   its bound; (a) granite-moe-3b-a800m at full width, depth cut to 16
+   of 32 (to make room for phase 13), f32,
    through ``LPUEngine`` on graphs (8 prompts of 2-64 tokens x 32 new,
    4 slots, max_seq 512, blocks of 128) and its eager twin: streams
    equal or apart only at a top-2 gap <= 1e-4, kernel 1 exact per
@@ -210,6 +213,34 @@ result line when any phase fails or when no CUDA device is present):
    checkpoint save; (d) no launch of any of the five kernels across the
    phase, and each kernel wrapper, given an input on the card that
    requires grad, raises.
+13. tensor parallelism over the ESL ring, after phase 12, the parent's
+   cached blocks freed first — two ranks (processes spawned by
+   ``repro_torch.core.dist.run_ranks``) share the card over gloo, every
+   collective staged through pinned host memory, the steps eager (a
+   gloo collective cannot be captured); the ranks load the kernel
+   libraries the parent built.  Each rank draws the tp=1 weights as the
+   earlier phases did, stores them again at the ring's layout
+   (``weights.relayout``) and keeps its shards (``weights.shard_params``):
+   (a) full-width opt-1.3b (24 layers, d 2048, 32 heads of 64, f32,
+   biases and learned positions refilled non-zero as in phase (h)) with
+   (h1)'s 8 prompts x 32 new on 4 slots, max_seq 512, blocks of 128, in
+   ESL overlap, in blocking, and in blocking in chunks of 64 (the
+   blocking baseline's ~60 collectives a step against overlap's ~220
+   keep the phase shorter); (b) full-width
+   smollm-135m in blocking (3 kv heads padded to 4: rank 1's second kv
+   head a pad head, whose query heads' wq columns and wo rows must be
+   zero) with the engine phase's prompts.  Kernel 1 is held against its plain
+   version at each rank's shapes (opt: 16 query and 16 kv heads of 64;
+   smollm: 6 and 2), then every run's greedy streams must be the same on
+   both ranks and equal the tp=1 engine's (phase (h)'s and the engine
+   phase's) or part only at a top-2 gap <= 1e-4 of the tp=1 model, with
+   kernel 1 launched exactly n_layers x (decode steps + chunks) on each
+   rank; a ``{"tp": ...}`` line gives each run's wall, tokens/s, decode
+   steps, kernel 1's launches per rank, the ring's collectives, hops,
+   host-staged bytes per decode step and host seconds inside the
+   collectives, the backend, ``graphs: false`` and the card's name and
+   power limit.  The ranks share one card, time-sliced: the walls say
+   nothing of scaling.
 
 Every engine runs its fused decode windows, verify rounds, monolithic
 prefills, prefill chunks, prefix tails, first-token sampling and
@@ -237,8 +268,8 @@ whisper's steps, the laps; the card's name and power limit), a
 ``{"train": ...}`` line (phase 12: the losses, the resume, ms per step,
 one step's device ms and kernels, tokens/s, peak memory, the
 optimizer's device ms, the checkpoint's save wall, ``mfu_f32``, the
-card's name and power limit), the nvidia-smi line and ``{"ok": true,
-"device": {...}}``.  Imports nothing of JAX: the port stands alone.
+card's name and power limit), a ``{"tp": ...}`` line (phase 13), the
+nvidia-smi line and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX: the port stands alone.
 """
 from __future__ import annotations
 
@@ -1270,6 +1301,7 @@ def run_engine(torch, dev, model, params, prompts):
                                 peng.stats.device_decode_steps,
                             "kernel_launches": plaunch},
             "streams_equal_gather": True,
+            "streams": stream,
             "streams_equal_preempt": True,
             "graph_captures": st.graph_captures,
             "graph_replays": st.graph_replays,
@@ -2530,9 +2562,10 @@ def run_frontend(torch, dev, model, params, card_name):
     return out
 
 
-# the C1 chain: 32 teacher-forced decode steps in six variants, named
-# (cache, paged dataflow, w_dtype)
-CHAIN_STEPS = 32
+# the C1 chain: 16 teacher-forced decode steps in six variants, named
+# (cache, paged dataflow, w_dtype) (32 steps before phase 13 joined the
+# run)
+CHAIN_STEPS = 16
 CHAIN_VARIANTS = (("stream", "pool", "stream", "auto"),
                   ("gather", "pool", "gather", "auto"),
                   ("dense", "dense", "auto", "auto"),
@@ -2563,8 +2596,9 @@ def _read_counts():
 
 def run_chain(torch, ctx, cache0, tables, use_kernels, paged_kernel,
               w_dtype):
-    """32 teacher-forced steps of decode_layer stacked over the layers,
-    from a copy of ``cache0``; -> (logits (steps, B, V_pad), wall s)."""
+    """CHAIN_STEPS teacher-forced steps of decode_layer stacked over the
+    layers, from a copy of ``cache0``; -> (logits (steps, B, V_pad), wall
+    s)."""
     from repro_torch.core import streamline as sl
     from repro_torch.models.common import apply_norm
     from repro_torch.models.transformer import (add_positional,
@@ -2912,9 +2946,10 @@ PAPER = {"opt-1.3b": {"lpu_ms_per_token": 1.25, "gpu_slower_x": 2.09,
 # §4): 512 for opt-1.3b (mean length 288), 256 for opt-6.7b (mean
 # length 160)
 # new tokens of the protocol on captured windows, and on the eager twin
-# (whose stream must equal the first tokens of the graphs' one)
+# (whose stream must equal the first tokens of the graphs' one; 128 each
+# since phase 13 joined the run, 512 and 256 before)
 OPT_OUT = {"opt-1.3b": PAPER_OUT_TOKENS, "opt-6.7b": 256}
-OPT_EAGER_OUT = {"opt-1.3b": 512, "opt-6.7b": 256}
+OPT_EAGER_OUT = {"opt-1.3b": 128, "opt-6.7b": 128}
 OPT_MAX_SEQ = 2048
 OPT_WINDOW = 8                 # steps_per_sync of the protocol's engine
 OPT_PROFILE_STEPS = 64         # decode steps under torch.profiler
@@ -3059,7 +3094,7 @@ def run_opt_engine(torch, dev, model, params):
                                   vs_monolithic=agree(
                                       torch, model, params, shared, chunked,
                                       mono, "(h1) chunked + prefix")),
-        "launches": counts}
+        "launches": counts, "streams": stream}
 
 
 def run_opt_chain(torch, dev, model, params):
@@ -3424,6 +3459,8 @@ RWKV_CHECK_SHAPES = ((1, 16, 1, 8), (2, 64, 2, 16), (2, 32, 4, 32),
 # f32 throughout; only the order of the sums differs from the plain version
 RWKV_TOL = 1e-4
 RWKV_SLOTS, RWKV_REQUESTS, RWKV_NEW = 4, 8, 32
+# rwkv6-7b's depth cut to 16 of 32 layers to make room for phase 13
+RWKV_DEPTH = 16
 
 
 def rwkv_inputs(torch, dev, shape, seed):
@@ -3502,13 +3539,15 @@ def rwkv_model(torch, dev):
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
     from repro_torch.weights import _expected_shapes
-    cfg = get_config("rwkv6-7b")
+    full = get_config("rwkv6-7b")
+    cfg = dataclasses.replace(full, n_layers=RWKV_DEPTH)
     plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
                       remat="none", compute_dtype="float32",
                       param_dtype="float32")
     nbytes = 4 * sum(math.prod(s) for s in _expected_shapes(cfg, plan)
                      .values())
-    print(f"[rwkv] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+    print(f"[rwkv] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
+          f"d {cfg.d_model}, "
           f"{cfg.n_heads} heads x {cfg.rwkv.head_dim}, d_ff {cfg.d_ff}, "
           f"vocab {cfg.vocab_size}: f32 weights {nbytes / 1e9:.2f} GB",
           flush=True)
@@ -4096,8 +4135,9 @@ def run_jamba(torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# 11. the remaining families: granite-moe-3b at full width and depth
-# through the engine, llama4-maverick (its shared expert) and
+# 11. the remaining families: granite-moe-3b at full width (depth cut to
+# 16 of 32 since phase 13 joined the run) through the engine,
+# llama4-maverick (its shared expert) and
 # llava-next-34b at a cut depth through the engine, llava's patch
 # projector and whisper-tiny's encoder-decoder through the serving steps
 # ---------------------------------------------------------------------------
@@ -4113,8 +4153,10 @@ FAMILY_SLOTS, FAMILY_MAX_SEQ = 4, 512
 GRANITE_REQUESTS, GRANITE_NEW = 8, 32
 BF16_REQUESTS, BF16_NEW = 4, 16
 # depth cuts: one super-block of llama4 (a dense layer and an MoE layer;
-# one MoE layer's 128 experts are 16.1e9 parameters), 8 of llava's 60
-LLAMA4_DEPTH, LLAVA_DEPTH = 2, 8
+# one MoE layer's 128 experts are 16.1e9 parameters), 8 of llava's 60,
+# 16 of granite's 32 (its eager twin's expert loop was the run's longest
+# lap, ~45 s at full depth: the cut makes room for phase 13)
+LLAMA4_DEPTH, LLAVA_DEPTH, GRANITE_DEPTH = 2, 8, 16
 # llava through the steps: 2880 patches + 16 text tokens, 16 serve steps
 LLAVA_TEXT, LLAVA_STEPS = 16, 16
 # whisper through the steps: 4 rows of (1500, 384) frames, 4-token
@@ -4594,7 +4636,7 @@ def free_card(torch, what):
 
 def run_families(torch, dev, card_name):
     """Phase 11: kernel 1 at the three new GQA shapes, then (a) granite
-    at full width and depth in f32 through the engine, (b) llama4 at
+    at full width, depth 16, in f32 through the engine, (b) llama4 at
     depth 2 in bf16, (c) llava at depth 8 in bf16 through the engine and
     through the steps with 2880 patches, (d) whisper-tiny through the
     steps; each model freed before the next loads."""
@@ -4612,7 +4654,7 @@ def run_families(torch, dev, card_name):
     t = lap("kernel 1", t)
 
     model, params, m = family_model(torch, dev, "granite-moe-3b-a800m",
-                                    "float32")
+                                    "float32", GRANITE_DEPTH)
     prompts = family_prompts(model.cfg, GRANITE_REQUESTS)
     m["engine"] = family_engine(torch, dev, model, params, prompts,
                                 GRANITE_NEW, "auto", CHAIN_TOL)
@@ -4877,6 +4919,254 @@ def run_training_phase(torch, dev, card_name):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 13: tensor parallelism over the ESL ring, ranks as processes
+# ---------------------------------------------------------------------------
+
+TP = 2
+TP_NEW = 32
+
+
+def tp_weights(torch, dev, name):
+    """(cfg, tp=1 plan, the tp=1 weights) of full-width ``name`` as the
+    tp=1 phases drew them: opt-1.3b by :func:`opt_model` (biases and
+    learned positions refilled), smollm-135m by :func:`smollm`."""
+    if name == "opt-1.3b":
+        model, params = opt_model(torch, dev, name)
+    else:
+        model, params, _ = smollm(torch, dev)
+    return model.cfg, model.plan, params
+
+
+def check_kernel1_at_rank(torch, dev, plan, rank, seed):
+    """Kernel 1 against its plain version at this rank's shapes (the
+    engine's 4 slots, its q_per_rank query and kv_per_rank kv heads, f32
+    pool of 17 blocks of 128, the fold), outside the counted run.
+    Returns the max abs error."""
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    from repro_torch.kernels.decode_attention.ref import \
+        paged_decode_attention_ref
+    from repro_torch.kernels import held_launches
+    a = plan.attn
+    g = torch.Generator(device=dev).manual_seed(seed + rank)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    q, kn, vn = (rnd(B, a.q_per_rank, a.d_head),
+                 rnd(B, a.kv_per_rank, a.d_head),
+                 rnd(B, a.kv_per_rank, a.d_head))
+    kp, vp = (rnd(N, BS, a.kv_per_rank, a.d_head),
+              rnd(N, BS, a.kv_per_rank, a.d_head))
+    tables = torch.zeros((B, T), dtype=torch.int32)
+    for b, n in enumerate(LENGTHS):
+        used = -(-n // BS)
+        tables[b, :used] = torch.arange(1 + T * b, 1 + T * b + used)
+    tables = tables.to(dev)
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    with held_launches():
+        got = paged_decode_attention(q, kp, vp, tables, lengths, k_new=kn,
+                                     v_new=vn)
+    want = paged_decode_attention_ref(q, kp, vp, tables, lengths, k_new=kn,
+                                      v_new=vn)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.isfinite(got).all() or err > TOL["float32"]:
+        raise AssertionError(f"(13) kernel 1 at rank {rank}'s shapes "
+                             f"{tuple(q.shape)} / {tuple(kp.shape)}: max "
+                             f"abs {err} > {TOL['float32']}")
+    return err
+
+
+def pad_heads_silent(plan, params, rank):
+    """The query heads of this rank whose kv head is a pad head (stored
+    kv index with ``kv_orig`` -1): their wq columns and wo rows are zero
+    in every layer, so their output cannot reach the logits.  Returns
+    how many there are."""
+    a = plan.attn
+    kv0 = rank * a.kv_per_rank
+    local = a.q_to_kv_local[rank]
+    pads = [i for i, c in enumerate(local) if a.kv_orig[kv0 + c] < 0]
+    at = params["blocks"]["l0"]["attn"]
+    for i in pads:
+        if at["wq"][:, :, i].abs().max().item() != 0 or \
+                at["wo"][:, i].abs().max().item() != 0:
+            raise AssertionError(f"(13) rank {rank}: pad head {i} has "
+                                 "non-zero weights")
+    return len(pads)
+
+
+def tp_rank(ring, spec):
+    """One rank of phase 13: for each model of ``spec``, the tp=1
+    weights stored again at the ring's layout and sliced to this rank
+    (the full tree freed), kernel 1 checked at the rank's shapes, then
+    each run served by this rank's engine (steps eager on the gloo
+    ring), kernel 1's launches counted from zero just before the run and
+    read just after.  Returns every rank's record."""
+    import torch
+    from repro_torch.compiler.mapper import plan_model
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine
+    from repro_torch.weights import relayout, shard_params
+    dev = ring.device
+    out = {"rank": ring.rank, "models": {}}
+    for name, runs in spec:
+        t0 = time.perf_counter()
+        cfg, plan1, full = tp_weights(torch, dev, name)
+        plans = {ov: plan_model(cfg, ("model",), (ring.size,), "serve",
+                                esl_overlap=ov, remat="none",
+                                compute_dtype="float32",
+                                param_dtype="float32")
+                 for ov in (True, False)}
+        params = shard_params(relayout(full, cfg, plan1, plans[True]),
+                              plans[True], ring.rank)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = {"setup_s": time.perf_counter() - t0,
+               "pad_heads": pad_heads_silent(plans[True], params, ring.rank),
+               "kernel1_max_abs_err": check_kernel1_at_rank(
+                   torch, dev, plans[True], ring.rank, len(out["models"])),
+               "kernel1_shapes": {"q_heads": plans[True].attn.q_per_rank,
+                                  "kv_heads": plans[True].attn.kv_per_rank,
+                                  "dh": cfg.d_head},
+               "runs": {}}
+        for run in runs:
+            model = build_model(cfg, plans[run["overlap"]], dev)
+            eng = LPUEngine(model, params, EngineConfig(
+                slots=4, max_seq=512, block_size=BS, **run["knobs"]),
+                mesh=ring, device=dev, graphs=False)
+            if run is runs[0]:
+                # the process's first uses (cuBLAS, the kernel library,
+                # the pinned host pool) outside the timed runs
+                eng.generate(run["prompts"][:1], max_new_tokens=2)
+                torch.cuda.synchronize()
+                eng.stats = type(eng.stats)()
+            paged_decode_attention.launches = 0
+            ring.reset_counters()
+            t1 = time.perf_counter()
+            streams = eng.generate(run["prompts"], max_new_tokens=TP_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = paged_decode_attention.launches
+            eng.check_pool_balanced()
+            st = eng.stats
+            want = launches_want(eng)
+            if launches != want or not launches:
+                raise AssertionError(
+                    f"(13) {name} {run['key']} rank {ring.rank}: kernel 1 "
+                    f"launches {launches} != {want}")
+            steps = max(st.device_decode_steps, 1)
+            rec["runs"][run["key"]] = {
+                "streams": streams, "wall_s": wall,
+                "tokens": st.tokens, "tokens_per_s": st.tokens / wall,
+                "decode_steps": st.steps,
+                "device_decode_steps": st.device_decode_steps,
+                "prefill_chunks": st.prefill_chunks,
+                "prefills": st.prefills,
+                "kernel1_launches": launches, "kernel1_want": want,
+                "collectives": ring.counters["collectives"],
+                "hops": ring.counters["hops"],
+                "staged_bytes": ring.counters["staged_bytes"],
+                "collectives_per_decode_step":
+                    ring.counters["collectives"] / steps,
+                "hops_per_decode_step": ring.counters["hops"] / steps,
+                "staged_bytes_per_decode_step":
+                    ring.counters["staged_bytes"] / steps,
+                # host time inside the collectives (staging, gloo, the
+                # device's work they wait for)
+                "ring_s": ring.counters["seconds"],
+                "per_rank_kv_bytes": eng.per_rank_kv_bytes(),
+                "kv_cache_bytes": eng.kv_cache_bytes()}
+            del eng, model
+        rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        out["models"][name] = rec
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["backend"] = ring.backend
+    return ring.gather_object(out)
+
+
+def run_tp(torch, dev, card_name, tp1):
+    """Phase 13: full-width opt-1.3b (f32, biases and positions refilled
+    non-zero) at tp 2, ESL overlap and blocking and in chunks of 64,
+    and full-width smollm-135m at tp 2 (3 kv heads padded to 4: rank 1's
+    second kv head a pad head), two ranks on the one card over gloo,
+    the steps eager; each run's greedy streams equal to the tp=1
+    engine's (``tp1``: {name: (prompts, streams)} from the earlier
+    phases) or apart only at a top-2 gap <= CHAIN_TOL of the tp=1 model,
+    kernel 1 launched exactly n_layers x (decode steps + chunks) on
+    every rank."""
+    from repro_torch.core.dist import run_ranks
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt_prompts_, _ = tp1["opt-1.3b"]
+    sm_prompts, _ = tp1["smollm-135m"]
+    spec = [
+        ("opt-1.3b", [
+            dict(key="overlap", overlap=True, knobs={},
+                 prompts=opt_prompts_),
+            dict(key="blocking", overlap=False, knobs={},
+                 prompts=opt_prompts_),
+            dict(key="blocking_chunks64", overlap=False,
+                 knobs=dict(prefill_chunk=PREFILL_CHUNK),
+                 prompts=opt_prompts_)]),
+        ("smollm-135m", [
+            dict(key="blocking", overlap=False, knobs={},
+                 prompts=sm_prompts)])]
+    per_rank = run_ranks(tp_rank, TP, spec, device=dev)
+    spawn_s = time.perf_counter() - t0
+    out = {"tp": TP, "backend": per_rank[0]["backend"], "graphs": False,
+           "ranks_on_one_card": True, "card": card_name, "models": {}}
+    for name, runs in spec:
+        prompts, want = tp1[name]
+        recs = [r["models"][name] for r in per_rank]
+        m = {"setup_s": [r["setup_s"] for r in recs],
+             "peak_memory_bytes_per_rank": [r["peak_memory_bytes"]
+                                            for r in recs],
+             "pad_heads_per_rank": [r["pad_heads"] for r in recs],
+             "kernel1_max_abs_err_per_rank": [r["kernel1_max_abs_err"]
+                                              for r in recs],
+             "kernel1_shapes": recs[0]["kernel1_shapes"], "runs": {}}
+        model = params = None
+        for run in runs:
+            k = run["key"]
+            rr = [r["runs"][k] for r in recs]
+            if any(x["streams"] != rr[0]["streams"] for x in rr):
+                raise AssertionError(f"(13) {name} {k}: the ranks' streams "
+                                     "differ")
+            got = rr[0]["streams"]
+            if got == want:
+                vs = {"equal": len(want), "diverged_at_near_ties": []}
+            else:
+                if model is None:
+                    model, params = (opt_model(torch, dev, name)
+                                     if name == "opt-1.3b"
+                                     else smollm(torch, dev)[:2])
+                vs = agree(torch, model, params, prompts, got, want,
+                           f"(13) {name} tp {TP} {k}")
+            r0 = dict(rr[0])
+            r0.pop("streams")
+            m["runs"][k] = dict(
+                r0, vs_tp1=vs,
+                kernel1_launches_per_rank=[x["kernel1_launches"]
+                                           for x in rr],
+                staged_bytes_per_decode_step_per_rank=[
+                    x["staged_bytes_per_decode_step"] for x in rr])
+        del model, params
+        out["models"][name] = m
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    out["ranks_s"] = spawn_s
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4950,6 +5240,7 @@ def main() -> int:
     lap("kernels 1-3")
     model, params, prompts = smollm(torch, dev)
     engine = run_engine(torch, dev, model, params, prompts)
+    tp1 = {"smollm-135m": (prompts, engine.pop("streams"))}
     print(f"[engine] {engine['tokens']} tokens, "
           f"{engine['tokens_per_s']:.1f} tok/s, "
           f"{engine['decode_steps']} decode steps, "
@@ -5085,6 +5376,9 @@ def main() -> int:
     lap("chain")
     opt = run_opt(torch, dev, smi, t_start)
     h1 = opt["h1_engine"]
+    from repro_torch.configs import get_config
+    tp1["opt-1.3b"] = (opt_prompts(get_config("opt-1.3b"))[0],
+                       h1.pop("streams"))
     print(f"[opt] (h1) {h1['arch']} f32 at full width: stream "
           f"{h1['stream']['tokens_per_s']:.1f} tok/s, kernel 1 launches "
           f"{h1['launches']['paged_decode_attention']}; streams equal: "
@@ -5265,6 +5559,28 @@ def main() -> int:
     print(f"[time] (12) training {train['phase_s']:.1f} s", flush=True)
     lap("training (12)")
 
+    tp = run_tp(torch, dev, smi, tp1)
+    for name, m in tp["models"].items():
+        for k, r in m["runs"].items():
+            print(f"[tp] (13) {name} tp {TP} {k}: {r['tokens']} tokens in "
+                  f"{r['wall_s']:.2f} s ({r['tokens_per_s']:.1f} tok/s), "
+                  f"{r['device_decode_steps']} decode steps, kernel 1 "
+                  f"launches per rank {r['kernel1_launches_per_rank']} "
+                  f"(want {r['kernel1_want']}), "
+                  f"{r['collectives_per_decode_step']:.1f} collectives and "
+                  f"{r['hops_per_decode_step']:.1f} hops and "
+                  f"{r['staged_bytes_per_decode_step']:.0f} host-staged "
+                  f"bytes per decode step, {r['ring_s']:.2f} s inside the "
+                  f"collectives, equal to tp=1 "
+                  f"{r['vs_tp1']['equal']}/{len(tp1[name][1])} | {smi}")
+        print(f"[tp] (13) {name}: kernel 1 at the ranks' shapes "
+              f"{m['kernel1_shapes']} max abs "
+              f"{m['kernel1_max_abs_err_per_rank']}, pad heads per rank "
+              f"{m['pad_heads_per_rank']}, setup {m['setup_s']} s")
+    print(f"[time] (13) tp {tp['phase_s']:.1f} s (ranks "
+          f"{tp['ranks_s']:.1f} s)", flush=True)
+    lap("tp (13)")
+
     def src(name):
         return os.path.relpath(build.source_path(name), HERE)
 
@@ -5277,6 +5593,10 @@ def main() -> int:
               "opt_paper_protocol": sum(
                   r["launches"]["paged_decode_attention"]
                   for r in opt["h4_protocol"].values())}
+    # phase 13: every run's launches on every rank
+    tp_k1 = {f"tp{TP}_{name}_{k}": sum(r["kernel1_launches_per_rank"])
+             for name, m in tp["models"].items()
+             for k, r in m["runs"].items()}
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": src("paged_decode_attention"),
@@ -5287,7 +5607,7 @@ def main() -> int:
         + qpool["kernel_launches"] + spec["kernel_launches"]
         + chain_launches["paged_decode_attention"] + sum(opt_k1.values())
         + fleet["kernel_launches"] + frontend["kernel_launches"]
-        + families["kernel_launches"],
+        + families["kernel_launches"] + sum(tp_k1.values()),
         "launches_by_path": {
             "engine_stream": engine["kernel_launches"],
             "engine_int8_fp8_pool": qpool["kernel_launches"],
@@ -5302,7 +5622,7 @@ def main() -> int:
             "frontend": frontend["kernel_launches"],
             **{f"{k}_engine": families[k]["engine"]["kernel_launches"]
                for k in ("granite", "llama4", "llava")},
-            **opt_k1},
+            **opt_k1, **tp_k1},
         "max_abs_err": errs["q=float32,pool=float32"],
         "max_abs_err_by_dtype": errs,
         "max_abs_err_split_edges": split_errs,
@@ -5331,6 +5651,11 @@ def main() -> int:
         # dh 128, bf16) and llava (gs 7, dh 128, bf16), as their decode
         # calls it
         "family_shapes": families["kernel1"],
+        # at each rank's heads on the tp 2 ring (phase 13), f32 pool
+        "tp_rank_shapes": {
+            name: {"shapes": m["kernel1_shapes"],
+                   "max_abs_err_per_rank": m["kernel1_max_abs_err_per_rank"]}
+            for name, m in tp["models"].items()},
     }, {
         "name": "decode_attention", "route": "cuda",
         "source": src("decode_attention"),
@@ -5450,6 +5775,7 @@ def main() -> int:
     print(json.dumps({"frontend": frontend}))
     print(json.dumps({"families": families}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"tp": tp}))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s (limit "
           "1200 s)")
     print(smi)

@@ -1,16 +1,21 @@
-"""HyperDex-analog model & memory mapper (compilation layer), tp=1.
+"""HyperDex-analog model & memory mapper (compilation layer).
 
 ``plan_model(cfg, mesh_axes, mesh_shape, mode, ...)`` -> PhysicalPlan
 
-The port of the JAX package's ``compiler/mapper.py`` without its
-``jax.sharding`` rule table: only the single-device plan
-(``mesh_axes=None``) is built here, for every family (dense, moe, vlm,
-encdec, hybrid, rwkv); the ring (tp > 1) arrives with the
-tensor-parallel slice.
+The port of the JAX package's ``compiler/mapper.py``: the single-device
+plan (``mesh_axes=None``) for every family, and the plan of the serving
+ring (``mesh_axes=("model",)``, ``mesh_shape=(tp,)``): head-wise
+attention tiles (padded kv heads, or kv heads duplicated when there are
+fewer than ranks), column-wise FFN tiles padded to ``tp * 8``, the
+vocabulary padded to ``tp * 128``, and the reference's rule table
+mapping each logical parameter axis to the ring (``rules``), which
+:func:`repro_torch.weights.shard_params` reads to slice a rank's
+leaves.  An MoE's expert axes, data-parallel/FSDP axes (training on a
+mesh) and KV sequence sharding are not in this slice and raise.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 from repro_torch.compiler.plan import (MoEPlan, PhysicalPlan, _ceil_to,
                                        plan_attention)
@@ -26,22 +31,42 @@ def plan_model(cfg: ArchConfig,
                *,
                esl_overlap: bool = True,
                esl_chunks: int = 4,
+               seq_shard_kv: bool = False,
+               kv_seq_axis: Optional[str] = None,
                remat: str = "block",
                scan_unroll: bool = False,
                use_kernels: bool = False,
                compute_dtype: str = "bfloat16",
                param_dtype: Optional[str] = None) -> PhysicalPlan:
-    """Derive the physical plan for (arch x single device x mode)."""
-    if mesh_axes is not None:
-        raise NotImplementedError(
-            "plan_model: tensor parallelism (mesh_axes) arrives with the "
-            "port's tp slice; only mesh_axes=None (tp=1) is supported")
+    """Derive the physical plan for (arch x mesh x mode)."""
     if cfg.family not in ("dense", "moe", "vlm", "encdec", "rwkv",
                           "hybrid"):
         raise ValueError(f"plan_model: unknown family {cfg.family!r}")
+    if seq_shard_kv or kv_seq_axis:
+        raise NotImplementedError(
+            "KV sequence sharding (seq_shard_kv / kv_seq_axis) is not "
+            "ported yet")
+    if mesh_axes is None:
+        mesh_axes_t: Optional[Tuple[str, ...]] = None
+        mesh_shape_t: Tuple[int, ...] = (1,)
+        tp, tp_axis = 1, None
+    else:
+        mesh_axes_t = tuple(mesh_axes)
+        mesh_shape_t = tuple(int(s) for s in mesh_shape)
+        if mesh_axes_t != ("model",) or len(mesh_shape_t) != 1:
+            raise NotImplementedError(
+                f"mesh {mesh_axes_t}{mesh_shape_t}: the port's ring is the "
+                "serving mesh ('model',) of shape (tp,); data-parallel and "
+                "FSDP axes (training on a mesh) are not ported yet")
+        tp, tp_axis = mesh_shape_t[0], "model"
+        if tp < 1:
+            raise ValueError(f"mesh_shape {mesh_shape_t}: tp must be >= 1")
+        if cfg.moe is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: an MoE's expert parallelism over the ring "
+                "(the expert axes) is not ported yet")
     if param_dtype is None:
         param_dtype = "float32" if mode == "train" else "bfloat16"
-    tp = 1
     if cfg.family == "rwkv":
         # attention-free, but time-mix is head-structured: plan its heads
         attn = plan_attention(cfg.n_heads, cfg.n_heads, cfg.rwkv.head_dim, tp)
@@ -59,11 +84,39 @@ def plan_model(cfg: ArchConfig,
             n_experts=e, ep=1, ffn_split=1, experts_per_rank=e,
             d_ff_expert_shard=_ceil_to(cfg.moe.d_ff_expert, 8),
             expert_axes=(), capacity_factor=cfg.moe.capacity_factor)
+    rules = _rule_table(tp_axis) if mesh_axes_t else {}
     return PhysicalPlan(
-        arch=cfg.name, mode=mode, mesh_axes=None, mesh_shape=(1,), tp=tp,
-        tp_axis=None, dp_axes=(), fsdp_axes=(), attn=attn,
-        d_ff_shard=d_ff_padded // tp, d_ff_padded=d_ff_padded,
-        vocab_padded=vocab_padded, moe=moe_plan, esl_overlap=esl_overlap,
-        esl_chunks=esl_chunks, remat=remat, scan_unroll=scan_unroll,
-        use_kernels=use_kernels, compute_dtype=compute_dtype,
-        param_dtype=param_dtype)
+        arch=cfg.name, mode=mode, mesh_axes=mesh_axes_t,
+        mesh_shape=mesh_shape_t, tp=tp, tp_axis=tp_axis, dp_axes=(),
+        fsdp_axes=(), attn=attn, d_ff_shard=d_ff_padded // tp,
+        d_ff_padded=d_ff_padded, vocab_padded=vocab_padded, moe=moe_plan,
+        esl_overlap=esl_overlap, esl_chunks=esl_chunks, remat=remat,
+        scan_unroll=scan_unroll, use_kernels=use_kernels,
+        compute_dtype=compute_dtype, param_dtype=param_dtype, rules=rules)
+
+
+def _rule_table(tp_axis: Optional[str]) -> Dict[Any, Any]:
+    """logical axis -> mesh axis (None = replicated along that dim): the
+    reference's ``_rule_table`` on the serving ring (no FSDP axes, no
+    MoE: its expert axes raise above)."""
+    return {
+        "embed": None,                 # FSDP shards it in training only
+        "embed_scatter": tp_axis,      # d_model dims that live scattered
+        "vec": tp_axis,                # rank-local vector params (norms)
+        "vocab_rep": None,             # untied input-embedding rows
+        "q_heads": tp_axis,
+        "kv_heads": tp_axis,
+        "head_dim": None,
+        "ffn": tp_axis,
+        "vocab": tp_axis,
+        "layers": None,
+        "pos": None,
+        "conv": None,
+        "state": None,
+        "lora": None,
+        "dt": None,
+        "mamba_inner": tp_axis,        # mamba d_inner: column tiles
+        "rwkv_heads": tp_axis,
+        "patches": None,
+        None: None,
+    }

@@ -1,0 +1,450 @@
+"""The model ring's collectives over a ``torch.distributed`` process group.
+
+The port of the JAX package's ``core/dist.py``.  There the whole model
+step runs inside one ``shard_map`` and :class:`AxisEnv` carries the mesh
+axis names visible inside it.  Here each rank of the ring is a process
+running the same body on its own shards, and ``AxisEnv.model`` is the
+rank's :class:`Ring`: its process group, rank, size and device.  Every
+collective the models make goes through this module, with the
+reference's names and semantics (``ppermute`` over (source,
+destination) pairs, tiled ``all_gather`` on the last dim, ``psum``,
+``psum_scatter``, ``pmax``, ``pmean``, ``axis_index``), each optionally
+confined to the sub-ring groups of :class:`repro_torch.core.rings.
+RingConfig` (``groups=``).  No other module of the port calls
+``torch.distributed``.
+
+The backend is chosen by one rule (:func:`backend_for`): gloo when the
+ranks share a device or run on the CPU.  gloo takes no CUDA tensor for
+send/recv, so every collective on the card stages its tensor through a
+pinned host buffer, here and only here: a device-to-host copy (which
+waits for the tensor's producer), the host collective, and an
+asynchronous host-to-device copy of the result.  On the CPU the same
+code runs without the staging copies.  Every collective is one round of
+point-to-point sends and receives between the ranks of its group (each
+rank sends its part to every peer at once): gloo's own all-reduce of a
+small tensor took ~1 ms between two processes on one card's host, twice
+a send/receive pair.  The sums fold the parts in rank order, so every
+rank holds the same bits.  NCCL, one GPU per rank, is the next step and
+is not written.
+
+:func:`run_ranks` spawns the ranks (start method ``spawn``, never
+``fork``: the parent may have CUDA up), meets them through a
+``FileStore`` in a temporary directory (no TCP port, so concurrent test
+workers cannot collide) and returns rank 0's result; a rank that fails
+fails the run.
+
+With ``model=None`` every helper is the identity and the same model
+code runs on one device.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import tempfile
+import time
+import weakref
+from dataclasses import dataclass
+from datetime import timedelta
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+Groups = Optional[Sequence[Sequence[int]]]
+
+
+class Ring:
+    """One rank's handle on the model ring: the default process group
+    (``group`` None in every call), this process's rank and the ring's
+    size, the device its tensors live on, sub-ring groups made on
+    first use, and counters of what the collectives did (``collectives``
+    calls, ``hops`` of ppermute, ``staged_bytes`` copied through host
+    memory, ``seconds`` of host time spent inside them)."""
+
+    def __init__(self, device):
+        import torch.distributed as dist
+        self.group = None
+        self.rank = dist.get_rank()
+        self.size = dist.get_world_size()
+        self.backend = str(dist.get_backend())
+        self.device = torch.device(device)
+        self._subgroups: Dict[tuple, Any] = {}
+        self._gathered: Dict[tuple, tuple] = {}
+        self.counters = dict(collectives=0, hops=0, staged_bytes=0,
+                             seconds=0.0)
+
+    def reset_counters(self) -> None:
+        for k in self.counters:
+            self.counters[k] = 0
+
+    def gather_object(self, obj) -> List[Any]:
+        """Every rank's ``obj``, in rank order, on every rank."""
+        import torch.distributed as dist
+        out: List[Any] = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+    def _group(self, groups: Groups):
+        """(process group, its ranks) of the sub-ring holding this rank;
+        the whole ring without ``groups``.  Every rank reaches the same
+        collectives in the same order, so each creates the sub-ring
+        groups (``new_group`` is collective) at the same point."""
+        if groups is None:
+            return self.group, list(range(self.size))
+        key = tuple(tuple(int(r) for r in g) for g in groups)
+        made = self._subgroups.get(key)
+        if made is None:
+            import torch.distributed as dist
+            made = self._subgroups[key] = [
+                (dist.new_group(list(g), backend=self.backend), list(g))
+                for g in key]
+        for pg, ranks in made:
+            if self.rank in ranks:
+                return pg, ranks
+        raise ValueError(f"rank {self.rank} is in no group of {groups}")
+
+    # -- host staging (the one place a CUDA tensor meets gloo) ---------
+
+    def _stage_in(self, x: torch.Tensor) -> torch.Tensor:
+        """The host tensor a collective sends: on the card a pinned copy
+        (the device-to-host copy waits for ``x``'s producer); on the CPU
+        ``x`` itself."""
+        x = x.detach()
+        if self.device.type == "cuda":
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            host.copy_(x)
+            self.counters["staged_bytes"] += host.numel() * host.element_size()
+            return host
+        return x.contiguous()
+
+    def _host_buffer(self, shape, dtype) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def _stage_out(self, host: torch.Tensor, t0: float) -> torch.Tensor:
+        """The result on the ring's device (``host`` is pinned on the
+        card, so the copy does not wait for the device), the host time
+        since ``t0`` counted."""
+        if self.device.type == "cuda":
+            self.counters["staged_bytes"] += host.numel() * host.element_size()
+            host = host.to(self.device, non_blocking=True)
+        self.counters["seconds"] += time.perf_counter() - t0
+        return host
+
+
+class Pending:
+    """A collective in flight (``async_op=True``): :meth:`wait` blocks
+    until it completes and returns its result on the ring's device."""
+
+    def __init__(self, ring: Ring, works, result: torch.Tensor,
+                 keep=()):
+        self._ring, self._works, self._result = ring, works, result
+        self._keep = keep            # send buffers gloo reads until done
+
+    def wait(self) -> torch.Tensor:
+        t0 = time.perf_counter()
+        for w in self._works:
+            w.wait()
+        self._works, self._keep = (), ()
+        return self._ring._stage_out(self._result, t0)
+
+
+class _Done(Pending):
+    def __init__(self, value: torch.Tensor):
+        self._value = value
+
+    def wait(self) -> torch.Tensor:
+        return self._value
+
+
+# ---------------------------------------------------------------------------
+# the axis environment
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class AxisEnv:
+    """The reference's ``AxisEnv`` on the serving ring: its FSDP, data
+    and KV-sequence axes belong to slices not ported yet."""
+    model: Optional[Ring]           # the tensor-parallel ring (None: tp 1)
+    tp: int
+
+
+def make_axis_env(plan, *, batch: Optional[int] = None,
+                  ring: Optional[Ring] = None) -> AxisEnv:
+    """The AxisEnv of a plan: tp 1 without a mesh; on the serving mesh
+    (``mesh_axes=("model",)``) the rank's ``ring``, whose size must be
+    the plan's tp.  ``batch`` is the reference's argument (it picks the
+    data-parallel axes, which the serving mesh has none of).  FSDP
+    (training on a mesh) and KV sequence sharding are not in this slice
+    and raise."""
+    if plan.mesh_axes is None:
+        return AxisEnv(None, 1)
+    if plan.fsdp_axes or plan.dp_axes:
+        raise NotImplementedError(
+            f"mesh axes {plan.mesh_axes}: data-parallel and FSDP axes "
+            "(training on a mesh) arrive with the mesh training slice; "
+            "the port's ring is the serving mesh ('model',)")
+    if plan.kv_seq_axis:
+        raise NotImplementedError(
+            "KV sequence sharding (kv_seq_axis) is not ported yet")
+    if ring is None:
+        raise ValueError(f"a plan for tp={plan.tp} needs the rank's ring "
+                         "(see run_ranks)")
+    if ring.size != plan.tp:
+        raise ValueError(f"plan built for tp={plan.tp}, ring of "
+                         f"{ring.size} ranks")
+    return AxisEnv(ring, plan.tp)
+
+
+def model_rank(env: Optional[AxisEnv]) -> int:
+    """This rank's index on the model ring (0 without one)."""
+    if env is None or env.model is None:
+        return 0
+    return env.model.rank
+
+
+def on_ring(env: Optional[AxisEnv]) -> bool:
+    """True when ``env`` spans a ring of more than one rank."""
+    return env is not None and env.model is not None and env.tp > 1
+
+
+# ---------------------------------------------------------------------------
+# collectives (reference names and semantics)
+# ---------------------------------------------------------------------------
+
+def axis_index(axis: Optional[Ring]) -> int:
+    """This rank's index on ``axis`` (0 without a ring)."""
+    return 0 if axis is None else axis.rank
+
+
+def ppermute(x: torch.Tensor, axis: Optional[Ring],
+             perm: Sequence[Tuple[int, int]], async_op: bool = False):
+    """Send ``x`` along the (source, destination) pairs of ``perm``
+    (ring ranks) and return what this rank received: zeros when no pair
+    ends here, as ``lax.ppermute``.  ``async_op=True`` returns a
+    :class:`Pending` whose ``wait()`` gives the received tensor, so the
+    caller can launch work in between (the ESL overlap)."""
+    if axis is None:
+        return _Done(x) if async_op else x
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    me = axis.rank
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if len(dst) > 1 or len(src) > 1:
+        raise ValueError(f"perm {perm} sends or receives twice at rank {me}")
+    axis.counters["collectives"] += 1
+    axis.counters["hops"] += 1
+    if dst == [me] and src == [me]:
+        out = x.clone()
+        return _Done(out) if async_op else out
+    send = axis._stage_in(x) if dst else None
+    recv = axis._host_buffer(x.shape, x.dtype) if src else None
+    works = []
+    if send is not None:
+        works.append(dist.isend(send, dst[0], group=axis.group))
+    if recv is not None:
+        works.append(dist.irecv(recv, src[0], group=axis.group))
+    if recv is None:
+        recv = axis._host_buffer(x.shape, x.dtype).zero_()
+    pending = Pending(axis, works, recv, keep=(send,))
+    axis.counters["seconds"] += time.perf_counter() - t0
+    return pending if async_op else pending.wait()
+
+
+def _swap(axis: Ring, groups: Groups, outgoing: List[torch.Tensor]
+          ) -> List[torch.Tensor]:
+    """One round of the group: ``outgoing[j]`` (a host tensor) goes to
+    the group's j-th rank, and one tensor of the same shape comes back
+    from each peer.  Returns the parts in group order, this rank's own
+    ``outgoing`` entry at its place."""
+    import torch.distributed as dist
+    pg, ranks = axis._group(groups)
+    me = ranks.index(axis.rank)
+    axis.counters["collectives"] += 1
+    parts: List[torch.Tensor] = list(outgoing)
+    works = []
+    for j, peer in enumerate(ranks):
+        if j != me:
+            parts[j] = axis._host_buffer(outgoing[me].shape,
+                                         outgoing[me].dtype)
+            works.append(dist.irecv(parts[j], peer, group=pg))
+    for j, peer in enumerate(ranks):
+        if j != me:
+            works.append(dist.isend(outgoing[j], peer, group=pg))
+    for w in works:
+        w.wait()
+    return parts
+
+
+def all_gather(x: torch.Tensor, axis: Optional[Ring], dim: int = -1,
+               groups: Groups = None) -> torch.Tensor:
+    """Every rank's ``x`` in rank order, concatenated along ``dim`` (the
+    reference's tiled form)."""
+    if axis is None:
+        return x
+    t0 = time.perf_counter()
+    host = axis._stage_in(x)
+    n = len(axis._group(groups)[1])
+    parts = _swap(axis, groups, [host] * n)
+    shape = list(host.shape)
+    shape[dim] *= n
+    out = axis._host_buffer(shape, host.dtype)
+    torch.cat(parts, dim, out=out)
+    return axis._stage_out(out, t0)
+
+
+def all_gather_param(v: torch.Tensor, axis: Optional[Ring],
+                     dim: int = -1) -> torch.Tensor:
+    """``all_gather(v)`` of a parameter, made once and kept on the ring
+    while the parameter's storage lives unmodified: a parameter's shards
+    do not change between steps, so the blocking baseline gathers each
+    norm vector and position table once, not every step.  Keyed by the
+    storage the view reads (a stacked layer's slice is a new view each
+    step), checked against the tensor that owns it and its version."""
+    if axis is None:
+        return v
+    owner = v._base if v._base is not None else v
+    key = (v.data_ptr(), tuple(v.shape), tuple(v.stride()), v.dtype, dim)
+    hit = axis._gathered.get(key)
+    if hit is not None and hit[0]() is owner and hit[1] == v._version:
+        return hit[2]
+    full = all_gather(v, axis, dim=dim)
+    axis._gathered[key] = (weakref.ref(owner), v._version, full)
+    return full
+
+
+def _fold(axis: Ring, parts: List[torch.Tensor], op) -> torch.Tensor:
+    """``op`` folded over ``parts`` in rank order, into a host buffer."""
+    out = axis._host_buffer(parts[0].shape, parts[0].dtype)
+    if len(parts) == 1:
+        return out.copy_(parts[0])
+    op(parts[0], parts[1], out=out)
+    for p in parts[2:]:
+        op(out, p, out=out)
+    return out
+
+
+def _reduce(x: torch.Tensor, axis: Ring, op, groups: Groups
+            ) -> Tuple[torch.Tensor, int, float]:
+    t0 = time.perf_counter()
+    host = axis._stage_in(x)
+    n = len(axis._group(groups)[1])
+    parts = _swap(axis, groups, [host] * n)
+    return _fold(axis, parts, op), n, t0
+
+
+def psum(x: torch.Tensor, axis: Optional[Ring],
+         groups: Groups = None) -> torch.Tensor:
+    """The sum of ``x`` over the ring (or this rank's sub-ring)."""
+    if axis is None:
+        return x
+    host, _, t0 = _reduce(x, axis, torch.add, groups)
+    return axis._stage_out(host, t0)
+
+
+def pmax(x: torch.Tensor, axis: Optional[Ring],
+         groups: Groups = None) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ring."""
+    if axis is None:
+        return x
+    host, _, t0 = _reduce(x, axis, torch.maximum, groups)
+    return axis._stage_out(host, t0)
+
+
+def pmean(x: torch.Tensor, axis: Optional[Ring],
+          groups: Groups = None) -> torch.Tensor:
+    """The mean of ``x`` over the ring: the sum divided by its size."""
+    if axis is None:
+        return x
+    host, n, t0 = _reduce(x, axis, torch.add, groups)
+    return axis._stage_out(host, t0) / n
+
+
+def psum_scatter(x: torch.Tensor, axis: Optional[Ring], dim: int = -1,
+                 groups: Groups = None) -> torch.Tensor:
+    """This rank's block of the ring sum of ``x``, split along ``dim``
+    (the reference's tiled form: ``dim`` shrinks by the ring's size):
+    each rank sends block j to the group's j-th rank and sums the blocks
+    it receives."""
+    if axis is None:
+        return x
+    t0 = time.perf_counter()
+    host = axis._stage_in(x)
+    n = len(axis._group(groups)[1])
+    blocks = [b.contiguous() for b in host.chunk(n, dim)]
+    parts = _swap(axis, groups, blocks)
+    return axis._stage_out(_fold(axis, parts, torch.add), t0)
+
+
+# ---------------------------------------------------------------------------
+# the ranks
+# ---------------------------------------------------------------------------
+
+def backend_for(devices: Sequence) -> str:
+    """The ring's backend for ranks on ``devices``: gloo when they share
+    one device or run on the CPU.  NCCL, one GPU per rank, is the next
+    step and raises here."""
+    devs = {torch.device(d) for d in devices}
+    if all(d.type == "cpu" for d in devs) or len(devs) == 1:
+        return "gloo"
+    raise NotImplementedError(
+        f"ranks on {sorted(map(str, devs))}: NCCL with one GPU per rank "
+        "is not ported yet; the port's ring runs its ranks on one device "
+        "over gloo")
+
+
+def _rank_main(rank: int, fn: Callable, tp: int, device: str,
+               backend: str, tmp: str, threads: Optional[int],
+               timeout_s: float, args: tuple) -> None:
+    """One spawned rank: join the ring through the FileStore, run
+    ``fn(ring, *args)`` on ``device``, and (rank 0) write its result."""
+    import torch.distributed as dist
+    if threads:
+        torch.set_num_threads(int(threads))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    store = dist.FileStore(os.path.join(tmp, "store"), tp)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=tp,
+                            timeout=timedelta(seconds=timeout_s))
+    try:
+        out = fn(Ring(dev), *args)
+        if rank == 0:
+            part = os.path.join(tmp, "result.part")
+            with open(part, "wb") as f:
+                pickle.dump(out, f)
+            os.replace(part, os.path.join(tmp, "result.pkl"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn: Callable, tp: int, *args, device=None,
+              threads: Optional[int] = None,
+              timeout_s: float = 900.0) -> Any:
+    """Run ``fn(ring, *args)`` in ``tp`` spawned processes, one per rank
+    of a ring on ``device`` (``cuda`` unless the caller asks for the
+    CPU; on the card every rank uses the one device), and return rank
+    0's result (it must pickle).  ``fn`` must be a module-level function
+    the children can import.  ``threads`` sets torch's thread count in
+    every rank.  A rank that raises or dies fails the run: the others
+    are terminated and the error is raised here.  ``timeout_s`` bounds
+    a collective that waits for a rank that never comes."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.device import resolve_device
+    if tp < 1:
+        raise ValueError(f"tp={tp} must be >= 1")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    backend = backend_for([dev] * tp)
+    with tempfile.TemporaryDirectory(prefix="ring-") as tmp:
+        ctx = mp.start_processes(
+            _rank_main, args=(fn, tp, str(dev), backend, tmp, threads,
+                              timeout_s, tuple(args)),
+            nprocs=tp, join=False, start_method="spawn")
+        while not ctx.join():
+            pass
+        with open(os.path.join(tmp, "result.pkl"), "rb") as f:
+            return pickle.load(f)

@@ -1,0 +1,68 @@
+"""Reconfigurable network (C3): split the ring into independent sub-rings.
+
+The port of the JAX package's ``core/rings.py``.  The ESL router splits
+an 8-device ring into 2x4 or 4x2 rings so several models serve
+concurrently with no cross-ring interference and no rewiring.  In the
+port the ring is a ``torch.distributed`` process group of ``total``
+ranks; :class:`RingConfig` computes the disjoint sub-ring groups that
+the collectives of :mod:`repro_torch.core.dist` confine themselves to,
+and :func:`rank_groups` gives the rank lists of independent sub-rings
+(the reference's ``submeshes``, which carve a JAX mesh).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Tuple
+
+
+@dataclass(frozen=True)
+class RingConfig:
+    total: int                  # ranks on the model ring
+    ring_size: int              # ranks per sub-ring
+
+    def __post_init__(self):
+        if self.ring_size < 1 or self.total % self.ring_size:
+            raise ValueError(f"a ring of {self.total} ranks does not split "
+                             f"into sub-rings of {self.ring_size}")
+
+    @property
+    def n_rings(self) -> int:
+        return self.total // self.ring_size
+
+    def groups(self) -> List[List[int]]:
+        """The ranks of each sub-ring: the groups collectives confine to."""
+        return [list(range(r * self.ring_size, (r + 1) * self.ring_size))
+                for r in range(self.n_rings)]
+
+    def ring_of(self, idx: int) -> int:
+        return idx // self.ring_size
+
+    def perm_within_rings(self, up: bool = True) -> List[Tuple[int, int]]:
+        """ppermute (source, destination) pairs that never cross a ring
+        boundary."""
+        pairs = []
+        for g in self.groups():
+            n = len(g)
+            for i, src in enumerate(g):
+                dst = g[(i + 1) % n] if up else g[(i - 1) % n]
+                pairs.append((src, dst))
+        return pairs
+
+    def validate_disjoint(self) -> bool:
+        seen = set()
+        for g in self.groups():
+            if seen & set(g):
+                return False
+            seen |= set(g)
+        return True
+
+
+def reconfigure(total: int, ring_size: int) -> RingConfig:
+    """Paper's 2/4/8-device reconfiguration, generalized to any divisor."""
+    return RingConfig(total, ring_size)
+
+
+def rank_groups(total: int, ring_size: int) -> List[List[int]]:
+    """The ranks of each independent sub-ring of a ``total``-rank ring:
+    one model per group (multi-tenant), its collectives confined to it."""
+    return reconfigure(total, ring_size).groups()

@@ -22,8 +22,9 @@ update in place.
   step: tokens (B, 1) at ``positions`` (B,), each row's resident length
   (for a vlm it counts the patches); returns (next token (B,), cache).
 
-A mesh raises ``NotImplementedError`` (the tensor-parallel slice), as
-does the train step's int8 gradient sync over a pod axis.
+A mesh raises ``NotImplementedError`` (the ring serves the dense
+stacks through ``LPUEngine``; the steps' mesh form is not ported yet),
+as does the train step's int8 gradient sync over a pod axis.
 """
 from __future__ import annotations
 
@@ -47,8 +48,9 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 def _local(mesh, what: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            f"{what}: a mesh (tensor parallelism) arrives with the port's "
-            "tp slice; pass mesh=None")
+            f"{what}: a mesh is not ported to core/steps.py yet (the "
+            "port's tp slice serves the dense stacks through LPUEngine "
+            "on a ring of ranks); pass mesh=None")
 
 
 def build_train_step(model, optimizer, mesh, global_batch: int,

@@ -22,6 +22,10 @@ and run the engine on a batch of random prompts.
         --device cpu --rings 2 --chaos ring@2,nan@5
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --budget-ms 5 --max-pending 2 --tracker t.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --tp 2 [--no-overlap]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b \
+        --tp 2                                            # card
 
 ``--arch`` takes any name or alias of the port's registry: the dense
 decoders (smollm-135m, the paper's opt-1.3b/6.7b/30b/66b and gpt3-20b,
@@ -62,6 +66,22 @@ backpressure) or ``--tracker PATH`` (jsonl telemetry: per-window
 routes the batch through the async front end
 (:mod:`repro_torch.serving.frontend`) instead of the blocking
 ``generate()``, and prints the reference's front-end summary lines.
+The latency model's prior is taken at the H100 point on the card and at
+the LPU-FPGA point on the CPU (where the fleet and the front end are
+held to the reference's).
+
+``--tp N`` serves the dense stacks tensor-parallel over a ring of N
+ranks, each a process (:func:`repro_torch.core.dist.run_ranks`; on the
+card every rank shares the one device over gloo), with the tp=1 weights
+stored again at the ring's layout and sliced per rank: the streams are
+the tp=1 run's.  Rank 0 prints the reference's lines.  ``--no-overlap``
+is the blocking baseline (full matmuls, then ``psum``/``all_gather``)
+instead of the ESL overlap.  The ring's steps run eagerly (a gloo
+collective cannot be captured; the run says so).  ``--tp`` with
+``--rings > 1`` or ``--chaos`` (the mesh fleet), ``--speculate``,
+``--budget-ms``, ``--max-pending`` or ``--tracker`` raises
+``NotImplementedError``: each of those decides from the wall clock or
+runs the verify round, which the ring does not run yet.
 """
 from __future__ import annotations
 
@@ -72,7 +92,8 @@ import numpy as np
 
 from repro_torch.compiler.mapper import plan_model
 from repro_torch.configs import get_config
-from repro_torch.core.latency_model import LPU_FPGA, step_time_prior
+from repro_torch.core.dist import run_ranks
+from repro_torch.core.latency_model import H100, LPU_FPGA, step_time_prior
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
 from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused
@@ -141,9 +162,117 @@ def serve_async(engine, args, prompts, sp, prior):
     return outs
 
 
-def main(argv=None):
+def prior_point(dev):
+    """The latency model's hardware point that seeds the step-time
+    prior: the copied H100 point on the card (the LPU-FPGA point's
+    0.859 ms a step was ~10x below the card's measured steps, so the
+    straggler monitors and the budget flagged healthy steps), LPU-FPGA
+    on the CPU, where the fleet and the front end are held to the
+    reference's."""
+    return H100 if dev.type == "cuda" else LPU_FPGA
+
+
+def refuse_on_ring(args) -> None:
+    """``--tp`` > 1 with what the ring does not run yet raises."""
+    if args.tp <= 1:
+        return
+    if args.rings > 1 or args.chaos:
+        raise NotImplementedError(
+            "--tp with --rings > 1 or --chaos: the mesh fleet (sub-rings "
+            "of ring-parallel engines) is not ported yet")
+    if args.speculate != "off":
+        raise NotImplementedError(
+            "--tp with --speculate: speculation under tp is not ported yet")
+    if args.budget_ms > 0 or args.max_pending > 0 or args.tracker:
+        raise NotImplementedError(
+            "--tp with --budget-ms, --max-pending or --tracker: the async "
+            "front end over a ring is not ported yet (its wall-clock "
+            "decisions could differ between ranks, whose collectives "
+            "would then no longer pair up)")
+
+
+def serve_rank(ring, argv):
+    """One rank of ``--tp N``: the model planned for the ring, the tp=1
+    weights (seed 0) stored again at its layout and sliced to this
+    rank, its engine (steps eager), the batch; rank 0 prints."""
+    from repro_torch.weights import relayout, shard_params
+    args = _parser().parse_args(argv)
+    dev = ring.device
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    plan1 = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
+                       remat="none", compute_dtype="float32",
+                       param_dtype="float32")
+    plan = plan_model(cfg, ("model",), (ring.size,), "serve",
+                      esl_overlap=not args.no_overlap, remat="none",
+                      compute_dtype="float32", param_dtype="float32")
+    full = relayout(build_model(cfg, plan1, dev).init(seed=0), cfg, plan1,
+                    plan)
+    params = shard_params(full, plan, ring.rank)
+    model = build_model(cfg, plan, dev)
+    engine = LPUEngine(model, params, _engine_config(args), mesh=ring,
+                       device=dev, graphs=False)
+    prompts, sp = _batch(cfg, args)
+    paged_decode_attention.launches = 0
+    ring.reset_counters()
+    outs = engine.generate(prompts, max_new_tokens=args.max_new, params=sp)
+    launches = ring.gather_object(paged_decode_attention.launches)
+    if ring.rank == 0:
+        st = engine.stats
+        mode = "ESL overlap" if plan.esl_overlap else "blocking"
+        _print_engine(engine, cfg, args, dev, st, outs,
+                      f"tp={ring.size} ({mode}, {ring.backend} ring, "
+                      f"graphs off: a {ring.backend} collective is not "
+                      "captured)")
+        steps = max(st.device_decode_steps, 1)
+        print(f"[serve] ring: {ring.counters['collectives']} collectives, "
+              f"{ring.counters['hops']} ppermute hops, "
+              f"{ring.counters['staged_bytes']} host-staged bytes on rank 0 "
+              f"({ring.counters['collectives'] / steps:.1f} collectives per "
+              f"decode step); paged_decode_attention launches per rank "
+              f"{launches}")
+    return outs
+
+
+def _batch(cfg, args):
+    rng = np.random.RandomState(0)
+    prompts = [list(rng.randint(1, cfg.vocab_size,
+                                size=rng.randint(2, 10)))
+               for _ in range(args.requests)]
+    return prompts, SamplingParams(args.temperature, args.top_k, args.top_p)
+
+
+def _engine_config(args) -> EngineConfig:
+    return EngineConfig(slots=args.slots, max_seq=args.max_seq,
+                        paged=False if args.dense else None,
+                        block_size=args.block_size,
+                        num_blocks=args.num_blocks,
+                        kv_budget_bytes=args.kv_budget_mb << 20,
+                        min_bucket=args.min_bucket,
+                        paged_kernel=args.paged_kernel,
+                        sampling=args.sampling,
+                        steps_per_sync=args.steps_per_sync,
+                        kv_dtype=args.kv_dtype,
+                        prefill_chunk=args.prefill_chunk,
+                        prefix_cache=args.prefix_cache == "on",
+                        speculate=args.speculate, draft_k=args.draft_k,
+                        chaos=args.chaos,
+                        max_migrations=args.max_migrations,
+                        heartbeat_timeout_s=args.heartbeat_timeout,
+                        affinity=args.affinity,
+                        budget_ms=args.budget_ms,
+                        max_pending=args.max_pending)
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="ESL ring width: ranks (processes) serving one "
+                         "model tensor-parallel (dense stacks)")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="blocking collectives baseline (vs ESL overlap)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu")
@@ -237,11 +366,17 @@ def main(argv=None):
                     help="write per-window EngineStats deltas and "
                          "per-request TTFT / ms-per-token records to "
                          "this jsonl file (forces the async front end)")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     refuse_encdec(cfg)
+    refuse_on_ring(args)
+    if args.tp > 1:
+        return run_ranks(serve_rank, args.tp, argv, device=dev)
     if args.reduced:
         cfg = cfg.reduced()
     plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
@@ -260,29 +395,11 @@ def main(argv=None):
                            param_dtype="float32")
         draft_model = build_model(dcfg, dplan, dev)
         draft_params = draft_model.init(seed=1)
-    econf = EngineConfig(slots=args.slots, max_seq=args.max_seq,
-                         paged=False if args.dense else None,
-                         block_size=args.block_size,
-                         num_blocks=args.num_blocks,
-                         kv_budget_bytes=args.kv_budget_mb << 20,
-                         min_bucket=args.min_bucket,
-                         paged_kernel=args.paged_kernel,
-                         sampling=args.sampling,
-                         steps_per_sync=args.steps_per_sync,
-                         kv_dtype=args.kv_dtype,
-                         prefill_chunk=args.prefill_chunk,
-                         prefix_cache=args.prefix_cache == "on",
-                         speculate=args.speculate, draft_k=args.draft_k,
-                         chaos=args.chaos,
-                         max_migrations=args.max_migrations,
-                         heartbeat_timeout_s=args.heartbeat_timeout,
-                         affinity=args.affinity,
-                         budget_ms=args.budget_ms,
-                         max_pending=args.max_pending)
-    # the latency model's step time (LPU-FPGA point): each ring's
-    # straggler monitor starts from it, so detection is armed at once, and
-    # so does the front end's step budget
-    prior = step_time_prior(cfg, 1, LPU_FPGA, kv_len=args.max_seq,
+    econf = _engine_config(args)
+    # the latency model's step time (H100 point on the card, LPU-FPGA on
+    # the CPU): each ring's straggler monitor starts from it, so
+    # detection is armed at once, and so does the front end's step budget
+    prior = step_time_prior(cfg, 1, prior_point(dev), kv_len=args.max_seq,
                             steps_per_sync=args.steps_per_sync)
     fleet = args.rings > 1 or bool(args.chaos)
     if fleet:
@@ -296,11 +413,7 @@ def main(argv=None):
                            draft_model=draft_model,
                            draft_params=draft_params)
 
-    rng = np.random.RandomState(0)
-    prompts = [list(rng.randint(1, cfg.vocab_size,
-                                size=rng.randint(2, 10)))
-               for _ in range(args.requests)]
-    sp = SamplingParams(args.temperature, args.top_k, args.top_p)
+    prompts, sp = _batch(cfg, args)
     kernel = {"rwkv": rwkv_scan, "hybrid": mamba_scan_fused}.get(
         cfg.family, paged_decode_attention)
     kernel.launches = 0
@@ -334,11 +447,18 @@ def main(argv=None):
         for i, o in enumerate(outs[:4]):
             print(f"  req{i}: {o[:12]}")
         return outs
+    _print_engine(engine, cfg, args, dev, engine.stats, outs, "tp=1",
+                  kernel)
+    return outs
+
+
+def _print_engine(engine, cfg, args, dev, st, outs, tp_text,
+                  kernel=paged_decode_attention):
+    """The reference's stats lines of one engine's run."""
     mode = f"paged/{engine.paged_kernel}" if engine.paged else "dense"
-    st = engine.stats
     print(f"[serve] {len(outs)} requests, {st.tokens} tokens, "
           f"{st.tokens_per_s:.1f} tok/s, occupancy {st.occupancy:.2f}, "
-          f"{st.steps} decode steps, tp=1, device={dev}")
+          f"{st.steps} decode steps, {tp_text}, device={dev}")
     print(f"[serve] kv={mode} dtype={engine.kv_dtype} "
           f"w_dtype={engine.w_dtype} bytes={engine.kv_cache_bytes()} "
           f"(per-rank {engine.per_rank_kv_bytes()}, "
@@ -381,7 +501,6 @@ def main(argv=None):
               f" x {cfg.n_layers} layers)")
     for i, o in enumerate(outs[:4]):
         print(f"  req{i}: {o[:12]}")
-    return outs
 
 
 if __name__ == "__main__":

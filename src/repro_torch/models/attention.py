@@ -1,8 +1,15 @@
-"""GQA attention under the mapper's stored head layout, tp=1.
+"""GQA attention under the mapper's stored head layout.
 
 Weights live in the stored layout of ``plan.attn``: wq (D, Hp, dh),
-wk/wv (D, Gp, dh), wo (Hp, dh, D).  At tp=1 the reference's ESL
-``ag_matmul``/``rs_matmul`` are plain matmuls.
+wk/wv (D, Gp, dh), wo (Hp, dh, D).  At tp=1 the projections are plain
+matmuls.  On the ring (``env`` from :mod:`repro_torch.core.dist`) each
+rank holds its q_per_rank query heads and kv_per_rank kv heads (padded,
+or duplicated when there are fewer kv heads than ranks), projects them
+with ONE streamed ESL ``ag_matmul`` of its concatenated q/k/v tiles,
+attends on its local heads only (every local q head finds its kv head
+on its own rank, ``local_kmap``), and reduces the output projection
+around the ring with ``rs_matmul``.  The cache holds the rank's
+kv_per_rank heads, with the same block ids on every rank.
 
 Decode reads the cache *before* this step's update and folds the new
 token into the online softmax; the caller then scatters (k_new, v_new)
@@ -23,6 +30,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import esl
+from repro_torch.core.dist import AxisEnv, model_rank, on_ring
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
 from repro_torch.models.common import apply_rope, big_neg
 from repro_torch.serving.kv_cache import (dequantize_kv, quantize_kv_rows,
@@ -36,13 +45,30 @@ Params = Dict[str, Any]
 # projections
 # ---------------------------------------------------------------------------
 
-def qkv_proj(p: Params, x: torch.Tensor, plan
+def qkv_proj(p: Params, x: torch.Tensor, plan,
+             env: Optional[AxisEnv] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B,S,D) -> q (B,S,qpr,dh), k, v (B,S,kpr,dh)."""
+    """x: (B,S,D) (or (B,S,D/tp) scattered on the ring) -> the rank's
+    q (B,S,qpr,dh), k, v (B,S,kpr,dh)."""
     a = plan.attn
     D = p["wq"].shape[0]
     B, S = x.shape[0], x.shape[1]
     qpr, kpr, dh = a.q_per_rank, a.kv_per_rank, a.d_head
+    if on_ring(env):
+        # one streamed matmul of the concatenated q/k/v column tiles
+        w = torch.cat([p["wq"].reshape(D, qpr * dh),
+                       p["wk"].reshape(D, kpr * dh),
+                       p["wv"].reshape(D, kpr * dh)], -1)
+        b = (torch.cat([p["bq"].reshape(-1), p["bk"].reshape(-1),
+                        p["bv"].reshape(-1)]) if "bq" in p else None)
+        y = esl.ag_matmul(x, w, axis=env.model, tp=env.tp,
+                          overlap=plan.esl_overlap, b=b)
+        # contiguous copies of the column splits: kernel 1 reads dense
+        # rows, as the tp=1 path's separate products give them
+        q, k, v = (t.contiguous() for t in
+                   y.split([qpr * dh, kpr * dh, kpr * dh], -1))
+        return (q.reshape(B, S, qpr, dh), k.reshape(B, S, kpr, dh),
+                v.reshape(B, S, kpr, dh))
     q = x @ p["wq"].reshape(D, qpr * dh)
     k = x @ p["wk"].reshape(D, kpr * dh)
     v = x @ p["wv"].reshape(D, kpr * dh)
@@ -54,22 +80,29 @@ def qkv_proj(p: Params, x: torch.Tensor, plan
             v.reshape(B, S, kpr, dh))
 
 
-def out_proj(p: Params, attn_out: torch.Tensor, plan) -> torch.Tensor:
-    """attn_out: (B,S,qpr,dh) -> (B,S,D)."""
+def out_proj(p: Params, attn_out: torch.Tensor, plan,
+             env: Optional[AxisEnv] = None) -> torch.Tensor:
+    """attn_out: (B,S,qpr,dh) -> (B,S,D); on the ring the sum over the
+    ranks' heads, scattered (B,S,D/tp) when ESL overlap is on."""
     a = plan.attn
     B, S = attn_out.shape[0], attn_out.shape[1]
     w = p["wo"].reshape(a.q_per_rank * a.d_head, -1)
+    if on_ring(env):
+        return esl.rs_matmul(attn_out.reshape(B, S, -1), w, axis=env.model,
+                             tp=env.tp, overlap=plan.esl_overlap,
+                             scatter_out=plan.esl_overlap)
     return attn_out.reshape(B, S, -1) @ w
 
 
 _KMAPS: Dict[Tuple, torch.Tensor] = {}
 
 
-def local_kmap(plan, device) -> torch.Tensor:
-    """(qpr,) local kv index per local q head (rank 0 at tp=1).  Made
-    once per map and device: a host-to-device copy cannot run inside a
-    captured graph, and the first call happens in the eager warm-up."""
-    kmap = tuple(int(i) for i in plan.attn.q_to_kv_local[0])
+def local_kmap(plan, device, rank: int = 0) -> torch.Tensor:
+    """(qpr,) local kv index per local q head of ring rank ``rank`` (0
+    at tp=1).  Made once per map and device: a host-to-device copy
+    cannot run inside a captured graph, and the first call happens in
+    the eager warm-up."""
+    kmap = tuple(int(i) for i in plan.attn.q_to_kv_local[rank])
     key = (kmap, torch.device(device))
     t = _KMAPS.get(key)
     if t is None:
@@ -228,8 +261,8 @@ def _flash_decode_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _qkv_rope(p: Params, x: torch.Tensor, cfg, plan,
-              positions: torch.Tensor):
-    q, k, v = qkv_proj(p, x, plan)
+              positions: torch.Tensor, env: Optional[AxisEnv] = None):
+    q, k, v = qkv_proj(p, x, plan, env)
     if cfg.positional == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -237,15 +270,15 @@ def _qkv_rope(p: Params, x: torch.Tensor, cfg, plan,
 
 
 def self_attention(p: Params, x: torch.Tensor, *, cfg, plan,
-                   positions: torch.Tensor, causal: bool = True
-                   ) -> torch.Tensor:
+                   positions: torch.Tensor, causal: bool = True,
+                   env: Optional[AxisEnv] = None) -> torch.Tensor:
     """Self-attention of a whole sequence (no cache): causal for a
     decoder, ``causal=False`` for whisper's encoder."""
-    q, k, v = _qkv_rope(p, x, cfg, plan, positions)
-    kmap = local_kmap(plan, x.device)
+    q, k, v = _qkv_rope(p, x, cfg, plan, positions, env)
+    kmap = local_kmap(plan, x.device, model_rank(env))
     out = flash_attention(q, _expand_kv(k, kmap), _expand_kv(v, kmap),
                           causal=causal)
-    return out_proj(p, out, plan)
+    return out_proj(p, out, plan, env)
 
 
 def cross_attention(p: Params, x: torch.Tensor, *, cfg, plan,
@@ -284,25 +317,26 @@ def encode_cross_kv(p: Params, enc_x: torch.Tensor, *, cfg, plan
 
 
 def prefill_attention(p: Params, x: torch.Tensor, *, cfg, plan,
-                      positions: torch.Tensor, cache: Dict[str, torch.Tensor]
-                      ) -> torch.Tensor:
+                      positions: torch.Tensor, cache: Dict[str, torch.Tensor],
+                      env: Optional[AxisEnv] = None) -> torch.Tensor:
     """Prefill of a batch whose cache covers exactly the S positions:
-    the cache (B,S,Gp,dh) is filled in place."""
-    q, k, v = _qkv_rope(p, x, cfg, plan, positions)
+    the cache (B,S,kpr,dh) is filled in place."""
+    q, k, v = _qkv_rope(p, x, cfg, plan, positions, env)
     S = k.shape[1]
     cache["k"][:, :S] = k.to(cache["k"].dtype)
     cache["v"][:, :S] = v.to(cache["v"].dtype)
-    kmap = local_kmap(plan, x.device)
+    kmap = local_kmap(plan, x.device, model_rank(env))
     out = flash_attention(q, _expand_kv(k, kmap), _expand_kv(v, kmap),
                           causal=True)
-    return out_proj(p, out, plan)
+    return out_proj(p, out, plan, env)
 
 
 def decode_attention(p: Params, x: torch.Tensor, *, cfg, plan,
                      cache: Dict[str, torch.Tensor], positions: torch.Tensor,
                      block_table: Optional[torch.Tensor] = None,
                      paged_kernel: str = "stream",
-                     block_s: int = 0) -> torch.Tensor:
+                     block_s: int = 0,
+                     env: Optional[AxisEnv] = None) -> torch.Tensor:
     """One-token generation step; updates ``cache`` in place.
 
     x: (B,1,D); positions: (B,) int32 position of each row's new token
@@ -323,7 +357,7 @@ def decode_attention(p: Params, x: torch.Tensor, *, cfg, plan,
     int8/fp8 pool the new row is quantized FIRST and both dataflows fold
     its dequantized round-trip, the value every later read of the row
     sees; the stored row and its scale are then scattered."""
-    q, k_new, v_new = _qkv_rope(p, x, cfg, plan, positions[:, None])
+    q, k_new, v_new = _qkv_rope(p, x, cfg, plan, positions[:, None], env)
     kc, vc = cache["k"], cache["v"]
     B = x.shape[0]
     rows = torch.arange(B, device=x.device)
@@ -342,7 +376,8 @@ def decode_attention(p: Params, x: torch.Tensor, *, cfg, plan,
         else:
             out = _flash_decode_chunked(
                 q, _gather_view(kc, ks, block_table),
-                _gather_view(vc, vs, block_table), local_kmap(plan, x.device),
+                _gather_view(vc, vs, block_table),
+                local_kmap(plan, x.device, model_rank(env)),
                 kv_valid_len=positions, chunk=block_s or 2048,
                 k_new=k_new, v_new=v_new)
         bs = kc.shape[1]
@@ -354,11 +389,12 @@ def decode_attention(p: Params, x: torch.Tensor, *, cfg, plan,
             vs[blk, pos % bs] = vsc[:, 0]
     else:
         out = _flash_decode_chunked(
-            q, kc, vc, local_kmap(plan, x.device), kv_valid_len=positions,
+            q, kc, vc, local_kmap(plan, x.device, model_rank(env)),
+            kv_valid_len=positions,
             chunk=block_s or 2048, k_new=k_new, v_new=v_new)
         kc[rows, pos] = k_new[:, 0].to(kc.dtype)
         vc[rows, pos] = v_new[:, 0].to(vc.dtype)
-    return out_proj(p, out, plan)
+    return out_proj(p, out, plan, env)
 
 
 def chunk_prefill_attention(p: Params, x: torch.Tensor, *, cfg, plan,
@@ -366,7 +402,8 @@ def chunk_prefill_attention(p: Params, x: torch.Tensor, *, cfg, plan,
                             cache: Dict[str, torch.Tensor],
                             block_table: torch.Tensor,
                             kv_valid_len: torch.Tensor,
-                            paged_kernel: str = "stream") -> torch.Tensor:
+                            paged_kernel: str = "stream",
+                            env: Optional[AxisEnv] = None) -> torch.Tensor:
     """Prefill ONE chunk of a partly resident prompt against the pool.
 
     x: (1,C,D) the chunk's activations; positions: (1,C) int32 absolute
@@ -389,7 +426,7 @@ def chunk_prefill_attention(p: Params, x: torch.Tensor, *, cfg, plan,
       with the chunk's offset.
     """
     ks, vs = _pool_scales(cache)
-    q, k, v = _qkv_rope(p, x, cfg, plan, positions)
+    q, k, v = _qkv_rope(p, x, cfg, plan, positions, env)
     kc, vc = cache["k"], cache["v"]
     table = block_table[0]
     pos = positions[0]
@@ -407,13 +444,13 @@ def chunk_prefill_attention(p: Params, x: torch.Tensor, *, cfg, plan,
         out = paged_decode_attention(q[0], kc, vc, tabs, lens, k_scale=ks,
                                      v_scale=vs)[None]
     else:
-        kmap = local_kmap(plan, x.device)
+        kmap = local_kmap(plan, x.device, model_rank(env))
         out = flash_attention(
             q, _expand_kv(_gather_view(kc, ks, block_table), kmap),
             _expand_kv(_gather_view(vc, vs, block_table), kmap),
             causal=True, q_offset=pos[:1],
             kv_valid_len=kv_valid_len.reshape(1))
-    return out_proj(p, out, plan)
+    return out_proj(p, out, plan, env)
 
 
 def verify_attention(p: Params, x: torch.Tensor, *, cfg, plan,
@@ -480,25 +517,26 @@ def init_cache(plan, batch: int, max_seq: int, dtype: torch.dtype,
                num_blocks: int = 0, block_size: int = 0,
                scale_dtype: Optional[torch.dtype] = None
                ) -> Dict[str, torch.Tensor]:
-    """One layer's KV cache in the stored (local-head) layout: dense
-    (batch, max_seq, Gp, dh), or — paged — a shared pool (num_blocks,
-    block_size, Gp, dh) with block 0 reserved as the null block.
+    """One layer's KV cache of one rank in the stored (local-head)
+    layout: dense (batch, max_seq, kpr, dh), or — paged — a shared pool
+    (num_blocks, block_size, kpr, dh) with block 0 reserved as the null
+    block; kpr = kv_per_rank, which is Gp at tp=1.
 
     ``scale_dtype`` (paged only) marks the pool as quantized: ``dtype``
     is the int8/fp8 storage type, and ``k_scale``/``v_scale`` leaves of
-    shape (num_blocks, block_size, Gp) ride beside the values, zeroed so
+    shape (num_blocks, block_size, kpr) ride beside the values, zeroed so
     the null block dequantizes to exact zeros."""
     a = plan.attn
     if paged:
         if num_blocks < 2 or block_size <= 0:
             raise ValueError(f"paged cache needs >= 2 blocks and a block "
                              f"size > 0, got {num_blocks}, {block_size}")
-        shape = (num_blocks, block_size, a.gp, a.d_head)
+        shape = (num_blocks, block_size, a.kv_per_rank, a.d_head)
     else:
         if scale_dtype is not None:
             raise ValueError("quantized KV storage needs the paged pool "
                              "(the row scatters carry the scales)")
-        shape = (batch, max_seq, a.gp, a.d_head)
+        shape = (batch, max_seq, a.kv_per_rank, a.d_head)
     out = {"k": torch.zeros(shape, dtype=dtype, device=device),
            "v": torch.zeros(shape, dtype=dtype, device=device)}
     if scale_dtype is not None:

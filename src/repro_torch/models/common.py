@@ -14,6 +14,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.dist import pmean
 from repro_torch.device import dtype_of, resolve_device
 
 Params = Dict[str, Any]
@@ -23,14 +24,24 @@ Params = Dict[str, Any]
 # Normalization / activations / rope
 # --------------------------------------------------------------------------
 
-def apply_norm(p: Params, x: torch.Tensor, kind: str,
-               eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm / LayerNorm with the arithmetic in f32."""
+def apply_norm(p: Params, x: torch.Tensor, kind: str, eps: float = 1e-5,
+               stats_axis=None) -> torch.Tensor:
+    """RMSNorm / LayerNorm with the arithmetic in f32.
+
+    ``stats_axis`` (a :class:`repro_torch.core.dist.Ring`): the hidden
+    dim is *scattered* over the ring (ESL scattered-activation mode), so
+    the mean and the variance are combined with a ``pmean`` over it —
+    the distributed norm that keeps activations scattered."""
     dt = x.dtype
     x = x.float()
     if kind == "layernorm":
-        x = x - x.mean(-1, keepdim=True)
+        mean = x.mean(-1, keepdim=True)
+        if stats_axis is not None:
+            mean = pmean(mean, stats_axis)
+        x = x - mean
     var = x.square().mean(-1, keepdim=True)
+    if stats_axis is not None:
+        var = pmean(var, stats_axis)
     y = x * torch.rsqrt(var + eps)
     y = y * p["scale"].float()
     if "bias" in p:

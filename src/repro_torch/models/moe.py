@@ -25,8 +25,8 @@ the routed output.
 
 Not ported yet (raises ``NotImplementedError``): the reference's expert
 parallelism over the model ring (``_moe_model_parallel``) and over data
-x model (``_moe_data_model``), which arrive with the tensor-parallel
-slice.
+x model (``_moe_data_model``): the tensor-parallel slice serves the
+dense stacks, and expert parallelism is a slice of its own.
 """
 from __future__ import annotations
 
@@ -133,7 +133,7 @@ def moe_fwd(p: Params, x: torch.Tensor, *, cfg, plan
     if plan.moe.expert_axes:
         raise NotImplementedError(
             "expert parallelism (_moe_model_parallel, _moe_data_model) "
-            "arrives with the port's tensor-parallel slice")
+            "is not ported yet: the ring serves the dense stacks")
     xt = x.reshape(-1, x.shape[-1])
     ids, gates, probs = _route(p, xt, cfg, plan)
     aux = _lb_loss(probs, ids, cfg.moe.n_experts)

@@ -38,13 +38,20 @@ class Model:
                 positions=None, cache=None, block_tables=None,
                 paged_kernel: str = "stream", block_s: int = 0,
                 use_kernels: bool = True, kv_valid_len=None, frames=None,
-                patch_embeds=None, with_aux: bool = False):
+                patch_embeds=None, with_aux: bool = False, env=None):
         """(logits, cache).  ``frames`` feed whisper's encoder (train and
         prefill), ``patch_embeds`` a vlm's projector.  ``with_aux``
         (which only the train step passes) returns (logits, cache, aux),
         the MoE layers' auxiliary loss summed over the stack (a float32
-        zero for a family without MoE layers)."""
+        zero for a family without MoE layers).  ``env``: the rank's
+        :class:`repro_torch.core.dist.AxisEnv` on the model ring (the
+        dense family only), with the rank's shards and cache; the logits
+        are then its V_pad/tp columns."""
         if self.cfg.family == "encdec":
+            if env is not None and env.tp > 1:
+                raise NotImplementedError(
+                    f"{self.cfg.name}: an encoder-decoder's tensor "
+                    "parallelism over the ring is not ported yet")
             if block_s:
                 raise ValueError(
                     "block_s override is not supported for encdec decode "
@@ -62,7 +69,8 @@ class Model:
                           paged_kernel=paged_kernel, block_s=block_s,
                           use_kernels=use_kernels,
                           kv_valid_len=kv_valid_len,
-                          patch_embeds=patch_embeds, with_aux=with_aux)
+                          patch_embeds=patch_embeds, with_aux=with_aux,
+                          env=env)
 
     def supports_paged_kv(self) -> bool:
         """Paged KV needs every layer to be attention (pure transformer):
@@ -80,7 +88,7 @@ class Model:
                    scale_dtype: Optional[torch.dtype] = None) -> Params:
         """Zeroed cache stacked per super-block, one entry per in-block
         index: {"l{j}": {"k","v": (n_sb, ...)}} with the layer's dense or
-        paged shape; for rwkv the recurrent state {"l0": {"shift_t",
+        paged shape (one rank's: its kv_per_rank heads); for rwkv the recurrent state {"l0": {"shift_t",
         "shift_c": (n_sb, batch, 1, D), "wkv": (n_sb, batch, H, dh, dh)
         f32}}; for a hybrid stack, mamba indices hold {"conv": (n_sb,
         batch, K-1, d_in) in the cache dtype, "ssm": (n_sb, batch, d_in,

@@ -1,5 +1,5 @@
 """Decoder-only LM assembly for the dense, moe, vlm, rwkv and hybrid
-(jamba) families at tp=1.
+(jamba) families.
 
 Parameters keep the reference's layout: layers are grouped into
 *super-blocks* (jamba: ``attn_every`` layers, attention at one index,
@@ -20,6 +20,16 @@ loss summed over the stack, a plan with ``remat != "none"`` recomputes
 each super-block in backward (``torch.utils.checkpoint``, as the
 reference's ``jax.checkpoint`` of its scan body), and
 :func:`sharded_xent` is the loss.
+
+The dense family also runs on the model ring (``env`` from
+:mod:`repro_torch.core.dist`, one process per rank on its own shards):
+activations flow *scattered* (B, S, D/tp) between layers when ESL
+overlap is on (``plan.esl_overlap``) and full in the blocking baseline;
+the tied embedding and the logits are vocab-sharded (the row of a rank
+is V_pad/tp wide), the untied input table and the learned positions
+D-sharded, and the norms combine their statistics over the ring.  The
+other families raise on a ring: their tensor parallelism is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -28,6 +38,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import dist as dist_mod
+from repro_torch.core import esl
+from repro_torch.core.dist import AxisEnv, model_rank, on_ring
 from repro_torch.device import dtype_of
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
@@ -80,34 +93,69 @@ def unstack_tree(tree: Params, n: int) -> List[Params]:
     return out
 
 
-def embed_tokens(p: Params, tokens: torch.Tensor, cfg, plan) -> torch.Tensor:
-    """tokens (B,S) -> (B,S,D)."""
-    w = p["embed_in"] if "embed_in" in p else p["embed"]
-    return w[tokens.long()]
+def embed_tokens(p: Params, tokens: torch.Tensor, cfg, plan,
+                 env: Optional[AxisEnv] = None) -> torch.Tensor:
+    """tokens (B,S) -> (B,S,D), or on the ring the plan's convention:
+    (B,S,D/tp) scattered under ESL overlap, (B,S,D) in the baseline.
+    The untied table is D-sharded (a local lookup, natively scattered);
+    the tied one is vocab-sharded: each rank looks up the ids in its
+    rows, zeroes the others, and the ring sums (``psum_scatter`` into
+    the scattered form, ``psum`` into the full one)."""
+    if not on_ring(env):
+        w = p["embed_in"] if "embed_in" in p else p["embed"]
+        return w[tokens.long()]
+    ring, scattered = env.model, plan.esl_overlap
+    if "embed_in" in p:
+        x = p["embed_in"][tokens.long()]
+        return x if scattered else esl.gather_scattered(x, axis=ring,
+                                                        tp=env.tp)
+    w = p["embed"]
+    v_loc = w.shape[0]
+    local = tokens.long() - model_rank(env) * v_loc
+    ok = (local >= 0) & (local < v_loc)
+    x = torch.where(ok[..., None], w[local.clamp(0, v_loc - 1)], 0.0)
+    if scattered:
+        return dist_mod.psum_scatter(x, ring, dim=-1)
+    return dist_mod.psum(x, ring)
 
 
 def add_positional(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                   cfg) -> torch.Tensor:
+                   cfg, plan=None, env: Optional[AxisEnv] = None
+                   ) -> torch.Tensor:
     """x (B,S,D) + the learned position rows ``pos_embed[positions]``
     (positions broadcastable to (B,S)); x itself for any other
     positional scheme.  An index past the table reads its last row: the
     engine refuses ``max_seq > cfg.max_seq``, so only the padded rows of
     a chunk or a prefix tail can reach past it, and those are dropped
     (the reference's ``jnp.take`` fills them with NaN; an index past the
-    table would be a device-side assert on the card)."""
+    table would be a device-side assert on the card).  On the ring the
+    table is D-sharded: its rows are the rank's columns, added to
+    scattered activations as they are; for full ones the table is
+    gathered whole (once, ``esl.full_vec``)."""
     if cfg.positional != "learned":
         return x
     pe = p["pos_embed"]
+    if on_ring(env):
+        pe = esl.full_vec(pe, axis=env.model, tp=env.tp,
+                          scattered_activations=plan.esl_overlap)
     idx = positions.long().clamp(0, pe.shape[0] - 1)
     return x + pe[idx].to(x.dtype)
 
 
-def lm_logits(p: Params, x: torch.Tensor, cfg, plan) -> torch.Tensor:
+def lm_logits(p: Params, x: torch.Tensor, cfg, plan,
+              env: Optional[AxisEnv] = None) -> torch.Tensor:
     """-> (B,S,V_pad) logits, padded vocab columns masked to
-    finfo(f32).min / 2."""
+    finfo(f32).min / 2; on the ring the rank's (B,S,V_pad/tp) columns
+    (vocab-sharded, never gathered whole), masked by their global id."""
     w = p["head"] if "head" in p else p["embed"].t()
-    y = x @ w
-    v_ids = torch.arange(y.shape[-1], device=y.device)
+    if on_ring(env):
+        y = esl.ag_matmul(x, w, axis=env.model, tp=env.tp,
+                          overlap=plan.esl_overlap,
+                          scattered_in=plan.esl_overlap)
+    else:
+        y = x @ w
+    v_ids = (model_rank(env) * y.shape[-1]
+             + torch.arange(y.shape[-1], device=y.device))
     return torch.where(v_ids < cfg.vocab_size, y,
                        torch.finfo(torch.float32).min / 2)
 
@@ -135,13 +183,29 @@ def sharded_xent(logits: torch.Tensor, labels: torch.Tensor,
     return loss.sum(), valid.sum()
 
 
+def _norm(pn: Params, x: torch.Tensor, cfg, plan,
+          env: Optional[AxisEnv]) -> torch.Tensor:
+    """The layer's norm; on the ring with scattered activations its
+    statistics are combined over the ring, and in the blocking baseline
+    its model-sharded scale and bias are gathered."""
+    if not on_ring(env):
+        return apply_norm(pn, x, cfg.norm)
+    ring, scattered = env.model, plan.esl_overlap
+    pl = {k: esl.full_vec(v, axis=ring, tp=env.tp,
+                          scattered_activations=scattered)
+          for k, v in pn.items()}
+    return apply_norm(pl, x, cfg.norm,
+                      stats_axis=ring if scattered else None)
+
+
 def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
                 positions: torch.Tensor, mode: str,
                 cache: Optional[Params] = None,
                 block_tables: Optional[torch.Tensor] = None,
                 paged_kernel: str = "stream", block_s: int = 0,
                 use_kernels: bool = True,
-                kv_valid_len: Optional[torch.Tensor] = None
+                kv_valid_len: Optional[torch.Tensor] = None,
+                env: Optional[AxisEnv] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One decoder layer (pre-norm, residual): attention or mamba, then
     MLP or MoE; or time mix + channel mix of one rwkv layer.  Returns
@@ -160,7 +224,7 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
     if cfg.family == "rwkv":
         return _apply_rwkv_layer(p, x, cfg=cfg, plan=plan, mode=mode,
                                  cache=cache, use_kernels=use_kernels), None
-    h_in = apply_norm(p["ln1"], x, cfg.norm)
+    h_in = _norm(p["ln1"], x, cfg, plan, env)
     if "mamba" in p:
         if mode not in ("train", "prefill", "decode"):
             raise NotImplementedError(
@@ -175,15 +239,16 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
         h = attn_mod.decode_attention(
             p["attn"], h_in, cfg=cfg, plan=plan, cache=cache,
             positions=positions, block_table=block_tables,
-            paged_kernel=paged_kernel, block_s=block_s)
+            paged_kernel=paged_kernel, block_s=block_s, env=env)
     elif mode == "prefill":
         h = attn_mod.prefill_attention(p["attn"], h_in, cfg=cfg, plan=plan,
-                                       positions=positions, cache=cache)
+                                       positions=positions, cache=cache,
+                                       env=env)
     elif mode == "chunk_prefill":
         h = attn_mod.chunk_prefill_attention(
             p["attn"], h_in, cfg=cfg, plan=plan, positions=positions,
             cache=cache, block_table=block_tables,
-            kv_valid_len=kv_valid_len, paged_kernel=paged_kernel)
+            kv_valid_len=kv_valid_len, paged_kernel=paged_kernel, env=env)
     elif mode == "verify":
         h = attn_mod.verify_attention(
             p["attn"], h_in, cfg=cfg, plan=plan, positions=positions,
@@ -191,15 +256,16 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
             kv_valid_len=kv_valid_len, paged_kernel=paged_kernel)
     elif mode == "train":
         h = attn_mod.self_attention(p["attn"], h_in, cfg=cfg, plan=plan,
-                                    positions=positions)
+                                    positions=positions, env=env)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     x = x + h
-    h_in = apply_norm(p["ln2"], x, cfg.norm)
+    h_in = _norm(p["ln2"], x, cfg, plan, env)
     if "moe" in p:
         h, aux = moe_mod.moe_fwd(p["moe"], h_in, cfg=cfg, plan=plan)
         return x + h, aux
-    return x + mlp_mod.mlp_fwd(p["mlp"], h_in, cfg=cfg, plan=plan), None
+    return x + mlp_mod.mlp_fwd(p["mlp"], h_in, cfg=cfg, plan=plan,
+                               env=env), None
 
 
 def _apply_rwkv_layer(p: Params, x: torch.Tensor, *, cfg, plan, mode: str,
@@ -237,7 +303,8 @@ def apply_super_block(p: Params, x: torch.Tensor, *, cfg, plan,
                       paged_kernel: str = "stream", block_s: int = 0,
                       use_kernels: bool = True,
                       kv_valid_len: Optional[torch.Tensor] = None,
-                      with_aux: bool = False
+                      with_aux: bool = False,
+                      env: Optional[AxisEnv] = None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Layers ``l0..l{sb-1}`` of one super-block in order; ``cache`` is
     the super-block's slice ({"l{j}": {leaf: view}}), updated in place.
@@ -250,7 +317,7 @@ def apply_super_block(p: Params, x: torch.Tensor, *, cfg, plan,
             mode=mode, cache=cache[f"l{j}"] if cache is not None else None,
             block_tables=block_tables, paged_kernel=paged_kernel,
             block_s=block_s, use_kernels=use_kernels,
-            kv_valid_len=kv_valid_len)
+            kv_valid_len=kv_valid_len, env=env)
         if with_aux and aux is not None:
             aux_sum = aux if aux_sum is None else aux_sum + aux
     return x, aux_sum
@@ -266,7 +333,8 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
             use_kernels: bool = True,
             kv_valid_len: Optional[torch.Tensor] = None,
             patch_embeds: Optional[torch.Tensor] = None,
-            with_aux: bool = False):
+            with_aux: bool = False,
+            env: Optional[AxisEnv] = None):
     """Shared forward in the train/prefill/decode/chunk_prefill/verify
     modes.
 
@@ -304,7 +372,27 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
     super-block, then over the stack in order, as the reference's scan
     carries them (a float32 zero without MoE layers).  With a plan
     whose ``remat`` is not ``"none"``, train mode under autograd
-    recomputes each super-block in backward."""
+    recomputes each super-block in backward.
+
+    ``env`` (the rank's :class:`repro_torch.core.dist.AxisEnv` on the
+    model ring) runs the dense family tensor-parallel on the rank's
+    shards (:func:`repro_torch.weights.shard_params`) and its cache of
+    kv_per_rank heads: the logits are then the rank's V_pad/tp columns.
+    The ring's prefill, decode and chunked prefill are ported; other
+    families, speculative verify and training raise."""
+    if on_ring(env):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}): tensor parallelism over the "
+                "ring is ported for the dense stacks only")
+        if mode not in ("prefill", "decode", "chunk_prefill", "train"):
+            raise NotImplementedError(
+                f"mode={mode!r} on the ring (speculative verify under tp) "
+                "is not ported yet")
+        if with_aux or torch.is_grad_enabled() and mode == "train":
+            raise NotImplementedError(
+                "training on the ring (FSDP gathers, gradient sync) is not "
+                "ported yet; the ring's train mode is a no-grad forward")
     if paged_kernel not in ("stream", "gather"):
         raise ValueError(f"paged_kernel={paged_kernel!r}: pass the resolved "
                          "dataflow, 'stream' or 'gather'")
@@ -316,7 +404,7 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     compute = dtype_of(plan.compute_dtype)
-    x = embed_tokens(params, tokens, cfg, plan).to(compute)
+    x = embed_tokens(params, tokens, cfg, plan, env).to(compute)
     if patch_embeds is not None:
         pe = patch_embeds.to(compute) @ params["projector"].to(compute)
         x = torch.cat([pe, x], 1)
@@ -324,7 +412,7 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
             S = x.shape[1]
             positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = add_positional(params, x, positions[:, None] if mode == "decode"
-                       else positions, cfg).to(compute)
+                       else positions, cfg, plan, env).to(compute)
     n_sb = n_super_blocks(cfg)
     remat = (mode == "train" and plan.remat != "none"
              and torch.is_grad_enabled())
@@ -339,7 +427,7 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
                   cache=block_cache, block_tables=block_tables,
                   paged_kernel=paged_kernel, block_s=block_s,
                   use_kernels=use_kernels and mode != "train",
-                  kv_valid_len=kv_valid_len, with_aux=with_aux)
+                  kv_valid_len=kv_valid_len, with_aux=with_aux, env=env)
         if remat:
             x, aux = checkpoint(apply_super_block, bp, x, use_reentrant=False,
                                 **kw)
@@ -347,8 +435,8 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
             x, aux = apply_super_block(bp, x, **kw)
         if aux is not None:
             aux_total = aux_total + aux
-    x = apply_norm(params["ln_f"], x, cfg.norm)
-    logits = lm_logits(params, x, cfg, plan)
+    x = _norm(params["ln_f"], x, cfg, plan, env)
+    logits = lm_logits(params, x, cfg, plan, env)
     if with_aux:
         return logits, cache, aux_total
     return logits, cache

@@ -1,5 +1,6 @@
-"""Continuous-batching serving engine at tp=1 (the port of the
-reference's ``serving/engine.py`` ``LPUEngine``).
+"""Continuous-batching serving engine (the port of the reference's
+``serving/engine.py`` ``LPUEngine``), on one device or as one rank of
+the model ring.
 
 * **API** — blocking ``generate(prompts, ...)`` plus non-blocking
   ``submit(request) / step() / drain()``.
@@ -116,9 +117,28 @@ reference's ``serving/engine.py`` ``LPUEngine``).
   first gets its window output buffer, which keeps its address for the
   engine's life, because the captured window writes into it.
 
-Not in this slice (raises ``NotImplementedError``): a mesh / tp > 1 (the
-mesh fleet too).  ``w_dtype`` is carried as the reference carries it,
-for telemetry: the engine's decode keeps the fp weights at any value.
+* **Ring parallelism (C2)** — ``LPUEngine(model, shards, config,
+  mesh=ring, graphs=False)`` in every rank of a ring spawned by
+  :func:`repro_torch.core.dist.run_ranks` (the model planned for
+  ``("model",), (tp,)``, ``shards`` the rank's leaves from
+  :func:`repro_torch.weights.shard_params`) is the reference's
+  ``shard_map`` engine: each rank holds its slice of the weights and its
+  own pool of kv_per_rank heads with the same block ids on every rank,
+  and runs the same deterministic host logic (scheduler, block pool,
+  prefix cache) on the same submissions.  Every matmul is an ESL
+  collective matmul; the logits stay vocab-sharded, and the window
+  samples from the all-gathered (tp x k) candidates with identically
+  seeded generators (:func:`sample_sharded_batched`), so every rank
+  draws the same token and none broadcasts a decision.  The NaN guard's
+  verdict is agreed ring-wide by a ``psum``.  Dense stacks only, from
+  the paged pool or the dense cache, with monolithic or chunked prefill,
+  the prefix cache, preemption, fused (or host) sampling and both ESL
+  modes.  A gloo ring's collectives cannot be captured, so
+  ``graphs=True`` on it raises.  Speculation, the other families and
+  the mesh fleet raise ``NotImplementedError`` on a ring.
+
+``w_dtype`` is carried as the reference carries it, for telemetry: the
+engine's decode keeps the fp weights at any value.
 """
 from __future__ import annotations
 
@@ -131,6 +151,9 @@ import numpy as np
 import torch
 
 from repro_torch.compiler.plan import resolve_kv_precision
+from repro_torch.core import dist as ring_dist
+from repro_torch.core import esl
+from repro_torch.core.dist import make_axis_env
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.kernels.decode_attention.ops import resolve_paged_kernel
 from repro_torch.serving.config import SPECULATE, EngineConfig
@@ -146,8 +169,9 @@ from repro_torch.serving.kv_cache import (LANE, BlockPool, PrefixCache,
                                           pool_blocks_for_budget,
                                           scatter_prefill_dense,
                                           scatter_prefill_pages)
-from repro_torch.serving.sampler import (SamplingParams, sample_batched,
-                                         sample_local, spec_verify_rows,
+from repro_torch.serving.sampler import (SamplingParams, sample_local,
+                                         sample_sharded_batched,
+                                         spec_verify_rows,
                                          speculative_verify_batched)
 from repro_torch.serving.scheduler import RingRouter, Scheduler, SeqSlot
 
@@ -282,7 +306,10 @@ class LPUEngine:
     ``speculate="model"`` needs ``draft_model``/``draft_params``.
     ``graphs=False`` runs the device steps eagerly instead of replaying
     their captured CUDA graphs (the eager twin; on the CPU nothing is
-    captured either way)."""
+    captured either way).  ``mesh``: the rank's
+    :class:`repro_torch.core.dist.Ring` when the engine is one rank of
+    the model ring (a model planned for it, ``params`` the rank's
+    shards, ``graphs=False``)."""
 
     def __init__(self, model, params,
                  config: Optional[EngineConfig] = None, *,
@@ -291,11 +318,8 @@ class LPUEngine:
         c = EngineConfig() if config is None else config
         self.config = c
         self.device = resolve_device(device)
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh / tensor parallelism (tp > 1) arrives with the port's "
-                "tp slice; this engine runs on one device")
         refuse_encdec(model.cfg)
+        self._check_ring(model, params, mesh, c, drafter, graphs)
         self.model = model
         self.cfg = model.cfg
         self.plan = model.plan
@@ -323,7 +347,9 @@ class LPUEngine:
                 f"max_seq={self.max_seq} exceeds {self.cfg.name}'s learned "
                 f"position table of {self.cfg.max_seq} rows")
         self.eos_id = c.eos_id
-        self.tp = 1
+        self.env = make_axis_env(self.plan, batch=self.slots, ring=mesh)
+        self.ring = mesh
+        self.tp = self.env.tp
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(seed))
 
@@ -484,6 +510,57 @@ class LPUEngine:
                                   device=self.device)
         self._host_logits = None      # (slots, V_pad), at first use
 
+    def _check_ring(self, model, params, mesh, c, drafter,
+                    graphs: bool) -> None:
+        """Refuse what the ring does not run: a plan and a ring that
+        disagree, a family other than the dense stacks, speculation,
+        the full tree in place of the rank's shards, and a captured
+        program on a gloo ring."""
+        plan = model.plan
+        if mesh is None:
+            if plan.tp > 1:
+                raise ValueError(
+                    f"a plan for tp={plan.tp} needs mesh=the rank's ring "
+                    "(repro_torch.core.dist.run_ranks)")
+            return
+        if plan.mesh_axes != ("model",):
+            raise ValueError(f"a ring needs a plan built for it (mesh_axes "
+                             f"('model',)); the plan has {plan.mesh_axes}")
+        if plan.tp != mesh.size:
+            raise ValueError(f"plan built for tp={plan.tp}, ring of "
+                             f"{mesh.size} ranks")
+        if mesh.device != self.device:
+            raise ValueError(f"ring on {mesh.device}, engine on "
+                             f"{self.device}")
+        if model.cfg.family != "dense":
+            raise NotImplementedError(
+                f"{model.cfg.name} ({model.cfg.family}): tensor parallelism "
+                "of this family over the ring is not ported yet (the ring "
+                "serves the dense stacks)")
+        if drafter is not None or c.speculate != "off":
+            raise NotImplementedError(
+                "speculation under tp (the ring's verify round and its "
+                "sharded rejection sampling) is not ported yet")
+        v_loc = (params["head"].shape[-1] if "head" in params
+                 else params["embed"].shape[0])
+        if v_loc * plan.tp != plan.vocab_padded:
+            raise ValueError(
+                f"params hold {v_loc} vocab columns, a rank's shard of "
+                f"{plan.vocab_padded} is {plan.vocab_padded // plan.tp}: "
+                "pass the rank's leaves (weights.shard_params)")
+        if graphs and mesh.backend == "gloo":
+            raise ValueError(
+                "graphs=True on a gloo ring: a gloo collective cannot be "
+                "captured in a CUDA graph; pass graphs=False (the ring's "
+                "steps run eagerly)")
+
+    def _full_row(self, rows: torch.Tensor) -> torch.Tensor:
+        """Logits rows whole: on the ring the ranks' vocab columns
+        gathered (the host-sampling path reads every column)."""
+        if self.tp == 1:
+            return rows
+        return esl.gather_scattered(rows, axis=self.ring, tp=self.tp)
+
     def _window_out(self, S: int) -> torch.Tensor:
         """The output buffer of the S-step window, made at first use: the
         (S, slots) int32 token matrix and bool finite-row matrix in one
@@ -632,7 +709,7 @@ class LPUEngine:
             self.params, tokens, mode="decode", positions=positions,
             cache=self.cache, block_tables=tables,
             paged_kernel=self.paged_kernel or "gather",
-            block_s=self.block_s)
+            block_s=self.block_s, env=self.env)
         return logits[:, -1]
 
     def _window_fn(self, S: int, stochastic: bool) -> None:
@@ -646,6 +723,10 @@ class LPUEngine:
         value.  The chaos flag ``poison`` marks every row as not finite
         (the guard then refuses the whole window before any of its tokens
         commits) and is consumed (zeroed) by the window that reads it.
+        On the ring each rank checks its vocab columns and the verdict is
+        agreed by a ``psum`` (one poisoned rank refuses the window on
+        every rank), and the tokens are drawn from the all-gathered
+        candidates, the same on every rank.
         Writes the (S, slots) token matrix into ``_tok_out[S]``, whether
         each row was finite into ``_ok_out[S]`` (the NaN guard's input),
         and the carry back into its buffers."""
@@ -658,9 +739,13 @@ class LPUEngine:
         toks_all, oks_all = [], []
         for _ in range(S):
             row = self._decode_fn(last[:, None], pos, tables)
-            oks_all.append(torch.isfinite(row).all(-1) & ~poison)
-            toks = sample_batched(row, self.gen, w["temps"], w["top_ks"],
-                                  w["top_ps"], stochastic)
+            ok = torch.isfinite(row).all(-1) & ~poison
+            if self.tp > 1:
+                ok = ring_dist.psum(ok.to(torch.int32), self.ring) == self.tp
+            oks_all.append(ok)
+            toks = sample_sharded_batched(
+                row, self.gen, w["temps"], w["top_ks"], w["top_ps"],
+                stochastic, self.ring, self.tp)
             live = alive.to(torch.int32)
             n_out = n_out + live
             pos = pos + live
@@ -754,7 +839,7 @@ class LPUEngine:
         positions = torch.arange(S, device=self.device)[None]
         logits, cache = self.model.forward(
             self.params, v["tokens"], mode="prefill", cache=cache,
-            positions=positions)
+            positions=positions, env=self.env)
         self._row.copy_(logits[0].index_select(0, v["true_len"] - 1)[0])
         if self.paged:
             scatter_prefill_pages(self.cache, cache, v["table"])
@@ -778,7 +863,7 @@ class LPUEngine:
             positions=positions, cache=self.cache,
             block_tables=v["table"][None],
             paged_kernel=self.paged_kernel or "gather",
-            kv_valid_len=(start + n_valid).reshape(()))
+            kv_valid_len=(start + n_valid).reshape(()), env=self.env)
         self._row.copy_(logits[0].index_select(0, n_valid - 1)[0])
 
     def _run_chunk(self, seq: SeqSlot, tokens: List[int], start: int,
@@ -832,9 +917,9 @@ class LPUEngine:
                    v: Dict[str, torch.Tensor]) -> None:
         """The fused first-token sampler: the static prefill row sampled
         with ``v``'s (temp, top_k, top_p), its token into ``_first``."""
-        self._first.copy_(sample_batched(
+        self._first.copy_(sample_sharded_batched(
             self._row[None], self.gen, v["temp"], v["top_k"], v["top_p"],
-            stochastic))
+            stochastic, self.ring, self.tp))
 
     def _sample_first(self, params: SamplingParams) -> int:
         """Sample the prefill row per the engine's sampling mode (fused:
@@ -855,6 +940,7 @@ class LPUEngine:
             self.stats.prefill_syncs += 1
             self.stats.bytes_to_host += 4
             return int(self._first.cpu()[0])
+        row = self._full_row(row)
         row_np = row.cpu().numpy()
         self.stats.host_syncs += 1
         self.stats.bytes_to_host += row_np.nbytes
@@ -1239,8 +1325,8 @@ class LPUEngine:
     def _host_decode_fn(self, v: Dict[str, torch.Tensor]) -> None:
         """The host-sampled decode forward on its static buffers: the
         (slots, V_pad) logits rows into ``_host_logits``."""
-        self._host_logits.copy_(self._decode_fn(
-            v["tokens"], v["pos"], v["tables"] if self.paged else None))
+        self._host_logits.copy_(self._full_row(self._decode_fn(
+            v["tokens"], v["pos"], v["tables"] if self.paged else None)))
 
     def _host_decode_step(self) -> List[Request]:
         """One decode step (its program keyed ``("host_decode",)``) whose
@@ -1256,7 +1342,7 @@ class LPUEngine:
                 pos[slot] = seq.pos
         if self._host_logits is None:
             self._host_logits = torch.zeros(
-                (B,) + tuple(self._row.shape), dtype=self._row.dtype,
+                (B, self._row.shape[0] * self.tp), dtype=self._row.dtype,
                 device=self.device)
         fields = [("tokens", (B, 1), "i32"), ("pos", (B,), "i32")]
         inputs = dict(tokens=toks, pos=pos)
@@ -1640,10 +1726,12 @@ class LPUEngine:
     # -- monitoring ----------------------------------------------------
 
     def kv_cache_bytes(self) -> int:
-        """Bytes held by the KV cache (block pool or dense slot cache)."""
-        return cache_bytes(self.cache)
+        """Bytes held by the KV cache (block pool or dense slot cache),
+        over every rank of the ring: each holds 1/tp of the heads."""
+        return cache_bytes(self.cache) * self.tp
 
     def per_rank_kv_bytes(self) -> int:
+        """KV bytes resident on ONE ring rank (heads shard 1/tp)."""
         return self.kv_cache_bytes() // self.tp
 
     def pending_load(self) -> int:
@@ -1712,7 +1800,7 @@ class MultiRingEngine:
     are step-deterministic.
 
     The mesh form (``mesh`` given, ``ring_size``: one ring-parallel
-    engine per sub-mesh) arrives with the port's tp slice.
+    engine per sub-ring) is not ported yet.
     ``**engine_kw`` goes to every ring's :class:`LPUEngine` (``device``,
     ``graphs``, ``seed``, a drafter's model...)."""
 
@@ -1721,8 +1809,9 @@ class MultiRingEngine:
                  step_prior_s: float = 0.0, **engine_kw):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh fleets (ring-parallel sub-rings) arrive with the "
-                "port's tp slice; pass mesh=None and rings=N")
+                "mesh fleets (sub-rings of ring-parallel engines) are not "
+                "ported yet: the port's tp slice runs one ring of ranks "
+                "(run_ranks); pass mesh=None and rings=N")
         if rings < 1:
             raise ValueError("host fleets need rings >= 1")
         if model.plan.mesh_axes is not None:

@@ -151,6 +151,14 @@ class AsyncFrontend:
         self.engines: List[LPUEngine] = (
             list(engine.engines) if isinstance(engine, MultiRingEngine)
             else [engine])
+        if any(e.tp > 1 for e in self.engines):
+            # its decisions (the budget, arrival times) come from each
+            # rank's wall clock and could differ between ranks, whose
+            # collectives would then no longer pair up
+            raise NotImplementedError(
+                "the async front end over a ring-parallel engine (tp > 1) "
+                "is not ported yet: its wall-clock decisions would differ "
+                "between ranks")
         cfg = self.engines[0].config
         self.max_pending = (cfg.max_pending if max_pending is None
                             else int(max_pending))

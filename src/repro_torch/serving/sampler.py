@@ -1,11 +1,16 @@
 """Token sampler on a ``torch.Generator``.
 
-The port of the reference's ``serving/sampler.py`` at tp=1:
+The port of the reference's ``serving/sampler.py``:
 
 * :func:`sample_local` — temperature / top-k / top-p over full logits
   rows with one static :class:`SamplingParams`;
 * :func:`sample_batched` — the fused form the engine runs on the device
   every decode step, with per-slot parameters as tensors;
+* :func:`sample_sharded_batched` / :func:`sample_sharded` — the ring
+  form for vocab-sharded logits: each rank pre-selects its local
+  top-``MAX_LOCAL_K``, only the (tp x k) candidates are all-gathered,
+  and every rank draws from them with an identically seeded generator,
+  so the sampled ids agree ring-wide without a broadcast;
 * :func:`speculative_verify_batched` / :func:`spec_verify_rows` — the
   rejection sampling of a speculative verify window (every slot's, or
   one slot's), which accepts a prefix of a deterministic drafter's
@@ -23,9 +28,11 @@ the port draws independent numbers per position from the generator.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.core import dist
 
 
 class SamplingParams(NamedTuple):
@@ -76,6 +83,54 @@ def sample_batched(logits: torch.Tensor, generator: torch.Generator,
         return greedy.to(torch.int32)
     drawn = _draw(filter_rows(logits, temps, top_ks, top_ps), generator)
     return torch.where(temps <= 0.0, greedy, drawn).to(torch.int32)
+
+
+MAX_LOCAL_K = 64
+
+
+def sample_sharded_batched(logits_loc: torch.Tensor,
+                           generator: torch.Generator, temps: torch.Tensor,
+                           top_ks: torch.Tensor, top_ps: torch.Tensor,
+                           stochastic: bool = True,
+                           axis: Optional[dist.Ring] = None, tp: int = 1
+                           ) -> torch.Tensor:
+    """Per-slot sampling of vocab-sharded logits (B, V/tp) -> (B,) int32
+    global ids, the same on every rank of ``axis``.
+
+    Each rank takes its local top-``MAX_LOCAL_K`` values and global ids,
+    the (B, tp x k) candidates are all-gathered (rank order), and
+    :func:`sample_batched` draws over them with the rank's generator,
+    seeded alike on every rank: greedy rows take the argmax of the
+    candidates, which is the global argmax.  As in the reference, a
+    stochastic row samples from the candidates, so a filter wider than
+    tp x k candidates is cut to them.  ``axis=None`` or ``tp == 1`` is
+    :func:`sample_batched`."""
+    if axis is None or tp == 1:
+        return sample_batched(logits_loc, generator, temps, top_ks, top_ps,
+                              stochastic)
+    v_loc = logits_loc.shape[-1]
+    vals, idx = logits_loc.float().topk(min(MAX_LOCAL_K, v_loc), -1)
+    gidx = idx + dist.axis_index(axis) * v_loc
+    vals_all = dist.all_gather(vals, axis, dim=-1)
+    gidx_all = dist.all_gather(gidx, axis, dim=-1)
+    chosen = sample_batched(vals_all, generator, temps, top_ks, top_ps,
+                            stochastic)
+    return gidx_all.gather(-1, chosen.long()[:, None])[:, 0].to(torch.int32)
+
+
+def sample_sharded(logits_loc: torch.Tensor, generator: torch.Generator,
+                   params: SamplingParams, axis: Optional[dist.Ring],
+                   tp: int) -> torch.Tensor:
+    """(B, V/tp) vocab-sharded logits -> (B,) global ids with one static
+    parameter set: the single-call form of
+    :func:`sample_sharded_batched`."""
+    B, dev = logits_loc.shape[0], logits_loc.device
+    return sample_sharded_batched(
+        logits_loc, generator,
+        torch.full((B,), params.temperature, device=dev),
+        torch.full((B,), params.top_k, dtype=torch.int32, device=dev),
+        torch.full((B,), params.top_p, device=dev),
+        params.temperature > 0.0, axis, tp)
 
 
 def sample_local(logits: torch.Tensor, generator: torch.Generator,

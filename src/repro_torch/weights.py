@@ -20,6 +20,13 @@ and its ``projector`` (patch_embed_dim, D); for an encoder-decoder
 (whisper) ``embed``, ``pos_embed``, ``enc_blocks`` ({ln1, attn, ln2,
 mlp}), ``ln_enc``, ``dec_blocks`` ({ln1, attn, lnx, xattn, ln2, mlp})
 and ``ln_f``.
+
+``shard_params(tree, plan, rank)`` slices a full tree of the dense
+family, in the stored layout at the plan's tp (padded and duplicated
+heads), into rank ``rank``'s leaves by the plan's rule table: every
+dim whose logical axis the table maps to the ring is cut into tp
+blocks, of which the rank keeps block ``rank`` (the reference's
+addressable shard of a ``NamedSharding`` over its ``model`` mesh).
 """
 from __future__ import annotations
 
@@ -184,6 +191,144 @@ def _hybrid_shapes(cfg, plan) -> Dict[str, tuple]:
         else:
             want.update(_mlp_shapes(cfg, plan, pre + "mlp/", L))
     return want
+
+
+# logical axes of each leaf of the dense family (the reference's
+# InitCtx records them by path); stacked layers gain a leading "layers"
+_ATTN_AXES = {"wq": ("embed", "q_heads", "head_dim"),
+              "wk": ("embed", "kv_heads", "head_dim"),
+              "wv": ("embed", "kv_heads", "head_dim"),
+              "wo": ("q_heads", "head_dim", "embed"),
+              "bq": ("q_heads", "head_dim"),
+              "bk": ("kv_heads", "head_dim"),
+              "bv": ("kv_heads", "head_dim")}
+_MLP_AXES = {"wg": ("embed", "ffn"), "wu": ("embed", "ffn"),
+             "wi": ("embed", "ffn"), "wd": ("ffn", "embed"),
+             "bi": ("ffn",), "bd": ("vec",)}
+_TOP_AXES = {"embed": ("vocab", "embed"),
+             "embed_in": ("vocab_rep", "embed_scatter"),
+             "head": ("embed", "vocab"),
+             "pos_embed": ("pos", "embed_scatter"),
+             "projector": ("patches", "embed_scatter")}
+
+
+def leaf_axes(path: str) -> tuple:
+    """The logical axes of the dense family's leaf at ``path`` (as the
+    reference's ``InitCtx`` records them)."""
+    parts = path.split("/")
+    leaf = parts[-1]
+    if parts[0] == "blocks":
+        owner = parts[-2]
+        if owner in ("ln1", "ln2"):
+            ax = ("vec",)
+        elif owner == "attn":
+            ax = _ATTN_AXES[leaf]
+        elif owner == "mlp":
+            ax = _MLP_AXES[leaf]
+        else:
+            raise KeyError(path)
+        return ("layers",) + ax
+    if parts[0] == "ln_f":
+        return ("vec",)
+    return _TOP_AXES[leaf]
+
+
+def shard_params(tree: Params, plan, rank: int) -> Params:
+    """Rank ``rank``'s leaves of a full tree (tensors or numpy arrays)
+    of the dense family at ``plan``'s tp: each dim whose logical axis
+    ``plan.rules`` maps to the ring keeps its ``rank``-th of ``tp``
+    blocks; the others are kept whole.  Tensors come back as contiguous
+    copies, so the full tree can be freed once every rank has
+    its leaves.  Other families raise: their tensor parallelism is not
+    ported yet."""
+    if plan.mesh_axes is None:
+        raise ValueError("shard_params needs a plan for the ring "
+                         "(mesh_axes=('model',))")
+    if not 0 <= rank < plan.tp:
+        raise ValueError(f"rank {rank} is not on a ring of {plan.tp}")
+
+    def cut(t, path):
+        if isinstance(t, dict):
+            return {k: cut(v, f"{path}/{k}" if path else k)
+                    for k, v in t.items()}
+        try:
+            axes = leaf_axes(path)
+        except KeyError:
+            raise NotImplementedError(
+                f"{path}: tensor parallelism of this leaf's family is not "
+                "ported yet (the ring serves the dense stacks)") from None
+        if len(axes) != len(t.shape):
+            raise ValueError(f"{path}: axes {axes} vs shape {tuple(t.shape)}")
+        for d, a in enumerate(axes):
+            if plan.rules.get(a) is None:
+                continue
+            n = t.shape[d]
+            if n % plan.tp:
+                raise ValueError(f"{path}: dim {d} of {n} does not split "
+                                 f"over {plan.tp} ranks")
+            c = n // plan.tp
+            t = (t.narrow(d, rank * c, c) if isinstance(t, torch.Tensor)
+                 else np.take(t, range(rank * c, (rank + 1) * c), axis=d))
+        return (t.contiguous().clone() if isinstance(t, torch.Tensor)
+                else t)
+    return cut(tree, "")
+
+
+def _first_index(orig, n: int) -> list:
+    """For each logical index < n, the first stored position holding it."""
+    pos = {}
+    for i, o in enumerate(orig):
+        if o >= 0 and o not in pos:
+            pos[o] = i
+    return [pos[j] for j in range(n)]
+
+
+def relayout(tree: Params, cfg, src_plan, dst_plan) -> Params:
+    """A full tree of the dense family stored at ``src_plan``'s layout,
+    stored again at ``dst_plan``'s (tensors, on their device): heads
+    placed by the destination's ``q_orig``/``kv_orig`` (pad heads zero,
+    duplicated kv heads copied), and the vocabulary and FFN dims cut to
+    the config's sizes and zero-padded to the destination's.  The
+    logical model is unchanged: a zero pad head, FFN column or vocab row
+    adds nothing (a padded logit column is masked).  This is how a tp=1
+    model is served on the ring with the same weights."""
+    sa, da = src_plan.attn, dst_plan.attn
+    q_src = torch.as_tensor(_first_index(sa.q_orig, sa.n_heads))
+    kv_src = torch.as_tensor(_first_index(sa.kv_orig, sa.n_kv_heads))
+
+    def heads(t, axis, src_idx, dst_orig):
+        logical = t.index_select(axis, src_idx.to(t.device))
+        cols = torch.as_tensor(dst_orig, device=t.device)
+        out = logical.index_select(axis, cols.clamp_min(0))
+        keep = (cols >= 0).view([-1 if d == axis else 1
+                                 for d in range(t.dim())])
+        return torch.where(keep, out, torch.zeros((), dtype=t.dtype,
+                                                  device=t.device))
+
+    def resize(t, axis, real, size):
+        keep = t.narrow(axis, 0, real)
+        shape = list(t.shape)
+        shape[axis] = size
+        out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+        out.narrow(axis, 0, real).copy_(keep)
+        return out
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{path}/{k}" if path else k)
+                    for k, v in t.items()}
+        axes = leaf_axes(path)
+        for d, a in enumerate(axes):
+            if a == "q_heads":
+                t = heads(t, d, q_src, da.q_orig)
+            elif a == "kv_heads":
+                t = heads(t, d, kv_src, da.kv_orig)
+            elif a == "ffn":
+                t = resize(t, d, cfg.d_ff, dst_plan.d_ff_padded)
+            elif a == "vocab":
+                t = resize(t, d, cfg.vocab_size, dst_plan.vocab_padded)
+        return t
+    return walk(tree, "")
 
 
 def params_from_jax(tree: Params, cfg, plan, device) -> Params:

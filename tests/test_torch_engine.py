@@ -168,8 +168,10 @@ def test_w_dtype_int8_is_carried_and_decodes_with_fp_weights(jax_setup,
 
 
 def test_mesh_raises(setup):
+    """A mesh needs a model planned for its ring (the ring's engines run
+    in spawned ranks: tests/test_torch_tp_engine.py)."""
     model, params, _ = setup
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="plan built for it"):
         LPUEngine(model, params, EngineConfig(slots=2, max_seq=64),
                   mesh=object(), device="cpu")
 

@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only tp_cards      # 2 or more cards: phase 14
 
 Phases (each raises on failure; the script exits non-zero and prints no
 result line when any phase fails or when no CUDA device is present):
@@ -67,7 +68,7 @@ result line when any phase fails or when no CUDA device is present):
    against its plain twin, kernel 1 launched once per layer per decode
    step, verify round, chunk and prefix tail;
 5. chain — the C1 streamlined chain (``core/streamline.py``) at full
-   width: 4 prompts prefilled by the model, then 16 teacher-forced decode
+   width: 4 prompts prefilled by the model, then 8 teacher-forced decode
    steps of ``decode_layer`` stacked over the 30 layers, in six variants
    (paged stream, paged gather, dense, int8 pool, fp8 pool, int8
    weights), each with kernels and with the plain versions; logits are
@@ -215,32 +216,65 @@ result line when any phase fails or when no CUDA device is present):
    requires grad, raises.
 13. tensor parallelism over the ESL ring, after phase 12, the parent's
    cached blocks freed first — two ranks (processes spawned by
-   ``repro_torch.core.dist.run_ranks``) share the card over gloo, every
-   collective staged through pinned host memory, the steps eager (a
-   gloo collective cannot be captured); the ranks load the kernel
-   libraries the parent built.  Each rank draws the tp=1 weights as the
-   earlier phases did, stores them again at the ring's layout
-   (``weights.relayout``) and keeps its shards (``weights.shard_params``):
-   (a) full-width opt-1.3b (24 layers, d 2048, 32 heads of 64, f32,
-   biases and learned positions refilled non-zero as in phase (h)) with
-   (h1)'s 8 prompts x 32 new on 4 slots, max_seq 512, blocks of 128, in
-   ESL overlap, in blocking, and in blocking in chunks of 64 (the
-   blocking baseline's ~60 collectives a step against overlap's ~220
-   keep the phase shorter); (b) full-width
+   ``repro_torch.core.dist.run_ranks``, placement ``shared_card``) share
+   the card over gloo, every collective staged through pinned host
+   memory, the steps eager (a gloo collective cannot be captured); the
+   ranks load the kernel libraries the parent built.  Each rank draws
+   only its shard of the tp=1 weights the earlier phases drew
+   (``weights.init_shard``: the tp=1 values layer by layer, stored at
+   the ring's layout and sliced at once; OPT's biases and positions
+   redrawn the same way, ``weights.redraw_shard``): (a) full-width
+   opt-1.3b (24 layers, d 2048, 32 heads of 64, f32) with (h1)'s 8
+   prompts x 32 new on 4 slots, max_seq 512, blocks of 128, in ESL
+   overlap (its blocking runs are phase 14's, on NCCL); (b) full-width
    smollm-135m in blocking (3 kv heads padded to 4: rank 1's second kv
    head a pad head, whose query heads' wq columns and wo rows must be
-   zero) with the engine phase's prompts.  Kernel 1 is held against its plain
-   version at each rank's shapes (opt: 16 query and 16 kv heads of 64;
-   smollm: 6 and 2), then every run's greedy streams must be the same on
-   both ranks and equal the tp=1 engine's (phase (h)'s and the engine
-   phase's) or part only at a top-2 gap <= 1e-4 of the tp=1 model, with
-   kernel 1 launched exactly n_layers x (decode steps + chunks) on each
-   rank; a ``{"tp": ...}`` line gives each run's wall, tokens/s, decode
-   steps, kernel 1's launches per rank, the ring's collectives, hops,
-   host-staged bytes per decode step and host seconds inside the
-   collectives, the backend, ``graphs: false`` and the card's name and
-   power limit.  The ranks share one card, time-sliced: the walls say
-   nothing of scaling.
+   zero) with the engine phase's prompts.  Kernel 1 is held against its
+   plain version at each rank's shapes (opt: 16 query and 16 kv heads of
+   64; smollm: 6 and 2), then every run's greedy streams must be the
+   same on both ranks and equal the tp=1 engine's (phase (h)'s and the
+   engine phase's) or part only at a top-2 gap <= 1e-4 of the tp=1
+   model, with kernel 1 launched exactly n_layers x (decode steps +
+   chunks) on each rank; a ``{"tp": ...}`` line gives each run's wall,
+   tokens/s, decode steps, kernel 1's launches per rank, the ring's
+   collectives, hops, host-staged bytes per decode step and host seconds
+   inside the collectives, the backend, ``graphs: false`` and the card's
+   name and power limit.  The ranks share one card, time-sliced: the
+   walls say nothing of scaling.
+14. the ring on its own cards, on a machine of 2 or more cards (on one
+   card it prints that it needs 2 or more cards and did not run;
+   ``python3 chip_smoke.py --only tp_cards`` runs the kernels' build and
+   this phase alone) — ``nvidia-smi topo -m`` and every card's name and
+   power limit; (d) kernel 1 at the ranks' heads (MHA, dh 128, bf16
+   pool, B 1: opt-66b's 36 and 18 heads at length 1040, GPT3-20B's 24
+   and 12 at length 160) against its plain version and timed beside it,
+   the library call and its bound; the tp=1 references on cuda:0
+   (opt-1.3b in f32 with (h1)'s traffic on graphs; GPT3-20B in bf16
+   through the paper's protocol, 32 in and 256 out); then a ring of 2
+   and of 4 ranks (``run_ranks`` placement ``card_per_rank``: rank r on
+   ``cuda:r``, NCCL, every step of every engine replayed from CUDA
+   graphs, each rank drawing only its shard): (a) full-width opt-1.3b in
+   f32 with (h1)'s traffic in ESL overlap, in blocking and in blocking
+   with a prefill in chunks of 64 (the chunk program captured too), and
+   at tp 2 their eager twins: streams equal to tp=1's or apart only at a
+   top-2 gap <= 1e-4, kernel 1's launches exact on every rank (n_layers
+   x (decode steps + chunks)), every run replayed, nothing staged
+   through the host, the graphs' collectives equal to the eager twin's
+   and, at tp 2, to phase 13's count for the same traffic (overlap
+   13922; blocking 3755 with its one-time gathers of parameters); (b)
+   full-width GPT3-20B in bf16 through the protocol (32 in, 256 out) in
+   overlap and in blocking: ms/token of wall and of device per rank
+   (torch.profiler over 64 decode steps, NCCL's kernels apart), the
+   speed-up per doubling from tp 1 beside the paper's 1.75 (LPU) and
+   1.38 (DGX), streams equal to tp=1's or apart at a bf16 near tie seen
+   from both sides (at the first token apart, both tokens within 3e-2 +
+   3e-2 x |top-1 logit| of the top of the ring's logits and of tp=1's);
+   (c) full-width opt-66b in bf16 (no card holds it whole) through the
+   protocol, 2016 new in overlap and 512 in blocking: ms/token of wall
+   and device, bandwidth use and peak memory per card beside the
+   paper's 22.2 ms and the GPU's 0.649, tp 2's blocking stream held to
+   its overlap stream and tp 4's streams to tp 2's overlap stream (apart
+   only at such a near tie).  A ``{"tp_cards": ...}`` line.
 
 Every engine runs its fused decode windows, verify rounds, monolithic
 prefills, prefill chunks, prefix tails, first-token sampling and
@@ -268,8 +302,10 @@ whisper's steps, the laps; the card's name and power limit), a
 ``{"train": ...}`` line (phase 12: the losses, the resume, ms per step,
 one step's device ms and kernels, tokens/s, peak memory, the
 optimizer's device ms, the checkpoint's save wall, ``mfu_f32``, the
-card's name and power limit), a ``{"tp": ...}`` line (phase 13), the
-nvidia-smi line and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX: the port stands alone.
+card's name and power limit), a ``{"tp": ...}`` line (phase 13), on 2
+or more cards a ``{"tp_cards": ...}`` line (phase 14), the nvidia-smi
+line and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX: the
+port stands alone.
 """
 from __future__ import annotations
 
@@ -1654,16 +1690,18 @@ def quant_gaps(torch, model, params, tokens, qdtype):
 
 def pool_checks(eng, what):
     """The pool balanced after the drain, and its reported bytes those
-    of its leaves: per-rank block bytes x blocks."""
+    of its leaves: per-rank block bytes x blocks on each rank, tp times
+    that over the ring."""
     from repro_torch.serving.kv_cache import cache_bytes, per_rank_block_bytes
     eng.check_pool_balanced()
     a = eng.plan.attn
     want = per_rank_block_bytes(eng.cfg.n_layers, a.kv_per_rank, a.d_head,
                                 eng.block_size, eng.kv_prec.itemsize,
                                 eng.kv_prec.scale_itemsize) * eng.num_blocks
-    if eng.kv_cache_bytes() != want or cache_bytes(eng.cache) != want:
+    if eng.per_rank_kv_bytes() != want or cache_bytes(eng.cache) != want \
+            or eng.kv_cache_bytes() != want * eng.tp:
         raise AssertionError(f"{what}: kv_cache_bytes "
-                             f"{eng.kv_cache_bytes()} != {want}")
+                             f"{eng.kv_cache_bytes()} != {want} x {eng.tp}")
 
 
 def run_rec(eng, launches, **extra):
@@ -2562,10 +2600,10 @@ def run_frontend(torch, dev, model, params, card_name):
     return out
 
 
-# the C1 chain: 16 teacher-forced decode steps in six variants, named
+# the C1 chain: 8 teacher-forced decode steps in six variants, named
 # (cache, paged dataflow, w_dtype) (32 steps before phase 13 joined the
-# run)
-CHAIN_STEPS = 16
+# run, 16 until the one-card run passed 900 s)
+CHAIN_STEPS = 8
 CHAIN_VARIANTS = (("stream", "pool", "stream", "auto"),
                   ("gather", "pool", "gather", "auto"),
                   ("dense", "dense", "auto", "auto"),
@@ -2955,6 +2993,7 @@ OPT_WINDOW = 8                 # steps_per_sync of the protocol's engine
 OPT_PROFILE_STEPS = 64         # decode steps under torch.profiler
 OPT_BIAS_STD = 0.02
 OPT_BIAS_LEAVES = ("bq", "bk", "bv", "bi", "bd", "bias")
+OPT_REDRAW_SEED = 20
 # kernel 1 at the protocol's shape: batch 1, OPT's 32 heads over 32 kv
 # heads, blocks of 128 under max_seq 2048 (T 16), the mean length of
 # in 32 + out 2016, bf16; dh 64 (opt-1.3b) and 128 (opt-6.7b)
@@ -2966,33 +3005,44 @@ OPT_GEMV_SHAPES = (("qkv", 2048, 6144, True), ("o", 2048, 2048, False),
                    ("fc1", 2048, 8192, True), ("fc2", 8192, 2048, True))
 
 
+def opt_std(cfg):
+    """{leaf name: std} of the leaves an OPT or GPT3 model redraws: every
+    bias N(0, 0.02^2), ``pos_embed`` its init law N(0, 1/max_seq)."""
+    return dict(dict.fromkeys(OPT_BIAS_LEAVES, OPT_BIAS_STD),
+                pos_embed=1.0 / math.sqrt(cfg.max_seq))
+
+
 def opt_model(torch, dev, name, dtype="float32"):
     """Full-width ``name`` with random weights drawn on the card by
-    ``init_params`` (seed 0), then every bias leaf refilled from an
-    explicit generator with N(0, 0.02^2) and ``pos_embed`` with its init
-    law N(0, 1/max_seq): the init's zero biases would leave every bias
-    add, kernel 3's included, adding nothing."""
+    ``init_params`` (seed 0), then every bias leaf and ``pos_embed``
+    redrawn (``weights.redraw``, :func:`opt_std`, seed OPT_REDRAW_SEED):
+    the init's zero biases would leave every bias add, kernel 3's
+    included, adding nothing."""
     from repro_torch.compiler.mapper import plan_model
     from repro_torch.configs import get_config
     from repro_torch.models.common import init_params
     from repro_torch.models.registry import build_model
+    from repro_torch.weights import redraw
     cfg = get_config(name)
     plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
                       remat="none", compute_dtype=dtype, param_dtype=dtype)
     model = build_model(cfg, plan, dev)
     params = init_params(cfg, plan, seed=0, device=dev)
-    g = torch.Generator(device=dev).manual_seed(20)
-
-    def refill(tree):
-        for leaf, t in tree.items():
-            if isinstance(t, dict):
-                refill(t)
-            elif leaf in OPT_BIAS_LEAVES or leaf == "pos_embed":
-                std = OPT_BIAS_STD if leaf != "pos_embed" \
-                    else 1.0 / math.sqrt(cfg.max_seq)
-                t.copy_(torch.randn(t.shape, generator=g, device=dev) * std)
-    refill(params)
+    redraw(params, opt_std(cfg), OPT_REDRAW_SEED)
     return model, params
+
+
+def rank_weights(cfg, plan, rank, dev):
+    """Rank ``rank``'s shard of full-width ``cfg`` on ``plan``'s ring,
+    the values the tp=1 phases draw (``init_params`` seed 0; an OPT or
+    GPT3 model's biases and positions redrawn as :func:`opt_model` does),
+    drawn without the full tree (``weights.init_shard``,
+    ``weights.redraw_shard``)."""
+    from repro_torch.weights import init_shard, redraw_shard
+    params = init_shard(cfg, plan, rank, seed=0, device=dev)
+    if cfg.positional == "learned":
+        redraw_shard(params, cfg, plan, rank, opt_std(cfg), OPT_REDRAW_SEED)
+    return params
 
 
 def opt_prompts(cfg):
@@ -3113,20 +3163,21 @@ def run_opt_chain(torch, dev, model, params):
     return chain
 
 
-def check_time_paged_opt(torch, dev, card_name):
-    """(h3): kernel 1 at the protocol's shape (B 1, H = G = 32, bs 128,
-    T 16, length 1040 over a table out of order, bf16 pool, the fold as
-    decode calls it) for dh 64 and 128: against its plain version, then
-    timed beside the plain version and the library call (gather + SDPA),
-    with its bound."""
+def check_time_paged_opt(torch, dev, card_name, heads=OPT_K1_HEADS,
+                         dhs=OPT_K1_DH, length=OPT_K1_LEN, what="(h3)"):
+    """(h3): kernel 1 at the protocol's shape (B 1, H = G = ``heads`` (32),
+    bs 128, T 16, ``length`` (1040) over a table out of order, bf16 pool,
+    the fold as decode calls it) for each dh of ``dhs`` (64 and 128):
+    against its plain version, then timed beside the plain version and
+    the library call (gather + SDPA), with its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention.ops import (
         SPLIT, dense_plan, paged_decode_attention)
     from repro_torch.kernels.decode_attention.ref import (
         gather_kv_pages, paged_decode_attention_ref)
-    Hq, T_, n = OPT_K1_HEADS, OPT_K1_T, OPT_K1_LEN
+    Hq, T_, n = heads, OPT_K1_T, length
     out = {}
-    for dh in OPT_K1_DH:
+    for dh in dhs:
         g = torch.Generator(device=dev).manual_seed(dh)
 
         def rnd(*shape):
@@ -3147,8 +3198,8 @@ def check_time_paged_opt(torch, dev, card_name):
         err = (got.float() - want.float()).abs().max().item()
         tol = TOL["bfloat16"]
         if not torch.isfinite(got).all() or err > tol:
-            raise AssertionError(f"(h3) kernel 1 at dh {dh}: vs plain max "
-                                 f"abs {err} > {tol}")
+            raise AssertionError(f"{what} kernel 1 at {Hq} heads, dh {dh}: "
+                                 f"vs plain max abs {err} > {tol}")
         n_sets = sets_for(2 * kp.numel() * kp.element_size())
         pools = [(kp.clone(), vp.clone()) for _ in range(n_sets)]
         valid = torch.arange(T_ * BS, device=dev)[None] < ln[:, None]
@@ -3239,11 +3290,13 @@ def weight_bytes(params):
         - pe.numel() * pe.element_size()
 
 
-def protocol_run(torch, dev, model, params, prompt, out_n, graphs):
+def protocol_run(torch, dev, model, params, prompt, out_n, graphs,
+                 mesh=None):
     """One engine of the protocol (1 slot, max_seq 2048, 8-step windows,
     a bf16 pool), greedy, on captured windows or (``graphs=False``) the
-    eager twin, warmed by a first request of 16 tokens (which captures
-    its prefill, sampler and windows, as a server does once), then
+    eager twin, on one card or as one rank of the ring ``mesh`` (every
+    rank calls it alike), warmed by a first request of 16 tokens (which
+    captures its prefill, sampler and windows, as a server does once), then
     serving the measured one.  In the middle of its output (KV at the
     mean length) 64 decode steps run under torch.profiler: device ms per
     token from them; wall ms per output token from the engine's own
@@ -3260,16 +3313,21 @@ def protocol_run(torch, dev, model, params, prompt, out_n, graphs):
 
     eng = LPUEngine(model, params, EngineConfig(
         slots=1, max_seq=OPT_MAX_SEQ, steps_per_sync=OPT_WINDOW,
-        kv_dtype="bfloat16"), device=dev, graphs=graphs)
+        kv_dtype="bfloat16"), device=dev, graphs=graphs, mesh=mesh)
     eng.generate([prompt], max_new_tokens=2 * OPT_WINDOW)       # warm
     torch.cuda.synchronize()
     _reset_counts()
+    if mesh is not None:
+        mesh.reset_counters()
     st = eng.stats
     base = dataclasses.replace(st)
     rid = eng.submit(prompt, out_n)
     mid = PAPER_IN_TOKENS + out_n // 2 - OPT_PROFILE_STEPS // 2
     seq = None
     while seq is None or seq.pos < mid:
+        if not eng.sched.has_work():
+            raise AssertionError(f"(h4) {cfg.name}: the request ended "
+                                 f"before position {mid}")
         eng.step()
         seq = eng.sched.active[0]
     pos0, steps0, wall0 = seq.pos, st.device_decode_steps, st.wall
@@ -3287,6 +3345,8 @@ def protocol_run(torch, dev, model, params, prompt, out_n, graphs):
     k1_window = _read_counts()["paged_decode_attention"] - k1_0
     out = eng.drain()[rid]
     torch.cuda.synchronize()
+    ring = None if mesh is None else ring_counts(
+        mesh, st.device_decode_steps - base.device_decode_steps)
     what = f"(h4) {cfg.name} graphs={graphs}"
     counts = path_counts({"paged_decode_attention"}, what)
     replays = st.graph_replays - base.graph_replays
@@ -3307,6 +3367,10 @@ def protocol_run(torch, dev, model, params, prompt, out_n, graphs):
         raise AssertionError(f"{what}: the profiler saw {busy_us} us over "
                              f"{steps} decode steps")
     device_ms = busy_us / 1e3 / steps
+    # on a ring: the share of it in NCCL's kernels (a kernel waiting for
+    # its peers counts its wait)
+    nccl_ms = sum(e.self_device_time_total for e in kernels
+                  if "nccl" in e.key.lower()) / 1e3 / steps
     # the profiled steps' own wall is left out of the wall per token
     wall_ms = (st.wall - base.wall - window_wall) * 1e3 / (len(out) - steps)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
@@ -3323,15 +3387,24 @@ def protocol_run(torch, dev, model, params, prompt, out_n, graphs):
                 "kernel1_profiler_count": sum(
                     e.count for e in kernels
                     if "paged_decode_kernel" in e.key),
-                "kernel1_registry_launches": k1_window},
+                "kernel1_registry_launches": k1_window,
+                "nccl_ms_per_token": nccl_ms},
             "total_wall_s": st.wall - base.wall,
             "graph_captures": st.graph_captures, "graph_replays": replays,
-            "launches": counts,
+            "launches": counts, "ring": ring,
             "ttft": ttft,
             "pool_dtype": str(eng.cache["l0"]["k"].dtype).split(".")[-1],
             "top_kernels": [{"name": e.key[:80], "count": e.count,
                              "ms": e.self_device_time_total / 1e3}
                             for e in top]}
+
+
+def protocol_prompt(cfg):
+    """The protocol's seeded prompt of PAPER_IN_TOKENS tokens."""
+    import numpy as np
+    rng = np.random.RandomState(32)
+    return [int(t) for t in rng.randint(1, cfg.vocab_size,
+                                        size=PAPER_IN_TOKENS)]
 
 
 def paper_protocol(torch, dev, name, card_name):
@@ -3344,13 +3417,10 @@ def paper_protocol(torch, dev, name, card_name):
     Bytes per token are the weights plus the KV at the mean length;
     bandwidth use against the data sheet's.  Measures, does not gate
     (beyond finite, equal, exact-launch runs)."""
-    import numpy as np
     model, params = opt_model(torch, dev, name, "bfloat16")
     cfg, plan = model.cfg, model.plan
     out_n = OPT_OUT[name]
-    rng = np.random.RandomState(32)
-    prompt = [int(t) for t in rng.randint(1, cfg.vocab_size,
-                                          size=PAPER_IN_TOKENS)]
+    prompt = protocol_prompt(cfg)
     run = protocol_run(torch, dev, model, params, prompt, out_n, True)
     twin = protocol_run(torch, dev, model, params, prompt,
                         OPT_EAGER_OUT[name], False)
@@ -4136,7 +4206,7 @@ def run_jamba(torch, dev):
 
 # ---------------------------------------------------------------------------
 # 11. the remaining families: granite-moe-3b at full width (depth cut to
-# 16 of 32 since phase 13 joined the run) through the engine,
+# 8 of 32) through the engine,
 # llama4-maverick (its shared expert) and
 # llava-next-34b at a cut depth through the engine, llava's patch
 # projector and whisper-tiny's encoder-decoder through the serving steps
@@ -4636,7 +4706,7 @@ def free_card(torch, what):
 
 def run_families(torch, dev, card_name):
     """Phase 11: kernel 1 at the three new GQA shapes, then (a) granite
-    at full width, depth 16, in f32 through the engine, (b) llama4 at
+    at full width, depth 8, in f32 through the engine, (b) llama4 at
     depth 2 in bf16, (c) llava at depth 8 in bf16 through the engine and
     through the steps with 2880 patches, (d) whisper-tiny through the
     steps; each model freed before the next loads."""
@@ -4927,17 +4997,6 @@ TP = 2
 TP_NEW = 32
 
 
-def tp_weights(torch, dev, name):
-    """(cfg, tp=1 plan, the tp=1 weights) of full-width ``name`` as the
-    tp=1 phases drew them: opt-1.3b by :func:`opt_model` (biases and
-    learned positions refilled), smollm-135m by :func:`smollm`."""
-    if name == "opt-1.3b":
-        model, params = opt_model(torch, dev, name)
-    else:
-        model, params, _ = smollm(torch, dev)
-    return model.cfg, model.plan, params
-
-
 def check_kernel1_at_rank(torch, dev, plan, rank, seed):
     """Kernel 1 against its plain version at this rank's shapes (the
     engine's 4 slots, its q_per_rank query and kv_per_rank kv heads, f32
@@ -4996,36 +5055,37 @@ def pad_heads_silent(plan, params, rank):
     return len(pads)
 
 
+def ring_plans(cfg, tp, dtype="float32"):
+    """{esl_overlap: the serving plan of ``cfg`` on a ring of ``tp``}
+    (both modes store the weights at the same layout)."""
+    from repro_torch.compiler.mapper import plan_model
+    return {ov: plan_model(cfg, ("model",), (tp,), "serve", esl_overlap=ov,
+                           remat="none", compute_dtype=dtype,
+                           param_dtype=dtype)
+            for ov in (True, False)}
+
+
 def tp_rank(ring, spec):
-    """One rank of phase 13: for each model of ``spec``, the tp=1
-    weights stored again at the ring's layout and sliced to this rank
-    (the full tree freed), kernel 1 checked at the rank's shapes, then
-    each run served by this rank's engine (steps eager on the gloo
+    """One rank of phase 13: for each model of ``spec``, this rank's
+    shard drawn alone (:func:`rank_weights`: the tp=1 values at the
+    ring's layout, no full tree), kernel 1 checked at the rank's shapes,
+    then each run served by this rank's engine (steps eager on the gloo
     ring), kernel 1's launches counted from zero just before the run and
     read just after.  Returns every rank's record."""
     import torch
-    from repro_torch.compiler.mapper import plan_model
+    from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention.ops import \
         paged_decode_attention
     from repro_torch.models.registry import build_model
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import LPUEngine
-    from repro_torch.weights import relayout, shard_params
     dev = ring.device
     out = {"rank": ring.rank, "models": {}}
     for name, runs in spec:
         t0 = time.perf_counter()
-        cfg, plan1, full = tp_weights(torch, dev, name)
-        plans = {ov: plan_model(cfg, ("model",), (ring.size,), "serve",
-                                esl_overlap=ov, remat="none",
-                                compute_dtype="float32",
-                                param_dtype="float32")
-                 for ov in (True, False)}
-        params = shard_params(relayout(full, cfg, plan1, plans[True]),
-                              plans[True], ring.rank)
-        del full
-        gc.collect()
-        torch.cuda.empty_cache()
+        cfg = get_config(name)
+        plans = ring_plans(cfg, ring.size)
+        params = rank_weights(cfg, plans[True], ring.rank, dev)
         rec = {"setup_s": time.perf_counter() - t0,
                "pad_heads": pad_heads_silent(plans[True], params, ring.rank),
                "kernel1_max_abs_err": check_kernel1_at_rank(
@@ -5092,15 +5152,15 @@ def tp_rank(ring, spec):
 
 
 def run_tp(torch, dev, card_name, tp1):
-    """Phase 13: full-width opt-1.3b (f32, biases and positions refilled
-    non-zero) at tp 2, ESL overlap and blocking and in chunks of 64,
-    and full-width smollm-135m at tp 2 (3 kv heads padded to 4: rank 1's
-    second kv head a pad head), two ranks on the one card over gloo,
-    the steps eager; each run's greedy streams equal to the tp=1
-    engine's (``tp1``: {name: (prompts, streams)} from the earlier
-    phases) or apart only at a top-2 gap <= CHAIN_TOL of the tp=1 model,
-    kernel 1 launched exactly n_layers x (decode steps + chunks) on
-    every rank."""
+    """Phase 13: full-width opt-1.3b (f32, biases and positions redrawn
+    non-zero) at tp 2 in ESL overlap, and full-width smollm-135m at tp 2
+    in blocking (3 kv heads padded to 4: rank 1's second kv head a pad
+    head), two ranks on the one card over gloo, the steps eager (opt's
+    blocking runs moved to phase 14, on NCCL); each run's greedy streams
+    equal to the tp=1 engine's (``tp1``: {name: (prompts, streams)} from
+    the earlier phases) or apart only at a top-2 gap <= CHAIN_TOL of the
+    tp=1 model, kernel 1 launched exactly n_layers x (decode steps +
+    chunks) on every rank."""
     from repro_torch.core.dist import run_ranks
     t0 = time.perf_counter()
     gc.collect()
@@ -5110,16 +5170,12 @@ def run_tp(torch, dev, card_name, tp1):
     spec = [
         ("opt-1.3b", [
             dict(key="overlap", overlap=True, knobs={},
-                 prompts=opt_prompts_),
-            dict(key="blocking", overlap=False, knobs={},
-                 prompts=opt_prompts_),
-            dict(key="blocking_chunks64", overlap=False,
-                 knobs=dict(prefill_chunk=PREFILL_CHUNK),
                  prompts=opt_prompts_)]),
         ("smollm-135m", [
             dict(key="blocking", overlap=False, knobs={},
                  prompts=sm_prompts)])]
-    per_rank = run_ranks(tp_rank, TP, spec, device=dev)
+    per_rank = run_ranks(tp_rank, TP, spec, device=dev,
+                         placement="shared_card")
     spawn_s = time.perf_counter() - t0
     out = {"tp": TP, "backend": per_rank[0]["backend"], "graphs": False,
            "ranks_on_one_card": True, "card": card_name, "models": {}}
@@ -5167,7 +5223,543 @@ def run_tp(torch, dev, card_name, tp1):
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 14: the ring on its own cards (NCCL, a card per rank, graphs)
+# ---------------------------------------------------------------------------
+
+TP_CARDS = (2, 4)
+# (a)'s runs: (key, ESL overlap, the engine's other knobs), each on
+# graphs and, at tp 2, as an eager twin
+CARDS_A_RUNS = (("overlap", True, {}), ("blocking", False, {}),
+                ("blocking_chunks64", False,
+                 {"prefill_chunk": PREFILL_CHUNK}))
+# phase 13's collectives over (h1)'s traffic at tp 2 (gloo, two ranks on
+# one H100 80GB HBM3): the same code on NCCL must count the same.
+# Blocking's count there held its one-time gathers of the norm vectors,
+# biases and position table (``dist.all_gather_param``), which phase 14
+# makes in a warm-up: they are added back (``ring._gathered``)
+PHASE13_COLLECTIVES = {"overlap": 13922, "blocking": 3755}
+PHASE13_DECODE_STEPS = 62
+GPT3_OUT = 256                 # (b): 32 in, 256 out, batch 1
+OPT66_OUT = {"overlap": PAPER_OUT_TOKENS, "blocking": 512}
+# the paper's figures, copied from benchmarks/paper_constants.py
+# (PAPER_LATENCY, PAPER_BW_UTIL, PAPER_GPU_BW_UTIL, PAPER_SPEEDUP_VS_GPU
+# at ("opt-66b", 2); PAPER_LPU_SCALING_PER_DOUBLING and
+# PAPER_DGX_SCALING_PER_DOUBLING of Fig. 7c): printed beside the port's
+PAPER_OPT66 = {"devices": 2, "lpu_ms_per_token": 22.2,
+               "lpu_bandwidth_use": 0.906, "gpu_bandwidth_use": 0.649,
+               "gpu_slower_x": 1.37}
+PAPER_SCALING = {"lpu_per_doubling": 1.75, "dgx_per_doubling": 1.38}
+# (d): kernel 1 at the ranks' heads (MHA, dh 128, bf16 pool, B 1): the
+# protocol's mean length for each model's output
+TP_CARDS_K1 = (("opt-66b", 36, PAPER_IN_TOKENS + PAPER_OUT_TOKENS // 2),
+               ("opt-66b", 18, PAPER_IN_TOKENS + PAPER_OUT_TOKENS // 2),
+               ("gpt3-20b", 24, PAPER_IN_TOKENS + GPT3_OUT // 2),
+               ("gpt3-20b", 12, PAPER_IN_TOKENS + GPT3_OUT // 2))
+
+
+def smi_query(*args):
+    """nvidia-smi's output for ``args``, or the error that kept it."""
+    try:
+        return subprocess.run(["nvidia-smi", *args], capture_output=True,
+                              text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi failed: {e}"
+
+
+def free_cuda(torch):
+    """Collect and empty the allocator's cache, keeping its peak (unlike
+    :func:`free_card`, which also checks that nothing is held: here a
+    rank's shard stays between its runs)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def ring_gap(torch, ring, model, params, tokens):
+    """(top-2 gap, top-1 logit) of the logits that pick the last of
+    ``tokens``, from the ring model's own prefill of the ones before it
+    (every rank calls it alike; the vocab columns gathered whole)."""
+    row = top_picks(torch, model, params, tokens[:-1], tokens[-1:], ring,
+                    k=2)[0]
+    return row[0][1] - row[1][1], row[0][1]
+
+
+def ring_agree(torch, ring, model, params, prompts, got, want, tol, what):
+    """Greedy streams ``got`` and ``want`` equal, or first apart (within
+    the shorter) where the ring model's top-2 gap is at most ``tol``: a
+    near tie, where another order of f32 sums may pick either token.
+    Every rank calls it on the same streams.  Raises otherwise."""
+    out = []
+    for i, (p, x, y) in enumerate(zip(prompts, got, want)):
+        at = next((j for j, (u, v) in enumerate(zip(x, y)) if u != v), None)
+        if at is None:
+            continue
+        gap, top = ring_gap(torch, ring, model, params,
+                            list(p) + list(x[:at + 1]))
+        if gap > tol:
+            raise AssertionError(f"{what}: stream {i} differs at token {at} "
+                                 f"where the top-2 gap is {gap} > {tol} "
+                                 f"(top-1 logit {top})")
+        out.append({"request": i, "at": at, "top2_gap": gap,
+                    "top1_logit": top})
+    return {"equal": len(prompts) - len(out), "of": len(prompts),
+            "diverged_at_near_ties": out}
+
+
+# a bf16 stream's picks kept for the near-tie test: each row's top 8
+TIE_TOP_K = 8
+
+
+def top_picks(torch, model, params, prompt, stream, ring=None,
+              k=TIE_TOP_K):
+    """For each token of ``stream``: the top ``k`` [token, logit] of the
+    logits that pick it, from one prefill of ``prompt`` + ``stream[:-1]``
+    by ``model`` (one card, or the ring ``ring``: every rank calls it
+    alike, the vocab columns gathered whole)."""
+    from repro_torch.core import esl
+    from repro_torch.core.dist import make_axis_env
+    dev = model.device
+    tokens = list(prompt) + list(stream[:-1])
+    S = len(tokens)
+    env = None if ring is None else make_axis_env(model.plan, ring=ring)
+    with torch.no_grad():
+        lg, _ = model.forward(params, torch.tensor([tokens], device=dev),
+                              mode="prefill", cache=model.init_cache(1, S),
+                              positions=torch.arange(S, device=dev)[None],
+                              env=env)
+        rows = lg[0, len(prompt) - 1:].float()
+        del lg
+        if ring is not None:
+            rows = esl.gather_scattered(rows, axis=ring, tp=ring.size)
+        v, i = rows.topk(k, -1)
+    return [[list(p) for p in zip(a, b)] for a, b in zip(i.tolist(),
+                                                         v.tolist())]
+
+
+def ring_agree_bf16(torch, ring, model, params, prompt, got, want, what,
+                    tol=TOL["bfloat16"]):
+    """A bf16 stream ``got`` of the ring against ``want`` = {"stream",
+    "picks"} (another ring's or tp=1's, with its :func:`top_picks`):
+    equal, or first apart (within the shorter) at a near tie seen from
+    both sides: the two tokens each within tol + tol x |top-1 logit|
+    (the reference's bf16 allclose, atol = rtol = 3e-2, at the top
+    logit's scale) of the top of the ring model's own row and of the
+    other side's row.  Every rank calls it alike.  Raises otherwise."""
+    at = next((j for j, (u, v) in enumerate(zip(got, want["stream"]))
+               if u != v), None)
+    if at is None:
+        return {"equal": 1, "of": 1, "diverged_at_near_ties": []}
+    pair = (got[at], want["stream"][at])
+    rec = {"at": at, "tokens": list(pair)}
+    for side, row in (("ring", top_picks(torch, model, params, prompt,
+                                         got[:at + 1], ring)[-1]),
+                      ("other", want["picks"][at])):
+        # how far each token lies below the row's top (inf outside its
+        # top k)
+        top, logit = row[0][1], dict(row)
+        lags = [top - logit[t] if t in logit else math.inf for t in pair]
+        bound = tol + tol * abs(top)
+        rec[side] = {"lags": lags, "bound": bound, "top1_logit": top}
+        if max(lags) > bound:
+            raise AssertionError(
+                f"{what}: stream differs at token {at} ({pair[0]} here, "
+                f"{pair[1]} there), not a near tie of the {side} side's "
+                f"logits: lags {lags} below its top > {bound}")
+    return {"equal": 0, "of": 1, "diverged_at_near_ties": [rec]}
+
+
+def ring_counts(ring, steps):
+    """The ring's counters over a run of ``steps`` decode steps; on NCCL
+    nothing may have been staged through the host."""
+    c = ring.counters
+    steps = max(steps, 1)
+    if ring.nccl and c["staged_bytes"]:
+        raise AssertionError(f"(14) {c['staged_bytes']} bytes staged "
+                             "through the host on NCCL")
+    return {"collectives": c["collectives"], "hops": c["hops"],
+            "staged_bytes": c["staged_bytes"],
+            "collectives_per_decode_step": c["collectives"] / steps,
+            "hops_per_decode_step": c["hops"] / steps,
+            "seconds_in_collective_calls": c["seconds"]}
+
+
+def cards_opt13(torch, ring, spec):
+    """(a) at this rank: full-width opt-1.3b (f32) with (h1)'s traffic in
+    ESL overlap, in blocking and in blocking with a prefill in chunks of
+    PREFILL_CHUNK, on graphs, and (tp 2) their eager twins;
+    each engine warmed by one short request first (the process's first
+    uses, and blocking's one-time parameter gathers), its counters read
+    from zero over the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine
+    dev = ring.device
+    cfg = get_config("opt-1.3b")
+    plans = ring_plans(cfg, ring.size)
+    params = rank_weights(cfg, plans[True], ring.rank, dev)
+    prompts, want = spec["prompts"], spec["want"]
+    out = {}
+    for key, overlap, graphs, knobs in spec["runs"]:
+        what = f"(14a) opt-1.3b tp {ring.size} {key} rank {ring.rank}"
+        model = build_model(cfg, plans[overlap], dev)
+        eng = LPUEngine(model, params, EngineConfig(
+            slots=4, max_seq=512, block_size=BS, **knobs), mesh=ring,
+            device=dev, graphs=graphs)
+        eng.generate(prompts[:1], max_new_tokens=2)
+        torch.cuda.synchronize()
+        eng.stats = type(eng.stats)()
+        paged_decode_attention.launches = 0
+        ring.reset_counters()
+        t0 = time.perf_counter()
+        streams = eng.generate(prompts, max_new_tokens=TP_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = paged_decode_attention.launches
+        st = eng.stats
+        rec = dict(run_rec(eng, launches), wall_s=wall,
+                   tokens_per_s=st.tokens / wall, graphs=graphs,
+                   kernel1_want=launches_want(eng),
+                   **ring_counts(ring, st.device_decode_steps),
+                   params_gathered_once=len(ring._gathered))
+        if launches != rec["kernel1_want"] or not launches:
+            raise AssertionError(f"{what}: kernel 1 launches {launches} != "
+                                 f"{rec['kernel1_want']}")
+        if graphs and not st.graph_replays:
+            raise AssertionError(f"{what}: no replay")
+        if bool(st.prefill_chunks) != ("prefill_chunk" in knobs):
+            raise AssertionError(f"{what}: {st.prefill_chunks} prefill "
+                                 "chunks")
+        on_graphs(eng)
+        pool_checks(eng, what)
+        del eng
+        rec["vs_tp1"] = ring_agree(torch, ring, model, params, prompts,
+                                   streams, want, CHAIN_TOL, what)
+        rec["streams"] = streams
+        out[key] = rec
+        del model
+    del params
+    free_cuda(torch)
+    return out
+
+
+def cards_protocol(torch, ring, spec):
+    """(b) and (c) at this rank: ``spec["name"]`` at full width in bf16,
+    this rank's shard drawn alone, through the paper's protocol
+    (:func:`protocol_run`: batch 1, 32 in, ``out`` new tokens, on
+    graphs) in each mode of ``spec["out"]``; the ring's counters, peak
+    memory, bytes a card reads a token, and each stream against
+    ``spec["want"]`` (tp=1's or another ring's stream with its picks)
+    or, with none, against the first mode's, apart only at a bf16 near
+    tie seen from both sides (:func:`ring_agree_bf16`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    dev = ring.device
+    name = spec["name"]
+    cfg = get_config(name)
+    plans = ring_plans(cfg, ring.size, "bfloat16")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = rank_weights(cfg, plans[True], ring.rank, dev)
+    torch.cuda.synchronize()
+    out = {"setup_s": time.perf_counter() - t0,
+           "weight_bytes_per_card": weight_bytes(params),
+           "peak_memory_after_draw": torch.cuda.max_memory_allocated(dev),
+           "runs": {}}
+    prompt = protocol_prompt(cfg)
+    want, peak = spec.get("want"), 0
+    for key, out_n in spec["out"].items():
+        what = f"(14) {name} tp {ring.size} {key} rank {ring.rank}"
+        model = build_model(cfg, plans[key == "overlap"], dev)
+        r = protocol_run(torch, dev, model, params, prompt, out_n, True,
+                         mesh=ring)
+        # the serving peak, before the near-tie test's prefills
+        peak = max(peak, torch.cuda.max_memory_allocated(dev))
+        free_cuda(torch)
+        r.update(r.pop("ring"), out_tokens=len(r["out"]))
+        a = model.plan.attn
+        mean_len = PAPER_IN_TOKENS + len(r["out"]) / 2
+        kv = 2 * cfg.n_layers * a.kv_per_rank * a.d_head * 2 * mean_len
+        per_tok = out["weight_bytes_per_card"] + kv
+        bw = bandwidth_for(torch.cuda.get_device_name(dev))
+        r.update(mean_length=mean_len, kv_bytes_per_card=kv,
+                 bytes_per_card_per_token=per_tok,
+                 bound_ms_per_token=per_tok / bw * 1e3,
+                 bandwidth_use_wall=per_tok / (r["wall_ms_per_token"] / 1e3)
+                 / bw,
+                 bandwidth_use_device=per_tok
+                 / (r["device_ms_per_token"] / 1e3) / bw)
+        got = r.pop("out")
+        if want is None:
+            # the first mode's stream is what the others are held to
+            # (and, from tp 2's ring, what tp 4's is held to)
+            want = {"stream": got, "picks": top_picks(
+                torch, model, params, prompt, got, ring)}
+            out["picks"] = want["picks"]
+        else:
+            r["vs_want"] = ring_agree_bf16(torch, ring, model, params,
+                                           prompt, got, want, what)
+        r["stream"] = got
+        out["runs"][key] = r
+        del model
+        free_cuda(torch)
+    out["peak_memory_bytes"] = peak
+    del params
+    free_cuda(torch)
+    return out
+
+
+def tp_cards_rank(ring, spec):
+    """One rank of phase 14 (rank r on ``cuda:r``, NCCL): (a), (b) and
+    (c) in turn, each model freed before the next; returns every rank's
+    record."""
+    import torch
+    out = {"rank": ring.rank, "device": str(ring.device),
+           "card": torch.cuda.get_device_name(ring.device),
+           "backend": ring.backend}
+    t0 = time.perf_counter()
+    out["a"] = cards_opt13(torch, ring, spec["a"])
+    out["a_s"] = time.perf_counter() - t0
+    if ring.rank == 0:
+        # rank 0's figures as they come, should a later part fail
+        print(f"[tp_cards] (14a) tp {ring.size} rank 0: " + ", ".join(
+            f"{k} {r['tokens_per_s']:.1f} tokens/s, {r['collectives']} "
+            f"collectives, {r['graph_replays']} replays"
+            for k, r in out["a"].items()), flush=True)
+    for part in ("b", "c"):
+        t0 = time.perf_counter()
+        out[part] = cards_protocol(torch, ring, spec[part])
+        out[f"{part}_s"] = time.perf_counter() - t0
+        if ring.rank == 0:
+            print(f"[tp_cards] (14{part}) tp {ring.size} rank 0: " + ", ".join(
+                f"{k} {r['wall_ms_per_token']:.3f} ms/token wall, "
+                f"{r['device_ms_per_token']:.3f} device"
+                for k, r in out[part]["runs"].items()), flush=True)
+    return ring.gather_object(out)
+
+
+def same_on_ranks(per_rank, get, what):
+    vals = [get(r) for r in per_rank]
+    if any(v != vals[0] for v in vals):
+        raise AssertionError(f"(14) {what}: the ranks differ")
+    return vals[0]
+
+
+def run_tp_cards(torch, dev, card_name, lap=None):
+    """Phase 14 on a machine of 2 or more cards: the topology, (d) kernel
+    1 at the ranks' heads on cuda:0, the tp=1 references on cuda:0
+    (opt-1.3b f32 with (h1)'s traffic; GPT3-20B bf16 through the
+    protocol, 256 new), then a ring of 2 and of 4 ranks, each on its own
+    card over NCCL, every step on graphs: (a) opt-1.3b, (b) GPT3-20B,
+    (c) opt-66b (tp 4 held to tp 2's stream).  Returns the record."""
+    from repro_torch.core.dist import run_ranks
+    n = torch.cuda.device_count()
+    t_phase = time.perf_counter()
+    rec = {"cards": n, "card": card_name,
+           "cards_listed": smi_query("--query-gpu=index,name,power.limit",
+                                     "--format=csv,noheader").splitlines(),
+           "topology": smi_query("topo", "-m"),
+           "nvlink": smi_query("nvlink", "--status"),
+           "peer_access": [[i == j or torch.cuda.can_device_access_peer(i, j)
+                            for j in range(n)] for i in range(n)]}
+    print(f"[tp_cards] (14) {n} cards:\n" + "\n".join(rec["cards_listed"])
+          + f"\n{rec['topology']}\n{rec['nvlink'][:1500]}\npeer access "
+          f"{rec['peer_access']}", flush=True)
+
+    t0 = time.perf_counter()
+    rec["d_kernel1"] = {f"{m}/{h}heads": check_time_paged_opt(
+        torch, dev, card_name, heads=h, dhs=(128,), length=ln,
+        what="(14d)")["dh128"] for m, h, ln in TP_CARDS_K1}
+    rec["d_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    model, params = opt_model(torch, dev, "opt-1.3b")
+    prompts = opt_prompts(model.cfg)[0]
+    opt1, eng, _ = serve(torch, dev, model, params, prompts, block_size=BS)
+    del eng, model, params
+    free_cuda(torch)
+    model, params = opt_model(torch, dev, "gpt3-20b", "bfloat16")
+    gprompt = protocol_prompt(model.cfg)
+    g1 = protocol_run(torch, dev, model, params, gprompt, GPT3_OUT, True)
+    g1["weight_bytes"] = weight_bytes(params)
+    free_cuda(torch)
+    stream = g1.pop("out")
+    gpt3 = {"stream": stream, "picks": top_picks(torch, model, params,
+                                                 gprompt, stream)}
+    del model, params
+    free_cuda(torch)
+    rec["tp1_s"] = time.perf_counter() - t0
+    rec["b_tp1"] = g1
+
+    opt66 = None
+    for tp in TP_CARDS:
+        if n < tp:
+            rec[f"tp{tp}"] = f"not run: {n} cards"
+            continue
+        runs = [(key + "_eager" * (not graphs), overlap, graphs, knobs)
+                for graphs in (True, False)[:1 + (tp == 2)]
+                for key, overlap, knobs in CARDS_A_RUNS]
+        spec = {"a": {"prompts": prompts, "want": opt1, "runs": runs},
+                "b": {"name": "gpt3-20b", "want": gpt3,
+                      "out": {"overlap": GPT3_OUT, "blocking": GPT3_OUT}},
+                "c": {"name": "opt-66b", "want": opt66, "out": OPT66_OUT}}
+        t0 = time.perf_counter()
+        # a collective that waits 300 s for a peer has hung: fail then
+        per_rank = run_ranks(tp_cards_rank, tp, spec, device="cuda",
+                             placement="card_per_rank", timeout_s=300)
+        r = {"ranks_s": time.perf_counter() - t0,
+             "backend": same_on_ranks(per_rank, lambda x: x["backend"],
+                                      "backend"),
+             "rank_cards": [x["card"] for x in per_rank],
+             "part_s": [{p: x[f"{p}_s"] for p in "abc"} for x in per_rank]}
+        a = {}
+        for key, *_ in runs:
+            rr = [x["a"][key] for x in per_rank]
+            same_on_ranks(rr, lambda x: x["streams"], f"(a) {key} streams")
+            a[key] = dict({k: v for k, v in rr[0].items()
+                           if k != "streams"},
+                          kernel1_launches_per_rank=[
+                              x["kernel_launches"] for x in rr],
+                          wall_s_per_rank=[x["wall_s"] for x in rr])
+        for mode, *_ in CARDS_A_RUNS if tp == 2 else ():
+            g, e = a[mode], a[f"{mode}_eager"]
+            if g["collectives"] != e["collectives"] or \
+                    g["hops"] != e["hops"]:
+                raise AssertionError(
+                    f"(14a) {mode}: graphs {g['collectives']} "
+                    f"collectives / {g['hops']} hops, eager twin "
+                    f"{e['collectives']} / {e['hops']}")
+            if mode in PHASE13_COLLECTIVES:
+                made = g["collectives"] + (g["params_gathered_once"]
+                                           if mode == "blocking" else 0)
+                g["vs_phase13"] = {
+                    "phase13_collectives": PHASE13_COLLECTIVES[mode],
+                    "phase13_per_decode_step": PHASE13_COLLECTIVES[mode]
+                    / PHASE13_DECODE_STEPS,
+                    "collectives_with_one_time_gathers": made}
+                if made != PHASE13_COLLECTIVES[mode] or \
+                        g["device_decode_steps"] != PHASE13_DECODE_STEPS:
+                    raise AssertionError(
+                        f"(14a) {mode}: {made} collectives over "
+                        f"{g['device_decode_steps']} decode steps, phase 13 "
+                        f"counted {PHASE13_COLLECTIVES[mode]} over "
+                        f"{PHASE13_DECODE_STEPS}")
+        r["a"] = a
+        for part in ("b", "c"):
+            rr = [x[part] for x in per_rank]
+            m = {"setup_s": [x["setup_s"] for x in rr],
+                 "weight_bytes_per_card": [x["weight_bytes_per_card"]
+                                           for x in rr],
+                 "peak_memory_bytes_per_card": [x["peak_memory_bytes"]
+                                                for x in rr],
+                 "peak_memory_after_draw_per_card": [
+                     x["peak_memory_after_draw"] for x in rr],
+                 "runs": {}}
+            for key in rr[0]["runs"]:
+                runs_k = [x["runs"][key] for x in rr]
+                stream = same_on_ranks(runs_k, lambda x: x["stream"],
+                                       f"({part}) {key} stream")
+                one = {k: v for k, v in runs_k[0].items()
+                       if k not in ("stream", "eager_twin", "ttft",
+                                    "top_kernels")}
+                for k in ("wall_ms_per_token", "device_ms_per_token",
+                          "bandwidth_use_wall", "bandwidth_use_device"):
+                    one[f"{k}_per_rank"] = [x[k] for x in runs_k]
+                one["nccl_ms_per_token_per_rank"] = [
+                    x["profiled_window"]["nccl_ms_per_token"]
+                    for x in runs_k]
+                one["ttft_ms_rank0"] = runs_k[0]["ttft"]["ttft_ms"]
+                one["top_kernels_rank0"] = runs_k[0]["top_kernels"]
+                one["stream_head"] = stream[:16]
+                m["runs"][key] = one
+                if part == "c" and tp == 2 and key == "overlap":
+                    opt66 = {"stream": stream, "picks": rr[0]["picks"]}
+            r[part] = m
+        rec[f"tp{tp}"] = r
+        if lap is not None:
+            lap(f"(14) tp {tp}")
+    b_ms = {1: {"overlap": g1["wall_ms_per_token"]}}
+    b_dev = {1: {"overlap": g1["device_ms_per_token"]}}
+    for tp in TP_CARDS:
+        if isinstance(rec.get(f"tp{tp}"), dict):
+            b_ms[tp] = {k: max(v["wall_ms_per_token_per_rank"])
+                        for k, v in rec[f"tp{tp}"]["b"]["runs"].items()}
+            b_dev[tp] = {k: max(v["device_ms_per_token_per_rank"])
+                         for k, v in rec[f"tp{tp}"]["b"]["runs"].items()}
+    scaling = {}
+    for mode in ("overlap", "blocking"):
+        prev = 1
+        for tp in sorted(b_ms)[1:]:
+            base = b_ms[prev].get(mode, b_ms[prev]["overlap"])
+            dbase = b_dev[prev].get(mode, b_dev[prev]["overlap"])
+            scaling[f"{mode} tp{prev}->tp{tp}"] = {
+                "wall": base / b_ms[tp][mode],
+                "device": dbase / b_dev[tp][mode]}
+            prev = tp
+    rec["b_scaling_per_doubling"] = dict(
+        scaling, paper=dict(PAPER_SCALING,
+                            source="benchmarks/paper_constants.py (the "
+                                   "paper's figures, not the port's)"))
+    rec["c_paper"] = dict(PAPER_OPT66, source="benchmarks/paper_constants"
+                          ".py (the paper's figures, not the port's)")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def print_tp_cards(rec, smi):
+    """The phase's summary lines."""
+    for tp in TP_CARDS:
+        r = rec.get(f"tp{tp}")
+        if not isinstance(r, dict):
+            print(f"[tp_cards] (14) tp {tp}: {r}")
+            continue
+        for k, x in r["a"].items():
+            print(f"[tp_cards] (14a) opt-1.3b tp {tp} {k}: {x['tokens']} "
+                  f"tokens in {x['wall_s']:.2f} s ({x['tokens_per_s']:.1f} "
+                  f"tok/s), {x['collectives_per_decode_step']:.1f} "
+                  f"collectives and {x['hops_per_decode_step']:.1f} hops a "
+                  f"decode step, staged {x['staged_bytes']}, replays "
+                  f"{x['graph_replays']}, kernel 1 "
+                  f"{x['kernel1_launches_per_rank']} (want "
+                  f"{x['kernel1_want']}), equal to tp=1 "
+                  f"{x['vs_tp1']['equal']}/{x['vs_tp1']['of']} | {smi}")
+        for part, name in (("b", "gpt3-20b"), ("c", "opt-66b")):
+            m = r[part]
+            for k, x in m["runs"].items():
+                print(f"[tp_cards] (14{part}) {name} tp {tp} {k}: "
+                      f"{x['out_tokens']} tokens, ms/token wall "
+                      f"{x['wall_ms_per_token_per_rank']} device "
+                      f"{x['device_ms_per_token_per_rank']} (NCCL "
+                      f"{x['nccl_ms_per_token_per_rank']}), bound "
+                      f"{x['bound_ms_per_token']:.3f}, bandwidth use "
+                      f"{x['bandwidth_use_wall_per_rank']}, "
+                      f"{x['collectives_per_decode_step']:.1f} collectives "
+                      f"a token | {smi}")
+            print(f"[tp_cards] (14{part}) {name} tp {tp}: peak memory per "
+                  f"card {m['peak_memory_bytes_per_card']}, weights per "
+                  f"card {m['weight_bytes_per_card']}, draw "
+                  f"{m['setup_s']} s")
+    print(f"[tp_cards] (14b) gpt3-20b speed-up per doubling: "
+          f"{rec['b_scaling_per_doubling']}")
+    for k, x in rec["d_kernel1"].items():
+        print(f"[tp_cards] (14d) kernel 1 at {k}: {x['ms']:.5f} ms (bound "
+              f"{x['bound_ms']:.6f} by {x['bound_by']}, plain "
+              f"{x['plain_ms']:.4f}, library {x['library_ms']:.4f}), max "
+              f"abs {x['max_abs_err']}")
+    print(f"[time] (14) tp_cards {rec['phase_s']:.1f} s", flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on "
+                                 "NVIDIA cards (see the module docstring).")
+    ap.add_argument("--only", choices=("tp_cards",),
+                    help="tp_cards: build the kernels and run phase 14 "
+                         "alone (2 or more cards)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5198,6 +5790,21 @@ def main() -> int:
     # f32 matmuls in full f32 (the chain's plain version and the model)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    n_cards = torch.cuda.device_count()
+    if args.only == "tp_cards":
+        lap("build")
+        if n_cards < 2:
+            print(f"[tp_cards] (14) needs 2 or more cards; this machine has "
+                  f"{n_cards}: not run", file=sys.stderr)
+            return 1
+        tp_cards = run_tp_cards(torch, torch.device("cuda", 0), smi, lap)
+        print_tp_cards(tp_cards, smi)
+        print(json.dumps({"tp_cards": tp_cards}))
+        print(f"[time] total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": n_cards}}))
+        return 0
 
     lap("build")
     floor_ms, floor_host_ms = time_floor(torch, dev)
@@ -5581,6 +6188,15 @@ def main() -> int:
           f"{tp['ranks_s']:.1f} s)", flush=True)
     lap("tp (13)")
 
+    tp_cards = None
+    if n_cards >= 2:
+        tp_cards = run_tp_cards(torch, torch.device("cuda", 0), smi, lap)
+        print_tp_cards(tp_cards, smi)
+        lap("tp_cards (14)")
+    else:
+        print(f"[tp_cards] (14) needs 2 or more cards; this machine has "
+              f"{n_cards}: not run")
+
     def src(name):
         return os.path.relpath(build.source_path(name), HERE)
 
@@ -5656,6 +6272,8 @@ def main() -> int:
             name: {"shapes": m["kernel1_shapes"],
                    "max_abs_err_per_rank": m["kernel1_max_abs_err_per_rank"]}
             for name, m in tp["models"].items()},
+        # at the heads of the ranks of phase 14 (2 or more cards only)
+        "tp_cards_shapes": tp_cards and tp_cards["d_kernel1"],
     }, {
         "name": "decode_attention", "route": "cuda",
         "source": src("decode_attention"),
@@ -5776,6 +6394,8 @@ def main() -> int:
     print(json.dumps({"families": families}))
     print(json.dumps({"train": train}))
     print(json.dumps({"tp": tp}))
+    if tp_cards is not None:
+        print(json.dumps({"tp_cards": tp_cards}))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s (limit "
           "1200 s)")
     print(smi)

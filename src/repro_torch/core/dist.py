@@ -13,19 +13,46 @@ confined to the sub-ring groups of :class:`repro_torch.core.rings.
 RingConfig` (``groups=``).  No other module of the port calls
 ``torch.distributed``.
 
-The backend is chosen by one rule (:func:`backend_for`): gloo when the
-ranks share a device or run on the CPU.  gloo takes no CUDA tensor for
-send/recv, so every collective on the card stages its tensor through a
-pinned host buffer, here and only here: a device-to-host copy (which
-waits for the tensor's producer), the host collective, and an
-asynchronous host-to-device copy of the result.  On the CPU the same
-code runs without the staging copies.  Every collective is one round of
-point-to-point sends and receives between the ranks of its group (each
-rank sends its part to every peer at once): gloo's own all-reduce of a
-small tensor took ~1 ms between two processes on one card's host, twice
-a send/receive pair.  The sums fold the parts in rank order, so every
-rank holds the same bits.  NCCL, one GPU per rank, is the next step and
-is not written.
+The backend is chosen by one rule (:func:`backend_for`) from where the
+ranks live, which the caller states (:func:`rank_devices`): a card per
+rank, or the CPU or one shared card.
+
+* **NCCL, a card per rank** (rank r on ``cuda:r``).  A collective takes
+  the rank's device tensors as they are: no staging copy, no host
+  synchronisation.  It runs on NCCL's stream after the compute stream's
+  producer of its input, and its result is ordered before the compute
+  stream's next use (``Pending.wait()`` for an asynchronous hop), so an
+  ESL hop runs on the link while the next chunk's product runs on the
+  compute stream, and a collective can be captured in a CUDA graph.
+  ``ppermute`` is one ``batch_isend_irecv`` of its pairs; every other
+  collective is one ``all_gather_into_tensor`` over its group (each
+  rank's part to every peer at once), the reduction folded on the
+  device (``psum_scatter`` gathers the whole tensors and each rank
+  folds its own block: tp times a reduce-scatter's bytes, which at the
+  engine's sizes cost the link's latency, not its rate).  Every
+  communicator is made and used once when the ring starts (the default
+  group's, each sub-ring's in :meth:`Ring.make_groups`), with the P2P
+  pairs of the ring's rotations: a communicator or a link connected
+  lazily inside a capture breaks the capture.
+* **gloo, the CPU or one shared card.**  gloo takes no CUDA tensor for
+  send/recv, so on the card every collective stages its tensor through
+  a pinned host buffer, here and only here: a device-to-host copy (which
+  waits for the tensor's producer), the host collective, and an
+  asynchronous host-to-device copy of the result.  On the CPU the same
+  code runs without the staging copies.  Each collective is one round
+  of point-to-point sends and receives between the ranks of its group
+  (each rank sends its part to every peer at once): gloo's own
+  all-reduce of a small tensor took ~1 ms between two processes on one
+  card's host, twice a send/receive pair.  Its collectives cannot be
+  captured, so a gloo ring's steps run eagerly.
+
+On both, every reduction is one round of swaps that then folds the parts
+in rank order, so every rank holds the same bits, and an NCCL ring
+computes the bits a gloo ring computes.  ``Ring.counters`` counts what
+the collectives did; a replay of a captured program adds its capture's
+collectives, hops and bytes back (:func:`held_counters`,
+:meth:`Ring.add_counters`), as :func:`repro_torch.kernels.held_launches`
+does for launches.
 
 :func:`run_ranks` spawns the ranks (start method ``spawn``, never
 ``fork``: the parent may have CUDA up), meets them through a
@@ -38,6 +65,7 @@ code runs on one device.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import tempfile
@@ -45,20 +73,27 @@ import time
 import weakref
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
 Groups = Optional[Sequence[Sequence[int]]]
 
+# counters a replay adds back (``seconds`` is host time inside the
+# collective calls, which a replay makes none of)
+REPLAYED = ("collectives", "hops", "staged_bytes")
+
 
 class Ring:
     """One rank's handle on the model ring: the default process group
     (``group`` None in every call), this process's rank and the ring's
-    size, the device its tensors live on, sub-ring groups made on
-    first use, and counters of what the collectives did (``collectives``
-    calls, ``hops`` of ppermute, ``staged_bytes`` copied through host
-    memory, ``seconds`` of host time spent inside them)."""
+    size, the device its tensors live on, the backend, sub-ring groups
+    (:meth:`make_groups`), and counters of what the collectives did
+    (``collectives`` calls, ``hops`` of ppermute, ``staged_bytes``
+    copied through host memory, ``seconds`` of host time spent inside
+    them).  On NCCL the ring's communicator and the P2P links of its two
+    rotations are made and used once here."""
 
     def __init__(self, device):
         import torch.distributed as dist
@@ -71,10 +106,27 @@ class Ring:
         self._gathered: Dict[tuple, tuple] = {}
         self.counters = dict(collectives=0, hops=0, staged_bytes=0,
                              seconds=0.0)
+        if self.nccl:
+            self._warm_up(None, [list(range(self.size))])
+
+    @property
+    def nccl(self) -> bool:
+        return self.backend == "nccl"
+
+    @property
+    def staged(self) -> bool:
+        """Whether collectives stage through host memory (gloo on a
+        card)."""
+        return not self.nccl and self.device.type == "cuda"
 
     def reset_counters(self) -> None:
         for k in self.counters:
             self.counters[k] = 0
+
+    def add_counters(self, made: Dict[str, float]) -> None:
+        """Add a replayed capture's collectives, hops and bytes."""
+        for k in REPLAYED:
+            self.counters[k] += made.get(k, 0)
 
     def gather_object(self, obj) -> List[Any]:
         """Every rank's ``obj``, in rank order, on every rank."""
@@ -83,21 +135,50 @@ class Ring:
         dist.all_gather_object(out, obj, group=self.group)
         return out
 
+    def make_groups(self, groups: Sequence[Sequence[int]]) -> None:
+        """Make the sub-ring process groups ``groups`` (every rank calls
+        this at the same point: ``new_group`` is collective) and, on
+        NCCL, use each one and the P2P pairs of its rotations once."""
+        key = tuple(tuple(int(r) for r in g) for g in groups)
+        if key in self._subgroups:
+            return
+        if self.device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"sub-ring groups {key} made inside a CUDA graph capture: a "
+                "communicator made there breaks the capture; call "
+                "ring.make_groups(...) before the first capture")
+        import torch.distributed as dist
+        self._subgroups[key] = [
+            (dist.new_group(list(g), backend=self.backend), list(g))
+            for g in key]
+        if self.nccl:
+            self._warm_up(groups, [list(g) for g in key])
+
+    def _warm_up(self, groups: Groups, rings: List[List[int]]) -> None:
+        """One all-gather of ``groups`` and a hop each way around every
+        ring of ``rings``, then a synchronisation: the communicator and
+        the links exist before any capture.  Counts nothing."""
+        x = torch.zeros(1, device=self.device)
+        with held_counters(self):
+            all_gather(x, self, groups=groups)
+            for up in (1, -1):
+                perm = [(g[i], g[(i + up) % len(g)]) for g in rings
+                        for i in range(len(g))]
+                ppermute(x, self, perm)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _group(self, groups: Groups):
         """(process group, its ranks) of the sub-ring holding this rank;
         the whole ring without ``groups``.  Every rank reaches the same
         collectives in the same order, so each creates the sub-ring
-        groups (``new_group`` is collective) at the same point."""
+        groups at the same point."""
         if groups is None:
             return self.group, list(range(self.size))
         key = tuple(tuple(int(r) for r in g) for g in groups)
-        made = self._subgroups.get(key)
-        if made is None:
-            import torch.distributed as dist
-            made = self._subgroups[key] = [
-                (dist.new_group(list(g), backend=self.backend), list(g))
-                for g in key]
-        for pg, ranks in made:
+        self.make_groups(key)
+        for pg, ranks in self._subgroups[key]:
             if self.rank in ranks:
                 return pg, ranks
         raise ValueError(f"rank {self.rank} is in no group of {groups}")
@@ -105,40 +186,62 @@ class Ring:
     # -- host staging (the one place a CUDA tensor meets gloo) ---------
 
     def _stage_in(self, x: torch.Tensor) -> torch.Tensor:
-        """The host tensor a collective sends: on the card a pinned copy
-        (the device-to-host copy waits for ``x``'s producer); on the CPU
-        ``x`` itself."""
+        """The tensor a collective sends: on a gloo ring on the card a
+        pinned host copy (the device-to-host copy waits for ``x``'s
+        producer); otherwise ``x`` itself."""
         x = x.detach()
-        if self.device.type == "cuda":
+        if self.staged:
             host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
             host.copy_(x)
             self.counters["staged_bytes"] += host.numel() * host.element_size()
             return host
         return x.contiguous()
 
-    def _host_buffer(self, shape, dtype) -> torch.Tensor:
-        return torch.empty(shape, dtype=dtype,
-                           pin_memory=self.device.type == "cuda")
+    def _buffer(self, shape, dtype) -> torch.Tensor:
+        """A collective's receive buffer: pinned host memory on a gloo
+        ring on the card, the ring's device otherwise."""
+        if self.staged:
+            return torch.empty(shape, dtype=dtype, pin_memory=True)
+        return torch.empty(shape, dtype=dtype, device=self.device)
 
-    def _stage_out(self, host: torch.Tensor, t0: float) -> torch.Tensor:
-        """The result on the ring's device (``host`` is pinned on the
-        card, so the copy does not wait for the device), the host time
-        since ``t0`` counted."""
-        if self.device.type == "cuda":
-            self.counters["staged_bytes"] += host.numel() * host.element_size()
-            host = host.to(self.device, non_blocking=True)
+    def _stage_out(self, out: torch.Tensor, t0: float) -> torch.Tensor:
+        """The result on the ring's device (on a gloo ring on the card
+        ``out`` is pinned, so the copy does not wait for the device),
+        the host time since ``t0`` counted."""
+        if self.staged:
+            self.counters["staged_bytes"] += out.numel() * out.element_size()
+            out = out.to(self.device, non_blocking=True)
         self.counters["seconds"] += time.perf_counter() - t0
-        return host
+        return out
+
+
+@contextlib.contextmanager
+def held_counters(ring: Optional[Ring]) -> Iterator[Dict[str, float]]:
+    """A block whose collectives must not count (a warm-up, a graph
+    capture): yields a dict that holds, once the block ends, what the
+    block added to each counter of ``ring``; the counters are then
+    restored.  Nothing without a ring."""
+    made: Dict[str, float] = {}
+    before = dict(ring.counters) if ring is not None else {}
+    try:
+        yield made
+    finally:
+        if ring is not None:
+            for k, v in ring.counters.items():
+                made[k] = v - before[k]
+            ring.counters.update(before)
 
 
 class Pending:
-    """A collective in flight (``async_op=True``): :meth:`wait` blocks
-    until it completes and returns its result on the ring's device."""
+    """A collective in flight (``async_op=True``): :meth:`wait` returns
+    its result on the ring's device; on gloo it blocks until the
+    collective completes, on NCCL it orders the compute stream after
+    NCCL's and returns at once."""
 
     def __init__(self, ring: Ring, works, result: torch.Tensor,
                  keep=()):
         self._ring, self._works, self._result = ring, works, result
-        self._keep = keep            # send buffers gloo reads until done
+        self._keep = keep            # send buffers the backend reads
 
     def wait(self) -> torch.Tensor:
         t0 = time.perf_counter()
@@ -238,14 +341,24 @@ def ppermute(x: torch.Tensor, axis: Optional[Ring],
         out = x.clone()
         return _Done(out) if async_op else out
     send = axis._stage_in(x) if dst else None
-    recv = axis._host_buffer(x.shape, x.dtype) if src else None
-    works = []
-    if send is not None:
-        works.append(dist.isend(send, dst[0], group=axis.group))
-    if recv is not None:
-        works.append(dist.irecv(recv, src[0], group=axis.group))
-    if recv is None:
-        recv = axis._host_buffer(x.shape, x.dtype).zero_()
+    recv = axis._buffer(x.shape, x.dtype)
+    if axis.nccl:
+        # one batch on the ring's communicator: no pair communicator,
+        # and the send and the receive start together
+        ops = ([dist.P2POp(dist.isend, send, dst[0], group=axis.group)]
+               if dst else [])
+        if src:
+            ops.append(dist.P2POp(dist.irecv, recv, src[0],
+                                  group=axis.group))
+        works = dist.batch_isend_irecv(ops) if ops else []
+    else:
+        works = []
+        if send is not None:
+            works.append(dist.isend(send, dst[0], group=axis.group))
+        if src:
+            works.append(dist.irecv(recv, src[0], group=axis.group))
+    if not src:
+        recv.zero_()
     pending = Pending(axis, works, recv, keep=(send,))
     axis.counters["seconds"] += time.perf_counter() - t0
     return pending if async_op else pending.wait()
@@ -253,9 +366,9 @@ def ppermute(x: torch.Tensor, axis: Optional[Ring],
 
 def _swap(axis: Ring, groups: Groups, outgoing: List[torch.Tensor]
           ) -> List[torch.Tensor]:
-    """One round of the group: ``outgoing[j]`` (a host tensor) goes to
-    the group's j-th rank, and one tensor of the same shape comes back
-    from each peer.  Returns the parts in group order, this rank's own
+    """One round of the group on gloo: ``outgoing[j]`` goes to the
+    group's j-th rank, and one tensor of the same shape comes back from
+    each peer.  Returns the parts in group order, this rank's own
     ``outgoing`` entry at its place."""
     import torch.distributed as dist
     pg, ranks = axis._group(groups)
@@ -265,8 +378,7 @@ def _swap(axis: Ring, groups: Groups, outgoing: List[torch.Tensor]
     works = []
     for j, peer in enumerate(ranks):
         if j != me:
-            parts[j] = axis._host_buffer(outgoing[me].shape,
-                                         outgoing[me].dtype)
+            parts[j] = axis._buffer(outgoing[me].shape, outgoing[me].dtype)
             works.append(dist.irecv(parts[j], peer, group=pg))
     for j, peer in enumerate(ranks):
         if j != me:
@@ -276,6 +388,20 @@ def _swap(axis: Ring, groups: Groups, outgoing: List[torch.Tensor]
     return parts
 
 
+def _parts(axis: Ring, groups: Groups, x: torch.Tensor
+           ) -> List[torch.Tensor]:
+    """Every group rank's ``x`` (already staged), in group order, from
+    one collective: an all-gather on NCCL, a round of swaps on gloo."""
+    if not axis.nccl:
+        return _swap(axis, groups, [x] * len(axis._group(groups)[1]))
+    import torch.distributed as dist
+    pg, ranks = axis._group(groups)
+    axis.counters["collectives"] += 1
+    out = axis._buffer((len(ranks) * x.numel(),), x.dtype)
+    dist.all_gather_into_tensor(out, x.reshape(-1), group=pg)
+    return list(out.view((len(ranks),) + tuple(x.shape)).unbind(0))
+
+
 def all_gather(x: torch.Tensor, axis: Optional[Ring], dim: int = -1,
                groups: Groups = None) -> torch.Tensor:
     """Every rank's ``x`` in rank order, concatenated along ``dim`` (the
@@ -283,12 +409,10 @@ def all_gather(x: torch.Tensor, axis: Optional[Ring], dim: int = -1,
     if axis is None:
         return x
     t0 = time.perf_counter()
-    host = axis._stage_in(x)
-    n = len(axis._group(groups)[1])
-    parts = _swap(axis, groups, [host] * n)
-    shape = list(host.shape)
-    shape[dim] *= n
-    out = axis._host_buffer(shape, host.dtype)
+    parts = _parts(axis, groups, axis._stage_in(x))
+    shape = list(parts[0].shape)
+    shape[dim] *= len(parts)
+    out = axis._buffer(shape, parts[0].dtype)
     torch.cat(parts, dim, out=out)
     return axis._stage_out(out, t0)
 
@@ -314,8 +438,8 @@ def all_gather_param(v: torch.Tensor, axis: Optional[Ring],
 
 
 def _fold(axis: Ring, parts: List[torch.Tensor], op) -> torch.Tensor:
-    """``op`` folded over ``parts`` in rank order, into a host buffer."""
-    out = axis._host_buffer(parts[0].shape, parts[0].dtype)
+    """``op`` folded over ``parts`` in rank order, into a new buffer."""
+    out = axis._buffer(parts[0].shape, parts[0].dtype)
     if len(parts) == 1:
         return out.copy_(parts[0])
     op(parts[0], parts[1], out=out)
@@ -327,10 +451,8 @@ def _fold(axis: Ring, parts: List[torch.Tensor], op) -> torch.Tensor:
 def _reduce(x: torch.Tensor, axis: Ring, op, groups: Groups
             ) -> Tuple[torch.Tensor, int, float]:
     t0 = time.perf_counter()
-    host = axis._stage_in(x)
-    n = len(axis._group(groups)[1])
-    parts = _swap(axis, groups, [host] * n)
-    return _fold(axis, parts, op), n, t0
+    parts = _parts(axis, groups, axis._stage_in(x))
+    return _fold(axis, parts, op), len(parts), t0
 
 
 def psum(x: torch.Tensor, axis: Optional[Ring],
@@ -338,8 +460,8 @@ def psum(x: torch.Tensor, axis: Optional[Ring],
     """The sum of ``x`` over the ring (or this rank's sub-ring)."""
     if axis is None:
         return x
-    host, _, t0 = _reduce(x, axis, torch.add, groups)
-    return axis._stage_out(host, t0)
+    out, _, t0 = _reduce(x, axis, torch.add, groups)
+    return axis._stage_out(out, t0)
 
 
 def pmax(x: torch.Tensor, axis: Optional[Ring],
@@ -347,8 +469,8 @@ def pmax(x: torch.Tensor, axis: Optional[Ring],
     """The elementwise max of ``x`` over the ring."""
     if axis is None:
         return x
-    host, _, t0 = _reduce(x, axis, torch.maximum, groups)
-    return axis._stage_out(host, t0)
+    out, _, t0 = _reduce(x, axis, torch.maximum, groups)
+    return axis._stage_out(out, t0)
 
 
 def pmean(x: torch.Tensor, axis: Optional[Ring],
@@ -356,23 +478,28 @@ def pmean(x: torch.Tensor, axis: Optional[Ring],
     """The mean of ``x`` over the ring: the sum divided by its size."""
     if axis is None:
         return x
-    host, n, t0 = _reduce(x, axis, torch.add, groups)
-    return axis._stage_out(host, t0) / n
+    out, n, t0 = _reduce(x, axis, torch.add, groups)
+    return axis._stage_out(out, t0) / n
 
 
 def psum_scatter(x: torch.Tensor, axis: Optional[Ring], dim: int = -1,
                  groups: Groups = None) -> torch.Tensor:
     """This rank's block of the ring sum of ``x``, split along ``dim``
     (the reference's tiled form: ``dim`` shrinks by the ring's size):
-    each rank sends block j to the group's j-th rank and sums the blocks
-    it receives."""
+    on gloo each rank sends block j to the group's j-th rank; on NCCL
+    the whole tensors are gathered.  Each rank sums the blocks that are
+    its own, in rank order."""
     if axis is None:
         return x
     t0 = time.perf_counter()
-    host = axis._stage_in(x)
-    n = len(axis._group(groups)[1])
-    blocks = [b.contiguous() for b in host.chunk(n, dim)]
-    parts = _swap(axis, groups, blocks)
+    staged = axis._stage_in(x)
+    _, ranks = axis._group(groups)
+    n, me = len(ranks), ranks.index(axis.rank)
+    if axis.nccl:
+        parts = [p.chunk(n, dim)[me] for p in _parts(axis, groups, staged)]
+    else:
+        parts = _swap(axis, groups,
+                      [b.contiguous() for b in staged.chunk(n, dim)])
     return axis._stage_out(_fold(axis, parts, torch.add), t0)
 
 
@@ -380,33 +507,80 @@ def psum_scatter(x: torch.Tensor, axis: Optional[Ring], dim: int = -1,
 # the ranks
 # ---------------------------------------------------------------------------
 
+PLACEMENTS = ("card_per_rank", "shared_card")
+
+
+def rank_devices(tp: int, device=None,
+                 placement: Optional[str] = None) -> List[torch.device]:
+    """The device of each of ``tp`` ranks.  On the CPU every rank runs
+    there (``placement`` None).  On CUDA the caller chooses, and nothing
+    chooses for it: ``"card_per_rank"`` puts rank r on ``cuda:r`` and
+    raises when the machine has fewer than ``tp`` cards;
+    ``"shared_card"`` puts every rank on the one card."""
+    from repro_torch.device import resolve_device
+    if tp < 1:
+        raise ValueError(f"tp={tp} must be >= 1")
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and placement == "card_per_rank":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < tp:
+            raise RuntimeError(
+                f"tp={tp} with a card per rank needs {tp} cards; this "
+                f"machine has {have} (every rank on one card over gloo: "
+                "placement 'shared_card', --shared-card)")
+    dev = resolve_device(dev)
+    if dev.type == "cpu":
+        if placement is not None:
+            raise ValueError(f"placement={placement!r} places ranks on "
+                             "cards; ranks on the CPU take none")
+        return [dev] * tp
+    if placement == "card_per_rank":
+        return [torch.device("cuda", r) for r in range(tp)]
+    if placement == "shared_card":
+        return [torch.device("cuda", dev.index or 0)] * tp
+    raise ValueError(
+        f"ranks on {dev} need placement='card_per_rank' (NCCL, rank r on "
+        "cuda:r) or 'shared_card' (gloo, every rank on one card); got "
+        f"{placement!r}")
+
+
 def backend_for(devices: Sequence) -> str:
-    """The ring's backend for ranks on ``devices``: gloo when they share
-    one device or run on the CPU.  NCCL, one GPU per rank, is the next
-    step and raises here."""
-    devs = {torch.device(d) for d in devices}
-    if all(d.type == "cpu" for d in devs) or len(devs) == 1:
+    """The ring's backend for ranks on ``devices``: NCCL when each rank
+    has a CUDA device of its own, gloo when they all run on the CPU or
+    share one device.  Any other mix raises."""
+    devs = [torch.device(d) for d in devices]
+    if all(d.type == "cpu" for d in devs) or len(set(devs)) == 1:
         return "gloo"
-    raise NotImplementedError(
-        f"ranks on {sorted(map(str, devs))}: NCCL with one GPU per rank "
-        "is not ported yet; the port's ring runs its ranks on one device "
-        "over gloo")
+    if all(d.type == "cuda" and d.index is not None for d in devs) and \
+            len(set(devs)) == len(devs):
+        return "nccl"
+    raise ValueError(
+        f"ranks on {[str(d) for d in devs]}: a ring runs on the CPU, on "
+        "one shared card (gloo) or on a card per rank (NCCL)")
 
 
-def _rank_main(rank: int, fn: Callable, tp: int, device: str,
+def _rank_main(rank: int, fn: Callable, devices: Sequence[str],
                backend: str, tmp: str, threads: Optional[int],
                timeout_s: float, args: tuple) -> None:
-    """One spawned rank: join the ring through the FileStore, run
-    ``fn(ring, *args)`` on ``device``, and (rank 0) write its result."""
+    """One spawned rank: join the ring through the FileStore on
+    ``devices[rank]``, run ``fn(ring, *args)``, and (rank 0) write its
+    result.  On NCCL the default group's communicator is made at once
+    (``device_id``), over the loopback interface unless the environment
+    names another: every rank is on this host."""
     import torch.distributed as dist
     if threads:
         torch.set_num_threads(int(threads))
-    dev = torch.device(device)
+    dev = torch.device(devices[rank])
+    kw = {}
     if dev.type == "cuda":
-        torch.cuda.set_device(dev.index or 0)
+        torch.cuda.set_device(dev)
+    if backend == "nccl":
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        kw["device_id"] = dev
+    tp = len(devices)
     store = dist.FileStore(os.path.join(tmp, "store"), tp)
     dist.init_process_group(backend, store=store, rank=rank, world_size=tp,
-                            timeout=timedelta(seconds=timeout_s))
+                            timeout=timedelta(seconds=timeout_s), **kw)
     try:
         out = fn(Ring(dev), *args)
         if rank == 0:
@@ -420,29 +594,26 @@ def _rank_main(rank: int, fn: Callable, tp: int, device: str,
 
 
 def run_ranks(fn: Callable, tp: int, *args, device=None,
+              placement: Optional[str] = None,
               threads: Optional[int] = None,
               timeout_s: float = 900.0) -> Any:
     """Run ``fn(ring, *args)`` in ``tp`` spawned processes, one per rank
     of a ring on ``device`` (``cuda`` unless the caller asks for the
-    CPU; on the card every rank uses the one device), and return rank
-    0's result (it must pickle).  ``fn`` must be a module-level function
-    the children can import.  ``threads`` sets torch's thread count in
-    every rank.  A rank that raises or dies fails the run: the others
-    are terminated and the error is raised here.  ``timeout_s`` bounds
-    a collective that waits for a rank that never comes."""
+    CPU), placed as ``placement`` says (:func:`rank_devices`: a card per
+    rank over NCCL, or the shared card over gloo; required on CUDA), and
+    return rank 0's result (it must pickle).  ``fn`` must be a
+    module-level function the children can import.  ``threads`` sets
+    torch's thread count in every rank.  A rank that raises or dies
+    fails the run: the others are terminated and the error is raised
+    here.  ``timeout_s`` bounds a collective that waits for a rank that
+    never comes."""
     import torch.multiprocessing as mp
-
-    from repro_torch.device import resolve_device
-    if tp < 1:
-        raise ValueError(f"tp={tp} must be >= 1")
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", 0)
-    backend = backend_for([dev] * tp)
+    devices = rank_devices(tp, device, placement)
+    backend = backend_for(devices)
     with tempfile.TemporaryDirectory(prefix="ring-") as tmp:
         ctx = mp.start_processes(
-            _rank_main, args=(fn, tp, str(dev), backend, tmp, threads,
-                              timeout_s, tuple(args)),
+            _rank_main, args=(fn, [str(d) for d in devices], backend, tmp,
+                              threads, timeout_s, tuple(args)),
             nprocs=tp, join=False, start_method="spawn")
         while not ctx.join():
             pass

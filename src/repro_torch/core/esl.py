@@ -20,12 +20,17 @@ only a small tail remains.  Two primitives cover a transformer:
   reference's.
 
 ``overlap=True`` issues each hop with ``async_op=True`` before the next
-chunk's product is launched and waits for it after: the ranks here are
-processes over a host-staged gloo ring (:mod:`repro_torch.core.dist`),
-so the overlap is of the host's send/receive with the device's product,
-and says nothing of a device link.  ``overlap=False`` is the *typical
-processor* baseline: the full matmul followed by a blocking ``psum`` /
-``all_gather``.  Both modes compute the same values.
+chunk's product is launched and waits for it after.  What overlaps
+depends on the ring's backend (:mod:`repro_torch.core.dist`): on NCCL (a
+card per rank) the hop runs on NCCL's stream over the link while the
+product runs on the compute stream, and the wait orders the compute
+stream after the hop without the host (inside a CUDA graph too); on
+gloo (the CPU, or ranks sharing one card) the hop is a host-staged
+send/receive, so the host's transfer overlaps the device's product and
+nothing of a device link is involved.  ``overlap=False`` is the
+*typical processor* baseline: the full matmul followed by a blocking
+``psum`` / ``all_gather``.  Both modes compute the same values, and
+keep their order of chunks and of sums on either backend.
 
 **Sub-rings (C3)**: ``ring=RingConfig(total, ring_size)`` confines every
 collective to the caller's sub-ring: ppermute pairs from

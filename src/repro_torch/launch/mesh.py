@@ -3,8 +3,10 @@
 The port of the JAX package's ``launch/mesh.py`` ``make_serving_mesh``.
 There it builds a 1-D ``model`` mesh of ``tp * rings`` devices, which
 ``core/rings.submeshes`` carves into ``rings`` sub-rings of ``tp``.  In
-the port a rank is a process (:func:`repro_torch.core.dist.run_ranks`),
-so the mesh is the ring's description: a
+the port a rank is a process (:func:`repro_torch.core.dist.run_ranks`)
+on a card of its own over NCCL, or on the CPU or one shared card over
+gloo, as its caller places it (:func:`repro_torch.core.dist.
+rank_devices`), so the mesh is the ring's description: a
 :class:`repro_torch.core.rings.RingConfig` of ``tp * rings`` ranks in
 sub-rings of ``tp``; a model for one ring is planned with
 ``plan_model(cfg, ("model",), (tp,), ...)``.  The reference's TPU

@@ -25,7 +25,9 @@ and run the engine on a batch of random prompts.
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --tp 2 [--no-overlap]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b \
-        --tp 2                                            # card
+        --tp 2                                     # a card per rank
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b \
+        --tp 2 --shared-card                       # both ranks on one card
 
 ``--arch`` takes any name or alias of the port's registry: the dense
 decoders (smollm-135m, the paper's opt-1.3b/6.7b/30b/66b and gpt3-20b,
@@ -71,13 +73,18 @@ the LPU-FPGA point on the CPU (where the fleet and the front end are
 held to the reference's).
 
 ``--tp N`` serves the dense stacks tensor-parallel over a ring of N
-ranks, each a process (:func:`repro_torch.core.dist.run_ranks`; on the
-card every rank shares the one device over gloo), with the tp=1 weights
-stored again at the ring's layout and sliced per rank: the streams are
-the tp=1 run's.  Rank 0 prints the reference's lines.  ``--no-overlap``
-is the blocking baseline (full matmuls, then ``psum``/``all_gather``)
-instead of the ESL overlap.  The ring's steps run eagerly (a gloo
-collective cannot be captured; the run says so).  ``--tp`` with
+ranks, each a process (:func:`repro_torch.core.dist.run_ranks`), each
+drawing only its slice of the tp=1 weights (seed 0) at the ring's
+layout (:func:`repro_torch.weights.init_shard`): the streams are the
+tp=1 run's.  On CUDA each rank owns a card (rank r on ``cuda:r``) over
+NCCL, its steps on captured CUDA graphs; a machine with fewer than N
+cards raises and names both counts.  ``--shared-card`` puts every rank
+on the one card over gloo instead, its steps eager (a gloo collective
+cannot be captured).  On the CPU (``--device cpu``) the ranks run over
+gloo, eagerly.  Rank 0 prints the reference's lines, the backend and
+the ranks' cards.  ``--no-overlap`` is the blocking baseline (full
+matmuls, then ``psum``/``all_gather``) instead of the ESL overlap.
+``--tp`` with
 ``--rings > 1`` or ``--chaos`` (the mesh fleet), ``--speculate``,
 ``--budget-ms``, ``--max-pending`` or ``--tracker`` raises
 ``NotImplementedError``: each of those decides from the wall clock or
@@ -89,6 +96,7 @@ import argparse
 from dataclasses import replace
 
 import numpy as np
+import torch
 
 from repro_torch.compiler.mapper import plan_model
 from repro_torch.configs import get_config
@@ -191,40 +199,51 @@ def refuse_on_ring(args) -> None:
             "would then no longer pair up)")
 
 
+def placement_of(args):
+    """The ranks' placement ``--tp`` asks for (:func:`repro_torch.core.
+    dist.rank_devices`): none on the CPU; on CUDA a card per rank, or
+    the one card with ``--shared-card``."""
+    if args.shared_card and args.tp <= 1:
+        raise ValueError("--shared-card places the ranks of --tp N > 1")
+    if args.device == "cpu":
+        return "shared_card" if args.shared_card else None
+    return "shared_card" if args.shared_card else "card_per_rank"
+
+
 def serve_rank(ring, argv):
-    """One rank of ``--tp N``: the model planned for the ring, the tp=1
-    weights (seed 0) stored again at its layout and sliced to this
-    rank, its engine (steps eager), the batch; rank 0 prints."""
-    from repro_torch.weights import relayout, shard_params
+    """One rank of ``--tp N``: the model planned for the ring, this
+    rank's slice of the tp=1 weights (seed 0) at its layout, its engine
+    (on graphs over NCCL, eager over gloo), the batch; rank 0 prints."""
+    from repro_torch.weights import init_shard
     args = _parser().parse_args(argv)
     dev = ring.device
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    plan1 = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
-                       remat="none", compute_dtype="float32",
-                       param_dtype="float32")
     plan = plan_model(cfg, ("model",), (ring.size,), "serve",
                       esl_overlap=not args.no_overlap, remat="none",
                       compute_dtype="float32", param_dtype="float32")
-    full = relayout(build_model(cfg, plan1, dev).init(seed=0), cfg, plan1,
-                    plan)
-    params = shard_params(full, plan, ring.rank)
+    params = init_shard(cfg, plan, ring.rank, seed=0, device=dev)
     model = build_model(cfg, plan, dev)
     engine = LPUEngine(model, params, _engine_config(args), mesh=ring,
-                       device=dev, graphs=False)
+                       device=dev, graphs=ring.nccl)
     prompts, sp = _batch(cfg, args)
     paged_decode_attention.launches = 0
     ring.reset_counters()
     outs = engine.generate(prompts, max_new_tokens=args.max_new, params=sp)
     launches = ring.gather_object(paged_decode_attention.launches)
+    cards = ring.gather_object(
+        f"{dev} ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
+        else str(dev))
     if ring.rank == 0:
         st = engine.stats
         mode = "ESL overlap" if plan.esl_overlap else "blocking"
+        graphs = ("graphs on" if engine.graphs else
+                  f"graphs off: a {ring.backend} collective is not captured")
         _print_engine(engine, cfg, args, dev, st, outs,
                       f"tp={ring.size} ({mode}, {ring.backend} ring, "
-                      f"graphs off: a {ring.backend} collective is not "
-                      "captured)")
+                      f"{graphs})")
+        print(f"[serve] ring: backend {ring.backend}, ranks on {cards}")
         steps = max(st.device_decode_steps, 1)
         print(f"[serve] ring: {ring.counters['collectives']} collectives, "
               f"{ring.counters['hops']} ppermute hops, "
@@ -273,6 +292,10 @@ def _parser() -> argparse.ArgumentParser:
                          "model tensor-parallel (dense stacks)")
     ap.add_argument("--no-overlap", action="store_true",
                     help="blocking collectives baseline (vs ESL overlap)")
+    ap.add_argument("--shared-card", action="store_true",
+                    help="with --tp N on CUDA: every rank on the one card "
+                         "over gloo, steps eager (default: a card per "
+                         "rank over NCCL, steps on CUDA graphs)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu")
@@ -371,12 +394,13 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     refuse_encdec(cfg)
     refuse_on_ring(args)
     if args.tp > 1:
-        return run_ranks(serve_rank, args.tp, argv, device=dev)
+        return run_ranks(serve_rank, args.tp, argv, device=args.device,
+                         placement=placement_of(args))
+    dev = resolve_device(args.device)
     if args.reduced:
         cfg = cfg.reduced()
     plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,

@@ -304,22 +304,43 @@ def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
     if cfg.family == "encdec":
         from repro_torch.models.whisper import init_encdec
         return init_encdec(ini, cfg, plan)
+    return draw_params(ini, cfg, plan)
+
+
+def map_leaves(tree, fn, path: str = ""):
+    """``fn(leaf, path)`` over a nested dict, the same nesting back."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(v, fn, f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    return fn(tree, path)
+
+
+def draw_params(ini: _Init, cfg, plan, leaf=None) -> Params:
+    """:func:`init_params`' tree of every family but encdec, drawn from
+    ``ini`` in its order.  ``leaf(t, path)``, where given, maps each leaf
+    as soon as it is drawn (a stacked layer's leaf without its layer
+    axis, at ``blocks/l0/...``), before the next is drawn: this is how
+    a rank of the ring keeps only its slice of each
+    (``weights.init_shard``)."""
+    def put(tree, path):
+        return tree if leaf is None else map_leaves(tree, leaf, path)
     D = cfg.d_model
     params: Params = {}
     if cfg.tie_embeddings:
-        params["embed"] = ini.param((plan.vocab_padded, D))
+        params["embed"] = put(ini.param((plan.vocab_padded, D)), "embed")
     else:
-        params["embed_in"] = ini.param((cfg.vocab_size, D))
-        params["head"] = ini.param((D, plan.vocab_padded))
+        params["embed_in"] = put(ini.param((cfg.vocab_size, D)), "embed_in")
+        params["head"] = put(ini.param((D, plan.vocab_padded)), "head")
     if cfg.positional == "learned":
-        params["pos_embed"] = ini.param((cfg.max_seq, D))
+        params["pos_embed"] = put(ini.param((cfg.max_seq, D)), "pos_embed")
     if cfg.vlm is not None:
-        params["projector"] = ini.param((cfg.vlm.patch_embed_dim, D))
+        params["projector"] = put(ini.param((cfg.vlm.patch_embed_dim, D)),
+                                  "projector")
 
     if cfg.family in ("hybrid", "moe"):
         from repro_torch.models.transformer import n_super_blocks
-        params["blocks"] = _stacked(n_super_blocks(cfg),
-                                    lambda: init_super_block(ini, cfg, plan))
+        params["blocks"] = _stacked(n_super_blocks(cfg), lambda: put(
+            init_super_block(ini, cfg, plan), "blocks"))
     else:
         if cfg.family == "rwkv":
             def layer():
@@ -330,8 +351,9 @@ def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
         else:
             def layer():
                 return _init_dense_layer(ini, cfg, plan)
-        params["blocks"] = {"l0": _stacked(cfg.n_layers, layer)}
-    params["ln_f"] = _init_norm(ini, D, cfg.norm)
+        params["blocks"] = {"l0": _stacked(
+            cfg.n_layers, lambda: put(layer(), "blocks/l0"))}
+    params["ln_f"] = put(_init_norm(ini, D, cfg.norm), "ln_f")
     return params
 
 

@@ -118,9 +118,10 @@ the model ring.
   engine's life, because the captured window writes into it.
 
 * **Ring parallelism (C2)** — ``LPUEngine(model, shards, config,
-  mesh=ring, graphs=False)`` in every rank of a ring spawned by
+  mesh=ring)`` in every rank of a ring spawned by
   :func:`repro_torch.core.dist.run_ranks` (the model planned for
   ``("model",), (tp,)``, ``shards`` the rank's leaves from
+  :func:`repro_torch.weights.init_shard` or
   :func:`repro_torch.weights.shard_params`) is the reference's
   ``shard_map`` engine: each rank holds its slice of the weights and its
   own pool of kv_per_rank heads with the same block ids on every rank,
@@ -133,9 +134,15 @@ the model ring.
   verdict is agreed ring-wide by a ``psum``.  Dense stacks only, from
   the paged pool or the dense cache, with monolithic or chunked prefill,
   the prefix cache, preemption, fused (or host) sampling and both ESL
-  modes.  A gloo ring's collectives cannot be captured, so
-  ``graphs=True`` on it raises.  Speculation, the other families and
-  the mesh fleet raise ``NotImplementedError`` on a ring.
+  modes.  On an NCCL ring (a card per rank) every program the tp=1
+  engine captures is captured on every rank, at the same key and in the
+  same order (every rank runs the same host logic), its collectives
+  inside the graph and the NaN guard's verdict on the device; a replay
+  adds its capture's collectives to ``ring.counters``.  A gloo ring's
+  collectives (the CPU, or ranks sharing one card) cannot be captured,
+  so ``graphs=True`` on it raises and its steps run eagerly.
+  Speculation, the other families and the mesh fleet raise
+  ``NotImplementedError`` on a ring.
 
 ``w_dtype`` is carried as the reference carries it, for telemetry: the
 engine's decode keeps the fp weights at any value.
@@ -309,7 +316,7 @@ class LPUEngine:
     captured either way).  ``mesh``: the rank's
     :class:`repro_torch.core.dist.Ring` when the engine is one rank of
     the model ring (a model planned for it, ``params`` the rank's
-    shards, ``graphs=False``)."""
+    shards; ``graphs=False`` on a gloo ring)."""
 
     def __init__(self, model, params,
                  config: Optional[EngineConfig] = None, *,
@@ -483,7 +490,7 @@ class LPUEngine:
         # poison flag, tables) and its outputs by length (_window_out);
         # the verify round's by K
         self.graphs = bool(graphs)
-        self._programs = Programs(self.device)
+        self._programs = Programs(self.device, ring=mesh)
         B = self.slots
         self._win = StagedBuffer(
             [(n, (B,), "i32") for n in ("last", "pos", "n_out", "alive",
@@ -500,7 +507,7 @@ class LPUEngine:
         # windows' memory pool, with their static inputs by key; the
         # prefill and the chunk write their last valid logits row into
         # _row, which the sampler reads, writing its token into _first
-        self._admit = Programs(self.device, share=self._programs)
+        self._admit = Programs(self.device, share=self._programs, ring=mesh)
         self._bufs: Dict[tuple, StagedBuffer] = {}
         v_pad = (params["head"].shape[-1] if "head" in params
                  else params["embed"].shape[0])
@@ -515,7 +522,7 @@ class LPUEngine:
         """Refuse what the ring does not run: a plan and a ring that
         disagree, a family other than the dense stacks, speculation,
         the full tree in place of the rank's shards, and a captured
-        program on a gloo ring."""
+        program on a gloo ring (an NCCL ring's are captured)."""
         plan = model.plan
         if mesh is None:
             if plan.tp > 1:

@@ -19,8 +19,13 @@ sampler and the block copy; ``src/repro/serving/engine.py``
   A program's function reads and writes only static buffers, so a
   replay needs no host work beyond its uploads.
   A capture records the kernel launches it made
-  (:func:`repro_torch.kernels.held_launches`) and every replay adds
-  them back, so launch counts read the same as an eager run's.  The
+  (:func:`repro_torch.kernels.held_launches`) and, on a ring, the
+  collectives, hops and bytes it made
+  (:func:`repro_torch.core.dist.held_counters`); every replay adds them
+  back, so launch and collective counts read the same as an eager
+  run's.  On an NCCL ring a capture records the ring's collectives as
+  graph nodes; it is made in ``thread_local`` mode, so NCCL's watchdog
+  thread, which queries its own events, cannot invalidate it.  The
   cyclic collector is held off while a graph is captured: an object it
   frees there (another engine's graph, in a reference cycle a caller
   dropped) would invalidate the capture.
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import kernels
+from repro_torch.core.dist import held_counters
 
 Field = Tuple[str, Tuple[int, ...], str]   # (name, shape, "i32" | "f32")
 
@@ -119,16 +125,21 @@ class Program:
     launches: Dict[str, int] = field(default_factory=dict)
     fn: Optional[Callable[[], None]] = None   # the CPU's program
     replays: int = 0
+    collectives: Dict[str, float] = field(default_factory=dict)  # a ring's
 
 
 class Programs:
     """An engine's programs by key, captured on first use.  ``share``:
     another :class:`Programs` whose memory pool and capture stream these
-    programs use too."""
+    programs use too.  ``ring``: the rank's
+    :class:`repro_torch.core.dist.Ring` when the programs run on the
+    model ring (its counters held in warm-ups and captures, added back
+    per replay)."""
 
     def __init__(self, device: torch.device,
-                 share: Optional["Programs"] = None):
+                 share: Optional["Programs"] = None, ring=None):
         self.device = torch.device(device)
+        self.ring = ring
         self._by_key: Dict[Hashable, Program] = {}
         # never a reference to self, so the programs and their graphs
         # are freed with their engine, by reference count
@@ -159,7 +170,8 @@ class Programs:
         if cuda and own._stream is None:
             own._pool = torch.cuda.graph_pool_handle()
             own._stream = torch.cuda.Stream(self.device)
-        with kernels.held_launches() as warm:  # the warm-up counts nothing
+        # the warm-up counts nothing
+        with kernels.held_launches() as warm, held_counters(self.ring):
             if cuda:
                 own._stream.wait_stream(
                     torch.cuda.current_stream(self.device))
@@ -176,15 +188,19 @@ class Programs:
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
-        with kernels.held_launches() as made, collector_off():
+        kw = ({"capture_error_mode": "thread_local"}
+              if self.ring is not None and self.ring.nccl else {})
+        with kernels.held_launches() as made, collector_off(), \
+                held_counters(self.ring) as ring_made:
             with torch.cuda.graph(graph, pool=own._pool,
-                                  stream=own._stream):
+                                  stream=own._stream, **kw):
                 fn()
         self.captures += 1
-        return Program(graph, made)
+        return Program(graph, made, collectives=ring_made)
 
     def run(self, prog: Optional[Program], fn: Callable[[], None]) -> None:
-        """Replay ``prog``'s graph and add its launches.  With no graph
+        """Replay ``prog``'s graph and add its launches (and its
+        collectives to the ring's counters).  With no graph
         (the CPU) call the function ``prog`` was built from, as a replay
         would run what its capture recorded (``fn`` only for a program
         made without one); with no program (the eager twin) call
@@ -197,6 +213,8 @@ class Programs:
             return
         prog.graph.replay()
         kernels.add_launches(prog.launches)
+        if self.ring is not None:
+            self.ring.add_counters(prog.collectives)
         prog.replays += 1
         self.replays += 1
 

@@ -27,6 +27,17 @@ heads), into rank ``rank``'s leaves by the plan's rule table: every
 dim whose logical axis the table maps to the ring is cut into tp
 blocks, of which the rank keeps block ``rank`` (the reference's
 addressable shard of a ``NamedSharding`` over its ``model`` mesh).
+
+``init_shard(cfg, plan, rank, seed, device)`` is the same shard drawn
+without the full tree: the tp=1 values of ``init_params`` drawn layer by
+layer in the same order from the same generator, each stored at the
+ring's layout (:func:`relayout`) and cut to the rank's slice at once,
+so a rank holds its shard and one layer of the tp=1 tree at most (a
+model no card holds whole, opt-66b, is drawn this way).  It is
+bit-equal to ``shard_params(relayout(init_params(cfg, plan1, seed),
+cfg, plan1, plan), plan, rank)``.  :func:`redraw` refills named leaves
+(zero biases, a position table) from a seeded generator, and
+:func:`redraw_shard` refills a shard with the same values.
 """
 from __future__ import annotations
 
@@ -35,7 +46,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.models.common import mlp_has_bias
+from repro_torch.models.common import map_leaves, mlp_has_bias
 from repro_torch.models.transformer import n_super_blocks
 
 Params = Dict[str, Any]
@@ -233,45 +244,47 @@ def leaf_axes(path: str) -> tuple:
     return _TOP_AXES[leaf]
 
 
-def shard_params(tree: Params, plan, rank: int) -> Params:
-    """Rank ``rank``'s leaves of a full tree (tensors or numpy arrays)
-    of the dense family at ``plan``'s tp: each dim whose logical axis
-    ``plan.rules`` maps to the ring keeps its ``rank``-th of ``tp``
-    blocks; the others are kept whole.  Tensors come back as contiguous
-    copies, so the full tree can be freed once every rank has
-    its leaves.  Other families raise: their tensor parallelism is not
-    ported yet."""
+def shard_leaf(t, path: str, plan, rank: int):
+    """Rank ``rank``'s slice of the full leaf ``t`` (a tensor or a numpy
+    array) at ``path``: each dim whose logical axis ``plan.rules`` maps
+    to the ring keeps its ``rank``-th of ``tp`` blocks.  A tensor comes
+    back as a contiguous copy, so the full leaf can be freed."""
+    try:
+        axes = leaf_axes(path)
+    except KeyError:
+        raise NotImplementedError(
+            f"{path}: tensor parallelism of this leaf's family is not "
+            "ported yet (the ring serves the dense stacks)") from None
+    if len(axes) != len(t.shape):
+        raise ValueError(f"{path}: axes {axes} vs shape {tuple(t.shape)}")
+    for d, a in enumerate(axes):
+        if plan.rules.get(a) is None:
+            continue
+        n = t.shape[d]
+        if n % plan.tp:
+            raise ValueError(f"{path}: dim {d} of {n} does not split "
+                             f"over {plan.tp} ranks")
+        c = n // plan.tp
+        t = (t.narrow(d, rank * c, c) if isinstance(t, torch.Tensor)
+             else np.take(t, range(rank * c, (rank + 1) * c), axis=d))
+    return t.contiguous().clone() if isinstance(t, torch.Tensor) else t
+
+
+def _check_ring_plan(plan, rank: int) -> None:
     if plan.mesh_axes is None:
-        raise ValueError("shard_params needs a plan for the ring "
+        raise ValueError("a rank's shard needs a plan for the ring "
                          "(mesh_axes=('model',))")
     if not 0 <= rank < plan.tp:
         raise ValueError(f"rank {rank} is not on a ring of {plan.tp}")
 
-    def cut(t, path):
-        if isinstance(t, dict):
-            return {k: cut(v, f"{path}/{k}" if path else k)
-                    for k, v in t.items()}
-        try:
-            axes = leaf_axes(path)
-        except KeyError:
-            raise NotImplementedError(
-                f"{path}: tensor parallelism of this leaf's family is not "
-                "ported yet (the ring serves the dense stacks)") from None
-        if len(axes) != len(t.shape):
-            raise ValueError(f"{path}: axes {axes} vs shape {tuple(t.shape)}")
-        for d, a in enumerate(axes):
-            if plan.rules.get(a) is None:
-                continue
-            n = t.shape[d]
-            if n % plan.tp:
-                raise ValueError(f"{path}: dim {d} of {n} does not split "
-                                 f"over {plan.tp} ranks")
-            c = n // plan.tp
-            t = (t.narrow(d, rank * c, c) if isinstance(t, torch.Tensor)
-                 else np.take(t, range(rank * c, (rank + 1) * c), axis=d))
-        return (t.contiguous().clone() if isinstance(t, torch.Tensor)
-                else t)
-    return cut(tree, "")
+
+def shard_params(tree: Params, plan, rank: int) -> Params:
+    """Rank ``rank``'s leaves of a full tree (tensors or numpy arrays)
+    of the dense family at ``plan``'s tp (:func:`shard_leaf` on every
+    leaf).  Other families raise: their tensor parallelism is not ported
+    yet."""
+    _check_ring_plan(plan, rank)
+    return map_leaves(tree, lambda t, path: shard_leaf(t, path, plan, rank))
 
 
 def _first_index(orig, n: int) -> list:
@@ -283,21 +296,20 @@ def _first_index(orig, n: int) -> list:
     return [pos[j] for j in range(n)]
 
 
-def relayout(tree: Params, cfg, src_plan, dst_plan) -> Params:
-    """A full tree of the dense family stored at ``src_plan``'s layout,
-    stored again at ``dst_plan``'s (tensors, on their device): heads
-    placed by the destination's ``q_orig``/``kv_orig`` (pad heads zero,
-    duplicated kv heads copied), and the vocabulary and FFN dims cut to
-    the config's sizes and zero-padded to the destination's.  The
-    logical model is unchanged: a zero pad head, FFN column or vocab row
-    adds nothing (a padded logit column is masked).  This is how a tp=1
-    model is served on the ring with the same weights."""
+def relayout_leaf(t: torch.Tensor, path: str, cfg, src_plan, dst_plan
+                  ) -> torch.Tensor:
+    """The full leaf ``t`` at ``path``, stored at ``src_plan``'s layout,
+    stored again at ``dst_plan``'s (on its device): heads placed by the
+    destination's ``q_orig``/``kv_orig`` (pad heads zero, duplicated kv
+    heads copied), the vocabulary and FFN dims cut to the config's sizes
+    and zero-padded to the destination's.  ``t`` itself where nothing
+    moves."""
     sa, da = src_plan.attn, dst_plan.attn
-    q_src = torch.as_tensor(_first_index(sa.q_orig, sa.n_heads))
-    kv_src = torch.as_tensor(_first_index(sa.kv_orig, sa.n_kv_heads))
 
-    def heads(t, axis, src_idx, dst_orig):
-        logical = t.index_select(axis, src_idx.to(t.device))
+    def heads(t, axis, n_logical, src_orig, dst_orig):
+        src_idx = torch.as_tensor(_first_index(src_orig, n_logical),
+                                  device=t.device)
+        logical = t.index_select(axis, src_idx)
         cols = torch.as_tensor(dst_orig, device=t.device)
         out = logical.index_select(axis, cols.clamp_min(0))
         keep = (cols >= 0).view([-1 if d == axis else 1
@@ -313,22 +325,111 @@ def relayout(tree: Params, cfg, src_plan, dst_plan) -> Params:
         out.narrow(axis, 0, real).copy_(keep)
         return out
 
-    def walk(t, path):
-        if isinstance(t, dict):
-            return {k: walk(v, f"{path}/{k}" if path else k)
-                    for k, v in t.items()}
-        axes = leaf_axes(path)
-        for d, a in enumerate(axes):
-            if a == "q_heads":
-                t = heads(t, d, q_src, da.q_orig)
-            elif a == "kv_heads":
-                t = heads(t, d, kv_src, da.kv_orig)
-            elif a == "ffn":
-                t = resize(t, d, cfg.d_ff, dst_plan.d_ff_padded)
-            elif a == "vocab":
-                t = resize(t, d, cfg.vocab_size, dst_plan.vocab_padded)
-        return t
-    return walk(tree, "")
+    for d, a in enumerate(leaf_axes(path)):
+        if a == "q_heads":
+            t = heads(t, d, sa.n_heads, sa.q_orig, da.q_orig)
+        elif a == "kv_heads":
+            t = heads(t, d, sa.n_kv_heads, sa.kv_orig, da.kv_orig)
+        elif a == "ffn":
+            t = resize(t, d, cfg.d_ff, dst_plan.d_ff_padded)
+        elif a == "vocab":
+            t = resize(t, d, cfg.vocab_size, dst_plan.vocab_padded)
+    return t
+
+
+def relayout(tree: Params, cfg, src_plan, dst_plan) -> Params:
+    """A full tree of the dense family stored at ``src_plan``'s layout,
+    stored again at ``dst_plan``'s (:func:`relayout_leaf` on every
+    leaf).  The logical model is unchanged: a zero pad head, FFN column
+    or vocab row adds nothing (a padded logit column is masked).  This
+    is how a tp=1 model is served on the ring with the same weights."""
+    return map_leaves(tree, lambda t, path: relayout_leaf(
+        t, path, cfg, src_plan, dst_plan))
+
+
+def tp1_plan(cfg, plan):
+    """The tp=1 plan whose ``init_params`` tree ``plan``'s ring serves:
+    the same mode and dtypes, no mesh."""
+    from repro_torch.compiler.mapper import plan_model
+    return plan_model(cfg, None, (1,), plan.mode, esl_overlap=False,
+                      remat=plan.remat, compute_dtype=plan.compute_dtype,
+                      param_dtype=plan.param_dtype)
+
+
+def init_shard(cfg, plan, rank: int, seed: int = 0, device=None) -> Params:
+    """Rank ``rank``'s shard of the dense model ``cfg`` on ``plan``'s
+    ring, drawn without the full tree: ``init_params(cfg, tp1_plan(cfg,
+    plan), seed)``'s values drawn in its order (embeddings, positions,
+    then layer after layer, then the final norm), each stored at the
+    ring's layout and cut to the rank's slice as soon as it is drawn.
+    Bit-equal to ``shard_params(relayout(init_params(...)), plan,
+    rank)``; the peak is the shard plus one layer of the tp=1 tree.
+    ``device``: ``cuda`` unless the caller asks for the CPU."""
+    from repro_torch.device import dtype_of, resolve_device
+    from repro_torch.models.common import _Init, draw_params
+    _check_ring_plan(plan, rank)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): tensor parallelism of this "
+            "family over the ring is not ported yet (the ring serves the "
+            "dense stacks)")
+    plan1 = tp1_plan(cfg, plan)
+    ini = _Init(seed, resolve_device(device), dtype_of(plan1.param_dtype))
+
+    def keep(t, path):
+        # a stacked layer's leaf is drawn without its layer axis
+        stacked = path.startswith("blocks/")
+        full = t.unsqueeze(0) if stacked else t
+        out = shard_leaf(relayout_leaf(full, path, cfg, plan1, plan), path,
+                         plan, rank)
+        return out[0] if stacked else out
+    return draw_params(ini, cfg, plan1, keep)
+
+
+def redraw(tree: Params, std: Dict[str, float], seed: int) -> None:
+    """Refill in place every leaf of ``tree`` whose name is a key of
+    ``std`` with N(0, std^2) drawn from a generator seeded ``seed`` on
+    the leaves' device, leaf after leaf in the tree's order, each at its
+    whole shape (a stacked leaf with its layer axis)."""
+    g = None
+    for path, t in _leaves(tree):
+        name = path.rsplit("/", 1)[-1]
+        if name in std:
+            if g is None:
+                g = torch.Generator(device=t.device).manual_seed(seed)
+            t.copy_(torch.randn(t.shape, generator=g, device=t.device)
+                    * std[name])
+
+
+def redraw_shard(shard: Params, cfg, plan, rank: int,
+                 std: Dict[str, float], seed: int) -> None:
+    """Refill rank ``rank``'s ``shard`` in place with its slice of what
+    :func:`redraw` writes into the tp=1 tree: each named leaf drawn at
+    its tp=1 shape in the same order (these leaves are vectors and the
+    position table, small beside the shard), stored at the ring's layout
+    and cut to the rank's slice."""
+    plan1 = tp1_plan(cfg, plan)
+    shapes = _expected_shapes(cfg, plan1)
+    g = None
+    for path, t in _leaves(shard):
+        name = path.rsplit("/", 1)[-1]
+        if name in std:
+            if g is None:
+                g = torch.Generator(device=t.device).manual_seed(seed)
+            full = (torch.randn(shapes[path], generator=g, device=t.device)
+                    * std[name]).to(t.dtype)
+            t.copy_(shard_leaf(relayout_leaf(full, path, cfg, plan1, plan),
+                               path, plan, rank))
+
+
+def _leaves(tree: Params, path: str = ""):
+    """(path, leaf) of a nested dict, in its order."""
+    for k, v in tree.items():
+        p = f"{path}/{k}" if path else k
+        if isinstance(v, dict):
+            yield from _leaves(v, p)
+        else:
+            yield p, v
 
 
 def params_from_jax(tree: Params, cfg, plan, device) -> Params:

@@ -307,10 +307,13 @@ def test_ring_refusals(ring2, kind):
 
 
 def test_backend_rule():
+    """gloo on the CPU or one shared card, NCCL for a card per rank,
+    and a mix of the two refused."""
     assert backend_for(["cpu", "cpu"]) == "gloo"
     assert backend_for(["cuda:0"] * 2) == "gloo"
-    with pytest.raises(NotImplementedError, match="NCCL"):
-        backend_for(["cuda:0", "cuda:1"])
+    assert backend_for(["cuda:0", "cuda:1"]) == "nccl"
+    with pytest.raises(ValueError, match="a card per rank"):
+        backend_for(["cuda:0", "cuda:0", "cuda:1"])
 
 
 def test_cli_tp2_cpu(capfd):

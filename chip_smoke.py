@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only tp_cards      # 2 or more cards: phase 14
+    python3 chip_smoke.py --only tp_families   # 2 or more cards: phase 15
 
 Phases (each raises on failure; the script exits non-zero and prints no
 result line when any phase fails or when no CUDA device is present):
@@ -240,7 +241,18 @@ result line when any phase fails or when no CUDA device is present):
    collectives, hops, host-staged bytes per decode step and host seconds
    inside the collectives, the backend, ``graphs: false`` and the card's
    name and power limit.  The ranks share one card, time-sliced: the
-   walls say nothing of scaling.
+   walls say nothing of scaling.  (c) jamba-v0.1-52b at full width cut
+   to one super-block (7 mamba layers, 1 attention, 4 MoE), f32, tp 2
+   in ESL overlap, 2 prompts x 8 new: kernel 5's fused entry held
+   against its plain version at each rank's 4096 channels, launched
+   exactly 7 x (decode steps + prefills) on each rank, and the streams
+   equal to the tp=1 engine's (the parent's, eager, before the spawn)
+   or apart only at a top-2 gap <= 1e-4.  (f32: jamba with random
+   weights in bf16 parts from its own tp=1 stream by more than the bf16
+   near-tie rule allows; PERF.md §6, PR 29.)  Before the spawn, (d)
+   jamba-v0.1-52b whole: rank 0's shard at tp 2 in bf16 (51.6 GB) drawn
+   on the card alone, its peak above the shard under two tp=1 MoE
+   layers.
 14. the ring on its own cards, on a machine of 2 or more cards (on one
    card it prints that it needs 2 or more cards and did not run;
    ``python3 chip_smoke.py --only tp_cards`` runs the kernels' build and
@@ -275,6 +287,28 @@ result line when any phase fails or when no CUDA device is present):
    paper's 22.2 ms and the GPU's 0.649, tp 2's blocking stream held to
    its overlap stream and tp 4's streams to tp 2's overlap stream (apart
    only at such a near tie).  A ``{"tp_cards": ...}`` line.
+15. rwkv, mamba and the MoE over the ring on cards of their own, on a
+   machine of 2 or more cards (``python3 chip_smoke.py --only
+   tp_families`` runs the kernels' build and this phase alone) — (e)
+   kernels 4 and 5 (fused) at the ranks' shapes (rwkv6-7b's 32 and 16
+   heads of 64, jamba's 4096 and 2048 channels of 16 states; 1 and 4
+   rows) bit-equal to their plain versions and timed beside them with
+   their bounds; the tp=1 references on cuda:0, on graphs, in f32 (jamba
+   at 8 layers, rwkv6-7b whole, granite-moe-3b-a800m at 16 layers); then a ring of 2 ranks on their own cards (NCCL,
+   steps on graphs, each rank drawing only its shard): (a) jamba-v0.1-52b
+   whole (32 layers, bf16, 51.6 GB a card) in ESL overlap and in
+   blocking, batch 1, 32 in and 256 out: ms/token of wall and of device
+   per rank (torch.profiler over 32 decode steps, NCCL's kernels
+   apart), the bound (the bytes a card reads a step over its
+   bandwidth, and were only the routed experts read), peak memory per
+   card, kernel 5's launches per rank exact, the eager twin's first 16
+   tokens equal, where blocking's stream first parts from overlap's
+   (reported: jamba in bf16 parts from itself under another order of
+   sums); then 4 prompts x 32 new at 4 slots; (b) jamba at 8 layers,
+   (c) rwkv6-7b whole (kernel 4 launched 32 x decode steps on each
+   rank) and (d) granite at 16 layers (kernel 1 exact), each in f32
+   against tp=1, apart only at a top-2 gap <= 1e-4.  A
+   ``{"tp_families": ...}`` line.
 
 Every engine runs its fused decode windows, verify rounds, monolithic
 prefills, prefill chunks, prefix tails, first-token sampling and
@@ -303,7 +337,8 @@ whisper's steps, the laps; the card's name and power limit), a
 one step's device ms and kernels, tokens/s, peak memory, the
 optimizer's device ms, the checkpoint's save wall, ``mfu_f32``, the
 card's name and power limit), a ``{"tp": ...}`` line (phase 13), on 2
-or more cards a ``{"tp_cards": ...}`` line (phase 14), the nvidia-smi
+or more cards a ``{"tp_cards": ...}`` and a ``{"tp_families": ...}``
+line (phases 14, 15), the nvidia-smi
 line and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX: the
 port stands alone.
 """
@@ -5065,7 +5100,7 @@ def ring_plans(cfg, tp, dtype="float32"):
             for ov in (True, False)}
 
 
-def tp_rank(ring, spec):
+def tp_rank(ring, spec, jamba=None):
     """One rank of phase 13: for each model of ``spec``, this rank's
     shard drawn alone (:func:`rank_weights`: the tp=1 values at the
     ring's layout, no full tree), kernel 1 checked at the rank's shapes,
@@ -5147,6 +5182,8 @@ def tp_rank(ring, spec):
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    if jamba is not None:
+        out["jamba"] = tp_jamba_rank(torch, ring, jamba)
     out["backend"] = ring.backend
     return ring.gather_object(out)
 
@@ -5174,9 +5211,20 @@ def run_tp(torch, dev, card_name, tp1):
         ("smollm-135m", [
             dict(key="blocking", overlap=False, knobs={},
                  prompts=sm_prompts)])]
-    per_rank = run_ranks(tp_rank, TP, spec, device=dev,
-                         placement="shared_card")
-    spawn_s = time.perf_counter() - t0
+    t_j = time.perf_counter()
+    j_draw = jamba_shard_peak(torch, dev)
+    # (c)'s tp=1 reference: jamba cut to one super-block, eager
+    cfg_j = fam_cfg("jamba-v0.1-52b", TP_JAMBA_DEPTH)
+    j_prompts = family_prompts(cfg_j, TP_JAMBA_PROMPTS, seed=13)
+    j_want, j_rec = tp1_streams(torch, dev, "jamba-v0.1-52b",
+                                TP_JAMBA_DEPTH, j_prompts, TP_JAMBA_NEW,
+                                TP_JAMBA_MAX_SEQ, False)
+    j_tp1_s = time.perf_counter() - t_j
+    t_r = time.perf_counter()
+    per_rank = run_ranks(tp_rank, TP, spec, dict(
+        depth=TP_JAMBA_DEPTH, prompts=j_prompts, new=TP_JAMBA_NEW,
+        want=j_want), device=dev, placement="shared_card")
+    spawn_s = time.perf_counter() - t_r
     out = {"tp": TP, "backend": per_rank[0]["backend"], "graphs": False,
            "ranks_on_one_card": True, "card": card_name, "models": {}}
     for name, runs in spec:
@@ -5216,11 +5264,171 @@ def run_tp(torch, dev, card_name, tp1):
                     x["staged_bytes_per_decode_step"] for x in rr])
         del model, params
         out["models"][name] = m
+    jr = [r["jamba"] for r in per_rank]
+    if any(x["streams"] != jr[0]["streams"] for x in jr):
+        raise AssertionError("(13c) jamba: the ranks' streams differ")
+    out["jamba"] = {
+        "arch": "jamba-v0.1-52b", "dtype": "float32",
+        "n_layers": TP_JAMBA_DEPTH, "mode": "overlap",
+        "schedule": jamba_schedule(cfg_j), "tp1": j_rec, "tp1_s": j_tp1_s,
+        "whole_shard_draw": j_draw,
+        "prompt_lengths": [len(p) for p in j_prompts],
+        "new_tokens": TP_JAMBA_NEW,
+        **{k: jr[0][k] for k in ("wall_s", "tokens", "device_decode_steps",
+                                 "prefills", "kernel_want", "collectives",
+                                 "hops", "staged_bytes",
+                                 "seconds_in_collective_calls",
+                                 "cache_shapes", "vs_tp1", "kernel5_shape")},
+        "kernel5_launches_per_rank": [x["kernel_launches"] for x in jr],
+        "kernel5_at_rank_per_rank": [x["kernel5_at_rank"] for x in jr],
+        "weight_bytes_per_rank": [x["weight_bytes"] for x in jr],
+        "peak_memory_bytes_per_rank": [x["peak_memory_bytes"] for x in jr],
+        "setup_s": [x["setup_s"] for x in jr]}
     gc.collect()
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t0
     out["ranks_s"] = spawn_s
     return out
+
+
+# (13c): jamba-v0.1-52b at full width, one super-block, bf16, tp 2
+TP_JAMBA_DEPTH = 8
+TP_JAMBA_NEW = 8
+TP_JAMBA_PROMPTS = 2
+
+
+def tree_bytes(params):
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
+def kernel5_at_rank(torch, dev, shapes, seed):
+    """Kernel 5's fused entry against its plain version at a rank's
+    shapes, outside any counted run: {shape: max abs error, bit-equal};
+    raises past MAMBA_TOL."""
+    from repro_torch.kernels import held_launches
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_fused_ref
+    out = {}
+    for i, shape in enumerate(shapes):
+        args = mamba_fused_inputs(torch, dev, shape, seed + i)
+        with held_launches():
+            got = mamba_scan_fused(*args)
+        want = mamba_scan_fused_ref(*args)
+        torch.cuda.synchronize(dev)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        if not all(torch.isfinite(t).all() for t in got) or err > MAMBA_TOL:
+            raise AssertionError(f"mamba_scan_fused at a rank's shape "
+                                 f"{shape}: max abs {err} > {MAMBA_TOL}")
+        out["x".join(map(str, shape))] = {
+            "max_abs_err": err,
+            "bit_equal": all(torch.equal(a, b) for a, b in zip(got, want))}
+    return out
+
+
+def n_scan_layers(cfg):
+    """Layers that launch the family's scan kernel once per decode step
+    (and, mamba, once per prefill)."""
+    if cfg.family == "rwkv":
+        return cfg.n_layers
+    return sum(not cfg.is_attention_layer(i) for i in range(cfg.n_layers))
+
+
+def tp_jamba_rank(torch, ring, spec):
+    """(13c) at this rank: jamba at full width cut to one super-block,
+    f32, this rank's shard drawn alone, kernel 5 held against its plain
+    version at the rank's shapes, then the prompts served in ESL overlap
+    (steps eager on the gloo ring), kernel 5's launches counted from
+    zero over the run; the streams against tp=1's, apart only at a
+    top-2 gap <= CHAIN_TOL of the ring's model (every rank calls it
+    alike)."""
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused
+    from repro_torch.models.mamba import mamba_dims
+    from repro_torch.models.registry import build_model
+    from repro_torch.weights import init_shard
+    dev = ring.device
+    cfg = fam_cfg("jamba-v0.1-52b", spec["depth"])
+    plan = ring_plans(cfg, ring.size)[True]
+    t0 = time.perf_counter()
+    params = init_shard(cfg, plan, ring.rank, seed=0, device=dev)
+    torch.cuda.synchronize(dev)
+    _, d_loc = mamba_dims(cfg, plan)
+    prompts = spec["prompts"]
+    rec = {"setup_s": time.perf_counter() - t0,
+           "weight_bytes": tree_bytes(params),
+           "kernel5_at_rank": kernel5_at_rank(
+               torch, dev,
+               [(len(prompts), 1, d_loc, cfg.mamba.d_state),
+                (1, max(map(len, prompts)), d_loc, cfg.mamba.d_state)],
+               seed=70 + ring.rank),
+           "kernel5_shape": [len(prompts), 1, d_loc, cfg.mamba.d_state]}
+    model = build_model(cfg, plan, dev)
+    streams, run = ring_engine_run(torch, ring, model, params, prompts,
+                                   spec["new"], False,
+                                   max_seq=TP_JAMBA_MAX_SEQ)
+    rec.update(run, streams=streams,
+               cache_shapes=run.pop("cache_shapes"),
+               vs_tp1=ring_agree(torch, ring, model, params, prompts,
+                                 streams, spec["want"], CHAIN_TOL,
+                                 f"(13c) jamba tp {ring.size} rank "
+                                 f"{ring.rank}"),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+    del model, params
+    free_cuda(torch)
+    return rec
+
+
+TP_JAMBA_MAX_SEQ = 128
+
+
+def jamba_shard_peak(torch, dev):
+    """(13d) jamba-v0.1-52b whole, rank 0's shard at tp 2 in bf16, drawn
+    on this card alone (a shard is a function of the rank; no ring):
+    its bytes, the draw's wall and its peak above the shard, held to
+    less than two of the largest tp=1 layers (an MoE layer's experts)."""
+    from repro_torch.weights import init_shard
+    cfg = fam_cfg("jamba-v0.1-52b")
+    plan = ring_plans(cfg, TP, "bfloat16")[True]
+    free_cuda(torch)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_shard(cfg, plan, 0, seed=0, device=dev)
+    torch.cuda.synchronize(dev)
+    rec = {"draw_s": time.perf_counter() - t0,
+           "shard_bytes": tree_bytes(params),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+           "moe_layer_tp1_bytes": 3 * 2 * cfg.moe.n_experts * cfg.d_model
+           * cfg.moe.d_ff_expert}
+    rec["peak_over_shard_bytes"] = rec["peak_bytes"] - rec["shard_bytes"]
+    del params
+    free_cuda(torch)
+    if rec["peak_over_shard_bytes"] > 2 * rec["moe_layer_tp1_bytes"]:
+        raise AssertionError(f"(13d) jamba's shard drew {rec}")
+    return rec
+
+
+def tp1_streams(torch, dev, name, depth, prompts, new, max_seq, graphs):
+    """A tp=1 reference on ``dev``: ``name`` at full width (its depth
+    cut to ``depth``) in f32, seed 0, serving ``prompts`` greedily (one
+    slot a prompt; a paged stack from blocks of BS): its streams and
+    record; the model freed after."""
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine
+    model, params, rec = family_model(torch, dev, name, "float32",
+                                      depth=depth)
+    t0 = time.perf_counter()
+    kw = dict(block_size=BS) if model.supports_paged_kv() else {}
+    eng = LPUEngine(model, params, EngineConfig(
+        slots=len(prompts), max_seq=max_seq, **kw), device=dev,
+        graphs=graphs)
+    want = eng.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize(dev)
+    on_graphs(eng)
+    rec.update(serve_s=time.perf_counter() - t0,
+               tokens_per_s=eng.stats.tokens_per_s)
+    del eng, model, params
+    free_cuda(torch)
+    return want, rec
 
 
 # ---------------------------------------------------------------------------
@@ -5752,13 +5960,501 @@ def print_tp_cards(rec, smi):
     print(f"[time] (14) tp_cards {rec['phase_s']:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: rwkv, mamba and the MoE over the ring on cards of their own
+# ---------------------------------------------------------------------------
+
+FAM_TP = 2
+FAM_JAMBA_DEPTH = 32           # (a): jamba-v0.1-52b whole
+FAM_JAMBA_OUT = 256            # (a): batch 1, 32 in, 256 out
+FAM_EAGER_TOKENS = 16          # (a): the eager twin's first tokens
+FAM_BATCH = (4, 32)            # (a): 4 prompts x 32 new at 4 slots
+FAM_PROFILE_STEPS = 32         # (a): decode steps under torch.profiler
+FAM_MAX_SEQ = 512
+FAM_B_DEPTH = 8                # (b): jamba, one super-block
+FAM_B_NEW = 16
+FAM_RWKV_NEW = 16              # (c) and (d): 4 prompts x 16 new
+FAM_GRANITE_DEPTH = 16
+# (e): the scans at the ranks' shapes: rwkv6-7b's 64 heads of 64 and
+# jamba's 8192 channels of 16 states over 2 and 4 ranks, 1 and 4 rows
+FAM_SCAN_SHAPES = {
+    "rwkv_scan": [(b, 1, 64 // tp, 64) for tp in (2, 4) for b in (1, 4)],
+    "mamba_scan_fused": [(b, 1, 8192 // tp, 16) for tp in (2, 4)
+                         for b in (1, 4)]}
+
+
+def check_time_rank_scans(torch, dev, card_name):
+    """(e): kernels 4 and 5 (the fused entry) at the ranks' shapes on
+    ``dev``: against their plain versions (bit-equal, as at tp=1) and
+    timed beside them, with the bound of each call."""
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_fused_ref
+    from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
+    from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_ref
+    out = {}
+    for name, kernel, plain, inputs, bound in (
+            ("rwkv_scan", rwkv_scan, rwkv_scan_ref, rwkv_inputs,
+             rwkv_bound),
+            ("mamba_scan_fused", mamba_scan_fused, mamba_scan_fused_ref,
+             mamba_fused_inputs, mamba_fused_bound)):
+        for shape in FAM_SCAN_SHAPES[name]:
+            args = inputs(torch, dev, shape, 90)
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize(dev)
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            exact = all(torch.equal(a, b) for a, b in zip(got, want))
+            if not exact:
+                raise AssertionError(f"(15e) {name} {shape}: not bit-equal "
+                                     f"to its plain version (max abs {err})")
+            per_set = 4 * sum(a.numel() for a in args)
+            sets = [tuple(a.clone() for a in args)
+                    for _ in range(sets_for(per_set))]
+            t = timed(torch, {"ms": lambda i: kernel(*sets[i]),
+                              "plain_ms": lambda i: plain(*sets[i])},
+                      len(sets))
+            t["bound_ms"], t["bound_by"] = bound(shape, card_name)
+            t.update(max_abs_err=err, bit_equal=exact, shape=list(shape),
+                     library_ms=None)
+            out[f"{name} {'x'.join(map(str, shape))}"] = t
+            del sets, args
+    return out
+
+
+def fam_cfg(name, depth=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, n_layers=depth) if depth else cfg
+
+
+def ring_engine_run(torch, ring, model, params, prompts, new, graphs,
+                    slots=None, max_seq=None):
+    """``prompts`` served greedily by this rank's engine on the ring (a
+    warm-up request first), the family kernel's launches and the ring's
+    counters from zero over the run: -> (streams, record)."""
+    from repro_torch.launch.serve import family_kernel
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine
+    cfg, dev = model.cfg, ring.device
+    kernel = family_kernel(cfg)
+    kw = dict(block_size=BS) if model.supports_paged_kv() else {}
+    eng = LPUEngine(model, params, EngineConfig(
+        slots=slots or len(prompts), max_seq=max_seq or FAM_MAX_SEQ, **kw),
+        mesh=ring, device=dev, graphs=graphs and ring.nccl)
+    eng.generate(prompts[:1], max_new_tokens=2)
+    torch.cuda.synchronize(dev)
+    eng.stats = type(eng.stats)()
+    kernel.launches = 0
+    ring.reset_counters()
+    t0 = time.perf_counter()
+    streams = eng.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    st = eng.stats
+    launches = kernel.launches
+    if kernel.__name__ == "paged_decode_attention":
+        want = launches_want(eng)
+    elif cfg.family == "rwkv":
+        want = cfg.n_layers * st.device_decode_steps
+    else:
+        want = n_scan_layers(cfg) * (st.device_decode_steps + st.prefills)
+    what = f"(15) {cfg.name} tp {ring.size} rank {ring.rank}"
+    if launches != want or not launches:
+        raise AssertionError(f"{what}: {kernel.__name__} launches "
+                             f"{launches} != {want}")
+    on_graphs(eng)
+    if eng.graphs and not st.graph_replays:
+        raise AssertionError(f"{what}: no replay")
+    if eng.paged:
+        eng.check_pool_balanced()
+    rec = dict(run_rec(eng, launches), wall_s=wall, graphs=eng.graphs,
+               kernel=kernel.__name__, kernel_want=want,
+               cache_shapes={lj: {k: list(v.shape) for k, v in c.items()}
+                             for lj, c in eng.cache.items()},
+               **ring_counts(ring, st.device_decode_steps))
+    del eng
+    return streams, rec
+
+
+def ring_decode_protocol(torch, ring, model, params, prompt, out_n):
+    """(a) at this rank: one request of ``out_n`` new tokens at batch 1
+    on captured windows (8-step, max_seq FAM_MAX_SEQ), after a warm-up
+    request that captures them; FAM_PROFILE_STEPS decode steps in the
+    middle under torch.profiler give device ms per token (NCCL's
+    kernels apart), the engine's clock over the rest wall ms per token;
+    kernel 5's launches counted from zero over the request; then the
+    eager twin's first FAM_EAGER_TOKENS tokens of the same request."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import family_kernel
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine
+    cfg, dev = model.cfg, ring.device
+    kernel = family_kernel(cfg)
+    conf = EngineConfig(slots=1, max_seq=FAM_MAX_SEQ,
+                        steps_per_sync=OPT_WINDOW)
+    eng = LPUEngine(model, params, conf, device=dev, graphs=ring.nccl,
+                    mesh=ring)
+    eng.generate([prompt], max_new_tokens=2 * OPT_WINDOW)       # warm
+    torch.cuda.synchronize(dev)
+    kernel.launches = 0
+    ring.reset_counters()
+    st = eng.stats
+    base = dataclasses.replace(st)
+    rid = eng.submit(prompt, out_n)
+    mid = len(prompt) + out_n // 2 - FAM_PROFILE_STEPS // 2
+    seq = None
+    while seq is None or seq.pos < mid:
+        eng.step()
+        seq = eng.sched.active[0]
+    steps0, wall0 = st.device_decode_steps, st.wall
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        while st.device_decode_steps - steps0 < FAM_PROFILE_STEPS and \
+                eng.sched.has_work():
+            eng.step()
+        torch.cuda.synchronize(dev)
+    steps = st.device_decode_steps - steps0
+    window_wall = st.wall - wall0
+    out = eng.drain()[rid]
+    torch.cuda.synchronize(dev)
+    dsteps = st.device_decode_steps - base.device_decode_steps
+    prefills = st.prefills - base.prefills
+    want = n_scan_layers(cfg) * (dsteps + prefills)
+    what = f"(15a) {cfg.name} tp {ring.size} rank {ring.rank}"
+    launches = kernel.launches
+    if launches != want or not want:
+        raise AssertionError(f"{what}: {kernel.__name__} launches "
+                             f"{launches} != {want}")
+    replays = st.graph_replays - base.graph_replays
+    if bool(replays) != eng.graphs or \
+            st.graph_captures != base.graph_captures:
+        raise AssertionError(f"{what}: {replays} replays, "
+                             f"{st.graph_captures - base.graph_captures} "
+                             "captures while measured")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not busy_us or not steps:
+        raise AssertionError(f"{what}: the profiler saw {busy_us} us over "
+                             f"{steps} decode steps")
+    device_ms = busy_us / 1e3 / steps
+    nccl_ms = sum(e.self_device_time_total for e in kernels
+                  if "nccl" in e.key.lower()) / 1e3 / steps
+    wall_ms = (st.wall - base.wall - window_wall) * 1e3 / (len(out) - steps)
+    counts = ring_counts(ring, dsteps)
+    # a step reads and writes every recurrent state (conv, ssm); the
+    # attention layers' K/V at these lengths (< 2 MB a card) left out
+    state = 2 * sum(t.numel() * t.element_size()
+                    for c in eng.cache.values() if "ssm" in c
+                    for t in c.values())
+    del eng
+    free_cuda(torch)
+    twin = LPUEngine(model, params, conf, device=dev, graphs=False,
+                     mesh=ring)
+    eager = twin.generate([prompt], max_new_tokens=FAM_EAGER_TOKENS)[0]
+    torch.cuda.synchronize(dev)
+    del twin
+    if eager != out[:FAM_EAGER_TOKENS]:
+        raise AssertionError(f"{what}: the eager twin's first "
+                             f"{FAM_EAGER_TOKENS} tokens {eager} != "
+                             f"{out[:FAM_EAGER_TOKENS]}")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"out": out, "wall_ms_per_token": wall_ms,
+            "device_ms_per_token": device_ms, "nccl_ms_per_token": nccl_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "profiled_decode_steps": steps, "decode_steps": dsteps,
+            "prefills": prefills, "kernel5_launches": launches,
+            "state_bytes_per_step": state,
+            "kernel5_want": want, "graph_replays": replays,
+            "eager_twin_equal_tokens": len(eager), **counts,
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def expert_bytes(params):
+    return sum(t.numel() * t.element_size() for path, t in
+               _paths(params) if "/moe/w" in path)
+
+
+def _paths(tree, pre=""):
+    for k, v in tree.items():
+        p = f"{pre}/{k}" if pre else k
+        if isinstance(v, dict):
+            yield from _paths(v, p)
+        else:
+            yield p, v
+
+
+def fam_a(torch, ring, spec):
+    """(a) at this rank: jamba-v0.1-52b whole in bf16, this rank's shard
+    drawn alone; in ESL overlap and in blocking the protocol (batch 1,
+    32 in, FAM_JAMBA_OUT out) and FAM_BATCH's batch on 4 slots, both on
+    graphs; the blocking stream held to the overlap stream by the
+    two-sided bf16 near-tie rule; peak memory per card."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.weights import init_shard
+    dev = ring.device
+    cfg = fam_cfg("jamba-v0.1-52b", spec["depth"])
+    plans = ring_plans(cfg, ring.size, "bfloat16")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_shard(cfg, plans[True], ring.rank, seed=0, device=dev)
+    torch.cuda.synchronize(dev)
+    wb, eb = tree_bytes(params), expert_bytes(params)
+    rec = {"setup_s": time.perf_counter() - t0, "weight_bytes": wb,
+           "expert_bytes": eb,
+           "peak_memory_after_draw": torch.cuda.max_memory_allocated(dev),
+           "runs": {}}
+    prompt = protocol_prompt(cfg)
+    bw = bandwidth_for(torch.cuda.get_device_name(dev))
+    # at batch 1 the routing needs top_k experts of each MoE layer: the
+    # worst card holds both
+    ecell = plans[True].moe.n_experts // ring.size
+    routed = wb - eb + eb * min(1.0, cfg.moe.top_k / ecell)
+    first = None
+    peak = 0
+    for key in ("overlap", "blocking"):
+        model = build_model(cfg, plans[key == "overlap"], dev)
+        r = ring_decode_protocol(torch, ring, model, params, prompt,
+                                 spec["out"])
+        step = wb + r["state_bytes_per_step"]
+        r.update(bytes_per_step=step, bound_ms_per_token=step / bw * 1e3,
+                 routed_bytes_per_step=routed + r["state_bytes_per_step"],
+                 routed_bound_ms_per_token=(routed + r[
+                     "state_bytes_per_step"]) / bw * 1e3,
+                 bandwidth_use_device=step / (r["device_ms_per_token"] / 1e3)
+                 / bw)
+        got = r.pop("out")
+        if first is None:
+            first = got
+        else:
+            # reported, not gated: jamba in bf16 parts from itself under
+            # another order of sums (PERF.md §6, PR 29)
+            r["first_apart_from_overlap"] = next(
+                (j for j, (u, v) in enumerate(zip(got, first)) if u != v),
+                None)
+        r["stream_head"] = got[:16]
+        r["out_tokens"] = len(got)
+        peak = max(peak, torch.cuda.max_memory_allocated(dev))
+        free_cuda(torch)
+        prompts = family_prompts(cfg, FAM_BATCH[0], seed=15)
+        streams, b = ring_engine_run(torch, ring, model, params, prompts,
+                                     FAM_BATCH[1], True)
+        b["streams_head"] = [x[:8] for x in streams]
+        b["ms_per_decode_step"] = b["wall_s"] * 1e3 / max(
+            b["device_decode_steps"], 1)
+        r["batch4"] = b
+        rec["runs"][key] = r
+        peak = max(peak, torch.cuda.max_memory_allocated(dev))
+        del model
+        free_cuda(torch)
+        if ring.rank == 0:
+            print(f"[tp_families] (15a) jamba tp {ring.size} {key} rank 0: "
+                  f"{r['wall_ms_per_token']:.3f} ms/token wall, "
+                  f"{r['device_ms_per_token']:.3f} device, bound "
+                  f"{r['bound_ms_per_token']:.3f}", flush=True)
+    rec["peak_memory_bytes"] = peak
+    del params
+    free_cuda(torch)
+    return rec
+
+
+def fam_vs_tp1(torch, ring, spec):
+    """(b), (c), (d) at this rank: ``spec["name"]`` at ``spec["depth"]``
+    in f32, this rank's shard drawn alone, serving the tp=1 run's
+    prompts on graphs in ESL overlap; each stream against tp=1's, apart
+    only at a top-2 gap <= CHAIN_TOL of the ring's model."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.weights import init_shard
+    dev = ring.device
+    cfg = fam_cfg(spec["name"], spec["depth"])
+    plan = ring_plans(cfg, ring.size)[True]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_shard(cfg, plan, ring.rank, seed=0, device=dev)
+    torch.cuda.synchronize(dev)
+    setup = time.perf_counter() - t0
+    model = build_model(cfg, plan, dev)
+    prompts = spec["prompts"]
+    streams, rec = ring_engine_run(torch, ring, model, params, prompts,
+                                   spec["new"], True)
+    rec["vs_tp1"] = ring_agree(torch, ring, model, params, prompts,
+                               streams, spec["want"], CHAIN_TOL,
+                               f"(15) {cfg.name} tp {ring.size} rank "
+                               f"{ring.rank}")
+    rec.update(setup_s=setup, weight_bytes=tree_bytes(params),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+               streams=streams)
+    del model, params
+    free_cuda(torch)
+    return rec
+
+
+def tp_families_rank(ring, spec):
+    """One rank of phase 15 (rank r on ``cuda:r``, NCCL): (a) to (d) in
+    turn, each model freed before the next; returns every rank's
+    record."""
+    import torch
+    out = {"rank": ring.rank, "device": str(ring.device),
+           "card": torch.cuda.get_device_name(ring.device),
+           "backend": ring.backend}
+    for part in ("a", "b", "c", "d"):
+        t0 = time.perf_counter()
+        out[part] = (fam_a if part == "a" else fam_vs_tp1)(torch, ring,
+                                                           spec[part])
+        out[f"{part}_s"] = time.perf_counter() - t0
+        if ring.rank == 0:
+            print(f"[tp_families] (15{part}) rank 0 done in "
+                  f"{out[f'{part}_s']:.1f} s", flush=True)
+    return ring.gather_object(out)
+
+
+def run_tp_families(torch, dev, card_name, lap=None,
+                    placement="card_per_rank"):
+    """Phase 15 on a machine of 2 or more cards: (e) kernels 4 and 5 at
+    the ranks' shapes on cuda:0; the tp=1 references on cuda:0 (jamba
+    one super-block, rwkv6-7b whole, granite at depth 16, all f32
+    in f32), then a ring of FAM_TP ranks, each on its own card over
+    NCCL, every step on graphs, each rank drawing only its shard: (a)
+    jamba-v0.1-52b whole, (b) to (d) against their tp=1 references.
+    ``placement="shared_card"`` rehearses the phase on one card (the
+    ranks share it over gloo, steps eager)."""
+    from repro_torch.core.dist import run_ranks
+    t_phase = time.perf_counter()
+    rec = {"card": card_name, "cards": torch.cuda.device_count(),
+           "cards_listed": smi_query("--query-gpu=index,name,power.limit",
+                                     "--format=csv,noheader").splitlines()}
+    t0 = time.perf_counter()
+    rec["e_scans"] = check_time_rank_scans(torch, dev, card_name)
+    rec["e_s"] = time.perf_counter() - t0
+    if lap is not None:
+        lap("(15e) scans")
+    t0 = time.perf_counter()
+    b_cfg = fam_cfg("jamba-v0.1-52b", FAM_B_DEPTH)
+    b_prompts = [protocol_prompt(b_cfg)] + family_prompts(b_cfg, 1, seed=16)
+    b_want, rec["b_tp1"] = tp1_streams(torch, dev, "jamba-v0.1-52b",
+                                       FAM_B_DEPTH, b_prompts, FAM_B_NEW,
+                                       FAM_MAX_SEQ, True)
+    c_cfg = fam_cfg("rwkv6-7b")
+    c_prompts = family_prompts(c_cfg, 4, seed=17)
+    c_want, rec["c_tp1"] = tp1_streams(torch, dev, "rwkv6-7b", None,
+                                       c_prompts, FAM_RWKV_NEW, FAM_MAX_SEQ,
+                                       True)
+    d_cfg = fam_cfg("granite", FAM_GRANITE_DEPTH)
+    d_prompts = family_prompts(d_cfg, 4, seed=18)
+    d_want, rec["d_tp1"] = tp1_streams(torch, dev, "granite",
+                                       FAM_GRANITE_DEPTH, d_prompts,
+                                       FAM_RWKV_NEW, FAM_MAX_SEQ, True)
+    rec["tp1_s"] = time.perf_counter() - t0
+    if lap is not None:
+        lap("(15) tp=1 references")
+    spec = {"a": {"out": FAM_JAMBA_OUT, "depth": FAM_JAMBA_DEPTH},
+            "b": {"name": "jamba-v0.1-52b", "depth": FAM_B_DEPTH,
+                  "dtype": "float32", "prompts": b_prompts,
+                  "new": FAM_B_NEW, "want": b_want},
+            "c": {"name": "rwkv6-7b", "depth": None, "dtype": "float32",
+                  "prompts": c_prompts, "new": FAM_RWKV_NEW,
+                  "want": c_want},
+            "d": {"name": "granite", "depth": FAM_GRANITE_DEPTH,
+                  "dtype": "float32", "prompts": d_prompts,
+                  "new": FAM_RWKV_NEW, "want": d_want}}
+    t0 = time.perf_counter()
+    per_rank = run_ranks(tp_families_rank, FAM_TP, spec, device="cuda",
+                         placement=placement, timeout_s=300)
+    rec["ranks_s"] = time.perf_counter() - t0
+    rec["backend"] = same_on_ranks(per_rank, lambda x: x["backend"],
+                                   "backend")
+    rec["rank_cards"] = [x["card"] for x in per_rank]
+    rec["part_s"] = [{p: x[f"{p}_s"] for p in "abcd"} for x in per_rank]
+    a = [x["a"] for x in per_rank]
+    ra = {"arch": "jamba-v0.1-52b", "dtype": "bfloat16",
+          "n_layers": FAM_JAMBA_DEPTH, "tp": FAM_TP,
+          "setup_s": [x["setup_s"] for x in a],
+          "weight_bytes_per_card": [x["weight_bytes"] for x in a],
+          "expert_bytes_per_card": [x["expert_bytes"] for x in a],
+          "peak_memory_bytes_per_card": [x["peak_memory_bytes"] for x in a],
+          "peak_memory_after_draw_per_card": [x["peak_memory_after_draw"]
+                                              for x in a],
+          "runs": {}}
+    for key in a[0]["runs"]:
+        rr = [x["runs"][key] for x in a]
+        same_on_ranks(rr, lambda x: x["stream_head"], f"(15a) {key} stream")
+        one = {k: v for k, v in rr[0].items()
+               if k not in ("top_kernels", "batch4")}
+        for k in ("wall_ms_per_token", "device_ms_per_token",
+                  "nccl_ms_per_token", "kernel5_launches",
+                  "bandwidth_use_device"):
+            one[f"{k}_per_rank"] = [x[k] for x in rr]
+        one["top_kernels_rank0"] = rr[0]["top_kernels"]
+        bb = [x["batch4"] for x in rr]
+        one["batch4"] = dict(
+            {k: v for k, v in bb[0].items() if k != "streams_head"},
+            kernel5_launches_per_rank=[x["kernel_launches"] for x in bb],
+            ms_per_decode_step_per_rank=[x["ms_per_decode_step"]
+                                         for x in bb],
+            streams_head=same_on_ranks(bb, lambda x: x["streams_head"],
+                                       f"(15a) {key} batch streams"))
+        ra["runs"][key] = one
+    rec["a"] = ra
+    for part in "bcd":
+        rr = [x[part] for x in per_rank]
+        same_on_ranks(rr, lambda x: x["streams"], f"({part}) streams")
+        rec[part] = dict(
+            {k: v for k, v in rr[0].items() if k != "streams"},
+            kernel_launches_per_rank=[x["kernel_launches"] for x in rr],
+            peak_memory_bytes_per_card=[x["peak_memory_bytes"] for x in rr],
+            weight_bytes_per_card=[x["weight_bytes"] for x in rr],
+            setup_s=[x["setup_s"] for x in rr])
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def print_tp_families(rec, smi):
+    """The phase's summary lines."""
+    a = rec["a"]
+    for k, x in a["runs"].items():
+        b = x["batch4"]
+        print(f"[tp_families] (15a) jamba-v0.1-52b {a['n_layers']} layers "
+              f"bf16 tp {a['tp']} {k}: {x['out_tokens']} tokens, ms/token "
+              f"wall {x['wall_ms_per_token_per_rank']} device "
+              f"{x['device_ms_per_token_per_rank']} (NCCL "
+              f"{x['nccl_ms_per_token_per_rank']}), bound "
+              f"{x['bound_ms_per_token']:.3f} (routed experts only "
+              f"{x['routed_bound_ms_per_token']:.3f}), kernel 5 launches "
+              f"{x['kernel5_launches_per_rank']} (want {x['kernel5_want']}),"
+              f" eager twin equal over {x['eager_twin_equal_tokens']} "
+              f"tokens; batch {FAM_BATCH[0]} x {FAM_BATCH[1]}: "
+              f"{b['tokens_per_s']:.1f} tok/s, ms/step "
+              f"{b['ms_per_decode_step_per_rank']} | {smi}")
+    print(f"[tp_families] (15a) peak memory per card "
+          f"{a['peak_memory_bytes_per_card']}, weights per card "
+          f"{a['weight_bytes_per_card']}, draw {a['setup_s']} s")
+    for part, what in (("b", "jamba 8 layers f32"),
+                       ("c", "rwkv6-7b f32"), ("d", "granite 16 layers f32")):
+        x = rec[part]
+        vs = x["vs_tp1"]
+        print(f"[tp_families] (15{part}) {what} tp {FAM_TP}: "
+              f"{x['tokens']} tokens, {x['tokens_per_s']:.1f} tok/s, "
+              f"{x['kernel']} launches {x['kernel_launches_per_rank']} (want "
+              f"{x['kernel_want']}), equal to tp=1 {vs['equal']}/"
+              f"{vs['of']}, replays "
+              f"{x['graph_replays']}, peak memory per card "
+              f"{x['peak_memory_bytes_per_card']} | {smi}")
+    for k, t in rec["e_scans"].items():
+        print(f"[tp_families] (15e) {k}: {t['ms']:.5f} ms (bound "
+              f"{t['bound_ms']:.6f} by {t['bound_by']}, plain "
+              f"{t['plain_ms']:.4f}), bit-equal {t['bit_equal']} | {smi}")
+    print(f"[time] (15) tp_families {rec['phase_s']:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "NVIDIA cards (see the module docstring).")
-    ap.add_argument("--only", choices=("tp_cards",),
-                    help="tp_cards: build the kernels and run phase 14 "
-                         "alone (2 or more cards)")
+    ap.add_argument("--only", choices=("tp_cards", "tp_families"),
+                    help="tp_cards / tp_families: build the kernels and "
+                         "run phase 14 / 15 alone (2 or more cards)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5791,15 +6487,20 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     n_cards = torch.cuda.device_count()
-    if args.only == "tp_cards":
+    if args.only:
         lap("build")
         if n_cards < 2:
-            print(f"[tp_cards] (14) needs 2 or more cards; this machine has "
+            print(f"[{args.only}] needs 2 or more cards; this machine has "
                   f"{n_cards}: not run", file=sys.stderr)
             return 1
-        tp_cards = run_tp_cards(torch, torch.device("cuda", 0), smi, lap)
-        print_tp_cards(tp_cards, smi)
-        print(json.dumps({"tp_cards": tp_cards}))
+        if args.only == "tp_cards":
+            tp_cards = run_tp_cards(torch, torch.device("cuda", 0), smi, lap)
+            print_tp_cards(tp_cards, smi)
+            print(json.dumps({"tp_cards": tp_cards}))
+        else:
+            fam = run_tp_families(torch, torch.device("cuda", 0), smi, lap)
+            print_tp_families(fam, smi)
+            print(json.dumps({"tp_families": fam}))
         print(f"[time] total {time.perf_counter() - t_start:.1f} s")
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -6184,8 +6885,25 @@ def main(argv=None) -> int:
               f"{m['kernel1_shapes']} max abs "
               f"{m['kernel1_max_abs_err_per_rank']}, pad heads per rank "
               f"{m['pad_heads_per_rank']}, setup {m['setup_s']} s")
+    tj = tp["jamba"]
+    print(f"[tp] (13c) jamba-v0.1-52b {tj['n_layers']} layers f32 tp {TP} "
+          f"overlap: {tj['tokens']} tokens in {tj['wall_s']:.2f} s, "
+          f"{tj['device_decode_steps']} decode steps + {tj['prefills']} "
+          f"prefills, kernel 5 launches per rank "
+          f"{tj['kernel5_launches_per_rank']} (want {tj['kernel_want']}), "
+          f"kernel 5 at the rank's shapes {tj['kernel5_at_rank_per_rank']}, "
+          f"equal to tp=1 {tj['vs_tp1']['equal']}/{tj['vs_tp1']['of']}, "
+          f"peak memory per rank "
+          f"{tj['peak_memory_bytes_per_rank']} | {smi}")
+    d = tj["whole_shard_draw"]
+    print(f"[tp] (13d) jamba-v0.1-52b whole, rank 0's shard at tp {TP} in "
+          f"bf16 drawn alone: {d['shard_bytes'] / 1e9:.2f} GB in "
+          f"{d['draw_s']:.1f} s, peak {d['peak_bytes'] / 1e9:.2f} GB "
+          f"({d['peak_over_shard_bytes'] / 1e9:.2f} over the shard; a tp=1 "
+          f"MoE layer {d['moe_layer_tp1_bytes'] / 1e9:.2f}) | {smi}")
     print(f"[time] (13) tp {tp['phase_s']:.1f} s (ranks "
-          f"{tp['ranks_s']:.1f} s)", flush=True)
+          f"{tp['ranks_s']:.1f} s, jamba's tp=1 reference "
+          f"{tj['tp1_s']:.1f} s with (13d))", flush=True)
     lap("tp (13)")
 
     tp_cards = None
@@ -6193,9 +6911,14 @@ def main(argv=None) -> int:
         tp_cards = run_tp_cards(torch, torch.device("cuda", 0), smi, lap)
         print_tp_cards(tp_cards, smi)
         lap("tp_cards (14)")
+        tp_families = run_tp_families(torch, torch.device("cuda", 0), smi,
+                                      lap)
+        print_tp_families(tp_families, smi)
+        lap("tp_families (15)")
     else:
-        print(f"[tp_cards] (14) needs 2 or more cards; this machine has "
-              f"{n_cards}: not run")
+        tp_families = None
+        print(f"[tp_cards] (14) and [tp_families] (15) need 2 or more "
+              f"cards; this machine has {n_cards}: not run")
 
     def src(name):
         return os.path.relpath(build.source_path(name), HERE)
@@ -6213,6 +6936,20 @@ def main(argv=None) -> int:
     tp_k1 = {f"tp{TP}_{name}_{k}": sum(r["kernel1_launches_per_rank"])
              for name, m in tp["models"].items()
              for k, r in m["runs"].items()}
+    tp_k5 = {f"tp{TP}_jamba_overlap": sum(
+        tp["jamba"]["kernel5_launches_per_rank"])}
+    fam_k4 = {}
+    if tp_families is not None:
+        # phase 15: (a)'s requests and batches, (b) on every rank; (c)
+        fa = tp_families["a"]["runs"]
+        tp_k5.update({f"tp_families_a_{k}": sum(r[
+            "kernel5_launches_per_rank"]) + sum(r["batch4"][
+                "kernel5_launches_per_rank"]) for k, r in fa.items()},
+            tp_families_b=sum(tp_families["b"]["kernel_launches_per_rank"]))
+        fam_k4["tp_families_c"] = sum(
+            tp_families["c"]["kernel_launches_per_rank"])
+        tp_k1["tp_families_d_granite"] = sum(
+            tp_families["d"]["kernel_launches_per_rank"])
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": src("paged_decode_attention"),
@@ -6319,10 +7056,12 @@ def main(argv=None) -> int:
     }, {
         "name": "rwkv_scan", "route": "cuda", "source": src("rwkv_scan"),
         "replaces": "src/repro/kernels/rwkv_scan/rwkv_scan.py:50",
-        "ok": True, "launches": rwkv["launches"]["rwkv_scan"],
+        "ok": True, "launches": rwkv["launches"]["rwkv_scan"]
+        + sum(fam_k4.values()),
         "launches_by_path": {"rwkv_engine": rwkv["launches"]["rwkv_scan"],
                              "rwkv_replay_kernel":
-                                 rwkv["replay"]["decode_launches_kernel"]},
+                                 rwkv["replay"]["decode_launches_kernel"],
+                             **fam_k4},
         "max_abs_err": max(rwkv_errs.values()),
         "max_abs_err_by_shape": rwkv_errs,
         "bit_equal_by_shape": rwkv_exact,
@@ -6340,17 +7079,31 @@ def main(argv=None) -> int:
                         comparator="chunked_ms: the port's wkv_chunked "
                                    "(plain PyTorch), time_mix_fwd's "
                                    "prefill path"),
+        # at the ranks' heads (phase 15, 2 or more cards)
+        "tp_families_shapes": tp_families and {
+            k: v for k, v in tp_families["e_scans"].items()
+            if k.startswith("rwkv")},
     }, {
         "name": "mamba_scan", "route": "cuda", "source": src("mamba_scan"),
         "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:52",
         # the jamba engine runs entry (b), mamba_scan_fused, only
-        "ok": True, "launches": jamba["launches"]["mamba_scan_fused"],
+        "ok": True, "launches": jamba["launches"]["mamba_scan_fused"]
+        + sum(tp_k5.values()),
         "main_path_entry": "mamba_scan_fused",
         "launches_by_path": {
             "jamba_engine": jamba["launches"]["mamba_scan_fused"],
             "jamba_replay_kernel":
                 jamba["replay"]["prefill_launches_kernel"]
-                + jamba["replay"]["decode_launches_kernel"]},
+                + jamba["replay"]["decode_launches_kernel"],
+            **tp_k5},
+        # at each rank's channels on the tp 2 ring (phase 13), and
+        # (2 or more cards) phase 15's
+        "tp_rank_shapes": {
+            "shape": tp["jamba"]["kernel5_shape"],
+            "per_rank": tp["jamba"]["kernel5_at_rank_per_rank"]},
+        "tp_families_shapes": tp_families and {
+            k: v for k, v in tp_families["e_scans"].items()
+            if k.startswith("mamba")},
         "max_abs_err": max(max(e.values()) for e in mamba_errs.values()),
         "max_abs_err_by_entry_and_shape": mamba_errs,
         "bit_equal_by_entry_and_shape": mamba_exact,
@@ -6396,6 +7149,7 @@ def main(argv=None) -> int:
     print(json.dumps({"tp": tp}))
     if tp_cards is not None:
         print(json.dumps({"tp_cards": tp_cards}))
+        print(json.dumps({"tp_families": tp_families}))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s (limit "
           "1200 s)")
     print(smi)

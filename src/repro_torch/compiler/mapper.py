@@ -10,11 +10,17 @@ fewer than ranks), column-wise FFN tiles padded to ``tp * 8``, the
 vocabulary padded to ``tp * 128``, and the reference's rule table
 mapping each logical parameter axis to the ring (``rules``), which
 :func:`repro_torch.weights.shard_params` reads to slice a rank's
-leaves.  An MoE's expert axes, data-parallel/FSDP axes (training on a
-mesh) and KV sequence sharding are not in this slice and raise.
+leaves.  An MoE's experts are spread over the ring as the reference's
+plan spreads them (``ep = gcd(E, tp)`` expert groups, each split into
+``ffn_split`` column halves; the giant-MoE rule's data axis does not
+exist on the serving ring, so its expert axes are ``("model",)`` too).
+Data-parallel/FSDP axes (training on a mesh, and with them the giant
+MoE's data x model experts) and KV sequence sharding are not in this
+slice and raise.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 from repro_torch.compiler.plan import (MoEPlan, PhysicalPlan, _ceil_to,
@@ -61,10 +67,6 @@ def plan_model(cfg: ArchConfig,
         tp, tp_axis = mesh_shape_t[0], "model"
         if tp < 1:
             raise ValueError(f"mesh_shape {mesh_shape_t}: tp must be >= 1")
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: an MoE's expert parallelism over the ring "
-                "(the expert axes) is not ported yet")
     if param_dtype is None:
         param_dtype = "float32" if mode == "train" else "bfloat16"
     if cfg.family == "rwkv":
@@ -76,15 +78,23 @@ def plan_model(cfg: ArchConfig,
     vocab_padded = _ceil_to(cfg.vocab_size, max(tp * LANE, LANE))
     moe_plan = None
     if cfg.moe is not None:
-        # one device: no expert axes (the reference's giant-MoE serving
-        # plan spreads experts over data x model only on a mesh), every
-        # expert local, no FFN split
         e = cfg.moe.n_experts
+        # the reference's rule: a giant MoE serves its experts over data
+        # x model, any other over the model ring; the serving ring has
+        # no data axis, so both give ("model",) there, and () on one
+        # device
+        expert_axes: Tuple[str, ...] = ("model",) if tp_axis else ()
+        ep_width = tp if expert_axes else 1
+        ep = math.gcd(e, ep_width) if ep_width > 1 else 1
+        ffn_split = ep_width // ep if ep_width > 1 else 1
+        dffe = _ceil_to(cfg.moe.d_ff_expert, max(ffn_split * 8, 8))
         moe_plan = MoEPlan(
-            n_experts=e, ep=1, ffn_split=1, experts_per_rank=e,
-            d_ff_expert_shard=_ceil_to(cfg.moe.d_ff_expert, 8),
-            expert_axes=(), capacity_factor=cfg.moe.capacity_factor)
-    rules = _rule_table(tp_axis) if mesh_axes_t else {}
+            n_experts=e, ep=ep, ffn_split=ffn_split,
+            experts_per_rank=e // ep,
+            d_ff_expert_shard=dffe // max(ffn_split, 1),
+            expert_axes=expert_axes,
+            capacity_factor=cfg.moe.capacity_factor)
+    rules = _rule_table(tp_axis, moe_plan) if mesh_axes_t else {}
     return PhysicalPlan(
         arch=cfg.name, mode=mode, mesh_axes=mesh_axes_t,
         mesh_shape=mesh_shape_t, tp=tp, tp_axis=tp_axis, dp_axes=(),
@@ -95,11 +105,10 @@ def plan_model(cfg: ArchConfig,
         compute_dtype=compute_dtype, param_dtype=param_dtype, rules=rules)
 
 
-def _rule_table(tp_axis: Optional[str]) -> Dict[Any, Any]:
+def _rule_table(tp_axis: Optional[str], moe_plan=None) -> Dict[Any, Any]:
     """logical axis -> mesh axis (None = replicated along that dim): the
-    reference's ``_rule_table`` on the serving ring (no FSDP axes, no
-    MoE: its expert axes raise above)."""
-    return {
+    reference's ``_rule_table`` on the serving ring (no FSDP axes)."""
+    rules: Dict[Any, Any] = {
         "embed": None,                 # FSDP shards it in training only
         "embed_scatter": tp_axis,      # d_model dims that live scattered
         "vec": tp_axis,                # rank-local vector params (norms)
@@ -120,3 +129,33 @@ def _rule_table(tp_axis: Optional[str]) -> Dict[Any, Any]:
         "patches": None,
         None: None,
     }
+    if moe_plan is not None:
+        rules["experts"] = tuple(moe_plan.expert_axes) or None
+        rules["expert_ffn"] = None     # split factor folded into experts
+    return rules
+
+
+def summarize(plan) -> Dict[str, Any]:
+    """The mapper's decisions in a few fields (the reference's
+    ``summarize``): the padded widths, the head layout and, for an MoE,
+    its expert parallelism."""
+    out: Dict[str, Any] = {
+        "arch": plan.arch, "mode": plan.mode, "tp": plan.tp,
+        "d_ff_padded": plan.d_ff_padded, "vocab_padded": plan.vocab_padded,
+        "esl_overlap": plan.esl_overlap,
+    }
+    if plan.attn:
+        a = plan.attn
+        out.update({
+            "kv_shards": a.kv_shards, "dup": a.dup,
+            "q_per_rank": a.q_per_rank, "kv_per_rank": a.kv_per_rank,
+            "stored_q": a.hp, "stored_kv": a.gp,
+            "q_pad_waste": round(a.waste_q, 3),
+            "kv_storage_x": round(a.kv_storage_factor, 3),
+        })
+    if plan.moe:
+        m = plan.moe
+        out.update({"ep": m.ep, "ffn_split": m.ffn_split,
+                    "experts_per_rank": m.experts_per_rank,
+                    "expert_axes": m.expert_axes})
+    return out

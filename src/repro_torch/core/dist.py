@@ -310,6 +310,12 @@ def on_ring(env: Optional[AxisEnv]) -> bool:
     return env is not None and env.model is not None and env.tp > 1
 
 
+def ring_axis(env: Optional[AxisEnv]) -> Tuple[Optional[Ring], int]:
+    """(the model ring, its size) of ``env``, or (None, 1) off the ring:
+    the ``axis``/``tp`` the ESL matmuls and collectives take."""
+    return (env.model, env.tp) if on_ring(env) else (None, 1)
+
+
 # ---------------------------------------------------------------------------
 # collectives (reference names and semantics)
 # ---------------------------------------------------------------------------

@@ -93,31 +93,44 @@ def ag_matmul(x: torch.Tensor, w: torch.Tensor, *, axis: Optional[Ring],
     x: (..., D/tp) scattered on the last dim when ``scattered_in`` (the
     ESL convention; defaults to ``overlap``), or already full (..., D).
     w: (D, N_loc) the local column tile.  -> (..., N_loc)."""
+    return _plus(ag_matmuls(x, (w,), axis=axis, tp=tp, overlap=overlap,
+                            scattered_in=scattered_in, ring=ring)[0], b)
+
+
+def ag_matmuls(x: torch.Tensor, ws, *, axis: Optional[Ring], tp: int,
+               overlap: bool = True, scattered_in: Optional[bool] = None,
+               ring: Optional[RingConfig] = None) -> list:
+    """[allgather(x) @ w_loc for each tile w_loc of ``ws``]: one pass of
+    the input's chunks around the ring feeds every tile, as the
+    reference's one ``ag_matmul`` over the tiles' concatenation does
+    (mamba's in_x|in_z, an expert's wg|wu), without copying the tiles
+    together.  Each output column sums the same products in the same
+    order as the concatenated product's."""
     if axis is None or tp == 1:
-        return _plus(_mm(x, w), b)
+        return [_mm(x, w) for w in ws]
     if scattered_in is None:
         scattered_in = overlap
     if not scattered_in:
-        return _plus(_mm(x, w), b)
+        return [_mm(x, w) for w in ws]
     d_loc = x.shape[-1]
 
-    def w_block(i):                   # rows of block i (a view, no copy)
+    def w_block(w, i):                # rows of block i (a view, no copy)
         return w[i * d_loc:(i + 1) * d_loc]
     r, perm, groups = _ring_env(axis, tp, ring, up=True)
     if not overlap:
         xf = dist.all_gather(x, axis, dim=-1, groups=groups)
-        return _plus(_mm(xf, w), b)
+        return [_mm(xf, w) for w in ws]
     # ESL: rotate the input chunks around the ring; the next chunk is on
     # its way while the product of the one held is computed
     pending = dist.ppermute(x, axis, perm, async_op=True)
-    acc = _mm(x, w_block(r))
+    acc = [_mm(x, w_block(w, r)) for w in ws]
     for s in range(1, tp):
         chunk = pending.wait()
         if s + 1 < tp:
             pending = dist.ppermute(chunk, axis, perm, async_op=True)
         src = (r - s) % tp                  # rank whose chunk we now hold
-        acc = acc + _mm(chunk, w_block(src))
-    return _plus(acc, b)
+        acc = [a + _mm(chunk, w_block(w, src)) for a, w in zip(acc, ws)]
+    return acc
 
 
 # ---------------------------------------------------------------------------

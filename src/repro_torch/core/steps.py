@@ -22,7 +22,7 @@ update in place.
   step: tokens (B, 1) at ``positions`` (B,), each row's resident length
   (for a vlm it counts the patches); returns (next token (B,), cache).
 
-A mesh raises ``NotImplementedError`` (the ring serves the dense
+A mesh raises ``NotImplementedError`` (the ring serves the decoder-only
 stacks through ``LPUEngine``; the steps' mesh form is not ported yet),
 as does the train step's int8 gradient sync over a pod axis.
 """
@@ -49,7 +49,8 @@ def _local(mesh, what: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
             f"{what}: a mesh is not ported to core/steps.py yet (the "
-            "port's tp slice serves the dense stacks through LPUEngine "
+            "port's tp slice serves the decoder-only stacks through "
+            "LPUEngine "
             "on a ring of ranks); pass mesh=None")
 
 

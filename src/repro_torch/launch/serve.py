@@ -28,6 +28,10 @@ and run the engine on a batch of random prompts.
         --tp 2                                     # a card per rank
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b \
         --tp 2 --shared-card                       # both ranks on one card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba \
+        --reduced --device cpu --tp 2
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-v0.1-52b --tp 2               # two cards, 52 GB each
 
 ``--arch`` takes any name or alias of the port's registry: the dense
 decoders (smollm-135m, the paper's opt-1.3b/6.7b/30b/66b and gpt3-20b,
@@ -72,8 +76,8 @@ The latency model's prior is taken at the H100 point on the card and at
 the LPU-FPGA point on the CPU (where the fleet and the front end are
 held to the reference's).
 
-``--tp N`` serves the dense stacks tensor-parallel over a ring of N
-ranks, each a process (:func:`repro_torch.core.dist.run_ranks`), each
+``--tp N`` serves the dense, MoE (granite, llama4), rwkv and hybrid
+(jamba) stacks tensor-parallel over a ring of N ranks, each a process (:func:`repro_torch.core.dist.run_ranks`), each
 drawing only its slice of the tp=1 weights (seed 0) at the ring's
 layout (:func:`repro_torch.weights.init_shard`): the streams are the
 tp=1 run's.  On CUDA each rank owns a card (rank r on ``cuda:r``) over
@@ -81,14 +85,15 @@ NCCL, its steps on captured CUDA graphs; a machine with fewer than N
 cards raises and names both counts.  ``--shared-card`` puts every rank
 on the one card over gloo instead, its steps eager (a gloo collective
 cannot be captured).  On the CPU (``--device cpu``) the ranks run over
-gloo, eagerly.  Rank 0 prints the reference's lines, the backend and
-the ranks' cards.  ``--no-overlap`` is the blocking baseline (full
+gloo, eagerly.  Rank 0 prints the reference's lines, the backend, the
+ranks' cards and the family kernel's launches on each rank.  ``--no-overlap`` is the blocking baseline (full
 matmuls, then ``psum``/``all_gather``) instead of the ESL overlap.
 ``--tp`` with
 ``--rings > 1`` or ``--chaos`` (the mesh fleet), ``--speculate``,
 ``--budget-ms``, ``--max-pending`` or ``--tracker`` raises
 ``NotImplementedError``: each of those decides from the wall clock or
-runs the verify round, which the ring does not run yet.
+runs the verify round, which the ring does not run yet; llava (a vlm)
+and whisper-tiny are refused on the ring by the engine.
 """
 from __future__ import annotations
 
@@ -170,6 +175,13 @@ def serve_async(engine, args, prompts, sp, prior):
     return outs
 
 
+def family_kernel(cfg):
+    """The hand kernel whose launches the driver reports: kernel 4 for
+    rwkv, kernel 5's fused entry for the hybrid, kernel 1 otherwise."""
+    return {"rwkv": rwkv_scan, "hybrid": mamba_scan_fused}.get(
+        cfg.family, paged_decode_attention)
+
+
 def prior_point(dev):
     """The latency model's hardware point that seeds the step-time
     prior: the copied H100 point on the card (the LPU-FPGA point's
@@ -228,10 +240,11 @@ def serve_rank(ring, argv):
     engine = LPUEngine(model, params, _engine_config(args), mesh=ring,
                        device=dev, graphs=ring.nccl)
     prompts, sp = _batch(cfg, args)
-    paged_decode_attention.launches = 0
+    kernel = family_kernel(cfg)
+    kernel.launches = 0
     ring.reset_counters()
     outs = engine.generate(prompts, max_new_tokens=args.max_new, params=sp)
-    launches = ring.gather_object(paged_decode_attention.launches)
+    launches = ring.gather_object(kernel.launches)
     cards = ring.gather_object(
         f"{dev} ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
         else str(dev))
@@ -242,14 +255,14 @@ def serve_rank(ring, argv):
                   f"graphs off: a {ring.backend} collective is not captured")
         _print_engine(engine, cfg, args, dev, st, outs,
                       f"tp={ring.size} ({mode}, {ring.backend} ring, "
-                      f"{graphs})")
+                      f"{graphs})", kernel)
         print(f"[serve] ring: backend {ring.backend}, ranks on {cards}")
         steps = max(st.device_decode_steps, 1)
         print(f"[serve] ring: {ring.counters['collectives']} collectives, "
               f"{ring.counters['hops']} ppermute hops, "
               f"{ring.counters['staged_bytes']} host-staged bytes on rank 0 "
               f"({ring.counters['collectives'] / steps:.1f} collectives per "
-              f"decode step); paged_decode_attention launches per rank "
+              f"decode step); {kernel.__name__} launches per rank "
               f"{launches}")
     return outs
 
@@ -289,7 +302,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--tp", type=int, default=1,
                     help="ESL ring width: ranks (processes) serving one "
-                         "model tensor-parallel (dense stacks)")
+                         "model tensor-parallel (dense, MoE, rwkv and "
+                         "hybrid stacks)")
     ap.add_argument("--no-overlap", action="store_true",
                     help="blocking collectives baseline (vs ESL overlap)")
     ap.add_argument("--shared-card", action="store_true",
@@ -438,8 +452,7 @@ def main(argv=None):
                            draft_params=draft_params)
 
     prompts, sp = _batch(cfg, args)
-    kernel = {"rwkv": rwkv_scan, "hybrid": mamba_scan_fused}.get(
-        cfg.family, paged_decode_attention)
+    kernel = family_kernel(cfg)
     kernel.launches = 0
     if args.budget_ms > 0 or args.max_pending > 0 or args.tracker:
         outs = serve_async(engine, args, prompts, sp, prior)

@@ -230,48 +230,54 @@ def _init_mamba(ini: _Init, cfg, plan) -> Params:
     }
 
 
-def _init_moe(ini: _Init, cfg, plan) -> Params:
+def _init_moe(ini: _Init, cfg, plan, put) -> Params:
     """The reference's ``moe.init_moe`` at tp=1: one rank (W = 1) holds
     every expert, no FFN split; expert leaves (1, E, D, ffh) / (1, E, ffh,
     D) with std 1/sqrt(D) and 1/sqrt(d_ff_expert), router std
     1/sqrt(D); with ``n_shared_experts``, a ``shared`` expert of hidden
     width ``n_shared_experts x d_ff_shard`` (wg/wu (D, dsh) std
-    1/sqrt(D), wd (dsh, D) std 1/sqrt(dsh))."""
+    1/sqrt(D), wd (dsh, D) std 1/sqrt(dsh)).  ``put(tree, name)`` maps
+    each entry as soon as it is drawn: an expert stack is the largest
+    leaf of any model (jamba's 1.9 GB in bf16)."""
     from repro_torch.models.moe import moe_layout
     w, _, _, ecell, e_pad, ffh = moe_layout(plan)
     D = cfg.d_model
     s1, s2 = 1.0 / math.sqrt(D), 1.0 / math.sqrt(max(ffh, 1))
-    p = {"router": ini.param((D, e_pad)),
-         "wg": ini.normal((w, ecell, D, ffh), s1).to(ini.dtype),
-         "wu": ini.normal((w, ecell, D, ffh), s1).to(ini.dtype),
-         "wd": ini.normal((w, ecell, ffh, D), s2).to(ini.dtype)}
+    p = {"router": put(ini.param((D, e_pad)), "router"),
+         "wg": put(ini.normal((w, ecell, D, ffh), s1).to(ini.dtype), "wg"),
+         "wu": put(ini.normal((w, ecell, D, ffh), s1).to(ini.dtype), "wu"),
+         "wd": put(ini.normal((w, ecell, ffh, D), s2).to(ini.dtype), "wd")}
     if cfg.moe.n_shared_experts:
         dsh = cfg.moe.n_shared_experts * plan.d_ff_shard * plan.tp
-        p["shared"] = {"wg": ini.param((D, dsh)), "wu": ini.param((D, dsh)),
-                       "wd": ini.param((dsh, D))}
+        p["shared"] = put({"wg": ini.param((D, dsh)),
+                           "wu": ini.param((D, dsh)),
+                           "wd": ini.param((dsh, D))}, "shared")
     return p
 
 
-def init_super_block(ini: _Init, cfg, plan) -> Params:
-    """One super-block of a hybrid or MoE stack, ``l0..l{sb-1}``:
-    attention or mamba by ``cfg.is_attention_layer(j)``, MoE or MLP by
-    ``cfg.is_moe_layer(j)``, as the reference's ``init_layer``."""
+def init_super_block(ini: _Init, cfg, plan, put):
+    """One super-block of a hybrid or MoE stack, ``l0..l{sb-1}``, drawn
+    layer by layer: attention or mamba by ``cfg.is_attention_layer(j)``,
+    MoE or MLP by ``cfg.is_moe_layer(j)``, as the reference's
+    ``init_layer``.  Yields ("l{j}", the layer's tree, each part mapped
+    by ``put(part, "blocks/l{j}/<name>")`` as soon as it is drawn, an
+    MoE's leaf by leaf), each layer drawn only when asked for."""
     from repro_torch.models.transformer import super_block_size
     D = cfg.d_model
-    out: Params = {}
     for j in range(super_block_size(cfg)):
-        p: Params = {"ln1": _init_norm(ini, D, cfg.norm)}
+        pre = f"blocks/l{j}/"
+        p: Params = {"ln1": put(_init_norm(ini, D, cfg.norm), pre + "ln1")}
         if cfg.is_attention_layer(j):
-            p["attn"] = _init_attention(ini, cfg, plan)
+            p["attn"] = put(_init_attention(ini, cfg, plan), pre + "attn")
         else:
-            p["mamba"] = _init_mamba(ini, cfg, plan)
-        p["ln2"] = _init_norm(ini, D, cfg.norm)
+            p["mamba"] = put(_init_mamba(ini, cfg, plan), pre + "mamba")
+        p["ln2"] = put(_init_norm(ini, D, cfg.norm), pre + "ln2")
         if cfg.is_moe_layer(j):
-            p["moe"] = _init_moe(ini, cfg, plan)
+            p["moe"] = _init_moe(ini, cfg, plan, lambda t, name, pre=pre:
+                                 put(t, pre + "moe/" + name))
         else:
-            p["mlp"] = _init_mlp(ini, cfg, plan)
-        out[f"l{j}"] = p
-    return out
+            p["mlp"] = put(_init_mlp(ini, cfg, plan), pre + "mlp")
+        yield f"l{j}", p
 
 
 def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
@@ -296,10 +302,10 @@ def init_params(cfg, plan, seed: int = 0, device=None) -> Params:
     :func:`init_super_block`; encdec: whisper's tree,
     :func:`repro_torch.models.whisper.init_encdec`), with decoder layers
     stacked on a leading super-block axis; the numbers differ from the
-    reference's.  Super-blocks are drawn one by one into the stacked
-    tensors, so the peak is the model plus one super-block; a single
-    super-block (jamba at depth 8, llama4 at depth 2) is stacked as a
-    view, so the peak is the model plus one leaf."""
+    reference's.  Layers are drawn one by one into the stacked
+    tensors, so the peak is the model plus one layer; a single
+    super-block (jamba at depth 8, llama4 at depth 2) is stacked as
+    views, so the peak is the model plus one leaf."""
     ini = _Init(seed, resolve_device(device), dtype_of(plan.param_dtype))
     if cfg.family == "encdec":
         from repro_torch.models.whisper import init_encdec
@@ -339,8 +345,9 @@ def draw_params(ini: _Init, cfg, plan, leaf=None) -> Params:
 
     if cfg.family in ("hybrid", "moe"):
         from repro_torch.models.transformer import n_super_blocks
-        params["blocks"] = _stacked(n_super_blocks(cfg), lambda: put(
-            init_super_block(ini, cfg, plan), "blocks"))
+        params["blocks"] = _stacked_parts(
+            n_super_blocks(cfg), lambda: init_super_block(ini, cfg, plan,
+                                                          put))
     else:
         if cfg.family == "rwkv":
             def layer():
@@ -367,16 +374,22 @@ def _init_dense_layer(ini: _Init, cfg, plan) -> Params:
 
 def _stacked(n: int, make) -> Params:
     """``n`` trees from ``make()``, stacked leaf by leaf on a new leading
-    axis; each tree is written into the stack as soon as it is drawn.
-    One tree is stacked as views (``unsqueeze``): no copy, so a model
-    that is one tree (jamba at depth 8) is never held twice."""
-    first = make()
-    if n == 1:
-        def view(t):
-            if isinstance(t, dict):
-                return {k: view(v) for k, v in t.items()}
-            return t.unsqueeze(0)
-        return view(first)
+    axis (:func:`_stacked_parts` of one part)."""
+    return _stacked_parts(n, lambda: iter([("", make())]))[""]
+
+
+def _stacked_parts(n: int, make_parts) -> Params:
+    """``n`` draws of ``make_parts()``, an iterator of (key, tree) pairs
+    drawn one at a time (a super-block's layers), each tree stacked leaf
+    by leaf on a new leading axis under its key and written into the
+    stack as soon as it is drawn: the peak is the stack and one tree
+    (one layer of jamba, not its super-block of eight).  With ``n`` 1
+    the trees are stacked as views (``unsqueeze``): no copy, so a model
+    that is one super-block (jamba at depth 8) is never held twice."""
+    def view(t):
+        if isinstance(t, dict):
+            return {k: view(v) for k, v in t.items()}
+        return t.unsqueeze(0)
 
     def alloc(t):
         if isinstance(t, dict):
@@ -391,9 +404,12 @@ def _stacked(n: int, make) -> Params:
         else:
             dst[i] = src
 
-    out = alloc(first)
-    put(out, first, 0)
-    del first
-    for i in range(1, n):
-        put(out, make(), i)
+    out: Params = {}
+    for i in range(n):
+        for key, tree in make_parts():
+            if i == 0:
+                out[key] = view(tree) if n == 1 else alloc(tree)
+            if n > 1:
+                put(out[key], tree, i)
+            del tree
     return out

@@ -1,8 +1,15 @@
-"""Mamba (S6) block of the jamba hybrid stack at tp=1 (the port of the
+"""Mamba (S6) block of the jamba hybrid stack (the port of the
 reference's ``models/mamba.py``).
 
-At tp=1 the reference's ESL ``ag_matmul``/``rs_matmul`` are plain
-products and its psum over the ring is the identity.  The selective scan
+On the model ring (``env``) d_inner is column-tiled, as the reference
+tiles it: each rank holds d_inner/tp channels of in_x|in_z (one ESL
+``ag_matmul`` pass feeds both tiles), of the conv, of dt_proj, a_log,
+d_skip and the state; the small dt/B/C projection ``x_proj`` is
+row-parallel, its partial sums added over the ring in rank order
+(``dist.psum``), and out_proj streams its partials back through
+``rs_matmul``.  Each rank runs the scan on its own (B, S, d_inner/tp, N)
+channels.  At tp=1 (no ``env``) the ESL products are plain products and
+the psum is the identity.  The selective scan
 runs on the hand-written Hopper kernel (``kernels/mamba_scan``, kernel 5)
 at every sequence length: the prefill scan and the S = 1 decode step
 alike, through its fused entry, which forms da = exp(dt*A) and
@@ -24,6 +31,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import dist, esl
+from repro_torch.core.dist import AxisEnv, ring_axis
 from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_fused_ref
 
@@ -56,21 +65,26 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def mamba_fwd(p: Params, x: torch.Tensor, *, cfg, plan,
               state: Optional[Dict[str, torch.Tensor]] = None,
-              use_kernels: bool = True
+              use_kernels: bool = True, env: Optional[AxisEnv] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B,S,D).  state: the decode carry {"conv": (B,K-1,d_in), "ssm":
-    (B,d_in,N) f32} or None (zero state).  Returns (y (B,S,D),
-    new_state); the state is returned, not written."""
+    """x: (B,S,D), or on the ring (``env``) (B,S,D/tp) scattered under
+    ESL overlap.  state: the decode carry {"conv": (B,K-1,d_in), "ssm":
+    (B,d_in,N) f32} or None (zero state), d_in the rank's channels on
+    the ring.  Returns (y in x's convention, new_state); the state is
+    returned, not written."""
     m = cfg.mamba
     B = x.shape[0]
-    xs = x @ p["in_x"]                                 # (B,S,d_in)
-    z = x @ p["in_z"]
+    axis, tp = ring_axis(env)
+    overlap = plan.esl_overlap
+    xs, z = esl.ag_matmuls(x, (p["in_x"], p["in_z"]), axis=axis, tp=tp,
+                           overlap=overlap)            # (B,S,d_in)
 
     xs, new_conv = _causal_conv(xs, p["conv_w"], p["conv_b"],
                                 state["conv"] if state is not None else None)
     xs = F.silu(xs)
 
-    dbc = xs @ p["x_proj"]
+    # dt/B/C: the row-parallel small projection, summed over the ring
+    dbc = dist.psum(xs @ p["x_proj"], axis)
     dt, bmat, cmat = torch.split(dbc, [m.dt_rank, m.d_state, m.d_state], -1)
     dt = dt @ p["dt_proj"] + p["dt_bias"]
     dt = dt.float()
@@ -90,15 +104,19 @@ def mamba_fwd(p: Params, x: torch.Tensor, *, cfg, plan,
 
     y = y.to(xs.dtype) + xs * p["d_skip"]
     y = y * F.silu(z)
-    return y @ p["out_proj"], {"conv": new_conv, "ssm": h}
+    out = esl.rs_matmul(y, p["out_proj"], axis=axis, tp=tp,
+                        overlap=overlap, scatter_out=overlap)
+    return out, {"conv": new_conv, "ssm": h}
 
 
 def init_mamba_state(cfg, plan, batch: int, dtype: torch.dtype,
                      device: torch.device) -> Dict[str, torch.Tensor]:
     """One layer's zeroed decode carry: conv (batch, K-1, d_in) in the
-    cache dtype, ssm (batch, d_in, N) in f32."""
+    cache dtype, ssm (batch, d_in, N) in f32; on the ring one rank's,
+    d_in its d_inner/tp channels (the reference's ``cache_specs`` shard
+    both on ``mamba_inner``)."""
     m = cfg.mamba
-    d_in, _ = mamba_dims(cfg, plan)
+    _, d_in = mamba_dims(cfg, plan)
     return {"conv": torch.zeros((batch, m.d_conv - 1, d_in), dtype=dtype,
                                 device=device),
             "ssm": torch.zeros((batch, d_in, m.d_state),

@@ -1,5 +1,6 @@
-"""Mixture-of-Experts layer at tp=1 (the port of the reference's
-``models/moe.py`` for ``env.model is None``).
+"""Mixture-of-Experts layer (the port of the reference's
+``models/moe.py``): every expert on one device, or spread over the
+model ring.
 
 Expert weights keep the reference's rank-major stored layout
 ``(W, Ecell, D, ffh)`` / ``(W, Ecell, ffh, D)``; on one device W = 1 and
@@ -23,19 +24,33 @@ matmul; its columns are the same products), then ``wd``, its hidden
 width ``n_shared_experts x d_ff_shard`` (the dense ``d_ff``), added to
 the routed output.
 
-Not ported yet (raises ``NotImplementedError``): the reference's expert
-parallelism over the model ring (``_moe_model_parallel``) and over data
-x model (``_moe_data_model``): the tensor-parallel slice serves the
-dense stacks, and expert parallelism is a slice of its own.
+On the model ring (``env``; the plan's expert axes ``("model",)``) the
+experts are spread as the reference's ``_moe_model_parallel`` spreads
+them: rank l holds expert group ``l // ffn_split`` (``Ecell`` experts)
+and FFN part ``l % ffn_split`` of each.  Tokens are whole on every rank
+(gathered from the scattered activations under ESL overlap, full in
+the blocking baseline), so every rank routes them alike and selects
+each of its experts' top-C rows locally; the ranks' partial outputs
+(and FFN parts) are added over the ring in rank order, into the
+scattered form (``psum_scatter``) under overlap or whole (``psum``)
+in the blocking baseline: the layer's one row-parallel sync.  A shared
+expert is column-tiled like a dense MLP (``ag_matmul`` of wg|wu in one
+pass, ``rs_matmul`` of wd).
+
+Not ported (raises ``NotImplementedError``): the reference's
+``_moe_data_model``, the giant MoE's experts over data x model, which
+needs a data axis the serving ring does not have.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import dist, esl
+from repro_torch.core.dist import AxisEnv, model_rank, on_ring, ring_axis
 from repro_torch.models.common import activate
 
 Params = Dict[str, torch.Tensor]
@@ -107,39 +122,65 @@ def _capacity(T: int, k: int, buckets: int, cf: float) -> int:
     return max(8, _ceil_to(c, 8))
 
 
-def _moe_local_all(p: Params, xt: torch.Tensor, ids: torch.Tensor,
-                   gates: torch.Tensor, cfg, plan) -> torch.Tensor:
-    """Single-device path: every expert on its top-C rows, in order."""
+def _moe_experts(p: Params, xt: torch.Tensor, ids: torch.Tensor,
+                 gates: torch.Tensor, cfg, plan, first: int = 0
+                 ) -> torch.Tensor:
+    """The experts ``first .. first + Ecell - 1`` held here (``p``'s
+    ``(1, Ecell, ...)`` stack; on one device every expert), each on its
+    top-C rows, added in expert order."""
     e_pad = moe_layout(plan)[4]
     T, D = xt.shape
     cap = min(_capacity(T, ids.shape[-1], e_pad, plan.moe.capacity_factor),
               T)
     out = torch.zeros((T, D), dtype=xt.dtype, device=xt.device)
-    wg, wu, wd = p["wg"][0], p["wu"][0], p["wd"][0]       # (E_pad, ...)
-    for e in range(e_pad):
-        match = ids == e                                    # (T,k)
+    wg, wu, wd = p["wg"][0], p["wu"][0], p["wd"][0]       # (Ecell, ...)
+    for c in range(wg.shape[0]):
+        match = ids == first + c                            # (T,k)
         score = match.float().amax(-1)
         gate = torch.where(match, gates, 0.0).sum(-1)
         idx, valid = _select_topc(score, cap)
-        y = _expert_ffn(wg[e], wu[e], wd[e], xt[idx], cfg.activation)
+        y = _expert_ffn(wg[c], wu[c], wd[c], xt[idx], cfg.activation)
         y = y * (gate[idx] * valid)[:, None].to(y.dtype)
         out.index_add_(0, idx, y)
     return out
 
 
-def moe_fwd(p: Params, x: torch.Tensor, *, cfg, plan
+def moe_fwd(p: Params, x: torch.Tensor, *, cfg, plan,
+            env: Optional[AxisEnv] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,S,D).  Returns (y (B,S,D), aux_loss)."""
-    if plan.moe.expert_axes:
+    """x: (B,S,D), or on the ring (``env``) (B,S,D/tp) scattered under
+    ESL overlap.  Returns (y in x's convention, aux_loss)."""
+    ring = on_ring(env)
+    axis, tp = ring_axis(env)
+    overlap = plan.esl_overlap
+    if ring and len(plan.moe.expert_axes) > 1:
         raise NotImplementedError(
-            "expert parallelism (_moe_model_parallel, _moe_data_model) "
-            "is not ported yet: the ring serves the dense stacks")
-    xt = x.reshape(-1, x.shape[-1])
+            "_moe_data_model (the giant MoE's experts over data x model) "
+            "is not ported: the serving ring has no data axis")
+    xf = esl.gather_scattered(x, axis=axis, tp=tp) if overlap else x
+    xt = xf.reshape(-1, xf.shape[-1])
     ids, gates, probs = _route(p, xt, cfg, plan)
     aux = _lb_loss(probs, ids, cfg.moe.n_experts)
-    out = _moe_local_all(p, xt, ids, gates, cfg, plan)
+    if ring:
+        # _moe_model_parallel: this rank's expert group (and FFN part)
+        _, split, _, ecell, _, _ = moe_layout(plan)
+        out = _moe_experts(p, xt, ids, gates, cfg, plan,
+                           first=model_rank(env) // split * ecell)
+        # the experts' partials and FFN parts, added over the ring
+        out = (dist.psum_scatter(out, axis, dim=-1) if overlap
+               else dist.psum(out, axis))
+    else:
+        out = _moe_experts(p, xt, ids, gates, cfg, plan)
     if "shared" in p:
         sh = p["shared"]
-        out = out + _expert_ffn(sh["wg"], sh["wu"], sh["wd"], xt,
-                                cfg.activation)
+        if ring:
+            gg, uu = esl.ag_matmuls(x.reshape(-1, x.shape[-1]),
+                                    (sh["wg"], sh["wu"]), axis=axis, tp=tp,
+                                    overlap=overlap)
+            out = out + esl.rs_matmul(activate(gg, cfg.activation) * uu,
+                                      sh["wd"], axis=axis, tp=tp,
+                                      overlap=overlap, scatter_out=overlap)
+        else:
+            out = out + _expert_ffn(sh["wg"], sh["wu"], sh["wd"], xt,
+                                    cfg.activation)
     return out.reshape(x.shape), aux

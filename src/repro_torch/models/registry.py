@@ -45,7 +45,8 @@ class Model:
         the MoE layers' auxiliary loss summed over the stack (a float32
         zero for a family without MoE layers).  ``env``: the rank's
         :class:`repro_torch.core.dist.AxisEnv` on the model ring (the
-        dense family only), with the rank's shards and cache; the logits
+        dense, MoE, rwkv and hybrid families), with the rank's shards
+        and cache; the logits
         are then its V_pad/tp columns."""
         if self.cfg.family == "encdec":
             if env is not None and env.tp > 1:
@@ -92,7 +93,8 @@ class Model:
         "shift_c": (n_sb, batch, 1, D), "wkv": (n_sb, batch, H, dh, dh)
         f32}}; for a hybrid stack, mamba indices hold {"conv": (n_sb,
         batch, K-1, d_in) in the cache dtype, "ssm": (n_sb, batch, d_in,
-        N) f32}; for an encoder-decoder {"k","v": (L, batch, max_seq, Gp,
+        N) f32} (on the ring one rank's: H its heads, d_in its channels,
+        D its channels under ESL overlap); for an encoder-decoder {"k","v": (L, batch, max_seq, Gp,
         dh), "ck","cv": (L, batch, enc_seq, Gp, dh)}
         (:func:`repro_torch.models.whisper.init_encdec_cache`).
         ``max_seq`` sizes only the dense k/v.  ``scale_dtype``

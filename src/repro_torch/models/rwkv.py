@@ -15,8 +15,18 @@ Hopper kernel (``kernels/rwkv_scan``).  ``use_kernels=False`` takes the
 kernel's plain version instead: the oracle switch ``chip_smoke.py`` uses,
 and train mode's path at S = 1 (the forward passes it there: the kernel
 has no backward, and its plain version is differentiable).
-At tp=1 the reference's ESL matmuls (``ag_matmul``/``rs_matmul``) are
-plain products and its vector slicing is the identity.
+On the model ring (``env``) the heads (``head_dim`` blocks of the
+projections) are column tiles, as the reference tiles them: r/k/v/g
+and the decay's low-rank output stream through ``ag_matmul`` onto the
+rank's heads, the token shift, decay, bonus and the WKV recurrence stay
+on them (kernel 4 runs on the rank's (B, 1, H/tp, dh) in decode), and
+w_o streams its partials back through ``rs_matmul``; channel mix tiles
+its FFN the same way and its receptance by columns of d_model.  The
+``vec`` parameters (the lerps' mu) and mix_w2's d_model columns are
+stored model-sharded: with scattered activations (ESL overlap) they
+are what the rank's channels need, in the blocking baseline they are
+gathered once (:func:`repro_torch.core.dist.all_gather_param`).  At
+tp=1 the ESL matmuls are plain products and the gathers the identity.
 """
 from __future__ import annotations
 
@@ -25,6 +35,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import dist, esl
+from repro_torch.core.dist import AxisEnv, ring_axis
 from repro_torch.kernels.rwkv_scan.ops import rwkv_scan
 from repro_torch.kernels.rwkv_scan.ref import rwkv_scan_ref
 
@@ -114,31 +126,58 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # time mix / channel mix
 # ---------------------------------------------------------------------------
 
+def _vslice(v: torch.Tensor, env: Optional[AxisEnv], plan) -> torch.Tensor:
+    """A 'vec' parameter (stored model-sharded) as the activations need
+    it: the rank's shard in scattered mode, gathered (once) in the
+    blocking baseline."""
+    axis, tp = ring_axis(env)
+    return esl.full_vec(v, axis=axis, tp=tp,
+                        scattered_activations=plan.esl_overlap)
+
+
+def _mix_w2_local(w2: torch.Tensor, i: int, env: Optional[AxisEnv],
+                  plan) -> torch.Tensor:
+    """mix_w2[i]: stored (lora, D/tp) ('embed_scatter'); in the blocking
+    baseline the lerp target x is full, so it is gathered (once)."""
+    axis, _ = ring_axis(env)
+    w = w2[i]
+    if plan.esl_overlap or axis is None:
+        return w
+    return dist.all_gather_param(w, axis)
+
+
 def time_mix_fwd(p: Params, x: torch.Tensor, *, cfg, plan,
                  state: Optional[Dict[str, torch.Tensor]] = None,
-                 use_kernels: bool = True
+                 use_kernels: bool = True, env: Optional[AxisEnv] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """x: (B,S,D).  state: {'shift': (B,1,D), 'wkv': (B,H,dh,dh)} decode
-    carry.  Returns (out (B,S,D), new state or None); the caller writes
-    the new state into its cache."""
+    """x: (B,S,D), or on the ring (``env``) (B,S,D/tp) scattered under
+    ESL overlap.  state: {'shift': (B,1,D[/tp]), 'wkv': (B,H,dh,dh)}
+    decode carry (H the rank's heads on the ring).  Returns (out in x's
+    convention, new state or None); the caller writes the new state
+    into its cache."""
     hp, hpr, dh = rwkv_dims(cfg, plan)
+    axis, tp = ring_axis(env)
+    overlap = plan.esl_overlap
     B, S = x.shape[0], x.shape[1]
     prev = state["shift"] if state is not None else None
     dx = _shift(x, prev) - x
 
+    def ag(t, w):
+        return esl.ag_matmul(t, w, axis=axis, tp=tp, overlap=overlap)
+
     # data-dependent token-shift lerps (low-rank adjusted)
-    xm = x + dx * p["mu_x"]
-    lora = torch.tanh(xm @ p["mix_w1"]).reshape(B, S, 5, -1)
+    xm = x + dx * _vslice(p["mu_x"], env, plan)
+    lora = torch.tanh(ag(xm, p["mix_w1"])).reshape(B, S, 5, -1)
     mixed = {}
     for i, nm in enumerate(_MIX):
-        adj = lora[:, :, i] @ p["mix_w2"][i]
-        mixed[nm] = x + dx * (p[f"mu_{nm}"] + adj)
+        adj = lora[:, :, i] @ _mix_w2_local(p["mix_w2"], i, env, plan)
+        mixed[nm] = x + dx * (_vslice(p[f"mu_{nm}"], env, plan) + adj)
 
-    r = mixed["r"] @ p["w_r"]
-    kk = mixed["k"] @ p["w_k"]
-    vv = mixed["v"] @ p["w_v"]
-    g = F.silu(mixed["g"] @ p["w_g"])
-    dlo = torch.tanh(mixed["w"] @ p["decay_w1"])
+    r = ag(mixed["r"], p["w_r"])
+    kk = ag(mixed["k"], p["w_k"])
+    vv = ag(mixed["v"], p["w_v"])
+    g = F.silu(ag(mixed["g"], p["w_g"]))
+    dlo = torch.tanh(ag(mixed["w"], p["decay_w1"]))
     dw = dlo @ p["decay_w2"]
     w = torch.exp(-torch.exp((p["decay_w0"] + dw).float()))  # (B,S,C), (0,1)
 
@@ -161,7 +200,8 @@ def time_mix_fwd(p: Params, x: torch.Tensor, *, cfg, plan,
     y = y.reshape(B, S, hpr * dh) * p["ln_x"]
     y = y.to(x.dtype) * g
 
-    out = y @ p["w_o"]
+    out = esl.rs_matmul(y, p["w_o"], axis=axis, tp=tp, overlap=overlap,
+                        scatter_out=overlap)
     new_state = None
     if state is not None:
         new_state = {"shift": x[:, -1:, :], "wkv": s_fin}
@@ -169,15 +209,24 @@ def time_mix_fwd(p: Params, x: torch.Tensor, *, cfg, plan,
 
 
 def channel_mix_fwd(p: Params, x: torch.Tensor, *, cfg, plan,
-                    state: Optional[torch.Tensor] = None
+                    state: Optional[torch.Tensor] = None,
+                    env: Optional[AxisEnv] = None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """x: (B,S,D).  state: (B,1,D) previous-token carry (decode)."""
+    """x: (B,S,D), or on the ring (B,S,D/tp) scattered under ESL
+    overlap.  state: (B,1,D[/tp]) previous-token carry (decode)."""
+    axis, tp = ring_axis(env)
+    overlap = plan.esl_overlap
     dx = _shift(x, state) - x
-    xk = x + dx * p["mu_k"]
-    xr = x + dx * p["mu_r"]
-    kk = torch.square(F.relu(xk @ p["w_k"]))
-    y = kk @ p["w_v"]
-    rr = xr @ p["w_r"]
+    xk = x + dx * _vslice(p["mu_k"], env, plan)
+    xr = x + dx * _vslice(p["mu_r"], env, plan)
+    kk = torch.square(F.relu(esl.ag_matmul(xk, p["w_k"], axis=axis, tp=tp,
+                                           overlap=overlap)))
+    y = esl.rs_matmul(kk, p["w_v"], axis=axis, tp=tp, overlap=overlap,
+                      scatter_out=overlap)
+    # receptance: column tiles, so r matches the scattered output
+    rr = esl.ag_matmul(xr, p["w_r"], axis=axis, tp=tp, overlap=overlap)
+    if not overlap:
+        rr = esl.gather_scattered(rr, axis=axis, tp=tp)
     y = torch.sigmoid(rr.float()).to(y.dtype) * y
     new_state = x[:, -1:, :] if state is not None else None
     return y, new_state
@@ -186,10 +235,17 @@ def channel_mix_fwd(p: Params, x: torch.Tensor, *, cfg, plan,
 def init_rwkv_state(cfg, plan, batch: int, dtype: torch.dtype,
                     device) -> Dict[str, torch.Tensor]:
     """Zeroed decode carry of one rwkv layer: the shifts in ``dtype``
-    (the cache dtype), the WKV state in f32."""
+    (the cache dtype), the WKV state in f32.  On the ring one rank's, as
+    the reference's ``cache_specs`` shard it: the WKV state on the
+    rank's heads, the shifts on its d_model/tp channels when the
+    activations are scattered (ESL overlap) and whole in the blocking
+    baseline."""
     hp, hpr, dh = rwkv_dims(cfg, plan)
-    shift = (batch, 1, cfg.d_model)
+    d = cfg.d_model
+    if plan.tp > 1 and plan.esl_overlap:
+        d //= plan.tp
+    shift = (batch, 1, d)
     return {"shift_t": torch.zeros(shift, dtype=dtype, device=device),
             "shift_c": torch.zeros(shift, dtype=dtype, device=device),
-            "wkv": torch.zeros((batch, hp, dh, dh), dtype=torch.float32,
+            "wkv": torch.zeros((batch, hpr, dh, dh), dtype=torch.float32,
                                device=device)}

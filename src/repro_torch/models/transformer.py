@@ -21,15 +21,18 @@ each super-block in backward (``torch.utils.checkpoint``, as the
 reference's ``jax.checkpoint`` of its scan body), and
 :func:`sharded_xent` is the loss.
 
-The dense family also runs on the model ring (``env`` from
-:mod:`repro_torch.core.dist`, one process per rank on its own shards):
-activations flow *scattered* (B, S, D/tp) between layers when ESL
-overlap is on (``plan.esl_overlap``) and full in the blocking baseline;
-the tied embedding and the logits are vocab-sharded (the row of a rank
-is V_pad/tp wide), the untied input table and the learned positions
-D-sharded, and the norms combine their statistics over the ring.  The
-other families raise on a ring: their tensor parallelism is not ported
-yet.
+The dense, MoE, rwkv and hybrid families also run on the model ring
+(``env`` from :mod:`repro_torch.core.dist`, one process per rank on its
+own shards): activations flow *scattered* (B, S, D/tp) between layers
+when ESL overlap is on (``plan.esl_overlap``) and full in the blocking
+baseline; the tied embedding and the logits are vocab-sharded (the row
+of a rank is V_pad/tp wide), the untied input table and the learned
+positions D-sharded, and the norms combine their statistics over the
+ring.  Attention runs on the rank's heads, mamba on its d_inner/tp
+channels, rwkv on its heads, an MoE on its experts
+(:mod:`repro_torch.models.mamba`, :mod:`~repro_torch.models.rwkv`,
+:mod:`~repro_torch.models.moe`).  A vlm and an encoder-decoder raise on
+a ring: their tensor parallelism is not ported yet.
 """
 from __future__ import annotations
 
@@ -223,7 +226,8 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
     query's span including itself."""
     if cfg.family == "rwkv":
         return _apply_rwkv_layer(p, x, cfg=cfg, plan=plan, mode=mode,
-                                 cache=cache, use_kernels=use_kernels), None
+                                 cache=cache, use_kernels=use_kernels,
+                                 env=env), None
     h_in = _norm(p["ln1"], x, cfg, plan, env)
     if "mamba" in p:
         if mode not in ("train", "prefill", "decode"):
@@ -231,7 +235,8 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
                 f"mode={mode!r}: a hybrid stack has no paged pool "
                 "(chunked prefill and verify run against one)")
         h, st = mamba_mod.mamba_fwd(p["mamba"], h_in, cfg=cfg, plan=plan,
-                                    state=cache, use_kernels=use_kernels)
+                                    state=cache, use_kernels=use_kernels,
+                                    env=env)
         if cache is not None:
             cache["conv"].copy_(st["conv"])
             cache["ssm"].copy_(st["ssm"])
@@ -262,15 +267,16 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
     x = x + h
     h_in = _norm(p["ln2"], x, cfg, plan, env)
     if "moe" in p:
-        h, aux = moe_mod.moe_fwd(p["moe"], h_in, cfg=cfg, plan=plan)
+        h, aux = moe_mod.moe_fwd(p["moe"], h_in, cfg=cfg, plan=plan,
+                                 env=env)
         return x + h, aux
     return x + mlp_mod.mlp_fwd(p["mlp"], h_in, cfg=cfg, plan=plan,
                                env=env), None
 
 
 def _apply_rwkv_layer(p: Params, x: torch.Tensor, *, cfg, plan, mode: str,
-                      cache: Optional[Params], use_kernels: bool
-                      ) -> torch.Tensor:
+                      cache: Optional[Params], use_kernels: bool,
+                      env: Optional[AxisEnv] = None) -> torch.Tensor:
     """One rwkv layer; with a cache (prefill, decode) its state leaves
     ``shift_t``, ``shift_c`` and ``wkv`` are overwritten in place."""
     if mode not in ("train", "prefill", "decode"):
@@ -280,15 +286,16 @@ def _apply_rwkv_layer(p: Params, x: torch.Tensor, *, cfg, plan, mode: str,
     st = None
     if cache is not None:
         st = {"shift": cache["shift_t"], "wkv": cache["wkv"]}
-    h, st2 = rwkv_mod.time_mix_fwd(p["tmix"], apply_norm(p["ln1"], x,
-                                                         cfg.norm),
+    h, st2 = rwkv_mod.time_mix_fwd(p["tmix"],
+                                   _norm(p["ln1"], x, cfg, plan, env),
                                    cfg=cfg, plan=plan, state=st,
-                                   use_kernels=use_kernels)
+                                   use_kernels=use_kernels, env=env)
     x = x + h
     st_c = cache["shift_c"] if cache is not None else None
-    h, st_c2 = rwkv_mod.channel_mix_fwd(p["cmix"], apply_norm(p["ln2"], x,
-                                                             cfg.norm),
-                                        cfg=cfg, plan=plan, state=st_c)
+    h, st_c2 = rwkv_mod.channel_mix_fwd(p["cmix"],
+                                        _norm(p["ln2"], x, cfg, plan, env),
+                                        cfg=cfg, plan=plan, state=st_c,
+                                        env=env)
     if cache is not None:
         cache["shift_t"].copy_(st2["shift"])
         cache["wkv"].copy_(st2["wkv"])
@@ -375,16 +382,20 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
     recomputes each super-block in backward.
 
     ``env`` (the rank's :class:`repro_torch.core.dist.AxisEnv` on the
-    model ring) runs the dense family tensor-parallel on the rank's
-    shards (:func:`repro_torch.weights.shard_params`) and its cache of
-    kv_per_rank heads: the logits are then the rank's V_pad/tp columns.
-    The ring's prefill, decode and chunked prefill are ported; other
-    families, speculative verify and training raise."""
+    model ring) runs the dense, MoE, rwkv and hybrid families
+    tensor-parallel on the rank's shards
+    (:func:`repro_torch.weights.shard_params`) and its cache (kv_per_rank
+    heads, the rank's rwkv heads and mamba channels): the logits are
+    then the rank's V_pad/tp columns.  The ring's prefill, decode and
+    chunked prefill are ported; a vlm, an encoder-decoder, speculative
+    verify and training raise."""
     if on_ring(env):
-        if cfg.family != "dense":
+        from repro_torch.weights import RING_FAMILIES
+        if cfg.family not in RING_FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name} ({cfg.family}): tensor parallelism over the "
-                "ring is ported for the dense stacks only")
+                f"ring is ported for the {', '.join(RING_FAMILIES)} stacks "
+                "only")
         if mode not in ("prefill", "decode", "chunk_prefill", "train"):
             raise NotImplementedError(
                 f"mode={mode!r} on the ring (speculative verify under tp) "

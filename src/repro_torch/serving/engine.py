@@ -131,17 +131,21 @@ the model ring.
   samples from the all-gathered (tp x k) candidates with identically
   seeded generators (:func:`sample_sharded_batched`), so every rank
   draws the same token and none broadcasts a decision.  The NaN guard's
-  verdict is agreed ring-wide by a ``psum``.  Dense stacks only, from
-  the paged pool or the dense cache, with monolithic or chunked prefill,
-  the prefix cache, preemption, fused (or host) sampling and both ESL
-  modes.  On an NCCL ring (a card per rank) every program the tp=1
+  verdict is agreed ring-wide by a ``psum``.  The dense and MoE stacks
+  from the paged pool or the dense cache, with monolithic or chunked
+  prefill, the prefix cache, preemption, fused (or host) sampling and
+  both ESL modes; rwkv and the hybrid (mamba + attention + MoE) from
+  their dense per-slot state, each rank's slice of it (rwkv's WKV state
+  on the rank's heads, mamba's conv and ssm on its channels, the shifts
+  on its channels under overlap and whole in the blocking baseline),
+  prefilled eagerly at the exact prompt length.  On an NCCL ring (a card per rank) every program the tp=1
   engine captures is captured on every rank, at the same key and in the
   same order (every rank runs the same host logic), its collectives
   inside the graph and the NaN guard's verdict on the device; a replay
   adds its capture's collectives to ``ring.counters``.  A gloo ring's
   collectives (the CPU, or ranks sharing one card) cannot be captured,
   so ``graphs=True`` on it raises and its steps run eagerly.
-  Speculation, the other families and the mesh fleet raise
+  Speculation, a vlm, an encoder-decoder and the mesh fleet raise
   ``NotImplementedError`` on a ring.
 
 ``w_dtype`` is carried as the reference carries it, for telemetry: the
@@ -520,7 +524,7 @@ class LPUEngine:
     def _check_ring(self, model, params, mesh, c, drafter,
                     graphs: bool) -> None:
         """Refuse what the ring does not run: a plan and a ring that
-        disagree, a family other than the dense stacks, speculation,
+        disagree, a vlm or an encoder-decoder, speculation,
         the full tree in place of the rank's shards, and a captured
         program on a gloo ring (an NCCL ring's are captured)."""
         plan = model.plan
@@ -539,11 +543,12 @@ class LPUEngine:
         if mesh.device != self.device:
             raise ValueError(f"ring on {mesh.device}, engine on "
                              f"{self.device}")
-        if model.cfg.family != "dense":
+        from repro_torch.weights import RING_FAMILIES
+        if model.cfg.family not in RING_FAMILIES:
             raise NotImplementedError(
                 f"{model.cfg.name} ({model.cfg.family}): tensor parallelism "
                 "of this family over the ring is not ported yet (the ring "
-                "serves the dense stacks)")
+                f"serves the {', '.join(RING_FAMILIES)} stacks)")
         if drafter is not None or c.speculate != "off":
             raise NotImplementedError(
                 "speculation under tp (the ring's verify round and its "

@@ -51,6 +51,10 @@ from repro_torch.models.transformer import n_super_blocks
 
 Params = Dict[str, Any]
 
+# the families the model ring serves (a vlm's projector and whisper's
+# encoder-decoder are not ported to it)
+RING_FAMILIES = ("dense", "moe", "rwkv", "hybrid")
+
 
 def _expected_shapes(cfg, plan) -> Dict[str, tuple]:
     """Every leaf path of the config's tree and its stored shape, drawn
@@ -204,8 +208,8 @@ def _hybrid_shapes(cfg, plan) -> Dict[str, tuple]:
     return want
 
 
-# logical axes of each leaf of the dense family (the reference's
-# InitCtx records them by path); stacked layers gain a leading "layers"
+# logical axes of each leaf (the reference's InitCtx records them by
+# path); stacked layers gain a leading "layers"
 _ATTN_AXES = {"wq": ("embed", "q_heads", "head_dim"),
               "wk": ("embed", "kv_heads", "head_dim"),
               "wv": ("embed", "kv_heads", "head_dim"),
@@ -216,6 +220,35 @@ _ATTN_AXES = {"wq": ("embed", "q_heads", "head_dim"),
 _MLP_AXES = {"wg": ("embed", "ffn"), "wu": ("embed", "ffn"),
              "wi": ("embed", "ffn"), "wd": ("ffn", "embed"),
              "bi": ("ffn",), "bd": ("vec",)}
+_MAMBA_AXES = {"in_x": ("embed", "mamba_inner"),
+               "in_z": ("embed", "mamba_inner"),
+               "conv_w": ("conv", "mamba_inner"),
+               "conv_b": ("mamba_inner",),
+               "x_proj": ("mamba_inner", None),
+               "dt_proj": ("dt", "mamba_inner"),
+               "dt_bias": ("mamba_inner",),
+               "a_log": ("mamba_inner", "state"),
+               "d_skip": ("mamba_inner",),
+               "out_proj": ("mamba_inner", "embed")}
+_TMIX_AXES = dict(
+    {f"mu_{nm}": ("vec",) for nm in ("x", "r", "k", "v", "g", "w")},
+    mix_w1=("embed", "lora"), mix_w2=(None, "lora", "embed_scatter"),
+    w_r=("embed", "rwkv_heads"), w_k=("embed", "rwkv_heads"),
+    w_v=("embed", "rwkv_heads"), w_g=("embed", "rwkv_heads"),
+    w_o=("rwkv_heads", "embed"), decay_w0=("rwkv_heads",),
+    decay_w1=("embed", "lora"), decay_w2=("lora", "rwkv_heads"),
+    bonus_u=("rwkv_heads",), ln_x=("rwkv_heads",))
+# cmix's receptance w_r (D, D) is column-tiled as an "ffn" dim, so its
+# output matches the scattered one
+_CMIX_AXES = {"mu_k": ("vec",), "mu_r": ("vec",), "w_k": ("embed", "ffn"),
+              "w_v": ("ffn", "embed"), "w_r": ("embed", "ffn")}
+_MOE_AXES = {"router": ("embed", None),
+             "wg": ("experts", None, "embed", None),
+             "wu": ("experts", None, "embed", None),
+             "wd": ("experts", None, None, "embed")}
+_OWNER_AXES = {"attn": _ATTN_AXES, "mlp": _MLP_AXES, "mamba": _MAMBA_AXES,
+               "tmix": _TMIX_AXES, "cmix": _CMIX_AXES, "moe": _MOE_AXES,
+               "shared": _MLP_AXES}
 _TOP_AXES = {"embed": ("vocab", "embed"),
              "embed_in": ("vocab_rep", "embed_scatter"),
              "head": ("embed", "vocab"),
@@ -224,18 +257,17 @@ _TOP_AXES = {"embed": ("vocab", "embed"),
 
 
 def leaf_axes(path: str) -> tuple:
-    """The logical axes of the dense family's leaf at ``path`` (as the
-    reference's ``InitCtx`` records them)."""
+    """The logical axes of the leaf at ``path`` of a decoder-only tree
+    (dense, MoE, vlm, rwkv, hybrid), as the reference's ``InitCtx``
+    records them.  An encoder-decoder's leaves raise ``KeyError``."""
     parts = path.split("/")
     leaf = parts[-1]
     if parts[0] == "blocks":
         owner = parts[-2]
         if owner in ("ln1", "ln2"):
             ax = ("vec",)
-        elif owner == "attn":
-            ax = _ATTN_AXES[leaf]
-        elif owner == "mlp":
-            ax = _MLP_AXES[leaf]
+        elif owner in _OWNER_AXES:
+            ax = _OWNER_AXES[owner][leaf]
         else:
             raise KeyError(path)
         return ("layers",) + ax
@@ -254,7 +286,8 @@ def shard_leaf(t, path: str, plan, rank: int):
     except KeyError:
         raise NotImplementedError(
             f"{path}: tensor parallelism of this leaf's family is not "
-            "ported yet (the ring serves the dense stacks)") from None
+            "ported yet (the ring serves the decoder-only stacks; an "
+            "encoder-decoder's leaves have no rule)") from None
     if len(axes) != len(t.shape):
         raise ValueError(f"{path}: axes {axes} vs shape {tuple(t.shape)}")
     for d, a in enumerate(axes):
@@ -280,9 +313,9 @@ def _check_ring_plan(plan, rank: int) -> None:
 
 def shard_params(tree: Params, plan, rank: int) -> Params:
     """Rank ``rank``'s leaves of a full tree (tensors or numpy arrays)
-    of the dense family at ``plan``'s tp (:func:`shard_leaf` on every
-    leaf).  Other families raise: their tensor parallelism is not ported
-    yet."""
+    of a decoder-only family at ``plan``'s tp (:func:`shard_leaf` on
+    every leaf).  An encoder-decoder raises: its tensor parallelism is
+    not ported yet."""
     _check_ring_plan(plan, rank)
     return map_leaves(tree, lambda t, path: shard_leaf(t, path, plan, rank))
 
@@ -301,10 +334,16 @@ def relayout_leaf(t: torch.Tensor, path: str, cfg, src_plan, dst_plan
     """The full leaf ``t`` at ``path``, stored at ``src_plan``'s layout,
     stored again at ``dst_plan``'s (on its device): heads placed by the
     destination's ``q_orig``/``kv_orig`` (pad heads zero, duplicated kv
-    heads copied), the vocabulary and FFN dims cut to the config's sizes
-    and zero-padded to the destination's.  ``t`` itself where nothing
-    moves."""
+    heads copied; rwkv's heads are ``head_dim`` blocks of a flat dim),
+    the vocabulary, FFN and mamba ``d_inner`` dims cut to the config's
+    sizes and zero-padded to the destination's, and an MoE's experts
+    (``src_plan`` must hold them on one rank, as tp=1 does) laid out
+    rank-major for the destination (:func:`_relayout_experts`), its
+    router's columns padded with zeros to the destination's padded
+    expert count (a padded expert's logit is masked).  ``t`` itself
+    where nothing moves."""
     sa, da = src_plan.attn, dst_plan.attn
+    leaf = path.rsplit("/", 1)[-1]
 
     def heads(t, axis, n_logical, src_orig, dst_orig):
         src_idx = torch.as_tensor(_first_index(src_orig, n_logical),
@@ -318,6 +357,8 @@ def relayout_leaf(t: torch.Tensor, path: str, cfg, src_plan, dst_plan
                                                   device=t.device))
 
     def resize(t, axis, real, size):
+        if t.shape[axis] == real == size:
+            return t
         keep = t.narrow(axis, 0, real)
         shape = list(t.shape)
         shape[axis] = size
@@ -325,11 +366,36 @@ def relayout_leaf(t: torch.Tensor, path: str, cfg, src_plan, dst_plan
         out.narrow(axis, 0, real).copy_(keep)
         return out
 
-    for d, a in enumerate(leaf_axes(path)):
+    axes = leaf_axes(path)
+    if "experts" in axes:
+        return _relayout_experts(t, leaf == "wd", src_plan, dst_plan)
+    if "/moe/" in path and leaf == "router":
+        from repro_torch.models.moe import moe_layout
+        return resize(t, t.dim() - 1, cfg.moe.n_experts,
+                      moe_layout(dst_plan)[4])
+    for d, a in enumerate(axes):
         if a == "q_heads":
             t = heads(t, d, sa.n_heads, sa.q_orig, da.q_orig)
         elif a == "kv_heads":
             t = heads(t, d, sa.n_kv_heads, sa.kv_orig, da.kv_orig)
+        elif a == "rwkv_heads":
+            dh = cfg.rwkv.head_dim
+            t = heads(t.unflatten(d, (sa.hp, dh)), d, sa.n_heads,
+                      sa.q_orig, da.q_orig).flatten(d, d + 1)
+        elif a == "mamba_inner":
+            from repro_torch.models.mamba import mamba_dims
+            t = resize(t, d, cfg.mamba.expand * cfg.d_model,
+                       mamba_dims(cfg, dst_plan)[0])
+        elif a == "ffn" and "/shared/" in path:
+            # the shared expert's n_shared x d_ff_padded columns are all
+            # drawn (none is a pad): its width must not move
+            if src_plan.d_ff_padded != dst_plan.d_ff_padded:
+                raise NotImplementedError(
+                    f"{path}: the shared expert's width changes between "
+                    f"the plans ({src_plan.d_ff_padded} and "
+                    f"{dst_plan.d_ff_padded} a shared expert)")
+        elif a == "ffn" and path.endswith("cmix/w_r"):
+            continue                    # a d_model dim, tiled as "ffn"
         elif a == "ffn":
             t = resize(t, d, cfg.d_ff, dst_plan.d_ff_padded)
         elif a == "vocab":
@@ -337,8 +403,45 @@ def relayout_leaf(t: torch.Tensor, path: str, cfg, src_plan, dst_plan
     return t
 
 
+def _relayout_experts(t: torch.Tensor, rows: bool, src_plan, dst_plan
+                      ) -> torch.Tensor:
+    """An MoE expert stack ``(L, 1, E, D, f)`` (``wg``/``wu``) or ``(L,
+    1, E, f, D)`` (``wd``, ``rows``) held by one rank at ``src_plan``,
+    stored at ``dst_plan``'s rank-major layout ``(L, W, Ecell, ...)``:
+    rank l holds expert group ``l // split`` and FFN part ``l % split``
+    of it (the reference's ``init_moe`` builder), experts past the
+    config's and FFN columns past the source's zero.  Every source
+    column is kept (tp=1 draws them all).  A view of ``t`` when the
+    experts only regroup."""
+    from repro_torch.models.moe import moe_layout
+    ws, _, _, ecs, _, fs = moe_layout(src_plan)
+    if ws != 1:
+        raise NotImplementedError(
+            "relayout of an MoE's experts from a plan that spreads them "
+            f"over {ws} ranks: the source must hold every expert")
+    w, split, n_groups, ecell, e_pad, ffh = moe_layout(dst_plan)
+    e = dst_plan.moe.n_experts
+    logical = t[:, 0, :e]                         # (L, E, D, f) / (L, E, f, D)
+    fax = 2 if rows else 3                        # the FFN dim of logical
+    if e_pad != e or ffh * split != fs:
+        shape = list(logical.shape)
+        shape[1], shape[fax] = e_pad, ffh * split
+        pad = torch.zeros(shape, dtype=t.dtype, device=t.device)
+        pad[:, :e].narrow(fax, 0, fs).copy_(logical)
+        logical = pad
+    L = t.shape[0]
+    if split == 1:
+        return logical.reshape((L, w, ecell) + tuple(logical.shape[2:]))
+    # (L, groups, ecell, ..., split, ffh, ...) -> (L, groups, split,
+    # ecell, ...): rank g * split + h holds part h of group g
+    parts = logical.unflatten(fax, (split, ffh)).unflatten(1, (n_groups,
+                                                               ecell))
+    parts = parts.movedim(fax + 1, 2)
+    return parts.reshape((L, w, ecell) + tuple(parts.shape[4:]))
+
+
 def relayout(tree: Params, cfg, src_plan, dst_plan) -> Params:
-    """A full tree of the dense family stored at ``src_plan``'s layout,
+    """A full tree of a decoder-only family stored at ``src_plan``'s layout,
     stored again at ``dst_plan``'s (:func:`relayout_leaf` on every
     leaf).  The logical model is unchanged: a zero pad head, FFN column
     or vocab row adds nothing (a padded logit column is masked).  This
@@ -357,22 +460,25 @@ def tp1_plan(cfg, plan):
 
 
 def init_shard(cfg, plan, rank: int, seed: int = 0, device=None) -> Params:
-    """Rank ``rank``'s shard of the dense model ``cfg`` on ``plan``'s
-    ring, drawn without the full tree: ``init_params(cfg, tp1_plan(cfg,
-    plan), seed)``'s values drawn in its order (embeddings, positions,
-    then layer after layer, then the final norm), each stored at the
-    ring's layout and cut to the rank's slice as soon as it is drawn.
-    Bit-equal to ``shard_params(relayout(init_params(...)), plan,
-    rank)``; the peak is the shard plus one layer of the tp=1 tree.
-    ``device``: ``cuda`` unless the caller asks for the CPU."""
+    """Rank ``rank``'s shard of the decoder-only model ``cfg`` (dense,
+    MoE, rwkv, hybrid) on ``plan``'s ring, drawn without the full tree:
+    ``init_params(cfg, tp1_plan(cfg, plan), seed)``'s values drawn in
+    its order (embeddings, positions, then layer after layer, then the
+    final norm), each part of a layer (an MoE's leaf by leaf) stored at
+    the ring's layout and cut to the rank's slice as soon as it is
+    drawn.  Bit-equal to ``shard_params(relayout(init_params(...)),
+    plan, rank)``; the peak is the shard plus one part of a tp=1 layer
+    (jamba's largest: an expert stack, drawn in f32, 3.8 GB).  A vlm and an encoder-decoder raise: their
+    tensor parallelism is not ported yet.  ``device``: ``cuda`` unless
+    the caller asks for the CPU."""
     from repro_torch.device import dtype_of, resolve_device
     from repro_torch.models.common import _Init, draw_params
     _check_ring_plan(plan, rank)
-    if cfg.family != "dense":
+    if cfg.family not in RING_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}): tensor parallelism of this "
             "family over the ring is not ported yet (the ring serves the "
-            "dense stacks)")
+            f"{', '.join(RING_FAMILIES)} stacks)")
     plan1 = tp1_plan(cfg, plan)
     ini = _Init(seed, resolve_device(device), dtype_of(plan1.param_dtype))
 

@@ -378,7 +378,9 @@ def _to_torch(tree):
 
 
 def test_shard_params_refuses_other_families():
-    cfg = get_config("rwkv6-7b").reduced()
+    """An encoder-decoder's leaves have no rule on the ring (the
+    decoder-only families shard: tests/test_torch_tp_families.py)."""
+    cfg = get_config("whisper-tiny").reduced()
     plan = plan_model(cfg, ("model",), (2,), "serve", **F32)
     with pytest.raises(NotImplementedError, match="family"):
         shard_params(init_params(cfg, plan, 0, "cpu"), plan, 0)

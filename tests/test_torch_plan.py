@@ -62,12 +62,15 @@ def test_kv_precision_matches_reference(knob):
 
 
 def test_plan_model_rejects_later_slices():
-    """The serving ring is planned; an MoE's expert axes, data-parallel
-    and FSDP axes and KV sequence sharding are later slices."""
+    """The serving ring is planned, an MoE's experts over it included;
+    data-parallel and FSDP axes (and with them the giant MoE's data x
+    model experts) and KV sequence sharding are later slices."""
     assert plan_model(get_config("smollm-135m"), ("model",), (2,),
                       "serve").tp == 2
-    with pytest.raises(NotImplementedError, match="expert"):
-        plan_model(get_config("granite"), ("model",), (2,), "serve")
+    assert plan_model(get_config("granite"), ("model",), (2,),
+                      "serve").moe.expert_axes == ("model",)
+    with pytest.raises(NotImplementedError, match="data-parallel"):
+        plan_model(get_config("llama4"), ("data", "model"), (2, 2), "serve")
     with pytest.raises(NotImplementedError, match="FSDP"):
         plan_model(get_config("smollm-135m"), ("data", "model"), (2, 2),
                    "train")

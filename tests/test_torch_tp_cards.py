@@ -169,10 +169,13 @@ def test_init_shard_bit_equal_to_sliced_tree(name, tp, overlap):
 
 
 def test_init_shard_refuses_other_families_and_tp1():
-    cfg = get_config("rwkv6-7b").reduced()
-    plan = plan_model(cfg, ("model",), (2,), "serve", **SERVE_F32)
-    with pytest.raises(NotImplementedError, match="dense"):
-        init_shard(cfg, plan, 0, device="cpu")
+    """A vlm and an encoder-decoder are not served on the ring (the
+    dense, MoE, rwkv and hybrid stacks are)."""
+    for name in ("llava-next-34b", "whisper-tiny"):
+        cfg = get_config(name).reduced()
+        plan = plan_model(cfg, ("model",), (2,), "serve", **SERVE_F32)
+        with pytest.raises(NotImplementedError, match="dense"):
+            init_shard(cfg, plan, 0, device="cpu")
     cfg = get_config("smollm-135m").reduced()
     with pytest.raises(ValueError, match="a plan for the ring"):
         init_shard(cfg, plan_model(cfg, None, (1,), "serve", **SERVE_F32),

@@ -289,9 +289,9 @@ REFUSED = {
     "speculate": ("NotImplementedError", "speculation under tp"),
     "full_tree": ("ValueError", "shard_params"),
     "no_ring": ("ValueError", "needs mesh"),
-    "rwkv6-7b": ("NotImplementedError", "rwkv"),
+    "whisper-tiny": ("ValueError", "encoder-decoder"),
     "llava-next-34b": ("NotImplementedError", "vlm"),
-    "granite": ("NotImplementedError", "expert"),
+    "data_axis": ("NotImplementedError", "data-parallel"),
     "fleet": ("NotImplementedError", "mesh fleets"),
     "frontend": ("NotImplementedError", "front end"),
     "verify": ("NotImplementedError", "speculative verify"),

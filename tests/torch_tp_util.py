@@ -245,13 +245,14 @@ def refusals_rank(ring, name, tree):
         model, {"embed": torch.zeros(plan.vocab_padded, 4)}, conf,
         mesh=ring, device="cpu", graphs=False))
     rec("no_ring", lambda: LPUEngine(model, params, conf, device="cpu"))
-    for fam in ("rwkv6-7b", "llava-next-34b"):
+    for fam in ("whisper-tiny", "llava-next-34b"):
         c = get_config(fam).reduced()
         p = plan_model(c, ("model",), (ring.size,), "serve", **SERVE_F32)
         rec(fam, lambda: LPUEngine(build_model(c, p, "cpu"), params, conf,
                                    mesh=ring, device="cpu", graphs=False))
-    rec("granite", lambda: plan_model(get_config("granite").reduced(),
-                                      ("model",), (ring.size,), "serve"))
+    rec("data_axis", lambda: plan_model(get_config("llama4").reduced(),
+                                        ("data", "model"), (1, ring.size),
+                                        "serve"))
     rec("fleet", lambda: MultiRingEngine(model, params, ring, ring_size=2,
                                          config=conf, device="cpu"))
     eng = LPUEngine(model, params, conf, mesh=ring, device="cpu",

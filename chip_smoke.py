@@ -353,6 +353,7 @@ import os
 import subprocess
 import sys
 import time
+import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -1207,14 +1208,22 @@ def admission_replays(eng):
 
 def on_graphs(eng):
     """Raise unless an engine with graphs on ran its decode windows and
-    verify rounds as replays of captured graphs, and (an attention-only
+    verify rounds (host sampling: its decode steps) as replays of
+    captured graphs, and (an attention-only
     stack, whose prompts are bucketed) each kind of admission step it
     ran — monolithic prefills, chunks and prefix tails, the first-token
     sampler, copy-on-write block copies — as well."""
     if not eng.graphs:
         return
     st = eng.stats
-    if (st.device_decode_steps or st.spec_rounds) and \
+    if eng.sampling == "host":
+        # a host-sampled decode step is an admission-side program; the
+        # host-sampled verify round stays eager
+        if st.device_decode_steps and not eng._admit.replays_of(
+                "host_decode"):
+            raise AssertionError(f"the engine replayed no host-sampled "
+                                 f"decode step: {st}")
+    elif (st.device_decode_steps or st.spec_rounds) and \
             not eng._programs.replays:
         raise AssertionError(f"the engine replayed no captured window: "
                              f"{st}")
@@ -4657,18 +4666,12 @@ def run_whisper(torch, dev):
     them; each token equal to its recompute twin's (a prefill over the
     prompt + the tokens so far, the encoder run again) or apart only at
     its top-2 gap <= CHAIN_TOL.  Wall and device ms per serve step."""
-    import numpy as np
     from repro_torch.core.steps import build_prefill_step, build_serve_step
     model, params, rec = family_model(torch, dev, "whisper-tiny", "float32")
     cfg = model.cfg
     rows, S, steps = WHISPER_ROWS, WHISPER_PROMPT, WHISPER_STEPS
     max_seq = 64
-    g = torch.Generator(device=dev).manual_seed(13)
-    frames = 0.1 * torch.randn((rows, cfg.encdec.enc_seq, cfg.d_model),
-                               generator=g, device=dev)
-    rng = np.random.RandomState(13)
-    prompt = torch.tensor(rng.randint(1, cfg.vocab_size, size=(rows, S)),
-                          device=dev)
+    frames, prompt = whisper_inputs(torch, dev, cfg)
     prefill, _ = build_prefill_step(model, None, rows, max_seq)
     serve_step, _ = build_serve_step(model, None, rows, max_seq)
     cache = model.init_cache(rows, max_seq)
@@ -5100,13 +5103,27 @@ def ring_plans(cfg, tp, dtype="float32"):
             for ov in (True, False)}
 
 
-def tp_rank(ring, spec, jamba=None):
+def spec_counts(eng):
+    """A speculative run's counters, its drafts' digest and count."""
+    st = eng.stats
+    props = eng.drafter.proposals
+    return {"spec_rounds": st.spec_rounds, "draft_tokens": st.draft_tokens,
+            "accepted_tokens": st.accepted_tokens,
+            "acceptance_rate": st.acceptance_rate,
+            "accepted_per_window": st.accepted_per_window,
+            "proposals": len(props),
+            "proposals_crc32": zlib.crc32(json.dumps(props).encode())}
+
+
+def tp_rank(ring, spec, jamba=None, whisper=None):
     """One rank of phase 13: for each model of ``spec``, this rank's
     shard drawn alone (:func:`rank_weights`: the tp=1 values at the
     ring's layout, no full tree), kernel 1 checked at the rank's shapes,
     then each run served by this rank's engine (steps eager on the gloo
-    ring), kernel 1's launches counted from zero just before the run and
-    read just after.  Returns every rank's record."""
+    ring; a speculative run's drafts logged), kernel 1's launches counted
+    from zero just before the run and read just after; then (c) jamba
+    and (e) whisper-tiny through the ring's steps.  Returns every rank's
+    record."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention.ops import \
@@ -5140,6 +5157,9 @@ def tp_rank(ring, spec, jamba=None):
                 eng.generate(run["prompts"][:1], max_new_tokens=2)
                 torch.cuda.synchronize()
                 eng.stats = type(eng.stats)()
+            if eng.drafter is not None:
+                from repro_torch.serving.drafter import ProposalLog
+                eng.drafter = ProposalLog(eng.drafter)
             paged_decode_attention.launches = 0
             ring.reset_counters()
             t1 = time.perf_counter()
@@ -5176,6 +5196,8 @@ def tp_rank(ring, spec, jamba=None):
                 "ring_s": ring.counters["seconds"],
                 "per_rank_kv_bytes": eng.per_rank_kv_bytes(),
                 "kv_cache_bytes": eng.kv_cache_bytes()}
+            if eng.drafter is not None:
+                rec["runs"][run["key"]].update(spec_counts(eng))
             del eng, model
         rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
         out["models"][name] = rec
@@ -5184,8 +5206,101 @@ def tp_rank(ring, spec, jamba=None):
         torch.cuda.empty_cache()
     if jamba is not None:
         out["jamba"] = tp_jamba_rank(torch, ring, jamba)
+    if whisper is not None:
+        t0 = time.perf_counter()
+        out["whisper"] = ring_whisper(torch, ring, whisper, "(13e)")
+        out["whisper"]["rank_s"] = time.perf_counter() - t0
     out["backend"] = ring.backend
     return ring.gather_object(out)
+
+
+def whisper_inputs(torch, dev, cfg):
+    """Phase 11 (d)'s seeded input: WHISPER_ROWS rows of (1500, 384)
+    frames and WHISPER_PROMPT-token prompts (the same on every card)."""
+    import numpy as np
+    g = torch.Generator(device=dev).manual_seed(13)
+    frames = 0.1 * torch.randn((WHISPER_ROWS, cfg.encdec.enc_seq,
+                                cfg.d_model), generator=g, device=dev)
+    rng = np.random.RandomState(13)
+    prompt = torch.tensor(rng.randint(1, cfg.vocab_size,
+                                      size=(WHISPER_ROWS, WHISPER_PROMPT)),
+                          device=dev)
+    return frames, prompt
+
+
+def ring_whisper(torch, ring, spec, what):
+    """whisper-tiny whole, f32, at this rank: its shard drawn alone
+    (``init_shard``, seed 0: phase 11's weights), phase 11 (d)'s frames
+    and prompts through the ring's ``build_prefill_step`` and
+    ``spec["steps"]`` serve steps (ESL overlap); each token against
+    ``spec["want"]`` (tp=1's), equal or apart only where the ring's own
+    recompute (a prefill over the prompt + the tokens so far) has a
+    top-2 gap <= CHAIN_TOL.  Every rank calls it alike."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import esl
+    from repro_torch.core.steps import build_prefill_step, build_serve_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.weights import init_shard
+    dev = ring.device
+    cfg = get_config("whisper-tiny")
+    plan = ring_plans(cfg, ring.size)[True]
+    t0 = time.perf_counter()
+    params = init_shard(cfg, plan, ring.rank, seed=0, device=dev)
+    model = build_model(cfg, plan, dev)
+    setup = time.perf_counter() - t0
+    frames, prompt = whisper_inputs(torch, dev, cfg)
+    rows, S, steps = WHISPER_ROWS, WHISPER_PROMPT, spec["steps"]
+    max_seq = 64
+    prefill, meta = build_prefill_step(model, ring, rows, max_seq)
+    serve_step, _ = build_serve_step(model, ring, rows, max_seq)
+    ring.reset_counters()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    tok, cache = prefill(params, model.init_cache(rows, max_seq), prompt,
+                         frames=frames)
+    toks = [tok]
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    for t in range(steps):
+        pos = torch.full((rows,), S + t, dtype=torch.int32, device=dev)
+        tok, cache = serve_step(params, cache, toks[-1][:, None].long(), pos)
+        toks.append(tok)
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    out = torch.stack(toks, 1).tolist()
+    counts = dict(ring.counters)
+    want = [w[:steps + 1] for w in spec["want"]]
+    apart = []
+    for r in range(rows):
+        at = next((j for j, (u, v) in enumerate(zip(out[r], want[r]))
+                   if u != v), None)
+        if at is None:
+            continue
+        grown = torch.cat([prompt, torch.tensor(out, device=dev)[:, :at]
+                           .to(prompt.dtype)], 1)
+        with torch.no_grad():
+            lg, _ = model.forward(params, grown, mode="prefill",
+                                  frames=frames, env=meta["env"],
+                                  cache=model.init_cache(rows,
+                                                         grown.shape[1]))
+            row = esl.gather_scattered(lg[r, -1].float(), axis=ring,
+                                       tp=ring.size)
+        gap = top2_gap(row[None])[0].item()
+        if gap > CHAIN_TOL:
+            raise AssertionError(f"{what} whisper tp {ring.size} rank "
+                                 f"{ring.rank}: row {r} token {at} is "
+                                 f"{out[r][at]}, tp=1's {want[r][at]}, at a "
+                                 f"top-2 gap {gap}")
+        apart.append({"row": r, "at": at, "top2_gap": gap})
+    del model, params
+    free_cuda(torch)
+    return {"tokens": out, "rows": rows, "serve_steps": steps,
+            "equal": rows - len(apart), "of": rows,
+            "diverged_at_near_ties": apart, "setup_s": setup,
+            "prefill_s": t1 - t0,
+            "serve_wall_ms_per_step": (t2 - t1) * 1e3 / steps,
+            "collectives": counts["collectives"],
+            "staged_bytes": counts["staged_bytes"]}
 
 
 def run_tp(torch, dev, card_name, tp1):
@@ -5197,7 +5312,11 @@ def run_tp(torch, dev, card_name, tp1):
     equal to the tp=1 engine's (``tp1``: {name: (prompts, streams)} from
     the earlier phases) or apart only at a top-2 gap <= CHAIN_TOL of the
     tp=1 model, kernel 1 launched exactly n_layers x (decode steps +
-    chunks) on every rank."""
+    verify rounds + chunks) on every rank.  (e): smollm-135m in blocking
+    again with the n-gram drafter (draft_k SPEC_K), every rank proposing
+    and accepting the same drafts; then whisper-tiny whole through the
+    ring's steps (:func:`ring_whisper`) against phase 11 (d)'s tokens
+    (``tp1["whisper-tiny"]``)."""
     from repro_torch.core.dist import run_ranks
     t0 = time.perf_counter()
     gc.collect()
@@ -5210,6 +5329,9 @@ def run_tp(torch, dev, card_name, tp1):
                  prompts=opt_prompts_)]),
         ("smollm-135m", [
             dict(key="blocking", overlap=False, knobs={},
+                 prompts=sm_prompts),
+            dict(key="blocking_ngram", overlap=False,
+                 knobs=dict(speculate="ngram", draft_k=SPEC_K),
                  prompts=sm_prompts)])]
     t_j = time.perf_counter()
     j_draw = jamba_shard_peak(torch, dev)
@@ -5223,7 +5345,8 @@ def run_tp(torch, dev, card_name, tp1):
     t_r = time.perf_counter()
     per_rank = run_ranks(tp_rank, TP, spec, dict(
         depth=TP_JAMBA_DEPTH, prompts=j_prompts, new=TP_JAMBA_NEW,
-        want=j_want), device=dev, placement="shared_card")
+        want=j_want), dict(want=tp1["whisper-tiny"], steps=TP_WHISPER_STEPS),
+        device=dev, placement="shared_card")
     spawn_s = time.perf_counter() - t_r
     out = {"tp": TP, "backend": per_rank[0]["backend"], "graphs": False,
            "ranks_on_one_card": True, "card": card_name, "models": {}}
@@ -5244,6 +5367,14 @@ def run_tp(torch, dev, card_name, tp1):
             if any(x["streams"] != rr[0]["streams"] for x in rr):
                 raise AssertionError(f"(13) {name} {k}: the ranks' streams "
                                      "differ")
+            if "spec_rounds" in rr[0]:
+                same_on_ranks(rr, lambda x: [x[f] for f in (
+                    "spec_rounds", "draft_tokens", "accepted_tokens",
+                    "proposals", "proposals_crc32")],
+                    f"(13e) {name} {k} drafts and acceptance")
+                if not rr[0]["spec_rounds"]:
+                    raise AssertionError(f"(13e) {name} {k}: no verify "
+                                         "round")
             got = rr[0]["streams"]
             if got == want:
                 vs = {"equal": len(want), "diverged_at_near_ties": []}
@@ -5284,12 +5415,21 @@ def run_tp(torch, dev, card_name, tp1):
         "weight_bytes_per_rank": [x["weight_bytes"] for x in jr],
         "peak_memory_bytes_per_rank": [x["peak_memory_bytes"] for x in jr],
         "setup_s": [x["setup_s"] for x in jr]}
+    wr = [r["whisper"] for r in per_rank]
+    same_on_ranks(wr, lambda x: x["tokens"], "(13e) whisper tokens")
+    out["whisper"] = dict({k: v for k, v in wr[0].items()
+                           if k != "tokens"},
+                          rank_s=[x["rank_s"] for x in wr],
+                          tokens_head=[t[:4] for t in wr[0]["tokens"]])
     gc.collect()
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t0
     out["ranks_s"] = spawn_s
     return out
 
+
+# (13e): whisper-tiny's serve steps on the ring, against phase 11 (d)
+TP_WHISPER_STEPS = 8
 
 # (13c): jamba-v0.1-52b at full width, one super-block, bf16, tp 2
 TP_JAMBA_DEPTH = 8
@@ -6027,10 +6167,11 @@ def fam_cfg(name, depth=None):
 
 
 def ring_engine_run(torch, ring, model, params, prompts, new, graphs,
-                    slots=None, max_seq=None):
+                    slots=None, max_seq=None, knobs=None):
     """``prompts`` served greedily by this rank's engine on the ring (a
-    warm-up request first), the family kernel's launches and the ring's
-    counters from zero over the run: -> (streams, record)."""
+    warm-up request first; ``knobs``: the engine's other settings, e.g.
+    a drafter), the family kernel's launches and the ring's counters
+    from zero over the run: -> (streams, record)."""
     from repro_torch.launch.serve import family_kernel
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import LPUEngine
@@ -6038,11 +6179,15 @@ def ring_engine_run(torch, ring, model, params, prompts, new, graphs,
     kernel = family_kernel(cfg)
     kw = dict(block_size=BS) if model.supports_paged_kv() else {}
     eng = LPUEngine(model, params, EngineConfig(
-        slots=slots or len(prompts), max_seq=max_seq or FAM_MAX_SEQ, **kw),
-        mesh=ring, device=dev, graphs=graphs and ring.nccl)
+        slots=slots or len(prompts), max_seq=max_seq or FAM_MAX_SEQ,
+        **kw, **(knobs or {})), mesh=ring, device=dev,
+        graphs=graphs and ring.nccl)
     eng.generate(prompts[:1], max_new_tokens=2)
     torch.cuda.synchronize(dev)
     eng.stats = type(eng.stats)()
+    if eng.drafter is not None:
+        from repro_torch.serving.drafter import ProposalLog
+        eng.drafter = ProposalLog(eng.drafter)
     kernel.launches = 0
     ring.reset_counters()
     t0 = time.perf_counter()
@@ -6066,8 +6211,15 @@ def ring_engine_run(torch, ring, model, params, prompts, new, graphs,
         raise AssertionError(f"{what}: no replay")
     if eng.paged:
         eng.check_pool_balanced()
+    if eng.drafter is not None:
+        if not st.spec_rounds:
+            raise AssertionError(f"{what}: no verify round")
+        launches_by = {"verify_replays": eng._programs.replays_of("verify")}
+    else:
+        launches_by = {}
     rec = dict(run_rec(eng, launches), wall_s=wall, graphs=eng.graphs,
-               kernel=kernel.__name__, kernel_want=want,
+               kernel=kernel.__name__, kernel_want=want, **launches_by,
+               **(spec_counts(eng) if eng.drafter is not None else {}),
                cache_shapes={lj: {k: list(v.shape) for k, v in c.items()}
                              for lj, c in eng.cache.items()},
                **ring_counts(ring, st.device_decode_steps))
@@ -6448,13 +6600,735 @@ def print_tp_families(rec, smi):
     print(f"[time] (15) tp_families {rec['phase_s']:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: speculation under tp and the multimodal stacks on the ring
+# ---------------------------------------------------------------------------
+
+SM_TP = 2
+SM_OUT = 256                   # (a): batch 1, 32 in, 256 out
+SM_BATCH = (4, 32)             # (a): 4 prompts x 32 new at 4 slots
+SM_PROFILE_TOKENS = 32         # (a): tokens emitted under torch.profiler
+SM_MAX_SEQ = 512
+SM_B_DEPTH, SM_B_NEW = 8, 16   # (b): llava at 8 layers, f32
+SM_K1_HEADS = (28, 4, 128)     # (e): llava's heads on a rank at tp 2
+
+
+def sm_prompts(cfg, n, seed, length=None):
+    """``n`` seeded prompts, each a random 8-token motif repeated to
+    ``length`` tokens (16-40 when None): the n-gram drafter proposes
+    from the first round on, whatever a random-weight model emits."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        motif = [int(t) for t in rng.randint(1, cfg.vocab_size, size=8)]
+        size = length or int(rng.randint(16, 41))
+        out.append((motif * (size // 8 + 1))[:size])
+    return out
+
+
+def sm_protocol(torch, ring, model, params, prompt, out_n, draft_k):
+    """(a) at this rank: one request of ``out_n`` new tokens at batch 1
+    (8-step windows, a bf16 pool), with the n-gram drafter at
+    ``draft_k`` (0: none), on graphs over NCCL, after a warm-up request
+    of the same prompt that captures its programs; SM_PROFILE_TOKENS
+    emitted
+    tokens in the middle under torch.profiler give device ms a token
+    (NCCL's kernels apart), the engine's clock over the rest wall ms a
+    token; kernel 1's launches exact over the request (once per layer
+    per decode step and verify round)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine
+    cfg, dev = model.cfg, ring.device
+    knobs = dict(speculate="ngram", draft_k=draft_k) if draft_k else {}
+    eng = LPUEngine(model, params, EngineConfig(
+        slots=1, max_seq=SM_MAX_SEQ, steps_per_sync=OPT_WINDOW,
+        kv_dtype="bfloat16", **knobs), device=dev, graphs=ring.nccl,
+        mesh=ring)
+    eng.generate([prompt], max_new_tokens=2 * OPT_WINDOW)
+    torch.cuda.synchronize(dev)
+    if eng.drafter is not None:
+        from repro_torch.serving.drafter import ProposalLog
+        eng.drafter = ProposalLog(eng.drafter)
+    paged_decode_attention.launches = 0
+    ring.reset_counters()
+    st = eng.stats
+    base = dataclasses.replace(st)
+    v0 = eng._programs.replays_of("verify")
+    rid = eng.submit(prompt, out_n)
+    mid = len(prompt) + out_n // 2 - SM_PROFILE_TOKENS // 2
+    seq = None
+    while seq is None or seq.pos < mid:
+        eng.step()
+        seq = eng.sched.active[0]
+        if seq is None:
+            raise AssertionError(f"(16a) the request ended before {mid}")
+    tok0, wall0, cap0 = st.tokens, st.wall, st.graph_captures
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        while st.tokens - tok0 < SM_PROFILE_TOKENS and eng.sched.has_work():
+            eng.step()
+        torch.cuda.synchronize(dev)
+    ptoks, window_wall = st.tokens - tok0, st.wall - wall0
+    window_captures = st.graph_captures - cap0
+    out = eng.drain()[rid]
+    torch.cuda.synchronize(dev)
+
+    def d(f):
+        return getattr(st, f) - getattr(base, f)
+    forwards = d("device_decode_steps") + d("spec_rounds")
+    want = cfg.n_layers * (forwards + d("prefill_chunks"))
+    launches = paged_decode_attention.launches
+    what = (f"(16a) {cfg.name} tp {ring.size} draft_k {draft_k} rank "
+            f"{ring.rank}")
+    if launches != want or not want:
+        raise AssertionError(f"{what}: kernel 1 launches {launches} != "
+                             f"{want}")
+    replays = d("graph_replays")
+    if bool(replays) != eng.graphs:
+        raise AssertionError(f"{what}: {replays} replays")
+    verify_replays = eng._programs.replays_of("verify") - v0
+    if eng.graphs and verify_replays != d("spec_rounds"):
+        raise AssertionError(f"{what}: {verify_replays} verify replays for "
+                             f"{d('spec_rounds')} verify rounds")
+    if draft_k and not d("spec_rounds"):
+        raise AssertionError(f"{what}: no verify round")
+    pool_checks(eng, what)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not busy_us or not ptoks:
+        raise AssertionError(f"{what}: the profiler saw {busy_us} us over "
+                             f"{ptoks} tokens")
+    device_ms = busy_us / 1e3 / ptoks
+    nccl_ms = sum(e.self_device_time_total for e in kernels
+                  if "nccl" in e.key.lower()) / 1e3 / ptoks
+    wall_ms = (d("wall") - window_wall) * 1e3 / (len(out) - ptoks)
+    rec = {"out": out, "draft_k": draft_k, "wall_ms_per_token": wall_ms,
+           "device_ms_per_token": device_ms, "nccl_ms_per_token": nccl_ms,
+           "device_busy_share": device_ms / wall_ms,
+           "profiled_tokens": ptoks, "captures_in_profiled_window":
+           window_captures, "captures_in_run": d("graph_captures"),
+           "decode_steps": d("device_decode_steps"),
+           "verify_rounds": d("spec_rounds"), "forwards": forwards,
+           "tokens_per_forward": (len(out) - 1) / max(forwards, 1),
+           "kernel1_launches": launches, "kernel1_want": want,
+           "graph_replays": replays, "verify_replays": verify_replays,
+           **ring_counts(ring, forwards),
+           "top_kernels": [{"name": e.key[:80], "count": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in sorted(kernels, key=lambda e:
+                                           -e.self_device_time_total)[:8]]}
+    if eng.drafter is not None:
+        rec.update(spec_counts(eng))
+    del eng
+    free_cuda(torch)
+    return rec
+
+
+def sm_patches(torch, model, params, ring=None, tol=TOL["bfloat16"],
+               what="(16)"):
+    """llava's patch path (phase 11's inputs: 2880 seeded patch
+    embeddings + LLAVA_TEXT text tokens) through the steps of
+    ``core/steps.py`` (the ring's form with ``ring``, every rank alike),
+    then LLAVA_STEPS serve steps; each token equal to its recompute
+    twin's (a prefill over patches + text + the tokens so far) or apart
+    only at the twin's top-2 gap <= ``tol``; the prefill's device ms
+    under torch.profiler.  Returns the tokens and each twin's gap."""
+    import numpy as np
+    from repro_torch.core import esl
+    from repro_torch.core.steps import build_prefill_step, build_serve_step
+    from repro_torch.device import dtype_of
+    cfg, dev = model.cfg, model.device
+    dt = dtype_of(model.plan.compute_dtype)
+    n_p, S = cfg.vlm.n_patches, LLAVA_TEXT
+    max_seq = n_p + S + LLAVA_STEPS
+    g = torch.Generator(device=dev).manual_seed(11)
+    patches = (0.1 * torch.randn((1, n_p, cfg.vlm.patch_embed_dim),
+                                 generator=g, device=dev)).to(dt)
+    rng = np.random.RandomState(11)
+    text = torch.tensor(rng.randint(1, cfg.vocab_size, size=(1, S)),
+                        device=dev)
+    prefill, meta = build_prefill_step(model, ring, 1, max_seq)
+    serve_step, _ = build_serve_step(model, ring, 1, max_seq)
+    tok, cache = prefill(params, model.init_cache(1, max_seq, dtype=dt),
+                         text, patch_embeds=patches)
+    toks = [tok]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for t in range(LLAVA_STEPS):
+        pos = torch.tensor([n_p + S + t], dtype=torch.int32, device=dev)
+        tok, cache = serve_step(params, cache, toks[-1][:, None].long(), pos)
+        toks.append(tok)
+    torch.cuda.synchronize(dev)
+    serve_ms = (time.perf_counter() - t0) / LLAVA_STEPS * 1e3
+    out = torch.cat(toks).tolist()
+    del cache
+    kernels = device_kernels(lambda: (prefill(
+        params, model.init_cache(1, max_seq, dtype=dt), text,
+        patch_embeds=patches), torch.cuda.synchronize(dev)))
+    gaps, apart = [], []
+    with torch.no_grad():
+        for j in range(len(out)):
+            grown = torch.cat([text, torch.tensor([out[:j]], device=dev,
+                                                  dtype=text.dtype)], 1)
+            logits, _ = model.forward(
+                params, grown, mode="prefill", patch_embeds=patches,
+                env=meta["env"],
+                cache=model.init_cache(1, n_p + grown.shape[1], dtype=dt))
+            row = logits[0, -1].float()
+            if ring is not None:
+                row = esl.gather_scattered(row, axis=ring, tp=ring.size)
+            gap = top2_gap(row).item()
+            gaps.append(gap)
+            if int(row.argmax()) != out[j]:
+                if gap > tol:
+                    raise AssertionError(
+                        f"{what} llava patches: token {j} is {out[j]}, the "
+                        f"recompute twin's {int(row.argmax())} at a top-2 "
+                        f"gap {gap}")
+                apart.append({"at": j, "top2_gap": gap})
+    return {"tokens": out, "gaps": gaps, "patches": n_p, "text_tokens": S,
+            "serve_steps": LLAVA_STEPS,
+            "equal_to_recompute": len(out) - len(apart),
+            "apart_at_near_ties": apart, "min_top2_gap": min(gaps),
+            "prefill_device_ms": sum(e.self_device_time_total
+                                     for e in kernels) / 1e3,
+            "prefill_kernels": sum(e.count for e in kernels),
+            "serve_wall_ms_per_step": serve_ms}
+
+
+def sm_a(torch, ring, spec):
+    """(a) at this rank: llava-next-34b whole in bf16, this rank's shard
+    drawn alone; in ESL overlap and in blocking the protocol (batch 1, a
+    32-token prompt of period 8, :func:`sm_prompts`) without and with
+    the n-gram drafter (the speculative stream held to the plain one by
+    the two-sided bf16 near-tie rule), SM_BATCH's batch at 4
+    slots with speculation on graphs, then the patch path through the
+    ring's steps; the bound from the bytes a card reads a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.weights import init_shard
+    dev = ring.device
+    cfg = get_config("llava-next-34b")
+    if spec.get("depth"):
+        cfg = dataclasses.replace(cfg, n_layers=spec["depth"])
+    plans = ring_plans(cfg, ring.size, "bfloat16")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_shard(cfg, plans[True], ring.rank, seed=0, device=dev)
+    torch.cuda.synchronize(dev)
+    wb = tree_bytes(params)
+    rec = {"n_layers": cfg.n_layers, "setup_s": time.perf_counter() - t0,
+           "weight_bytes": wb,
+           "peak_memory_after_draw": torch.cuda.max_memory_allocated(dev),
+           "runs": {}}
+    prompt = sm_prompts(cfg, 1, 32, PAPER_IN_TOKENS)[0]
+    bw = bandwidth_for(torch.cuda.get_device_name(dev))
+    a = plans[True].attn
+    peak = 0
+    for key in ("overlap", "blocking"):
+        model = build_model(cfg, plans[key == "overlap"], dev)
+        r = {}
+        for k in (0, SPEC_K):
+            x = sm_protocol(torch, ring, model, params, prompt, spec["out"],
+                            k)
+            peak = max(peak, torch.cuda.max_memory_allocated(dev))
+            mean_len = len(prompt) + len(x["out"]) / 2
+            kv = 2 * cfg.n_layers * a.kv_per_rank * a.d_head * 2 * mean_len
+            x.update(bytes_per_card_per_step=wb + kv,
+                     bound_ms_per_token=(wb + kv) / bw * 1e3)
+            r["spec" if k else "plain"] = x
+        plain, sp = r["plain"].pop("out"), r["spec"].pop("out")
+        want = {"stream": plain, "picks": None}
+        if sp != plain:
+            want["picks"] = top_picks(torch, model, params, prompt, plain,
+                                      ring)
+        r["spec"]["vs_plain"] = ring_agree_bf16(
+            torch, ring, model, params, prompt, sp, want,
+            f"(16a) {key} speculative vs plain rank {ring.rank}")
+        r["stream_head"] = plain[:16]
+        r["out_tokens"] = len(plain)
+        free_cuda(torch)
+        prompts = sm_prompts(cfg, SM_BATCH[0], 19)
+        streams, b = ring_engine_run(torch, ring, model, params, prompts,
+                                     SM_BATCH[1], True, slots=SM_BATCH[0],
+                                     max_seq=SM_MAX_SEQ, knobs=dict(
+                                         speculate="ngram", draft_k=SPEC_K))
+        b["streams_head"] = [x[:8] for x in streams]
+        b["ms_per_forward"] = b["wall_s"] * 1e3 / max(
+            b["device_decode_steps"] + b["spec_rounds"], 1)
+        r["batch4_spec"] = b
+        peak = max(peak, torch.cuda.max_memory_allocated(dev))
+        free_cuda(torch)
+        r["patches"] = sm_patches(torch, model, params, ring,
+                                  what=f"(16a) {key}")
+        peak = max(peak, torch.cuda.max_memory_allocated(dev))
+        rec["runs"][key] = r
+        del model
+        free_cuda(torch)
+        if ring.rank == 0:
+            print(f"[tp_spec_mm] (16a) llava tp {ring.size} {key} rank 0: "
+                  f"plain {r['plain']['wall_ms_per_token']:.3f} ms/token "
+                  f"wall, {r['plain']['device_ms_per_token']:.3f} device; "
+                  f"speculative {r['spec']['wall_ms_per_token']:.3f} wall, "
+                  f"{r['spec']['tokens_per_forward']:.2f} tokens a "
+                  f"forward; bound {r['plain']['bound_ms_per_token']:.3f}",
+                  flush=True)
+    rec["peak_memory_bytes"] = peak
+    del params
+    free_cuda(torch)
+    return rec
+
+
+def sm_b(torch, ring, spec):
+    """(b) at this rank: llava at SM_B_DEPTH layers in f32, this rank's
+    shard drawn alone, through the engine with the n-gram drafter on
+    graphs (ESL overlap) and through the patch path; the streams and the
+    patch tokens against tp=1's, apart only at a top-2 gap <= CHAIN_TOL
+    of the ring's model."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.weights import init_shard
+    dev = ring.device
+    cfg = fam_cfg("llava-next-34b", SM_B_DEPTH)
+    plan = ring_plans(cfg, ring.size)[True]
+    params = init_shard(cfg, plan, ring.rank, seed=0, device=dev)
+    model = build_model(cfg, plan, dev)
+    what = f"(16b) llava {SM_B_DEPTH} layers tp {ring.size} rank {ring.rank}"
+    prompts = spec["prompts"]
+    streams, rec = ring_engine_run(
+        torch, ring, model, params, prompts, SM_B_NEW, True,
+        max_seq=SM_MAX_SEQ, knobs=dict(speculate="ngram", draft_k=SPEC_K))
+    rec["vs_tp1"] = ring_agree(torch, ring, model, params, prompts, streams,
+                               spec["want"], CHAIN_TOL, what)
+    p = sm_patches(torch, model, params, ring, CHAIN_TOL, what)
+    at = next((j for j, (u, v) in enumerate(zip(p["tokens"],
+                                                spec["patch_want"]))
+               if u != v), None)
+    if at is not None and p["gaps"][at] > CHAIN_TOL:
+        raise AssertionError(f"{what}: patch token {at} is "
+                             f"{p['tokens'][at]}, tp=1's "
+                             f"{spec['patch_want'][at]}, at a top-2 gap "
+                             f"{p['gaps'][at]}")
+    p["vs_tp1_first_apart"] = at
+    rec.update(streams=streams, patches=p,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+    del model, params
+    free_cuda(torch)
+    return rec
+
+
+def sm_c(torch, ring, spec):
+    """(c) at this rank: full-width opt-1.3b in f32 (ESL overlap, this
+    rank's shard drawn alone) with (h1)'s traffic and the n-gram drafter
+    on fused sampling on graphs, its eager twin, and host sampling on
+    graphs: every verify round of the fused run replayed, its
+    collectives those of the eager twin, every stream tp=1's or apart
+    only at a top-2 gap <= CHAIN_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.drafter import ProposalLog
+    from repro_torch.serving.engine import LPUEngine
+    dev = ring.device
+    cfg = get_config("opt-1.3b")
+    plan = ring_plans(cfg, ring.size)[True]
+    params = rank_weights(cfg, plan, ring.rank, dev)
+    model = build_model(cfg, plan, dev)
+    prompts, want = spec["prompts"], spec["want"]
+    out = {}
+    for key, graphs, knobs in (("fused", True, {}),
+                               ("fused_eager", False, {}),
+                               ("host", True, dict(sampling="host"))):
+        what = f"(16c) opt-1.3b tp {ring.size} {key} rank {ring.rank}"
+        eng = LPUEngine(model, params, EngineConfig(
+            slots=4, max_seq=512, block_size=BS, speculate="ngram",
+            draft_k=SPEC_K, **knobs), mesh=ring, device=dev,
+            graphs=graphs and ring.nccl)
+        eng.generate(prompts[:1], max_new_tokens=2)
+        torch.cuda.synchronize(dev)
+        eng.stats = type(eng.stats)()
+        eng.drafter = ProposalLog(eng.drafter)
+        v0 = eng._programs.replays_of("verify")
+        paged_decode_attention.launches = 0
+        ring.reset_counters()
+        t0 = time.perf_counter()
+        streams = eng.generate(prompts, max_new_tokens=TP_NEW)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        st = eng.stats
+        launches = paged_decode_attention.launches
+        r = dict(run_rec(eng, launches), wall_s=wall,
+                 tokens_per_s=st.tokens / wall, graphs=eng.graphs,
+                 kernel1_want=launches_want(eng),
+                 verify_replays=eng._programs.replays_of("verify") - v0,
+                 **spec_counts(eng), **ring_counts(ring,
+                                                   st.device_decode_steps))
+        if launches != r["kernel1_want"] or not launches:
+            raise AssertionError(f"{what}: kernel 1 launches {launches} != "
+                                 f"{r['kernel1_want']}")
+        if not st.spec_rounds:
+            raise AssertionError(f"{what}: no verify round")
+        if key == "fused" and eng.graphs and \
+                r["verify_replays"] != st.spec_rounds:
+            raise AssertionError(f"{what}: {r['verify_replays']} verify "
+                                 f"replays for {st.spec_rounds} rounds")
+        on_graphs(eng)
+        pool_checks(eng, what)
+        del eng
+        r["vs_tp1"] = ring_agree(torch, ring, model, params, prompts,
+                                 streams, want, CHAIN_TOL, what)
+        r["streams"] = streams
+        out[key] = r
+        if ring.rank == 0:
+            print(f"[tp_spec_mm] (16c) {key} rank 0: {r['tokens_per_s']:.1f}"
+                  f" tok/s, {st.spec_rounds} verify rounds", flush=True)
+    f, e = out["fused"], out["fused_eager"]
+    if f["streams"] != e["streams"]:
+        raise AssertionError("(16c) fused on graphs vs its eager twin: "
+                             "streams differ")
+    if ring.nccl and (f["collectives"], f["hops"]) != (e["collectives"],
+                                                       e["hops"]):
+        raise AssertionError(f"(16c) the graphs' collectives "
+                             f"{f['collectives']}/{f['hops']} != the eager "
+                             f"twin's {e['collectives']}/{e['hops']}")
+    del model, params
+    free_cuda(torch)
+    return out
+
+
+def tp_spec_mm_rank(ring, spec):
+    """One rank of phase 16 (rank r on ``cuda:r``, NCCL): (a) to (d) in
+    turn, each model freed before the next; returns every rank's
+    record."""
+    import torch
+    out = {"rank": ring.rank, "device": str(ring.device),
+           "card": torch.cuda.get_device_name(ring.device),
+           "backend": ring.backend}
+    for part, fn in (("a", sm_a), ("b", sm_b), ("c", sm_c),
+                     ("d", lambda torch, ring, sp: ring_whisper(
+                         torch, ring, sp, "(16d)"))):
+        t0 = time.perf_counter()
+        out[part] = fn(torch, ring, spec[part])
+        out[f"{part}_s"] = time.perf_counter() - t0
+        if ring.rank == 0:
+            print(f"[tp_spec_mm] (16{part}) rank 0 done in "
+                  f"{out[f'{part}_s']:.1f} s", flush=True)
+    return ring.gather_object(out)
+
+
+def check_time_llava_rank_k1(torch, dev, card_name):
+    """(e): kernel 1 at llava-next-34b's heads on a rank at tp 2
+    (SM_K1_HEADS: 28 query heads over 4 kv heads, dh 128, bf16 pool), at
+    the decode shape (B 1 and B 4, lengths LENGTHS, the fold) and at the
+    verify shape (VERIFY_POS's 4 slots x VERIFY_K1 queries, a table
+    each, no fold), against its plain version (3e-2), timed beside it,
+    the library call (gather + SDPA with GQA) and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        gather_kv_pages, paged_decode_attention_ref)
+    hq, gk, dh = SM_K1_HEADS
+    dt = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(16)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+    kp0, vp0 = rnd(N, BS, gk, dh), rnd(N, BS, gk, dh)
+    cases = {}
+    for b in (1, 4):
+        lens = list(LENGTHS[-b:])
+        tb = torch.zeros((b, T), dtype=torch.int32)
+        for i, n in enumerate(lens):
+            used = -(-n // BS)
+            tb[i, :used] = torch.arange(1 + T * i, 1 + T * i + used)
+        cases[f"decode_b{b}"] = (tb, lens, True)
+    tb = torch.zeros((len(VERIFY_POS), T), dtype=torch.int32)
+    for i, p in enumerate(VERIFY_POS):
+        used = -(-(p + VERIFY_K1) // BS)
+        tb[i, :used] = torch.arange(1 + T * i, 1 + T * i + used)
+    cases["verify"] = (tb.repeat_interleave(VERIFY_K1, 0),
+                       [p + 1 + j for p in VERIFY_POS
+                        for j in range(VERIFY_K1)], False)
+    out = {}
+    for key, (tb, lens, fold) in cases.items():
+        Q = tb.shape[0]
+        tb = tb.to(dev)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = rnd(Q, hq, dh)
+        kw = dict(k_new=rnd(Q, gk, dh), v_new=rnd(Q, gk, dh)) if fold else {}
+        got = paged_decode_attention(q, kp0, vp0, tb, ln, **kw)
+        want = paged_decode_attention_ref(q, kp0, vp0, tb, ln, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.isfinite(got).all() or err > TOL["bfloat16"]:
+            raise AssertionError(f"(16e) kernel 1 at llava's rank heads, "
+                                 f"{key}: max abs {err}")
+        n_sets = sets_for(2 * kp0.numel() * kp0.element_size())
+        pools = [(kp0.clone(), vp0.clone()) for _ in range(n_sets)]
+        valid = torch.arange(T * BS, device=dev)[None] < ln[:, None]
+        if fold:
+            valid = torch.cat([valid, torch.ones((Q, 1), dtype=torch.bool,
+                                                 device=dev)], 1)
+        mask = valid[:, None, None]
+
+        def library(i, tb=tb, kw=kw, mask=mask, q=q):
+            k = gather_kv_pages(pools[i][0], tb)
+            v = gather_kv_pages(pools[i][1], tb)
+            if kw:
+                k = torch.cat([k, kw["k_new"][:, None]], 1)
+                v = torch.cat([v, kw["v_new"][:, None]], 1)
+            F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+        t = timed(torch, {
+            "ms": lambda i, tb=tb, ln=ln, kw=kw, q=q: paged_decode_attention(
+                q, pools[i][0], pools[i][1], tb, ln, **kw),
+            "plain_ms": lambda i, tb=tb, ln=ln, kw=kw, q=q:
+                paged_decode_attention_ref(q, pools[i][0], pools[i][1], tb,
+                                           ln, **kw),
+            "library_ms": library}, n_sets)
+        # least work: q, each slot's valid K/V rows (and the new token),
+        # tables and lengths read once, the output written once; 4 dh
+        # flops per q head per attended position
+        item = kp0.element_size()
+        slot_rows = (sum(LENGTHS[-Q:]) if fold else
+                     sum(p + VERIFY_K1 for p in VERIFY_POS))
+        new = Q if fold else 0
+        nbytes = item * (2 * Q * hq * dh + 2 * (slot_rows + new) * gk * dh) \
+            + 4 * (Q * T + Q)
+        attended = sum(lens) + new
+        t["bound_ms"], t["bound_by"] = bound_for(
+            nbytes, 4 * dh * hq * attended, "bfloat16", card_name)
+        t.update(max_abs_err=err, tol=TOL["bfloat16"], shapes={
+            "Q": Q, "H": hq, "G": gk, "gs": hq // gk, "dh": dh, "bs": BS,
+            "T": T, "lengths": lens, "dtype": "bfloat16", "fold": fold})
+        out[key] = t
+        del pools
+    return out
+
+
+def sm_tp1(torch, dev):
+    """The tp=1 references of phase 16 on ``dev``, each model freed
+    after: (b) llava at SM_B_DEPTH layers in f32 (its streams and patch
+    tokens), (c) opt-1.3b in f32 with (h1)'s traffic, (d) whisper-tiny's
+    tokens through the steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.steps import build_prefill_step, build_serve_step
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine
+    rec = {}
+    model, params, _ = family_model(torch, dev, "llava-next-34b", "float32",
+                                    SM_B_DEPTH)
+    prompts = sm_prompts(model.cfg, 4, 21)
+    eng = LPUEngine(model, params, EngineConfig(
+        slots=len(prompts), max_seq=SM_MAX_SEQ, block_size=BS), device=dev)
+    rec["b"] = {"prompts": prompts,
+                "want": eng.generate(prompts, max_new_tokens=SM_B_NEW),
+                "patch_want": sm_patches(torch, model, params, None,
+                                         CHAIN_TOL, "(16b) tp=1")["tokens"]}
+    del eng, model, params
+    free_card(torch, "after (16b)'s tp=1 reference")
+    model, params = opt_model(torch, dev, "opt-1.3b")
+    prompts = opt_prompts(get_config("opt-1.3b"))[0]
+    rec["c"] = {"prompts": prompts, "want": serve(
+        torch, dev, model, params, prompts, paged_kernel="stream")[0]}
+    del model, params
+    free_card(torch, "after (16c)'s tp=1 reference")
+    model, params, _ = family_model(torch, dev, "whisper-tiny", "float32")
+    frames, prompt = whisper_inputs(torch, dev, model.cfg)
+    rows, S = prompt.shape
+    pre, _ = build_prefill_step(model, None, rows, 64)
+    step, _ = build_serve_step(model, None, rows, 64)
+    tok, cache = pre(params, model.init_cache(rows, 64), prompt,
+                     frames=frames)
+    toks = [tok]
+    for t in range(TP_WHISPER_STEPS):
+        pos = torch.full((rows,), S + t, dtype=torch.int32, device=dev)
+        tok, cache = step(params, cache, toks[-1][:, None].long(), pos)
+        toks.append(tok)
+    rec["d"] = {"want": torch.stack(toks, 1).tolist(),
+                "steps": TP_WHISPER_STEPS}
+    del model, params, cache
+    free_card(torch, "after (16d)'s tp=1 reference")
+    return rec
+
+
+def run_tp_spec_mm(torch, dev, card_name, lap=None,
+                   placement="card_per_rank", a_depth=None):
+    """Phase 16 on a machine of 2 or more cards: (e) kernel 1 at llava's
+    rank heads on cuda:0; the tp=1 references on cuda:0 (:func:`sm_tp1`),
+    then a ring of SM_TP ranks, each on its own card over NCCL, every
+    step on graphs, each rank drawing only its shard: (a) llava-next-34b
+    whole, (b) llava at 8 layers, (c) opt-1.3b, (d) whisper-tiny.
+    ``placement="shared_card"`` (with ``a_depth``, (a)'s depth cut)
+    rehearses the phase on one card (the ranks share it over gloo, steps
+    eager)."""
+    from repro_torch.core.dist import run_ranks
+    t_phase = time.perf_counter()
+    rec = {"card": card_name, "cards": torch.cuda.device_count(),
+           "cards_listed": smi_query("--query-gpu=index,name,power.limit",
+                                     "--format=csv,noheader").splitlines()}
+    t0 = time.perf_counter()
+    rec["e_kernel1"] = check_time_llava_rank_k1(torch, dev, card_name)
+    rec["e_s"] = time.perf_counter() - t0
+    if lap is not None:
+        lap("(16e) kernel 1")
+    t0 = time.perf_counter()
+    refs = sm_tp1(torch, dev)
+    rec["tp1_s"] = time.perf_counter() - t0
+    if lap is not None:
+        lap("(16) tp=1 references")
+    spec = {"a": {"out": SM_OUT, "depth": a_depth}, **refs}
+    t0 = time.perf_counter()
+    per_rank = run_ranks(tp_spec_mm_rank, SM_TP, spec, device="cuda",
+                         placement=placement, timeout_s=600)
+    rec["ranks_s"] = time.perf_counter() - t0
+    rec["backend"] = same_on_ranks(per_rank, lambda x: x["backend"],
+                                   "backend")
+    rec["rank_cards"] = [x["card"] for x in per_rank]
+    rec["part_s"] = [{p: x[f"{p}_s"] for p in "abcd"} for x in per_rank]
+    a = [x["a"] for x in per_rank]
+    ra = {"arch": "llava-next-34b", "dtype": "bfloat16",
+          "n_layers": a[0]["n_layers"], "tp": SM_TP,
+          "setup_s": [x["setup_s"] for x in a],
+          "weight_bytes_per_card": [x["weight_bytes"] for x in a],
+          "peak_memory_bytes_per_card": [x["peak_memory_bytes"] for x in a],
+          "peak_memory_after_draw_per_card": [x["peak_memory_after_draw"]
+                                              for x in a], "runs": {}}
+    for key in a[0]["runs"]:
+        rr = [x["runs"][key] for x in a]
+        same_on_ranks(rr, lambda x: x["stream_head"], f"(16a) {key} stream")
+        one = {"stream_head": rr[0]["stream_head"],
+               "out_tokens": rr[0]["out_tokens"]}
+        for sub in ("plain", "spec"):
+            xs = [x[sub] for x in rr]
+            one[sub] = {k: v for k, v in xs[0].items()
+                        if k != "top_kernels"}
+            for k in ("wall_ms_per_token", "device_ms_per_token",
+                      "nccl_ms_per_token", "kernel1_launches"):
+                one[sub][f"{k}_per_rank"] = [x[k] for x in xs]
+            one[sub]["top_kernels_rank0"] = xs[0]["top_kernels"]
+        same_on_ranks([x["spec"] for x in rr], lambda x: [x[f] for f in (
+            "spec_rounds", "draft_tokens", "accepted_tokens",
+            "proposals_crc32")], f"(16a) {key} drafts and acceptance")
+        bb = [x["batch4_spec"] for x in rr]
+        same_on_ranks(bb, lambda x: [x["streams_head"], x["proposals_crc32"],
+                                     x["accepted_tokens"]],
+                      f"(16a) {key} batch streams and drafts")
+        one["batch4_spec"] = dict(
+            {k: v for k, v in bb[0].items() if k != "cache_shapes"},
+            kernel1_launches_per_rank=[x["kernel_launches"] for x in bb])
+        pp = [x["patches"] for x in rr]
+        same_on_ranks(pp, lambda x: x["tokens"], f"(16a) {key} patches")
+        one["patches"] = dict({k: v for k, v in pp[0].items()
+                               if k != "gaps"},
+                              prefill_device_ms_per_rank=[
+                                  x["prefill_device_ms"] for x in pp])
+        ra["runs"][key] = one
+    rec["a"] = ra
+    rb = [x["b"] for x in per_rank]
+    same_on_ranks(rb, lambda x: [x["streams"], x["patches"]["tokens"]],
+                  "(16b) streams and patch tokens")
+    rec["b"] = dict({k: v for k, v in rb[0].items()
+                     if k not in ("streams", "cache_shapes")},
+                    kernel1_launches_per_rank=[x["kernel_launches"]
+                                               for x in rb],
+                    peak_memory_bytes_per_card=[x["peak_memory_bytes"]
+                                                for x in rb])
+    rec["b"]["patches"].pop("gaps")
+    rc = [x["c"] for x in per_rank]
+    rec["c"] = {}
+    for key in rc[0]:
+        rr = [x[key] for x in rc]
+        same_on_ranks(rr, lambda x: [x["streams"], x["proposals_crc32"],
+                                     x["accepted_tokens"]],
+                      f"(16c) {key} streams and drafts")
+        rec["c"][key] = dict({k: v for k, v in rr[0].items()
+                              if k != "streams"},
+                             kernel1_launches_per_rank=[
+                                 x["kernel_launches"] for x in rr])
+    rd = [x["d"] for x in per_rank]
+    same_on_ranks(rd, lambda x: x["tokens"], "(16d) whisper tokens")
+    rec["d"] = dict({k: v for k, v in rd[0].items() if k != "tokens"},
+                    tokens_head=[t[:4] for t in rd[0]["tokens"]])
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def print_tp_spec_mm(rec, smi):
+    """The phase's summary lines."""
+    a = rec["a"]
+    for k, x in a["runs"].items():
+        p, s, b, pt = x["plain"], x["spec"], x["batch4_spec"], x["patches"]
+        print(f"[tp_spec_mm] (16a) llava-next-34b {a['n_layers']} layers "
+              f"bf16 tp {a['tp']} {k}: plain ms/token wall "
+              f"{p['wall_ms_per_token_per_rank']} device "
+              f"{p['device_ms_per_token_per_rank']} (NCCL "
+              f"{p['nccl_ms_per_token_per_rank']}), bound "
+              f"{p['bound_ms_per_token']:.3f}; n-gram k {SPEC_K}: wall "
+              f"{s['wall_ms_per_token_per_rank']} device "
+              f"{s['device_ms_per_token_per_rank']}, acceptance "
+              f"{s['acceptance_rate']:.3f}, tokens a forward "
+              f"{s['tokens_per_forward']:.2f}, vs plain "
+              f"{s['vs_plain']['equal']}/1; kernel 1 launches "
+              f"{p['kernel1_launches_per_rank']} / "
+              f"{s['kernel1_launches_per_rank']} (want "
+              f"{p['kernel1_want']} / {s['kernel1_want']}) | {smi}")
+        print(f"[tp_spec_mm] (16a) {k}: batch {SM_BATCH[0]} x {SM_BATCH[1]} "
+              f"speculative {b['tokens_per_s']:.1f} tok/s, acceptance "
+              f"{b['acceptance_rate']:.3f}, verify replays "
+              f"{b['verify_replays']}; patches {pt['patches']} + "
+              f"{pt['text_tokens']}: prefill device "
+              f"{pt['prefill_device_ms_per_rank']} ms, serve "
+              f"{pt['serve_wall_ms_per_step']:.2f} ms/step wall, equal to "
+              f"the recompute twin {pt['equal_to_recompute']}/"
+              f"{len(pt['tokens'])} | {smi}")
+    print(f"[tp_spec_mm] (16a) peak memory per card "
+          f"{a['peak_memory_bytes_per_card']}, weights per card "
+          f"{a['weight_bytes_per_card']}, draw {a['setup_s']} s")
+    b = rec["b"]
+    print(f"[tp_spec_mm] (16b) llava {SM_B_DEPTH} layers f32 tp {SM_TP}: "
+          f"speculative engine equal to tp=1 {b['vs_tp1']['equal']}/"
+          f"{b['vs_tp1']['of']}, acceptance {b['acceptance_rate']:.3f}, "
+          f"verify replays {b['verify_replays']}; patch tokens first apart "
+          f"from tp=1 at {b['patches']['vs_tp1_first_apart']} | {smi}")
+    for k, x in rec["c"].items():
+        print(f"[tp_spec_mm] (16c) opt-1.3b f32 tp {SM_TP} {k}: "
+              f"{x['tokens_per_s']:.1f} tok/s, {x['spec_rounds']} verify "
+              f"rounds ({x['verify_replays']} replayed), acceptance "
+              f"{x['acceptance_rate']:.3f}, {x['collectives']} collectives, "
+              f"kernel 1 {x['kernel1_launches_per_rank']} (want "
+              f"{x['kernel1_want']}), equal to tp=1 {x['vs_tp1']['equal']}/"
+              f"{x['vs_tp1']['of']} | {smi}")
+    d = rec["d"]
+    print(f"[tp_spec_mm] (16d) whisper-tiny f32 tp {SM_TP}: equal to tp=1 "
+          f"{d['equal']}/{d['of']}, serve {d['serve_wall_ms_per_step']:.2f} "
+          f"ms/step wall | {smi}")
+    for k, t in rec["e_kernel1"].items():
+        print(f"[tp_spec_mm] (16e) kernel 1 at llava's rank heads {k}: "
+              f"{t['ms']:.5f} ms, plain {t['plain_ms']:.4f}, library "
+              f"{t['library_ms']:.4f}, bound {t['bound_ms']:.6f} "
+              f"({t['bound_by']}), max abs {t['max_abs_err']:.3g} | {smi}")
+    print(f"[time] (16) tp_spec_mm {rec['phase_s']:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "NVIDIA cards (see the module docstring).")
-    ap.add_argument("--only", choices=("tp_cards", "tp_families"),
-                    help="tp_cards / tp_families: build the kernels and "
-                         "run phase 14 / 15 alone (2 or more cards)")
+    ap.add_argument("--only", choices=("tp_cards", "tp_families",
+                                       "tp_spec_mm"),
+                    help="tp_cards / tp_families / tp_spec_mm: build the "
+                         "kernels and run phase 14 / 15 / 16 alone (2 or "
+                         "more cards)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -6497,10 +7371,14 @@ def main(argv=None) -> int:
             tp_cards = run_tp_cards(torch, torch.device("cuda", 0), smi, lap)
             print_tp_cards(tp_cards, smi)
             print(json.dumps({"tp_cards": tp_cards}))
-        else:
+        elif args.only == "tp_families":
             fam = run_tp_families(torch, torch.device("cuda", 0), smi, lap)
             print_tp_families(fam, smi)
             print(json.dumps({"tp_families": fam}))
+        else:
+            smm = run_tp_spec_mm(torch, torch.device("cuda", 0), smi, lap)
+            print_tp_spec_mm(smm, smi)
+            print(json.dumps({"tp_spec_mm": smm}))
         print(f"[time] total {time.perf_counter() - t_start:.1f} s")
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -6849,6 +7727,7 @@ def main(argv=None) -> int:
           f"{smi}")
     print(f"[time] (11) families {families['phase_s']:.1f} s", flush=True)
     lap("families (11)")
+    tp1["whisper-tiny"] = w["tokens"]
 
     train = run_training_phase(torch, dev, smi)
     ta, tb, c = train["a"], train["b"], train["c"]
@@ -6881,6 +7760,15 @@ def main(argv=None) -> int:
                   f"bytes per decode step, {r['ring_s']:.2f} s inside the "
                   f"collectives, equal to tp=1 "
                   f"{r['vs_tp1']['equal']}/{len(tp1[name][1])} | {smi}")
+        for k, r in m["runs"].items():
+            if "spec_rounds" in r:
+                print(f"[tp] (13e) {name} tp {TP} {k}: {r['spec_rounds']} "
+                      f"verify rounds, acceptance "
+                      f"{r['acceptance_rate']:.3f} "
+                      f"({r['accepted_tokens']}/{r['draft_tokens']}), "
+                      f"{r['accepted_per_window']:.2f} accepted a round, "
+                      f"the same {r['proposals']} proposals on every rank "
+                      f"(crc32 {r['proposals_crc32']})")
         print(f"[tp] (13) {name}: kernel 1 at the ranks' shapes "
               f"{m['kernel1_shapes']} max abs "
               f"{m['kernel1_max_abs_err_per_rank']}, pad heads per rank "
@@ -6901,6 +7789,13 @@ def main(argv=None) -> int:
           f"{d['draw_s']:.1f} s, peak {d['peak_bytes'] / 1e9:.2f} GB "
           f"({d['peak_over_shard_bytes'] / 1e9:.2f} over the shard; a tp=1 "
           f"MoE layer {d['moe_layer_tp1_bytes'] / 1e9:.2f}) | {smi}")
+    tw = tp["whisper"]
+    print(f"[tp] (13e) whisper-tiny f32 tp {TP} overlap, {tw['rows']} rows x "
+          f"{tw['serve_steps']} serve steps through the ring's steps: equal "
+          f"to phase 11 (d) {tw['equal']}/{tw['of']}, serve "
+          f"{tw['serve_wall_ms_per_step']:.2f} ms/step wall, prefill "
+          f"{tw['prefill_s']:.2f} s, {tw['collectives']} collectives, ranks "
+          f"{tw['rank_s']} s | {smi}")
     print(f"[time] (13) tp {tp['phase_s']:.1f} s (ranks "
           f"{tp['ranks_s']:.1f} s, jamba's tp=1 reference "
           f"{tj['tp1_s']:.1f} s with (13d))", flush=True)
@@ -6915,10 +7810,14 @@ def main(argv=None) -> int:
                                       lap)
         print_tp_families(tp_families, smi)
         lap("tp_families (15)")
+        tp_spec_mm = run_tp_spec_mm(torch, torch.device("cuda", 0), smi,
+                                    lap)
+        print_tp_spec_mm(tp_spec_mm, smi)
+        lap("tp_spec_mm (16)")
     else:
-        tp_families = None
-        print(f"[tp_cards] (14) and [tp_families] (15) need 2 or more "
-              f"cards; this machine has {n_cards}: not run")
+        tp_families = tp_spec_mm = None
+        print(f"[tp_cards] (14), [tp_families] (15) and [tp_spec_mm] (16) "
+              f"need 2 or more cards; this machine has {n_cards}: not run")
 
     def src(name):
         return os.path.relpath(build.source_path(name), HERE)
@@ -6950,6 +7849,17 @@ def main(argv=None) -> int:
             tp_families["c"]["kernel_launches_per_rank"])
         tp_k1["tp_families_d_granite"] = sum(
             tp_families["d"]["kernel_launches_per_rank"])
+        # phase 16: (a)'s protocols and batches, (b) and (c) on every rank
+        for k, r in tp_spec_mm["a"]["runs"].items():
+            tp_k1[f"tp_spec_mm_a_{k}"] = sum(
+                r["plain"]["kernel1_launches_per_rank"]
+                + r["spec"]["kernel1_launches_per_rank"]
+                + r["batch4_spec"]["kernel1_launches_per_rank"])
+        tp_k1["tp_spec_mm_b"] = sum(
+            tp_spec_mm["b"]["kernel1_launches_per_rank"])
+        tp_k1["tp_spec_mm_c"] = sum(
+            sum(r["kernel1_launches_per_rank"])
+            for r in tp_spec_mm["c"].values())
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": src("paged_decode_attention"),
@@ -7011,6 +7921,9 @@ def main(argv=None) -> int:
             for name, m in tp["models"].items()},
         # at the heads of the ranks of phase 14 (2 or more cards only)
         "tp_cards_shapes": tp_cards and tp_cards["d_kernel1"],
+        # at llava's rank heads at tp 2, decode and verify shapes (phase
+        # 16, 2 or more cards only)
+        "tp_spec_mm_shapes": tp_spec_mm and tp_spec_mm["e_kernel1"],
     }, {
         "name": "decode_attention", "route": "cuda",
         "source": src("decode_attention"),
@@ -7150,6 +8063,7 @@ def main(argv=None) -> int:
     if tp_cards is not None:
         print(json.dumps({"tp_cards": tp_cards}))
         print(json.dumps({"tp_families": tp_families}))
+        print(json.dumps({"tp_spec_mm": tp_spec_mm}))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s (limit "
           "1200 s)")
     print(smi)

@@ -68,8 +68,10 @@ from __future__ import annotations
 import contextlib
 import os
 import pickle
+import sys
 import tempfile
 import time
+import traceback
 import weakref
 from dataclasses import dataclass
 from datetime import timedelta
@@ -595,6 +597,15 @@ def _rank_main(rank: int, fn: Callable, devices: Sequence[str],
                 pickle.dump(out, f)
             os.replace(part, os.path.join(tmp, "result.pkl"))
         dist.barrier()
+    except BaseException:
+        if backend == "nccl":
+            # the failed rank's frames still hold its NCCL state (an
+            # engine's captured graphs, a peer's pending collective), and
+            # destroying the group then waits forever: report and leave
+            traceback.print_exc()
+            sys.stderr.flush()
+            os._exit(1)
+        raise
     finally:
         dist.destroy_process_group()
 

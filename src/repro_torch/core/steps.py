@@ -1,6 +1,7 @@
-"""Step builders at tp=1: the port of the local (``mesh=None``) paths of
-the reference's ``core/steps.py`` ``build_train_step``,
-``build_prefill_step`` and ``build_serve_step``.
+"""Step builders: the port of the reference's ``core/steps.py``
+``build_train_step`` (its local, ``mesh=None``, path),
+``build_prefill_step`` and ``build_serve_step`` (at tp=1 and on the
+model ring).
 
 * ``train_step(params, opt_state, batch)`` — forward and backward in
   eager autograd, the optional microbatched accumulation, then the
@@ -22,9 +23,16 @@ update in place.
   step: tokens (B, 1) at ``positions`` (B,), each row's resident length
   (for a vlm it counts the patches); returns (next token (B,), cache).
 
-A mesh raises ``NotImplementedError`` (the ring serves the decoder-only
-stacks through ``LPUEngine``; the steps' mesh form is not ported yet),
-as does the train step's int8 gradient sync over a pod axis.
+The serving steps' ring form (the reference's ``shard_map`` steps):
+``mesh`` is the rank's :class:`repro_torch.core.dist.Ring` inside
+:func:`repro_torch.core.dist.run_ranks`, the model planned for
+``("model",), (tp,)``, ``params`` the rank's shards
+(:func:`repro_torch.weights.init_shard`) and the cache the model's
+``init_cache`` at the rank's heads.  Each rank's step returns the same
+global greedy token: the argmax of its vocab columns, all-gathered
+with its value, the first index among equal maxima.  A mesh in the
+train step raises ``NotImplementedError`` (FSDP and the gradient sync
+are not ported), as does its int8 gradient sync over a pod axis.
 """
 from __future__ import annotations
 
@@ -32,6 +40,8 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.core import dist
+from repro_torch.core.dist import AxisEnv, make_axis_env, on_ring
 from repro_torch.device import dtype_of
 from repro_torch.models.transformer import sharded_xent
 from repro_torch.tree import tree_flatten
@@ -39,19 +49,44 @@ from repro_torch.tree import tree_flatten
 Params = Dict[str, Any]
 
 
-def _greedy(logits: torch.Tensor) -> torch.Tensor:
+def _greedy(logits: torch.Tensor, env: AxisEnv) -> torch.Tensor:
     """(B, S, V_pad) -> (B,) int32 argmax of the last row (the first
-    index among equal values, as ``jnp.argmax``)."""
-    return logits[:, -1].float().argmax(-1).to(torch.int32)
+    index among equal values, as ``jnp.argmax``).  On the ring the
+    logits are the rank's (B, S, V_pad/tp) columns: each rank's local
+    max and its global index are all-gathered (rank order), and the
+    first index among equal maxima wins, the tp=1 argmax."""
+    lg = logits[:, -1].float()
+    loc_idx = lg.argmax(-1)
+    if not on_ring(env):
+        return loc_idx.to(torch.int32)
+    v_loc = lg.shape[-1]
+    loc_val = lg.gather(-1, loc_idx[:, None])
+    glob = loc_idx[:, None] + dist.model_rank(env) * v_loc
+    vals = dist.all_gather(loc_val, env.model, dim=-1)       # (B, tp)
+    globs = dist.all_gather(glob, env.model, dim=-1)         # (B, tp)
+    best = vals.argmax(-1)
+    return globs.gather(-1, best[:, None])[:, 0].to(torch.int32)
 
 
 def _local(mesh, what: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            f"{what}: a mesh is not ported to core/steps.py yet (the "
-            "port's tp slice serves the decoder-only stacks through "
-            "LPUEngine "
-            "on a ring of ranks); pass mesh=None")
+            f"{what}: a mesh is not ported to the train step yet (FSDP "
+            "gathers and the gradient sync); pass mesh=None")
+
+
+def _serving_env(model, mesh, batch: int, what: str) -> AxisEnv:
+    """The serving step's AxisEnv: tp 1 without a mesh, else the
+    rank's ``mesh`` (a :class:`repro_torch.core.dist.Ring` of the plan's
+    tp)."""
+    if mesh is not None and not isinstance(mesh, dist.Ring):
+        raise TypeError(f"{what}: mesh is the rank's repro_torch.core."
+                        f"dist.Ring (run_ranks), not a "
+                        f"{type(mesh).__name__}")
+    if mesh is not None and model.plan.mesh_axes is None:
+        raise ValueError(f"{what}: a ring needs a plan built for it "
+                         "(mesh_axes ('model',))")
+    return make_axis_env(model.plan, batch=batch, ring=mesh)
 
 
 def build_train_step(model, optimizer, mesh, global_batch: int,
@@ -146,22 +181,23 @@ def build_train_step(model, optimizer, mesh, global_batch: int,
 def build_serve_step(model, mesh, batch: int, max_seq: int
                      ) -> Tuple[Callable, Dict[str, Any]]:
     """One-token generation step (the LPU's target loop)."""
-    _local(mesh, "build_serve_step")
+    env = _serving_env(model, mesh, batch, "build_serve_step")
 
     @torch.no_grad()
     def step(params, cache, tokens, positions):
         logits, cache = model.forward(params, tokens, mode="decode",
-                                      positions=positions, cache=cache)
-        return _greedy(logits), cache
+                                      positions=positions, cache=cache,
+                                      env=env)
+        return _greedy(logits, env), cache
 
-    return step, {"batch": batch, "max_seq": max_seq}
+    return step, {"batch": batch, "max_seq": max_seq, "env": env}
 
 
 def build_prefill_step(model, mesh, batch: int, max_seq: int
                        ) -> Tuple[Callable, Dict[str, Any]]:
     """Summarization stage: consume the prompt, emit the cache and the
     greedy token of its last row."""
-    _local(mesh, "build_prefill_step")
+    env = _serving_env(model, mesh, batch, "build_prefill_step")
     family = model.cfg.family
 
     @torch.no_grad()
@@ -169,7 +205,7 @@ def build_prefill_step(model, mesh, batch: int, max_seq: int
         logits, cache = model.forward(
             params, tokens, mode="prefill", cache=cache,
             frames=frames if family == "encdec" else None,
-            patch_embeds=patch_embeds if family == "vlm" else None)
-        return _greedy(logits), cache
+            patch_embeds=patch_embeds if family == "vlm" else None, env=env)
+        return _greedy(logits, env), cache
 
-    return step, {"batch": batch, "max_seq": max_seq}
+    return step, {"batch": batch, "max_seq": max_seq, "env": env}

@@ -23,7 +23,7 @@ and run the engine on a batch of random prompts.
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --budget-ms 5 --max-pending 2 --tracker t.jsonl
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
-        --device cpu --tp 2 [--no-overlap]
+        --device cpu --tp 2 [--no-overlap] [--speculate ngram]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b \
         --tp 2                                     # a card per rank
     PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-1.3b \
@@ -32,6 +32,8 @@ and run the engine on a batch of random prompts.
         --reduced --device cpu --tp 2
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-v0.1-52b --tp 2               # two cards, 52 GB each
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llava-next-34b --tp 2               # two cards, its text
 
 ``--arch`` takes any name or alias of the port's registry: the dense
 decoders (smollm-135m, the paper's opt-1.3b/6.7b/30b/66b and gpt3-20b,
@@ -76,8 +78,9 @@ The latency model's prior is taken at the H100 point on the card and at
 the LPU-FPGA point on the CPU (where the fleet and the front end are
 held to the reference's).
 
-``--tp N`` serves the dense, MoE (granite, llama4), rwkv and hybrid
-(jamba) stacks tensor-parallel over a ring of N ranks, each a process (:func:`repro_torch.core.dist.run_ranks`), each
+``--tp N`` serves the dense, MoE (granite, llama4), vlm (llava, as a
+text decoder), rwkv and hybrid (jamba) stacks tensor-parallel over a
+ring of N ranks, each a process (:func:`repro_torch.core.dist.run_ranks`), each
 drawing only its slice of the tp=1 weights (seed 0) at the ring's
 layout (:func:`repro_torch.weights.init_shard`): the streams are the
 tp=1 run's.  On CUDA each rank owns a card (rank r on ``cuda:r``) over
@@ -88,12 +91,14 @@ cannot be captured).  On the CPU (``--device cpu``) the ranks run over
 gloo, eagerly.  Rank 0 prints the reference's lines, the backend, the
 ranks' cards and the family kernel's launches on each rank.  ``--no-overlap`` is the blocking baseline (full
 matmuls, then ``psum``/``all_gather``) instead of the ESL overlap.
-``--tp`` with
-``--rings > 1`` or ``--chaos`` (the mesh fleet), ``--speculate``,
-``--budget-ms``, ``--max-pending`` or ``--tracker`` raises
-``NotImplementedError``: each of those decides from the wall clock or
-runs the verify round, which the ring does not run yet; llava (a vlm)
-and whisper-tiny are refused on the ring by the engine.
+``--speculate ngram|model`` composes with ``--tp``: every rank drafts
+the same tokens (the model drafter whole on each rank's device) and
+the ring verifies them in one forward on its heads.  ``--tp`` with
+``--rings > 1`` or ``--chaos`` (the mesh fleet), ``--budget-ms``,
+``--max-pending`` or ``--tracker`` raises ``NotImplementedError``: each
+of those decides from the wall clock or needs a fleet-wide agreement,
+which the ring does not have yet; whisper-tiny is refused by the
+engine on any mesh.
 """
 from __future__ import annotations
 
@@ -200,9 +205,6 @@ def refuse_on_ring(args) -> None:
         raise NotImplementedError(
             "--tp with --rings > 1 or --chaos: the mesh fleet (sub-rings "
             "of ring-parallel engines) is not ported yet")
-    if args.speculate != "off":
-        raise NotImplementedError(
-            "--tp with --speculate: speculation under tp is not ported yet")
     if args.budget_ms > 0 or args.max_pending > 0 or args.tracker:
         raise NotImplementedError(
             "--tp with --budget-ms, --max-pending or --tracker: the async "
@@ -237,8 +239,10 @@ def serve_rank(ring, argv):
                       compute_dtype="float32", param_dtype="float32")
     params = init_shard(cfg, plan, ring.rank, seed=0, device=dev)
     model = build_model(cfg, plan, dev)
+    draft_model, draft_params = _draft(cfg, args, dev)
     engine = LPUEngine(model, params, _engine_config(args), mesh=ring,
-                       device=dev, graphs=ring.nccl)
+                       device=dev, graphs=ring.nccl,
+                       draft_model=draft_model, draft_params=draft_params)
     prompts, sp = _batch(cfg, args)
     kernel = family_kernel(cfg)
     kernel.launches = 0
@@ -265,6 +269,22 @@ def serve_rank(ring, argv):
               f"decode step); {kernel.__name__} launches per rank "
               f"{launches}")
     return outs
+
+
+def _draft(cfg, args, dev):
+    """(draft model, its params) for ``--speculate model``, else (None,
+    None): its own small model, reduced smollm-135m seeded apart over
+    the target's vocabulary, at tp 1 on ``dev`` (on the ring every rank
+    holds it whole, so every rank drafts alike)."""
+    if args.speculate != "model":
+        return None, None
+    dcfg = replace(get_config("smollm-135m").reduced(),
+                   vocab_size=cfg.vocab_size)
+    dplan = plan_model(dcfg, None, (1,), "serve", esl_overlap=False,
+                       remat="none", compute_dtype="float32",
+                       param_dtype="float32")
+    draft_model = build_model(dcfg, dplan, dev)
+    return draft_model, draft_model.init(seed=1)
 
 
 def _batch(cfg, args):
@@ -302,7 +322,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--tp", type=int, default=1,
                     help="ESL ring width: ranks (processes) serving one "
-                         "model tensor-parallel (dense, MoE, rwkv and "
+                         "model tensor-parallel (dense, MoE, vlm, rwkv and "
                          "hybrid stacks)")
     ap.add_argument("--no-overlap", action="store_true",
                     help="blocking collectives baseline (vs ESL overlap)")
@@ -422,17 +442,7 @@ def main(argv=None):
                       param_dtype="float32")
     model = build_model(cfg, plan, dev)
     params = model.init(seed=0)
-    draft_model = draft_params = None
-    if args.speculate == "model":
-        # the drafter is its own small model, reduced and seeded apart,
-        # over the target's vocabulary
-        dcfg = replace(get_config("smollm-135m").reduced(),
-                       vocab_size=cfg.vocab_size)
-        dplan = plan_model(dcfg, None, (1,), "serve", esl_overlap=False,
-                           remat="none", compute_dtype="float32",
-                           param_dtype="float32")
-        draft_model = build_model(dcfg, dplan, dev)
-        draft_params = draft_model.init(seed=1)
+    draft_model, draft_params = _draft(cfg, args, dev)
     econf = _engine_config(args)
     # the latency model's step time (H100 point on the card, LPU-FPGA on
     # the CPU): each ring's straggler monitor starts from it, so

@@ -31,7 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import esl
-from repro_torch.core.dist import AxisEnv, model_rank, on_ring
+from repro_torch.core.dist import AxisEnv, model_rank, on_ring, ring_axis
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
 from repro_torch.models.common import apply_rope, big_neg
 from repro_torch.serving.kv_cache import (dequantize_kv, quantize_kv_rows,
@@ -282,38 +282,46 @@ def self_attention(p: Params, x: torch.Tensor, *, cfg, plan,
 
 
 def cross_attention(p: Params, x: torch.Tensor, *, cfg, plan,
-                    enc_k: torch.Tensor, enc_v: torch.Tensor
-                    ) -> torch.Tensor:
+                    enc_k: torch.Tensor, enc_v: torch.Tensor,
+                    env: Optional[AxisEnv] = None) -> torch.Tensor:
     """Decoder cross-attention (whisper) to precomputed encoder K/V
-    (B, S_enc, kpr, dh): only the query projection of x (with ``bq``),
-    no positions, no mask."""
+    (B, S_enc, kpr, dh), already the rank's heads on the ring: only the
+    query projection of x (with ``bq``; one ESL ``ag_matmul`` on the
+    ring), no positions, no mask."""
     a = plan.attn
     D = p["wq"].shape[0]
     B, S = x.shape[0], x.shape[1]
-    q = x @ p["wq"].reshape(D, a.q_per_rank * a.d_head)
-    if "bq" in p:
-        q = q + p["bq"].reshape(-1)
+    axis, tp = ring_axis(env)
+    q = esl.ag_matmul(x, p["wq"].reshape(D, a.q_per_rank * a.d_head),
+                      axis=axis, tp=tp, overlap=plan.esl_overlap,
+                      b=p["bq"].reshape(-1) if "bq" in p else None)
     q = q.reshape(B, S, a.q_per_rank, a.d_head)
-    kmap = local_kmap(plan, x.device)
+    kmap = local_kmap(plan, x.device, model_rank(env))
     out = flash_attention(q, _expand_kv(enc_k, kmap),
                           _expand_kv(enc_v, kmap), causal=False)
-    return out_proj(p, out, plan)
+    return out_proj(p, out, plan, env)
 
 
-def encode_cross_kv(p: Params, enc_x: torch.Tensor, *, cfg, plan
+def encode_cross_kv(p: Params, enc_x: torch.Tensor, *, cfg, plan,
+                    env: Optional[AxisEnv] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K/V (B, S_enc, kpr, dh) of the encoder states for cross-attention
-    (with ``bk``/``bv``), computed once per request."""
+    (with ``bk``/``bv``), computed once per request; on the ring the
+    rank's kv heads, from one ESL pass that feeds its k and v tiles
+    (``esl.ag_matmuls``; the encoder states arrive scattered under ESL
+    overlap)."""
     a = plan.attn
     D = p["wk"].shape[0]
     B, S = enc_x.shape[0], enc_x.shape[1]
-    k = enc_x @ p["wk"].reshape(D, a.kv_per_rank * a.d_head)
-    v = enc_x @ p["wv"].reshape(D, a.kv_per_rank * a.d_head)
+    kpr, dh = a.kv_per_rank, a.d_head
+    axis, tp = ring_axis(env)
+    k, v = esl.ag_matmuls(enc_x, (p["wk"].reshape(D, kpr * dh),
+                                  p["wv"].reshape(D, kpr * dh)),
+                          axis=axis, tp=tp, overlap=plan.esl_overlap)
     if "bk" in p:
         k = k + p["bk"].reshape(-1)
         v = v + p["bv"].reshape(-1)
-    return (k.reshape(B, S, a.kv_per_rank, a.d_head),
-            v.reshape(B, S, a.kv_per_rank, a.d_head))
+    return k.reshape(B, S, kpr, dh), v.reshape(B, S, kpr, dh)
 
 
 def prefill_attention(p: Params, x: torch.Tensor, *, cfg, plan,
@@ -456,7 +464,8 @@ def chunk_prefill_attention(p: Params, x: torch.Tensor, *, cfg, plan,
 def verify_attention(p: Params, x: torch.Tensor, *, cfg, plan,
                      positions: torch.Tensor, cache: Dict[str, torch.Tensor],
                      block_tables: torch.Tensor, kv_valid_len: torch.Tensor,
-                     paged_kernel: str = "stream") -> torch.Tensor:
+                     paged_kernel: str = "stream",
+                     env: Optional[AxisEnv] = None) -> torch.Tensor:
     """Score a speculative verify window against the pool, in place.
 
     Every decode slot's (last committed token + K drafts) are flattened
@@ -480,9 +489,14 @@ def verify_attention(p: Params, x: torch.Tensor, *, cfg, plan,
       their own tables and lengths;
     * ``"gather"`` — the oracle: flash attention of each query over its
       gathered view with ``q_offset = pos``.
+
+    On the ring (``env``) x is the rank's (1, Q, D/tp) under ESL overlap,
+    the window's rows go into the rank's head-sharded pool (the same
+    block ids on every rank), the kernel reads the rank's kv heads, and
+    ``out_proj`` reduces over the ranks.
     """
     ks, vs = _pool_scales(cache)
-    q, k, v = _qkv_rope(p, x, cfg, plan, positions)
+    q, k, v = _qkv_rope(p, x, cfg, plan, positions, env)
     kc, vc = cache["k"], cache["v"]
     pos = positions[0]
     lens = kv_valid_len
@@ -498,14 +512,14 @@ def verify_attention(p: Params, x: torch.Tensor, *, cfg, plan,
                                      lens.to(torch.int32), k_scale=ks,
                                      v_scale=vs)[None]
     else:
-        kmap = local_kmap(plan, x.device)
+        kmap = local_kmap(plan, x.device, model_rank(env))
         out = flash_attention(
             q[0][:, None], _expand_kv(_gather_view(kc, ks, block_tables),
                                       kmap),
             _expand_kv(_gather_view(vc, vs, block_tables), kmap),
             causal=True, q_offset=pos, kv_valid_len=lens)
         out = out.transpose(0, 1)
-    return out_proj(p, out, plan)
+    return out_proj(p, out, plan, env)
 
 
 # ---------------------------------------------------------------------------

@@ -44,15 +44,10 @@ class Model:
         (which only the train step passes) returns (logits, cache, aux),
         the MoE layers' auxiliary loss summed over the stack (a float32
         zero for a family without MoE layers).  ``env``: the rank's
-        :class:`repro_torch.core.dist.AxisEnv` on the model ring (the
-        dense, MoE, rwkv and hybrid families), with the rank's shards
-        and cache; the logits
-        are then its V_pad/tp columns."""
+        :class:`repro_torch.core.dist.AxisEnv` on the model ring (every
+        family), with the rank's shards and cache; the logits are then
+        its V_pad/tp columns."""
         if self.cfg.family == "encdec":
-            if env is not None and env.tp > 1:
-                raise NotImplementedError(
-                    f"{self.cfg.name}: an encoder-decoder's tensor "
-                    "parallelism over the ring is not ported yet")
             if block_s:
                 raise ValueError(
                     "block_s override is not supported for encdec decode "
@@ -63,7 +58,8 @@ class Model:
             return wh.forward_encdec(params, tokens, cfg=self.cfg,
                                      plan=self.plan, mode=mode,
                                      frames=frames, positions=positions,
-                                     cache=cache, with_aux=with_aux)
+                                     cache=cache, with_aux=with_aux,
+                                     env=env)
         return tf.forward(params, tokens, cfg=self.cfg, plan=self.plan,
                           mode=mode, positions=positions, cache=cache,
                           block_tables=block_tables,
@@ -94,8 +90,9 @@ class Model:
         f32}}; for a hybrid stack, mamba indices hold {"conv": (n_sb,
         batch, K-1, d_in) in the cache dtype, "ssm": (n_sb, batch, d_in,
         N) f32} (on the ring one rank's: H its heads, d_in its channels,
-        D its channels under ESL overlap); for an encoder-decoder {"k","v": (L, batch, max_seq, Gp,
-        dh), "ck","cv": (L, batch, enc_seq, Gp, dh)}
+        D its channels under ESL overlap); for an encoder-decoder
+        {"k","v": (L, batch, max_seq, kpr, dh), "ck","cv": (L, batch,
+        enc_seq, kpr, dh)}, kpr the rank's kv heads
         (:func:`repro_torch.models.whisper.init_encdec_cache`).
         ``max_seq`` sizes only the dense k/v.  ``scale_dtype``
         (paged only) makes the pool an int8/fp8 one: ``dtype`` is its

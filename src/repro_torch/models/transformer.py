@@ -31,8 +31,9 @@ positions D-sharded, and the norms combine their statistics over the
 ring.  Attention runs on the rank's heads, mamba on its d_inner/tp
 channels, rwkv on its heads, an MoE on its experts
 (:mod:`repro_torch.models.mamba`, :mod:`~repro_torch.models.rwkv`,
-:mod:`~repro_torch.models.moe`).  A vlm and an encoder-decoder raise on
-a ring: their tensor parallelism is not ported yet.
+:mod:`~repro_torch.models.moe`); a vlm's D-sharded projector gives its
+patch rows in the activations' convention (:func:`project_patches`),
+and a speculative verify window runs on the rank's heads and pool.
 """
 from __future__ import annotations
 
@@ -143,6 +144,21 @@ def add_positional(p: Params, x: torch.Tensor, positions: torch.Tensor,
                           scattered_activations=plan.esl_overlap)
     idx = positions.long().clamp(0, pe.shape[0] - 1)
     return x + pe[idx].to(x.dtype)
+
+
+def project_patches(p: Params, patch_embeds: torch.Tensor, plan,
+                    env: Optional[AxisEnv] = None) -> torch.Tensor:
+    """A vlm's (B, n_patches, patch_embed_dim) patch embeddings through
+    its ``projector`` -> rows in the activations' convention.  On the
+    ring the projector is D-sharded (the reference's ``("patches",
+    "embed_scatter")`` rule): the local product gives the rank's
+    scattered (B, P, D/tp) rows, gathered whole in the blocking
+    baseline."""
+    compute = dtype_of(plan.compute_dtype)
+    pe = patch_embeds.to(compute) @ p["projector"].to(compute)
+    if on_ring(env) and not plan.esl_overlap:
+        pe = esl.gather_scattered(pe, axis=env.model, tp=env.tp)
+    return pe
 
 
 def lm_logits(p: Params, x: torch.Tensor, cfg, plan,
@@ -258,7 +274,7 @@ def apply_layer(p: Params, x: torch.Tensor, *, cfg, plan,
         h = attn_mod.verify_attention(
             p["attn"], h_in, cfg=cfg, plan=plan, positions=positions,
             cache=cache, block_tables=block_tables,
-            kv_valid_len=kv_valid_len, paged_kernel=paged_kernel)
+            kv_valid_len=kv_valid_len, paged_kernel=paged_kernel, env=env)
     elif mode == "train":
         h = attn_mod.self_attention(p["attn"], h_in, cfg=cfg, plan=plan,
                                     positions=positions, env=env)
@@ -382,28 +398,19 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
     recomputes each super-block in backward.
 
     ``env`` (the rank's :class:`repro_torch.core.dist.AxisEnv` on the
-    model ring) runs the dense, MoE, rwkv and hybrid families
+    model ring) runs the dense, MoE, vlm, rwkv and hybrid families
     tensor-parallel on the rank's shards
     (:func:`repro_torch.weights.shard_params`) and its cache (kv_per_rank
     heads, the rank's rwkv heads and mamba channels): the logits are
-    then the rank's V_pad/tp columns.  The ring's prefill, decode and
-    chunked prefill are ported; a vlm, an encoder-decoder, speculative
-    verify and training raise."""
-    if on_ring(env):
-        from repro_torch.weights import RING_FAMILIES
-        if cfg.family not in RING_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}): tensor parallelism over the "
-                f"ring is ported for the {', '.join(RING_FAMILIES)} stacks "
-                "only")
-        if mode not in ("prefill", "decode", "chunk_prefill", "train"):
-            raise NotImplementedError(
-                f"mode={mode!r} on the ring (speculative verify under tp) "
-                "is not ported yet")
-        if with_aux or torch.is_grad_enabled() and mode == "train":
-            raise NotImplementedError(
-                "training on the ring (FSDP gathers, gradient sync) is not "
-                "ported yet; the ring's train mode is a no-grad forward")
+    then the rank's V_pad/tp columns.  The ring's prefill, decode,
+    chunked prefill and speculative verify are ported, and a vlm's
+    patches; training raises (FSDP and the gradient sync are not
+    ported)."""
+    if on_ring(env) and (with_aux or torch.is_grad_enabled()
+                         and mode == "train"):
+        raise NotImplementedError(
+            "training on the ring (FSDP gathers, gradient sync) is not "
+            "ported yet; the ring's train mode is a no-grad forward")
     if paged_kernel not in ("stream", "gather"):
         raise ValueError(f"paged_kernel={paged_kernel!r}: pass the resolved "
                          "dataflow, 'stream' or 'gather'")
@@ -417,8 +424,8 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
     compute = dtype_of(plan.compute_dtype)
     x = embed_tokens(params, tokens, cfg, plan, env).to(compute)
     if patch_embeds is not None:
-        pe = patch_embeds.to(compute) @ params["projector"].to(compute)
-        x = torch.cat([pe, x], 1)
+        x = torch.cat([project_patches(params, patch_embeds, plan, env)
+                       .to(compute), x], 1)
         if mode != "decode":
             S = x.shape[1]
             positions = torch.arange(S, device=tokens.device).expand(B, S)

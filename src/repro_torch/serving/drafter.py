@@ -78,9 +78,17 @@ class ModelDrafter:
     to the causal rows before it), on the model's own device, and
     extends the context greedily token by token: ``k`` forwards per
     proposal.  No state is kept between calls, so rejected windows and
-    preemption need no draft-side rollback."""
+    preemption need no draft-side rollback.  The draft model runs at
+    tp 1 even when the target serves on the model ring (as the
+    reference's builds its own tp=1 env): each rank holds the whole
+    draft model on its own device, and the same weights and the same
+    streams give every rank the same drafts without a broadcast."""
 
     def __init__(self, model, params, max_seq: int = 2048):
+        if model.plan.tp != 1:
+            raise ValueError(
+                f"the draft model is planned for tp={model.plan.tp}: it "
+                "runs whole on each rank's device (plan it with mesh None)")
         self.model = model
         self.params = params
         self.max_seq = max_seq
@@ -109,6 +117,21 @@ class ModelDrafter:
             out.append(nxt)
             toks.append(nxt)
         return out
+
+
+class ProposalLog:
+    """A drafter whose every proposal is kept, in order, in
+    ``proposals``: on a ring every rank must propose the same drafts,
+    which the ranks' logs show."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.proposals: List[List[int]] = []
+
+    def propose(self, tokens: Sequence[int], k: int) -> List[int]:
+        p = self.inner.propose(tokens, k)
+        self.proposals.append([int(t) for t in p])
+        return p
 
 
 def make_drafter(kind: str, *, draft_model=None, draft_params=None,

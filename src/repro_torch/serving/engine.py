@@ -144,9 +144,17 @@ the model ring.
   inside the graph and the NaN guard's verdict on the device; a replay
   adds its capture's collectives to ``ring.counters``.  A gloo ring's
   collectives (the CPU, or ranks sharing one card) cannot be captured,
-  so ``graphs=True`` on it raises and its steps run eagerly.
-  Speculation, a vlm, an encoder-decoder and the mesh fleet raise
-  ``NotImplementedError`` on a ring.
+  so ``graphs=True`` on it raises and its steps run eagerly.  A vlm
+  serves there as a text decoder.  Speculation composes with the ring
+  as at tp=1: every rank's drafter proposes the same drafts from the
+  same streams (the n-gram drafter's tokens are replicated; the model
+  drafter runs its draft model at tp 1 on the rank's own device), the
+  verify window runs on the rank's heads and pool, and the fused round
+  verifies from the all-gathered (tp x k) candidates of each row with
+  identically seeded generators (:func:`speculative_verify_sharded`),
+  while the host-sampled round gathers the rows whole on every rank.
+  The mesh fleet raises ``NotImplementedError`` on a ring; an
+  encoder-decoder has no engine path on any mesh.
 
 ``w_dtype`` is carried as the reference carries it, for telemetry: the
 engine's decode keeps the fp weights at any value.
@@ -183,7 +191,7 @@ from repro_torch.serving.kv_cache import (LANE, BlockPool, PrefixCache,
 from repro_torch.serving.sampler import (SamplingParams, sample_local,
                                          sample_sharded_batched,
                                          spec_verify_rows,
-                                         speculative_verify_batched)
+                                         speculative_verify_sharded)
 from repro_torch.serving.scheduler import RingRouter, Scheduler, SeqSlot
 
 StreamCB = Callable[[int, int], None]   # (request_id, token)
@@ -330,7 +338,7 @@ class LPUEngine:
         self.config = c
         self.device = resolve_device(device)
         refuse_encdec(model.cfg)
-        self._check_ring(model, params, mesh, c, drafter, graphs)
+        self._check_ring(model, params, mesh, graphs)
         self.model = model
         self.cfg = model.cfg
         self.plan = model.plan
@@ -521,12 +529,11 @@ class LPUEngine:
                                   device=self.device)
         self._host_logits = None      # (slots, V_pad), at first use
 
-    def _check_ring(self, model, params, mesh, c, drafter,
-                    graphs: bool) -> None:
+    def _check_ring(self, model, params, mesh, graphs: bool) -> None:
         """Refuse what the ring does not run: a plan and a ring that
-        disagree, a vlm or an encoder-decoder, speculation,
-        the full tree in place of the rank's shards, and a captured
-        program on a gloo ring (an NCCL ring's are captured)."""
+        disagree, the full tree in place of the rank's shards, and a
+        captured program on a gloo ring (an NCCL ring's are
+        captured)."""
         plan = model.plan
         if mesh is None:
             if plan.tp > 1:
@@ -543,16 +550,6 @@ class LPUEngine:
         if mesh.device != self.device:
             raise ValueError(f"ring on {mesh.device}, engine on "
                              f"{self.device}")
-        from repro_torch.weights import RING_FAMILIES
-        if model.cfg.family not in RING_FAMILIES:
-            raise NotImplementedError(
-                f"{model.cfg.name} ({model.cfg.family}): tensor parallelism "
-                "of this family over the ring is not ported yet (the ring "
-                f"serves the {', '.join(RING_FAMILIES)} stacks)")
-        if drafter is not None or c.speculate != "off":
-            raise NotImplementedError(
-                "speculation under tp (the ring's verify round and its "
-                "sharded rejection sampling) is not ported yet")
         v_loc = (params["head"].shape[-1] if "head" in params
                  else params["embed"].shape[0])
         if v_loc * plan.tp != plan.vocab_padded:
@@ -907,11 +904,13 @@ class LPUEngine:
         :func:`repro_torch.models.attention.verify_attention`).  The
         drafts' K/V land in the pool in place; rows past the accepted
         prefix stay there, masked by length and overwritten by the next
-        round.  Returns the (Q, V_pad) logits."""
+        round.  Returns the (Q, V_pad) logits, on the ring the rank's
+        (Q, V_pad/tp) columns."""
         logits, _ = self.model.forward(
             self.params, tokens, mode="verify", positions=positions,
             cache=self.cache, block_tables=tables,
-            paged_kernel=self.paged_kernel or "gather", kv_valid_len=lens)
+            paged_kernel=self.paged_kernel or "gather", kv_valid_len=lens,
+            env=self.env)
         return logits[0]
 
     # -- sampling ------------------------------------------------------
@@ -1572,14 +1571,15 @@ class LPUEngine:
     def _verify_fn(self, K: int, stochastic: bool) -> None:
         """The fused verify round for draft length ``K`` on its static
         buffers: the verify forward, then the rejection sampling of
-        every slot; writes ``out`` (B, K+1) and ``n_acc`` (B,) side by
-        side into ``_ver_out[K]``."""
+        every slot (on the ring from each row's all-gathered candidates,
+        the same on every rank); writes ``out`` (B, K+1) and ``n_acc``
+        (B,) side by side into ``_ver_out[K]``."""
         v, B, K1 = self._ver[K].view, self.slots, K + 1
         rows = self._verify_fwd(v["tokens"], v["positions"], v["tables"],
                                 v["lens"]).reshape(B, K1, -1)
-        out, n_acc = speculative_verify_batched(
+        out, n_acc = speculative_verify_sharded(
             rows, v["draft"], self.gen, v["temps"], v["top_ks"],
-            v["top_ps"], stochastic)
+            v["top_ps"], stochastic, self.ring, self.tp)
         self._ver_out[K][:, :K1].copy_(out)
         self._ver_out[K][:, K1].copy_(n_acc)
 
@@ -1675,10 +1675,12 @@ class LPUEngine:
             self.stats.host_syncs += 1
             self.stats.bytes_to_host += res.nbytes
         else:
-            rows = self._verify_fwd(
+            # on the ring every rank gathers the rows whole and runs the
+            # oracle on them, as the reference's host round reads them
+            rows = self._full_row(self._verify_fwd(
                 self._to_dev(toks.reshape(1, B * K1)),
                 self._to_dev(positions.reshape(1, B * K1)),
-                self._to_dev(tables), self._to_dev(lens.reshape(-1)))
+                self._to_dev(tables), self._to_dev(lens.reshape(-1))))
             rows = rows.reshape(B, K1, -1)
             rows_np = rows.cpu().numpy()
             self.stats.host_syncs += 1

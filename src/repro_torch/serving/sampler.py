@@ -15,7 +15,9 @@ The port of the reference's ``serving/sampler.py``:
   rejection sampling of a speculative verify window (every slot's, or
   one slot's), which accepts a prefix of a deterministic drafter's
   proposal and keeps every emitted token an exact draw from the
-  filtered target distribution.
+  filtered target distribution; :func:`speculative_verify_sharded` —
+  its ring form over vocab-sharded verify rows, on the same (tp x k)
+  candidates as the ring's sampler.
 
 Both share one filter chain (temperature -> top-k -> top-p, the top-p
 cutoff being the SMALLEST kept logit, as the reference fixed it) and
@@ -100,10 +102,10 @@ def sample_sharded_batched(logits_loc: torch.Tensor,
     Each rank takes its local top-``MAX_LOCAL_K`` values and global ids,
     the (B, tp x k) candidates are all-gathered (rank order), and
     :func:`sample_batched` draws over them with the rank's generator,
-    seeded alike on every rank: greedy rows take the argmax of the
-    candidates, which is the global argmax.  As in the reference, a
-    stochastic row samples from the candidates, so a filter wider than
-    tp x k candidates is cut to them.  ``axis=None`` or ``tp == 1`` is
+    seeded alike on every rank: greedy rows take the lowest id among the
+    candidates' maxima (:func:`first_max`), which is the global argmax.
+    As in the reference, a stochastic row samples from the candidates, so
+    a filter wider than tp x k candidates is cut to them.  ``axis=None`` or ``tp == 1`` is
     :func:`sample_batched`."""
     if axis is None or tp == 1:
         return sample_batched(logits_loc, generator, temps, top_ks, top_ps,
@@ -113,9 +115,22 @@ def sample_sharded_batched(logits_loc: torch.Tensor,
     gidx = idx + dist.axis_index(axis) * v_loc
     vals_all = dist.all_gather(vals, axis, dim=-1)
     gidx_all = dist.all_gather(gidx, axis, dim=-1)
-    chosen = sample_batched(vals_all, generator, temps, top_ks, top_ps,
-                            stochastic)
-    return gidx_all.gather(-1, chosen.long()[:, None])[:, 0].to(torch.int32)
+    greedy = first_max(vals_all, gidx_all)
+    if not stochastic:
+        return greedy.to(torch.int32)
+    drawn = _draw(filter_rows(vals_all, temps, top_ks, top_ps), generator)
+    drawn = gidx_all.gather(-1, drawn[:, None])[:, 0]
+    return torch.where(temps <= 0.0, greedy, drawn).to(torch.int32)
+
+
+def first_max(vals: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The lowest global id among the equal maxima of each row of the
+    candidates ``vals`` (..., C) whose ids are ``ids``: the argmax of the
+    whole row, whatever order each rank's top-k gave its ties (a row
+    with a NaN gives its lowest candidate id)."""
+    top = vals.amax(-1, keepdim=True)
+    hit = (vals == top) | top.isnan()
+    return ids.masked_fill(~hit, torch.iinfo(ids.dtype).max).amin(-1)
 
 
 def sample_sharded(logits_loc: torch.Tensor, generator: torch.Generator,
@@ -177,25 +192,77 @@ def speculative_verify_batched(logits: torch.Tensor, draft: torch.Tensor,
     sequential greedy stream, token for token.  ``stochastic=False``
     (the caller knows every row is greedy) skips the filter and the
     draws, so greedy windows consume no random numbers."""
-    B, K1, V = logits.shape
+    return _verify_window(logits, None, draft, generator, temps, top_ks,
+                          top_ps, stochastic)
+
+
+def speculative_verify_sharded(logits_loc: torch.Tensor,
+                               draft: torch.Tensor,
+                               generator: torch.Generator,
+                               temps: torch.Tensor, top_ks: torch.Tensor,
+                               top_ps: torch.Tensor, stochastic: bool = True,
+                               axis: Optional[dist.Ring] = None, tp: int = 1
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ring form of :func:`speculative_verify_batched` for
+    vocab-sharded verify rows (B, K+1, V/tp) -> ``(out, n_acc)`` in
+    global ids, the same on every rank of ``axis``.
+
+    As :func:`sample_sharded_batched` does: each rank takes its local
+    top-``MAX_LOCAL_K`` of every row and turns the indices into global
+    ids, only the (B, K+1, tp x k) candidates are all-gathered (rank
+    order), and the accept and resample draws run on that set with the
+    rank's generator, seeded alike on every rank.  Greedy verification
+    takes :func:`first_max` of the candidates, the tp=1 argmax exactly;
+    a stochastic row samples from the candidates (a filter wider than
+    them is cut to them), and a draft outside them has no mass there and
+    is never accepted.  ``axis=None`` or ``tp == 1`` is
+    :func:`speculative_verify_batched`."""
+    if axis is None or tp == 1:
+        return speculative_verify_batched(logits_loc, draft, generator,
+                                          temps, top_ks, top_ps, stochastic)
+    v_loc = logits_loc.shape[-1]
+    vals, idx = logits_loc.float().topk(min(MAX_LOCAL_K, v_loc), -1)
+    gidx = idx + dist.axis_index(axis) * v_loc
+    return _verify_window(dist.all_gather(vals, axis, dim=-1),
+                          dist.all_gather(gidx, axis, dim=-1), draft,
+                          generator, temps, top_ks, top_ps, stochastic)
+
+
+def _verify_window(vals: torch.Tensor, ids: Optional[torch.Tensor],
+                   draft: torch.Tensor, generator: torch.Generator,
+                   temps: torch.Tensor, top_ks: torch.Tensor,
+                   top_ps: torch.Tensor, stochastic: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rejection sampling of :func:`speculative_verify_batched` over
+    (B, K+1, C) raw logits of a candidate set whose global ids are
+    ``ids`` (B, K+1, C), or the whole vocabulary (``ids=None``)."""
+    B, K1, C = vals.shape
     K = K1 - 1
-    lg_raw = logits.float()
-    g_out = lg_raw.argmax(-1)
+    lg_raw = vals.float()
+
+    def glob(i):                      # candidate index -> global id
+        return i if ids is None else ids.gather(-1, i[..., None])[..., 0]
+    g_out = (lg_raw.argmax(-1) if ids is None else first_max(lg_raw, ids))
     draft = draft.long()
     out, match = g_out, g_out[:, :K] == draft
     if stochastic:
         # each slot's parameters over its K+1 rows (an expand: no host
         # sync, so the fused verify round captures as one graph)
         rep = lambda t: t[:, None].expand(B, K1).reshape(-1)  # noqa: E731
-        lg = filter_rows(lg_raw.reshape(B * K1, V), rep(temps),
-                         rep(top_ks), rep(top_ps)).reshape(B, K1, V)
+        lg = filter_rows(lg_raw.reshape(B * K1, C), rep(temps),
+                         rep(top_ks), rep(top_ps)).reshape(B, K1, C)
         probs = torch.softmax(lg, -1)
-        p_draft = probs[:, :K].gather(-1, draft[..., None])[..., 0]
-        u = torch.rand((B, K), generator=generator, device=logits.device)
-        acc = u < p_draft
         masked = lg.clone()
-        masked[:, :K].scatter_(-1, draft[..., None], -torch.inf)
-        drawn = _draw(masked, generator)                     # (B, K+1)
+        if ids is None:
+            p_draft = probs[:, :K].gather(-1, draft[..., None])[..., 0]
+            masked[:, :K].scatter_(-1, draft[..., None], -torch.inf)
+        else:
+            is_d = ids[:, :K] == draft[..., None]
+            p_draft = torch.where(is_d, probs[:, :K], 0.0).sum(-1)
+            masked[:, :K] = torch.where(is_d, -torch.inf, lg[:, :K])
+        u = torch.rand((B, K), generator=generator, device=vals.device)
+        acc = u < p_draft
+        drawn = glob(_draw(masked, generator))               # (B, K+1)
         s_out = torch.cat([torch.where(acc, draft, drawn[:, :K]),
                            drawn[:, K:]], 1)
         greedy = (temps <= 0.0)[:, None]

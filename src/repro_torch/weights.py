@@ -21,8 +21,8 @@ and its ``projector`` (patch_embed_dim, D); for an encoder-decoder
 mlp}), ``ln_enc``, ``dec_blocks`` ({ln1, attn, lnx, xattn, ln2, mlp})
 and ``ln_f``.
 
-``shard_params(tree, plan, rank)`` slices a full tree of the dense
-family, in the stored layout at the plan's tp (padded and duplicated
+``shard_params(tree, plan, rank)`` slices a full tree of any family,
+in the stored layout at the plan's tp (padded and duplicated
 heads), into rank ``rank``'s leaves by the plan's rule table: every
 dim whose logical axis the table maps to the ring is cut into tp
 blocks, of which the rank keeps block ``rank`` (the reference's
@@ -51,9 +51,8 @@ from repro_torch.models.transformer import n_super_blocks
 
 Params = Dict[str, Any]
 
-# the families the model ring serves (a vlm's projector and whisper's
-# encoder-decoder are not ported to it)
-RING_FAMILIES = ("dense", "moe", "rwkv", "hybrid")
+# the trees whose leaves are stacked on a leading layer axis
+_STACKS = ("blocks", "enc_blocks", "dec_blocks")
 
 
 def _expected_shapes(cfg, plan) -> Dict[str, tuple]:
@@ -246,7 +245,8 @@ _MOE_AXES = {"router": ("embed", None),
              "wg": ("experts", None, "embed", None),
              "wu": ("experts", None, "embed", None),
              "wd": ("experts", None, None, "embed")}
-_OWNER_AXES = {"attn": _ATTN_AXES, "mlp": _MLP_AXES, "mamba": _MAMBA_AXES,
+_OWNER_AXES = {"attn": _ATTN_AXES, "xattn": _ATTN_AXES, "mlp": _MLP_AXES,
+               "mamba": _MAMBA_AXES,
                "tmix": _TMIX_AXES, "cmix": _CMIX_AXES, "moe": _MOE_AXES,
                "shared": _MLP_AXES}
 _TOP_AXES = {"embed": ("vocab", "embed"),
@@ -257,21 +257,23 @@ _TOP_AXES = {"embed": ("vocab", "embed"),
 
 
 def leaf_axes(path: str) -> tuple:
-    """The logical axes of the leaf at ``path`` of a decoder-only tree
-    (dense, MoE, vlm, rwkv, hybrid), as the reference's ``InitCtx``
-    records them.  An encoder-decoder's leaves raise ``KeyError``."""
+    """The logical axes of the leaf at ``path`` of any family's tree
+    (dense, MoE, vlm, rwkv, hybrid; whisper's ``enc_blocks`` and
+    ``dec_blocks`` with ``lnx`` and ``xattn``, ``ln_enc``), as the
+    reference's ``InitCtx`` records them.  A path of no family raises
+    ``KeyError``."""
     parts = path.split("/")
     leaf = parts[-1]
-    if parts[0] == "blocks":
+    if parts[0] in _STACKS:
         owner = parts[-2]
-        if owner in ("ln1", "ln2"):
+        if owner in ("ln1", "ln2", "lnx"):
             ax = ("vec",)
         elif owner in _OWNER_AXES:
             ax = _OWNER_AXES[owner][leaf]
         else:
             raise KeyError(path)
         return ("layers",) + ax
-    if parts[0] == "ln_f":
+    if parts[0] in ("ln_f", "ln_enc"):
         return ("vec",)
     return _TOP_AXES[leaf]
 
@@ -284,10 +286,8 @@ def shard_leaf(t, path: str, plan, rank: int):
     try:
         axes = leaf_axes(path)
     except KeyError:
-        raise NotImplementedError(
-            f"{path}: tensor parallelism of this leaf's family is not "
-            "ported yet (the ring serves the decoder-only stacks; an "
-            "encoder-decoder's leaves have no rule)") from None
+        raise ValueError(f"{path}: not a leaf of any family's tree (no "
+                         "logical axes to shard it by)") from None
     if len(axes) != len(t.shape):
         raise ValueError(f"{path}: axes {axes} vs shape {tuple(t.shape)}")
     for d, a in enumerate(axes):
@@ -313,9 +313,8 @@ def _check_ring_plan(plan, rank: int) -> None:
 
 def shard_params(tree: Params, plan, rank: int) -> Params:
     """Rank ``rank``'s leaves of a full tree (tensors or numpy arrays)
-    of a decoder-only family at ``plan``'s tp (:func:`shard_leaf` on
-    every leaf).  An encoder-decoder raises: its tensor parallelism is
-    not ported yet."""
+    of any family at ``plan``'s tp (:func:`shard_leaf` on every
+    leaf)."""
     _check_ring_plan(plan, rank)
     return map_leaves(tree, lambda t, path: shard_leaf(t, path, plan, rank))
 
@@ -441,7 +440,7 @@ def _relayout_experts(t: torch.Tensor, rows: bool, src_plan, dst_plan
 
 
 def relayout(tree: Params, cfg, src_plan, dst_plan) -> Params:
-    """A full tree of a decoder-only family stored at ``src_plan``'s layout,
+    """A full tree of any family stored at ``src_plan``'s layout,
     stored again at ``dst_plan``'s (:func:`relayout_leaf` on every
     leaf).  The logical model is unchanged: a zero pad head, FFN column
     or vocab row adds nothing (a padded logit column is masked).  This
@@ -460,35 +459,33 @@ def tp1_plan(cfg, plan):
 
 
 def init_shard(cfg, plan, rank: int, seed: int = 0, device=None) -> Params:
-    """Rank ``rank``'s shard of the decoder-only model ``cfg`` (dense,
-    MoE, rwkv, hybrid) on ``plan``'s ring, drawn without the full tree:
-    ``init_params(cfg, tp1_plan(cfg, plan), seed)``'s values drawn in
-    its order (embeddings, positions, then layer after layer, then the
+    """Rank ``rank``'s shard of the model ``cfg`` (any family) on
+    ``plan``'s ring, drawn without the full tree: ``init_params(cfg,
+    tp1_plan(cfg, plan), seed)``'s values drawn in its order
+    (embeddings, positions, a vlm's projector, then layer after layer
+    (whisper: the encoder's, its final norm, the decoder's), then the
     final norm), each part of a layer (an MoE's leaf by leaf) stored at
     the ring's layout and cut to the rank's slice as soon as it is
     drawn.  Bit-equal to ``shard_params(relayout(init_params(...)),
     plan, rank)``; the peak is the shard plus one part of a tp=1 layer
-    (jamba's largest: an expert stack, drawn in f32, 3.8 GB).  A vlm and an encoder-decoder raise: their
-    tensor parallelism is not ported yet.  ``device``: ``cuda`` unless
-    the caller asks for the CPU."""
+    (jamba's largest: an expert stack, drawn in f32, 3.8 GB).
+    ``device``: ``cuda`` unless the caller asks for the CPU."""
     from repro_torch.device import dtype_of, resolve_device
     from repro_torch.models.common import _Init, draw_params
     _check_ring_plan(plan, rank)
-    if cfg.family not in RING_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): tensor parallelism of this "
-            "family over the ring is not ported yet (the ring serves the "
-            f"{', '.join(RING_FAMILIES)} stacks)")
     plan1 = tp1_plan(cfg, plan)
     ini = _Init(seed, resolve_device(device), dtype_of(plan1.param_dtype))
 
     def keep(t, path):
         # a stacked layer's leaf is drawn without its layer axis
-        stacked = path.startswith("blocks/")
+        stacked = path.split("/")[0] in _STACKS
         full = t.unsqueeze(0) if stacked else t
         out = shard_leaf(relayout_leaf(full, path, cfg, plan1, plan), path,
                          plan, rank)
         return out[0] if stacked else out
+    if cfg.family == "encdec":
+        from repro_torch.models.whisper import init_encdec
+        return init_encdec(ini, cfg, plan1, keep)
     return draw_params(ini, cfg, plan1, keep)
 
 

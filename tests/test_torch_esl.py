@@ -378,11 +378,28 @@ def _to_torch(tree):
 
 
 def test_shard_params_refuses_other_families():
-    """An encoder-decoder's leaves have no rule on the ring (the
-    decoder-only families shard: tests/test_torch_tp_families.py)."""
+    """An encoder-decoder's leaves shard by their rules too (whisper's
+    ``enc_blocks``, ``dec_blocks`` with ``lnx`` and ``xattn``,
+    ``ln_enc``): each rank holds its heads, FFN columns, vocab rows and
+    ``embed_scatter`` columns, and the ranks' blocks put back together
+    are the tree; a leaf of no family and a plan off the ring are
+    refused."""
     cfg = get_config("whisper-tiny").reduced()
     plan = plan_model(cfg, ("model",), (2,), "serve", **F32)
-    with pytest.raises(NotImplementedError, match="family"):
-        shard_params(init_params(cfg, plan, 0, "cpu"), plan, 0)
+    full = init_params(cfg, plan, 0, "cpu")
+    shards = [dict(_leaves(shard_params(full, plan, r))) for r in (0, 1)]
+    split = {"dec_blocks/xattn/wq": 2, "dec_blocks/xattn/wo": 1,
+             "enc_blocks/mlp/wi": 2, "dec_blocks/lnx/scale": 1,
+             "ln_enc/scale": 0, "pos_embed": 1, "embed": 0}
+    for path, t in _leaves(full):
+        d = split.get(path)
+        if d is not None:
+            assert torch.equal(torch.cat([s[path] for s in shards], d), t)
+    a = plan.attn
+    assert shards[1]["dec_blocks/xattn/wk"].shape == (
+        cfg.n_layers, cfg.d_model, a.kv_per_rank, a.d_head)
+    with pytest.raises(ValueError, match="no logical axes"):
+        shard_params({"enc_blocks": {"conv": {"w": torch.zeros(2, 2)}}},
+                     plan, 0)
     with pytest.raises(ValueError, match="ring"):
         shard_params({}, plan_model(cfg, None, (1,), "serve", **F32), 0)

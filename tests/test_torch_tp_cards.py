@@ -169,13 +169,22 @@ def test_init_shard_bit_equal_to_sliced_tree(name, tp, overlap):
 
 
 def test_init_shard_refuses_other_families_and_tp1():
-    """A vlm and an encoder-decoder are not served on the ring (the
-    dense, MoE, rwkv and hybrid stacks are)."""
+    """A vlm's and an encoder-decoder's shards are drawn alone too
+    (llava's projector, whisper's encoder and decoder; every leaf:
+    tests/test_torch_tp_multimodal.py), bit-equal to the sliced tp=1
+    tree; a plan off the ring is refused."""
     for name in ("llava-next-34b", "whisper-tiny"):
         cfg = get_config(name).reduced()
         plan = plan_model(cfg, ("model",), (2,), "serve", **SERVE_F32)
-        with pytest.raises(NotImplementedError, match="dense"):
-            init_shard(cfg, plan, 0, device="cpu")
+        plan1 = tp1_plan(cfg, plan)
+        full = relayout(init_params(cfg, plan1, seed=3, device="cpu"),
+                        cfg, plan1, plan)
+        for rank in range(2):
+            want = dict(_leaves(shard_params(full, plan, rank)))
+            got = dict(_leaves(init_shard(cfg, plan, rank, seed=3,
+                                          device="cpu")))
+            assert list(got) == list(want)
+            assert all(torch.equal(got[k], want[k]) for k in want), name
     cfg = get_config("smollm-135m").reduced()
     with pytest.raises(ValueError, match="a plan for the ring"):
         init_shard(cfg, plan_model(cfg, None, (1,), "serve", **SERVE_F32),

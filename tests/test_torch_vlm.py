@@ -120,10 +120,19 @@ def test_steps_give_the_reference_steps_tokens(pair):
 
 
 def test_steps_refuse_a_mesh(pair):
+    """The steps take the rank's ring as their mesh (their ring form:
+    tests/test_torch_tp_multimodal.py): any other mesh is refused, and so
+    is a tp plan without one or a ring beside a tp=1 plan."""
+    from repro_torch.compiler.mapper import plan_model
+    from repro_torch.models.registry import build_model
     model = pair[1][2]
+    cfg = pair[1][0]
+    tp2 = build_model(cfg, plan_model(cfg, ("model",), (2,), "serve"), "cpu")
     for build in (build_prefill_step, build_serve_step):
-        with pytest.raises(NotImplementedError, match="tp slice"):
+        with pytest.raises(TypeError, match="Ring"):
             build(model, object(), B, MAX)
+        with pytest.raises(ValueError, match="ring"):
+            build(tp2, None, B, MAX)
 
 
 def test_engine_serves_text_as_the_reference_engine(pair):

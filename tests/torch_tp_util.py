@@ -218,38 +218,84 @@ def guard_rank(ring, name, tree):
 
 
 def refusals_rank(ring, name, tree):
-    """What the ring refuses, each as (exception type, message)."""
+    """What the ring refuses, each as (exception type, message), and
+    what it now serves in their place, each as ("ok", its result)."""
     from repro_torch.compiler.mapper import plan_model
     from repro_torch.configs import get_config
+    from repro_torch.core import esl
     from repro_torch.models.registry import build_model
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import LPUEngine, MultiRingEngine
     from repro_torch.serving.frontend import AsyncFrontend
+    from repro_torch.weights import init_shard
     cfg, plan, model, params = _rank_model(ring, name, tree, True)
     conf = EngineConfig(slots=2, max_seq=64)
     out = {}
+    prompts = [[5, 9, 5, 9, 5, 9, 5], [3, 1, 4, 1, 5]]
 
     def rec(key, fn):
         try:
-            fn()
-            out[key] = None
+            out[key] = ("ok", fn())
         except Exception as e:                      # noqa: BLE001
             out[key] = (type(e).__name__, str(e))
 
+    def speculate():
+        # the n-gram drafter on the ring: the plain ring's streams
+        spec = LPUEngine(model, params, EngineConfig(
+            slots=2, max_seq=64, speculate="ngram"), mesh=ring,
+            device="cpu", graphs=False)
+        got = spec.generate(prompts, max_new_tokens=8)
+        plain = LPUEngine(model, params, conf, mesh=ring, device="cpu",
+                          graphs=False).generate(prompts, max_new_tokens=8)
+        return {"equal": got == plain, "rounds": spec.stats.spec_rounds}
+
+    def llava():
+        # llava's text decoder on the ring, its shard drawn alone: the
+        # tp=1 engine's streams on the same weights
+        c = get_config("llava-next-34b").reduced()
+        p = plan_model(c, ("model",), (ring.size,), "serve", **SERVE_F32)
+        p1 = plan_model(c, None, (1,), "serve", esl_overlap=False,
+                        **SERVE_F32)
+        m1 = build_model(c, p1, "cpu")
+        want = LPUEngine(m1, m1.init(seed=0), conf, device="cpu").generate(
+            prompts, max_new_tokens=8)
+        got = LPUEngine(build_model(c, p, "cpu"), init_shard(
+            c, p, ring.rank, seed=0, device="cpu"), conf, mesh=ring,
+            device="cpu", graphs=False).generate(prompts, max_new_tokens=8)
+        return {"equal": got == want}
+
+    def verify():
+        # a verify window of two queries on an empty pool: the prefill
+        # logits of the same two tokens (both gathered whole)
+        env = eng.env
+        tok = torch.tensor([[7, 11]])
+        cache = model.init_cache(1, 64, paged=True, num_blocks=3,
+                                 block_size=16)
+        v, _ = model.forward(
+            params, tok, mode="verify", positions=torch.tensor([[0, 1]]),
+            cache=cache, block_tables=torch.tensor([[1], [1]],
+                                                   dtype=torch.int32),
+            kv_valid_len=torch.tensor([1, 2], dtype=torch.int32), env=env)
+        pre, _ = model.forward(params, tok, mode="prefill", env=env,
+                               cache=model.init_cache(1, 2))
+        v, pre = (esl.gather_scattered(x, axis=ring, tp=ring.size)
+                  for x in (v, pre))
+        return {"shape": tuple(v.shape),
+                "max_abs": float((v - pre).abs().max())}
+
     rec("graphs", lambda: LPUEngine(model, params, conf, mesh=ring,
                                     device="cpu"))
-    rec("speculate", lambda: LPUEngine(
-        model, params, EngineConfig(slots=2, max_seq=64, speculate="ngram"),
-        mesh=ring, device="cpu", graphs=False))
+    rec("speculate", speculate)
     rec("full_tree", lambda: LPUEngine(
         model, {"embed": torch.zeros(plan.vocab_padded, 4)}, conf,
         mesh=ring, device="cpu", graphs=False))
     rec("no_ring", lambda: LPUEngine(model, params, conf, device="cpu"))
-    for fam in ("whisper-tiny", "llava-next-34b"):
-        c = get_config(fam).reduced()
-        p = plan_model(c, ("model",), (ring.size,), "serve", **SERVE_F32)
-        rec(fam, lambda: LPUEngine(build_model(c, p, "cpu"), params, conf,
-                                   mesh=ring, device="cpu", graphs=False))
+    c = get_config("whisper-tiny").reduced()
+    p = plan_model(c, ("model",), (ring.size,), "serve", **SERVE_F32)
+    rec("whisper-tiny", lambda: LPUEngine(build_model(c, p, "cpu"), params,
+                                          conf, mesh=ring, device="cpu",
+                                          graphs=False))
+    rec("llava-next-34b", llava)
     rec("data_axis", lambda: plan_model(get_config("llama4").reduced(),
                                         ("data", "model"), (1, ring.size),
                                         "serve"))
@@ -258,7 +304,5 @@ def refusals_rank(ring, name, tree):
     eng = LPUEngine(model, params, conf, mesh=ring, device="cpu",
                     graphs=False)
     rec("frontend", lambda: AsyncFrontend(eng))
-    rec("verify", lambda: model.forward(
-        params, torch.zeros((1, 2), dtype=torch.long), mode="verify",
-        env=eng.env))
+    rec("verify", verify)
     return out

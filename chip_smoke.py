@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only tp_cards      # 2 or more cards: phase 14
     python3 chip_smoke.py --only tp_families   # 2 or more cards: phase 15
+    python3 chip_smoke.py --only tp_spec_mm    # 2 or more cards: phase 16
+    python3 chip_smoke.py --only tp_fleet      # 4 or more cards: phase 17
 
 Phases (each raises on failure; the script exits non-zero and prints no
 result line when any phase fails or when no CUDA device is present):
@@ -139,8 +141,9 @@ result line when any phase fails or when no CUDA device is present):
    card, sharing its weight tensors: 4 slots each, max_seq 512, blocks
    of 128, kernel 1 streamed, the engine phase's 8 prompts x 32 new
    greedy tokens, a heartbeat timeout of 4 virtual seconds, straggler
-   monitors seeded by the latency model's prior (LPU-FPGA): (i) fault
-   free; (ii) chaos ``ring@2,stall@3:1,nan@5,corrupt@8``; (iii)
+   monitors seeded as the serve CLI seeds them on the card (no prior:
+   their warm-up takes the first measured steps): (i) fault free, no
+   straggler flagged; (ii) chaos ``ring@2,stall@3:1,nan@5,corrupt@8``; (iii)
    ``corrupt@4`` (caught as ``nan_logits``: the NaN block reached the
    logits through kernel 1); (iv) ``nan@3`` in 4-step windows with a
    second window in flight; (v) ``ring@2`` with ``max_migrations=0``
@@ -163,8 +166,8 @@ result line when any phase fails or when no CUDA device is present):
    prompt per tenant, tails of 4-64 tokens, 4-32 new tokens) at its own
    arrival times: (a) budget off, every stream equal to the blocking
    run's of the same prompts; (b) the SLO budget on (5 ms a step, the
-   scheduler seeded by the latency model's prior at the LPU-FPGA point,
-   chunks up to 512), streams equal to (a)'s, the plans and the EWMA's
+   scheduler seeded as the serve CLI seeds it on the card, with no
+   prior, chunks up to 512), streams equal to (a)'s, the plans and the EWMA's
    trail recorded; (c) ``max_pending=4`` with one stream cancelled after
    3 tokens and the rejected submits retried after ``join()``, the
    others equal to their blocking streams; (d) a two-ring fleet with
@@ -309,6 +312,33 @@ result line when any phase fails or when no CUDA device is present):
    rank) and (d) granite at 16 layers (kernel 1 exact), each in f32
    against tp=1, apart only at a top-2 gap <= 1e-4.  A
    ``{"tp_families": ...}`` line.
+17. the mesh fleet and the front end over the ring, on a machine of 4
+   or more cards (``python3 chip_smoke.py --only tp_fleet`` runs the
+   kernels' build and this phase alone; on fewer cards it prints that it
+   did not run) — rank r on ``cuda:r`` over NCCL, every engine step on
+   graphs, each rank drawing only its shard at its place in its
+   sub-ring: (a) full-width opt-1.3b in f32 (blocking, chunks of 64) on
+   phase 9's traffic, 8 prompts x 32 new, three ways: tp=1 on cuda:0, a
+   lone ring of tp 2 on cards 0-1, the mesh fleet of 2 rings x tp 2 on
+   cards 0-3 (``MultiRingEngine(..., ring, ring_size=2)``, one host
+   agreement a round over a gloo group); the fleet's streams tp=1's (or
+   apart at a top-2 gap <= 1e-4), routes balanced and the same on every
+   rank, kernel 1 exact on every rank, every run replayed, each
+   program's collectives per replay the lone ring's, none on the world
+   group; tokens/s over the fleet's wall beside the lone ring's; (b)
+   ``nan@3:0,ring@5:1`` with ``max_migrations=1`` on a fresh fleet:
+   orphans migrate across processes, survivors equal to (a)'s, the
+   requests out of migrations structured failures, ``fleet_counters()``
+   the same on every rank, every reset in place with no new capture;
+   (c) phase 10's trace through the front end on world rank 0 over the
+   lone ring and over the fleet, budget off and on: TTFT from arrival
+   and ms/token p50/p99, tokens/s, rejections, the orders' crc32 the
+   same on every rank, streams the blocking run's; (d) full-width
+   opt-66b in bf16 as 2 rings x tp 2 (~66 GB a card): the same 4 prompts
+   of 32 tokens on both rings x 128 new at 4 slots, both rings' streams
+   equal, fleet tokens/s, ms/token per ring, peak memory per card,
+   kernel 1 exact on every rank, beside the single ring at tp 2 (measured
+   in another run).  A ``{"tp_fleet": ...}`` line.
 
 Every engine runs its fused decode windows, verify rounds, monolithic
 prefills, prefill chunks, prefix tails, first-token sampling and
@@ -337,8 +367,9 @@ whisper's steps, the laps; the card's name and power limit), a
 one step's device ms and kernels, tokens/s, peak memory, the
 optimizer's device ms, the checkpoint's save wall, ``mfu_f32``, the
 card's name and power limit), a ``{"tp": ...}`` line (phase 13), on 2
-or more cards a ``{"tp_cards": ...}`` and a ``{"tp_families": ...}``
-line (phases 14, 15), the nvidia-smi
+or more cards a ``{"tp_cards": ...}``, a ``{"tp_families": ...}`` and a
+``{"tp_spec_mm": ...}`` line (phases 14-16), on 4 or more a
+``{"tp_fleet": ...}`` line (phase 17), the nvidia-smi
 line and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX: the
 port stands alone.
 """
@@ -2041,20 +2072,21 @@ def fleet_events(fleet):
 def serve_fleet(torch, dev, model, params, prompts, engine_kw=None,
                 warm=None, **kw):
     """Serve ``prompts`` x 32 new greedy tokens on a two-ring host fleet
-    (4 slots each, the straggler monitors seeded with the latency
-    model's step-time prior at the LPU-FPGA point, as the serve CLI
-    seeds them); ``warm``: one prompt served first, x 4 tokens.  Returns
-    (rids, results, fleet, kernel 1 launches)."""
-    from repro_torch.core.latency_model import LPU_FPGA, step_time_prior
+    (4 slots each, the straggler monitors seeded as the serve CLI seeds
+    them on the card: with no prior, so their warm-up takes the first
+    measured steps); ``warm``: one prompt served first, x 4 tokens.
+    Returns (rids, results, fleet, kernel 1 launches)."""
     from repro_torch.kernels.decode_attention.ops import \
         paged_decode_attention
+    from repro_torch.launch.serve import prior_point
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import MultiRingEngine
     conf = EngineConfig(**dict(FLEET_KW, **kw))
-    prior = step_time_prior(model.cfg, 1, LPU_FPGA, kv_len=conf.max_seq,
-                            steps_per_sync=conf.steps_per_sync)
+    if prior_point(dev) is not None:
+        raise AssertionError(f"(9) the serve CLI seeds a roofline prior on "
+                             f"{dev}")
     fleet = MultiRingEngine(model, params, None, rings=2, config=conf,
-                            step_prior_s=prior, device=dev,
+                            step_prior_s=0.0, device=dev,
                             **(engine_kw or {}))
     paged_decode_attention.launches = 0
     if warm is not None:
@@ -2175,6 +2207,10 @@ def run_fleet(torch, dev, model, params, prompts, card_name):
             fails = rec["ring_failures"]
             if name != "i_fault_free" and not fails:
                 raise AssertionError(f"(9) {name}: no ring failed")
+            if name == "i_fault_free" and rec["straggler_events"]:
+                raise AssertionError(
+                    f"(9) {name}: healthy steps flagged as stragglers: "
+                    f"{rec['straggler_events']}")
             if name == "iii_corrupt" and fails[0][1] != "nan_logits":
                 raise AssertionError(f"(9) {name}: the corrupted block was "
                                      f"not caught as nan_logits: {fails}")
@@ -2473,15 +2509,15 @@ def run_frontend(torch, dev, model, params, card_name):
     """Phase 10: the trace FRONTEND_TRACE through ``AsyncFrontend`` on
     fresh engines of full-width smollm-135m (captures inside each run's
     wall): the blocking run of its prompts, (a) budget off, (b) budget
-    on (BudgetScheduler seeded by the latency model's step-time prior at
-    the LPU-FPGA point, as the reference harness seeds it), (c) cancel
+    on (BudgetScheduler seeded as the serve CLI seeds it on the card:
+    with no prior, so its EWMA starts from the budget itself), (c) cancel
     and backpressure, (d) a two-ring prefix-affinity fleet with the
     prefix cache and a jsonl tracker.  Every stream held to its twin by
     :func:`agree`, kernel 1's launches exact per replay, every pool
     balanced, every engine freed by reference count after its run."""
     import tempfile
     import weakref
-    from repro_torch.core.latency_model import LPU_FPGA, step_time_prior
+    from repro_torch.launch.serve import prior_point
     from repro_torch.serving.budget import BudgetScheduler
     from repro_torch.serving.traces import TraceConfig, generate_trace
     from repro_torch.serving.tracker import (JsonlTracker, counter_fields,
@@ -2526,8 +2562,10 @@ def run_frontend(torch, dev, model, params, card_name):
 
     # (b) budget on
     eng = frontend_engine(dev, model, params)
-    prior = step_time_prior(model.cfg, 1, LPU_FPGA,
-                            kv_len=FRONTEND_KW["max_seq"])
+    if prior_point(dev) is not None:
+        raise AssertionError(f"(10) the serve CLI seeds a roofline prior on "
+                             f"{dev}")
+    prior = 0.0
     bud = BudgetScheduler(FRONTEND_BUDGET_MS, prior_step_s=prior,
                           max_chunk=FRONTEND_MAX_CHUNK)
     run = serve_frontend(torch, eng, trace, budget=bud)
@@ -7320,15 +7358,595 @@ def print_tp_spec_mm(rec, smi):
     print(f"[time] (16) tp_spec_mm {rec['phase_s']:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the mesh fleet and the front end over the ESL ring (4 cards)
+# ---------------------------------------------------------------------------
+
+TPF_TP, TPF_RINGS = 2, 2
+# (a)-(c): phase 9's fleet knobs, prompts made resident in chunks of 64
+# (kernel 1's chunk caller beside its decode caller), blocking collectives
+# (the faster mode on every ring measured, PERF.md §6)
+TPF_KW = dict(FLEET_KW, prefill_chunk=PREFILL_CHUNK)
+TPF_NEW = 32
+# (b): nan on sub-ring 0 at its step 3, then ring on sub-ring 1 at its
+# step 5: ring 0's orphans migrate to ring 1, where they run out of
+# migrations; ring 1's own migrate to ring 0 and finish there
+TPF_CHAOS = dict(chaos="nan@3:0,ring@5:1", max_migrations=1)
+# (c): phase 10's trace (cut its requests first if the phase runs long)
+TPF_TRACE_REQUESTS = 32
+# (d): opt-66b bf16, 4 prompts of 32 tokens each sent twice (once to each
+# ring: the same batch on both) x 128 new, 4 slots a ring
+TPF_D_PROMPTS, TPF_D_IN, TPF_D_NEW = 4, 32, 128
+TPF_D_KW = dict(slots=4, max_seq=256, block_size=128, paged=True,
+                paged_kernel="stream")
+# The single ring at tp 2 (opt-66b bf16, batch 1, blocking, the paper's
+# protocol; measured on two NVIDIA H100 80GB HBM3 at 700 W): another
+# run, printed beside (d)
+TPF_ONE_RING_OPT66_MS = 43.80
+
+
+def tpf_cfg(name, reduced):
+    """Full-width ``name``, or (a rehearsal on the CPU) its reduced
+    config with a position table as long as the phase's ``max_seq``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if not reduced:
+        return cfg
+    return dataclasses.replace(cfg.reduced(), max_seq=TPF_KW["max_seq"])
+
+
+def tpf_programs(eng):
+    """{program key: its collectives per replay} of an engine's captured
+    windows and admission programs (on a gloo ring: nothing captured)."""
+    return {repr(k): p.collectives.get("collectives", 0)
+            for progs in (eng._programs, eng._admit)
+            for k, p in progs._by_key.items()
+            if getattr(p, "graph", None) is not None}
+
+
+def tpf_trace(cfg):
+    from repro_torch.serving.traces import TraceConfig, generate_trace
+    kw = dict(FRONTEND_TRACE, requests=TPF_TRACE_REQUESTS)
+    return generate_trace(TraceConfig(**kw, vocab=cfg.vocab_size))
+
+
+def tpf_frontends(torch, world, sub, eng, model, params, trace, blocking,
+                  what):
+    """(c) on ``eng`` (a lone ring's engine or a mesh fleet): the trace
+    through the front end on world rank 0, budget off and on, the other
+    ranks following; every stream held to ``blocking`` (the blocking run
+    of the trace on the same engine) on every rank of every ring, and
+    every rank's orders equal.  Returns rank 0's records."""
+    from repro_torch.serving.budget import BudgetScheduler
+    from repro_torch.serving.frontend import AsyncFrontend
+    agreement = world.agreement()
+    prompts = [list(r.prompt) for r in trace]
+    out = {}
+    for key, budget in (("budget_off", False), ("budget_on", True)):
+        fe_kw = ({"budget": BudgetScheduler(FRONTEND_BUDGET_MS,
+                                            max_chunk=FRONTEND_MAX_CHUNK)}
+                 if budget else {})
+        rec = None
+        if world.rank == 0:
+            run = serve_frontend(torch, eng, trace, **fe_kw)
+            fe, streams = run[0], run[1]
+            rec = frontend_record(trace, *run)
+            got = [s.tokens for s in streams]
+            if budget:
+                bud = fe_kw["budget"]
+                rec.update(plans=len(bud.planned),
+                           distinct_plans=sorted(
+                               {(c, s) for c, s in bud.planned},
+                               key=repr),
+                           mu_step_ms=bud.mu_step * 1e3)
+        else:
+            fe = AsyncFrontend(eng)
+            fe.follow()
+            got = None
+        got = agreement.announce(got)
+        orders = agreement.gather((fe.orders_crc, fe.orders_applied))
+        if len(set(orders)) != 1:
+            raise AssertionError(f"{what} {key}: the ranks applied other "
+                                 f"orders: {orders}")
+        vs = ring_agree(torch, sub, model, params, prompts, got, blocking,
+                        CHAIN_TOL, f"{what} {key} against blocking")
+        if rec is not None:
+            rec.update(vs_blocking=vs, orders_crc=f"{orders[0][0]:08x}",
+                       orders_applied=orders[0][1])
+            out[key] = rec
+    return out
+
+
+def tpf_ring_rank(ring, spec):
+    """Phase 17 on a lone ring of tp 2 (cards 0-1; rank r on ``cuda:r``,
+    NCCL, graphs): (a) opt-1.3b f32 blocking on phase 9's traffic, its
+    programs' collectives; (c) the trace blocking, then through the
+    front end.  Returns every rank's record."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine
+    dev = ring.device
+    t0 = time.perf_counter()
+    cfg = tpf_cfg("opt-1.3b", spec["reduced"])
+    plan = ring_plans(cfg, ring.size)[False]
+    params = rank_weights(cfg, plan, ring.rank, dev)
+    model = build_model(cfg, plan, dev)
+    eng = LPUEngine(model, params, EngineConfig(**TPF_KW), mesh=ring,
+                    device=dev, graphs=ring.nccl)
+    prompts, what = spec["prompts"], "(17a) lone ring"
+    eng.generate([p[:8] for p in prompts[:1]], max_new_tokens=2)
+    torch.cuda.synchronize(dev)
+    eng.stats = type(eng.stats)()
+    paged_decode_attention.launches = 0
+    ring.reset_counters()
+    t1 = time.perf_counter()
+    streams = eng.generate(prompts, max_new_tokens=TPF_NEW)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t1
+    launches = paged_decode_attention.launches
+    # (on the CPU, where a rehearsal runs, the plain version launches
+    # nothing)
+    if dev.type == "cuda" and (launches != launches_want(eng)
+                               or not launches):
+        raise AssertionError(f"{what}: kernel 1 launches {launches} != "
+                             f"{launches_want(eng)}")
+    on_graphs(eng)
+    pool_checks(eng, what)
+    st = eng.stats
+    a = dict(run_rec(eng, launches), wall_s=wall,
+             tokens_per_s=st.tokens / wall,
+             **ring_counts(ring, st.device_decode_steps),
+             programs=tpf_programs(eng),
+             vs_tp1=ring_agree(torch, ring, model, params, prompts, streams,
+                               spec["want"], CHAIN_TOL, what),
+             streams=streams)
+    trace = tpf_trace(cfg)
+    base, bwall, _ = serve_blocking(torch, eng, trace)
+    c = {"blocking": {"tokens": sum(map(len, base)), "wall_s": bwall,
+                      "tokens_per_s": sum(map(len, base)) / bwall}}
+    c.update(tpf_frontends(torch, ring, ring, eng, model, params, trace,
+                           base, "(17c) lone ring"))
+    out = {"rank": ring.rank, "card": str(dev), "a": a,
+           "c": c if ring.rank == 0 else None,
+           "s": time.perf_counter() - t0}
+    return ring.agreement().gather(out)
+
+
+def tpf_checked_reset():
+    """LPUEngine.reset wrapped: raises unless a reset keeps every cache
+    tensor's storage, the captures and the program keys (the drained
+    sub-ring is rebuilt in place with no new capture); counts resets.
+    Returns (the original, the count box)."""
+    from repro_torch.serving.engine import LPUEngine
+    orig, box = LPUEngine.reset, {"resets": 0}
+
+    def checked(self):
+        ptrs, caps = cache_ptrs(self), captures_of(self)
+        keys = (set(self._programs._by_key), set(self._admit._by_key))
+        orphans = orig(self)
+        if cache_ptrs(self) != ptrs or captures_of(self) != caps or \
+                keys != (set(self._programs._by_key),
+                         set(self._admit._by_key)):
+            raise AssertionError(f"(17b) reset of ring {self.ring_id} "
+                                 "moved the cache or changed its programs")
+        box["resets"] += 1
+        return orphans
+    LPUEngine.reset = checked
+    return orig, box
+
+
+def tpf_fleet_run(torch, fleet, prompts, new):
+    """Serve ``prompts`` x ``new`` on a warmed mesh fleet, its counters
+    and the local engine's read from zero over the run: (streams, the
+    local engine's kernel 1 launches, the fleet's wall)."""
+    from repro_torch.kernels.decode_attention.ops import \
+        paged_decode_attention
+    dev = fleet.local.device
+    fleet.local.stats = type(fleet.local.stats)()
+    for v in fleet.engines:
+        v.stats = type(v.stats)()
+    fleet.wall = 0.0
+    fleet.router.routed = [0] * fleet.n_rings
+    fleet.sub.reset_counters()
+    fleet.world.reset_counters()
+    paged_decode_attention.launches = 0
+    streams = fleet.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize(dev)
+    return streams, paged_decode_attention.launches, fleet.wall
+
+
+def tpf_fleet_gates(fleet, launches, what):
+    eng = fleet.local
+    if eng.device.type == "cuda" and (launches != launches_want(eng)
+                                      or not launches):
+        raise AssertionError(f"{what}: kernel 1 launches {launches} != "
+                             f"{launches_want(eng)} on ring "
+                             f"{fleet.ring_index}")
+    on_graphs(eng)
+    if eng.graphs and not eng.stats.graph_replays:
+        raise AssertionError(f"{what}: no replay")
+    pool_checks(eng, what)
+    if fleet.world.counters["collectives"]:
+        raise AssertionError(f"{what}: {fleet.world.counters} collectives "
+                             "on the world group")
+
+
+def tpf_a(torch, fleet, model, params, spec):
+    """(a) on the mesh fleet: phase 9's traffic against tp=1, routes,
+    kernel 1, replays, each program's collectives against the lone
+    ring's, nothing on the world group."""
+    what = "(17a) fleet"
+    prompts = spec["prompts"]
+    streams, launches, wall = tpf_fleet_run(torch, fleet, prompts, TPF_NEW)
+    tpf_fleet_gates(fleet, launches, what)
+    eng, sub = fleet.local, fleet.sub
+    mine, lone = tpf_programs(eng), spec["lone_programs"]
+    common = sorted(set(mine) & set(lone))
+    if eng.graphs and (not any("window" in k for k in common) or
+                       not any("chunk" in k for k in common)):
+        raise AssertionError(f"{what}: programs {sorted(mine)} beside the "
+                             f"lone ring's {sorted(lone)}")
+    apart = {k: (mine[k], lone[k]) for k in common if mine[k] != lone[k]}
+    if apart:
+        raise AssertionError(f"{what}: collectives per replay {apart} "
+                             "(fleet, lone ring)")
+    # balanced as the router balances: least outstanding tokens, the
+    # loads of the prompts submitted before the first round
+    from repro_torch.serving.scheduler import RingRouter
+    replay, loads = RingRouter(fleet.n_rings), [0] * fleet.n_rings
+    for p in prompts:
+        loads[replay.route(loads)] += len(p) + TPF_NEW
+    if fleet.router.routed != replay.routed:
+        raise AssertionError(f"{what}: routed {fleet.router.routed}, the "
+                             f"least-loaded rule {replay.routed}")
+    tokens = sum(s.tokens for s in fleet.per_ring_stats())
+    st = eng.stats
+    return {"streams": streams, "routed": list(fleet.router.routed),
+            "routed_tokens": loads, "fleet_wall_s": wall, "tokens": tokens,
+            "tokens_per_s": tokens / wall,
+            "per_ring_tokens": [s.tokens for s in fleet.per_ring_stats()],
+            "kernel1_launches": launches,
+            "kernel1_want": launches_want(eng),
+            "graph_replays": st.graph_replays,
+            "graph_captures": st.graph_captures,
+            "device_decode_steps": st.device_decode_steps,
+            "prefill_chunks": st.prefill_chunks,
+            **ring_counts(sub, st.device_decode_steps),
+            "programs_checked": common,
+            "world_collectives": fleet.world.counters["collectives"],
+            "vs_tp1": ring_agree(torch, sub, model, params, prompts,
+                                 streams, spec["want"], CHAIN_TOL, what)}
+
+
+def tpf_b(torch, ring, model, params, spec, clean):
+    """(b): TPF_CHAOS on a fresh mesh fleet (a ManualClock), every
+    reset checked in place: orphans migrate across processes, the
+    survivors' streams are (a)'s, the requests out of migrations end as
+    structured failures, the fleet's counters equal on every rank."""
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import MultiRingEngine
+    what = "(17b) chaos"
+    prompts = spec["prompts"]
+    orig, box = tpf_checked_reset()
+    try:
+        fleet = MultiRingEngine(model, params, ring, ring_size=TPF_TP,
+                                config=EngineConfig(**dict(TPF_KW,
+                                                           **TPF_CHAOS)),
+                                device=ring.device, graphs=ring.nccl)
+        rids = [fleet.submit(p, TPF_NEW) for p in prompts]
+        first = {r: fleet.ring_of[r] for r in rids}
+        res = fleet.drain()
+    finally:
+        from repro_torch.serving.engine import LPUEngine
+        LPUEngine.reset = orig
+    torch.cuda.synchronize(ring.device)
+    fc = fleet.fleet_counters()
+    moved = [r for r in rids if fleet.ring_of[r] != first[r]]
+    if not fc["migrated_requests"] or not moved:
+        raise AssertionError(f"{what}: no orphan migrated: {fc}")
+    if not fleet.failed or any(
+            "retries exhausted" not in q.error for q in fleet.failed.values()):
+        raise AssertionError(f"{what}: no structured failure: {fc}")
+    got = [res[r] for r in rids]
+    want = [c[:len(g)] if r in fleet.failed else c
+            for r, g, c in zip(rids, got, clean)]
+    vs = ring_agree(torch, fleet.sub, model, params, prompts, got, want,
+                    CHAIN_TOL, what)
+    pool_checks(fleet.local, what)
+    out = {"fleet_counters": fc, "moved": moved,
+           "failed": {r: q.error for r, q in fleet.failed.items()},
+           "failed_tokens": {r: len(q.out) for r, q in fleet.failed.items()},
+           "ring_failures": [(e.detail["ring"], e.detail["reason"], e.step)
+                             for e in fleet.events
+                             if e.kind == "ring_failed"],
+           "resets_checked_here": box["resets"], "vs_fault_free": vs,
+           "rounds": fleet._round, "wall_s": fleet.wall,
+           "world_collectives": fleet.world.counters["collectives"]}
+    del fleet
+    gc.collect()
+    return out
+
+
+def tpf_d(torch, ring, sub, spec):
+    """(d): full-width opt-66b in bf16 as 2 rings x tp 2, each rank
+    drawing only its shard at its place in its sub-ring; the same 4
+    prompts on both rings (one batch each), 128 new: both rings' streams
+    equal, kernel 1 exact, replays, peak memory a card."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import MultiRingEngine
+    import numpy as np
+    what = "(17d) opt-66b"
+    dev = ring.device
+    cfg = tpf_cfg("opt-66b", spec["reduced"])
+    plan = ring_plans(cfg, TPF_TP, "bfloat16")[False]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = rank_weights(cfg, plan, sub.rank, dev)
+    torch.cuda.synchronize(dev)
+    draw_s = time.perf_counter() - t0
+    wbytes = weight_bytes(params)
+    model = build_model(cfg, plan, dev)
+    fleet = MultiRingEngine(model, params, ring, ring_size=TPF_TP,
+                            config=EngineConfig(**TPF_D_KW), device=dev,
+                            graphs=ring.nccl)
+    rng = np.random.RandomState(66)
+    base = [[int(t) for t in rng.randint(1, cfg.vocab_size, size=TPF_D_IN)]
+            for _ in range(TPF_D_PROMPTS)]
+    prompts = [p for p in base for _ in range(2)]
+    # warm both rings: a 32-token prompt each (the run's prefill bucket,
+    # sampler and window captured), then the run from zero
+    fleet.generate([base[0], base[1]], max_new_tokens=2)
+    streams, launches, wall = tpf_fleet_run(torch, fleet, prompts,
+                                            TPF_D_NEW)
+    tpf_fleet_gates(fleet, launches, what)
+    ring0, ring1 = streams[0::2], streams[1::2]
+    if [fleet.ring_of[r] for r in sorted(fleet.ring_of)][-8:] != \
+            [0, 1] * TPF_D_PROMPTS:
+        raise AssertionError(f"{what}: routed {fleet.ring_of}")
+    if ring0 != ring1 or any(len(s) != TPF_D_NEW for s in streams):
+        raise AssertionError(f"{what}: the rings' streams differ on the "
+                             "same prompts")
+    st = fleet.per_ring_stats()
+    tokens = sum(s.tokens for s in st)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else 0
+    out = {"draw_s": draw_s, "weight_bytes_per_card": wbytes,
+           "peak_memory_bytes": peak, "tokens": tokens,
+           "fleet_wall_s": wall, "tokens_per_s": tokens / wall,
+           "ms_per_token_per_ring": [s.wall * 1e3 / max(s.steps, 1)
+                                     for s in st],
+           "decode_steps_per_ring": [s.steps for s in st],
+           "kernel1_launches": launches,
+           "kernel1_want": launches_want(fleet.local),
+           "graph_replays": fleet.local.stats.graph_replays,
+           "routed": list(fleet.router.routed),
+           "streams_equal_across_rings": ring0 == ring1,
+           "stream_head": ring0[0][:16],
+           **ring_counts(fleet.sub, fleet.local.stats.device_decode_steps)}
+    del fleet, model, params
+    gc.collect()
+    return out
+
+
+def tpf_fleet_rank(ring, spec):
+    """Phase 17 on the mesh fleet of 2 rings x tp 2 (cards 0-3; rank r
+    on ``cuda:r``, NCCL, graphs): (a), (b), (c) on full-width opt-1.3b
+    f32 (blocking), then (d) opt-66b bf16.  Returns every rank's
+    record."""
+    import torch
+    from repro_torch.core.rings import sub_ring
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import MultiRingEngine
+    dev = ring.device
+    t_all = time.perf_counter()
+    idx, sub = sub_ring(ring, TPF_TP)
+    cfg = tpf_cfg("opt-1.3b", spec["reduced"])
+    plan = ring_plans(cfg, TPF_TP)[False]
+    params = rank_weights(cfg, plan, sub.rank, dev)
+    model = build_model(cfg, plan, dev)
+    fleet = MultiRingEngine(model, params, ring, ring_size=TPF_TP,
+                            config=EngineConfig(**TPF_KW), device=dev,
+                            graphs=ring.nccl)
+    agreement = fleet.agreement
+    prompts = spec["prompts"]
+    fleet.generate([p[:8] for p in prompts[:2]], max_new_tokens=2)
+    out = {"rank": ring.rank, "card": str(dev), "ring": idx,
+           "sub_ranks": sub.ranks, "backend": ring.backend}
+    t0 = time.perf_counter()
+    out["a"] = tpf_a(torch, fleet, model, params, spec)
+    out["a_s"] = time.perf_counter() - t0
+    if ring.rank == 0:
+        print(f"[tp_fleet] (17a) rank 0: {out['a']['tokens_per_s']:.1f} "
+              f"tokens/s over the fleet's wall, routed "
+              f"{out['a']['routed']}", flush=True)
+    t0 = time.perf_counter()
+    out["b"] = tpf_b(torch, ring, model, params, spec, out["a"]["streams"])
+    out["b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trace = tpf_trace(cfg)
+    base, bwall, _ = serve_blocking(torch, fleet, trace)
+    c = {"blocking": {"tokens": sum(map(len, base)), "wall_s": bwall,
+                      "tokens_per_s": sum(map(len, base)) / bwall}}
+    c.update(tpf_frontends(torch, ring, sub, fleet, model, params, trace,
+                           base, "(17c) fleet"))
+    out["c"] = c if ring.rank == 0 else None
+    out["c_s"] = time.perf_counter() - t0
+    out["agreement"] = dict(agreement.counters)
+    out["fleet_rounds"] = fleet._round
+    del fleet, model, params
+    gc.collect()
+    if dev.type == "cuda":
+        free_cuda(torch)
+    t0 = time.perf_counter()
+    out["d"] = tpf_d(torch, ring, sub, spec)
+    out["d_s"] = time.perf_counter() - t0
+    out["s"] = time.perf_counter() - t_all
+    return agreement.gather(out)
+
+
+def tpf_same(per_rank, get, what):
+    vals = [get(r) for r in per_rank]
+    if any(v != vals[0] for v in vals):
+        raise AssertionError(f"(17) {what}: the ranks differ: {vals}")
+    return vals[0]
+
+
+def run_tp_fleet(torch, dev, card_name, lap=None, device="cuda",
+                 reduced=False):
+    """Phase 17 on a machine of 4 or more cards: the tp=1 reference on
+    ``dev`` (opt-1.3b f32, phase 9's traffic), a lone ring of tp 2 on
+    cards 0-1 (:func:`tpf_ring_rank`), then the mesh fleet of 2 rings x
+    tp 2 on cards 0-3 (:func:`tpf_fleet_rank`).  ``device="cpu"`` and
+    ``reduced`` rehearse the phase on gloo ranks at reduced widths.
+    Returns the record."""
+    from repro_torch.core.dist import run_ranks
+    from repro_torch.models.common import init_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.compiler.mapper import plan_model
+    from repro_torch.weights import redraw
+    t_phase = time.perf_counter()
+    placement = "card_per_rank" if device == "cuda" else None
+    cfg = tpf_cfg("opt-1.3b", reduced)
+    plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
+                      remat="none", compute_dtype="float32",
+                      param_dtype="float32")
+    model = build_model(cfg, plan, dev)
+    params = init_params(cfg, plan, seed=0, device=dev)
+    redraw(params, opt_std(cfg), OPT_REDRAW_SEED)
+    prompts = opt_prompts(cfg)[0]
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import LPUEngine
+    eng = LPUEngine(model, params, EngineConfig(**TPF_KW), device=dev,
+                    graphs=dev.type == "cuda")
+    want = eng.generate(prompts, max_new_tokens=TPF_NEW)
+    on_graphs(eng)
+    del eng, model, params
+    gc.collect()
+    if dev.type == "cuda":
+        free_cuda(torch)
+    rec = {"card": card_name, "tp": TPF_TP, "rings": TPF_RINGS,
+           "tp1_s": time.perf_counter() - t_phase}
+    spec = {"prompts": prompts, "want": want, "reduced": reduced}
+    t0 = time.perf_counter()
+    lone = run_ranks(tpf_ring_rank, TPF_TP, spec, device=device,
+                     placement=placement, timeout_s=300)
+    rec["lone_ranks_s"] = time.perf_counter() - t0
+    tpf_same(lone, lambda x: x["a"]["streams"], "lone ring streams")
+    progs = tpf_same(lone, lambda x: x["a"]["programs"],
+                     "lone ring programs' collectives")
+    la = dict(lone[0]["a"])
+    la.pop("streams")
+    la["kernel1_launches_per_rank"] = [x["a"]["kernel_launches"]
+                                       for x in lone]
+    rec["a_lone_ring"] = la
+    rec["c_lone_ring"] = lone[0]["c"]
+    if lap is not None:
+        lap("(17) lone ring")
+    spec["lone_programs"] = progs
+    t0 = time.perf_counter()
+    per_rank = run_ranks(tpf_fleet_rank, TPF_TP * TPF_RINGS, spec,
+                         device=device, placement=placement, timeout_s=600)
+    rec["fleet_ranks_s"] = time.perf_counter() - t0
+    if [x["ring"] for x in per_rank] != [0, 0, 1, 1]:
+        raise AssertionError(f"(17) sub-rings {[x['ring'] for x in per_rank]}")
+    a = [x["a"] for x in per_rank]
+    tpf_same(a, lambda x: (x["streams"], x["routed"], x["per_ring_tokens"]),
+             "(a) streams, routes and per-ring tokens")
+    ra = {k: v for k, v in a[0].items() if k not in ("streams",)}
+    for k in ("kernel1_launches", "kernel1_want", "graph_replays",
+              "collectives_per_decode_step", "world_collectives",
+              "device_decode_steps", "prefill_chunks"):
+        ra[f"{k}_per_rank"] = [x[k] for x in a]
+    ra["vs_lone_ring_tokens_per_s"] = la["tokens_per_s"]
+    rec["a_fleet"] = ra
+    b = [x["b"] for x in per_rank]
+    tpf_same(b, lambda x: (x["fleet_counters"], x["moved"], x["failed"],
+                           x["ring_failures"]), "(b) fleet counters")
+    rb = dict(b[0])
+    rb["resets_checked_per_rank"] = [x["resets_checked_here"] for x in b]
+    rec["b_chaos"] = rb
+    rec["c_fleet"] = per_rank[0]["c"]
+    d = [x["d"] for x in per_rank]
+    tpf_same(d, lambda x: (x["tokens"], x["routed"], x["stream_head"]),
+             "(d) tokens, routes and streams")
+    rd = {k: v for k, v in d[0].items()
+          if k not in ("peak_memory_bytes", "weight_bytes_per_card",
+                       "kernel1_launches", "kernel1_want", "draw_s")}
+    for k in ("peak_memory_bytes", "weight_bytes_per_card",
+              "kernel1_launches", "kernel1_want", "draw_s"):
+        rd[f"{k}_per_rank"] = [x[k] for x in d]
+    rd["one_ring_tp2_batch1_ms_per_token"] = dict(
+        ms=TPF_ONE_RING_OPT66_MS, source="measured in another run on H100s: "
+        "one ring of tp 2, batch 1, blocking, the paper's protocol")
+    rec["d_opt66b"] = rd
+    rec["agreement_rank0"] = dict(per_rank[0]["agreement"],
+                                  fleet_rounds=per_rank[0]["fleet_rounds"])
+    rec["part_s_rank0"] = {p: per_rank[0][f"{p}_s"] for p in "abcd"}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def print_tp_fleet(rec, smi):
+    a, la, b, d = (rec["a_fleet"], rec["a_lone_ring"], rec["b_chaos"],
+                   rec["d_opt66b"])
+    print(f"[tp_fleet] (17a) opt-1.3b f32 blocking, 8 x {TPF_NEW}: fleet of "
+          f"{TPF_RINGS} x tp {TPF_TP} {a['tokens_per_s']:.1f} tokens/s over "
+          f"the fleet's wall (lone ring of tp {TPF_TP} "
+          f"{la['tokens_per_s']:.1f}), routed {a['routed']}, equal to tp=1 "
+          f"{a['vs_tp1']['equal']}/{a['vs_tp1']['of']}, kernel 1 "
+          f"{a['kernel1_launches_per_rank']} (want "
+          f"{a['kernel1_want_per_rank']}), collectives per decode step "
+          f"{a['collectives_per_decode_step_per_rank']} (lone ring "
+          f"{la['collectives_per_decode_step']:.2f}), world-group "
+          f"collectives {a['world_collectives_per_rank']} | {smi}")
+    print(f"[tp_fleet] (17b) chaos {TPF_CHAOS}: {b['fleet_counters']}, "
+          f"moved {b['moved']}, failed {sorted(b['failed'])}, ring failures "
+          f"{b['ring_failures']}, resets checked "
+          f"{b['resets_checked_per_rank']}, survivors "
+          f"{b['vs_fault_free']['equal']}/{b['vs_fault_free']['of']} | "
+          f"{smi}")
+    for where, c in (("lone ring", rec["c_lone_ring"]),
+                     ("fleet", rec["c_fleet"])):
+        for key in ("budget_off", "budget_on"):
+            r = c[key]
+            print(f"[tp_fleet] (17c) {where} {key}: ttft from arrival "
+                  f"p50/p99 {r['ttft_arrival_ms_p50']:.1f}/"
+                  f"{r['ttft_arrival_ms_p99']:.1f} ms, ms/token p50/p99 "
+                  f"{r['ms_per_token_p50']:.2f}/{r['ms_per_token_p99']:.2f},"
+                  f" {r['tokens_per_s']:.1f} tokens/s (blocking "
+                  f"{c['blocking']['tokens_per_s']:.1f}), rejected "
+                  f"{r['rejected']}, orders crc {r['orders_crc']} x "
+                  f"{r['orders_applied']} on every rank | {smi}")
+    print(f"[tp_fleet] (17d) opt-66b bf16 {TPF_RINGS} x tp {TPF_TP}: "
+          f"{d['tokens_per_s']:.1f} tokens/s over the fleet's wall, ms/token "
+          f"per ring {[round(x, 3) for x in d['ms_per_token_per_ring']]} at "
+          f"4 slots, peak memory per card "
+          f"{[round(x / 1e9, 2) for x in d['peak_memory_bytes_per_rank']]} "
+          f"GB (weights {d['weight_bytes_per_card_per_rank'][0] / 1e9:.2f}),"
+          f" kernel 1 {d['kernel1_launches_per_rank']} (want "
+          f"{d['kernel1_want_per_rank']}); the single ring at tp 2, batch "
+          f"1 (another run): {TPF_ONE_RING_OPT66_MS} ms/token | {smi}")
+    print(f"[tp_fleet] agreement on rank 0: {rec['agreement_rank0']}; "
+          f"phase {rec['phase_s']:.1f} s")
+
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "NVIDIA cards (see the module docstring).")
     ap.add_argument("--only", choices=("tp_cards", "tp_families",
-                                       "tp_spec_mm"),
+                                       "tp_spec_mm", "tp_fleet"),
                     help="tp_cards / tp_families / tp_spec_mm: build the "
                          "kernels and run phase 14 / 15 / 16 alone (2 or "
-                         "more cards)")
+                         "more cards); tp_fleet: phase 17 alone (4 or more "
+                         "cards)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -7363,11 +7981,16 @@ def main(argv=None) -> int:
     n_cards = torch.cuda.device_count()
     if args.only:
         lap("build")
-        if n_cards < 2:
-            print(f"[{args.only}] needs 2 or more cards; this machine has "
-                  f"{n_cards}: not run", file=sys.stderr)
+        need = 4 if args.only == "tp_fleet" else 2
+        if n_cards < need:
+            print(f"[{args.only}] needs {need} or more cards; this machine "
+                  f"has {n_cards}: not run", file=sys.stderr)
             return 1
-        if args.only == "tp_cards":
+        if args.only == "tp_fleet":
+            fl = run_tp_fleet(torch, torch.device("cuda", 0), smi, lap)
+            print_tp_fleet(fl, smi)
+            print(json.dumps({"tp_fleet": fl}))
+        elif args.only == "tp_cards":
             tp_cards = run_tp_cards(torch, torch.device("cuda", 0), smi, lap)
             print_tp_cards(tp_cards, smi)
             print(json.dumps({"tp_cards": tp_cards}))
@@ -7818,6 +8441,14 @@ def main(argv=None) -> int:
         tp_families = tp_spec_mm = None
         print(f"[tp_cards] (14), [tp_families] (15) and [tp_spec_mm] (16) "
               f"need 2 or more cards; this machine has {n_cards}: not run")
+    tp_fleet = None
+    if n_cards >= 4:
+        tp_fleet = run_tp_fleet(torch, torch.device("cuda", 0), smi, lap)
+        print_tp_fleet(tp_fleet, smi)
+        lap("tp_fleet (17)")
+    else:
+        print(f"[tp_fleet] (17) needs 4 or more cards; this machine has "
+              f"{n_cards}: not run")
 
     def src(name):
         return os.path.relpath(build.source_path(name), HERE)
@@ -8064,6 +8695,8 @@ def main(argv=None) -> int:
         print(json.dumps({"tp_cards": tp_cards}))
         print(json.dumps({"tp_families": tp_families}))
         print(json.dumps({"tp_spec_mm": tp_spec_mm}))
+    if tp_fleet is not None:
+        print(json.dumps({"tp_fleet": tp_fleet}))
     print(f"[time] total {time.perf_counter() - t_start:.1f} s (limit "
           "1200 s)")
     print(smi)

@@ -46,6 +46,16 @@ rank, or the CPU or one shared card.
   card's host, twice a send/receive pair.  Its collectives cannot be
   captured, so a gloo ring's steps run eagerly.
 
+A world of ranks splits into disjoint sub-rings (:meth:`Ring.split`,
+the mesh fleet's): each rank gets a :class:`SubRing`, a handle whose
+``rank`` and ``size`` are its place in its sub-ring, whose ``group`` is
+the sub-ring's process group and whose P2P peers map to world ranks, so
+the models' collectives run on it unchanged and never leave the
+sub-ring.  Host decisions that several processes must make alike go
+through :class:`Agreement`: picklable objects over a gloo group of the
+whole world made for them alone (also under NCCL), never through the
+model's communicators and never inside a capture.
+
 On both, every reduction is one round of swaps that then folds the parts
 in rank order, so every rank holds the same bits, and an NCCL ring
 computes the bits a gloo ring computes.  ``Ring.counters`` counts what
@@ -106,10 +116,55 @@ class Ring:
         self.device = torch.device(device)
         self._subgroups: Dict[tuple, Any] = {}
         self._gathered: Dict[tuple, tuple] = {}
+        self._splits: Dict[tuple, "SubRing"] = {}
+        self._agreement: Optional["Agreement"] = None
         self.counters = dict(collectives=0, hops=0, staged_bytes=0,
                              seconds=0.0)
         if self.nccl:
             self._warm_up(None, [list(range(self.size))])
+
+    def peer(self, r: int) -> int:
+        """The world rank of this ring's rank ``r``: the peer
+        ``torch.distributed`` takes in a point-to-point call, whatever
+        the group."""
+        return r
+
+    def split(self, groups: Sequence[Sequence[int]]) -> "SubRing":
+        """The handle of the sub-ring of ``groups`` (disjoint lists of
+        this ring's ranks covering it) that holds this rank.  Every rank
+        calls this at the same point: each group's process group is made
+        by every rank, in order (``new_group`` is collective over the
+        world), and each sub-ring then warms its own communicator.  Made
+        once per ``groups``; never inside a capture."""
+        key = tuple(tuple(int(r) for r in g) for g in groups)
+        got = self._splits.get(key)
+        if got is not None:
+            return got
+        seen = sorted(r for g in key for r in g)
+        if seen != list(range(self.size)):
+            raise ValueError(f"sub-rings {key} do not split a ring of "
+                             f"{self.size} ranks into disjoint groups")
+        if self.device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"sub-rings {key} made inside a CUDA graph "
+                               "capture")
+        import torch.distributed as dist
+        mine = None
+        for g in key:
+            pg = dist.new_group([self.peer(r) for r in g],
+                                backend=self.backend)
+            if self.rank in g:
+                mine = (g, pg)
+        sub = SubRing(self, mine[0], mine[1])
+        self._splits[key] = sub
+        return sub
+
+    def agreement(self) -> "Agreement":
+        """The world's :class:`Agreement` (made at first use: every rank
+        calls this at the same point)."""
+        if self._agreement is None:
+            self._agreement = Agreement(self)
+        return self._agreement
 
     @property
     def nccl(self) -> bool:
@@ -152,7 +207,8 @@ class Ring:
                 "ring.make_groups(...) before the first capture")
         import torch.distributed as dist
         self._subgroups[key] = [
-            (dist.new_group(list(g), backend=self.backend), list(g))
+            (dist.new_group([self.peer(r) for r in g],
+                            backend=self.backend), list(g))
             for g in key]
         if self.nccl:
             self._warm_up(groups, [list(g) for g in key])
@@ -215,6 +271,93 @@ class Ring:
             out = out.to(self.device, non_blocking=True)
         self.counters["seconds"] += time.perf_counter() - t0
         return out
+
+
+class SubRing(Ring):
+    """One rank's handle on its sub-ring of a split world
+    (:meth:`Ring.split`): ``rank`` and ``size`` are its place in the
+    sub-ring, ``group`` the sub-ring's process group, and its P2P peers
+    map to world ranks (:meth:`peer`), so the models' collectives and
+    the engine's programs run on it as on a whole ring, confined to the
+    sub-ring.  Its own counters; on NCCL its communicator and the P2P
+    links of its rotations are made and used once here.  ``world`` is
+    the ring it was split from."""
+
+    def __init__(self, world: Ring, ranks: Sequence[int], group):
+        self.world = world
+        self.ranks = [int(r) for r in ranks]
+        self.group = group
+        self.rank = self.ranks.index(world.rank)
+        self.size = len(self.ranks)
+        self.backend = world.backend
+        self.device = world.device
+        self._subgroups = {}
+        self._gathered = {}
+        self._splits = {}
+        self._agreement = None
+        self.counters = dict(collectives=0, hops=0, staged_bytes=0,
+                             seconds=0.0)
+        if self.nccl:
+            self._warm_up(None, [list(range(self.size))])
+
+    def peer(self, r: int) -> int:
+        return self.world.peer(self.ranks[r])
+
+    def make_groups(self, groups: Sequence[Sequence[int]]) -> None:
+        raise ValueError(
+            f"sub-ring groups {groups} inside a sub-ring: a process group "
+            "is made by every rank of the world; split the world ring "
+            "instead (Ring.split)")
+
+    def split(self, groups):
+        raise ValueError("a sub-ring does not split again; split the world "
+                         "ring (Ring.split)")
+
+    def agreement(self) -> "Agreement":
+        """The world's agreement (its ranks are the world's)."""
+        return self.world.agreement()
+
+
+class Agreement:
+    """Host decisions that every rank of a world makes alike: picklable
+    objects over a gloo process group of the whole world made for them
+    alone (gloo also when the model's collectives run on NCCL, so a host
+    object never goes through NCCL or meets a capture).  :meth:`gather`
+    gives every rank's object to every rank; :meth:`announce` rank 0's.
+    ``counters``: rounds, objects received, pickled bytes received and
+    host seconds inside the calls."""
+
+    def __init__(self, world: Ring):
+        import torch.distributed as dist
+        self.rank, self.size = world.rank, world.size
+        self.group = dist.new_group([world.peer(r) for r in range(world.size)],
+                                    backend="gloo")
+        self.counters = dict(rounds=0, objects=0, bytes=0, seconds=0.0)
+
+    def gather(self, obj) -> List[Any]:
+        """Every rank's ``obj``, in rank order, on every rank."""
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        out: List[Any] = [None] * self.size
+        dist.all_gather_object(out, pickle.dumps(obj), group=self.group)
+        self._count(out, t0)
+        return [pickle.loads(b) for b in out]
+
+    def announce(self, obj=None):
+        """Rank 0's ``obj`` on every rank (the others pass nothing)."""
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        box = [pickle.dumps(obj) if self.rank == 0 else None]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        self._count(box, t0)
+        return pickle.loads(box[0])
+
+    def _count(self, got: List[bytes], t0: float) -> None:
+        c = self.counters
+        c["rounds"] += 1
+        c["objects"] += len(got)
+        c["bytes"] += sum(len(b) for b in got)
+        c["seconds"] += time.perf_counter() - t0
 
 
 @contextlib.contextmanager
@@ -353,18 +496,20 @@ def ppermute(x: torch.Tensor, axis: Optional[Ring],
     if axis.nccl:
         # one batch on the ring's communicator: no pair communicator,
         # and the send and the receive start together
-        ops = ([dist.P2POp(dist.isend, send, dst[0], group=axis.group)]
-               if dst else [])
+        ops = ([dist.P2POp(dist.isend, send, axis.peer(dst[0]),
+                           group=axis.group)] if dst else [])
         if src:
-            ops.append(dist.P2POp(dist.irecv, recv, src[0],
+            ops.append(dist.P2POp(dist.irecv, recv, axis.peer(src[0]),
                                   group=axis.group))
         works = dist.batch_isend_irecv(ops) if ops else []
     else:
         works = []
         if send is not None:
-            works.append(dist.isend(send, dst[0], group=axis.group))
+            works.append(dist.isend(send, axis.peer(dst[0]),
+                                    group=axis.group))
         if src:
-            works.append(dist.irecv(recv, src[0], group=axis.group))
+            works.append(dist.irecv(recv, axis.peer(src[0]),
+                                    group=axis.group))
     if not src:
         recv.zero_()
     pending = Pending(axis, works, recv, keep=(send,))
@@ -387,10 +532,10 @@ def _swap(axis: Ring, groups: Groups, outgoing: List[torch.Tensor]
     for j, peer in enumerate(ranks):
         if j != me:
             parts[j] = axis._buffer(outgoing[me].shape, outgoing[me].dtype)
-            works.append(dist.irecv(parts[j], peer, group=pg))
+            works.append(dist.irecv(parts[j], axis.peer(peer), group=pg))
     for j, peer in enumerate(ranks):
         if j != me:
-            works.append(dist.isend(outgoing[j], peer, group=pg))
+            works.append(dist.isend(outgoing[j], axis.peer(peer), group=pg))
     for w in works:
         w.wait()
     return parts

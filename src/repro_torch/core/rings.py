@@ -6,8 +6,11 @@ concurrently with no cross-ring interference and no rewiring.  In the
 port the ring is a ``torch.distributed`` process group of ``total``
 ranks; :class:`RingConfig` computes the disjoint sub-ring groups that
 the collectives of :mod:`repro_torch.core.dist` confine themselves to,
-and :func:`rank_groups` gives the rank lists of independent sub-rings
-(the reference's ``submeshes``, which carve a JAX mesh).
+and :func:`rank_groups` gives the rank lists of independent sub-rings.
+:func:`sub_ring` is the port's counterpart of the reference's
+``submeshes`` (which carves a JAX mesh into congruent sub-meshes): it
+splits a world of ranks into those sub-rings and gives each rank its
+sub-ring's index and handle, on which one ring-parallel engine runs.
 """
 from __future__ import annotations
 
@@ -66,3 +69,13 @@ def rank_groups(total: int, ring_size: int) -> List[List[int]]:
     """The ranks of each independent sub-ring of a ``total``-rank ring:
     one model per group (multi-tenant), its collectives confined to it."""
     return reconfigure(total, ring_size).groups()
+
+
+def sub_ring(ring, ring_size: int):
+    """(index of the sub-ring holding this rank, its
+    :class:`repro_torch.core.dist.SubRing`) when the world ``ring``
+    splits into independent sub-rings of ``ring_size`` ranks (every rank
+    calls this at the same point; the split is made once and reused).
+    No collective of one sub-ring involves another's ranks."""
+    cfg = reconfigure(ring.size, ring_size)
+    return cfg.ring_of(ring.rank), ring.split(cfg.groups())

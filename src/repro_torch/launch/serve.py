@@ -34,6 +34,12 @@ and run the engine on a batch of random prompts.
         --arch jamba-v0.1-52b --tp 2               # two cards, 52 GB each
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch llava-next-34b --tp 2               # two cards, its text
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --tp 2 --rings 2 [--chaos ring@2]   # the mesh fleet
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --tp 2 --budget-ms 5 --max-pending 2 --tracker t.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-66b \
+        --tp 2 --rings 2                           # four cards
 
 ``--arch`` takes any name or alias of the port's registry: the dense
 decoders (smollm-135m, the paper's opt-1.3b/6.7b/30b/66b and gpt3-20b,
@@ -63,20 +69,23 @@ being the slots' K+1 queries.  ``--rings N`` (N > 1) or ``--chaos``
 serves through the supervised host fleet (``MultiRingEngine``: N engines
 on the one device over the same weights), with the reference's
 ``--max-migrations``, ``--heartbeat-timeout`` (virtual seconds under
-chaos) and ``--affinity``; each ring's straggler monitor is seeded with
-the latency model's step-time prior at the LPU-FPGA point, and the
-fleet prints the reference's per-ring and ``ft:`` lines.  ``--budget-ms
+chaos) and ``--affinity``; on the CPU each ring's straggler monitor is
+seeded with the latency model's step-time prior at the LPU-FPGA point
+(on the card with none: its warm-up takes the first measured steps),
+and the fleet prints the reference's per-ring and ``ft:`` lines.  ``--budget-ms
 B`` (SLO step budget: the knobs ``prefill_chunk`` / ``steps_per_sync``
 retuned before every step from a measured EWMA seeded by the same
-prior), ``--max-pending N`` (admission bound with structured
-backpressure) or ``--tracker PATH`` (jsonl telemetry: per-window
+prior, or on the card by the budget itself), ``--max-pending N``
+(admission bound with structured backpressure) or ``--tracker PATH`` (jsonl telemetry: per-window
 ``EngineStats`` deltas and per-request TTFT / ms-per-token records)
 routes the batch through the async front end
 (:mod:`repro_torch.serving.frontend`) instead of the blocking
 ``generate()``, and prints the reference's front-end summary lines.
-The latency model's prior is taken at the H100 point on the card and at
-the LPU-FPGA point on the CPU (where the fleet and the front end are
-held to the reference's).
+The latency model's prior is taken at the LPU-FPGA point on the CPU
+(where the fleet and the front end are held to the reference's) and
+not at all on the card: the copied H100 roofline point gave smollm-135m
+0.333 ms a step against ~10 ms measured, so healthy steps read as
+stragglers.
 
 ``--tp N`` serves the dense, MoE (granite, llama4), vlm (llava, as a
 text decoder), rwkv and hybrid (jamba) stacks tensor-parallel over a
@@ -93,12 +102,19 @@ ranks' cards and the family kernel's launches on each rank.  ``--no-overlap`` is
 matmuls, then ``psum``/``all_gather``) instead of the ESL overlap.
 ``--speculate ngram|model`` composes with ``--tp``: every rank drafts
 the same tokens (the model drafter whole on each rank's device) and
-the ring verifies them in one forward on its heads.  ``--tp`` with
-``--rings > 1`` or ``--chaos`` (the mesh fleet), ``--budget-ms``,
-``--max-pending`` or ``--tracker`` raises ``NotImplementedError``: each
-of those decides from the wall clock or needs a fleet-wide agreement,
-which the ring does not have yet; whisper-tiny is refused by the
-engine on any mesh.
+the ring verifies them in one forward on its heads.  ``--tp N --rings
+R`` (R > 1, or ``--chaos``) serves through the mesh fleet: ``N x R``
+ranks (on CUDA rank r on ``cuda:r``; a machine with fewer cards raises
+and names both counts) in R sub-rings of N, each sub-ring a
+ring-parallel engine over its own shards of the same weights, the
+fleet's supervision agreed by every rank once a round
+(:class:`repro_torch.serving.engine.MultiRingEngine` with
+``mesh=ring``); rank 0 prints the fleet's lines and the agreement's
+cost.  ``--budget-ms``, ``--max-pending`` and ``--tracker`` put the
+async front end on world rank 0, which orders every rank
+(:meth:`repro_torch.serving.frontend.AsyncFrontend.follow`), over one
+ring or over the mesh fleet.  whisper-tiny is refused by the engine on
+any mesh.
 """
 from __future__ import annotations
 
@@ -111,7 +127,7 @@ import torch
 from repro_torch.compiler.mapper import plan_model
 from repro_torch.configs import get_config
 from repro_torch.core.dist import run_ranks
-from repro_torch.core.latency_model import H100, LPU_FPGA, step_time_prior
+from repro_torch.core.latency_model import LPU_FPGA, step_time_prior
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
 from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused
@@ -121,6 +137,11 @@ from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.engine import (LPUEngine, MultiRingEngine,
                                         refuse_encdec)
 from repro_torch.serving.sampler import SamplingParams
+
+
+def wants_frontend(args) -> bool:
+    """Whether the batch goes through the async front end."""
+    return args.budget_ms > 0 or args.max_pending > 0 or bool(args.tracker)
 
 
 def serve_async(engine, args, prompts, sp, prior):
@@ -164,6 +185,9 @@ def serve_async(engine, args, prompts, sp, prior):
     print(f"[serve] frontend: {c['completed']} completed "
           f"{c['failed']} failed {c['cancelled']} cancelled "
           f"({c['rejected']} backpressure rejections, {retries} retried)")
+    if fe.world is not None:
+        print(f"[serve] frontend orders: {fe.orders_applied} applied on "
+              f"each of {fe.world.size} ranks, crc32 {fe.orders_crc:08x}")
     if ttft:
         print(f"[serve] ttft p50/max {ttft[len(ttft) // 2]:.1f}/"
               f"{ttft[-1]:.1f} ms"
@@ -189,28 +213,28 @@ def family_kernel(cfg):
 
 def prior_point(dev):
     """The latency model's hardware point that seeds the step-time
-    prior: the copied H100 point on the card (the LPU-FPGA point's
-    0.859 ms a step was ~10x below the card's measured steps, so the
-    straggler monitors and the budget flagged healthy steps), LPU-FPGA
-    on the CPU, where the fleet and the front end are held to the
-    reference's."""
-    return H100 if dev.type == "cuda" else LPU_FPGA
+    prior: LPU-FPGA on the CPU, where the fleet and the front end are
+    held to the reference's; none on the card, where the monitors'
+    warm-up takes the first measured steps and the budget starts from
+    itself (both roofline points, LPU-FPGA's 0.859 ms and the copied
+    H100's 0.333 ms a step for smollm-135m, sit far below the card's
+    ~10 ms, so healthy steps read as stragglers)."""
+    return LPU_FPGA if dev.type == "cpu" else None
 
 
-def refuse_on_ring(args) -> None:
-    """``--tp`` > 1 with what the ring does not run yet raises."""
-    if args.tp <= 1:
-        return
-    if args.rings > 1 or args.chaos:
-        raise NotImplementedError(
-            "--tp with --rings > 1 or --chaos: the mesh fleet (sub-rings "
-            "of ring-parallel engines) is not ported yet")
-    if args.budget_ms > 0 or args.max_pending > 0 or args.tracker:
-        raise NotImplementedError(
-            "--tp with --budget-ms, --max-pending or --tracker: the async "
-            "front end over a ring is not ported yet (its wall-clock "
-            "decisions could differ between ranks, whose collectives "
-            "would then no longer pair up)")
+def step_prior(cfg, tp: int, dev, args) -> float:
+    """The step-time prior (seconds; 0 = none) of the straggler monitors
+    and the budget's EWMA (:func:`prior_point`)."""
+    point = prior_point(dev)
+    if point is None:
+        return 0.0
+    return step_time_prior(cfg, tp, point, kv_len=args.max_seq,
+                           steps_per_sync=args.steps_per_sync)
+
+
+def fleet_of(args) -> bool:
+    """Whether the run serves through a supervised fleet."""
+    return args.rings > 1 or bool(args.chaos)
 
 
 def placement_of(args):
@@ -225,49 +249,85 @@ def placement_of(args):
 
 
 def serve_rank(ring, argv):
-    """One rank of ``--tp N``: the model planned for the ring, this
-    rank's slice of the tp=1 weights (seed 0) at its layout, its engine
-    (on graphs over NCCL, eager over gloo), the batch; rank 0 prints."""
+    """One rank of ``--tp N`` (a ring of N ranks) or ``--tp N --rings R``
+    (the mesh fleet: R sub-rings of N): the model planned for one ring,
+    this rank's slice of the tp=1 weights (seed 0) at its place in its
+    ring, its engine or its fleet (on graphs over NCCL, eager over
+    gloo), the batch (blocking, or through the front end on rank 0,
+    which the others follow); rank 0 prints."""
+    from repro_torch.core.rings import sub_ring
+    from repro_torch.serving.frontend import AsyncFrontend
     from repro_torch.weights import init_shard
     args = _parser().parse_args(argv)
     dev = ring.device
+    tp = args.tp
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    plan = plan_model(cfg, ("model",), (ring.size,), "serve",
+    plan = plan_model(cfg, ("model",), (tp,), "serve",
                       esl_overlap=not args.no_overlap, remat="none",
                       compute_dtype="float32", param_dtype="float32")
-    params = init_shard(cfg, plan, ring.rank, seed=0, device=dev)
+    fleet = fleet_of(args)
+    mine = sub_ring(ring, tp)[1] if fleet else ring
+    params = init_shard(cfg, plan, mine.rank, seed=0, device=dev)
     model = build_model(cfg, plan, dev)
     draft_model, draft_params = _draft(cfg, args, dev)
-    engine = LPUEngine(model, params, _engine_config(args), mesh=ring,
-                       device=dev, graphs=ring.nccl,
-                       draft_model=draft_model, draft_params=draft_params)
+    prior = step_prior(cfg, tp, dev, args)
+    kw = dict(device=dev, graphs=ring.nccl, draft_model=draft_model,
+              draft_params=draft_params)
+    if fleet:
+        engine = MultiRingEngine(model, params, ring, ring_size=tp,
+                                 config=_engine_config(args),
+                                 step_prior_s=prior, **kw)
+    else:
+        engine = LPUEngine(model, params, _engine_config(args), mesh=ring,
+                           **kw)
     prompts, sp = _batch(cfg, args)
     kernel = family_kernel(cfg)
     kernel.launches = 0
-    ring.reset_counters()
-    outs = engine.generate(prompts, max_new_tokens=args.max_new, params=sp)
+    mine.reset_counters()
+    if not wants_frontend(args):
+        outs = engine.generate(prompts, max_new_tokens=args.max_new,
+                               params=sp)
+    elif ring.rank == 0:
+        outs = serve_async(engine, args, prompts, sp, prior)
+    else:
+        AsyncFrontend(engine).follow()
+        outs = None
     launches = ring.gather_object(kernel.launches)
     cards = ring.gather_object(
         f"{dev} ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda"
         else str(dev))
-    if ring.rank == 0:
+    if ring.rank != 0:
+        return outs
+    mode = "ESL overlap" if plan.esl_overlap else "blocking"
+    graphs = ("graphs on" if ring.nccl else
+              f"graphs off: a {ring.backend} collective is not captured")
+    if fleet:
+        _print_fleet(engine, args, dev, kernel, outs, f"tp={tp} each")
+        print(f"[serve] mesh fleet: {ring.size} ranks, {mode}, "
+              f"{ring.backend} sub-rings, {graphs}")
+        st = engine.local.stats
+    else:
         st = engine.stats
-        mode = "ESL overlap" if plan.esl_overlap else "blocking"
-        graphs = ("graphs on" if engine.graphs else
-                  f"graphs off: a {ring.backend} collective is not captured")
         _print_engine(engine, cfg, args, dev, st, outs,
-                      f"tp={ring.size} ({mode}, {ring.backend} ring, "
-                      f"{graphs})", kernel)
-        print(f"[serve] ring: backend {ring.backend}, ranks on {cards}")
-        steps = max(st.device_decode_steps, 1)
-        print(f"[serve] ring: {ring.counters['collectives']} collectives, "
-              f"{ring.counters['hops']} ppermute hops, "
-              f"{ring.counters['staged_bytes']} host-staged bytes on rank 0 "
-              f"({ring.counters['collectives'] / steps:.1f} collectives per "
-              f"decode step); {kernel.__name__} launches per rank "
-              f"{launches}")
+                      f"tp={tp} ({mode}, {ring.backend} ring, {graphs})",
+                      kernel)
+    print(f"[serve] ring: backend {ring.backend}, ranks on {cards}")
+    steps = max(st.device_decode_steps, 1)
+    c = mine.counters
+    print(f"[serve] ring: {c['collectives']} collectives, "
+          f"{c['hops']} ppermute hops, {c['staged_bytes']} host-staged "
+          f"bytes on rank 0 ({c['collectives'] / steps:.1f} collectives "
+          f"per decode step); {kernel.__name__} launches per rank "
+          f"{launches}")
+    if fleet:
+        a = engine.agreement.counters
+        print(f"[serve] fleet agreement: {a['rounds']} rounds, "
+              f"{a['objects']} objects, {a['bytes']} bytes, "
+              f"{a['seconds'] * 1e3 / max(a['rounds'], 1):.3f} host ms a "
+              f"round on rank 0; world-ring collectives "
+              f"{ring.counters['collectives']}")
     return outs
 
 
@@ -390,8 +450,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--draft-k", type=int, default=4,
                     help="draft tokens proposed per speculative round")
     ap.add_argument("--rings", type=int, default=1,
-                    help="engines of the host fleet, all on the one device "
-                         "over the same weights (> 1: the fleet)")
+                    help="rings of the fleet (> 1: the fleet): engines on "
+                         "the one device over the same weights, or with "
+                         "--tp N sub-rings of N ranks each (the mesh "
+                         "fleet)")
     ap.add_argument("--chaos", default="",
                     help="deterministic fault injection: comma-separated "
                          "kind@step[:ring] with kinds ring|stall|nan|"
@@ -430,10 +492,19 @@ def main(argv=None):
     args = _parser().parse_args(argv)
     cfg = get_config(args.arch)
     refuse_encdec(cfg)
-    refuse_on_ring(args)
     if args.tp > 1:
-        return run_ranks(serve_rank, args.tp, argv, device=args.device,
-                         placement=placement_of(args))
+        world = args.tp * (args.rings if fleet_of(args) else 1)
+        placement = placement_of(args)
+        if args.device != "cpu" and placement == "card_per_rank":
+            have = torch.cuda.device_count() if torch.cuda.is_available() \
+                else 0
+            if have < world:
+                raise RuntimeError(
+                    f"--tp {args.tp} x {world // args.tp} ring(s), a card "
+                    f"per rank, needs {world} cards; this machine has "
+                    f"{have}")
+        return run_ranks(serve_rank, world, argv, device=args.device,
+                         placement=placement)
     dev = resolve_device(args.device)
     if args.reduced:
         cfg = cfg.reduced()
@@ -444,12 +515,11 @@ def main(argv=None):
     params = model.init(seed=0)
     draft_model, draft_params = _draft(cfg, args, dev)
     econf = _engine_config(args)
-    # the latency model's step time (H100 point on the card, LPU-FPGA on
-    # the CPU): each ring's straggler monitor starts from it, so
-    # detection is armed at once, and so does the front end's step budget
-    prior = step_time_prior(cfg, 1, prior_point(dev), kv_len=args.max_seq,
-                            steps_per_sync=args.steps_per_sync)
-    fleet = args.rings > 1 or bool(args.chaos)
+    # the latency model's step time on the CPU (none on the card): each
+    # ring's straggler monitor starts from it, and so does the front
+    # end's step budget
+    prior = step_prior(cfg, 1, dev, args)
+    fleet = fleet_of(args)
     if fleet:
         engine = MultiRingEngine(model, params, None,
                                  rings=max(args.rings, 1), config=econf,
@@ -464,39 +534,46 @@ def main(argv=None):
     prompts, sp = _batch(cfg, args)
     kernel = family_kernel(cfg)
     kernel.launches = 0
-    if args.budget_ms > 0 or args.max_pending > 0 or args.tracker:
+    if wants_frontend(args):
         outs = serve_async(engine, args, prompts, sp, prior)
     else:
         outs = engine.generate(prompts, max_new_tokens=args.max_new,
                                params=sp)
     if fleet:
-        print(f"[serve] {len(outs)} requests over {engine.n_rings} "
-              f"sub-rings (tp=1 each), routed {engine.router.routed}, "
-              f"{engine.tokens_per_s:.1f} tok/s over the fleet's wall, "
-              f"device={dev}")
-        for i, (eng, st) in enumerate(zip(engine.engines,
-                                          engine.per_ring_stats())):
-            print(f"[serve]   ring{i}: {st.tokens} tokens, "
-                  f"{st.tokens_per_s:.1f} tok/s, occ {st.occupancy:.2f}, "
-                  f"kv/rank {eng.per_rank_kv_bytes()} B")
-        fc = engine.fleet_counters()
-        print(f"[serve] ft: chaos={args.chaos or 'off'} "
-              f"ring_failures={fc['ring_failures']} "
-              f"migrated={fc['migrated_requests']} "
-              f"retries={fc['retries']} "
-              f"rejected={fc['rejected_requests']} "
-              f"failed={fc['failed_requests']} "
-              f"events={fc['events']}")
-        st = engine.per_ring_stats()
-        print(f"[serve] {kernel.__name__} kernel launches={kernel.launches} "
-              f"(device decode steps "
-              f"{sum(s.device_decode_steps for s in st)} over the rings)")
-        for i, o in enumerate(outs[:4]):
-            print(f"  req{i}: {o[:12]}")
+        _print_fleet(engine, args, dev, kernel, outs, "tp=1 each")
         return outs
     _print_engine(engine, cfg, args, dev, engine.stats, outs, "tp=1",
                   kernel)
     return outs
+
+
+def _print_fleet(engine, args, dev, kernel, outs, tp_text):
+    """The reference's fleet lines (per ring, routes, ``ft:``) and the
+    family kernel's launches (this process's: on a mesh fleet rank 0's,
+    its own ring's)."""
+    print(f"[serve] {len(outs)} requests over {engine.n_rings} "
+          f"sub-rings ({tp_text}), routed {engine.router.routed}, "
+          f"{engine.tokens_per_s:.1f} tok/s over the fleet's wall, "
+          f"device={dev}")
+    for i, (eng, st) in enumerate(zip(engine.engines,
+                                      engine.per_ring_stats())):
+        print(f"[serve]   ring{i}: {st.tokens} tokens, "
+              f"{st.tokens_per_s:.1f} tok/s, occ {st.occupancy:.2f}, "
+              f"kv/rank {eng.per_rank_kv_bytes()} B")
+    fc = engine.fleet_counters()
+    print(f"[serve] ft: chaos={args.chaos or 'off'} "
+          f"ring_failures={fc['ring_failures']} "
+          f"migrated={fc['migrated_requests']} "
+          f"retries={fc['retries']} "
+          f"rejected={fc['rejected_requests']} "
+          f"failed={fc['failed_requests']} "
+          f"events={fc['events']}")
+    st = engine.per_ring_stats()
+    print(f"[serve] {kernel.__name__} kernel launches={kernel.launches} "
+          f"(device decode steps "
+          f"{sum(s.device_decode_steps for s in st)} over the rings)")
+    for i, o in enumerate(outs[:4]):
+        print(f"  req{i}: {o[:12]}")
 
 
 def _print_engine(engine, cfg, args, dev, st, outs, tp_text,

@@ -103,11 +103,13 @@ the model ring.
   :meth:`LPUEngine.reset` drains the engine: it zeroes every cache
   tensor in place (each captured program holds their addresses), keeps
   every program, rebuilds the host side (pool, prefix index, scheduler)
-  and returns the orphaned requests.  :class:`MultiRingEngine` (host
-  fleet: N engines on one device, sharing one set of weight tensors)
-  routes requests, supervises the rings' steps and runs drain ->
-  migrate (the recompute-resume path) -> rebuild on a ring failure, a
-  heartbeat timeout or, with ``ft_straggler_drain``, a straggler.
+  and returns the orphaned requests.  :class:`MultiRingEngine` (a host
+  fleet: N engines on one device, sharing one set of weight tensors; or
+  a mesh fleet: sub-rings of ring-parallel engines, a process per rank,
+  that agree once a round) routes requests, supervises the rings' steps
+  and runs drain -> migrate (the recompute-resume path) -> rebuild on a
+  ring failure, a heartbeat timeout or, with ``ft_straggler_drain``, a
+  straggler.
 
 * **Step knobs** — :meth:`LPUEngine.set_step_knobs` retunes
   ``steps_per_sync`` and ``prefill_chunk`` between steps (the seam the
@@ -153,8 +155,9 @@ the model ring.
   verifies from the all-gathered (tp x k) candidates of each row with
   identically seeded generators (:func:`speculative_verify_sharded`),
   while the host-sampled round gathers the rows whole on every rank.
-  The mesh fleet raises ``NotImplementedError`` on a ring; an
-  encoder-decoder has no engine path on any mesh.
+  The mesh fleet runs one such engine per sub-ring
+  (:class:`MultiRingEngine` with ``mesh=ring``); an encoder-decoder has
+  no engine path on any mesh.
 
 ``w_dtype`` is carried as the reference carries it, for telemetry: the
 engine's decode keeps the fp weights at any value.
@@ -163,8 +166,11 @@ from __future__ import annotations
 
 import contextlib
 import time
+import weakref
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple, Union
+from dataclasses import fields as dc_fields
+from typing import (Callable, Dict, Iterator, List, NamedTuple, Optional,
+                    Sequence, Set, Tuple, Union)
 
 import numpy as np
 import torch
@@ -192,7 +198,8 @@ from repro_torch.serving.sampler import (SamplingParams, sample_local,
                                          sample_sharded_batched,
                                          spec_verify_rows,
                                          speculative_verify_sharded)
-from repro_torch.serving.scheduler import RingRouter, Scheduler, SeqSlot
+from repro_torch.serving.scheduler import (RingRouter, Scheduler, SeqSlot,
+                                           queued_load)
 
 StreamCB = Callable[[int, int], None]   # (request_id, token)
 FLEET_ROUND_S = 1.0   # one fleet round on a chaotic fleet's ManualClock
@@ -300,6 +307,42 @@ class EngineStats:
         """Mean accepted draft tokens per speculative round: each one is
         a decode step the engine did not run."""
         return self.accepted_tokens / max(self.spec_rounds, 1)
+
+
+# the supervision's own counters, kept by a mesh fleet's view of each ring
+# (every rank applies the same supervision); a ring's record carries the
+# others
+SUPERVISED = ("ring_failures", "migrated_requests", "retries")
+STATS_FIELDS = tuple(f.name for f in dc_fields(EngineStats)
+                     if f.name not in SUPERVISED)
+
+
+def checked_knobs(eng, prefill_chunk: Optional[int],
+                  steps_per_sync: Optional[int]
+                  ) -> Tuple[Optional[int], Optional[int]]:
+    """The step knobs :meth:`LPUEngine.set_step_knobs` would set on
+    ``eng`` (an engine or a fleet's view of one: its ``sampling``,
+    ``paged`` and ``prefill_chunk``), checked: raises as the engine's
+    constructor does, and for a chunked engine asked to go back to
+    monolithic prefill."""
+    s = c = None
+    if steps_per_sync is not None:
+        s = int(steps_per_sync)
+        if s < 1:
+            raise ValueError(f"steps_per_sync={s} must be >= 1")
+        if s > 1 and eng.sampling != "fused":
+            raise ValueError("steps_per_sync > 1 needs fused sampling")
+    if prefill_chunk is not None:
+        c = int(prefill_chunk)
+        if c < 0:
+            raise ValueError(f"prefill_chunk={c} must be >= 0")
+        if c and not eng.paged:
+            raise ValueError("prefill_chunk needs the paged KV pool")
+        if c == 0 and eng.prefill_chunk:
+            raise ValueError(
+                "cannot leave chunked-prefill mode mid-serve: "
+                "admitted prompts may be partially resident")
+    return c, s
 
 
 def refuse_encdec(cfg) -> None:
@@ -629,10 +672,7 @@ class LPUEngine:
         buffer's mirror is dropped: a dropped window left a device carry
         the mirror does not know.  Finished results, stats and the
         injector's fired set survive."""
-        orphans = [s.req for s in
-                   sorted((s for s in self.sched.active if s is not None),
-                          key=lambda s: s.admit_seq)]
-        orphans += list(self.sched.queue)
+        orphans = self.sched.in_flight()
         for name in self._ctr_base:
             self._ctr_base[name] = getattr(self.stats, name)
         for c in self.cache.values():
@@ -1178,15 +1218,22 @@ class LPUEngine:
             req = Request(self._rid, list(prompt), max_new_tokens,
                           params or SamplingParams(0.0, 0, 1.0),
                           stream_cb=stream_cb)
-        if not req.prompt:
-            raise ValueError("empty prompt")
-        if len(req.prompt) >= self.max_seq:
-            raise ValueError(
-                f"prompt length {len(req.prompt)} >= max_seq "
-                f"{self.max_seq}: no room to decode")
+        self.check_prompt(req.prompt)
         self._rid = max(self._rid, req.rid) + 1
         self.sched.submit(req)
         return req.rid
+
+    def check_prompt(self, prompt: Sequence[int]) -> None:
+        """Raise ``ValueError`` for a prompt this engine can never serve:
+        empty, with no room to decode, or needing more blocks than the
+        pool has."""
+        if not prompt:
+            raise ValueError("empty prompt")
+        if len(prompt) >= self.max_seq:
+            raise ValueError(
+                f"prompt length {len(prompt)} >= max_seq "
+                f"{self.max_seq}: no room to decode")
+        self.sched.check_fits(prompt)
 
     def cancel(self, rid: int) -> Optional[Request]:
         """Abort one request between steps: pop it from the queue, or
@@ -1237,23 +1284,10 @@ class LPUEngine:
         drops back to ``prefill_chunk=0``: a sequence in the middle of
         its prefill would starve (only chunked admission feeds it), and
         a monolithic prefill cannot resume a half-resident prompt."""
-        if steps_per_sync is not None:
-            s = int(steps_per_sync)
-            if s < 1:
-                raise ValueError(f"steps_per_sync={s} must be >= 1")
-            if s > 1 and self.sampling != "fused":
-                raise ValueError("steps_per_sync > 1 needs fused sampling")
+        c, s = checked_knobs(self, prefill_chunk, steps_per_sync)
+        if s is not None:
             self.steps_per_sync = s
-        if prefill_chunk is not None:
-            c = int(prefill_chunk)
-            if c < 0:
-                raise ValueError(f"prefill_chunk={c} must be >= 0")
-            if c and not self.paged:
-                raise ValueError("prefill_chunk needs the paged KV pool")
-            if c == 0 and self.prefill_chunk:
-                raise ValueError(
-                    "cannot leave chunked-prefill mode mid-serve: "
-                    "admitted prompts may be partially resident")
+        if c is not None:
             self.prefill_chunk = c
 
     def step(self) -> List[Request]:
@@ -1787,18 +1821,166 @@ class LPUEngine:
         return min(self.block_s or 2048, self.max_seq)
 
 
-class MultiRingEngine:
-    """A supervised fleet of :class:`LPUEngine` rings (paper C3), in
-    host-fleet mode: ``rings`` engines on one device, every one over the
-    same weight tensors, each with its own KV pool, scheduler and
-    captured programs.  Requests are routed per ring by
-    :class:`repro_torch.serving.scheduler.RingRouter` (least outstanding
-    tokens, or with ``affinity="prefix"`` the ring whose prefix index
-    owns the deepest prefix of the prompt).
+class _Outcome(NamedTuple):
+    """One ring's part of a fleet round, as the supervision reads it."""
+    idle: bool
+    done: Sequence[Request] = ()
+    failure: Optional[Tuple[str, dict]] = None
+    dt: float = 0.0
+    progressed: bool = True
 
-    ``step()`` runs the rings one after another from one host thread, as
-    the reference does, so the fleet's tokens/s is total tokens over the
-    fleet's wall time, never the sum of per-ring rates.
+
+class RingView:
+    """Every rank's host view of one sub-ring of a mesh fleet: the
+    ring's agreed counters (``stats``), events, requests in flight with
+    their outstanding tokens (``pending_load``, ``has_work``) and step
+    knobs, the same on every rank.  Each round's record of the ring
+    (its sub-ring rank 0's) replaces them; between rounds the fleet's
+    submits, migrations and cancels update them on every rank alike.
+    On the ranks of the ring itself the view also drives its
+    :class:`LPUEngine` (``local``): a submit, cancel or reset there is
+    applied to the engine too."""
+
+    def __init__(self, ring_id: int, engine: "LPUEngine",
+                 fleet: "MultiRingEngine", local: bool):
+        self.ring_id = ring_id
+        self.local = engine if local else None
+        # weakly: a view holding its fleet would put the fleet, its
+        # engine and their NCCL graphs in a cycle, freed by the cyclic
+        # collector at any later point (inside another engine's capture,
+        # or after the process group is gone) instead of by reference
+        # count when the caller drops it
+        self._fleet = weakref.ref(fleet)
+        self.config = engine.config
+        self.injector = engine.injector
+        self.sampling = engine.sampling
+        self.paged = engine.paged
+        self.prefill_chunk = engine.prefill_chunk
+        self.steps_per_sync = engine.steps_per_sync
+        self._kv_bytes = engine.per_rank_kv_bytes()
+        self.stats = EngineStats()
+        self.events: List[Event] = []
+        self.step_no = 0
+        self.loads: Dict[int, int] = {}   # rid -> outstanding tokens,
+                                          # in reset() order
+
+    def pending_load(self) -> int:
+        return sum(self.loads.values())
+
+    def has_work(self) -> bool:
+        return bool(self.loads)
+
+    def per_rank_kv_bytes(self) -> int:
+        return self._kv_bytes
+
+    def set_step_knobs(self, prefill_chunk: Optional[int] = None,
+                       steps_per_sync: Optional[int] = None) -> None:
+        c, s = checked_knobs(self, prefill_chunk, steps_per_sync)
+        if self.local is not None:
+            self.local.set_step_knobs(c, s)
+        if s is not None:
+            self.steps_per_sync = s
+        if c is not None:
+            self.prefill_chunk = c
+
+    def submit(self, req: Request) -> None:
+        self.loads[req.rid] = queued_load(req)
+        if self.local is not None:
+            self._fleet()._run_locally(req)
+
+    def cancel(self, rid: int) -> Optional[Request]:
+        """The engine's cancel, on the view: the request ends as
+        cancelled with its stream so far."""
+        if rid not in self.loads:
+            return None
+        del self.loads[rid]
+        fleet = self._fleet()
+        req = fleet._reqs.pop(rid)
+        if self.local is not None:
+            got = self.local.cancel(rid)
+            if got is None or list(got.out) != req.out:
+                raise RuntimeError(f"ring {self.ring_id}: request {rid} "
+                                   "left its engine apart from the view")
+            del fleet._local[rid]
+        req.done = True
+        req.cancelled = True
+        fleet._results[rid] = req.out
+        self.stats.cancelled_requests += 1
+        self.events.append(Event("request_cancelled", self.step_no,
+                                 {"rid": rid, "tokens": len(req.out)}))
+        return req
+
+    def reset(self) -> List[Request]:
+        """Drain the ring: its requests in flight, in the engine's
+        orphan order, and on its own ranks the engine's reset."""
+        rids = list(self.loads)
+        self.loads = {}
+        fleet = self._fleet()
+        if self.local is not None:
+            got = [r.rid for r in self.local.reset()]
+            if got != rids:
+                raise RuntimeError(f"ring {self.ring_id} orphaned {got}, "
+                                   f"its view {rids}")
+            for rid in got:
+                del fleet._local[rid]
+        return [fleet._reqs[rid] for rid in rids]
+
+    def apply(self, rec: dict) -> None:
+        """Take the ring's record of a round (see
+        :meth:`MultiRingEngine._record`)."""
+        for k, v in rec["stats"].items():
+            setattr(self.stats, k, v)
+        start, new = rec["events"]
+        del self.events[start:]
+        self.events.extend(new)
+        self.step_no = rec["step_no"]
+        self.loads = dict(rec["loads"])
+
+
+class MultiRingEngine:
+    """A supervised fleet of :class:`LPUEngine` rings (paper C3), in one
+    of two forms.
+
+    *Host fleet* (``mesh=None, rings=N``): N engines on one device, every
+    one over the same weight tensors, each with its own KV pool,
+    scheduler and captured programs.  ``step()`` runs the rings one
+    after another from one host thread, as the reference does.
+
+    *Mesh fleet* (``mesh`` = the rank's world :class:`repro_torch.core.
+    dist.Ring`, ``ring_size`` = tp): the world of ``mesh.size`` ranks
+    splits into ``mesh.size // ring_size`` disjoint sub-rings
+    (:func:`repro_torch.core.rings.sub_ring`, the reference's
+    ``submeshes``), and each rank runs one ring-parallel engine on its
+    sub-ring's handle, over ``params`` (the rank's shards at its place in
+    its sub-ring, :func:`repro_torch.weights.init_shard`; ``model``
+    planned for one sub-ring, ``("model",), (ring_size,)``).  Every rank
+    calls the fleet's methods in the same order (``submit``, ``step``,
+    ``cancel``...).  A round steps only the rank's own sub-ring (idle or
+    not, every rank joins the round); then one :class:`repro_torch.core.
+    dist.Agreement` over the world (a gloo group of its own) gives every
+    rank each ring's record, its sub-ring rank 0's: whether it stepped,
+    its ``RingFailure``, its step time, its requests in flight with
+    their outstanding tokens, the tokens each request emitted and which
+    finished, its counters and new events.  From those every rank runs
+    the same supervision code as the host fleet, in the same order, and
+    reaches the same decisions.  No other collective crosses sub-rings.
+    Every rank holds the fleet's host view (``engines`` are
+    :class:`RingView` s; ``local`` is the rank's own engine), so
+    ``submit``, ``cancel``, ``generate``, ``drain``, ``per_ring_stats()``
+    and ``fleet_counters()`` give the same on every rank.  A request's
+    ``stream_cb`` is called from the agreed tokens after each round.
+    Rings step concurrently, so an orphan migrated to a later ring first
+    steps in the next round, where the reference's sequential rings step
+    it in the same round (with two rings the target is the other ring
+    either way; only that round moves).  ``affinity="prefix"`` gathers
+    every ring's prefix peek of a prompt at its submit.  Wall-clock
+    heartbeats read world rank 0's clock, carried in its record.
+
+    Requests are routed per ring by :class:`repro_torch.serving.
+    scheduler.RingRouter` (least outstanding tokens, or with
+    ``affinity="prefix"`` the ring whose prefix index owns the deepest
+    prefix of the prompt).  The fleet's tokens/s is total tokens over
+    the fleet's wall time in ``step()``, never the sum of per-ring rates.
 
     Fault tolerance: a :class:`RingFailure` raised by a ring (injected,
     or the finite-logits guard), a ring silent past the heartbeat
@@ -1811,31 +1993,30 @@ class MultiRingEngine:
     ``max_migrations`` times already ends with ``failed=True`` and an
     ``error``, never an exception.  A fleet with a chaotic ring runs on a
     :class:`ManualClock` (one fleet round = 1 s), so heartbeat timeouts
-    are step-deterministic.
-
-    The mesh form (``mesh`` given, ``ring_size``: one ring-parallel
-    engine per sub-ring) is not ported yet.
-    ``**engine_kw`` goes to every ring's :class:`LPUEngine` (``device``,
-    ``graphs``, ``seed``, a drafter's model...)."""
+    are step-deterministic.  ``**engine_kw`` goes to every ring's
+    :class:`LPUEngine` (``device``, ``graphs``, ``seed``, a drafter's
+    model...)."""
 
     def __init__(self, model, params, mesh=None, *, ring_size: int = 0,
                  rings: int = 0, config: Optional[EngineConfig] = None,
                  step_prior_s: float = 0.0, **engine_kw):
+        self.world = None
+        self.local: Optional[LPUEngine] = None
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh fleets (sub-rings of ring-parallel engines) are not "
-                "ported yet: the port's tp slice runs one ring of ranks "
-                "(run_ranks); pass mesh=None and rings=N")
-        if rings < 1:
-            raise ValueError("host fleets need rings >= 1")
-        if model.plan.mesh_axes is not None:
-            raise ValueError(
-                "host-fleet mode needs a mesh-free plan "
-                f"(got mesh_axes={model.plan.mesh_axes})")
-        self.engines = [LPUEngine(model, params, config, **engine_kw)
-                        for _ in range(rings)]
-        for i, eng in enumerate(self.engines):
-            eng.ring_id = i
+            self._init_mesh(model, params, mesh, ring_size, config,
+                            engine_kw)
+        else:
+            if rings < 1:
+                raise ValueError("host fleets need rings >= 1")
+            if model.plan.mesh_axes is not None:
+                raise ValueError(
+                    "host-fleet mode needs a mesh-free plan "
+                    f"(got mesh_axes={model.plan.mesh_axes})")
+            self.ring_cfg = None
+            self.engines = [LPUEngine(model, params, config, **engine_kw)
+                            for _ in range(rings)]
+            for i, eng in enumerate(self.engines):
+                eng.ring_id = i
         self.router = RingRouter(len(self.engines))
         self.ring_of: Dict[int, int] = {}
         self._rid = 0
@@ -1844,6 +2025,12 @@ class MultiRingEngine:
         self.affinity = c.affinity
         chaotic = any(e.injector is not None for e in self.engines)
         self._clock = ManualClock() if chaotic else time.time
+        # a mesh fleet's wall clock is world rank 0's, read into every
+        # rank's ManualClock each round, so every rank judges alike
+        self._agreed_wall = self.world is not None and not chaotic
+        if self._agreed_wall:
+            self._clock = ManualClock(self.agreement.announce(
+                time.time() if self.world.rank == 0 else None))
         self.hb = HeartbeatTracker(len(self.engines),
                                    timeout_s=c.heartbeat_timeout_s,
                                    clock=self._clock)
@@ -1855,6 +2042,36 @@ class MultiRingEngine:
         self.failed: Dict[int, Request] = {}    # rid -> failed request
         self._round = 0
         self.wall = 0.0
+
+    def _init_mesh(self, model, params, mesh, ring_size: int, config,
+                   engine_kw) -> None:
+        from repro_torch.core.dist import Ring, SubRing
+        from repro_torch.core.rings import reconfigure, sub_ring
+        if not isinstance(mesh, Ring) or isinstance(mesh, SubRing):
+            raise TypeError(
+                f"a mesh fleet's mesh is the rank's world ring "
+                f"(repro_torch.core.dist.Ring, from run_ranks), not "
+                f"{type(mesh).__name__}")
+        if ring_size < 1:
+            raise ValueError("mesh fleets need ring_size >= 1")
+        self.ring_cfg = reconfigure(mesh.size, ring_size)
+        if not self.ring_cfg.validate_disjoint():
+            raise ValueError(f"sub-rings {self.ring_cfg.groups()} overlap")
+        if model.plan.tp != ring_size:
+            raise ValueError(f"model planned for tp={model.plan.tp}, "
+                             f"ring_size={ring_size}")
+        self.world = mesh
+        self.ring_index, self.sub = sub_ring(mesh, ring_size)
+        self.agreement = mesh.agreement()
+        self.local = LPUEngine(model, params, config, mesh=self.sub,
+                               **engine_kw)
+        self.local.ring_id = self.ring_index
+        self.engines = [RingView(j, self.local, self, j == self.ring_index)
+                        for j in range(self.ring_cfg.n_rings)]
+        self._reqs: Dict[int, Request] = {}     # rid -> request in flight
+        self._local: Dict[int, Request] = {}    # ...its copy in ``local``
+        self._results: Dict[int, List[int]] = {}
+        self._events_sent = 0
 
     @property
     def n_rings(self) -> int:
@@ -1872,19 +2089,39 @@ class MultiRingEngine:
         """Route to the prefix-owning ring (``affinity="prefix"``) or the
         least loaded one; returns a fleet-wide request id."""
         prompt = list(prompt)
-        aff = None
-        if self.affinity == "prefix":
-            aff = [e.prefix.peek(prompt) if e.prefix is not None else 0
-                   for e in self.engines]
+        if self.world is not None:
+            self.local.check_prompt(prompt)
+        aff = self._peeks(prompt) if self.affinity == "prefix" else None
         ring = self.router.route(
             [e.pending_load() for e in self.engines], affinity=aff)
         req = Request(self._rid, prompt, max_new_tokens,
                       params or SamplingParams(0.0, 0, 1.0),
                       stream_cb=stream_cb)
         self._rid += 1
+        if self.world is not None:
+            self._reqs[req.rid] = req
         self.engines[ring].submit(req)
         self.ring_of[req.rid] = ring
         return req.rid
+
+    def _peeks(self, prompt: List[int]) -> List[int]:
+        """Every ring's prefix-cache peek of ``prompt``; on a mesh fleet
+        each ring's own ranks peek and the agreement gathers them."""
+        def peek(eng):
+            return eng.prefix.peek(prompt) if eng.prefix is not None else 0
+        if self.world is None:
+            return [peek(e) for e in self.engines]
+        got = self.agreement.gather(peek(self.local))
+        return [got[g[0]] for g in self.ring_cfg.groups()]
+
+    def _run_locally(self, req: Request) -> None:
+        """Submit the fleet's request ``req`` to this rank's engine (a
+        copy with its stream so far: a migrated orphan resumes through
+        the recompute path)."""
+        copy = Request(req.rid, list(req.prompt), req.max_new_tokens,
+                       req.params, out=list(req.out))
+        self._local[req.rid] = copy
+        self.local.submit(copy)
 
     def cancel(self, rid: int) -> Optional[Request]:
         """Abort one in-flight request on the ring that holds it now
@@ -1904,20 +2141,17 @@ class MultiRingEngine:
         t_round = time.perf_counter()
         self._round += 1
         done: List[Request] = []
-        for i, eng in enumerate(self.engines):
-            if not eng.sched.has_work():
+        outcomes = (self._host_outcomes() if self.world is None
+                    else self._mesh_outcomes())
+        for i, o in enumerate(outcomes):
+            if o.idle:
                 self.hb.beat(i)
                 continue
-            before = eng.stats.steps + eng.stats.prefills
-            t0 = time.perf_counter()
-            try:
-                done.extend(eng.step())
-            except RingFailure as f:
-                done.extend(
-                    self._on_ring_failure(i, f.reason, dict(f.detail)))
+            if o.failure is not None:
+                done.extend(self._on_ring_failure(i, *o.failure))
                 continue
-            ev = self.monitors[i].record(self._round,
-                                         time.perf_counter() - t0)
+            done.extend(o.done)
+            ev = self.monitors[i].record(self._round, o.dt)
             if ev is not None:
                 self.events.append(Event("straggler", self._round,
                                          {"ring": i, **ev.detail}))
@@ -1925,16 +2159,108 @@ class MultiRingEngine:
                     done.extend(self._on_ring_failure(
                         i, "straggler", dict(ev.detail)))
                     continue
-            progressed = (eng.stats.steps + eng.stats.prefills) > before \
-                or not eng.sched.has_work()
-            if progressed:
+            if o.progressed:
                 self.hb.beat(i)
-        if isinstance(self._clock, ManualClock):
+        if isinstance(self._clock, ManualClock) and not self._agreed_wall:
             self._clock.advance(FLEET_ROUND_S)
         for i in self.hb.check():
             done.extend(self._on_ring_failure(
                 i, "heartbeat_timeout", {"timeout_s": self.hb.timeout}))
         self.wall += time.perf_counter() - t_round
+        return done
+
+    def _host_outcomes(self) -> Iterator[_Outcome]:
+        """Each ring's step in turn, as the supervision consumes them: a
+        ring steps after the earlier rings' recoveries (an orphan
+        migrated to a later ring steps in the same round)."""
+        for eng in self.engines:
+            if not eng.sched.has_work():
+                yield _Outcome(True)
+                continue
+            before = eng.stats.steps + eng.stats.prefills
+            t0 = time.perf_counter()
+            try:
+                done = eng.step()
+            except RingFailure as f:
+                yield _Outcome(False, failure=(f.reason, dict(f.detail)))
+                continue
+            dt = time.perf_counter() - t0
+            progressed = (eng.stats.steps + eng.stats.prefills) > before \
+                or not eng.sched.has_work()
+            yield _Outcome(False, done, None, dt, progressed)
+
+    def _mesh_outcomes(self) -> List[_Outcome]:
+        """This rank's sub-ring steps (every rank of it alike), then the
+        round's agreement; every ring's record (its sub-ring rank 0's)
+        is applied to the fleet's view and read as the ring's outcome."""
+        eng = self.local
+        rec = dict(idle=not eng.sched.has_work(), failure=None, dt=0.0,
+                   progressed=True, returned=[])
+        if not rec["idle"]:
+            before = eng.stats.steps + eng.stats.prefills
+            t0 = time.perf_counter()
+            try:
+                rec["returned"] = [r.rid for r in eng.step()]
+            except RingFailure as f:
+                rec["failure"] = (f.reason, dict(f.detail))
+            rec["dt"] = time.perf_counter() - t0
+            rec["progressed"] = \
+                (eng.stats.steps + eng.stats.prefills) > before \
+                or not eng.sched.has_work()
+        rec.update(self._record())
+        if self._agreed_wall and self.world.rank == 0:
+            rec["now"] = time.time()
+        got = self.agreement.gather(rec)
+        if self._agreed_wall:
+            self._clock.t = got[0]["now"]
+        out = []
+        for j, g in enumerate(self.ring_cfg.groups()):
+            r = got[g[0]]
+            done = self._apply(j, r)
+            out.append(_Outcome(r["idle"], done, r["failure"], r["dt"],
+                                r["progressed"]))
+        return out
+
+    def _record(self) -> dict:
+        """This rank's sub-ring's state after its step: requests in
+        flight with their outstanding tokens, each request's new tokens
+        and which finished, the counters (but the supervision's), the
+        events not yet sent and the engine's step number."""
+        eng = self.local
+        tokens, finished = [], []
+        for rid, copy in list(self._local.items()):
+            new = copy.out[len(self._reqs[rid].out):]
+            if new:
+                tokens.append((rid, list(new)))
+            if copy.done:
+                finished.append((rid, copy.failed, copy.error))
+                del self._local[rid]
+        eng._results.clear()          # the fleet keeps the results
+        start, self._events_sent = self._events_sent, len(eng.events)
+        return dict(
+            loads=eng.sched.loads(), tokens=tokens, finished=finished,
+            stats={k: getattr(eng.stats, k) for k in STATS_FIELDS},
+            events=(start, eng.events[start:]), step_no=eng._step_no)
+
+    def _apply(self, j: int, rec: dict) -> List[Request]:
+        """Ring ``j``'s record on this rank's view: each request's new
+        tokens (its ``stream_cb`` called), the finished ones ended, the
+        ring's view replaced.  Returns the requests its step returned."""
+        for rid, new in rec["tokens"]:
+            req = self._reqs[rid]
+            for tok in new:
+                req.out.append(tok)
+                if req.stream_cb:
+                    req.stream_cb(rid, tok)
+        returned = set(rec["returned"])
+        done = []
+        for rid, failed, error in rec["finished"]:
+            req = self._reqs.pop(rid)
+            req.done, req.failed, req.error = True, failed, error
+            self._results[rid] = req.out
+            if rid in returned:
+                done.append(req)
+        self.engines[j].apply(rec)
         return done
 
     def _on_ring_failure(self, i: int, reason: str,
@@ -1967,6 +2293,8 @@ class MultiRingEngine:
             req.error = (f"retries exhausted: migrated {n}x "
                          f"(max_migrations={self.max_migrations})")
             self.failed[req.rid] = req
+            if self.world is not None:
+                del self._reqs[req.rid]
             self.events.append(Event("request_failed", self._round,
                                      {"rid": req.rid, "migrations": n}))
             return req
@@ -1993,8 +2321,11 @@ class MultiRingEngine:
         while self.has_work():
             self.step()
         out: Dict[int, List[int]] = {}
-        for eng in self.engines:
-            out.update(eng.drain())
+        if self.world is None:
+            for eng in self.engines:
+                out.update(eng.drain())
+        else:
+            out, self._results = self._results, {}
         for rid, req in self.failed.items():
             out[rid] = req.out
         return out

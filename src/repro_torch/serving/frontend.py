@@ -26,6 +26,22 @@ asyncio front end that
   through :class:`EngineTap`) and a per-request TTFT / ms-per-token
   record at each stream's end.
 
+On a ring (an engine with ``mesh=ring``, or a mesh fleet), where every
+rank is a process running the same engine logic, the front end lives
+on world rank 0: the event loop, its consumers, arrival times,
+``max_pending`` admission, cancels, the budget's ``plan`` /
+``observe_tick`` and the tracker.  Its submits and cancels become
+*orders*, and before each tick rank 0 sends the tick's orders (the
+submits with their rids, prompts and sampling parameters, the cancels,
+the step knobs) to every rank over the world's
+:class:`repro_torch.core.dist.Agreement`; every rank, rank 0 too,
+applies them in the same order and steps, so every rank's engine makes
+the same decisions.  The other ranks run :meth:`AsyncFrontend.follow`
+until rank 0's front end stops.  Streams, rejections and the tracker's
+records exist on rank 0 only; every rank keeps a crc32 of the orders it
+applied (``orders_crc``), so a caller can show that all applied the same
+ones.  A lone ring is the case of one ring of the same rule.
+
 Concurrency model: ONE event loop, no threads.  The pump task calls the
 engine's synchronous ``step()`` and yields (``await asyncio.sleep(0)``)
 between steps, so consumers drain their queues at window granularity.
@@ -45,6 +61,7 @@ from __future__ import annotations
 import asyncio
 import time
 import weakref
+import zlib
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence
 
@@ -151,21 +168,22 @@ class AsyncFrontend:
         self.engines: List[LPUEngine] = (
             list(engine.engines) if isinstance(engine, MultiRingEngine)
             else [engine])
-        if any(e.tp > 1 for e in self.engines):
-            # its decisions (the budget, arrival times) come from each
-            # rank's wall clock and could differ between ranks, whose
-            # collectives would then no longer pair up
-            raise NotImplementedError(
-                "the async front end over a ring-parallel engine (tp > 1) "
-                "is not ported yet: its wall-clock decisions would differ "
-                "between ranks")
+        # on a ring: world rank 0 decides and orders every rank
+        self.world = world_of(engine)
+        self.leader = self.world is None or self.world.rank == 0
+        self._agreement = (self.world.agreement()
+                           if self.world is not None else None)
+        self._orders: List[tuple] = []
+        self.orders_crc = 0
+        self.orders_applied = 0
         cfg = self.engines[0].config
         self.max_pending = (cfg.max_pending if max_pending is None
                             else int(max_pending))
         if budget is None and cfg.budget_ms > 0:
             budget = BudgetScheduler(cfg.budget_ms)
-        self.budget = budget
-        self.tracker = tracker if tracker is not None else NullTracker()
+        self.budget = budget if self.leader else None
+        self.tracker = (tracker if tracker is not None and self.leader
+                        else NullTracker())
         self._taps = [EngineTap(e, ring=i)
                       for i, e in enumerate(self.engines)]
         self._streams: Dict[int, TokenStream] = {}
@@ -188,6 +206,9 @@ class AsyncFrontend:
         await self.stop()
 
     async def start(self) -> None:
+        if not self.leader:
+            raise RuntimeError("the front end runs on world rank 0; the "
+                               "other ranks call follow()")
         if self._task is None:
             self._closing = False
             self._task = asyncio.create_task(self._pump())
@@ -205,6 +226,19 @@ class AsyncFrontend:
         """Wait until every in-flight stream has ended."""
         await self._idle.wait()
 
+    def follow(self) -> None:
+        """A rank other than world 0 of a ring: apply rank 0's orders
+        and step, tick after tick, until rank 0's front end stops."""
+        if self.leader:
+            raise RuntimeError("world rank 0 runs the front end (start)")
+        while True:
+            orders = self._agreement.announce()
+            if orders is None:
+                return
+            self._apply(orders)
+            if self.engine.has_work():
+                self.engine.step()
+
     # -- submission / cancellation -------------------------------------
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
@@ -221,8 +255,18 @@ class AsyncFrontend:
                               "limit": self.max_pending})
             raise AdmissionRejected(len(self._inflight), self.max_pending)
         t0 = time.perf_counter()
-        rid = self.engine.submit(list(prompt), max_new_tokens, params,
-                                 stream_cb=self._on_token)
+        if self.world is None:
+            rid = self.engine.submit(list(prompt), max_new_tokens, params,
+                                     stream_cb=self._on_token)
+        else:
+            # an order, applied on every rank at the next tick; its rid is
+            # the one the engine will give it there
+            prompt = list(prompt)
+            self._local_engine().check_prompt(prompt)
+            rid = self.engine._rid + sum(o[0] == "submit"
+                                         for o in self._orders)
+            self._orders.append(("submit", rid, prompt, max_new_tokens,
+                                 params))
         stream = TokenStream(rid, self, RequestTimeline(rid, t0,
                                                         tenant=tenant))
         self._streams[rid] = stream
@@ -238,12 +282,41 @@ class AsyncFrontend:
         stream = self._inflight.get(rid)
         if stream is None:
             return False
-        if self.engine.cancel(rid) is None:
+        if self.world is not None:
+            # between ticks a stream in flight is in the engine (or in an
+            # order before this one): the cancel lands at the next tick
+            self._orders.append(("cancel", rid))
+            self._wake.set()
+        elif self.engine.cancel(rid) is None:
             # no longer in the engine: it finished inside the current
             # pump tick and is finalized when step() returns
             return False
         self._finalize(rid, "cancelled")
         return True
+
+    def _local_engine(self) -> LPUEngine:
+        """The engine of this rank (a mesh fleet's own ring's)."""
+        return getattr(self.engine, "local", None) or self.engines[0]
+
+    def _apply(self, orders: List[tuple]) -> None:
+        """Apply a tick's orders in their order (every rank of a ring the
+        same ones), each folded into ``orders_crc``."""
+        for o in orders:
+            if o[0] == "submit":
+                _, rid, prompt, new, params = o
+                cb = self._on_token if self.leader else None
+                got = self.engine.submit(prompt, new, params, stream_cb=cb)
+                if got != rid:
+                    raise RuntimeError(f"order for rid {rid} got {got}")
+            elif o[0] == "cancel":
+                if self.engine.cancel(o[1]) is None:
+                    raise RuntimeError(f"cancel of {o[1]} found nothing")
+            else:
+                _, i, chunk, steps = o
+                self.engines[i].set_step_knobs(prefill_chunk=chunk,
+                                               steps_per_sync=steps)
+            self.orders_crc = zlib.crc32(repr(o).encode(), self.orders_crc)
+            self.orders_applied += 1
 
     # -- the pump ------------------------------------------------------
 
@@ -266,12 +339,14 @@ class AsyncFrontend:
         if not self._inflight:
             self._idle.set()
 
-    def _apply_budget(self) -> None:
-        for eng in self.engines:
+    def _budget_orders(self) -> List[tuple]:
+        out = []
+        for i, eng in enumerate(self.engines):
             chunk, steps = self.budget.plan(
                 chunked=eng.prefill_chunk > 0,
                 fused=eng.sampling == "fused")
-            eng.set_step_knobs(prefill_chunk=chunk, steps_per_sync=steps)
+            out.append(("knobs", i, chunk, steps))
+        return out
 
     def _observe_budget(self, dt_s: float, deltas: List[Dict[str, int]]
                         ) -> None:
@@ -282,9 +357,16 @@ class AsyncFrontend:
                 for d, e in zip(deltas, self.engines)))
 
     def _tick(self) -> None:
-        """One engine step with SLO planning and telemetry around it."""
+        """One engine step with SLO planning and telemetry around it; on
+        a ring the tick's orders go to every rank first."""
+        orders, self._orders = self._orders, []
         if self.budget is not None:
-            self._apply_budget()
+            orders += self._budget_orders()
+        if self._agreement is not None:
+            self._agreement.announce(orders)
+        self._apply(orders)
+        if not self.engine.has_work():
+            return
         t0 = time.perf_counter()
         done = self.engine.step()
         dt = time.perf_counter() - t0
@@ -306,14 +388,19 @@ class AsyncFrontend:
             else:
                 self._finalize(req.rid, "completed")
 
+    def _busy(self) -> bool:
+        return bool(self._orders) or self.engine.has_work()
+
     async def _pump(self) -> None:
         while True:
-            if not self.engine.has_work():
+            if not self._busy():
                 if self._closing:
+                    if self._agreement is not None:
+                        self._agreement.announce(None)   # followers end
                     return
                 self._wake.clear()
                 # test again: a submit may have landed before clear()
-                if self.engine.has_work() or self._closing:
+                if self._busy() or self._closing:
                     continue
                 await self._wake.wait()
                 continue
@@ -328,6 +415,23 @@ class AsyncFrontend:
                 raise
             # yield, so consumers drain at window granularity
             await asyncio.sleep(0)
+
+
+def world_of(engine):
+    """The world ring whose ranks all run ``engine`` (a mesh fleet's, or
+    a ring-parallel engine's whole ring), or None for an engine of one
+    process.  An engine on one sub-ring alone is refused: the other
+    sub-rings' ranks would not follow."""
+    world = getattr(engine, "world", None)
+    if world is not None:
+        return world
+    ring = getattr(engine, "ring", None)
+    if ring is None:
+        return None
+    if getattr(ring, "world", None) is not None:
+        raise ValueError("a front end over one sub-ring's engine: put it "
+                         "over the mesh fleet (MultiRingEngine) instead")
+    return ring
 
 
 async def serve_trace(frontend: AsyncFrontend, trace,

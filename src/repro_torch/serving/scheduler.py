@@ -36,6 +36,13 @@ from repro_torch.serving.kv_cache import (BlockPool, PrefixCache,
                                           blocks_for, bucket_for)
 
 
+def queued_load(req) -> int:
+    """A queued request's outstanding tokens: its tokens still to make
+    resident and its remaining decode budget."""
+    return len(req.resume_tokens()) + max(req.max_new_tokens - len(req.out),
+                                          0)
+
+
 @dataclass
 class SeqSlot:
     """An active request's per-slot serving state.  ``pos`` is the
@@ -105,27 +112,41 @@ class Scheduler:
         """Outstanding work in tokens: queued prompts still to prefill
         plus every request's remaining decode budget (host-side only;
         the load :class:`RingRouter` balances on)."""
-        load = 0
-        for req in self.queue:
-            load += len(req.resume_tokens()) \
-                + max(req.max_new_tokens - len(req.out), 0)
-        for s in self.active:
-            if s is not None:
-                load += max(s.req.max_new_tokens - len(s.req.out), 1)
-        return load
+        return sum(load for _, load in self.loads())
+
+    def in_flight(self) -> list:
+        """The requests in flight: active sequences in admission order,
+        then the queue (the order a ring drain orphans them in)."""
+        active = sorted((s for s in self.active if s is not None),
+                        key=lambda s: s.admit_seq)
+        return [s.req for s in active] + list(self.queue)
+
+    def loads(self) -> List[Tuple[int, int]]:
+        """(rid, outstanding tokens) of every request in flight, in
+        :meth:`in_flight` order: an active request's remaining decode
+        budget (at least 1), a queued one's :func:`queued_load`."""
+        active = {s.req.rid for s in self.active if s is not None}
+        return [(r.rid, max(r.max_new_tokens - len(r.out), 1)
+                 if r.rid in active else queued_load(r))
+                for r in self.in_flight()]
 
     def bucket(self, n_tokens: int) -> int:
         return bucket_for(n_tokens, self.max_seq, self.min_bucket)
 
     # -- admission --------------------------------------------------------
 
-    def submit(self, req) -> None:
+    def check_fits(self, prompt) -> None:
+        """Raise ``ValueError`` when ``prompt`` needs more blocks than
+        the pool can ever grant."""
         if self.pool is not None:
-            need = blocks_for(len(req.prompt), self.pool.block_size)
+            need = blocks_for(len(prompt), self.pool.block_size)
             if need > self.pool.num_blocks - 1:
                 raise ValueError(
                     f"prompt needs {need} blocks but the pool only has "
                     f"{self.pool.num_blocks - 1} allocatable blocks")
+
+    def submit(self, req) -> None:
+        self.check_fits(req.prompt)
         self.queue.append(req)
 
     def admit_next(self, chunk: int = 0) -> Optional[SeqSlot]:

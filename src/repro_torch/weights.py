@@ -458,9 +458,12 @@ def tp1_plan(cfg, plan):
                       param_dtype=plan.param_dtype)
 
 
-def init_shard(cfg, plan, rank: int, seed: int = 0, device=None) -> Params:
+def init_shard(cfg, plan, rank, seed: int = 0, device=None) -> Params:
     """Rank ``rank``'s shard of the model ``cfg`` (any family) on
-    ``plan``'s ring, drawn without the full tree: ``init_params(cfg,
+    ``plan``'s ring, drawn without the full tree.  ``rank`` is the rank's
+    place on its ring: an int, or the rank's ring handle (a
+    :class:`repro_torch.core.dist.SubRing` of a mesh fleet gives its
+    place in its sub-ring, so every sub-ring draws the same replica): ``init_params(cfg,
     tp1_plan(cfg, plan), seed)``'s values drawn in its order
     (embeddings, positions, a vlm's projector, then layer after layer
     (whisper: the encoder's, its final norm, the decoder's), then the
@@ -472,6 +475,7 @@ def init_shard(cfg, plan, rank: int, seed: int = 0, device=None) -> Params:
     ``device``: ``cuda`` unless the caller asks for the CPU."""
     from repro_torch.device import dtype_of, resolve_device
     from repro_torch.models.common import _Init, draw_params
+    rank = int(getattr(rank, "rank", rank))
     _check_ring_plan(plan, rank)
     plan1 = tp1_plan(cfg, plan)
     ini = _Init(seed, resolve_device(device), dtype_of(plan1.param_dtype))

@@ -468,7 +468,9 @@ def test_refusals(pair, case):
             MultiRingEngine(model, params, None, rings=0,
                             config=EngineConfig(**FLEET), device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match="tp slice"):
+        # a mesh fleet takes the rank's world ring (run_ranks), nothing
+        # else (tests/test_torch_tp_fleet.py serves it)
+        with pytest.raises(TypeError, match="world ring"):
             MultiRingEngine(model, params, object(), ring_size=2,
                             config=EngineConfig(**FLEET), device="cpu")
 

@@ -28,7 +28,7 @@ from repro.serving import sampler as jax_sampler
 from repro.serving.config import EngineConfig as JaxEngineConfig
 from repro.serving.engine import LPUEngine as JaxEngine
 from repro_torch.core.dist import backend_for, run_ranks
-from repro_torch.core.latency_model import H100, LPU_FPGA
+from repro_torch.core.latency_model import LPU_FPGA
 from repro_torch.launch import serve as serve_cli
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.engine import LPUEngine
@@ -290,12 +290,16 @@ REFUSED = {
     "no_ring": ("ValueError", "needs mesh"),
     "whisper-tiny": ("ValueError", "encoder-decoder"),
     "data_axis": ("NotImplementedError", "data-parallel"),
-    "fleet": ("NotImplementedError", "mesh fleets"),
-    "frontend": ("NotImplementedError", "front end"),
 }
-# what the ring refused before it ran speculation and a vlm, each with
-# what it gives now (tests/test_torch_tp_spec.py holds them in full)
+# what the ring refused before it ran speculation, a vlm, the mesh fleet
+# and the front end, each with what it gives now
+# (tests/test_torch_tp_spec.py and tests/test_torch_tp_fleet.py hold
+# them in full)
 SERVED = {
+    # a fleet of one sub-ring over the whole ring: the plain ring's
+    "fleet": lambda r: r["equal"] and r["routed"] == [2],
+    # rank 0's front end ordering both ranks: the plain ring's streams
+    "frontend": lambda r: r["equal"] and r["crc"] != 0,
     # the n-gram drafter: the plain ring's streams, verify rounds run
     "speculate": lambda r: r["equal"] and r["rounds"] > 0,
     # llava's text decoder: the tp=1 engine's streams
@@ -330,9 +334,9 @@ def test_backend_rule():
 
 def test_cli_tp2_cpu(capfd):
     """``--tp 2 --device cpu`` serves the CLI's batch on two ranks, the
-    same streams as the tp=1 run, and with ``--speculate ngram`` too;
-    rank 0 prints the stats lines and the ring's; --tp with what the
-    ring does not run is refused."""
+    same streams as the tp=1 run, and with ``--speculate ngram`` and
+    through the front end (``--max-pending 2``) too; rank 0 prints the
+    stats lines and the ring's."""
     argv = ["--reduced", "--device", "cpu", "--requests", "4",
             "--max-new", "6", "--max-seq", "64"]
     one = serve_cli.main(argv)
@@ -346,14 +350,18 @@ def test_cli_tp2_cpu(capfd):
     out = capfd.readouterr().out
     assert spec == one
     assert "speculate=ngram draft_k=4:" in out and " 0 rounds" not in out
-    for extra in (["--rings", "2"], ["--budget-ms", "5"],
-                  ["--tracker", "t.jsonl"], ["--max-pending", "2"]):
-        with pytest.raises(NotImplementedError):
-            serve_cli.main(argv + ["--tp", "2"] + extra)
+    # the front end on rank 0 ordering both ranks (the fleet's and the
+    # other knobs' cases: tests/test_torch_tp_fleet.py)
+    fe = serve_cli.main(argv + ["--tp", "2", "--max-pending", "2"])
+    out = capfd.readouterr().out
+    assert fe == one
+    assert "[serve] frontend: 4 completed 0 failed 0 cancelled" in out
+    assert " applied on each of 2 ranks" in out
 
 
 def test_serve_prior_point():
-    """The serve driver seeds the step-time prior at the H100 point on
-    the card and at the LPU-FPGA point on the CPU."""
-    assert serve_cli.prior_point(torch.device("cuda")) is H100
+    """The serve driver seeds the step-time prior at the LPU-FPGA point
+    on the CPU and not at all on the card (no roofline point: the
+    monitors' warm-up takes the first measured steps)."""
+    assert serve_cli.prior_point(torch.device("cuda")) is None
     assert serve_cli.prior_point(torch.device("cpu")) is LPU_FPGA

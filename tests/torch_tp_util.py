@@ -299,10 +299,32 @@ def refusals_rank(ring, name, tree):
     rec("data_axis", lambda: plan_model(get_config("llama4").reduced(),
                                         ("data", "model"), (1, ring.size),
                                         "serve"))
-    rec("fleet", lambda: MultiRingEngine(model, params, ring, ring_size=2,
-                                         config=conf, device="cpu"))
+    plain = LPUEngine(model, params, conf, mesh=ring, device="cpu",
+                      graphs=False).generate(prompts, max_new_tokens=8)
+
+    def fleet():
+        # one sub-ring of the whole ring: the plain ring's streams
+        f = MultiRingEngine(model, params, ring, ring_size=2, config=conf,
+                            device="cpu", graphs=False)
+        got = f.generate(prompts, max_new_tokens=8)
+        return {"equal": got == plain, "routed": list(f.router.routed)}
+
+    def frontend():
+        # rank 0's front end orders both ranks: the plain ring's streams
+        import asyncio
+        fe = AsyncFrontend(eng)
+        if ring.rank:
+            fe.follow()
+            return {"equal": True, "crc": fe.orders_crc}
+
+        async def go():
+            async with fe:
+                streams = [fe.submit(p, 8) for p in prompts]
+                return [await s.drain() for s in streams]
+        return {"equal": asyncio.run(go()) == plain, "crc": fe.orders_crc}
+    rec("fleet", fleet)
     eng = LPUEngine(model, params, conf, mesh=ring, device="cpu",
                     graphs=False)
-    rec("frontend", lambda: AsyncFrontend(eng))
+    rec("frontend", frontend)
     rec("verify", verify)
     return out

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only tp_families   # 2 or more cards: phase 15
     python3 chip_smoke.py --only tp_spec_mm    # 2 or more cards: phase 16
     python3 chip_smoke.py --only tp_fleet      # 4 or more cards: phase 17
+    python3 chip_smoke.py --only data_axis     # 4 or more cards: phase 18
 
 Phases (each raises on failure; the script exits non-zero and prints no
 result line when any phase fails or when no CUDA device is present):
@@ -339,6 +340,29 @@ result line when any phase fails or when no CUDA device is present):
    equal, fleet tokens/s, ms/token per ring, peak memory per card,
    kernel 1 exact on every rank, beside the single ring at tp 2 (measured
    in another run).  A ``{"tp_fleet": ...}`` line.
+18. the data axis for serving, on a machine of 4 or more cards
+   (``python3 chip_smoke.py --only data_axis`` runs the kernels' build
+   and this phase alone) — a ``("data", "model")`` grid of data 2 x
+   model 2, rank (d, m) on ``cuda:(2d + m)`` over NCCL, the serving
+   steps (``core/steps.py``) eager, each rank drawing only its shard;
+   beside it the twin, the model ring of tp 2 on cards 0-1 (no data
+   axis): kernel 5's fused entry at a grid rank's channels against its
+   plain version on cuda:0 and timed, and at every grid rank's decode
+   and prefill shapes; (a) opt-1.3b f32, batch 8 over data, 32 in x 32
+   steps: the streams tp=1's and the twin's (or apart at a top-2 gap
+   <= 1e-4), one all-gather a step on the data ring; (b) jamba-v0.1-52b
+   with its KV sequence over data and its experts over data x model:
+   f32, one super-block, 8190 in x 8 steps across the shard boundary,
+   the stream the twin's, kernel 5 exact on every rank; bf16, all 32
+   layers at long_500k (524288 positions, batch 1) on the grid and the
+   twin: ms a step over 64 steps, device ms a step (torch.profiler over
+   16 more, NCCL apart), peak memory a card while serving (the draw's
+   peak apart) and weight bytes a card, the bytes a step reads a card
+   and their bound; (c) llama4-maverick with its
+   experts over data x model: f32, 2 layers, 4 rows of 16 x 8, the
+   streams the twin's; bf16, 8 layers at 4 rows: ms a step, peak a card.
+   A ``{"kernels": [...]}`` line (kernel 5's grid launches) and a
+   ``{"data_axis": ...}`` line.
 
 Every engine runs its fused decode windows, verify rounds, monolithic
 prefills, prefill chunks, prefix tails, first-token sampling and
@@ -369,7 +393,8 @@ optimizer's device ms, the checkpoint's save wall, ``mfu_f32``, the
 card's name and power limit), a ``{"tp": ...}`` line (phase 13), on 2
 or more cards a ``{"tp_cards": ...}``, a ``{"tp_families": ...}`` and a
 ``{"tp_spec_mm": ...}`` line (phases 14-16), on 4 or more a
-``{"tp_fleet": ...}`` line (phase 17), the nvidia-smi
+``{"tp_fleet": ...}`` line (phase 17; phase 18 prints its own lines
+with ``--only data_axis``), the nvidia-smi
 line and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX: the
 port stands alone.
 """
@@ -7937,16 +7962,545 @@ def print_tp_fleet(rec, smi):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the data axis for serving, a (data, model) grid (4 cards)
+# ---------------------------------------------------------------------------
+
+DA_SHAPE = (2, 2)              # data x model: rank (d, m) on cuda:(2d + m)
+# (a): opt-1.3b f32 full width, batch 8 over data, 32 in, 32 serve steps
+DA_A = dict(batch=8, prompt=32, new=32, max_seq=128)
+# (b): jamba-v0.1-52b full width with its KV over data.  f32, one
+# super-block: a prompt of 8190 tokens and 8 greedy steps across the
+# shard boundary at 8192; bf16, all 32 layers at long_500k (524288
+# positions, batch 1): 64 timed steps after a 32-token prompt and 2
+# warm-up steps, 16 more under torch.profiler
+DA_B_F32 = dict(depth=8, max_seq=16384, prompt=8190, new=8)
+DA_B_BF16 = dict(max_seq=524288, prompt=32, warm=2, steps=64, profile=16)
+# (c): llama4-maverick full width, experts over data x model: f32, 2
+# layers (one dense, one MoE), 4 rows of 16 tokens x 8 new; bf16, 8
+# layers, 4 rows, 32 timed steps
+DA_C_F32 = dict(depth=2, batch=4, prompt=16, new=8, max_seq=64)
+DA_C_BF16 = dict(depth=8, batch=4, prompt=32, warm=2, steps=32, profile=8,
+                 max_seq=128)
+# the reckoned bounds of (b)'s bf16 token (ISSUE's arithmetic at 3.35
+# TB/s: ~31 GB a card on the grid, ~56 GB at tp 2 without a data axis)
+DA_RECKONED_MS = {"grid": 9.3, "tp2_twin": 16.7}
+
+
+def da_cfg(name, depth=None, reduced=False):
+    """Full-width ``name`` cut to ``depth`` layers, or (a rehearsal on the
+    CPU) its reduced config."""
+    from repro_torch.configs import get_config
+    if reduced:
+        cfg = get_config(name).reduced()
+        return dataclasses.replace(cfg, n_layers=min(cfg.n_layers, depth)) \
+            if depth else cfg
+    return fam_cfg(name, depth)
+
+
+def da_plan(cfg, grid, dtype, kv_seq=False):
+    """The serving plan on the grid (``grid`` True, ESL overlap) or on
+    its twin, the model ring of the grid's tp (no data axis)."""
+    from repro_torch.compiler.mapper import plan_model
+    axes, shape = ((("data", "model"), DA_SHAPE) if grid
+                   else (("model",), (DA_SHAPE[1],)))
+    return plan_model(cfg, axes, shape, "serve", esl_overlap=True,
+                      kv_seq_axis="data" if kv_seq and grid else None,
+                      remat="none", compute_dtype=dtype, param_dtype=dtype)
+
+
+def da_prompts(cfg, batch, length, seed):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return rng.randint(1, cfg.vocab_size, size=(batch, length)).tolist()
+
+
+def da_gap(torch, ring, model, params, prefix, max_seq):
+    """The top-2 gap of the logits that pick the token after ``prefix``,
+    from the model's own prefill on this ring or grid (every rank calls
+    it alike; the vocab columns gathered whole)."""
+    from repro_torch.core import dist as D
+    env = D.make_axis_env(model.plan, batch=1, ring=ring)
+    cache = model.init_cache(1, max_seq, env=env)
+    with torch.no_grad():
+        lg, _ = model.forward(params, torch.tensor([prefix],
+                                                   device=ring.device),
+                              mode="prefill", cache=cache, env=env)
+    row = lg[:, -1].float().contiguous()
+    if env.tp > 1:
+        row = D.all_gather(row, env.model, dim=-1)
+    return float(top2_gap(row)[0])
+
+
+def da_agree(torch, ring, model, params, prompts, got, want, max_seq, what):
+    """Each row's stream ``got`` equal to ``want``, or first apart where
+    this model's top-2 gap is at most CHAIN_TOL (a near tie).  Raises
+    otherwise."""
+    parts = []
+    for b, (p, x, y) in enumerate(zip(prompts, got, want)):
+        at = next((j for j, (u, v) in enumerate(zip(x, y)) if u != v), None)
+        if at is None:
+            continue
+        gap = da_gap(torch, ring, model, params, list(p) + list(x[:at]),
+                     max_seq)
+        if gap > CHAIN_TOL:
+            raise AssertionError(f"{what}: row {b} differs at token {at} "
+                                 f"where the top-2 gap is {gap} > "
+                                 f"{CHAIN_TOL}")
+        parts.append({"row": b, "at": at, "top2_gap": gap})
+    return {"equal": len(prompts) - len(parts), "of": len(prompts),
+            "diverged_at_near_ties": parts}
+
+
+def da_streams(torch, ring, model, params, prompts, new, max_seq):
+    """The serving steps (``core/steps.py``) on this rank: the prefill
+    step on ``prompts`` (B, P), then ``new`` serve steps of the greedy
+    tokens.  Returns (each row's stream: the prefill's token and each
+    step's, {kernel 5's launches over the run, the data ring's
+    collectives per serve step, prefills, serve steps})."""
+    from repro_torch.core.steps import build_prefill_step, build_serve_step
+    from repro_torch.kernels import read_launches, reset_launches
+    dev = ring.device
+    B, P = len(prompts), len(prompts[0])
+    pre, meta = build_prefill_step(model, ring, B, max_seq)
+    serve, _ = build_serve_step(model, ring, B, max_seq)
+    env = meta["env"]
+    cache = model.init_cache(B, max_seq, env=env)
+    tokens = torch.tensor(prompts, device=dev)
+    data = env.data.counters if env.data is not None else None
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda d: None)
+    sync(dev)
+    reset_launches()
+    with torch.no_grad():
+        tok, cache = pre(params, cache, tokens)
+        got = [tok]
+        per_step = []
+        for i in range(new):
+            before = data["collectives"] if data else 0
+            pos = torch.full((B,), P + i, dtype=torch.int32, device=dev)
+            tok, cache = serve(params, cache, tok[:, None].long(), pos)
+            per_step.append((data["collectives"] if data else 0) - before)
+            got.append(tok)
+    sync(dev)
+    streams = torch.stack(got, 1).tolist()
+    return streams, {"kernel5_launches": read_launches()["mamba_scan_fused"],
+                     "data_collectives_per_step": per_step,
+                     "prefills": 1, "serve_steps": new,
+                     "dp": list(env.dp), "kv_seq_width": env.kv_seq_width}
+
+
+def da_timed(torch, ring, model, params, prompts, knobs):
+    """ms per serve step over ``knobs["steps"]`` timed steps (after the
+    prefill and ``warm`` warm-up steps), and the device ms a step of
+    ``profile`` more under torch.profiler (NCCL's kernels apart); kernel
+    5's launches over the whole run; the bytes a step reads on this card
+    (the rank's weights, its KV cache and twice its recurrent states)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.steps import build_prefill_step, build_serve_step
+    from repro_torch.kernels import read_launches, reset_launches
+    dev = ring.device
+    B, P = len(prompts), len(prompts[0])
+    max_seq = knobs["max_seq"]
+    pre, meta = build_prefill_step(model, ring, B, max_seq)
+    serve, _ = build_serve_step(model, ring, B, max_seq)
+    cache = model.init_cache(B, max_seq, env=meta["env"])
+    reset_launches()
+    pos = [P]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda d: None)
+
+    def step(tok):
+        p = torch.full((B,), pos[0], dtype=torch.int32, device=dev)
+        pos[0] += 1
+        return serve(params, cache, tok[:, None].long(), p)[0]
+    with torch.no_grad():
+        tok, _ = pre(params, cache, torch.tensor(prompts, device=dev))
+        for _ in range(knobs["warm"]):
+            tok = step(tok)
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(knobs["steps"]):
+            tok = step(tok)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        # (the CPU rehearsal's profile records the host: no device time)
+        with profile(activities=[ProfilerActivity.CUDA
+                                 if dev.type == "cuda"
+                                 else ProfilerActivity.CPU]) as prof:
+            for _ in range(knobs["profile"]):
+                tok = step(tok)
+            sync(dev)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    nccl = sum(e.self_device_time_total for e in kernels
+               if "nccl" in e.key.lower()) / 1e3
+    n = knobs["profile"]
+    want = n_scan_layers(model.cfg) * (1 + knobs["warm"] + knobs["steps"]
+                                       + n) if dev.type == "cuda" else 0
+    kv = sum(t.numel() * t.element_size() for c in cache.values()
+             if "k" in c for t in c.values())
+    state = 2 * sum(t.numel() * t.element_size() for c in cache.values()
+                    if "ssm" in c for t in c.values())
+    wb = tree_bytes(params)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"ms_per_step": wall * 1e3 / knobs["steps"],
+            "device_ms_per_step": busy / n, "nccl_ms_per_step": nccl / n,
+            "batch": B, "positions": [P, pos[0]], "max_seq": max_seq,
+            "kernel5_launches": read_launches()["mamba_scan_fused"],
+            "kernel5_want": want,
+            "weight_bytes": wb, "kv_bytes": kv, "state_bytes_per_step": state,
+            "bytes_per_step": wb + kv + state,
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def da_run(torch, ring, spec, part, grid):
+    """One part of phase 18 at this rank, on the grid or on its twin
+    (the model ring of tp 2 on cards 0-1): the rank's shard drawn alone,
+    the part's runs, the model freed."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.weights import init_shard
+    dev = ring.device
+    cuda = dev.type == "cuda"
+    red = spec["reduced"]
+    rec = {}
+    for key, name, knobs, dtype, kv_seq in spec["parts"][part]:
+        cfg = da_cfg(name, knobs.get("depth"), red)
+        plan = da_plan(cfg, grid, dtype, kv_seq)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = init_shard(cfg, plan, ring, seed=0, device=dev)
+        if name.startswith("opt"):
+            from repro_torch.weights import redraw_shard
+            redraw_shard(params, cfg, plan, ring.rank, opt_std(cfg),
+                         OPT_REDRAW_SEED)
+        r = {"draw_s": time.perf_counter() - t0,
+             "weight_bytes": tree_bytes(params),
+             "expert_axes": list(plan.moe.expert_axes) if plan.moe else None}
+        if cuda:
+            # the draw's peak (a part of a tp=1 layer drawn whole) apart
+            # from the serving's
+            torch.cuda.synchronize(dev)
+            r["draw_s"] = time.perf_counter() - t0
+            r["draw_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            free_cuda(torch)
+            torch.cuda.reset_peak_memory_stats(dev)
+        model = build_model(cfg, plan, dev)
+        prompts = spec["prompts"][key]
+        t0 = time.perf_counter()
+        if "steps" in knobs:
+            r.update(da_timed(torch, ring, model, params, prompts, knobs))
+            if r["kernel5_launches"] != r["kernel5_want"]:
+                raise AssertionError(
+                    f"(18) {key} rank {ring.rank}: kernel 5 launched "
+                    f"{r['kernel5_launches']} != {r['kernel5_want']}")
+        else:
+            streams, counts = da_streams(torch, ring, model, params, prompts,
+                                         knobs["new"], knobs["max_seq"])
+            r.update(counts, streams=streams)
+            # on the CPU the wrappers run their plain versions: no launch
+            want = n_scan_layers(cfg) * (1 + knobs["new"]) \
+                if cfg.family == "hybrid" and cuda else 0
+            if counts["kernel5_launches"] != want:
+                raise AssertionError(
+                    f"(18) {key} rank {ring.rank}: kernel 5 launched "
+                    f"{counts['kernel5_launches']} != {want}")
+            r["kernel5_want"] = want
+            for other in ("twin", "tp1"):
+                ref = spec.get(other, {}).get(key)
+                if grid and ref is not None:
+                    r[f"vs_{other}"] = da_agree(
+                        torch, ring, model, params, prompts, streams, ref,
+                        knobs["max_seq"], f"(18) {key} grid vs {other}")
+        r["run_s"] = time.perf_counter() - t0
+        r["peak_memory_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                  if cuda else 0)
+        rec[key] = r
+        del model, params
+        gc.collect()
+        if cuda:
+            free_cuda(torch)
+        if ring.rank == 0:
+            print(f"[data_axis] (18{part}) {key} on the "
+                  f"{'grid' if grid else 'tp 2 twin'}: draw "
+                  f"{r['draw_s']:.1f} s, run {r['run_s']:.1f} s", flush=True)
+    return rec
+
+
+def da_grid_rank(ring, spec):
+    """One rank of phase 18's grid (rank (d, m) on cuda:(2d + m), NCCL,
+    eager): kernel 5's fused entry against its plain version at the
+    rank's shapes, then (a), (b), (c); returns every rank's record."""
+    import torch
+    out = {"rank": ring.rank, "device": str(ring.device)}
+    if ring.device.type == "cuda":
+        out["kernel5_at_rank"] = kernel5_at_rank(torch, ring.device,
+                                                 spec["k5_shapes"], 70)
+    for part in ("a", "b", "c"):
+        out[part] = da_run(torch, ring, spec, part, True)
+    return ring.gather_object(out)
+
+
+def da_twin_rank(ring, spec):
+    """One rank of the grid's twin: the model ring of tp 2 (cards 0-1),
+    the parts that have a twin; returns every rank's record."""
+    import torch
+    out = {"rank": ring.rank}
+    for part in ("a", "b", "c"):
+        if spec["parts"].get(part):
+            out[part] = da_run(torch, ring, spec, part, False)
+    return ring.gather_object(out)
+
+
+def da_tp1(torch, dev, prompts, reduced):
+    """(a)'s tp=1 streams on ``dev``: the same weights through the
+    serving steps without a mesh."""
+    from repro_torch.models.common import init_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.compiler.mapper import plan_model
+    from repro_torch.weights import redraw
+    from repro_torch.core.steps import build_prefill_step, build_serve_step
+    cfg = da_cfg("opt-1.3b", reduced=reduced)
+    plan = plan_model(cfg, None, (1,), "serve", esl_overlap=False,
+                      remat="none", compute_dtype="float32",
+                      param_dtype="float32")
+    model = build_model(cfg, plan, dev)
+    params = init_params(cfg, plan, seed=0, device=dev)
+    redraw(params, opt_std(cfg), OPT_REDRAW_SEED)
+    B, P = len(prompts), len(prompts[0])
+    pre, _ = build_prefill_step(model, None, B, DA_A["max_seq"])
+    serve, _ = build_serve_step(model, None, B, DA_A["max_seq"])
+    cache = model.init_cache(B, DA_A["max_seq"])
+    with torch.no_grad():
+        tok, cache = pre(params, cache, torch.tensor(prompts, device=dev))
+        got = [tok]
+        for i in range(DA_A["new"]):
+            tok, cache = serve(params, cache, tok[:, None].long(),
+                               torch.full((B,), P + i, dtype=torch.int32,
+                                          device=dev))
+            got.append(tok)
+    out = torch.stack(got, 1).tolist()
+    del model, params, cache
+    gc.collect()
+    return out
+
+
+def check_time_grid_k5(torch, dev, card_name, shape):
+    """Kernel 5's fused entry at a grid rank's decode shape on ``dev``:
+    against its plain version and timed beside it, with its bound."""
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan_fused
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_fused_ref
+    from repro_torch.kernels import held_launches
+    args = mamba_fused_inputs(torch, dev, shape, 91)
+    with held_launches():
+        got = mamba_scan_fused(*args)
+        want = mamba_scan_fused_ref(*args)
+        torch.cuda.synchronize(dev)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        if err > MAMBA_TOL:
+            raise AssertionError(f"(18) mamba_scan_fused {shape}: max abs "
+                                 f"{err} > {MAMBA_TOL}")
+        per_set = 4 * sum(a.numel() for a in args)
+        sets = [tuple(a.clone() for a in args)
+                for _ in range(sets_for(per_set))]
+        t = timed(torch, {"ms": lambda i: mamba_scan_fused(*sets[i]),
+                          "plain_ms": lambda i: mamba_scan_fused_ref(
+                              *sets[i])}, len(sets))
+    t["bound_ms"], t["bound_by"] = mamba_fused_bound(shape, card_name)
+    t.update(max_abs_err=err, shape=list(shape), library_ms=None)
+    return t
+
+
+def run_data_axis(torch, dev, card_name, lap=None, device="cuda",
+                  reduced=False):
+    """Phase 18 on a machine of 4 or more cards: kernel 5 at a grid
+    rank's shape on ``dev``; (a)'s tp=1 streams on ``dev``; the twin
+    (the model ring of tp 2 on cards 0-1) for (a), (b) and (c)'s f32
+    streams and (b)'s bf16 long context; then the grid of data 2 x
+    model 2 on cards 0-3 for every part, each stream held to the
+    twin's and (a)'s to tp=1's.  ``device="cpu"`` and ``reduced``
+    rehearse the phase on gloo ranks at reduced widths (the timed runs
+    a few steps long).  Returns the record."""
+    from repro_torch.core.dist import run_ranks
+    t_phase = time.perf_counter()
+    placement = "card_per_rank" if device == "cuda" else None
+    # a rank draws a giant MoE's expert part of a tp=1 layer whole (in
+    # f32: ~21 GB for llama4's) beside its shard; segments that grow keep
+    # the allocator's cache from fragmenting under it (a fixed-segment
+    # cache left 16 GB reserved and unusable and the draw out of memory)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    cards = smi_query("--query-gpu=index,name,power.limit",
+                      "--format=csv,noheader").splitlines() \
+        if device == "cuda" else []
+    rec = {"card": card_name, "shape": list(DA_SHAPE), "cards_listed": cards}
+    b_f32 = dict(DA_B_F32, prompt=30, max_seq=64) if reduced else DA_B_F32
+    a = dict(DA_A, prompt=8) if reduced else DA_A
+    jamba_c = da_cfg("jamba-v0.1-52b", reduced=reduced)
+    d_inner = jamba_c.mamba.expand * jamba_c.d_model // DA_SHAPE[1]
+    k5 = [(1, 1, d_inner, jamba_c.mamba.d_state),
+          (1, b_f32["prompt"], d_inner, jamba_c.mamba.d_state)]
+    if device == "cuda":
+        rec["kernel5"] = check_time_grid_k5(torch, dev, card_name, k5[0])
+    opt = da_cfg("opt-1.3b", reduced=reduced)
+    llama = da_cfg("llama4", reduced=reduced)
+    prompts = {"opt": da_prompts(opt, a["batch"], a["prompt"], 0),
+               "jamba_f32": da_prompts(jamba_c, 1, b_f32["prompt"], 1),
+               "jamba_bf16": da_prompts(jamba_c, 1, 8 if reduced else
+                                        DA_B_BF16["prompt"], 2),
+               "llama4_f32": da_prompts(llama, DA_C_F32["batch"],
+                                        DA_C_F32["prompt"], 3),
+               "llama4_bf16": da_prompts(llama, DA_C_BF16["batch"],
+                                         8 if reduced else
+                                         DA_C_BF16["prompt"], 4)}
+    t0 = time.perf_counter()
+    tp1 = {"opt": da_tp1(torch, dev, prompts["opt"], reduced)}
+    rec["tp1_s"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        free_cuda(torch)
+    full = {"a": [("opt", "opt-1.3b", a, "float32", False)],
+            "b": [("jamba_f32", "jamba-v0.1-52b", b_f32, "float32", True)],
+            "c": [("llama4_f32", "llama4", DA_C_F32, "float32", False)]}
+    b_bf16, c_bf16 = DA_B_BF16, DA_C_BF16
+    if reduced:
+        b_bf16 = dict(b_bf16, max_seq=64, prompt=8, warm=1, steps=3,
+                      profile=2)
+        c_bf16 = dict(c_bf16, prompt=8, warm=1, steps=3, profile=2)
+    full["b"].append(("jamba_bf16", "jamba-v0.1-52b", b_bf16, "bfloat16",
+                      True))
+    full["c"].append(("llama4_bf16", "llama4", c_bf16, "bfloat16", False))
+    twin_parts = {k: [p for p in v if p[0] != "llama4_bf16"]
+                  for k, v in full.items()}
+    spec = {"prompts": prompts, "reduced": reduced, "parts": twin_parts}
+    t0 = time.perf_counter()
+    twin = run_ranks(da_twin_rank, DA_SHAPE[1], spec, device=device,
+                     placement=placement, timeout_s=900)
+    rec["twin_s"] = time.perf_counter() - t0
+    if lap is not None:
+        lap("(18) tp 2 twin")
+    for part in ("a", "b", "c"):
+        for key, r in twin[0][part].items():
+            if "streams" in r and r["streams"] != twin[1][part][key][
+                    "streams"]:
+                raise AssertionError(f"(18) twin {key}: ranks disagree")
+    twin_streams = {k: r["streams"] for part in ("a", "b", "c")
+                    for k, r in twin[0][part].items() if "streams" in r}
+    spec = dict(spec, parts=full, twin=twin_streams, tp1=tp1,
+                k5_shapes=k5)
+    t0 = time.perf_counter()
+    grid = run_ranks(da_grid_rank, DA_SHAPE[0] * DA_SHAPE[1], spec,
+                     device=device, placement=placement, timeout_s=1200)
+    rec["grid_s"] = time.perf_counter() - t0
+    if lap is not None:
+        lap("(18) grid")
+    for part in ("a", "b", "c"):
+        for key in grid[0][part]:
+            rs = [g[part][key] for g in grid]
+            if "streams" in rs[0] and any(r["streams"] != rs[0]["streams"]
+                                          for r in rs):
+                raise AssertionError(f"(18) grid {key}: ranks disagree")
+            out = {k: v for k, v in rs[0].items()
+                   if k not in ("streams", "peak_memory_bytes",
+                                "weight_bytes", "kernel5_launches",
+                                "draw_s", "top_kernels", "draw_peak_bytes")}
+            for k in ("peak_memory_bytes", "draw_peak_bytes",
+                      "weight_bytes", "kernel5_launches", "draw_s",
+                      "ms_per_step", "device_ms_per_step",
+                      "nccl_ms_per_step"):
+                if k in rs[0]:
+                    out[f"{k}_per_rank"] = [r[k] for r in rs]
+            out["top_kernels_rank0"] = rs[0].get("top_kernels")
+            out["stream_head"] = rs[0]["streams"][0][:16] \
+                if "streams" in rs[0] else None
+            tw = twin[0].get(part, {}).get(key)
+            if tw is not None:
+                out["twin"] = {k: v for k, v in tw.items()
+                               if k not in ("streams",)}
+                out["twin"]["peak_memory_bytes_per_rank"] = [
+                    t[part][key].get("peak_memory_bytes") for t in twin]
+            rec[f"{part}_{key}"] = out
+    a_rec = rec["a_opt"]
+    if set(map(tuple, [r["a"]["opt"]["data_collectives_per_step"]
+                       for r in grid])) != {(1,) * a["new"]}:
+        raise AssertionError("(18a) the data axis must add one all-gather a "
+                             "step: " + str([r["a"]["opt"][
+                                 "data_collectives_per_step"] for r in grid]))
+    a_rec["data_all_gathers_per_step"] = 1
+    rec["kernel5_at_rank_per_rank"] = [g.get("kernel5_at_rank")
+                                       for g in grid]
+    rec["kernel5_grid_launches"] = sum(
+        r[part][key]["kernel5_launches"] for r in grid
+        for part in ("b",) for key in r[part])
+    bf = rec.get("b_jamba_bf16")
+    if bf is not None:
+        bw = bandwidth_for(card_name)
+        for who, r in (("grid", bf), ("tp2_twin", bf["twin"])):
+            r["bound_ms_per_token"] = r["bytes_per_step"] / bw * 1e3
+            r["reckoned_bound_ms"] = DA_RECKONED_MS[who]
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def print_data_axis(rec, smi):
+    a, bf = rec["a_opt"], rec["b_jamba_f32"]
+    print(f"[data_axis] (18a) opt-1.3b f32 batch 8 on data {DA_SHAPE[0]} x "
+          f"model {DA_SHAPE[1]}: equal to tp 1 {a['vs_tp1']['equal']}/"
+          f"{a['vs_tp1']['of']}, to the tp 2 ring {a['vs_twin']['equal']}/"
+          f"{a['vs_twin']['of']} (near ties "
+          f"{a['vs_twin']['diverged_at_near_ties']}), data all-gathers a "
+          f"step {a['data_all_gathers_per_step']} | {smi}")
+    print(f"[data_axis] (18b) jamba f32 one super-block, KV over data, "
+          f"{DA_B_F32['prompt']} + {DA_B_F32['new']}: equal to the tp 2 twin "
+          f"{bf['vs_twin']['equal']}/{bf['vs_twin']['of']} "
+          f"({bf['vs_twin']['diverged_at_near_ties']}), kernel 5 "
+          f"{bf['kernel5_launches_per_rank']} (want {bf['kernel5_want']}) | "
+          f"{smi}")
+    for key in ("b_jamba_bf16", "c_llama4_bf16"):
+        r = rec.get(key)
+        if r is None:
+            continue
+        peak = [round(x / 1e9, 2) for x in r["peak_memory_bytes_per_rank"]]
+        line = (f"[data_axis] {key}: grid "
+                f"{r['ms_per_step_per_rank'][0]:.3f} ms/step wall, "
+                f"{r['device_ms_per_step_per_rank'][0]:.3f} device (NCCL "
+                f"{r['nccl_ms_per_step_per_rank'][0]:.3f}), peak {peak} GB "
+                f"serving, weights {r['weight_bytes_per_rank'][0] / 1e9:.2f}"
+                " GB a card")
+        if "bound_ms_per_token" in r:
+            t = r["twin"]
+            tpeak = [round(x / 1e9, 2)
+                     for x in t["peak_memory_bytes_per_rank"]]
+            line += (f", bound {r['bound_ms_per_token']:.3f} (reckoned "
+                     f"{r['reckoned_bound_ms']}); tp 2 twin "
+                     f"{t['ms_per_step']:.3f} ms/step wall, "
+                     f"{t['device_ms_per_step']:.3f} device, bound "
+                     f"{t['bound_ms_per_token']:.3f} (reckoned "
+                     f"{t['reckoned_bound_ms']}), peak {tpeak} GB serving,"
+                     f" weights {t['weight_bytes'] / 1e9:.2f} GB")
+        print(line + f" | {smi}")
+    c = rec["c_llama4_f32"]
+    print(f"[data_axis] (18c) llama4 f32 2 layers, experts "
+          f"{c['expert_axes']}: equal to the tp 2 twin "
+          f"{c['vs_twin']['equal']}/{c['vs_twin']['of']} | {smi}")
+    print(f"[data_axis] phase {rec['phase_s']:.1f} s (twin "
+          f"{rec['twin_s']:.1f}, grid {rec['grid_s']:.1f})")
+
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "NVIDIA cards (see the module docstring).")
     ap.add_argument("--only", choices=("tp_cards", "tp_families",
-                                       "tp_spec_mm", "tp_fleet"),
+                                       "tp_spec_mm", "tp_fleet",
+                                       "data_axis"),
                     help="tp_cards / tp_families / tp_spec_mm: build the "
                          "kernels and run phase 14 / 15 / 16 alone (2 or "
-                         "more cards); tp_fleet: phase 17 alone (4 or more "
-                         "cards)")
+                         "more cards); tp_fleet / data_axis: phase 17 / 18 "
+                         "alone (4 or more cards)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -7981,12 +8535,36 @@ def main(argv=None) -> int:
     n_cards = torch.cuda.device_count()
     if args.only:
         lap("build")
-        need = 4 if args.only == "tp_fleet" else 2
+        need = 4 if args.only in ("tp_fleet", "data_axis") else 2
         if n_cards < need:
             print(f"[{args.only}] needs {need} or more cards; this machine "
                   f"has {n_cards}: not run", file=sys.stderr)
             return 1
-        if args.only == "tp_fleet":
+        if args.only == "data_axis":
+            da = run_data_axis(torch, torch.device("cuda", 0), smi, lap)
+            print_data_axis(da, smi)
+            k5 = da["kernel5"]
+            print(json.dumps({"kernels": [{
+                "name": "mamba_scan", "route": "cuda",
+                "source": os.path.relpath(build.source_path("mamba_scan"),
+                                          HERE),
+                "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:52",
+                "main_path_entry": "mamba_scan_fused",
+                # jamba's mamba layers on every rank of the grid, (b)
+                "launches": da["kernel5_grid_launches"],
+                "launches_per_rank": {
+                    key: da[key]["kernel5_launches_per_rank"]
+                    for key in ("b_jamba_f32", "b_jamba_bf16")},
+                "max_abs_err": k5["max_abs_err"],
+                "max_abs_err_at_ranks": da["kernel5_at_rank_per_rank"],
+                "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+                "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+                "library_ms": None,
+                "shapes": {"B": k5["shape"][0], "S": k5["shape"][1],
+                           "C": k5["shape"][2], "N": k5["shape"][3],
+                           "dtype": "float32"}}]}))
+            print(json.dumps({"data_axis": da}))
+        elif args.only == "tp_fleet":
             fl = run_tp_fleet(torch, torch.device("cuda", 0), smi, lap)
             print_tp_fleet(fl, smi)
             print(json.dumps({"tp_fleet": fl}))

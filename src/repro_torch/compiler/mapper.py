@@ -10,13 +10,18 @@ fewer than ranks), column-wise FFN tiles padded to ``tp * 8``, the
 vocabulary padded to ``tp * 128``, and the reference's rule table
 mapping each logical parameter axis to the ring (``rules``), which
 :func:`repro_torch.weights.shard_params` reads to slice a rank's
-leaves.  An MoE's experts are spread over the ring as the reference's
-plan spreads them (``ep = gcd(E, tp)`` expert groups, each split into
-``ffn_split`` column halves; the giant-MoE rule's data axis does not
-exist on the serving ring, so its expert axes are ``("model",)`` too).
-Data-parallel/FSDP axes (training on a mesh, and with them the giant
-MoE's data x model experts) and KV sequence sharding are not in this
-slice and raise.
+leaves.  An MoE's experts are spread as the reference's plan spreads
+them: ``ep = gcd(E, W)`` expert groups, each split into ``ffn_split``
+column parts, over the model ring (W = tp), or, for a giant MoE served
+on a ``("data", "model")`` grid (``total_params * 2 > 12e9 * tp``),
+over data x model (W = dwidth * tp).
+
+On the grid (``mesh_axes=("data", "model")``, ``mesh_shape=(dwidth,
+tp)``) a serving plan splits the batch over ``data`` (``dp_axes``; the
+weights are replicated over it) and carries ``kv_seq_axis`` and
+``seq_shard_kv`` (a hybrid's KV sequence sharded over ``data`` for long
+context, :func:`plan_for_cell`).  Training on a data axis (FSDP) is not
+ported and raises, as does a pod axis.
 """
 from __future__ import annotations
 
@@ -48,25 +53,35 @@ def plan_model(cfg: ArchConfig,
     if cfg.family not in ("dense", "moe", "vlm", "encdec", "rwkv",
                           "hybrid"):
         raise ValueError(f"plan_model: unknown family {cfg.family!r}")
-    if seq_shard_kv or kv_seq_axis:
-        raise NotImplementedError(
-            "KV sequence sharding (seq_shard_kv / kv_seq_axis) is not "
-            "ported yet")
     if mesh_axes is None:
         mesh_axes_t: Optional[Tuple[str, ...]] = None
         mesh_shape_t: Tuple[int, ...] = (1,)
         tp, tp_axis = 1, None
+        dp_axes: Tuple[str, ...] = ()
     else:
         mesh_axes_t = tuple(mesh_axes)
         mesh_shape_t = tuple(int(s) for s in mesh_shape)
-        if mesh_axes_t != ("model",) or len(mesh_shape_t) != 1:
+        if mesh_axes_t not in (("model",), ("data", "model")) or \
+                len(mesh_shape_t) != len(mesh_axes_t):
             raise NotImplementedError(
-                f"mesh {mesh_axes_t}{mesh_shape_t}: the port's ring is the "
-                "serving mesh ('model',) of shape (tp,); data-parallel and "
-                "FSDP axes (training on a mesh) are not ported yet")
-        tp, tp_axis = mesh_shape_t[0], "model"
-        if tp < 1:
-            raise ValueError(f"mesh_shape {mesh_shape_t}: tp must be >= 1")
+                f"mesh {mesh_axes_t}{mesh_shape_t}: the port's meshes are "
+                "the serving ring ('model',) of shape (tp,) and the grid "
+                "('data', 'model') of shape (dwidth, tp); a pod axis is "
+                "not ported")
+        if min(mesh_shape_t) < 1:
+            raise ValueError(f"mesh_shape {mesh_shape_t}: every axis must "
+                             "be >= 1")
+        sizes = dict(zip(mesh_axes_t, mesh_shape_t))
+        tp, tp_axis = sizes["model"], "model"
+        dp_axes = tuple(a for a in mesh_axes_t if a != "model")
+        if mode == "train" and dp_axes:
+            # ZeRO-3: the reference shards params over every non-model
+            # axis during training
+            raise NotImplementedError(
+                f"mesh {mesh_axes_t}{mesh_shape_t} in train mode: FSDP "
+                "(parameters and optimizer state sharded over the data "
+                "axes, their gathers and the gradient sync) is not ported "
+                "yet; a serving plan takes the data axis")
     if param_dtype is None:
         param_dtype = "float32" if mode == "train" else "bfloat16"
     if cfg.family == "rwkv":
@@ -79,12 +94,17 @@ def plan_model(cfg: ArchConfig,
     moe_plan = None
     if cfg.moe is not None:
         e = cfg.moe.n_experts
-        # the reference's rule: a giant MoE serves its experts over data
-        # x model, any other over the model ring; the serving ring has
-        # no data axis, so both give ("model",) there, and () on one
-        # device
-        expert_axes: Tuple[str, ...] = ("model",) if tp_axis else ()
-        ep_width = tp if expert_axes else 1
+        if mode == "serve" and cfg.total_params() * 2 > 12e9 * tp:
+            # giant MoE serving (llama4, jamba): experts over data x model
+            # so the weights fit; attention stays model-parallel
+            expert_axes: Tuple[str, ...] = tuple(
+                a for a in ("data", "model")
+                if mesh_axes_t and a in mesh_axes_t)
+        else:
+            expert_axes = ("model",) if tp_axis else ()
+        ep_width = 1
+        for a in expert_axes:
+            ep_width *= dict(zip(mesh_axes_t, mesh_shape_t))[a]
         ep = math.gcd(e, ep_width) if ep_width > 1 else 1
         ffn_split = ep_width // ep if ep_width > 1 else 1
         dffe = _ceil_to(cfg.moe.d_ff_expert, max(ffn_split * 8, 8))
@@ -97,10 +117,11 @@ def plan_model(cfg: ArchConfig,
     rules = _rule_table(tp_axis, moe_plan) if mesh_axes_t else {}
     return PhysicalPlan(
         arch=cfg.name, mode=mode, mesh_axes=mesh_axes_t,
-        mesh_shape=mesh_shape_t, tp=tp, tp_axis=tp_axis, dp_axes=(),
+        mesh_shape=mesh_shape_t, tp=tp, tp_axis=tp_axis, dp_axes=dp_axes,
         fsdp_axes=(), attn=attn, d_ff_shard=d_ff_padded // tp,
         d_ff_padded=d_ff_padded, vocab_padded=vocab_padded, moe=moe_plan,
-        esl_overlap=esl_overlap, esl_chunks=esl_chunks, remat=remat,
+        esl_overlap=esl_overlap, esl_chunks=esl_chunks,
+        seq_shard_kv=seq_shard_kv, kv_seq_axis=kv_seq_axis, remat=remat,
         scan_unroll=scan_unroll, use_kernels=use_kernels,
         compute_dtype=compute_dtype, param_dtype=param_dtype, rules=rules)
 
@@ -159,3 +180,24 @@ def summarize(plan) -> Dict[str, Any]:
                     "experts_per_rank": m.experts_per_rank,
                     "expert_axes": m.expert_axes})
     return out
+
+
+def plan_for_cell(cfg: ArchConfig, shape, mesh_axes, mesh_shape, *,
+                  esl_overlap: bool = True, remat: str = "block",
+                  seq_shard_kv: bool = False) -> PhysicalPlan:
+    """The reference's ``launch/dryrun.py`` ``plan_for_cell`` without its
+    lowering: a train cell plans for training, any other for serving; a
+    hybrid at the ``long_500k`` decode cell shards its KV sequence over
+    ``data``; decode cells plan in f32."""
+    mode = "train" if shape.kind == "train" else "serve"
+    kv_seq_axis = None
+    if (shape.name == "long_500k" and cfg.family in ("hybrid",)
+            and shape.kind == "decode"):
+        kv_seq_axis = "data"          # sequence-parallel KV (flash-decode)
+    dtypes = {}
+    if shape.kind == "decode":
+        dtypes = dict(compute_dtype="float32", param_dtype="float32")
+    return plan_model(cfg, mesh_axes, mesh_shape, mode,
+                      esl_overlap=esl_overlap, remat=remat,
+                      seq_shard_kv=seq_shard_kv, kv_seq_axis=kv_seq_axis,
+                      **dtypes)

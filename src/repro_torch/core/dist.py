@@ -8,7 +8,8 @@ rank's :class:`Ring`: its process group, rank, size and device.  Every
 collective the models make goes through this module, with the
 reference's names and semantics (``ppermute`` over (source,
 destination) pairs, tiled ``all_gather`` on the last dim, ``psum``,
-``psum_scatter``, ``pmax``, ``pmean``, ``axis_index``), each optionally
+``psum_scatter``, ``pmax``, ``pmean``, ``axis_index``, untiled
+``all_to_all``), each optionally
 confined to the sub-ring groups of :class:`repro_torch.core.rings.
 RingConfig` (``groups=``).  No other module of the port calls
 ``torch.distributed``.
@@ -51,8 +52,13 @@ the mesh fleet's): each rank gets a :class:`SubRing`, a handle whose
 ``rank`` and ``size`` are its place in its sub-ring, whose ``group`` is
 the sub-ring's process group and whose P2P peers map to world ranks, so
 the models' collectives run on it unchanged and never leave the
-sub-ring.  Host decisions that several processes must make alike go
-through :class:`Agreement`: picklable objects over a gloo group of the
+sub-ring.  A ``("data", "model")`` grid of ``dwidth * tp`` ranks
+(rank ``l = d * tp + m``, model innermost) splits the world twice
+(:func:`grid_rings`): each rank's model sub-ring runs the ESL ring's
+collectives, its data sub-ring the data axis's (the batch rows'
+gather, the KV sequence's ``pmax``/``psum``, the giant MoE's
+:func:`all_to_all`).  Host decisions that several processes must make
+alike go through :class:`Agreement`: picklable objects over a gloo group of the
 whole world made for them alone (also under NCCL), never through the
 model's communicators and never inside a capture.
 
@@ -410,37 +416,109 @@ class _Done(Pending):
 
 @dataclass(frozen=True)
 class AxisEnv:
-    """The reference's ``AxisEnv`` on the serving ring: its FSDP, data
-    and KV-sequence axes belong to slices not ported yet."""
+    """The reference's ``AxisEnv`` on the port's ranks.  ``model`` is the
+    rank's tensor-parallel ring (its model sub-ring on a grid), ``data``
+    its data sub-ring on a ``("data", "model")`` grid (None without a
+    data axis), each a :class:`Ring` whose collectives take it as their
+    axis.  ``dp`` names the axes the batch is split over (the largest
+    prefix of the plan's data axes that divides the batch), and
+    ``kv_seq_axis`` the axis a hybrid's KV sequence is sharded over
+    (``kv_seq_width`` ranks).  FSDP (training on a mesh) is not ported:
+    ``fsdp`` stays ``()``."""
     model: Optional[Ring]           # the tensor-parallel ring (None: tp 1)
     tp: int
+    fsdp: Tuple[str, ...] = ()      # param-gather axes (train ZeRO-3)
+    dp: Tuple[str, ...] = ()        # axes the batch is actually split over
+    kv_seq_axis: Optional[str] = None   # long-context KV sequence sharding
+    kv_seq_width: int = 1
+    data: Optional[Ring] = None     # the data sub-ring of a grid
+    dwidth: int = 1                 # ranks on the data axis
+
+    @property
+    def dp_width(self) -> int:
+        """Ranks the batch is split over (1 without ``dp``)."""
+        return self.dwidth if self.dp else 1
+
+    def axis(self, name: Optional[str]) -> Optional[Ring]:
+        """The ring of the mesh axis ``name`` ("model" or "data")."""
+        if name is None:
+            return None
+        if name == "model":
+            return self.model
+        if name == "data":
+            return self.data
+        raise ValueError(f"no mesh axis {name!r} on the port's ranks")
+
+
+def grid_rings(ring: Ring, dwidth: int, tp: int
+               ) -> Tuple["SubRing", "SubRing"]:
+    """(model sub-ring, data sub-ring) of this rank on the grid the
+    world ``ring`` forms.  Every rank calls this at the same point: the
+    model sub-rings' groups are made first, then the data sub-rings',
+    each on every rank in one order, and each sub-ring warms its own
+    communicator (:meth:`Ring.split`).  Made once and reused."""
+    from repro_torch.core.rings import Grid
+    grid = Grid(dwidth, tp)
+    if ring.size != grid.total:
+        raise ValueError(f"a grid of data {dwidth} x model {tp} needs "
+                         f"{grid.total} ranks; the ring has {ring.size}")
+    return ring.split(grid.model_groups()), ring.split(grid.data_groups())
+
+
+def batch_axes(plan, batch: Optional[int] = None) -> Tuple[str, ...]:
+    """The data axes the batch is split over: the largest prefix of the
+    plan's ``dp_axes`` whose width divides ``batch`` (all of them
+    without ``batch``), the reference's rule."""
+    if batch is None or plan.mesh_axes is None:
+        return tuple(plan.dp_axes)
+    sizes = dict(zip(plan.mesh_axes, plan.mesh_shape))
+    dp: Tuple[str, ...] = ()
+    width = 1
+    for a in plan.dp_axes:
+        if batch % (width * sizes[a]) == 0:
+            dp = dp + (a,)
+            width *= sizes[a]
+    return dp
 
 
 def make_axis_env(plan, *, batch: Optional[int] = None,
                   ring: Optional[Ring] = None) -> AxisEnv:
-    """The AxisEnv of a plan: tp 1 without a mesh; on the serving mesh
+    """The AxisEnv of a plan: tp 1 without a mesh; on the serving ring
     (``mesh_axes=("model",)``) the rank's ``ring``, whose size must be
-    the plan's tp.  ``batch`` is the reference's argument (it picks the
-    data-parallel axes, which the serving mesh has none of).  FSDP
-    (training on a mesh) and KV sequence sharding are not in this slice
-    and raise."""
+    the plan's tp; on a ``("data", "model")`` grid the world ``ring`` of
+    ``dwidth * tp`` ranks, split into the rank's model and data
+    sub-rings (:func:`grid_rings`).  ``batch`` picks the data-parallel
+    axes as the reference does: the largest prefix of the plan's
+    ``dp_axes`` whose width divides it (all of them without ``batch``).
+    FSDP (training on a mesh) is not ported and raises."""
     if plan.mesh_axes is None:
         return AxisEnv(None, 1)
-    if plan.fsdp_axes or plan.dp_axes:
+    if plan.fsdp_axes:
         raise NotImplementedError(
-            f"mesh axes {plan.mesh_axes}: data-parallel and FSDP axes "
-            "(training on a mesh) arrive with the mesh training slice; "
-            "the port's ring is the serving mesh ('model',)")
-    if plan.kv_seq_axis:
-        raise NotImplementedError(
-            "KV sequence sharding (kv_seq_axis) is not ported yet")
+            f"mesh axes {plan.mesh_axes}: FSDP (training on a mesh: "
+            "parameter gathers over the data axes and the gradient sync) "
+            "is not ported yet; a serving plan takes a data axis")
     if ring is None:
         raise ValueError(f"a plan for tp={plan.tp} needs the rank's ring "
                          "(see run_ranks)")
-    if ring.size != plan.tp:
-        raise ValueError(f"plan built for tp={plan.tp}, ring of "
-                         f"{ring.size} ranks")
-    return AxisEnv(ring, plan.tp)
+    sizes = dict(zip(plan.mesh_axes, plan.mesh_shape))
+    world = 1
+    for s in plan.mesh_shape:
+        world *= s
+    if ring.size != world:
+        raise ValueError(f"plan built for {plan.mesh_axes}{plan.mesh_shape} "
+                         f"({world} ranks), ring of {ring.size} ranks")
+    dp = batch_axes(plan, batch)
+    kv_axis, kv_w = None, 1
+    if getattr(plan, "kv_seq_axis", None):
+        kv_axis = plan.kv_seq_axis
+        kv_w = sizes[kv_axis]
+    if "data" not in sizes:
+        return AxisEnv(ring, plan.tp, dp=dp, kv_seq_axis=kv_axis,
+                       kv_seq_width=kv_w)
+    model, data = grid_rings(ring, sizes["data"], plan.tp)
+    return AxisEnv(model, plan.tp, dp=dp, kv_seq_axis=kv_axis,
+                   kv_seq_width=kv_w, data=data, dwidth=sizes["data"])
 
 
 def model_rank(env: Optional[AxisEnv]) -> int:
@@ -656,6 +734,31 @@ def psum_scatter(x: torch.Tensor, axis: Optional[Ring], dim: int = -1,
     return axis._stage_out(_fold(axis, parts, torch.add), t0)
 
 
+def all_to_all(x: torch.Tensor, axis: Optional[Ring],
+               groups: Groups = None) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, 0, 0, tiled=False)``: ``x`` (n, ...) on
+    a ring of n ranks; block j goes to rank j, and block j of the result
+    is what rank j sent here.  On NCCL one ``all_to_all_single`` of the
+    device tensors; on gloo one round of swaps (staged through the host
+    on a card)."""
+    if axis is None:
+        return x
+    t0 = time.perf_counter()
+    pg, ranks = axis._group(groups)
+    if x.shape[0] != len(ranks):
+        raise ValueError(f"all_to_all of {tuple(x.shape)} on {len(ranks)} "
+                         "ranks: dim 0 must be the ranks")
+    staged = axis._stage_in(x)
+    out = axis._buffer(staged.shape, staged.dtype)
+    if axis.nccl:
+        import torch.distributed as dist
+        axis.counters["collectives"] += 1
+        dist.all_to_all_single(out, staged, group=pg)
+    else:
+        torch.stack(_swap(axis, groups, list(staged.unbind(0))), out=out)
+    return axis._stage_out(out, t0)
+
+
 # ---------------------------------------------------------------------------
 # the ranks
 # ---------------------------------------------------------------------------
@@ -665,10 +768,11 @@ PLACEMENTS = ("card_per_rank", "shared_card")
 
 def rank_devices(tp: int, device=None,
                  placement: Optional[str] = None) -> List[torch.device]:
-    """The device of each of ``tp`` ranks.  On the CPU every rank runs
-    there (``placement`` None).  On CUDA the caller chooses, and nothing
-    chooses for it: ``"card_per_rank"`` puts rank r on ``cuda:r`` and
-    raises when the machine has fewer than ``tp`` cards;
+    """The device of each of ``tp`` ranks (every rank of the world: a
+    grid's ``dwidth * tp``, rank l on ``cuda:l``).  On the CPU every
+    rank runs there (``placement`` None).  On CUDA the caller chooses,
+    and nothing chooses for it: ``"card_per_rank"`` puts rank r on
+    ``cuda:r`` and raises when the machine has fewer than ``tp`` cards;
     ``"shared_card"`` puts every rank on the one card."""
     from repro_torch.device import resolve_device
     if tp < 1:

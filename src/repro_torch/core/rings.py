@@ -11,6 +11,9 @@ and :func:`rank_groups` gives the rank lists of independent sub-rings.
 ``submeshes`` (which carves a JAX mesh into congruent sub-meshes): it
 splits a world of ranks into those sub-rings and gives each rank its
 sub-ring's index and handle, on which one ring-parallel engine runs.
+:class:`Grid` describes a ``("data", "model")`` grid of ranks (the
+reference's 2-D serving mesh): rank ``l = d * tp + m``, model innermost,
+its model and data sub-rings.
 """
 from __future__ import annotations
 
@@ -58,6 +61,49 @@ class RingConfig:
                 return False
             seen |= set(g)
         return True
+
+
+@dataclass(frozen=True)
+class Grid:
+    """A ``("data", "model")`` grid of ``dwidth * tp`` ranks, model
+    innermost as the reference's mesh lays it out (rank ``l = d * tp +
+    m``, ``src/repro/models/moe.py``'s linear EP index)."""
+    dwidth: int                 # ranks on the data axis
+    tp: int                     # ranks on the model axis
+
+    def __post_init__(self):
+        if self.dwidth < 1 or self.tp < 1:
+            raise ValueError(f"grid data {self.dwidth} x model {self.tp}: "
+                             "both must be >= 1")
+
+    axes = ("data", "model")
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.dwidth, self.tp)
+
+    @property
+    def total(self) -> int:
+        return self.dwidth * self.tp
+
+    def coords(self, rank: int) -> Tuple[int, int]:
+        """(d, m) of world rank ``rank``."""
+        if not 0 <= rank < self.total:
+            raise ValueError(f"rank {rank} is not on a grid of {self.total}")
+        return divmod(int(rank), self.tp)
+
+    def rank_of(self, d: int, m: int) -> int:
+        return d * self.tp + m
+
+    def model_groups(self) -> List[List[int]]:
+        """Model sub-ring d: ranks ``d*tp .. d*tp + tp - 1``."""
+        return [[self.rank_of(d, m) for m in range(self.tp)]
+                for d in range(self.dwidth)]
+
+    def data_groups(self) -> List[List[int]]:
+        """Data sub-ring m: ranks ``m, m + tp, ..``."""
+        return [[self.rank_of(d, m) for d in range(self.dwidth)]
+                for m in range(self.tp)]
 
 
 def reconfigure(total: int, ring_size: int) -> RingConfig:

@@ -30,9 +30,20 @@ The serving steps' ring form (the reference's ``shard_map`` steps):
 (:func:`repro_torch.weights.init_shard`) and the cache the model's
 ``init_cache`` at the rank's heads.  Each rank's step returns the same
 global greedy token: the argmax of its vocab columns, all-gathered
-with its value, the first index among equal maxima.  A mesh in the
-train step raises ``NotImplementedError`` (FSDP and the gradient sync
-are not ported), as does its int8 gradient sync over a pod axis.
+with its value, the first index among equal maxima.
+
+On a ``("data", "model")`` grid (the model planned for ``("data",
+"model"), (dwidth, tp)``, ``mesh`` the world ring of ``dwidth * tp``
+ranks) the steps take the global batch: a rank runs its data row's
+rows when the batch splits over ``data`` (``meta["env"].dp``), or the
+whole batch when it does not (a hybrid at batch 1 whose KV sequence is
+sharded over ``data``), and one ``all_gather`` over ``data`` returns
+every row's token on every rank (the reference's ``out_specs=P(dp)``).
+Its cache is ``model.init_cache(batch, max_seq, env=meta["env"])``.
+
+A mesh in the train step raises ``NotImplementedError`` (FSDP and the
+gradient sync are not ported), as does its int8 gradient sync over a
+pod axis.
 """
 from __future__ import annotations
 
@@ -68,6 +79,24 @@ def _greedy(logits: torch.Tensor, env: AxisEnv) -> torch.Tensor:
     return globs.gather(-1, best[:, None])[:, 0].to(torch.int32)
 
 
+def _rows(env: AxisEnv, batch: int) -> slice:
+    """The global batch rows this rank runs: its data row's block when
+    the batch is split over ``data``, else every row."""
+    if not env.dp:
+        return slice(None)
+    if batch % env.dp_width:
+        raise ValueError(f"a batch of {batch} does not split over "
+                         f"{env.dp_width} data rows")
+    per = batch // env.dp_width
+    d = dist.axis_index(env.data)
+    return slice(d * per, (d + 1) * per)
+
+
+def _all_rows(tok: torch.Tensor, env: AxisEnv) -> torch.Tensor:
+    """Every data row's tokens (B,), in row order, on every rank."""
+    return dist.all_gather(tok, env.data, dim=0) if env.dp else tok
+
+
 def _local(mesh, what: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
@@ -78,14 +107,14 @@ def _local(mesh, what: str) -> None:
 def _serving_env(model, mesh, batch: int, what: str) -> AxisEnv:
     """The serving step's AxisEnv: tp 1 without a mesh, else the
     rank's ``mesh`` (a :class:`repro_torch.core.dist.Ring` of the plan's
-    tp)."""
+    tp, or the world ring of a grid)."""
     if mesh is not None and not isinstance(mesh, dist.Ring):
         raise TypeError(f"{what}: mesh is the rank's repro_torch.core."
                         f"dist.Ring (run_ranks), not a "
                         f"{type(mesh).__name__}")
     if mesh is not None and model.plan.mesh_axes is None:
         raise ValueError(f"{what}: a ring needs a plan built for it "
-                         "(mesh_axes ('model',))")
+                         "(mesh_axes ('model',) or ('data', 'model'))")
     return make_axis_env(model.plan, batch=batch, ring=mesh)
 
 
@@ -185,10 +214,11 @@ def build_serve_step(model, mesh, batch: int, max_seq: int
 
     @torch.no_grad()
     def step(params, cache, tokens, positions):
-        logits, cache = model.forward(params, tokens, mode="decode",
-                                      positions=positions, cache=cache,
-                                      env=env)
-        return _greedy(logits, env), cache
+        rows = _rows(env, tokens.shape[0])
+        logits, cache = model.forward(params, tokens[rows], mode="decode",
+                                      positions=positions[rows],
+                                      cache=cache, env=env)
+        return _all_rows(_greedy(logits, env), env), cache
 
     return step, {"batch": batch, "max_seq": max_seq, "env": env}
 
@@ -202,10 +232,14 @@ def build_prefill_step(model, mesh, batch: int, max_seq: int
 
     @torch.no_grad()
     def step(params, cache, tokens, frames=None, patch_embeds=None):
+        rows = _rows(env, tokens.shape[0])
+        frames = frames[rows] if family == "encdec" and \
+            frames is not None else None
+        patch_embeds = patch_embeds[rows] if family == "vlm" and \
+            patch_embeds is not None else None
         logits, cache = model.forward(
-            params, tokens, mode="prefill", cache=cache,
-            frames=frames if family == "encdec" else None,
-            patch_embeds=patch_embeds if family == "vlm" else None, env=env)
-        return _greedy(logits, env), cache
+            params, tokens[rows], mode="prefill", cache=cache,
+            frames=frames, patch_embeds=patch_embeds, env=env)
+        return _all_rows(_greedy(logits, env), env), cache
 
     return step, {"batch": batch, "max_seq": max_seq, "env": env}

@@ -30,7 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core import esl
+from repro_torch.core import dist, esl
 from repro_torch.core.dist import AxisEnv, model_rank, on_ring, ring_axis
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
 from repro_torch.models.common import apply_rope, big_neg
@@ -328,11 +328,12 @@ def prefill_attention(p: Params, x: torch.Tensor, *, cfg, plan,
                       positions: torch.Tensor, cache: Dict[str, torch.Tensor],
                       env: Optional[AxisEnv] = None) -> torch.Tensor:
     """Prefill of a batch whose cache covers exactly the S positions:
-    the cache (B,S,kpr,dh) is filled in place."""
+    the cache (B,S,kpr,dh) is filled in place; a cache whose sequence is
+    sharded over ``env.kv_seq_axis`` (B,1,S/width,kpr,dh) takes the
+    rank's slice of the prompt (:func:`_cache_insert_prefix`)."""
     q, k, v = _qkv_rope(p, x, cfg, plan, positions, env)
-    S = k.shape[1]
-    cache["k"][:, :S] = k.to(cache["k"].dtype)
-    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    _cache_insert_prefix(cache["k"], k, env)
+    _cache_insert_prefix(cache["v"], v, env)
     kmap = local_kmap(plan, x.device, model_rank(env))
     out = flash_attention(q, _expand_kv(k, kmap), _expand_kv(v, kmap),
                           causal=True)
@@ -364,7 +365,12 @@ def decode_attention(p: Params, x: torch.Tensor, *, cfg, plan,
     afterwards (rows of idle slots land in the null block 0).  On an
     int8/fp8 pool the new row is quantized FIRST and both dataflows fold
     its dequantized round-trip, the value every later read of the row
-    sees; the stored row and its scale are then scattered."""
+    sees; the stored row and its scale are then scattered.
+
+    With ``env.kv_seq_axis`` (a dense cache whose sequence is sharded
+    over the data axis, (B, 1, S/width, kpr, dh) on each rank) the
+    step runs :func:`_seq_sharded_decode` and the rank that owns the new
+    token's slot stores it (:func:`_seq_sharded_update`)."""
     q, k_new, v_new = _qkv_rope(p, x, cfg, plan, positions[:, None], env)
     kc, vc = cache["k"], cache["v"]
     B = x.shape[0]
@@ -395,6 +401,13 @@ def decode_attention(p: Params, x: torch.Tensor, *, cfg, plan,
         if ks is not None:
             ks[blk, pos % bs] = ksc[:, 0]
             vs[blk, pos % bs] = vsc[:, 0]
+    elif env is not None and env.kv_seq_axis is not None:
+        # long context: the KV sequence sharded over kv_seq_axis; the
+        # rank's shard (B, 1, S/width, kpr, dh) carries a singleton
+        # width dim
+        out = _seq_sharded_decode(q, kc[:, 0], vc[:, 0], k_new, v_new,
+                                  positions, plan, env)
+        _seq_sharded_update(kc, vc, k_new, v_new, positions, env)
     else:
         out = _flash_decode_chunked(
             q, kc, vc, local_kmap(plan, x.device, model_rank(env)),
@@ -523,14 +536,124 @@ def verify_attention(p: Params, x: torch.Tensor, *, cfg, plan,
 
 
 # ---------------------------------------------------------------------------
+# KV sequence sharding (long context over the data axis)
+# ---------------------------------------------------------------------------
+
+SEQ_CHUNK = 65536      # cache rows per product of the sharded decode
+
+
+def _kv_seq_ring(env: AxisEnv):
+    """(the ring the KV sequence is sharded over, this rank's index)."""
+    ring = env.axis(env.kv_seq_axis)
+    return ring, dist.axis_index(ring)
+
+
+def _cache_insert_prefix(cache: torch.Tensor, kv: torch.Tensor,
+                         env: Optional[AxisEnv]) -> None:
+    """Write the prefill K/V (B,S,kpr,dh) into ``cache`` in place: rows
+    ``:S`` of a whole cache; on a cache sharded over ``kv_seq_axis``
+    (B,1,S_loc,kpr,dh) the rank's slice ``[r*S_loc, (r+1)*S_loc)`` of the
+    prompt zero-padded to ``S_loc * width`` (the reference's slice of
+    the padded prompt, rows past it zero)."""
+    S = kv.shape[1]
+    if env is None or env.kv_seq_axis is None:
+        cache[:, :S] = kv.to(cache.dtype)
+        return
+    _, r = _kv_seq_ring(env)
+    s_loc = cache.shape[2]
+    lo = r * s_loc
+    n = max(0, min(S - lo, s_loc))
+    if n:
+        cache[:, 0, :n] = kv[:, lo:lo + n].to(cache.dtype)
+    cache[:, 0, n:] = 0
+
+
+def _seq_sharded_update(kc: torch.Tensor, vc: torch.Tensor,
+                        k_new: torch.Tensor, v_new: torch.Tensor,
+                        positions: torch.Tensor, env: AxisEnv) -> None:
+    """Store the new token (B,1,kpr,dh) in place on the rank that owns
+    its slot of the sharded cache (B,1,S_loc,kpr,dh); every other rank
+    rewrites the row it already holds (the reference's masked update)."""
+    _, r = _kv_seq_ring(env)
+    s_loc = kc.shape[2]
+    local = positions.long() - r * s_loc
+    mine = ((local >= 0) & (local < s_loc))[:, None, None]
+    safe = local.clamp(0, s_loc - 1)
+    rows = torch.arange(kc.shape[0], device=kc.device)
+    for c, new in ((kc, k_new), (vc, v_new)):
+        c[rows, 0, safe] = torch.where(mine, new[:, 0].to(c.dtype),
+                                       c[rows, 0, safe])
+
+
+def _seq_sharded_decode(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                        k_new: torch.Tensor, v_new: torch.Tensor,
+                        positions: torch.Tensor, plan, env: AxisEnv,
+                        chunk: int = SEQ_CHUNK) -> torch.Tensor:
+    """Decode attention with the KV sequence sharded over
+    ``env.kv_seq_axis`` (the reference's ``_seq_sharded_decode``): each
+    rank scores its slice (B,S_loc,kpr,dh) of the cache, read before
+    this step's update; the scores' max is taken over the ranks with the
+    new token's score (``pmax``), each rank sums its exponentials and
+    their values, the sums are added over the ranks (``psum`` of ``l``
+    and of ``acc``), and the new token, which may belong to another
+    rank's slice, is folded in once after the merge.  A cache row counts
+    when its position is strictly before the row's ``positions``.
+
+    The reference expands K and V to the query heads over the whole
+    slice; here the slice is read ``chunk`` rows at a time, each query
+    head's scores and values taken from its kv head (``local_kmap``), so
+    nothing of the slice's size is materialised but the scores (B, qpr,
+    S_loc) in f32.  q: (B,1,qpr,dh) -> (B,1,qpr,dh)."""
+    ring, r = _kv_seq_ring(env)
+    B, _, qpr, dh = q.shape
+    s_loc, kpr = kc.shape[1], kc.shape[2]
+    dev = q.device
+    kmap = local_kmap(plan, dev, model_rank(env))
+    pick_s = kmap.view(1, qpr, 1, 1)                       # per-head kv head
+    qs = (q[:, 0].float() * (1.0 / math.sqrt(dh))).to(kc.dtype)
+    s = torch.empty((B, qpr, s_loc), dtype=torch.float32, device=dev)
+    for start in range(0, s_loc, chunk):
+        kb = kc[:, start:start + chunk]
+        n = kb.shape[1]
+        s_all = (qs @ kb.reshape(B, n * kpr, dh).transpose(1, 2)).float()
+        s[:, :, start:start + n] = s_all.view(B, qpr, n, kpr).gather(
+            -1, pick_s.expand(B, qpr, n, 1))[..., 0]
+    kv_pos = r * s_loc + torch.arange(s_loc, device=dev)
+    ok = kv_pos[None, :] < positions.long()[:, None]        # strictly past
+    s = torch.where(ok[:, None, :], s, big_neg())
+    s_self = torch.einsum("bqd,bgd->bqg", qs, k_new[:, 0].to(qs.dtype)
+                          ).float().gather(-1, kmap.view(1, qpr, 1)
+                                           .expand(B, qpr, 1))[..., 0]
+    m_glob = dist.pmax(torch.maximum(s.amax(-1), s_self), ring)
+    p = torch.exp(s - m_glob[..., None])
+    l_loc = p.sum(-1)
+    acc = torch.zeros((B, qpr, dh), dtype=torch.float32, device=dev)
+    pick_v = kmap.view(1, qpr, 1, 1).expand(B, qpr, 1, dh)
+    for start in range(0, s_loc, chunk):
+        vb = vc[:, start:start + chunk]
+        n = vb.shape[1]
+        pv = (p[:, :, start:start + n].to(vc.dtype)
+              @ vb.reshape(B, n, kpr * dh)).float()
+        acc += pv.view(B, qpr, kpr, dh).gather(2, pick_v)[:, :, 0]
+    l = dist.psum(l_loc, ring)
+    acc = dist.psum(acc, ring)
+    p_self = torch.exp(s_self - m_glob)
+    l = l + p_self
+    vn = v_new[:, 0].float().index_select(1, kmap)         # (B,qpr,dh)
+    acc = acc + p_self[..., None] * vn
+    out = acc / l[..., None].clamp_min(1e-30)
+    return out[:, None].to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
 # cache
 # ---------------------------------------------------------------------------
 
 def init_cache(plan, batch: int, max_seq: int, dtype: torch.dtype,
                device: torch.device, paged: bool = False,
                num_blocks: int = 0, block_size: int = 0,
-               scale_dtype: Optional[torch.dtype] = None
-               ) -> Dict[str, torch.Tensor]:
+               scale_dtype: Optional[torch.dtype] = None,
+               kv_seq_width: int = 1) -> Dict[str, torch.Tensor]:
     """One layer's KV cache of one rank in the stored (local-head)
     layout: dense (batch, max_seq, kpr, dh), or — paged — a shared pool
     (num_blocks, block_size, kpr, dh) with block 0 reserved as the null
@@ -539,8 +662,20 @@ def init_cache(plan, batch: int, max_seq: int, dtype: torch.dtype,
     ``scale_dtype`` (paged only) marks the pool as quantized: ``dtype``
     is the int8/fp8 storage type, and ``k_scale``/``v_scale`` leaves of
     shape (num_blocks, block_size, kpr) ride beside the values, zeroed so
-    the null block dequantizes to exact zeros."""
+    the null block dequantizes to exact zeros.
+
+    ``kv_seq_width > 1`` (dense only) shards the sequence over that many
+    ranks: a rank holds (batch, 1, max_seq / width, kpr, dh), its slice
+    of the reference's rank-major (batch, width, max_seq / width, Gp,
+    dh)."""
     a = plan.attn
+    if kv_seq_width > 1:
+        if paged:
+            raise ValueError("a paged pool is not sequence-sharded (its "
+                             "block dim replaces the sequence dim)")
+        if max_seq % kv_seq_width:
+            raise ValueError(f"max_seq={max_seq} does not split over "
+                             f"{kv_seq_width} ranks")
     if paged:
         if num_blocks < 2 or block_size <= 0:
             raise ValueError(f"paged cache needs >= 2 blocks and a block "
@@ -550,7 +685,10 @@ def init_cache(plan, batch: int, max_seq: int, dtype: torch.dtype,
         if scale_dtype is not None:
             raise ValueError("quantized KV storage needs the paged pool "
                              "(the row scatters carry the scales)")
-        shape = (batch, max_seq, a.kv_per_rank, a.d_head)
+        shape = ((batch, max_seq, a.kv_per_rank, a.d_head)
+                 if kv_seq_width == 1 else
+                 (batch, 1, max_seq // kv_seq_width, a.kv_per_rank,
+                  a.d_head))
     out = {"k": torch.zeros(shape, dtype=dtype, device=device),
            "v": torch.zeros(shape, dtype=dtype, device=device)}
     if scale_dtype is not None:

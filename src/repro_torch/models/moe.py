@@ -37,9 +37,17 @@ in the blocking baseline: the layer's one row-parallel sync.  A shared
 expert is column-tiled like a dense MLP (``ag_matmul`` of wg|wu in one
 pass, ``rs_matmul`` of wd).
 
-Not ported (raises ``NotImplementedError``): the reference's
-``_moe_data_model``, the giant MoE's experts over data x model, which
-needs a data axis the serving ring does not have.
+A giant MoE served on a ``("data", "model")`` grid (the plan's expert
+axes ``("data", "model")``, W = dwidth x tp cells) runs the reference's
+``_moe_data_model``: each rank's tokens are its data row's; model column
+m buckets the (token, expert) assignments whose cell has column m by
+the data row that owns that cell, keeping the highest gates under each
+bucket's capacity, sends the buckets and their (token, expert, gate)
+records over the data ring (two ``all_to_all``), runs its own cell's
+``Ecell`` experts on what it received (each expert on every received
+row, masked), sends the gated results back (one ``all_to_all``) and
+adds them into token order; the model ring's sum then adds the cells'
+FFN parts as above.
 """
 from __future__ import annotations
 
@@ -145,32 +153,97 @@ def _moe_experts(p: Params, xt: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+def _moe_data_model(p: Params, xt: torch.Tensor, ids: torch.Tensor,
+                    gates: torch.Tensor, cfg, plan, env: AxisEnv
+                    ) -> torch.Tensor:
+    """Experts over data x model (the reference's ``_moe_data_model``):
+    column ``m`` forwards an assignment (t, e) iff the (group(e), part)
+    cell whose model column is ``m`` exists, i.e. ``h* = (m - group(e) *
+    split) mod tp`` with ``h* < split``; its destination data row is
+    ``(group(e) * split + h*) // tp``.  Returns this rank's partial
+    output (T, D), before the model ring's sum."""
+    tp = env.tp
+    _, split, n_groups, ecell, _, _ = moe_layout(plan)
+    T, D = xt.shape
+    k = ids.shape[-1]
+    dwidth = env.dwidth
+    cap = min(_capacity(T, k, dwidth * max(1, n_groups // dwidth),
+                        plan.moe.capacity_factor), T * k)
+    m_idx = model_rank(env)
+    dev = xt.device
+    ids_f = ids.reshape(-1)                                 # (T*k,)
+    gates_f = gates.reshape(-1)
+    tok_of = torch.arange(T, device=dev).repeat_interleave(k)
+    grp = ids_f // ecell
+    h_star = torch.remainder(m_idx - grp * split, tp)
+    sendable = h_star < split
+    dest = (grp * split + h_star) // tp                     # (T*k,)
+    bx, bm = [], []
+    for dd in range(dwidth):
+        score = (sendable & (dest == dd)).float()
+        # prefer high-gate assignments under capacity pressure
+        idx, valid = _select_topc(score * (1.0 + gates_f), cap)
+        ok = valid & (score[idx] > 0)
+        tok = tok_of[idx]
+        bx.append(xt[tok] * ok[:, None].to(xt.dtype))
+        bm.append(torch.stack([tok.float(), ids_f[idx].float(),
+                               gates_f[idx] * ok], -1))
+    bx = torch.stack(bx)                                    # (dwidth, cap, D)
+    bm = torch.stack(bm)                                    # (dwidth, cap, 3)
+    rx = dist.all_to_all(bx, env.data)
+    rm = dist.all_to_all(bm, env.data)
+    # this rank's cell: group g_mine, FFN part l % split (its weights)
+    l = dist.axis_index(env.data) * tp + m_idx
+    first = l // split * ecell
+    r_ids = rm[..., 1].long()                               # (dwidth, cap)
+    r_gate = rm[..., 2]
+    wg, wu, wd = p["wg"][0], p["wu"][0], p["wd"][0]         # (Ecell, ...)
+    y = torch.zeros_like(rx)
+    for c in range(ecell):
+        mask = ((r_ids == first + c) & (r_gate > 0))[..., None]
+        yc = _expert_ffn(wg[c], wu[c], wd[c], rx * mask.to(rx.dtype),
+                         cfg.activation)
+        y = y + yc * mask.to(yc.dtype)
+    y = y * r_gate[..., None].to(y.dtype)
+    back = dist.all_to_all(y, env.data)
+    out = torch.zeros((T, D), dtype=xt.dtype, device=dev)
+    for dd in range(dwidth):
+        out.index_add_(0, bm[dd, :, 0].long(), back[dd])
+    return out
+
+
 def moe_fwd(p: Params, x: torch.Tensor, *, cfg, plan,
             env: Optional[AxisEnv] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,D), or on the ring (``env``) (B,S,D/tp) scattered under
-    ESL overlap.  Returns (y in x's convention, aux_loss)."""
+    ESL overlap.  Returns (y in x's convention, aux_loss).  On a grid
+    whose plan spreads the experts over data x model the rows are the
+    rank's data row's, dispatched by :func:`_moe_data_model`."""
     ring = on_ring(env)
     axis, tp = ring_axis(env)
     overlap = plan.esl_overlap
-    if ring and len(plan.moe.expert_axes) > 1:
-        raise NotImplementedError(
-            "_moe_data_model (the giant MoE's experts over data x model) "
-            "is not ported: the serving ring has no data axis")
+    data_model = len(plan.moe.expert_axes) > 1
+    if data_model and (env is None or env.data is None):
+        raise ValueError(
+            f"experts over {plan.moe.expert_axes} need the rank's grid "
+            "(the AxisEnv of a ('data', 'model') mesh)")
     xf = esl.gather_scattered(x, axis=axis, tp=tp) if overlap else x
     xt = xf.reshape(-1, xf.shape[-1])
     ids, gates, probs = _route(p, xt, cfg, plan)
     aux = _lb_loss(probs, ids, cfg.moe.n_experts)
-    if ring:
+    if data_model:
+        out = _moe_data_model(p, xt, ids, gates, cfg, plan, env)
+    elif ring:
         # _moe_model_parallel: this rank's expert group (and FFN part)
         _, split, _, ecell, _, _ = moe_layout(plan)
         out = _moe_experts(p, xt, ids, gates, cfg, plan,
                            first=model_rank(env) // split * ecell)
+    else:
+        out = _moe_experts(p, xt, ids, gates, cfg, plan)
+    if ring:
         # the experts' partials and FFN parts, added over the ring
         out = (dist.psum_scatter(out, axis, dim=-1) if overlap
                else dist.psum(out, axis))
-    else:
-        out = _moe_experts(p, xt, ids, gates, cfg, plan)
     if "shared" in p:
         sh = p["shared"]
         if ring:

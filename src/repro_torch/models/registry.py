@@ -82,7 +82,8 @@ class Model:
     def init_cache(self, batch: int, max_seq: int, *,
                    dtype: Optional[torch.dtype] = None, paged: bool = False,
                    num_blocks: int = 0, block_size: int = 0,
-                   scale_dtype: Optional[torch.dtype] = None) -> Params:
+                   scale_dtype: Optional[torch.dtype] = None,
+                   env=None) -> Params:
         """Zeroed cache stacked per super-block, one entry per in-block
         index: {"l{j}": {"k","v": (n_sb, ...)}} with the layer's dense or
         paged shape (one rank's: its kv_per_rank heads); for rwkv the recurrent state {"l0": {"shift_t",
@@ -97,12 +98,27 @@ class Model:
         ``max_seq`` sizes only the dense k/v.  ``scale_dtype``
         (paged only) makes the pool an int8/fp8 one: ``dtype`` is its
         storage type and each attention layer gains zeroed ``k_scale``/
-        ``v_scale`` leaves (n_sb, N, bs, Gp)."""
+        ``v_scale`` leaves (n_sb, N, bs, Gp).
+
+        ``env`` (the rank's :class:`repro_torch.core.dist.AxisEnv` on a
+        ``("data", "model")`` grid) gives the rank's cache
+        (:meth:`cache_specs`): ``batch`` is the global batch, of which a
+        rank holds its data row's ``batch / dwidth`` rows when the batch
+        is split over ``data`` (every cache, the recurrent states too),
+        and a dense k/v whose sequence is sharded over ``kv_seq_axis``
+        holds (batch, 1, max_seq / width, kpr, dh)."""
         if paged and not self.supports_paged_kv():
             raise ValueError(f"{self.cfg.name}: paged KV needs an "
                              "attention-only stack")
         cfg, plan = self.cfg, self.plan
         dtype = dtype or dtype_of(plan.cache_dtype)
+        kv_w = 1
+        if env is not None:
+            if batch % env.dp_width:
+                raise ValueError(f"a batch of {batch} does not split over "
+                                 f"{env.dp_width} data rows")
+            batch //= env.dp_width
+            kv_w = env.kv_seq_width
         if cfg.family == "encdec":
             return wh.init_encdec_cache(cfg, plan, batch, max_seq, dtype,
                                         self.device)
@@ -116,7 +132,8 @@ class Model:
                 one = attn_mod.init_cache(plan, batch, max_seq, dtype, meta,
                                           paged=paged, num_blocks=num_blocks,
                                           block_size=block_size,
-                                          scale_dtype=scale_dtype)
+                                          scale_dtype=scale_dtype,
+                                          kv_seq_width=kv_w)
             else:
                 one = mamba_mod.init_mamba_state(cfg, plan, batch, dtype,
                                                  meta)
@@ -124,6 +141,55 @@ class Model:
                                            dtype=v.dtype, device=self.device)
                             for k, v in one.items()}
         return out
+
+
+    def cache_specs(self, env, paged: bool = False,
+                    kv_quant: bool = False) -> Params:
+        """The mesh axes of every dim of :meth:`init_cache`'s leaves (the
+        reference's ``cache_specs``, a tuple per leaf where it has a
+        ``PartitionSpec``): the batch dim on ``env.dp``, the stored kv
+        heads, mamba channels and rwkv heads on ``model``, a sharded KV
+        sequence on ``env.kv_seq_axis``; the rank holds its block of each
+        named dim."""
+        cfg, plan = self.cfg, self.plan
+        dp = tuple(env.dp) if env.dp else None
+        m = plan.tp_axis
+        scat = m if plan.esl_overlap else None
+        kv_w = plan_kv_seq_width(plan)
+        if cfg.family == "encdec":
+            kv = (None, dp, None, m, None)
+            return {"k": kv, "v": kv, "ck": kv, "cv": kv}
+        out = {}
+        for j in range(tf.super_block_size(cfg)):
+            if cfg.family == "rwkv":
+                out[f"l{j}"] = {"shift_t": (None, dp, None, scat),
+                                "shift_c": (None, dp, None, scat),
+                                "wkv": (None, dp, m, None, None)}
+            elif cfg.is_attention_layer(j):
+                if paged:
+                    out[f"l{j}"] = {"k": (None, None, None, m, None),
+                                    "v": (None, None, None, m, None)}
+                    if kv_quant:
+                        out[f"l{j}"]["k_scale"] = (None, None, None, m)
+                        out[f"l{j}"]["v_scale"] = (None, None, None, m)
+                elif kv_w > 1:
+                    kv = (None, dp, env.kv_seq_axis, None, m, None)
+                    out[f"l{j}"] = {"k": kv, "v": kv}
+                else:
+                    out[f"l{j}"] = {"k": (None, dp, None, m, None),
+                                    "v": (None, dp, None, m, None)}
+            else:
+                out[f"l{j}"] = {"conv": (None, dp, None, m),
+                                "ssm": (None, dp, m, None)}
+        return out
+
+
+def plan_kv_seq_width(plan) -> int:
+    """Ranks the plan's KV sequence is sharded over (1 without
+    ``kv_seq_axis``)."""
+    if getattr(plan, "kv_seq_axis", None):
+        return dict(zip(plan.mesh_axes, plan.mesh_shape))[plan.kv_seq_axis]
+    return 1
 
 
 def build_model(cfg, plan, device) -> Model:

@@ -405,12 +405,25 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
     then the rank's V_pad/tp columns.  The ring's prefill, decode,
     chunked prefill and speculative verify are ported, and a vlm's
     patches; training raises (FSDP and the gradient sync are not
-    ported)."""
+    ported).  On a ``("data", "model")`` grid ``tokens`` are the rank's
+    data row's rows (the steps slice them), the cache is the rank's
+    (:meth:`repro_torch.models.registry.Model.init_cache` with ``env``),
+    and with ``env.kv_seq_axis`` an attention layer's dense cache holds
+    the rank's slice of the sequence: prefill writes the prompt's rows
+    of that slice, decode merges the slices' partial softmaxes over the
+    data ring and the owning rank stores the new row
+    (:func:`repro_torch.models.attention.decode_attention`)."""
     if on_ring(env) and (with_aux or torch.is_grad_enabled()
                          and mode == "train"):
         raise NotImplementedError(
             "training on the ring (FSDP gathers, gradient sync) is not "
             "ported yet; the ring's train mode is a no-grad forward")
+    if env is not None and env.kv_seq_axis is not None and \
+            mode not in ("prefill", "decode"):
+        raise ValueError(
+            f"mode={mode!r}: a KV sequence sharded over "
+            f"{env.kv_seq_axis!r} serves prefill and decode of a dense "
+            "cache (a paged pool's blocks replace the sequence dim)")
     if paged_kernel not in ("stream", "gather"):
         raise ValueError(f"paged_kernel={paged_kernel!r}: pass the resolved "
                          "dataflow, 'stream' or 'gather'")

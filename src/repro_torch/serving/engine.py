@@ -381,6 +381,16 @@ class LPUEngine:
         self.config = c
         self.device = resolve_device(device)
         refuse_encdec(model.cfg)
+        if model.plan.mesh_axes is not None and \
+                "data" in model.plan.mesh_axes:
+            # the reference's paged engine serves a ("data", "model")
+            # mesh (its dense cache does not: ROADMAP)
+            raise NotImplementedError(
+                f"the engine on a data axis (a plan for "
+                f"{model.plan.mesh_axes}{model.plan.mesh_shape}) is not "
+                "ported yet: serve the grid through core/steps.py's "
+                "build_prefill_step / build_serve_step, or plan the engine "
+                "for the ring ('model',)")
         self._check_ring(model, params, mesh, graphs)
         self.model = model
         self.cfg = model.cfg
@@ -514,6 +524,7 @@ class LPUEngine:
         self._step_no = 0
         self._stalled = False
         self._poison_next = False
+        self._free_after_admit = 0
         self.injector: Optional[FailureInjector] = None
         if c.chaos:
             chaos_events = parse_chaos(c.chaos)
@@ -685,6 +696,7 @@ class LPUEngine:
         self._chunk_rr = -1
         self._stalled = False
         self._poison_next = False
+        self._free_after_admit = 0
         self._drop_mirrors()
         return orphans
 
@@ -1323,8 +1335,84 @@ class LPUEngine:
                 done = self._do_prefill(seq)
                 if done is not None:
                     finished.append(done)
+        # what an admission pass later in this round may still fill
+        self._free_after_admit = sum(s is None for s in self.sched.active)
         finished += self._harvest_rejections()
         self.sched.ensure_decode_capacity()     # may preempt (recompute)
+        self._sched_stats()
+        if self.sched.num_decoding() == 0:
+            return finished
+        finished += self._decode_round()
+        self.stats.prefill_traces = len(self._buckets_traced)
+        return finished
+
+    def admission_pass(self) -> List[Request]:
+        """The rest of this round's :meth:`step` for requests submitted
+        after it ran (a mesh fleet's orphans, migrated here from an
+        earlier ring in the same round): admit them into the slots the
+        step's admission left free, then one decode round of theirs
+        alone, every other slot frozen out of it as a prefilling slot
+        is.  The reference's rings step one after another, so there this
+        ring's one step of the round admits and decodes the orphans
+        beside its own requests; the pass gives them the same tokens in
+        the same round, at the cost of a decode round of its own.  No
+        step number and no chaos tick: the round's step already took
+        them.  Returns the requests finished."""
+        t0 = time.perf_counter()
+        try:
+            return self._admission_pass()
+        finally:
+            self.stats.wall += time.perf_counter() - t0
+            self.stats.graph_captures = (self._programs.captures
+                                         + self._admit.captures)
+            self.stats.graph_replays = (self._programs.replays
+                                        + self._admit.replays)
+
+    def _admission_pass(self) -> List[Request]:
+        if self._stalled:
+            return []
+        old = [s for s in self.sched.active if s is not None]
+        finished: List[Request] = []
+        if self.prefill_chunk:
+            finished += self._admit_and_chunk()
+        else:
+            for _ in range(self._free_after_admit):
+                seq = self.sched.admit_next()
+                if seq is None:
+                    break
+                done = self._do_prefill(seq)
+                if done is not None:
+                    finished.append(done)
+        self._free_after_admit = sum(s is None for s in self.sched.active)
+        finished += self._harvest_rejections()
+        self.sched.ensure_decode_capacity()     # may preempt (recompute)
+        self._sched_stats()
+        frozen = [s for s in old
+                  if s in self.sched.active and not s.prefilling]
+        for s in frozen:
+            s.frozen = True
+        try:
+            if self.sched.num_decoding():
+                finished += self._decode_round()
+        finally:
+            for s in frozen:
+                s.frozen = False
+        self.stats.prefill_traces = len(self._buckets_traced)
+        return finished
+
+    def _decode_round(self) -> List[Request]:
+        """One decode round of the decode-ready slots, in the engine's
+        mode: a speculative round, fused windows or the host-sampled
+        step."""
+        if self.drafter is not None:
+            return self._spec_decode_round()
+        if self.sampling == "fused":
+            return self._fused_decode_round()
+        return self._host_decode_step()
+
+    def _sched_stats(self) -> None:
+        """The scheduler's, pool's and prefix index's counters onto
+        ``stats``."""
         st, base = self.stats, self._ctr_base
         st.preemptions = base["preemptions"] + self.sched.preemptions
         if self.sched.pool is not None:
@@ -1339,16 +1427,6 @@ class LPUEngine:
                 + self.prefix.hit_blocks
             st.prefill_tokens_saved = base["prefill_tokens_saved"] \
                 + self.prefix.tokens_saved
-        if self.sched.num_decoding() == 0:
-            return finished
-        if self.drafter is not None:
-            finished += self._spec_decode_round()
-        elif self.sampling == "fused":
-            finished += self._fused_decode_round()
-        else:
-            finished += self._host_decode_step()
-        st.prefill_traces = len(self._buckets_traced)
-        return finished
 
     def _harvest_rejections(self) -> List[Request]:
         """Requests that can never fit the pool end as structured
@@ -1969,12 +2047,16 @@ class MultiRingEngine:
     ``submit``, ``cancel``, ``generate``, ``drain``, ``per_ring_stats()``
     and ``fleet_counters()`` give the same on every rank.  A request's
     ``stream_cb`` is called from the agreed tokens after each round.
-    Rings step concurrently, so an orphan migrated to a later ring first
-    steps in the next round, where the reference's sequential rings step
-    it in the same round (with two rings the target is the other ring
-    either way; only that round moves).  ``affinity="prefix"`` gathers
-    every ring's prefix peek of a prompt at its submit.  Wall-clock
-    heartbeats read world rank 0's clock, carried in its record.
+    Rings step concurrently, so an orphan that an earlier ring's failure
+    sends to a later ring reaches it after its step: in such a round,
+    and only then, the later ring runs an admission pass after the
+    agreement (:meth:`_mesh_pass`: the orphans admitted into the slots
+    its step left free and decoded in a round of their own) and one
+    more agreement shares its record, so the orphans advance in the
+    same round as on the reference's sequential rings.
+    ``affinity="prefix"`` gathers every ring's prefix peek of a prompt
+    at its submit.  Wall-clock heartbeats read world rank 0's clock,
+    carried in its record.
 
     Requests are routed per ring by :class:`repro_torch.serving.
     scheduler.RingRouter` (least outstanding tokens, or with
@@ -2041,6 +2123,8 @@ class MultiRingEngine:
         self._migrations: Dict[int, int] = {}   # rid -> resubmissions
         self.failed: Dict[int, Request] = {}    # rid -> failed request
         self._round = 0
+        self._later: set = set()   # rings an earlier ring's orphans
+                                   # reached this round (mesh fleet)
         self.wall = 0.0
 
     def _init_mesh(self, model, params, mesh, ring_size: int, config,
@@ -2141,9 +2225,14 @@ class MultiRingEngine:
         t_round = time.perf_counter()
         self._round += 1
         done: List[Request] = []
+        self._later: set = set()
         outcomes = (self._host_outcomes() if self.world is None
                     else self._mesh_outcomes())
         for i, o in enumerate(outcomes):
+            if i in self._later and o.failure is None:
+                # orphans of an earlier ring reached this one after its
+                # step: the reference's sequential round steps them here
+                o = self._mesh_pass(i, o)
             if o.idle:
                 self.hb.beat(i)
                 continue
@@ -2220,6 +2309,35 @@ class MultiRingEngine:
             out.append(_Outcome(r["idle"], done, r["failure"], r["dt"],
                                 r["progressed"]))
         return out
+
+    def _mesh_pass(self, j: int, o: _Outcome) -> _Outcome:
+        """Ring ``j``'s admission pass for the orphans an earlier ring
+        sent it this round, after the round's agreement: its own ranks
+        run :meth:`LPUEngine.admission_pass` (or, when the ring was idle
+        at its step, the step itself, which the reference's ring takes
+        only for the orphans), then one more agreement gives every rank
+        the ring's record.  Returns the ring's outcome of the round: its
+        step's and the pass's together."""
+        rec = dict(failure=None, dt=0.0, progressed=True, returned=[])
+        if self.ring_index == j:
+            eng = self.local
+            before = eng.stats.steps + eng.stats.prefills
+            t0 = time.perf_counter()
+            try:
+                got = eng.step() if o.idle else eng.admission_pass()
+                rec["returned"] = [r.rid for r in got]
+            except RingFailure as f:
+                rec["failure"] = (f.reason, dict(f.detail))
+            rec["dt"] = time.perf_counter() - t0
+            rec["progressed"] = \
+                (eng.stats.steps + eng.stats.prefills) > before \
+                or not eng.sched.has_work()
+            rec.update(self._record())
+        got = self.agreement.gather(rec)
+        r = got[self.ring_cfg.groups()[j][0]]
+        done = self._apply(j, r)
+        return _Outcome(False, list(o.done) + done, r["failure"],
+                        o.dt + r["dt"], o.progressed or r["progressed"])
 
     def _record(self) -> dict:
         """This rank's sub-ring's state after its step: requests in
@@ -2304,6 +2422,8 @@ class MultiRingEngine:
                    key=lambda j: (self.engines[j].pending_load(), j))
         tgt = self.engines[ring]
         tgt.submit(req)
+        if self.world is not None and ring > source:
+            self._later.add(ring)
         self.ring_of[req.rid] = ring
         tgt.stats.retries += 1
         if ring != source:

@@ -60,12 +60,15 @@ class SeqSlot:
     prefill_target: int = 0       # prompt tokens to make resident (0 =
                                   # monolithic prefill, done at admit)
     cached: int = 0               # prompt tokens covered by a prefix hit
+    frozen: bool = False          # held out of a decode round (a mesh
+                                  # fleet's admission pass)
 
     @property
     def prefilling(self) -> bool:
-        """True while the prompt is only partly resident: the slot takes
-        no part in decode windows (its table row stays null)."""
-        return self.prefilled < self.prefill_target
+        """True while the prompt is only partly resident (or the slot is
+        ``frozen``): the slot takes no part in decode windows (its table
+        row stays null)."""
+        return self.frozen or self.prefilled < self.prefill_target
 
 
 class Scheduler:

@@ -278,11 +278,37 @@ def leaf_axes(path: str) -> tuple:
     return _TOP_AXES[leaf]
 
 
+def _coords(plan, rank: int) -> Dict[str, int]:
+    """Rank ``rank``'s index on each mesh axis of ``plan``: on the ring
+    its place; on a ``("data", "model")`` grid world rank ``l = d * tp +
+    m`` (model innermost, as the reference's mesh)."""
+    out, rest = {}, int(rank)
+    for a, n in reversed(list(zip(plan.mesh_axes, plan.mesh_shape))):
+        rest, out[a] = divmod(rest, n)
+    return out
+
+
+def _blocks(rule, plan, coords: Dict[str, int]) -> tuple:
+    """(blocks, this rank's block) of a dim whose logical axis the rule
+    table maps to ``rule`` (one mesh axis or a tuple of them, the first
+    major): the reference's ``NamedSharding`` of that dim."""
+    axes = (rule,) if isinstance(rule, str) else tuple(rule)
+    sizes = dict(zip(plan.mesh_axes, plan.mesh_shape))
+    n, idx = 1, 0
+    for a in axes:
+        n, idx = n * sizes[a], idx * sizes[a] + coords[a]
+    return n, idx
+
+
 def shard_leaf(t, path: str, plan, rank: int):
     """Rank ``rank``'s slice of the full leaf ``t`` (a tensor or a numpy
     array) at ``path``: each dim whose logical axis ``plan.rules`` maps
-    to the ring keeps its ``rank``-th of ``tp`` blocks.  A tensor comes
-    back as a contiguous copy, so the full leaf can be freed."""
+    to mesh axes keeps this rank's block of it, as the reference's
+    addressable shard: on the ring its ``rank``-th of ``tp`` blocks; on
+    a grid the model shard ``m`` of every dim on ``model`` (the same bits
+    on every data row) and, for a giant MoE's experts on data x model,
+    cell ``l`` of ``dwidth * tp``.  A tensor comes back as a contiguous
+    copy, so the full leaf can be freed."""
     try:
         axes = leaf_axes(path)
     except KeyError:
@@ -290,31 +316,37 @@ def shard_leaf(t, path: str, plan, rank: int):
                          "logical axes to shard it by)") from None
     if len(axes) != len(t.shape):
         raise ValueError(f"{path}: axes {axes} vs shape {tuple(t.shape)}")
+    coords = _coords(plan, rank)
     for d, a in enumerate(axes):
-        if plan.rules.get(a) is None:
+        rule = plan.rules.get(a)
+        if rule is None:
             continue
+        blocks, idx = _blocks(rule, plan, coords)
         n = t.shape[d]
-        if n % plan.tp:
+        if n % blocks:
             raise ValueError(f"{path}: dim {d} of {n} does not split "
-                             f"over {plan.tp} ranks")
-        c = n // plan.tp
-        t = (t.narrow(d, rank * c, c) if isinstance(t, torch.Tensor)
-             else np.take(t, range(rank * c, (rank + 1) * c), axis=d))
+                             f"over {blocks} ranks")
+        c = n // blocks
+        t = (t.narrow(d, idx * c, c) if isinstance(t, torch.Tensor)
+             else np.take(t, range(idx * c, (idx + 1) * c), axis=d))
     return t.contiguous().clone() if isinstance(t, torch.Tensor) else t
 
 
 def _check_ring_plan(plan, rank: int) -> None:
     if plan.mesh_axes is None:
         raise ValueError("a rank's shard needs a plan for the ring "
-                         "(mesh_axes=('model',))")
-    if not 0 <= rank < plan.tp:
-        raise ValueError(f"rank {rank} is not on a ring of {plan.tp}")
+                         "(mesh_axes=('model',)) or the grid "
+                         "(('data', 'model'))")
+    world = int(np.prod(plan.mesh_shape))
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not on a mesh of {world} ranks "
+                         f"{plan.mesh_axes}{plan.mesh_shape}")
 
 
 def shard_params(tree: Params, plan, rank: int) -> Params:
     """Rank ``rank``'s leaves of a full tree (tensors or numpy arrays)
-    of any family at ``plan``'s tp (:func:`shard_leaf` on every
-    leaf)."""
+    of any family at ``plan``'s mesh (:func:`shard_leaf` on every leaf;
+    on a grid ``rank`` is the world rank)."""
     _check_ring_plan(plan, rank)
     return map_leaves(tree, lambda t, path: shard_leaf(t, path, plan, rank))
 

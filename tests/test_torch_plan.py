@@ -62,18 +62,23 @@ def test_kv_precision_matches_reference(knob):
 
 
 def test_plan_model_rejects_later_slices():
-    """The serving ring is planned, an MoE's experts over it included;
-    data-parallel and FSDP axes (and with them the giant MoE's data x
-    model experts) and KV sequence sharding are later slices."""
+    """The serving ring and the ``("data", "model")`` grid are planned:
+    an MoE's experts over the ring, a giant MoE's over data x model, the
+    batch over ``data``, a hybrid's KV sequence over ``data``; training
+    on a data axis (FSDP) and a pod axis are later slices."""
     assert plan_model(get_config("smollm-135m"), ("model",), (2,),
                       "serve").tp == 2
     assert plan_model(get_config("granite"), ("model",), (2,),
                       "serve").moe.expert_axes == ("model",)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        plan_model(get_config("llama4"), ("data", "model"), (2, 2), "serve")
+    grid = plan_model(get_config("llama4"), ("data", "model"), (2, 2),
+                      "serve")
+    assert grid.dp_axes == ("data",) and grid.dp == 2
+    assert grid.moe.expert_axes == ("data", "model")
     with pytest.raises(NotImplementedError, match="FSDP"):
         plan_model(get_config("smollm-135m"), ("data", "model"), (2, 2),
                    "train")
-    with pytest.raises(NotImplementedError, match="sequence"):
-        plan_model(get_config("smollm-135m"), ("model",), (2,), "serve",
-                   kv_seq_axis="model")
+    assert plan_model(get_config("jamba"), ("data", "model"), (2, 2),
+                      "serve", kv_seq_axis="data").kv_seq_axis == "data"
+    with pytest.raises(NotImplementedError, match="pod"):
+        plan_model(get_config("smollm-135m"), ("pod", "data", "model"),
+                   (2, 2, 2), "serve")

@@ -289,7 +289,7 @@ REFUSED = {
     "full_tree": ("ValueError", "shard_params"),
     "no_ring": ("ValueError", "needs mesh"),
     "whisper-tiny": ("ValueError", "encoder-decoder"),
-    "data_axis": ("NotImplementedError", "data-parallel"),
+    "data_axis": ("NotImplementedError", "the engine on a data axis"),
 }
 # what the ring refused before it ran speculation, a vlm, the mesh fleet
 # and the front end, each with what it gives now

@@ -369,16 +369,24 @@ def test_nccl_window_graphs_match_eager_twin(rings, name, mode):
 
 def test_moe_data_model_raises_with_its_name():
     """The giant MoE's experts over data x model (``_moe_data_model``)
-    need a data axis the serving ring does not have."""
+    run on a ``("data", "model")`` grid: without the rank's grid (a
+    model ring's AxisEnv) they raise naming it; a serving plan on the
+    grid spreads a giant MoE's experts over both axes, the batch over
+    ``data``, and a train plan there raises naming FSDP."""
     cfg = get_config("granite").reduced()
     plan = plan_model(cfg, ("model",), (2,), "serve", **F32)
     plan = dataclasses.replace(plan, moe=dataclasses.replace(
         plan.moe, expert_axes=("data", "model")))
-    with pytest.raises(NotImplementedError, match="_moe_data_model"):
+    with pytest.raises(ValueError, match="grid"):
         moe_mod.moe_fwd({}, torch.zeros((1, 1, cfg.d_model // 2)), cfg=cfg,
                         plan=plan, env=AxisEnv(object(), 2))
-    with pytest.raises(NotImplementedError, match="data"):
-        plan_model(cfg, ("data", "model"), (2, 2), "serve")
+    grid = plan_model(get_config("llama4"), ("data", "model"), (2, 2),
+                      "serve")
+    assert grid.dp_axes == ("data",) and grid.tp == 2
+    assert grid.moe.expert_axes == ("data", "model")
+    assert grid.rules["experts"] == ("data", "model")
+    with pytest.raises(NotImplementedError, match="FSDP"):
+        plan_model(cfg, ("data", "model"), (2, 2), "train")
 
 
 def test_cli_tp2_jamba_cpu(capfd):

@@ -325,8 +325,10 @@ def card_fleet_rank(ring, spec):
     """A mesh fleet of reduced ``spec["name"]`` at tp 2 on cards of its
     own (rank r on ``cuda:r``, NCCL), each rank drawing its shard at
     its place in its sub-ring: served with ``graphs=True`` and as the
-    eager twin, then through the front end on rank 0.  Returns every
-    rank's record."""
+    eager twin, then through the front end on rank 0 over the first
+    run's fleet (``spec["modes"]``, default (True, False); a gloo
+    rehearsal on the CPU passes ``(False,)``).  Returns every rank's
+    record."""
     import torch
     from repro_torch.compiler.mapper import plan_model
     from repro_torch.configs import get_config
@@ -345,7 +347,8 @@ def card_fleet_rank(ring, spec):
     params = init_shard(cfg, plan, sub, seed=0, device=dev)
     model = build_model(cfg, plan, dev)
     out = {}
-    for graphs in (True, False):
+    modes = spec.get("modes", (True, False))
+    for graphs in modes:
         fleet = MultiRingEngine(model, params, ring, ring_size=2,
                                 config=EngineConfig(**spec["conf"]),
                                 device=dev, graphs=graphs)
@@ -353,7 +356,8 @@ def card_fleet_rank(ring, spec):
         ring.reset_counters()
         sub.reset_counters()
         got = fleet.generate(spec["prompts"], max_new_tokens=spec["new"])
-        torch.cuda.synchronize(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
         st = fleet.local.stats
         out[graphs] = {
             "streams": got, "fleet_counters": fleet.fleet_counters(),
@@ -365,12 +369,12 @@ def card_fleet_rank(ring, spec):
             "world": ring.counters["collectives"],
             "staged": sub.counters["staged_bytes"],
             "collectives": sub.counters["collectives"]}
-        if graphs:
+        if graphs == modes[0]:
             if ring.rank == 0:
                 res, fe = run_scenario(fe_mod, fleet, "parity",
                                        dict(prompts=spec["prompts"],
                                             new=spec["new"]))
-                out["frontend"] = res[0]
+                out["frontend"] = res
             else:
                 fe = fe_mod.AsyncFrontend(fleet)
                 fe.follow()

@@ -296,9 +296,15 @@ def refusals_rank(ring, name, tree):
                                           conf, mesh=ring, device="cpu",
                                           graphs=False))
     rec("llava-next-34b", llava)
-    rec("data_axis", lambda: plan_model(get_config("llama4").reduced(),
-                                        ("data", "model"), (1, ring.size),
-                                        "serve"))
+    def data_axis():
+        # the grid's plan is served; the engine on it is not ported
+        c = get_config("llama4").reduced()
+        p = plan_model(c, ("data", "model"), (1, ring.size), "serve",
+                       **SERVE_F32)
+        return LPUEngine(build_model(c, p, "cpu"),
+                         init_shard(c, p, ring.rank, device="cpu"), conf,
+                         mesh=ring, device="cpu", graphs=False)
+    rec("data_axis", data_axis)
     plain = LPUEngine(model, params, conf, mesh=ring, device="cpu",
                       graphs=False).generate(prompts, max_new_tokens=8)
 

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only tp_spec_mm    # 2 or more cards: phase 16
     python3 chip_smoke.py --only tp_fleet      # 4 or more cards: phase 17
     python3 chip_smoke.py --only data_axis     # 4 or more cards: phase 18
+    python3 chip_smoke.py --only train_mesh    # 4 or more cards: phase 19
 
 Phases (each raises on failure; the script exits non-zero and prints no
 result line when any phase fails or when no CUDA device is present):
@@ -363,6 +364,32 @@ result line when any phase fails or when no CUDA device is present):
    streams the twin's; bf16, 8 layers at 4 rows: ms a step, peak a card.
    A ``{"kernels": [...]}`` line (kernel 5's grid launches) and a
    ``{"data_axis": ...}`` line.
+19. training on the mesh, on a machine of 4 or more cards (``python3
+   chip_smoke.py --only train_mesh`` runs this phase alone; training
+   launches no kernel, so none is built) — a ``("data", "model")`` grid
+   of data 2 x model 2, rank (d, m) on ``cuda:(2d + m)`` over NCCL,
+   eager autograd through the collectives' adjoints, FSDP over
+   ``data``: (a) the twin: opt-6.7b at full width cut to 4 of 32
+   layers, TF32 off, 8 x 512, ESL blocking, 3 AdamW steps on the grid
+   against tp 1 on cuda:0, in f32 and again with every float in f64:
+   losses and global gradient norms at rtol 1e-5, step 1's gradients
+   gathered and relaid to tp 1 (the padded vocab rows cut) at 1e-9 x
+   each leaf's max in f64 and 1e-2 in f32, where the grid's split sums
+   round apart from the twin's (the key biases' round-off gradients
+   below 1e-6 x the tree's max on both), the parameters after step 3
+   with at most 1e-3 of a leaf's elements past 1e-9 x its max in f64
+   and every one within 2 x lr a step, every replicated leaf bit-equal
+   on its ring; (b) opt-6.7b whole, f32
+   masters, bf16 compute, remat block, 8 x 2048, 20 steps in blocking
+   and in overlap: the last 5 steps' mean loss below the first 5's; ms
+   a step (wall, and rank 0's device ms and NCCL's share over one more
+   step), tokens/s, ``mfu_bf16``, peak memory and state bytes a card,
+   one step's collectives and received bytes by kind on each ring;
+   (c) the elastic restart: (a)'s model, 8 steps on the grid
+   uninterrupted, then with a checkpoint at step 4 (rank 0 writes the
+   plan's global tensors) and a crash at step 6, resumed on data 1 x
+   model 2 (cards 0-1): the tail at rtol 1e-4.  A ``{"train_mesh":
+   ...}`` line.
 
 Every engine runs its fused decode windows, verify rounds, monolithic
 prefills, prefill chunks, prefix tails, first-token sampling and
@@ -393,8 +420,9 @@ optimizer's device ms, the checkpoint's save wall, ``mfu_f32``, the
 card's name and power limit), a ``{"tp": ...}`` line (phase 13), on 2
 or more cards a ``{"tp_cards": ...}``, a ``{"tp_families": ...}`` and a
 ``{"tp_spec_mm": ...}`` line (phases 14-16), on 4 or more a
-``{"tp_fleet": ...}`` line (phase 17; phase 18 prints its own lines
-with ``--only data_axis``), the nvidia-smi
+``{"tp_fleet": ...}`` line (phase 17; phases 18 and 19 print their
+own lines with ``--only data_axis`` and ``--only train_mesh``), the
+nvidia-smi
 line and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX: the
 port stands alone.
 """
@@ -402,6 +430,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -4876,10 +4905,10 @@ class TimedOptimizer:
     def __init__(self, torch, opt):
         self.torch, self.opt, self.events = torch, opt, []
 
-    def apply(self, params, grads, state):
+    def apply(self, params, grads, state, norm_sq):
         ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        out = self.opt.apply(params, grads, state)
+        out = self.opt.apply(params, grads, state, norm_sq=norm_sq)
         ev[1].record()
         self.events.append(ev)
         return out
@@ -8489,6 +8518,596 @@ def print_data_axis(rec, smi):
           f"{rec['twin_s']:.1f}, grid {rec['grid_s']:.1f})")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training on the mesh (4 or more cards)
+# ---------------------------------------------------------------------------
+
+TM_SHAPE = (2, 2)              # data x model: rank (d, m) on cuda:(2d + m)
+TM_NAME = "opt-6.7b"
+TM_A = dict(depth=4, batch=8, seq=512, steps=3, lr=3e-4)
+# (a)'s gates, each a share of a leaf's max: step 1's gradients, and
+# the parameters after the last step (at most 1e-3 of a leaf's elements
+# past it).  float64 holds the grid to the twin's values to its own
+# rounding (tools/train_mesh_probe).  float32's rounding at these shapes
+# reaches 1.6e-3 of l0's mlp/wi on an H100 (the grid's sums, split over
+# data and model, round apart from the twin's, and 4 layers of backward
+# amplify it; AdamW's m / sqrt(v) then moves most of a bias leaf's
+# elements apart), so its gradient gate only catches a share dropped or
+# counted twice (order 1) and its parameters' share is recorded at 1e-5
+TM_EXACT = {"float64": dict(grads=1e-9, params=1e-9),
+            "float32": dict(grads=1e-2, params=None)}
+TM_B = dict(batch=8, seq=2048, steps=20, lr=3e-4, warm=2)
+TM_C = dict(steps=8, ckpt_every=4, crash=6, batch=8, seq=512, lr=3e-4)
+# PERF.md's reckoning for (b), written before the first call
+TM_RECKONED = {"state_gb_per_card": 26.6, "data_ring_recv_gb_per_step": 13.0,
+               "peak_gb_per_card": (35.0, 50.0), "flops_per_step": 8.7e14,
+               "ms_at_peak": 220.0}
+
+
+class FirstGrads:
+    """AdamW that keeps a copy of the gradients of its first update."""
+
+    def __init__(self, opt):
+        self.opt, self.first = opt, None
+
+    def apply(self, params, grads, state, norm_sq):
+        if self.first is None:
+            from repro_torch.tree import tree_map
+            self.first = tree_map(lambda g: g.detach().clone(), grads)
+        return self.opt.apply(params, grads, state, norm_sq=norm_sq)
+
+
+def tm_cfg(depth=None, reduced=False):
+    from repro_torch.configs import get_config
+    cfg = get_config(TM_NAME)
+    if reduced:
+        return cfg.reduced()
+    return dataclasses.replace(cfg, n_layers=depth) if depth else cfg
+
+
+def tm_plan(cfg, shape, **kw):
+    from repro_torch.compiler.mapper import plan_model
+    axes = None if shape is None else (
+        ("model",) if len(shape) == 1 else ("data", "model"))
+    return plan_model(cfg, axes, shape or (1,), "train", **kw)
+
+
+def tm_batches(cfg, batch, seq, steps, rows=(0, 1)):
+    from repro_torch.data.pipeline import SyntheticLM
+    data = SyntheticLM(cfg.vocab_size, seq, seed=0)
+    return [data.batch(i, batch, rows) for i in range(steps)]
+
+
+def tm_on(torch, b, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def vocab_rows(tree, cfg):
+    """``tree``'s leaves by path, the tied embedding's padded vocab rows
+    (an untied head's columns) cut: a relayout zero-fills them, an init
+    draws them, and no loss reads them."""
+    from repro_torch.weights import _leaves
+    out = {}
+    for path, t in _leaves(tree):
+        if path == "embed" and cfg.tie_embeddings:
+            t = t[:cfg.vocab_size]
+        elif path == "head":
+            t = t[..., :cfg.vocab_size]
+        out[path] = t
+    return out
+
+
+def float64_process():
+    """Make this spawned rank compute every float in float64: the
+    model's ``.float()`` casts, ``.to(torch.float32)`` and float32
+    allocations give float64, so (19a)'s float64 run has no float32
+    rounding anywhere.  For a rank process only: it changes torch for
+    the whole process."""
+    import torch
+    f32, f64 = torch.float32, torch.float64
+    torch.set_default_dtype(f64)
+    torch.Tensor.float = lambda self, *a, **k: self.double()
+    to = torch.Tensor.to
+
+    def to64(self, *a, **k):
+        a = tuple(f64 if x is f32 else x for x in a)
+        if k.get("dtype") is f32:
+            k["dtype"] = f64
+        return to(self, *a, **k)
+    torch.Tensor.to = to64
+    for name in ("zeros", "ones", "full", "empty"):
+        make = getattr(torch, name)
+
+        def made(*a, _make=make, **k):
+            if k.get("dtype") is f32:
+                k["dtype"] = f64
+            return _make(*a, **k)
+        setattr(torch, name, made)
+
+
+def leaf_err(torch, got, want):
+    """{path: max |got - want| / max |want|} over two trees of tensors."""
+    from repro_torch.weights import _leaves
+    w = dict(_leaves(want))
+    out = {}
+    for path, g in _leaves(got):
+        ref = w[path].float()
+        scale = float(ref.abs().max()) or 1.0
+        out[path] = float((g.float().to(ref.device) - ref).abs().max()) / scale
+    return out
+
+
+def adam_err(torch, got, want, skip, tol=1e-5):
+    """Parameters after AdamW steps against their twin's: ({path: the
+    share of the leaf's elements past ``tol`` x its max}, the largest
+    |got - want| over every element).  AdamW moves an element by up to
+    lr a step whatever its gradient's size, so an element whose gradient
+    is rounding may step the other way (the gradients are gated
+    strictly)."""
+    from repro_torch.weights import _leaves
+    w = dict(_leaves(want))
+    out, worst = {}, 0.0
+    for path, p in _leaves(got):
+        if path in skip:
+            continue
+        ref = w[path].float()
+        d = (p.float().to(ref.device) - ref).abs()
+        scale = float(ref.abs().max()) or 1.0
+        out[path] = float((d > tol * scale).float().mean())
+        worst = max(worst, float(d.max()))
+    return out, worst
+
+
+def replica_crcs(ring, env, plan, params):
+    """For every leaf replicated over a ring of the grid, whether its
+    bits (crc32) are the same on every rank of that ring."""
+    import torch
+    from repro_torch.weights import _leaves, mesh_axes_of
+    out = {}
+    for path, t in _leaves(params):
+        axes = mesh_axes_of(path, plan)
+        for name in ("data", "model"):
+            r = env.axis(name)
+            if r is None or r.size < 2 or name in axes:
+                continue
+            crc = zlib.crc32(t.detach().cpu().contiguous().view(torch.uint8)
+                             .numpy().tobytes())
+            got = r.gather_object(crc)
+            out[f"{path}@{name}"] = all(c == got[0] for c in got)
+    return out
+
+
+def tm_twin_rank(ring, spec):
+    """(a) one rank of the grid in ``spec["dtype"]``: the 3 steps, step
+    1's gradients and the final parameters gathered to the host and
+    relaid to tp=1 (kept on rank 0), the replicated leaves' bits; then
+    rank 0 runs the tp=1 twin on its own card and compares (the padded
+    vocab rows cut).  Returns rank 0's record."""
+    import torch
+    from repro_torch.core.steps import build_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamW, get_schedule
+    from repro_torch.weights import (_leaves, gather_shard, init_shard,
+                                     relayout, tp1_plan)
+    dt = spec["dtype"]
+    if dt == "float64":
+        float64_process()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    a, dev = spec["a"], ring.device
+    cfg = tm_cfg(a["depth"], spec["reduced"])
+    kw = dict(esl_overlap=False, remat="none", compute_dtype=dt,
+              param_dtype=dt)
+    plan = tm_plan(cfg, TM_SHAPE, **kw)
+    plan1 = tp1_plan(cfg, plan)
+    model = build_model(cfg, plan, dev)
+    opt = FirstGrads(AdamW(lr=get_schedule("cosine", a["lr"], 1,
+                                           a["steps"])))
+    params = init_shard(cfg, plan, ring.rank, 0, device=dev)
+    state = opt.opt.init(params)
+    step, meta = build_train_step(model, opt, ring, a["batch"])
+    env = meta["env"]
+    # the grid's step takes its data row's rows; the twin the whole batch
+    mine = tm_batches(cfg, a["batch"], a["seq"], a["steps"],
+                      (env.data.rank, env.dp_width))
+    losses, gnorms, walls = [], [], []
+    for b in mine:
+        t = time.perf_counter()
+        params, state, m = step(params, state, tm_on(torch, b, dev))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        walls.append(time.perf_counter() - t)
+    keep = ring.rank == 0
+    g1 = gather_shard(opt.first, plan, env, to="cpu")
+    g1 = relayout(g1, cfg, plan, plan1) if keep else None
+    p3 = gather_shard(params, plan, env, to="cpu")
+    p3 = relayout(p3, cfg, plan, plan1) if keep else None
+    replicas = replica_crcs(ring, env, plan, params)
+    del params, state, opt
+    free_cuda(torch) if dev.type == "cuda" else gc.collect()
+    out = {"dtype": dt, "grid_losses": losses, "grid_grad_norms": gnorms,
+           "grid_walls_s": walls, "replicas_bit_equal": replicas}
+    if keep:
+        model1 = build_model(cfg, plan1, dev)
+        opt1 = FirstGrads(AdamW(lr=get_schedule("cosine", a["lr"], 1,
+                                                a["steps"])))
+        params1 = model1.init(0)
+        state1 = opt1.opt.init(params1)
+        step1, _ = build_train_step(model1, opt1, None, a["batch"])
+        l1, n1 = [], []
+        for b in tm_batches(cfg, a["batch"], a["seq"], a["steps"]):
+            params1, state1, m = step1(params1, state1, tm_on(torch, b, dev))
+            l1.append(float(m["loss"]))
+            n1.append(float(m["grad_norm"]))
+        # a leaf whose tp=1 gradient is below 1e-6 x the tree's largest
+        # is round-off of a zero gradient (OPT's key bias: it adds one
+        # constant to a query's scores, which the softmax ignores); its
+        # gate is that the grid's is too.  AdamW moves an element by up
+        # to lr a step whatever its gradient's size, so an element whose
+        # gradient is rounding may step the other way: every one within
+        # 2 x lr a step
+        top = max(float(g.abs().max()) for _, g in _leaves(opt1.first))
+        noise = {p for p, g in _leaves(opt1.first)
+                 if float(g.abs().max()) < 1e-6 * top}
+        grid_noise = {p: float(g.abs().max()) / top
+                      for p, g in _leaves(g1) if p in noise}
+        ge = {k: v for k, v in leaf_err(torch, vocab_rows(g1, cfg),
+                                        vocab_rows(opt1.first, cfg)).items()
+              if k not in noise}
+        pe, worst_step = adam_err(torch, vocab_rows(p3, cfg),
+                                  vocab_rows(params1, cfg), noise,
+                                  tol=TM_EXACT[dt]["params"] or 1e-5)
+        out.update(tp1_losses=l1, tp1_grad_norms=n1,
+                   loss_rel=[abs(x - y) / abs(y) for x, y in zip(losses, l1)],
+                   grad_norm_rel=[abs(x - y) / abs(y)
+                                  for x, y in zip(gnorms, n1)],
+                   grad_err_max=max(ge.values()),
+                   grad_err_worst=max(ge, key=ge.get),
+                   grad_err_top=sorted(ge.items(), key=lambda kv: -kv[1])[:6],
+                   param_share_past=max(pe.values()),
+                   param_share_worst=max(pe, key=pe.get), leaves=len(ge),
+                   zero_grad_leaves=grid_noise,
+                   param_max_diff_over_lr=worst_step / a["lr"])
+        del params1, state1, opt1, g1, p3
+    ring.gather_object(None)            # every rank waits for the twin
+    return out
+
+
+def tm_twin_failures(a, spec):
+    """(19a)'s gates on one dtype's record: the failures, as text."""
+    tol, steps = TM_EXACT[a["dtype"]], spec["a"]["steps"]
+    share = tol["params"] or 1e-5
+    what = f"(19a) {a['dtype']}"
+    bad = [k for k, v in a["replicas_bit_equal"].items() if not v]
+    out = [f"{what}: replicated leaves apart: {bad}"] if bad else []
+    # the global norm is AdamW's clip; its m / sqrt(v) hides a constant
+    # scale on the gradients, so a replicated leaf counted twice shows
+    # here and barely in the parameters
+    if max(a["loss_rel"]) > 1e-5 or max(a["grad_norm_rel"]) > 1e-5 or \
+            a["grad_err_max"] > tol["grads"] or \
+            (tol["params"] and a["param_share_past"] > 1e-3) or \
+            a["param_max_diff_over_lr"] > 2 * steps or \
+            any(v >= 1e-6 for v in a["zero_grad_leaves"].values()):
+        out.append(
+            f"{what}: the grid against tp=1: losses {a['grid_losses']} vs "
+            f"{a['tp1_losses']}, grad norms {a['grid_grad_norms']} vs "
+            f"{a['tp1_grad_norms']}, step 1's gradients "
+            f"{a['grad_err_top']} x max (gate {tol['grads']}), parameters "
+            f"after step {steps}: {a['param_share_past']} of "
+            f"{a['param_share_worst']} past {share} x max, at most "
+            f"{a['param_max_diff_over_lr']} x lr apart")
+    return out
+
+
+def tm_full_rank(ring, spec):
+    """(b) one rank of the grid: full-width opt-6.7b, f32 masters, bf16
+    compute, remat block, for each ESL mode: the losses, the steps'
+    walls, one step's traffic on each ring, rank 0's device time by
+    kernel over one more step, peak memory and state bytes.  Returns
+    every rank's record."""
+    import statistics
+
+    import torch
+    from repro_torch.core.steps import build_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamW, get_schedule
+    from repro_torch.tree import tree_leaves
+    from repro_torch.weights import init_shard
+    b_, dev = spec["b"], ring.device
+    cfg = tm_cfg(None, spec["reduced"])
+    out = {"rank": ring.rank}
+    for mode, overlap in (("blocking", False), ("overlap", True)):
+        plan = tm_plan(cfg, TM_SHAPE, esl_overlap=overlap, remat="block",
+                       compute_dtype="bfloat16", param_dtype="float32")
+        model = build_model(cfg, plan, dev)
+        opt = AdamW(lr=get_schedule("cosine", b_["lr"], 1, b_["steps"]))
+        t = time.perf_counter()
+        params = init_shard(cfg, plan, ring.rank, 0, device=dev)
+        state = opt.init(params)
+        draw_s = time.perf_counter() - t
+        state_bytes = sum(x.numel() * x.element_size() for x in
+                          tree_leaves(params) + tree_leaves(state.m)
+                          + tree_leaves(state.v))
+        step, meta = build_train_step(model, opt, ring, b_["batch"])
+        env = meta["env"]
+        rows = (env.data.rank, env.dp_width)
+        batches = tm_batches(cfg, b_["batch"], b_["seq"], b_["steps"] + 1,
+                             rows)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        losses, walls, traffic = [], [], None
+        for i in range(b_["steps"]):
+            b = tm_on(torch, batches[i], dev)
+            if i == b_["warm"]:
+                for r in (env.model, env.data, env.world):
+                    r.reset_counters()
+            t = time.perf_counter()
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+            walls.append(time.perf_counter() - t)
+            if i == b_["warm"]:
+                traffic = {"model": dict(env.model.traffic),
+                           "data": dict(env.data.traffic),
+                           "world": dict(env.world.traffic)}
+        peak = torch.cuda.max_memory_allocated(dev) \
+            if dev.type == "cuda" else None
+        prof = None
+        last = tm_on(torch, batches[-1], dev)
+
+        def one_step():
+            nonlocal params, state
+            params, state, _ = step(params, state, last)
+            torch.cuda.synchronize(dev)
+        if dev.type == "cuda":
+            if ring.rank == 0:
+                prof = device_kernels(one_step)
+            else:
+                one_step()
+        first5 = sum(losses[:5]) / 5
+        last5 = sum(losses[-5:]) / 5
+        rec = {"losses": losses, "first5_mean": first5,
+               "last5_mean": last5, "walls_s": walls,
+               "ms_per_step": statistics.median(walls[b_["warm"]:]) * 1e3,
+               "draw_s": draw_s, "state_bytes": state_bytes,
+               "peak_memory_bytes": peak, "traffic_one_step": traffic}
+        if prof is not None:
+            busy = sum(e.self_device_time_total for e in prof) / 1e3
+            nccl = sum(e.self_device_time_total for e in prof
+                       if "nccl" in e.key.lower()) / 1e3
+            top = sorted(prof, key=lambda e: -e.self_device_time_total)[:8]
+            rec.update(device_ms_rank0=busy, nccl_ms_rank0=nccl,
+                       top_kernels_rank0=[
+                           {"name": e.key[:80], "count": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in top])
+        out[mode] = rec
+        del params, state, step, model
+        if dev.type == "cuda":
+            free_cuda(torch)
+    return ring.gather_object(out)
+
+
+def tm_elastic_rank(ring, spec):
+    """(c) ``run_training`` on this rank's world: rank 0's losses, or
+    "crashed" where the injected failure fired on every rank."""
+    import torch
+    from repro_torch.launch.ft import FailureInjector
+    from repro_torch.launch.train import run_training
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = spec["c"]
+    cfg = tm_cfg(TM_A["depth"], spec["reduced"])
+    crash = spec.get("crash")
+    kw = dict(cfg=cfg, steps=c["steps"], global_batch=c["batch"],
+              seq_len=c["seq"], lr=c["lr"], mesh=ring, tp=TM_SHAPE[1],
+              log_every=1000, ckpt_dir=spec.get("ckpt_dir"),
+              ckpt_every=c["ckpt_every"],
+              injector=FailureInjector([crash]) if crash else None)
+    t = time.perf_counter()
+    try:
+        losses = run_training(**kw)[2]
+    except RuntimeError as e:
+        if not crash or "injected failure" not in str(e):
+            raise
+        losses = "crashed"
+    return {"losses": losses, "wall_s": time.perf_counter() - t}
+
+
+def run_train_mesh(torch, dev, card_name, lap=None, device="cuda",
+                   reduced=False):
+    """Phase 19 on a machine of 4 or more cards: (a) the twin, (b) the
+    full model, (c) the elastic restart.  ``device="cpu"`` and
+    ``reduced`` rehearse it on gloo ranks at reduced widths.  Returns
+    the record."""
+    t_phase = time.perf_counter()
+    cards = smi_query("--query-gpu=index,name,power.limit",
+                      "--format=csv,noheader").splitlines() \
+        if device == "cuda" else []
+    world = TM_SHAPE[0] * TM_SHAPE[1]
+    small = dict(batch=4, seq=32)
+    spec = {"reduced": reduced,
+            "a": dict(TM_A, **small) if reduced else TM_A,
+            "b": dict(TM_B, **small, steps=8) if reduced else TM_B,
+            "c": dict(TM_C, **small) if reduced else TM_C}
+    rec = {"card": card_name, "shape": list(TM_SHAPE), "cards_listed": cards,
+           "model": TM_NAME, "a_spec": spec["a"], "b_spec": spec["b"],
+           "c_spec": spec["c"], "reckoned_b": TM_RECKONED}
+
+    fails = rec["failures"] = []
+
+    def part(name, fn):
+        """Run one part; a failure or an error is recorded and the next
+        part still runs (the phase fails at its end)."""
+        try:
+            fails.extend(fn())
+        except Exception as e:      # recorded, and the phase fails
+            fails.append(f"{name}: {type(e).__name__}: "
+                         f"{str(e)[-2000:]}")
+        if lap is not None:
+            lap(name)
+
+    def twin():
+        rec["a"] = {}
+        out = []
+        for dt in ("float32", "float64"):
+            t0 = time.perf_counter()
+            a = tm_run(tm_twin_rank, world, dict(spec, dtype=dt), device)
+            a["wall_s"] = time.perf_counter() - t0
+            rec["a"][dt] = a
+            out += tm_twin_failures(a, spec)
+        return out
+
+    part("(19a) the twin", twin)
+    part("(19b) the full model",
+         lambda: tm_full(rec, spec, world, device, reduced))
+    part("(19c) the elastic restart",
+         lambda: tm_elastic(rec, spec, world, device))
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def tm_run(fn, n, spec, device, timeout_s=1200):
+    """``run_ranks`` of phase 19: a card per rank over NCCL, or gloo
+    ranks on the CPU with one torch thread each."""
+    from repro_torch.core.dist import run_ranks
+    if device == "cuda":
+        return run_ranks(fn, n, spec, device=device,
+                         placement="card_per_rank", timeout_s=timeout_s)
+    return run_ranks(fn, n, spec, device=device, threads=1,
+                     timeout_s=timeout_s)
+
+
+def tm_full(rec, spec, world, device, reduced):
+    """(b) on the grid: the ranks' records folded into ``rec``; returns
+    the failures."""
+    t0 = time.perf_counter()
+    per_rank = tm_run(tm_full_rank, world, spec, device, timeout_s=1800)
+    rec["b_s"] = time.perf_counter() - t0
+    b_ = spec["b"]
+    tokens = b_["batch"] * b_["seq"]
+    n_params = tm_cfg(None, reduced).total_params()
+    peak_ops = PEAK_OPS["bfloat16"] * world
+    fails = []
+    for mode in ("blocking", "overlap"):
+        r0 = per_rank[0][mode]
+        if any(per_rank[i][mode]["losses"] != r0["losses"]
+               for i in range(world)):
+            fails.append(f"(19b) {mode}: the ranks' losses differ")
+        if not all(math.isfinite(x) for x in r0["losses"]) or \
+                not r0["last5_mean"] < r0["first5_mean"]:
+            fails.append(f"(19b) {mode}: the loss did not fall: "
+                         f"{r0['losses']}")
+        ms = r0["ms_per_step"]
+        one = {k: v for k, v in r0.items()}
+        one.update(
+            ms_per_step_per_rank=[per_rank[i][mode]["ms_per_step"]
+                                  for i in range(world)],
+            tokens_per_s=tokens / ms * 1e3,
+            flops_per_step_6nt=6 * n_params * tokens,
+            mfu_bf16=6 * n_params * tokens / (ms / 1e3) / peak_ops,
+            peak_memory_bytes_per_rank=[
+                per_rank[i][mode]["peak_memory_bytes"]
+                for i in range(world)],
+            state_bytes_per_rank=[per_rank[i][mode]["state_bytes"]
+                                  for i in range(world)],
+            traffic_one_step_per_rank=[
+                per_rank[i][mode]["traffic_one_step"] for i in range(world)])
+        rec[f"b_{mode}"] = one
+    rec["params"] = n_params
+    return fails
+
+
+def tm_elastic(rec, spec, world, device):
+    """(c): the uninterrupted run, the crashed one, the resume on data 1
+    x model tp; folded into ``rec``; returns the failures."""
+    import shutil
+    import tempfile
+    # the checkpoint (~12.2 GB) goes where the disk has the most room
+    roots = [tempfile.gettempdir(), os.path.join(HERE, "build")]
+    os.makedirs(roots[1], exist_ok=True)
+    root = max(roots, key=lambda r: shutil.disk_usage(r).free)
+    base = tempfile.mkdtemp(prefix="train_mesh_", dir=root)
+    free = shutil.disk_usage(base).free
+    if device == "cuda" and free < 20e9:
+        return [f"(19c) the checkpoint (~12.2 GB) needs room: "
+                f"{free / 1e9:.1f} GB free under {base}"]
+    try:
+        t0 = time.perf_counter()
+        full = tm_run(tm_elastic_rank, world, spec, device)
+        crash = tm_run(tm_elastic_rank, world,
+                       dict(spec, crash=spec["c"]["crash"],
+                            ckpt_dir=os.path.join(base, "ckpt")), device)
+        if crash["losses"] != "crashed":
+            return ["(19c) the injector did not fire"]
+        ck = os.path.join(base, "ckpt")
+        steps = sorted(os.listdir(ck))
+        du = shutil.disk_usage(base)
+        ck_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                       for dp, _, fs in os.walk(ck) for f in fs)
+        tp_only = tm_run(tm_elastic_rank, TM_SHAPE[1],
+                         dict(spec, ckpt_dir=ck), device)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    tail = full["losses"][-len(tp_only["losses"]):]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(tp_only["losses"], tail))
+    rec["c"] = {"uninterrupted": full["losses"], "checkpoints": steps,
+                "checkpoint_bytes": ck_bytes, "disk_free_bytes": du.free,
+                "checkpoint_root": root,
+                "resumed_on": [1, TM_SHAPE[1]],
+                "resumed": tp_only["losses"], "max_rel_diff": rel,
+                "walls_s": [full["wall_s"], crash["wall_s"],
+                            tp_only["wall_s"]],
+                "wall_s": time.perf_counter() - t0}
+    if len(tp_only["losses"]) != spec["c"]["steps"] - spec["c"][
+            "ckpt_every"] or not rel <= 1e-4:
+        return [f"(19c) resumed on data 1 x model {TM_SHAPE[1]}: "
+                f"{tp_only['losses']} against {tail}"]
+    return []
+
+
+def print_train_mesh(rec, smi):
+    """Phase 19's lines: each part that ran, then its failures."""
+    for dt, a in rec.get("a", {}).items():
+        if "loss_rel" not in a:
+            continue
+        print(f"[train_mesh] (19a) {TM_NAME} depth {rec['a_spec']['depth']} "
+              f"{dt} on data {TM_SHAPE[0]} x model {TM_SHAPE[1]} against "
+              f"tp 1: losses rel {max(a['loss_rel']):.3g}, grad norms rel "
+              f"{max(a['grad_norm_rel']):.3g}, step 1's gradients "
+              f"{a['grad_err_max']:.3g} x max ({a['grad_err_worst']}), "
+              f"parameters after step {rec['a_spec']['steps']}: at most "
+              f"{a['param_share_past']:.3g} of a leaf past "
+              f"{TM_EXACT[dt]['params'] or 1e-5} x max "
+              f"({a['param_share_worst']}), "
+              f"{a['param_max_diff_over_lr']:.3g} x lr apart at most, "
+              f"replicated leaves bit-equal "
+              f"{sum(a['replicas_bit_equal'].values())}/"
+              f"{len(a['replicas_bit_equal'])} | {smi}")
+    for mode in ("blocking", "overlap"):
+        r = rec.get(f"b_{mode}")
+        if r is None:
+            continue
+        peak = [round(x / 1e9, 2) if x else x
+                for x in r["peak_memory_bytes_per_rank"]]
+        state = [round(x / 1e9, 2) for x in r["state_bytes_per_rank"]]
+        print(f"[train_mesh] (19b) {TM_NAME} whole, {mode}: "
+              f"{r['ms_per_step']:.1f} ms/step wall, rank 0 device "
+              f"{r.get('device_ms_rank0')} ms (NCCL {r.get('nccl_ms_rank0')})"
+              f", {r['tokens_per_s']:.1f} tokens/s, mfu_bf16 "
+              f"{r['mfu_bf16']:.4f}, loss {r['first5_mean']:.4f} -> "
+              f"{r['last5_mean']:.4f}, peak {peak} GB, state {state} GB | "
+              f"{smi}")
+    c = rec.get("c")
+    if c is not None:
+        print(f"[train_mesh] (19c) crash at {rec['c_spec']['crash']}, "
+              f"resumed on data 1 x model {TM_SHAPE[1]}: tail rel "
+              f"{c['max_rel_diff']:.3g}, checkpoint "
+              f"{c['checkpoint_bytes'] / 1e9:.2f} GB")
+    print(f"[train_mesh] phase {rec['phase_s']:.1f} s")
+    for f in rec["failures"]:
+        print(f"[train_mesh] FAILED {f}")
+
 
 def main(argv=None) -> int:
     import argparse
@@ -8496,11 +9115,13 @@ def main(argv=None) -> int:
                                  "NVIDIA cards (see the module docstring).")
     ap.add_argument("--only", choices=("tp_cards", "tp_families",
                                        "tp_spec_mm", "tp_fleet",
-                                       "data_axis"),
+                                       "data_axis", "train_mesh"),
                     help="tp_cards / tp_families / tp_spec_mm: build the "
                          "kernels and run phase 14 / 15 / 16 alone (2 or "
                          "more cards); tp_fleet / data_axis: phase 17 / 18 "
-                         "alone (4 or more cards)")
+                         "alone (4 or more cards); train_mesh: phase 19 "
+                         "alone (4 or more cards; training launches no "
+                         "kernel, so none is built)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -8518,6 +9139,27 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {kind}")
+
+    if args.only == "train_mesh":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if torch.cuda.device_count() < 4:
+            print(f"[train_mesh] needs 4 or more cards; this machine has "
+                  f"{torch.cuda.device_count()}: not run", file=sys.stderr)
+            return 1
+        tm = run_train_mesh(torch, dev, smi, lap)
+        print_train_mesh(tm, smi)
+        print(json.dumps({"train_mesh": tm}))
+        if tm["failures"]:
+            print(f"[train_mesh] phase 19 failed: {tm['failures']}",
+                  file=sys.stderr)
+            return 1
+        print(f"[time] total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     t0 = time.perf_counter()
     took = build.build()

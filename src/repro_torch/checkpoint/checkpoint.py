@@ -17,6 +17,16 @@ package writes restores in the other.  Contract (``launch/train.py``):
 A leaf numpy cannot hold (bfloat16: this package does not depend on
 ``ml_dtypes``) is refused rather than written in a form the reference
 could not read; training masters are float32, the reference's default.
+
+A mesh's state (each rank's shards of ``{"params": ..., "opt":
+OptState(step, m, v)}``, :func:`repro_torch.core.steps.
+build_train_step`) is saved with ``shard=(plan, env)``: every rank
+calls :meth:`CheckpointManager.save`, each leaf is gathered to the
+plan's global tensor (:func:`repro_torch.weights.gather_leaf`) and
+rank 0 writes them, so the files are the ones the reference writes for
+that plan.  :meth:`CheckpointManager.restore` with ``shard=(plan,
+rank)`` cuts each global array to the rank's slice of any mesh of the
+same layout (elastic restart: another data width at the same tp).
 """
 from __future__ import annotations
 
@@ -33,7 +43,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tree import TreeDef, tree_flatten
+from repro_torch.tree import TreeDef, tree_flatten, tree_paths
 
 _STEP_DIR = re.compile(r"step_(\d+)$")
 
@@ -51,6 +61,18 @@ def _host(i: int, x) -> np.ndarray:
 def _flatten(tree) -> Tuple[Dict[str, np.ndarray], TreeDef]:
     leaves, treedef = tree_flatten(tree)
     return {f"leaf_{i}": _host(i, x) for i, x in enumerate(leaves)}, treedef
+
+
+def param_path(path: str) -> Optional[str]:
+    """The parameter path a train state's leaf is laid out as:
+    ``params/<p>``, ``opt/m/<p>`` and ``opt/v/<p>`` are ``<p>``; any
+    other leaf (``opt/step``) is replicated (None)."""
+    parts = path.split("/")
+    if parts[0] == "params" and len(parts) > 1:
+        return "/".join(parts[1:])
+    if parts[:2] in (["opt", "m"], ["opt", "v"]) and len(parts) > 2:
+        return "/".join(parts[2:])
+    return None
 
 
 class CheckpointManager:
@@ -81,10 +103,28 @@ class CheckpointManager:
         self._gc()
         return final
 
-    def save(self, step: int, tree, extra: Optional[Dict[str, Any]] = None
-             ) -> Path:
-        arrs, treedef = _flatten(tree)
-        return self._write(step, arrs, treedef, extra)
+    def save(self, step: int, tree, extra: Optional[Dict[str, Any]] = None,
+             shard=None) -> Optional[Path]:
+        """Write ``tree`` as step ``step``.  ``shard=(plan, env)``: the
+        tree holds this rank's shards of a mesh's train state; every
+        rank calls this, each leaf is gathered to the plan's global
+        tensor in flatten order, and world rank 0 writes them (the
+        others return None)."""
+        if shard is None:
+            arrs, treedef = _flatten(tree)
+            return self._write(step, arrs, treedef, extra)
+        from repro_torch.weights import gather_leaf
+        plan, env = shard
+        writer = env.world is None or env.world.rank == 0
+        leaves, treedef = tree_flatten(tree)
+        arrs = {}
+        for i, (x, path) in enumerate(zip(leaves, tree_paths(tree))):
+            pp = param_path(path)
+            if pp is not None:
+                x = gather_leaf(x, pp, plan, env)
+            if writer:
+                arrs[f"leaf_{i}"] = _host(i, x)
+        return self._write(step, arrs, treedef, extra) if writer else None
 
     def save_async(self, step: int, tree,
                    extra: Optional[Dict[str, Any]] = None) -> None:
@@ -110,11 +150,17 @@ class CheckpointManager:
                 steps.append(int(m.group(1)))
         return max(steps) if steps else None
 
-    def restore(self, step: int, like_tree):
+    def restore(self, step: int, like_tree, shard=None):
         """The checkpoint of ``step`` in the structure of ``like_tree``,
-        each leaf cast to its template's dtype and put on its device."""
+        each leaf cast to its template's dtype and put on its device.
+        ``shard=(plan, rank)``: ``like_tree`` holds a mesh rank's shards
+        of a train state, and each global array is cut to world rank
+        ``rank``'s slice at ``plan`` first (any data width of the
+        layout the checkpoint was written at)."""
+        from repro_torch.weights import shard_leaf
         path = self.dir / f"step_{step:08d}"
         leaves, treedef = tree_flatten(like_tree)
+        paths = tree_paths(like_tree)
         with np.load(path / "arrays.npz") as data:
             if len(leaves) != len(data.files):
                 raise ValueError(f"leaf count mismatch: checkpoint "
@@ -122,6 +168,9 @@ class CheckpointManager:
             new_leaves = []
             for i, like in enumerate(leaves):
                 arr = data[f"leaf_{i}"]
+                pp = param_path(paths[i]) if shard is not None else None
+                if pp is not None:
+                    arr = shard_leaf(arr, pp, shard[0], int(shard[1]))
                 if arr.shape != tuple(like.shape):
                     raise ValueError(f"leaf_{i}: checkpoint shape "
                                      f"{arr.shape}, template "

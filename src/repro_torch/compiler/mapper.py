@@ -20,8 +20,10 @@ On the grid (``mesh_axes=("data", "model")``, ``mesh_shape=(dwidth,
 tp)``) a serving plan splits the batch over ``data`` (``dp_axes``; the
 weights are replicated over it) and carries ``kv_seq_axis`` and
 ``seq_shard_kv`` (a hybrid's KV sequence sharded over ``data`` for long
-context, :func:`plan_for_cell`).  Training on a data axis (FSDP) is not
-ported and raises, as does a pod axis.
+context, :func:`plan_for_cell`).  A train plan on the grid shards every
+parameter over ``data`` as well (ZeRO-3, ``fsdp_axes=("data",)``: the
+rule table maps the ``"embed"`` and ``"vocab_rep"`` dims to it), as the
+reference's does.  A pod axis raises.
 """
 from __future__ import annotations
 
@@ -74,14 +76,8 @@ def plan_model(cfg: ArchConfig,
         sizes = dict(zip(mesh_axes_t, mesh_shape_t))
         tp, tp_axis = sizes["model"], "model"
         dp_axes = tuple(a for a in mesh_axes_t if a != "model")
-        if mode == "train" and dp_axes:
-            # ZeRO-3: the reference shards params over every non-model
-            # axis during training
-            raise NotImplementedError(
-                f"mesh {mesh_axes_t}{mesh_shape_t} in train mode: FSDP "
-                "(parameters and optimizer state sharded over the data "
-                "axes, their gathers and the gradient sync) is not ported "
-                "yet; a serving plan takes the data axis")
+    # ZeRO-3: shard params over every non-model axis during training
+    fsdp_axes = dp_axes if mode == "train" else ()
     if param_dtype is None:
         param_dtype = "float32" if mode == "train" else "bfloat16"
     if cfg.family == "rwkv":
@@ -114,11 +110,11 @@ def plan_model(cfg: ArchConfig,
             d_ff_expert_shard=dffe // max(ffn_split, 1),
             expert_axes=expert_axes,
             capacity_factor=cfg.moe.capacity_factor)
-    rules = _rule_table(tp_axis, moe_plan) if mesh_axes_t else {}
+    rules = _rule_table(tp_axis, fsdp_axes, moe_plan) if mesh_axes_t else {}
     return PhysicalPlan(
         arch=cfg.name, mode=mode, mesh_axes=mesh_axes_t,
         mesh_shape=mesh_shape_t, tp=tp, tp_axis=tp_axis, dp_axes=dp_axes,
-        fsdp_axes=(), attn=attn, d_ff_shard=d_ff_padded // tp,
+        fsdp_axes=fsdp_axes, attn=attn, d_ff_shard=d_ff_padded // tp,
         d_ff_padded=d_ff_padded, vocab_padded=vocab_padded, moe=moe_plan,
         esl_overlap=esl_overlap, esl_chunks=esl_chunks,
         seq_shard_kv=seq_shard_kv, kv_seq_axis=kv_seq_axis, remat=remat,
@@ -126,14 +122,16 @@ def plan_model(cfg: ArchConfig,
         compute_dtype=compute_dtype, param_dtype=param_dtype, rules=rules)
 
 
-def _rule_table(tp_axis: Optional[str], moe_plan=None) -> Dict[Any, Any]:
-    """logical axis -> mesh axis (None = replicated along that dim): the
-    reference's ``_rule_table`` on the serving ring (no FSDP axes)."""
+def _rule_table(tp_axis: Optional[str], fsdp_axes=(),
+                moe_plan=None) -> Dict[Any, Any]:
+    """logical axis -> mesh axes (None = replicated along that dim): the
+    reference's ``_rule_table``."""
+    fsdp = tuple(fsdp_axes) if fsdp_axes else None
     rules: Dict[Any, Any] = {
-        "embed": None,                 # FSDP shards it in training only
+        "embed": fsdp,                 # FSDP shards the d_model dim in train
         "embed_scatter": tp_axis,      # d_model dims that live scattered
         "vec": tp_axis,                # rank-local vector params (norms)
-        "vocab_rep": None,             # untied input-embedding rows
+        "vocab_rep": fsdp,             # untied input-embedding rows
         "q_heads": tp_axis,
         "kv_heads": tp_axis,
         "head_dim": None,

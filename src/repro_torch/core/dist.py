@@ -76,6 +76,20 @@ does for launches.
 workers cannot collide) and returns rank 0's result; a rank that fails
 fails the run.
 
+Under autograd (the train step) every collective is differentiable
+through a ``torch.autograd.Function`` whose backward is its adjoint:
+``all_gather`` -> ``psum_scatter``, ``psum_scatter`` -> ``all_gather``,
+``psum`` -> ``psum``, ``pmean`` -> ``pmean``, ``ppermute`` -> the
+inverse permutation, ``all_to_all`` -> itself; ``pmax`` (only a
+stop-gradient shift) returns a detached value.  A rank's gradient of a
+value replicated over a ring is then its share of the whole, and the
+shares add to the gradient of the objective when each rank seeds its
+copy of the (replicated) loss with ``1 / ranks``: the objective is
+counted once (:func:`repro_torch.core.steps.build_train_step`).  Every
+rank runs the same backward graph, so the backward's collectives come
+in the same order on every rank.  Without grad the plain collectives
+run, unchanged.
+
 With ``model=None`` every helper is the identity and the same model
 code runs on one device.
 """
@@ -126,6 +140,7 @@ class Ring:
         self._agreement: Optional["Agreement"] = None
         self.counters = dict(collectives=0, hops=0, staged_bytes=0,
                              seconds=0.0)
+        self.traffic: Dict[str, Tuple[int, int]] = {}
         if self.nccl:
             self._warm_up(None, [list(range(self.size))])
 
@@ -185,6 +200,15 @@ class Ring:
     def reset_counters(self) -> None:
         for k in self.counters:
             self.counters[k] = 0
+        self.traffic.clear()
+
+    def _traffic(self, kind: str, received: float) -> None:
+        """Count one collective of ``kind`` and the bytes this rank
+        received in it (``traffic[kind] = (calls, bytes)``, a new tuple
+        each time, so a copy of the dict is a snapshot; a warm-up counts
+        too)."""
+        calls, got = self.traffic.get(kind, (0, 0))
+        self.traffic[kind] = (calls + 1, got + int(received))
 
     def add_counters(self, made: Dict[str, float]) -> None:
         """Add a replayed capture's collectives, hops and bytes."""
@@ -303,6 +327,7 @@ class SubRing(Ring):
         self._agreement = None
         self.counters = dict(collectives=0, hops=0, staged_bytes=0,
                              seconds=0.0)
+        self.traffic = {}
         if self.nccl:
             self._warm_up(None, [list(range(self.size))])
 
@@ -393,8 +418,16 @@ class Pending:
                  keep=()):
         self._ring, self._works, self._result = ring, works, result
         self._keep = keep            # send buffers the backend reads
+        self._grad = None            # (input, ring, perm) under autograd
 
     def wait(self) -> torch.Tensor:
+        if self._grad is not None:
+            x, ring, perm = self._grad
+            self._grad = None
+            return _PPermute.apply(x, ring, perm, self)
+        return self._finish()
+
+    def _finish(self) -> torch.Tensor:
         t0 = time.perf_counter()
         for w in self._works:
             w.wait()
@@ -404,9 +437,9 @@ class Pending:
 
 class _Done(Pending):
     def __init__(self, value: torch.Tensor):
-        self._value = value
+        self._value, self._grad = value, None
 
-    def wait(self) -> torch.Tensor:
+    def _finish(self) -> torch.Tensor:
         return self._value
 
 
@@ -420,11 +453,12 @@ class AxisEnv:
     rank's tensor-parallel ring (its model sub-ring on a grid), ``data``
     its data sub-ring on a ``("data", "model")`` grid (None without a
     data axis), each a :class:`Ring` whose collectives take it as their
-    axis.  ``dp`` names the axes the batch is split over (the largest
-    prefix of the plan's data axes that divides the batch), and
-    ``kv_seq_axis`` the axis a hybrid's KV sequence is sharded over
-    (``kv_seq_width`` ranks).  FSDP (training on a mesh) is not ported:
-    ``fsdp`` stays ``()``."""
+    axis, and ``world`` the ring of every rank (the gradient norm's
+    sum).  ``dp`` names the axes the batch is split over (the largest
+    prefix of the plan's data axes that divides the batch), ``fsdp`` the
+    axes a train plan shards its parameters over (``fsdp_width`` ranks;
+    gathered by :func:`gather_param`), and ``kv_seq_axis`` the axis a
+    hybrid's KV sequence is sharded over (``kv_seq_width`` ranks)."""
     model: Optional[Ring]           # the tensor-parallel ring (None: tp 1)
     tp: int
     fsdp: Tuple[str, ...] = ()      # param-gather axes (train ZeRO-3)
@@ -433,11 +467,18 @@ class AxisEnv:
     kv_seq_width: int = 1
     data: Optional[Ring] = None     # the data sub-ring of a grid
     dwidth: int = 1                 # ranks on the data axis
+    fsdp_width: int = 1             # ranks a parameter is sharded over
+    world: Optional[Ring] = None    # every rank of the mesh
 
     @property
     def dp_width(self) -> int:
         """Ranks the batch is split over (1 without ``dp``)."""
         return self.dwidth if self.dp else 1
+
+    @property
+    def ranks(self) -> int:
+        """Ranks of the mesh (1 without one)."""
+        return self.world.size if self.world is not None else 1
 
     def axis(self, name: Optional[str]) -> Optional[Ring]:
         """The ring of the mesh axis ``name`` ("model" or "data")."""
@@ -490,14 +531,14 @@ def make_axis_env(plan, *, batch: Optional[int] = None,
     sub-rings (:func:`grid_rings`).  ``batch`` picks the data-parallel
     axes as the reference does: the largest prefix of the plan's
     ``dp_axes`` whose width divides it (all of them without ``batch``).
-    FSDP (training on a mesh) is not ported and raises."""
+    A train plan on the grid shards its parameters over ``data``
+    (``fsdp``, ``fsdp_width``)."""
     if plan.mesh_axes is None:
         return AxisEnv(None, 1)
-    if plan.fsdp_axes:
-        raise NotImplementedError(
-            f"mesh axes {plan.mesh_axes}: FSDP (training on a mesh: "
-            "parameter gathers over the data axes and the gradient sync) "
-            "is not ported yet; a serving plan takes a data axis")
+    fsdp = tuple(plan.fsdp_axes)
+    if any(a != "data" for a in fsdp):
+        raise NotImplementedError(f"FSDP over {fsdp}: the port shards "
+                                  "parameters over 'data' only")
     if ring is None:
         raise ValueError(f"a plan for tp={plan.tp} needs the rank's ring "
                          "(see run_ranks)")
@@ -515,10 +556,55 @@ def make_axis_env(plan, *, batch: Optional[int] = None,
         kv_w = sizes[kv_axis]
     if "data" not in sizes:
         return AxisEnv(ring, plan.tp, dp=dp, kv_seq_axis=kv_axis,
-                       kv_seq_width=kv_w)
+                       kv_seq_width=kv_w, world=ring)
     model, data = grid_rings(ring, sizes["data"], plan.tp)
-    return AxisEnv(model, plan.tp, dp=dp, kv_seq_axis=kv_axis,
-                   kv_seq_width=kv_w, data=data, dwidth=sizes["data"])
+    return AxisEnv(model, plan.tp, fsdp=fsdp, dp=dp, kv_seq_axis=kv_axis,
+                   kv_seq_width=kv_w, data=data, dwidth=sizes["data"],
+                   fsdp_width=sizes["data"] if fsdp else 1, world=ring)
+
+
+# ---------------------------------------------------------------------------
+# FSDP (ZeRO-3) parameter gathering, the data axes' sums
+# ---------------------------------------------------------------------------
+
+def fsdp_dim(shape: Sequence[int], width: int,
+             skip_dims: Sequence[int] = ()) -> Optional[int]:
+    """First dim divisible by the FSDP width (the mapper's ZeRO rule)."""
+    if width <= 1:
+        return None
+    for i, s in enumerate(shape):
+        if i in skip_dims:
+            continue
+        if s % width == 0 and s >= width:
+            return i
+    return None
+
+
+def gather_param(w: torch.Tensor, env: AxisEnv,
+                 dim: Optional[int]) -> torch.Tensor:
+    """All-gather one FSDP-sharded parameter along ``dim`` over the data
+    ring; under autograd its gradient is reduce-scattered back to the
+    shard (ZeRO gradient sharding)."""
+    if dim is None or not env.fsdp or env.fsdp_width <= 1:
+        return w
+    return all_gather(w, env.data, dim=dim)
+
+
+def gather_tree(tree, env: AxisEnv, dims_tree):
+    """Gather a whole (sub)tree of parameters given its fsdp-dims tree."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, env, dims_tree[k]) for k, v in tree.items()}
+    return gather_param(tree, env, dims_tree)
+
+
+def psum_dp(x: torch.Tensor, env: AxisEnv) -> torch.Tensor:
+    """The sum over the axes the batch is split over."""
+    return psum(x, env.data) if env.dp else x
+
+
+def pmean_dp(x: torch.Tensor, env: AxisEnv) -> torch.Tensor:
+    """The mean over the axes the batch is split over."""
+    return pmean(x, env.data) if env.dp else x
 
 
 def model_rank(env: Optional[AxisEnv]) -> int:
@@ -548,15 +634,32 @@ def axis_index(axis: Optional[Ring]) -> int:
     return 0 if axis is None else axis.rank
 
 
+def _grad_path(x: torch.Tensor) -> bool:
+    """Whether a collective of ``x`` runs under autograd."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def ppermute(x: torch.Tensor, axis: Optional[Ring],
              perm: Sequence[Tuple[int, int]], async_op: bool = False):
     """Send ``x`` along the (source, destination) pairs of ``perm``
     (ring ranks) and return what this rank received: zeros when no pair
     ends here, as ``lax.ppermute``.  ``async_op=True`` returns a
     :class:`Pending` whose ``wait()`` gives the received tensor, so the
-    caller can launch work in between (the ESL overlap)."""
+    caller can launch work in between (the ESL overlap); under autograd
+    the received tensor's gradient goes back along the inverse pairs."""
     if axis is None:
         return _Done(x) if async_op else x
+    if _grad_path(x):
+        if not async_op:
+            return _PPermute.apply(x, axis, perm, None)
+        pending = _ppermute(x, axis, perm, True)
+        pending._grad = (x, axis, perm)
+        return pending
+    return _ppermute(x, axis, perm, async_op)
+
+
+def _ppermute(x: torch.Tensor, axis: Ring,
+              perm: Sequence[Tuple[int, int]], async_op: bool):
     import torch.distributed as dist
     t0 = time.perf_counter()
     me = axis.rank
@@ -566,6 +669,7 @@ def ppermute(x: torch.Tensor, axis: Optional[Ring],
         raise ValueError(f"perm {perm} sends or receives twice at rank {me}")
     axis.counters["collectives"] += 1
     axis.counters["hops"] += 1
+    axis._traffic("ppermute", _nbytes(x) if src and src != [me] else 0)
     if dst == [me] and src == [me]:
         out = x.clone()
         return _Done(out) if async_op else out
@@ -592,7 +696,7 @@ def ppermute(x: torch.Tensor, axis: Optional[Ring],
         recv.zero_()
     pending = Pending(axis, works, recv, keep=(send,))
     axis.counters["seconds"] += time.perf_counter() - t0
-    return pending if async_op else pending.wait()
+    return pending if async_op else pending._finish()
 
 
 def _swap(axis: Ring, groups: Groups, outgoing: List[torch.Tensor]
@@ -639,6 +743,23 @@ def all_gather(x: torch.Tensor, axis: Optional[Ring], dim: int = -1,
     reference's tiled form)."""
     if axis is None:
         return x
+    if _grad_path(x):
+        return _AllGather.apply(x, axis, dim, groups)
+    return _all_gather(x, axis, dim, groups)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _peers(axis: Ring, groups: Groups) -> int:
+    """The other ranks of this rank's group."""
+    return len(axis._group(groups)[1]) - 1
+
+
+def _all_gather(x: torch.Tensor, axis: Ring, dim: int,
+                groups: Groups) -> torch.Tensor:
+    axis._traffic("all_gather", _peers(axis, groups) * _nbytes(x))
     t0 = time.perf_counter()
     parts = _parts(axis, groups, axis._stage_in(x))
     shape = list(parts[0].shape)
@@ -658,6 +779,8 @@ def all_gather_param(v: torch.Tensor, axis: Optional[Ring],
     step), checked against the tensor that owns it and its version."""
     if axis is None:
         return v
+    if _grad_path(v):
+        return all_gather(v, axis, dim=dim)     # a training step's leaf
     owner = v._base if v._base is not None else v
     key = (v.data_ptr(), tuple(v.shape), tuple(v.stride()), v.dtype, dim)
     hit = axis._gathered.get(key)
@@ -691,16 +814,25 @@ def psum(x: torch.Tensor, axis: Optional[Ring],
     """The sum of ``x`` over the ring (or this rank's sub-ring)."""
     if axis is None:
         return x
+    if _grad_path(x):
+        return _Psum.apply(x, axis, groups)
+    return _psum(x, axis, groups)
+
+
+def _psum(x: torch.Tensor, axis: Ring, groups: Groups) -> torch.Tensor:
+    axis._traffic("psum", _peers(axis, groups) * _nbytes(x))
     out, _, t0 = _reduce(x, axis, torch.add, groups)
     return axis._stage_out(out, t0)
 
 
 def pmax(x: torch.Tensor, axis: Optional[Ring],
          groups: Groups = None) -> torch.Tensor:
-    """The elementwise max of ``x`` over the ring."""
+    """The elementwise max of ``x`` over the ring, outside autograd (a
+    stop-gradient shift, as the reference uses it)."""
     if axis is None:
         return x
-    out, _, t0 = _reduce(x, axis, torch.maximum, groups)
+    axis._traffic("pmax", _peers(axis, groups) * _nbytes(x))
+    out, _, t0 = _reduce(x.detach(), axis, torch.maximum, groups)
     return axis._stage_out(out, t0)
 
 
@@ -709,6 +841,13 @@ def pmean(x: torch.Tensor, axis: Optional[Ring],
     """The mean of ``x`` over the ring: the sum divided by its size."""
     if axis is None:
         return x
+    if _grad_path(x):
+        return _Pmean.apply(x, axis, groups)
+    return _pmean(x, axis, groups)
+
+
+def _pmean(x: torch.Tensor, axis: Ring, groups: Groups) -> torch.Tensor:
+    axis._traffic("pmean", _peers(axis, groups) * _nbytes(x))
     out, n, t0 = _reduce(x, axis, torch.add, groups)
     return axis._stage_out(out, t0) / n
 
@@ -722,6 +861,17 @@ def psum_scatter(x: torch.Tensor, axis: Optional[Ring], dim: int = -1,
     its own, in rank order."""
     if axis is None:
         return x
+    if _grad_path(x):
+        return _PsumScatter.apply(x, axis, dim, groups)
+    return _psum_scatter(x, axis, dim, groups)
+
+
+def _psum_scatter(x: torch.Tensor, axis: Ring, dim: int,
+                  groups: Groups) -> torch.Tensor:
+    n = _peers(axis, groups) + 1
+    # NCCL gathers the whole tensors, gloo sends each rank its block
+    axis._traffic("psum_scatter", (n - 1) * _nbytes(x) // (1 if axis.nccl
+                                                          else n))
     t0 = time.perf_counter()
     staged = axis._stage_in(x)
     _, ranks = axis._group(groups)
@@ -743,6 +893,14 @@ def all_to_all(x: torch.Tensor, axis: Optional[Ring],
     on a card)."""
     if axis is None:
         return x
+    if _grad_path(x):
+        return _AllToAll.apply(x, axis, groups)
+    return _all_to_all(x, axis, groups)
+
+
+def _all_to_all(x: torch.Tensor, axis: Ring, groups: Groups) -> torch.Tensor:
+    n = _peers(axis, groups) + 1
+    axis._traffic("all_to_all", (n - 1) * _nbytes(x) // n)
     t0 = time.perf_counter()
     pg, ranks = axis._group(groups)
     if x.shape[0] != len(ranks):
@@ -757,6 +915,82 @@ def all_to_all(x: torch.Tensor, axis: Optional[Ring],
     else:
         torch.stack(_swap(axis, groups, list(staged.unbind(0))), out=out)
     return axis._stage_out(out, t0)
+
+
+# ---------------------------------------------------------------------------
+# the collectives under autograd: each backward is the forward's adjoint,
+# run with the plain collectives (no double backward)
+# ---------------------------------------------------------------------------
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, perm, pending):
+        ctx.axis, ctx.perm = axis, list(perm)
+        if pending is not None:
+            return pending._finish()
+        return _ppermute(x, axis, perm, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = [(d, s) for s, d in ctx.perm]
+        return _ppermute(g, ctx.axis, back, False), None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, groups):
+        ctx.axis, ctx.dim, ctx.groups = axis, dim, groups
+        return _all_gather(x, axis, dim, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_psum_scatter(g, ctx.axis, ctx.dim, ctx.groups), None, None,
+                None)
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, groups):
+        ctx.axis, ctx.dim, ctx.groups = axis, dim, groups
+        return _psum_scatter(x, axis, dim, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_gather(g, ctx.axis, ctx.dim, ctx.groups), None, None,
+                None)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, groups):
+        ctx.axis, ctx.groups = axis, groups
+        return _psum(x, axis, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.axis, ctx.groups), None, None
+
+
+class _Pmean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, groups):
+        ctx.axis, ctx.groups = axis, groups
+        return _pmean(x, axis, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _pmean(g, ctx.axis, ctx.groups), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, groups):
+        ctx.axis, ctx.groups = axis, groups
+        return _all_to_all(x, axis, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.axis, ctx.groups), None, None
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,8 @@ class Model:
                 positions=None, cache=None, block_tables=None,
                 paged_kernel: str = "stream", block_s: int = 0,
                 use_kernels: bool = True, kv_valid_len=None, frames=None,
-                patch_embeds=None, with_aux: bool = False, env=None):
+                patch_embeds=None, with_aux: bool = False, env=None,
+                gather_fn=None):
         """(logits, cache).  ``frames`` feed whisper's encoder (train and
         prefill), ``patch_embeds`` a vlm's projector.  ``with_aux``
         (which only the train step passes) returns (logits, cache, aux),
@@ -46,7 +47,9 @@ class Model:
         zero for a family without MoE layers).  ``env``: the rank's
         :class:`repro_torch.core.dist.AxisEnv` on the model ring (every
         family), with the rank's shards and cache; the logits are then
-        its V_pad/tp columns."""
+        its V_pad/tp columns.  ``gather_fn(group, subtree)`` (the train
+        step's) gathers FSDP-sharded parameters where the reference's
+        forward calls it."""
         if self.cfg.family == "encdec":
             if block_s:
                 raise ValueError(
@@ -59,7 +62,7 @@ class Model:
                                      plan=self.plan, mode=mode,
                                      frames=frames, positions=positions,
                                      cache=cache, with_aux=with_aux,
-                                     env=env)
+                                     env=env, gather_fn=gather_fn)
         return tf.forward(params, tokens, cfg=self.cfg, plan=self.plan,
                           mode=mode, positions=positions, cache=cache,
                           block_tables=block_tables,
@@ -67,7 +70,7 @@ class Model:
                           use_kernels=use_kernels,
                           kv_valid_len=kv_valid_len,
                           patch_embeds=patch_embeds, with_aux=with_aux,
-                          env=env)
+                          env=env, gather_fn=gather_fn)
 
     def supports_paged_kv(self) -> bool:
         """Paged KV needs every layer to be attention (pure transformer):

@@ -40,7 +40,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.core import dist as dist_mod
 from repro_torch.core import esl
@@ -180,23 +180,29 @@ def lm_logits(p: Params, x: torch.Tensor, cfg, plan,
 
 
 def sharded_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 ignore: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+                 env: Optional[AxisEnv] = None, ignore: int = -1
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy of (B,S,V) logits against (B,S) token ids (or
-    ``ignore``), the reference's ``sharded_xent`` at tp=1.  Returns
-    (sum of the loss, count of the labels that are not ``ignore``).
+    ``ignore``), the reference's ``sharded_xent``.  Returns (sum of the
+    loss, count of the labels that are not ``ignore``).  On the ring
+    (``env``) the logits are the rank's (B,S,V_pad/tp) columns: the max,
+    the sum of exponentials and the picked logit are combined over the
+    model ring, never gathering the vocabulary.
 
     The max stabilizer is taken outside autograd, as the reference's
     ``stop_gradient`` does (lse(x) = log sum exp(x - m) + m for any
     constant m)."""
+    ring = env.model if on_ring(env) else None
     lg = logits.float()
-    v = lg.shape[-1]
-    m = lg.detach().amax(-1)
-    se = torch.exp(lg - m[..., None]).sum(-1)
+    v_loc = lg.shape[-1]
+    m = dist_mod.pmax(lg.detach().amax(-1), ring)
+    se = dist_mod.psum(torch.exp(lg - m[..., None]).sum(-1), ring)
     lse = torch.log(se) + m                               # (B,S)
-    ok = (labels >= 0) & (labels < v)
-    picked = torch.gather(lg, -1, labels.long().clamp(0, v - 1)[..., None]
+    local = labels.long() - model_rank(env) * v_loc
+    ok = (local >= 0) & (local < v_loc)
+    picked = torch.gather(lg, -1, local.clamp(0, v_loc - 1)[..., None]
                           )[..., 0]
-    picked = torch.where(ok, picked, 0.0)
+    picked = dist_mod.psum(torch.where(ok, picked, 0.0), ring)
     valid = labels != ignore
     loss = torch.where(valid, lse - picked, 0.0)
     return loss.sum(), valid.sum()
@@ -346,6 +352,23 @@ def apply_super_block(p: Params, x: torch.Tensor, *, cfg, plan,
     return x, aux_sum
 
 
+# the top-level leaves of the FSDP gather's "embed" group
+EMBED_GROUP = ("embed", "embed_in", "head", "pos_embed", "projector")
+
+
+def _no_gather(group: str, subtree: Params) -> Params:
+    return subtree
+
+
+def _gathered_super_block(gather_fn, bp: Params, x: torch.Tensor, **kw):
+    """:func:`apply_super_block` on the super-block's parameters as
+    ``gather_fn`` gathers them (inside the recomputed region under
+    remat).  The recomputation replays the whole block, with no early
+    stop: a replay cut after its last saved tensor would leave a ring's
+    hop posted and unanswered, or skip a collective on some ranks."""
+    return apply_super_block(gather_fn("block", bp), x, **kw)
+
+
 def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
             mode: str = "train",
             positions: Optional[torch.Tensor] = None,
@@ -357,7 +380,8 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
             kv_valid_len: Optional[torch.Tensor] = None,
             patch_embeds: Optional[torch.Tensor] = None,
             with_aux: bool = False,
-            env: Optional[AxisEnv] = None):
+            env: Optional[AxisEnv] = None,
+            gather_fn=None):
     """Shared forward in the train/prefill/decode/chunk_prefill/verify
     modes.
 
@@ -403,9 +427,15 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
     (:func:`repro_torch.weights.shard_params`) and its cache (kv_per_rank
     heads, the rank's rwkv heads and mamba channels): the logits are
     then the rank's V_pad/tp columns.  The ring's prefill, decode,
-    chunked prefill and speculative verify are ported, and a vlm's
-    patches; training raises (FSDP and the gradient sync are not
-    ported).  On a ``("data", "model")`` grid ``tokens`` are the rank's
+    chunked prefill and speculative verify are ported, a vlm's patches,
+    and training: ``gather_fn(group, subtree)`` (the train step's,
+    :func:`repro_torch.core.steps.make_gather_fn`) gathers the
+    FSDP-sharded parameters of the ``"embed"`` group (the embeddings,
+    the head, the positions, the projector) before the embedding and of
+    each super-block (``"block"``) before it runs, inside the
+    recomputed region under remat, so backward gathers again rather
+    than keeping the whole layer.  On a ``("data", "model")`` grid
+    ``tokens`` are the rank's
     data row's rows (the steps slice them), the cache is the rank's
     (:meth:`repro_torch.models.registry.Model.init_cache` with ``env``),
     and with ``env.kv_seq_axis`` an attention layer's dense cache holds
@@ -413,11 +443,6 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
     of that slice, decode merges the slices' partial softmaxes over the
     data ring and the owning rank stores the new row
     (:func:`repro_torch.models.attention.decode_attention`)."""
-    if on_ring(env) and (with_aux or torch.is_grad_enabled()
-                         and mode == "train"):
-        raise NotImplementedError(
-            "training on the ring (FSDP gathers, gradient sync) is not "
-            "ported yet; the ring's train mode is a no-grad forward")
     if env is not None and env.kv_seq_axis is not None and \
             mode not in ("prefill", "decode"):
         raise ValueError(
@@ -435,14 +460,18 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     compute = dtype_of(plan.compute_dtype)
-    x = embed_tokens(params, tokens, cfg, plan, env).to(compute)
+    gather_fn = gather_fn or _no_gather
+    top = dict(params)
+    top.update(gather_fn("embed", {k: params[k] for k in EMBED_GROUP
+                                   if k in params}))
+    x = embed_tokens(top, tokens, cfg, plan, env).to(compute)
     if patch_embeds is not None:
-        x = torch.cat([project_patches(params, patch_embeds, plan, env)
+        x = torch.cat([project_patches(top, patch_embeds, plan, env)
                        .to(compute), x], 1)
         if mode != "decode":
             S = x.shape[1]
             positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = add_positional(params, x, positions[:, None] if mode == "decode"
+    x = add_positional(top, x, positions[:, None] if mode == "decode"
                        else positions, cfg, plan, env).to(compute)
     n_sb = n_super_blocks(cfg)
     remat = (mode == "train" and plan.remat != "none"
@@ -460,14 +489,15 @@ def forward(params: Params, tokens: torch.Tensor, *, cfg, plan,
                   use_kernels=use_kernels and mode != "train",
                   kv_valid_len=kv_valid_len, with_aux=with_aux, env=env)
         if remat:
-            x, aux = checkpoint(apply_super_block, bp, x, use_reentrant=False,
-                                **kw)
+            with set_checkpoint_early_stop(False):
+                x, aux = checkpoint(_gathered_super_block, gather_fn, bp, x,
+                                    use_reentrant=False, **kw)
         else:
-            x, aux = apply_super_block(bp, x, **kw)
+            x, aux = _gathered_super_block(gather_fn, bp, x, **kw)
         if aux is not None:
             aux_total = aux_total + aux
     x = _norm(params["ln_f"], x, cfg, plan, env)
-    logits = lm_logits(params, x, cfg, plan, env)
+    logits = lm_logits(top, x, cfg, plan, env)
     if with_aux:
         return logits, cache, aux_total
     return logits, cache

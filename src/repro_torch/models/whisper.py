@@ -24,7 +24,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.core import esl
 from repro_torch.core.dist import AxisEnv, on_ring
@@ -34,9 +34,9 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (_init_attention, _init_dense_layer,
                                        _init_mlp, _init_norm, _stacked,
                                        map_leaves)
-from repro_torch.models.transformer import (_norm, add_positional,
-                                            embed_tokens, lm_logits,
-                                            unstack_tree)
+from repro_torch.models.transformer import (_no_gather, _norm,
+                                            add_positional, embed_tokens,
+                                            lm_logits, unstack_tree)
 
 Params = Dict[str, Any]
 
@@ -78,16 +78,21 @@ def init_encdec(ini, cfg, plan, leaf=None) -> Params:
 
 
 def run_encoder(params: Params, frames: torch.Tensor, *, cfg, plan,
-                env: Optional[AxisEnv] = None) -> torch.Tensor:
+                env: Optional[AxisEnv] = None,
+                gather_fn=None) -> torch.Tensor:
     """frames (B, enc_seq, D) stub embeddings -> encoder states; on the
     ring the rank's scattered (B, enc_seq, D/tp) under ESL overlap (the
-    frames scattered first), whole in the blocking baseline."""
+    frames scattered first), whole in the blocking baseline.
+    ``gather_fn`` gathers each layer's FSDP-sharded parameters (group
+    ``"enc_block"``)."""
+    gather_fn = gather_fn or _no_gather
     x = frames.to(dtype_of(plan.compute_dtype))
     if on_ring(env) and plan.esl_overlap:
         x = esl.scatter_full(x, axis=env.model, tp=env.tp)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     for bp in unstack_tree(params["enc_blocks"], cfg.encdec.n_enc_layers):
+        bp = gather_fn("enc_block", bp)
         x = x + attn_mod.self_attention(
             bp["attn"], _norm(bp["ln1"], x, cfg, plan, env), cfg=cfg,
             plan=plan, positions=positions, causal=False, env=env)
@@ -102,7 +107,8 @@ def forward_encdec(params: Params, tokens: torch.Tensor, *, cfg, plan,
                    positions: Optional[torch.Tensor] = None,
                    cache: Optional[Params] = None,
                    with_aux: bool = False,
-                   env: Optional[AxisEnv] = None):
+                   env: Optional[AxisEnv] = None,
+                   gather_fn=None):
     """Decoder logits (B, S, V_pad) in the train/prefill/decode modes.
 
     train/prefill: ``frames`` required; the encoder runs, and every
@@ -121,7 +127,11 @@ def forward_encdec(params: Params, tokens: torch.Tensor, *, cfg, plan,
     and FFN columns with its shards
     (:func:`repro_torch.weights.shard_params`) and its cache (the rank's
     kv_per_rank heads of self and cross K/V): the logits are then the
-    rank's V_pad/tp columns.  Training raises on the ring."""
+    rank's V_pad/tp columns.  ``gather_fn(group, subtree)`` (the train
+    step's) gathers the FSDP-sharded parameters of the ``"embed"`` group
+    (``embed``, ``pos_embed``), of each encoder layer (``"enc_block"``)
+    and of each decoder layer (``"dec_block"``, inside the recomputed
+    region under remat)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode={mode!r}: an encoder-decoder has no paged "
                          "pool (chunked prefill and verify run against one)")
@@ -129,34 +139,35 @@ def forward_encdec(params: Params, tokens: torch.Tensor, *, cfg, plan,
         raise ValueError(f"mode={mode!r} needs the encoder's frames")
     if mode != "train" and cache is None:
         raise ValueError(f"mode={mode!r} needs the decoder cache")
-    if on_ring(env) and (with_aux or torch.is_grad_enabled()
-                         and mode == "train"):
-        raise NotImplementedError(
-            "training on the ring (FSDP gathers, gradient sync) is not "
-            "ported yet; the ring's train mode is a no-grad forward")
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     compute = dtype_of(plan.compute_dtype)
-    x = embed_tokens(params, tokens, cfg, plan, env).to(compute)
-    x = add_positional(params, x, positions[:, None] if mode == "decode"
+    gather_fn = gather_fn or _no_gather
+    top = dict(params)
+    top.update(gather_fn("embed", {k: params[k]
+                                   for k in ("embed", "pos_embed")}))
+    x = embed_tokens(top, tokens, cfg, plan, env).to(compute)
+    x = add_positional(top, x, positions[:, None] if mode == "decode"
                        else positions, cfg, plan, env).to(compute)
     enc_x = None
     if mode != "decode":
-        enc_x = run_encoder(params, frames, cfg=cfg, plan=plan, env=env)
+        enc_x = run_encoder(params, frames, cfg=cfg, plan=plan, env=env,
+                            gather_fn=gather_fn)
     remat = (mode == "train" and plan.remat != "none"
              and torch.is_grad_enabled())
     for i, bp in enumerate(unstack_tree(params["dec_blocks"], cfg.n_layers)):
+        kw = dict(cfg=cfg, plan=plan, mode=mode, positions=positions,
+                  cache=cache, env=env, gather_fn=gather_fn)
         if remat:
-            x = checkpoint(_decoder_layer, bp, x, enc_x, i,
-                           use_reentrant=False, cfg=cfg, plan=plan,
-                           mode=mode, positions=positions, cache=cache)
+            # the whole layer replayed (see transformer's super-block)
+            with set_checkpoint_early_stop(False):
+                x = checkpoint(_decoder_layer, bp, x, enc_x, i,
+                               use_reentrant=False, **kw)
         else:
-            x = _decoder_layer(bp, x, enc_x, i, cfg=cfg, plan=plan,
-                               mode=mode, positions=positions, cache=cache,
-                               env=env)
+            x = _decoder_layer(bp, x, enc_x, i, **kw)
     x = _norm(params["ln_f"], x, cfg, plan, env)
-    logits = lm_logits(params, x, cfg, plan, env)
+    logits = lm_logits(top, x, cfg, plan, env)
     if with_aux:
         return logits, cache, torch.zeros((), dtype=torch.float32,
                                           device=logits.device)
@@ -167,10 +178,13 @@ def _decoder_layer(bp: Params, x: torch.Tensor,
                    enc_x: Optional[torch.Tensor], i: int, *, cfg, plan,
                    mode: str, positions: torch.Tensor,
                    cache: Optional[Params],
-                   env: Optional[AxisEnv] = None) -> torch.Tensor:
+                   env: Optional[AxisEnv] = None,
+                   gather_fn=None) -> torch.Tensor:
     """Decoder layer ``i``: self-attention, cross-attention to the
     encoder states (their K/V from ``enc_x``, or read from the cache in
-    decode), then the MLP; prefill writes the layer's cache rows."""
+    decode), then the MLP; prefill writes the layer's cache rows.
+    ``gather_fn`` gathers the layer's FSDP-sharded parameters first."""
+    bp = (gather_fn or _no_gather)("dec_block", bp)
     h_in = _norm(bp["ln1"], x, cfg, plan, env)
     if mode == "decode":
         h = attn_mod.decode_attention(

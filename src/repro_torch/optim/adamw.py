@@ -1,5 +1,5 @@
 """AdamW with global-norm clipping, the port of the reference's
-``optim/adamw.py`` at one device.
+``optim/adamw.py``, at one device and on a mesh's shards.
 
 The update is the reference's own, op for op in float32 (not
 ``torch.optim.AdamW``, whose rounding order differs): the global norm
@@ -14,18 +14,33 @@ Parameters and moments are updated in place under ``torch.no_grad()``
 (the reference donates its buffers); the moments are float32 whatever
 the parameters' dtype.  ``int8_compress``/``int8_decompress`` are the
 reference's per-tensor quantizer; its ``compressed_psum`` needs a pod
-axis and arrives with the mesh.
+axis, which the port's meshes do not have.
+
+On a mesh each rank updates its shards (the moments are sharded like
+the parameters, so the update is elementwise, as the reference's); the
+one collective is the global norm: the train step passes its
+``norm_sq``, which sums each rank's squares over the world, a leaf
+replicated over a ring counted once
+(:func:`repro_torch.core.steps.build_train_step`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
+
+
+def local_norm_sq(gs: List[torch.Tensor]) -> torch.Tensor:
+    """The squared norm of the leaves ``gs`` (every leaf one device's)."""
+    out = torch.zeros((), dtype=torch.float32, device=gs[0].device)
+    for g in gs:
+        out = out + torch.sum(torch.square(g.float()))
+    return out
 
 
 class OptState(NamedTuple):
@@ -53,15 +68,16 @@ class AdamW:
                         m=zeros(params), v=zeros(params))
 
     @torch.no_grad()
-    def apply(self, params: Params, grads: Params, state: OptState
+    def apply(self, params: Params, grads: Params, state: OptState,
+              norm_sq: Callable = local_norm_sq
               ) -> Tuple[Params, OptState, Dict[str, torch.Tensor]]:
         """One update of ``params``, ``state.m`` and ``state.v`` in
         place.  Returns (params, OptState(step + 1, m, v), {"grad_norm",
-        "lr"}), the metrics 0-dim float32 tensors."""
+        "lr"}), the metrics 0-dim float32 tensors.  ``norm_sq(grads)``
+        (the leaves in order) gives the squared global norm."""
         step = state.step + 1
         gs = tree_leaves(grads)
-        gsq = sum(torch.sum(torch.square(g.float())) for g in gs)
-        gnorm = torch.sqrt(gsq)
+        gnorm = torch.sqrt(norm_sq(gs))
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         lr = self.lr(step)
@@ -82,7 +98,7 @@ class AdamW:
 
 
 # ---------------------------------------------------------------------------
-# gradient compression (the pod axis's sync; the mesh slice uses them)
+# gradient compression (the pod axis's sync, which the port's meshes lack)
 # ---------------------------------------------------------------------------
 
 def int8_compress(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

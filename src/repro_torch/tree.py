@@ -60,19 +60,35 @@ class TreeDef:
         return self.aux(*kids)
 
     def __repr__(self) -> str:
+        """``str(treedef)`` of ``jax.tree_util``, so a checkpoint's
+        manifest names the tree as the reference's does."""
+        return f"PyTreeDef({self._body()})"
+
+    def _body(self) -> str:
         if self.kind == "leaf":
             return "*"
         if self.kind == "none":
             return "None"
-        kids = [repr(c) for c in self.children]
+        kids = [c._body() for c in self.children]
         if self.kind == "dict":
             return "{" + ", ".join(f"{k!r}: {c}" for k, c in
                                    zip(self.aux, kids)) + "}"
-        return f"{self.aux.__name__}(" + ", ".join(
-            f"{f}={c}" for f, c in zip(self.aux._fields, kids)) + ")"
+        return (f"CustomNode(namedtuple[{self.aux.__name__}], ["
+                + ", ".join(kids) + "])")
 
 
 _END = object()
+
+
+def tree_paths(tree, path: str = "") -> List[str]:
+    """Each leaf's "/"-joined path (dict keys, NamedTuple field names)
+    in :func:`tree_flatten`'s order."""
+    kind, aux, kids = _children(tree)
+    if kind == "leaf":
+        return [path]
+    names = aux if kind == "dict" else getattr(aux, "_fields", ())
+    return [q for k, c in zip(names, kids)
+            for q in tree_paths(c, f"{path}/{k}" if path else str(k))]
 
 
 def tree_flatten(tree) -> Tuple[list, TreeDef]:

@@ -46,6 +46,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.core import dist
 from repro_torch.models.common import map_leaves, mlp_has_bias
 from repro_torch.models.transformer import n_super_blocks
 
@@ -278,6 +279,17 @@ def leaf_axes(path: str) -> tuple:
     return _TOP_AXES[leaf]
 
 
+def mesh_axes_of(path: str, plan) -> tuple:
+    """The mesh axes the leaf at ``path`` is sharded over at ``plan``
+    (those the rule table maps its logical axes to; () off a mesh)."""
+    out: list = []
+    for a in leaf_axes(path):
+        r = (plan.rules or {}).get(a)
+        if r is not None:
+            out += [r] if isinstance(r, str) else list(r)
+    return tuple(out)
+
+
 def _coords(plan, rank: int) -> Dict[str, int]:
     """Rank ``rank``'s index on each mesh axis of ``plan``: on the ring
     its place; on a ``("data", "model")`` grid world rank ``l = d * tp +
@@ -330,6 +342,37 @@ def shard_leaf(t, path: str, plan, rank: int):
         t = (t.narrow(d, idx * c, c) if isinstance(t, torch.Tensor)
              else np.take(t, range(idx * c, (idx + 1) * c), axis=d))
     return t.contiguous().clone() if isinstance(t, torch.Tensor) else t
+
+
+@torch.no_grad()
+def gather_leaf(t: torch.Tensor, path: str, plan, env) -> torch.Tensor:
+    """The plan's global tensor of the leaf at ``path`` from every
+    rank's shard ``t``: each dim the rule table maps to mesh axes is
+    all-gathered over their rings (the minor axis first), the inverse
+    of :func:`shard_leaf`.  Every rank of ``env``'s mesh calls it, in
+    the same order; every rank gets the whole leaf."""
+    for d, a in enumerate(leaf_axes(path)):
+        rule = plan.rules.get(a)
+        if rule is None:
+            continue
+        for name in reversed((rule,) if isinstance(rule, str)
+                             else tuple(rule)):
+            ring = env.axis(name)
+            if ring is not None and ring.size > 1:
+                t = dist.all_gather(t, ring, dim=d)
+    return t
+
+
+def gather_shard(shard: Params, plan, env, to=None) -> Params:
+    """The plan's global tree from every rank's ``shard``
+    (:func:`gather_leaf` leaf by leaf, each moved ``to`` a device when
+    given, so a checkpoint's writer holds one leaf on its card at a
+    time).  ``relayout(..., plan, tp1_plan(cfg, plan))`` takes it to
+    the tp=1 layout."""
+    def one(t, path):
+        g = gather_leaf(t, path, plan, env)
+        return g if to is None else g.to(to)
+    return map_leaves(shard, one)
 
 
 def _check_ring_plan(plan, rank: int) -> None:
@@ -446,10 +489,13 @@ def _relayout_experts(t: torch.Tensor, rows: bool, src_plan, dst_plan
     experts only regroup."""
     from repro_torch.models.moe import moe_layout
     ws, _, _, ecs, _, fs = moe_layout(src_plan)
+    if ws != 1 and moe_layout(dst_plan)[0] == 1:
+        return _collect_experts(t, rows, src_plan, dst_plan)
     if ws != 1:
         raise NotImplementedError(
             "relayout of an MoE's experts from a plan that spreads them "
-            f"over {ws} ranks: the source must hold every expert")
+            f"over {ws} ranks to another that does: the source or the "
+            "destination must hold every expert")
     w, split, n_groups, ecell, e_pad, ffh = moe_layout(dst_plan)
     e = dst_plan.moe.n_experts
     logical = t[:, 0, :e]                         # (L, E, D, f) / (L, E, f, D)
@@ -469,6 +515,33 @@ def _relayout_experts(t: torch.Tensor, rows: bool, src_plan, dst_plan
                                                                ecell))
     parts = parts.movedim(fax + 1, 2)
     return parts.reshape((L, w, ecell) + tuple(parts.shape[4:]))
+
+
+def _collect_experts(t: torch.Tensor, rows: bool, src_plan, dst_plan
+                     ) -> torch.Tensor:
+    """The inverse of :func:`_relayout_experts`: a rank-major stack
+    ``(L, W, Ecell, ...)`` of ``src_plan`` stored for ``dst_plan``,
+    which holds every expert on one rank ``(L, 1, E_pad, ...)``: each
+    group's FFN parts put back side by side, the experts past the
+    config's and the FFN columns past the destination's dropped, then
+    padded to the destination's widths."""
+    from repro_torch.models.moe import moe_layout
+    w, split, n_groups, ecell, _, ffh = moe_layout(src_plan)
+    _, _, _, _, e_pad_d, ffh_d = moe_layout(dst_plan)
+    e = src_plan.moe.n_experts
+    L = t.shape[0]
+    fax = 3 if rows else 4                      # the FFN dim of t
+    parts = t.reshape((L, n_groups, split) + tuple(t.shape[2:]))
+    # (L, groups, split, ecell, ...) -> (L, groups, ecell, ..., split, ffh)
+    parts = parts.movedim(2, fax)
+    full = parts.flatten(fax, fax + 1).flatten(1, 2)   # (L, E_pad_s, ...)
+    fax -= 1                                    # the FFN dim of full
+    real = full[:, :e].narrow(fax, 0, min(ffh * split, ffh_d))
+    shape = list(real.shape)
+    shape[1], shape[fax] = e_pad_d, ffh_d
+    out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    out[:, :e].narrow(fax, 0, real.shape[fax]).copy_(real)
+    return out[:, None]
 
 
 def relayout(tree: Params, cfg, src_plan, dst_plan) -> Params:

@@ -24,8 +24,9 @@ gloo ranks against the reference's ``("data", "model")`` mesh.
   reference's steps at tp=1: smollm-135m at batch 4 (batch over
   ``data``, one all-gather a step on the data ring), jamba at batch 1
   (KV over ``data``), llama4 with its experts forced onto data x model;
-* the refusals that remain: training on a data axis (FSDP) and the
-  engine on a data axis.
+* what the grid's train plan gives (FSDP over ``data``) and the
+  refusals that remain: a pod axis, FSDP over another axis than
+  ``data`` and the engine on a data axis.
 
 Cost in one process ~95 s: one fake-device subprocess for the
 reference's ``shard_map`` programs, two spawns of gloo ranks (4 ranks,
@@ -424,15 +425,17 @@ def test_cache_specs_and_rank_cache_match_reference(name, batch):
 def test_plan_for_cell_shards_a_hybrids_long_context_over_data():
     """The reference's ``plan_for_cell`` rule: a hybrid at the
     ``long_500k`` decode cell shards its KV over ``data``, in f32;
-    nothing else does (a train cell on a data axis raises: FSDP)."""
+    nothing else does (a train cell on the grid shards its parameters
+    over ``data``: FSDP, its KV sequence whole)."""
     from repro_torch.compiler.mapper import plan_for_cell
     from repro_torch.configs.base import SHAPES as CELLS
     for name in (JAMBA, SMOLLM, "rwkv6-7b"):
         cfg = get_config(name)
         for shape in CELLS.values():
             if shape.kind == "train":
-                with pytest.raises(NotImplementedError, match="FSDP"):
-                    plan_for_cell(cfg, shape, ("data", "model"), GRID)
+                plan = plan_for_cell(cfg, shape, ("data", "model"), GRID)
+                assert plan.fsdp_axes == ("data",) and plan.mode == "train"
+                assert plan.kv_seq_axis is None
                 continue
             plan = plan_for_cell(cfg, shape, ("data", "model"), GRID)
             want = "data" if (cfg.family == "hybrid"
@@ -604,16 +607,26 @@ def test_grid_steps_equal_reference_tp1_steps(ranks, pairs, key):
 # ---------------------------------------------------------------------------
 
 def test_training_on_a_data_axis_raises_naming_fsdp():
+    """Training on the grid is planned (FSDP over ``data``, the
+    reference's rule table); FSDP over another axis than ``data`` raises
+    naming FSDP, a pod axis naming itself, and the int8 sync over a pod
+    axis (``compress_pod_grads``) naming itself."""
+    from repro_torch.core.steps import build_train_step
     cfg = get_config(SMOLLM).reduced()
+    plan = plan_model(cfg, ("data", "model"), GRID, "train")
+    ref = jax_plan_model(jax_get_config(SMOLLM).reduced(), ("data", "model"),
+                         GRID, "train")
+    assert plan.fsdp_axes == ref.fsdp_axes == ("data",)
+    assert plan.rules == ref.rules
+    assert plan.rules["embed"] == plan.rules["vocab_rep"] == ("data",)
+    bad = dataclasses.replace(plan, fsdp_axes=("model",))
     with pytest.raises(NotImplementedError, match="FSDP"):
-        plan_model(cfg, ("data", "model"), GRID, "train")
-    plan = dataclasses.replace(
-        plan_model(cfg, ("data", "model"), GRID, "serve"),
-        fsdp_axes=("data",))
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        make_axis_env(plan, ring=object())
+        make_axis_env(bad, ring=object())
     with pytest.raises(NotImplementedError, match="pod"):
         plan_model(cfg, ("pod", "data", "model"), (2, 2, 2), "serve")
+    with pytest.raises(NotImplementedError, match="compress_pod_grads"):
+        build_train_step(build_model(cfg, plan, "cpu"), None, None, 4,
+                         compress_pod_grads=True)
 
 
 def test_engine_on_a_data_axis_raises_naming_it():

@@ -65,7 +65,8 @@ def test_plan_model_rejects_later_slices():
     """The serving ring and the ``("data", "model")`` grid are planned:
     an MoE's experts over the ring, a giant MoE's over data x model, the
     batch over ``data``, a hybrid's KV sequence over ``data``; training
-    on a data axis (FSDP) and a pod axis are later slices."""
+    on the grid shards the parameters over ``data`` (FSDP); a pod axis
+    is a later slice."""
     assert plan_model(get_config("smollm-135m"), ("model",), (2,),
                       "serve").tp == 2
     assert plan_model(get_config("granite"), ("model",), (2,),
@@ -74,9 +75,10 @@ def test_plan_model_rejects_later_slices():
                       "serve")
     assert grid.dp_axes == ("data",) and grid.dp == 2
     assert grid.moe.expert_axes == ("data", "model")
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        plan_model(get_config("smollm-135m"), ("data", "model"), (2, 2),
-                   "train")
+    train = plan_model(get_config("smollm-135m"), ("data", "model"), (2, 2),
+                       "train")
+    assert train.fsdp_axes == ("data",) and train.dp_axes == ("data",)
+    assert train.rules["embed"] == ("data",) and train.param_dtype == "float32"
     assert plan_model(get_config("jamba"), ("data", "model"), (2, 2),
                       "serve", kv_seq_axis="data").kv_seq_axis == "data"
     with pytest.raises(NotImplementedError, match="pod"):

@@ -372,7 +372,8 @@ def test_moe_data_model_raises_with_its_name():
     run on a ``("data", "model")`` grid: without the rank's grid (a
     model ring's AxisEnv) they raise naming it; a serving plan on the
     grid spreads a giant MoE's experts over both axes, the batch over
-    ``data``, and a train plan there raises naming FSDP."""
+    ``data``, and a train plan there keeps the experts on the model ring
+    and shards the parameters over ``data`` (FSDP)."""
     cfg = get_config("granite").reduced()
     plan = plan_model(cfg, ("model",), (2,), "serve", **F32)
     plan = dataclasses.replace(plan, moe=dataclasses.replace(
@@ -385,8 +386,9 @@ def test_moe_data_model_raises_with_its_name():
     assert grid.dp_axes == ("data",) and grid.tp == 2
     assert grid.moe.expert_axes == ("data", "model")
     assert grid.rules["experts"] == ("data", "model")
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        plan_model(cfg, ("data", "model"), (2, 2), "train")
+    train = plan_model(cfg, ("data", "model"), (2, 2), "train")
+    assert train.moe.expert_axes == ("model",)
+    assert train.fsdp_axes == ("data",) and train.rules["embed"] == ("data",)
 
 
 def test_cli_tp2_jamba_cpu(capfd):

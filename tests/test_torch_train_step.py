@@ -54,9 +54,10 @@ B, S = 2, 16
 
 class PassThrough:
     """An optimizer whose update returns the gradients as the
-    parameters (either package's step calls ``apply`` alike)."""
+    parameters (either package's step calls ``apply``; the port's
+    passes the global norm's ``norm_sq`` too)."""
 
-    def apply(self, params, grads, state):
+    def apply(self, params, grads, state, norm_sq=None):
         return grads, state, {}
 
 

@@ -231,17 +231,22 @@ def test_cli_trains_on_the_cpu(monkeypatch, capsys):
 
 
 def test_refusals():
-    """A mesh and the pod axis's int8 sync arrive with the mesh slice;
-    a batch that does not split into the microbatches is refused."""
+    """A mesh is the rank's ring (anything else is refused, and a ring
+    needs a plan made for it: tests/test_torch_train_mesh.py trains on
+    one); the pod axis's int8 sync is not ported; a batch that does not
+    split into the microbatches is refused."""
+    from repro_torch.core.dist import Ring
     cfg = _cfg()
     model = build_model(cfg, plan_model(cfg, None, (1,), "train",
                                         compute_dtype="float32"), "cpu")
     opt = AdamW(lr=get_schedule("cosine", 1e-3, 1, 10))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         build_train_step(model, opt, object(), 4)
+    with pytest.raises(ValueError, match="plan built for it"):
+        build_train_step(model, opt, Ring.__new__(Ring), 4)
     with pytest.raises(NotImplementedError, match="pod axis"):
         build_train_step(model, opt, None, 4, compress_pod_grads=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         run_training(cfg=cfg, steps=1, global_batch=2, seq_len=8,
                      mesh=object(), device="cpu")
     step, _ = build_train_step(model, opt, None, 3, accum_steps=2)
